@@ -7,7 +7,8 @@ Drives the port (``dladmm_tpu_torch``, no JAX) on the card and fails on
 the first fault. Each phase prints one JSON line:
 
   1. device: the card, its power limit (nvidia-smi), TF32 switched off;
-  2. build: nvcc builds ops/csrc/unroll.cu from the checkout (timed);
+  2. build: nvcc builds every source of ops/csrc/ from the checkout, one
+     nvcc per source, all started together (timed, ptxas report);
   3. kernel: the CUDA whole-unroll kernel against its plain PyTorch
      version on the same inputs (perturbed LADMM-exact params) at
      synthetic_small (S = 1, 13, 64, 256 for l1/l1; nonneg_l1, box and
@@ -26,6 +27,28 @@ the first fault. Each phase prints one JSON line:
      version in turns, beside the bound from the shapes;
   6. profile: torch.profiler device time per kernel and the device's
      busy share, at the main path's shape (synthetic_small, S = 256);
+  7. kernel_traj: the trajectory kernel against its plain version at
+     synthetic_small S = 64, 256 and synthetic_large S = 1024, with the
+     Ax stack and without, same tolerance as phase 3;
+  8. kernel_int8: the int8 Adam sweep against its plain version on the
+     W1 and W2 leaves of both presets, 3 chained steps in place from a
+     non-zero state: masters within rtol 1e-6, codes within one step,
+     dequantized moments within one code step;
+  9. grads: one deep-supervision loss at synthetic_small S = 64, the
+     kernel path (trajectory kernel + manual backward) against autograd
+     through the plain loop, within 2e-5 of each leaf's largest gradient;
+ 10. slice_train: the training CLI ``run.main(["--config=synthetic_small",
+     "--steps=300", "--ckpt-dir", tmp])``, both training kernels' counts
+     set to 0 just before and read just after (both must be > 0), route
+     cuda-trajectory-kernel, finite loss, final NMSE below LADMM's at
+     K = 15; then ``serve.main --ckpt-dir tmp --demo 256`` serves the
+     checkpoint at the trained run's final eval NMSE within 0.01 dB;
+ 11. timing_train: median CUDA-event ms of one training step, kernel
+     path and plain path in turns; each training kernel's ms beside its
+     bound and its plain version's;
+ 12. profile_train: torch.profiler over training steps at synthetic_small:
+     device time per kernel, per phase (forward, backward loop,
+     optimizer) and the busy share;
 
 then the kernels line and, last, the ok line. Exits non-zero, with no
 ok line, on any failure, when CUDA is not available, or when run
@@ -37,6 +60,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -100,9 +124,11 @@ def problem(torch, m: int, n: int, K: int, S: int, seed: int, device):
     return A.to(device), b.to(device), DLADMMParams(*leaves).to(device)
 
 
-def compare(torch, got, want, label: str) -> float:
+def compare(torch, got, want, label: str, names=("x", "z", "lam"), phase="kernel") -> float:
+    if len(got) != len(want) or len(got) != len(names):
+        raise AssertionError(f"{label}: {len(got)} outputs, plain version {len(want)}")
     errs = {}
-    for name, k, p in zip(("x", "z", "lam"), got, want):
+    for name, k, p in zip(names, got, want):
         if not torch.isfinite(k).all():
             raise AssertionError(f"{label}: kernel {name} is not finite")
         err = float((k - p).abs().max())
@@ -112,7 +138,7 @@ def compare(torch, got, want, label: str) -> float:
             raise AssertionError(
                 f"{label}: {name} max|diff| {err} > {TOL} * {scale}"
             )
-    emit("kernel", case=label, max_abs_err=errs)
+    emit(phase, case=label, max_abs_err=errs)
     return max(errs.values())
 
 
@@ -169,6 +195,385 @@ def profile_unroll(torch, unroll_forward, S: int, m: int, n: int, K: int, reps: 
             "device_busy_share": busy_us / window_us, "per_solve": per_solve}
 
 
+def traj_bound(S: int, m: int, n: int, K: int, with_tax: bool):
+    """(bound_ms, bound_by) of one trajectory forward: the solve's flops,
+    and K layers of weights, A and b read once and the K-deep stacks
+    written once."""
+    flops = 2 * S * m * (2 * n + m) * K
+    out = K * S * (n + 2 * m + (m if with_tax else 0))
+    nbytes = 4 * (K * (n * m + m * m + n + m + 1) + m * n + S * m + out)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# fp32 operations per element of the int8 sweep: two decodes (4 each),
+# clip scale 1, two EMAs (3 + 4), the update 4, the master 2, two
+# absmax 2 each, two encodes 6 each.
+INT8_OPS_PER_ELEM = 38
+
+
+def int8_bound(leaves):
+    """(bound_ms, bound_by) of one int8 sweep over (R, L) leaves: per
+    element g (4 B) and master (4 B) read, master written, two int8 codes
+    read and written (16 B); per row two scales read and written (16 B);
+    the 4 scalars."""
+    elems = sum(R * L for R, L in leaves)
+    rows = sum(R for R, _ in leaves)
+    nbytes = 16 * elems + 16 * rows + 16
+    t_ops, t_bytes = INT8_OPS_PER_ELEM * elems / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# The int8 sweep's leaves, (R, L) views: W1 (K, n, m) and W2 (K, m, m).
+INT8_LEAVES = {
+    "synthetic_small": [(15 * 500, 250), (15 * 250, 250)],
+    "synthetic_large": [(20 * 2000, 1000), (20 * 1000, 1000)],
+}
+
+
+def int8_state(torch, tqa, R: int, L: int, seed: int, device):
+    """A master, non-zero per-row int8 moments and 3 gradients."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda scale: scale * torch.randn((R, L), generator=g, device=device)  # noqa: E731
+    master = rand(0.05)
+    mu = tqa.quantize_rows(rand(1e-2))
+    nu = tqa.quantize_rows(rand(3e-2) ** 2)
+    return master, mu, nu, [rand(1e-2) for _ in range(3)]
+
+
+def check_int8(torch, tqa, device) -> float:
+    """Phase 8: kernel and plain version, 3 chained in-place steps."""
+    max_err = 0.0
+    for config, leaves in INT8_LEAVES.items():
+        for name, (R, L) in zip(("W1", "W2"), leaves):
+            master, mu, nu, grads = int8_state(torch, tqa, R, L, seed=R + L, device=device)
+            ref = (master.clone(), tqa.QTensor(mu.codes.clone(), mu.scale.clone()),
+                   tqa.QTensor(nu.codes.clone(), nu.scale.clone()))
+            for i, grad in enumerate(grads):
+                cf = float(i + 2)
+                scal = torch.tensor([1 - 0.9 ** cf, 1 - 0.999 ** cf, 1e-3, 0.8], device=device)
+                tqa.adam_int8_rows(grad, master, mu, nu, scal)
+                tqa.adam_int8_rows_plain(grad, *ref, scal)
+            torch.cuda.synchronize()
+            err = float((master - ref[0]).abs().max())
+            if not (master - ref[0]).abs().le(1e-6 * ref[0].abs() + 1e-9).all():
+                raise AssertionError(f"int8 sweep {config} {name}: master max|diff| {err}")
+            detail = {"master_max_abs_err": err}
+            for mname, got, want in (("mu", mu, ref[1]), ("nu", nu, ref[2])):
+                code_diff = int((got.codes.int() - want.codes.int()).abs().max())
+                if code_diff > 1:
+                    raise AssertionError(f"int8 sweep {config} {name} {mname}: codes differ by {code_diff}")
+                if not torch.allclose(got.scale, want.scale, rtol=1e-6, atol=0):
+                    raise AssertionError(f"int8 sweep {config} {name} {mname}: scales differ")
+                step = (2 * 127 + 1) / 127**2 * torch.maximum(got.scale, want.scale)[:, None]
+                deq = (tqa.dequantize_rows(got) - tqa.dequantize_rows(want)).abs()
+                if not deq.le(step * (1 + 1e-6)).all():
+                    raise AssertionError(f"int8 sweep {config} {name} {mname}: more than one code step apart")
+                detail[f"{mname}_max_code_diff"] = code_diff
+                detail[f"{mname}_max_dequant_err"] = float(deq.max())
+            emit("kernel_int8", case=f"{config} {name} R={R} L={L}", steps=3, **detail)
+            max_err = max(max_err, err)
+    return max_err
+
+
+def check_grads(torch, device):
+    """Phase 9: the deep-supervision gradient through the kernels against
+    autograd through the plain loop, synthetic_small S = 64."""
+    from dladmm_tpu_torch.data.synthetic import make_batch
+    from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
+    from dladmm_tpu_torch.ops.cuda_traj import make_unrolled_trajectory
+    from dladmm_tpu_torch.train.loop import _layer_weights, weighted_trajectory_mse
+
+    A, b, p = problem(torch, S=64, seed=9, device=device, **SMALL)
+    data = make_batch(torch.Generator().manual_seed(9), A, 64)
+    w = _layer_weights("uniform", SMALL["K"], device=device)
+    grads = []
+    for kernel in (True, False):
+        leaves = [t.detach().clone().requires_grad_() for t in p]
+        q = DLADMMParams(*leaves)
+        if kernel:
+            tx, tz, _ = make_unrolled_trajectory()(q, A, data.b)
+        else:
+            _, (tx, tz, _) = dladmm_forward(q, A, data.b, capture_trajectory=True)
+        loss = weighted_trajectory_mse(tx, tz, data.x_star, data.e_star, w)
+        grads.append(torch.autograd.grad(loss, leaves))
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, want in zip(DLADMMParams._fields, *grads):
+        scale = float(want.abs().max())
+        err = float((g - want).abs().max())
+        if not (g - want).abs().le(2e-5 * want.abs() + 2e-5 * scale).all():
+            raise AssertionError(f"grad {name}: max|diff| {err}, scale {scale}")
+        errs[name] = {"max_abs_err": err, "scale": scale}
+    emit("grads", case="synthetic_small S=64 deep supervision", grads=errs)
+
+
+def train_slice(torch, device, unroll_forward):
+    """Phase 10: the training CLI on the card, then serving its
+    checkpoint. Returns the launch counts of the training run."""
+    from dladmm_tpu_torch.ops import cuda_traj
+    from dladmm_tpu_torch.run import main as run_main
+    from dladmm_tpu_torch.serve import main as serve_main
+    from dladmm_tpu_torch.train import qadam_cuda
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log = Path(tmp) / "log.jsonl"
+        out = io.StringIO()
+        cuda_traj.trajectory_forward.launches = 0
+        qadam_cuda.adam_int8_rows.launches = 0
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            rc = run_main(["--config=synthetic_small", "--steps=300", "--ckpt-dir", tmp,
+                           "--log-jsonl", str(log)])
+        wall = time.monotonic() - t0
+        launches = {"trajectory_forward": cuda_traj.trajectory_forward.launches,
+                    "adam_int8_rows": qadam_cuda.adam_int8_rows.launches}
+        if rc != 0:
+            raise AssertionError(f"run.main returned {rc}")
+        lines = out.getvalue().splitlines()
+        summary = json.loads([ln for ln in lines if ln.startswith("{")][-1])
+        record = json.loads(log.read_text().splitlines()[-1])
+        if summary["route"] != "cuda-trajectory-kernel" or min(launches.values()) < 1:
+            raise AssertionError(f"training did not go through both kernels: {summary['route']!r}, {launches}")
+        if not (math.isfinite(record["loss"]) and math.isfinite(summary["final_nmse_db"])):
+            raise AssertionError(f"training diverged: {record}")
+        if not summary["final_nmse_db"] < summary["ladmm_nmse_db_at_K"]:
+            raise AssertionError(f"trained NMSE {summary['final_nmse_db']} does not beat LADMM {summary['ladmm_nmse_db_at_K']}")
+        emit("slice_train", summary=summary, last_record=record, launches=launches, wall_s=wall,
+             table=[ln for ln in lines if ln[:5].strip().isdigit()])
+
+        out = io.StringIO()
+        unroll_forward.launches = 0
+        with contextlib.redirect_stdout(out):
+            rc = serve_main(["--config=synthetic_small", "--ckpt-dir", tmp, "--demo", "256"])
+        serve_launches = unroll_forward.launches
+    served = json.loads(out.getvalue().strip().splitlines()[-1])
+    if rc != 0 or served["route"] != "cuda-whole-unroll-kernel" or serve_launches < 1:
+        raise AssertionError(f"serving the checkpoint: rc {rc}, route {served['route']!r}, {serve_launches} launches")
+    if not abs(served["nmse_db"] - summary["final_nmse_db"]) <= NMSE_TOL_DB:
+        raise AssertionError(f"served NMSE {served['nmse_db']} dB != trained {summary['final_nmse_db']} dB")
+    emit("slice_train_serve", serve=served, trained_nmse_db=summary["final_nmse_db"], launches=serve_launches)
+    return launches, serve_launches
+
+
+def train_setup(torch, device):
+    """synthetic_small's training step pieces on the card, from the LADMM
+    init: the dictionary, the deep-supervision weights, the kernel
+    forward, the int8 optimizer and a fresh state."""
+    from dladmm_tpu_torch.data.synthetic import problem_matrices
+    from dladmm_tpu_torch.models.unroll import init_dladmm_params
+    from dladmm_tpu_torch.ops.cuda_traj import make_unrolled_trajectory
+    from dladmm_tpu_torch.train.loop import _build_optimizer, _layer_weights, make_train_state
+    from dladmm_tpu_torch.utils.config import get_config
+
+    cfg = get_config("synthetic_small")
+    A, _ = problem_matrices(cfg, device=device)
+    opt = _build_optimizer(cfg.train)
+    state = make_train_state(init_dladmm_params(A, K=cfg.problem.K), opt)
+    return cfg, A, _layer_weights("uniform", cfg.problem.K, device=device), make_unrolled_trajectory(), opt, state
+
+
+PHASES = ("data", "forward", "backward", "optimizer")
+
+
+class ProfiledPhases:
+    """phased_step's ``mark`` for a profile: each phase runs inside a
+    ``phase.<name>`` record_function range that ends after a device sync,
+    so every kernel of a phase, launched from any thread (the backward
+    runs on autograd's device thread), starts inside its phase's range."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.open = None
+
+    def __call__(self, k: int) -> None:
+        from torch.profiler import record_function
+
+        if self.open is not None:
+            self.torch.cuda.synchronize()
+            self.open.__exit__(None, None, None)
+            self.open = None
+        if k < len(PHASES):
+            self.open = record_function(f"phase.{PHASES[k]}")
+            self.open.__enter__()
+
+
+def phased_step(torch, A, w, fwd, opt, state, i, plain=False, mark=None):
+    """One training step of train/loop.make_train_step (batch 64 from
+    step_generator(0, i), deep supervision, int8 optimizer), split into
+    data, forward, backward and optimizer; ``mark(k)`` is called at the
+    start of phase k and ``mark(4)`` at the end (CUDA events, or
+    ProfiledPhases). plain=True runs the plain counterpart: autograd
+    through the plain loop and the optimizer's functional plain path
+    (QAdamFused.update)."""
+    from dladmm_tpu_torch.data.synthetic import make_batch, step_generator
+    from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
+    from dladmm_tpu_torch.train.loop import TrainState, apply_updates, weighted_trajectory_mse
+
+    mark = mark or (lambda k: None)
+    mark(0)
+    data = make_batch(step_generator(0, i), A, 64)
+    leaves = [p.detach().requires_grad_() for p in state.params]
+    q = DLADMMParams(*leaves)
+    mark(1)
+    if plain:
+        _, (tx, tz, _) = dladmm_forward(q, A, data.b, capture_trajectory=True)
+    else:
+        tx, tz, _ = fwd(q, A, data.b)
+    loss = weighted_trajectory_mse(tx, tz, data.x_star, data.e_star, w)
+    mark(2)
+    grads = DLADMMParams(*torch.autograd.grad(loss, leaves))
+    mark(3)
+    if plain:
+        with torch.no_grad():
+            updates, opt_state = opt.update(grads, state.opt_state)
+            params = apply_updates(state.params, updates)
+    else:
+        params, opt_state = opt.fused_apply(grads, state.opt_state, state.params)
+    mark(4)
+    return TrainState(params, opt_state, state.step + 1), loss
+
+
+def time_train(torch, device, card):
+    """Phase 11: one training step, kernel and plain paths in turns, and
+    each training kernel beside its bound and its plain version."""
+    from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward, trajectory_forward_plain
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    cfg, A, w, fwd, opt, state = train_setup(torch, device)
+    states = {"kernel": state, "plain": train_setup(torch, device)[-1]}
+    phases = {k: [] for k in states}
+    walls = {k: [] for k in states}
+    for rep in range(24):
+        for kind in (("kernel", "plain") if rep % 2 == 0 else ("plain", "kernel")):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[kind], _ = phased_step(torch, A, w, fwd, opt, states[kind], rep,
+                                          plain=kind == "plain", mark=lambda k: ev[k].record())
+            ev[4].synchronize()
+            walls[kind].append((time.perf_counter() - t0) * 1e3)
+            if rep >= 4:  # warm-up
+                phases[kind].append([ev[j].elapsed_time(ev[j + 1]) for j in range(4)])
+    step = {}
+    for kind in states:
+        arr = np.array(phases[kind])
+        step[kind] = {
+            "step_ms": float(np.median(arr.sum(axis=1))),
+            "host_wall_ms": float(np.median(walls[kind][4:])),
+            "data_ms": float(np.median(arr[:, 0])), "forward_ms": float(np.median(arr[:, 1])),
+            "backward_ms": float(np.median(arr[:, 2])), "optimizer_ms": float(np.median(arr[:, 3])),
+        }
+    emit("timing_train", config="synthetic_small batch 64 deep supervision int8", step=step, steps=20, card=card)
+
+    timings = {}
+    with torch.no_grad():
+        A_, b, p = problem(torch, S=64, seed=21, device=device, **SMALL)
+        for _ in range(2):
+            trajectory_forward(b, A_, *p, with_tax=True)
+            trajectory_forward_plain(b, A_, *p, with_tax=True)
+        ms, plain_ms = median_ms(torch, [lambda: trajectory_forward(b, A_, *p, with_tax=True),
+                                         lambda: trajectory_forward_plain(b, A_, *p, with_tax=True)], 31)
+    bms, by = traj_bound(64, with_tax=True, **SMALL)
+    timings["trajectory_forward"] = (ms, plain_ms, bms, by)
+    emit("timing_train_kernel", kernel="trajectory_forward", config="synthetic_small S=64 with_tax",
+         kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, card=card)
+
+    leaves = INT8_LEAVES["synthetic_small"]
+    st = [int8_state(torch, tqa, R, L, seed=R, device=device) for R, L in leaves]
+    pl = [(m_.clone(), tqa.QTensor(mu.codes.clone(), mu.scale.clone()),
+           tqa.QTensor(nu.codes.clone(), nu.scale.clone()), g) for m_, mu, nu, g in st]
+    scal = torch.tensor([0.5, 0.05, 1e-3, 0.9], device=device)
+
+    def sweep(plain):
+        for master, mu, nu, grads in (pl if plain else st):
+            fn = tqa.adam_int8_rows_plain if plain else tqa.adam_int8_rows
+            fn(grads[0], master, mu, nu, scal)
+
+    ms, plain_ms = median_ms(torch, [lambda: sweep(False), lambda: sweep(True)], 31)
+    bms, by = int8_bound(leaves)
+    timings["adam_int8_rows"] = (ms, plain_ms, bms, by)
+    emit("timing_train_kernel", kernel="adam_int8_rows", config="synthetic_small W1+W2 (2 launches)",
+         kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, card=card)
+    for R, L in INT8_LEAVES["synthetic_large"]:
+        master, mu, nu, grads = int8_state(torch, tqa, R, L, seed=R, device=device)
+        ms_l = median_ms(torch, [lambda: tqa.adam_int8_rows(grads[0], master, mu, nu, scal)], 11)[0]
+        emit("timing_train_kernel", kernel="adam_int8_rows", config=f"synthetic_large R={R} L={L}",
+             kernel_ms=ms_l, bound_ms=int8_bound([(R, L)])[0], bound_by="bytes", card=card)
+    return step, timings
+
+
+def device_us_by_phase(torch, prof, steps: int):
+    """Device time per step of each phase of ProfiledPhases-marked steps:
+    each kernel, memset or copy goes to the phase whose host range holds
+    its start. The profiler also mirrors each range onto the device
+    timeline as an annotation spanning its kernels; those spans are not
+    device work and are left out, as are runtime API calls."""
+    ranges = [(e.time_range.start, e.time_range.end, e.name[len("phase."):])
+              for e in prof.events()
+              if e.name.startswith("phase.") and e.device_type.name == "CPU"]
+    per = {name: 0.0 for name in PHASES}
+    for e in prof.events():
+        if e.device_type.name != "CUDA" or e.name.startswith(("phase.", "cuda")):
+            continue
+        hit = [name for t0, t1, name in ranges if t0 <= e.time_range.start <= t1]
+        per[hit[0] if hit else "data"] += e.time_range.elapsed_us() / steps
+    return per
+
+
+def profile_train(torch, device, steps: int = 5):
+    """Phase 12: torch.profiler over kernel-path training steps: device
+    time per kernel by name, grouped by kernel, and the busy share of the
+    CUDA-event window; then 3 steps with a sync after each phase for the
+    device time of each phase (data, forward, backward loop, optimizer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, A, w, fwd, opt, state = train_setup(torch, device)
+    for i in range(3):
+        state, _ = phased_step(torch, A, w, fwd, opt, state, i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(steps):
+            state, _ = phased_step(torch, A, w, fwd, opt, state, 3 + i)
+        stop.record()
+        torch.cuda.synchronize()
+    window_us = start.elapsed_time(stop) * 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", None)
+        if dev_us is None:
+            dev_us = e.cuda_time_total
+        if e.device_type.name != "CUDA" or dev_us <= 0 or e.key.startswith("cuda"):
+            continue  # host ops and runtime calls; kernels are device events
+        name = e.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0].strip()
+        k = kernels.setdefault(name, {"us": 0.0, "calls": 0.0})
+        k["us"] += dev_us / steps
+        k["calls"] += e.count / steps
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time")
+    busy_us = sum(v["us"] for v in kernels.values()) * steps
+    groups = {"trajectory kernel (unroll_phase)": 0.0, "int8 sweep (qadam_int8_rows)": 0.0,
+              "other (backward loop, loss, small leaves, data)": 0.0}
+    for name, v in kernels.items():
+        key = ("trajectory kernel (unroll_phase)" if "unroll_phase" in name else
+               "int8 sweep (qadam_int8_rows)" if "qadam_int8" in name else
+               "other (backward loop, loss, small leaves, data)")
+        groups[key] += v["us"]
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["us"])[:15])
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            state, _ = phased_step(torch, A, w, fwd, opt, state, 3 + steps + i, mark=ProfiledPhases(torch))
+    by_phase = device_us_by_phase(torch, prof, 3)
+    emit("profile_train", config="synthetic_small batch 64 deep supervision int8", steps=steps,
+         window_ms_per_step=window_us / steps / 1e3, device_busy_share=busy_us / window_us,
+         device_us_per_step_by_group=groups, device_us_per_step_by_phase=by_phase,
+         top_kernels=top, distinct_kernels=len(kernels))
+
+
 def main() -> int:
     import torch
 
@@ -180,7 +585,7 @@ def main() -> int:
     from dladmm_tpu_torch.data.synthetic import make_batch, problem_matrices, seed_keys
     from dladmm_tpu_torch.metrics.core import nmse_db
     from dladmm_tpu_torch.models.unroll import init_dladmm_params
-    from dladmm_tpu_torch.ops import cuda_unroll
+    from dladmm_tpu_torch.ops import cuda_build
     from dladmm_tpu_torch.ops.cuda_unroll import unroll_forward, unroll_forward_plain
     from dladmm_tpu_torch.serve import BatchingServer, InferenceServer
     from dladmm_tpu_torch.serve import main as serve_main
@@ -197,13 +602,15 @@ def main() -> int:
     emit("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=card,
          torch=torch.__version__, cuda=torch.version.cuda, tf32=False)
 
-    # 2. build, from the sources in this checkout.
+    # 2. build, from the sources in this checkout: one nvcc per source.
+    sources = sorted(cuda_build.CSRC.glob("*.cu"))
     t0 = time.monotonic()
-    lib_path, built = cuda_unroll.build()
-    build_s = time.monotonic() - t0
-    log = Path(str(lib_path) + ".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln] if log.exists() else []
-    emit("build", seconds=build_s, built_now=built, library=lib_path.name, ptxas=ptxas)
+    builds = cuda_build.build_all(sources)
+    for name, (lib_path, built, secs) in builds.items():
+        log = Path(str(lib_path) + ".log")
+        ptxas = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln] if log.exists() else []
+        emit("build", source=name, seconds=secs, built_now=built, library=lib_path.name, ptxas=ptxas)
+    emit("build_all", seconds=time.monotonic() - t0, sources=len(builds))
 
     # 3. kernel against its plain version, on the card.
     max_err = 0.0
@@ -323,21 +730,63 @@ def main() -> int:
     # 6. where the kernel's time goes, at the main path's shape.
     emit("profile", **profile_unroll(torch, unroll_forward, S=256, **SMALL))
 
+    # 7-9. the training kernels against their plain versions; gradients.
+    from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward, trajectory_forward_plain
+    from dladmm_tpu_torch.train import qadam_cuda
+
+    traj_err = 0.0
+    with torch.no_grad():
+        for label, shape, S in (("synthetic_small", SMALL, 64), ("synthetic_small", SMALL, 256),
+                                ("synthetic_large", LARGE, 1024)):
+            A, b, p = problem(torch, S=S, seed=S + 3, device=dev, **shape)
+            for with_tax in (True, False):
+                got = trajectory_forward(b, A, *p, with_tax=with_tax)
+                want = trajectory_forward_plain(b, A, *p, with_tax=with_tax)
+                torch.cuda.synchronize()
+                names = ("tx", "tz", "tlam", "tax")[: len(want)]
+                traj_err = max(traj_err, compare(torch, got, want, f"{label} S={S} with_tax={with_tax}",
+                                                 names=names, phase="kernel_traj"))
+            del A, b, p, got, want
+    int8_err = check_int8(torch, qadam_cuda, dev)
+    check_grads(torch, dev)
+
+    # 10. the training slice, counted from 0; then its checkpoint served.
+    train_launches, ckpt_serve_launches = train_slice(torch, dev, unroll_forward)
+
+    # 11-12. training step time and kernel times; profile.
+    _, train_timings = time_train(torch, dev, card)
+    profile_train(torch, dev)
+
     ms, plain_ms, bms, by = timings[("synthetic_small", 256)]
-    print(json.dumps({"kernels": [{
+    entries = [{
         "name": "unroll_forward",
         "route": "cuda",
         "source": "dladmm_tpu_torch/ops/csrc/unroll.cu",
         "replaces": "dladmm_tpu/ops/pallas_unroll.py:36",
-        "launches": cli_launches,  # the main path: serve.main --demo 256
-        "launches_by_path": {"serve_cli": cli_launches, "servers": server_launches},
+        "launches": cli_launches,  # its main path: serve.main --demo 256
+        "launches_by_path": {"serve_cli": cli_launches, "servers": server_launches,
+                             "serve_ckpt_dir": ckpt_serve_launches},
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bms,
         "bound_by": by,
         "library_ms": None,
-    }]}), flush=True)
+    }]
+    for name, source, replaces, err, shape in (
+        ("trajectory_forward", "dladmm_tpu_torch/ops/csrc/unroll.cu",
+         "dladmm_tpu/ops/pallas_unroll.py:266", traj_err, "synthetic_small S=64 with_tax"),
+        ("adam_int8_rows", "dladmm_tpu_torch/ops/csrc/qadam_int8.cu",
+         "dladmm_tpu/train/qadam_pallas.py:129", int8_err, "synthetic_small W1+W2, one step"),
+    ):
+        ms, plain_ms, bms, by = train_timings[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": train_launches[name],  # main path: run.main --steps=300
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None, "shape": shape,
+        })
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)

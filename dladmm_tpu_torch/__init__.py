@@ -6,11 +6,14 @@ and names follow the JAX package so each module's counterpart is easy
 to find. Its entry points run on ``cuda`` unless the caller asks for the
 CPU (``device="cpu"`` or ``DLADMM_PLATFORM=cpu``).
 
-This slice ports the serving path: the unroll and its LADMM-exact init,
+Ported so far: the serving path (the unroll and its LADMM-exact init,
 the proxes, the LADMM baseline and metrics, synthetic data, checkpoint
-import, the bucketed servers and the serving CLI
-(``python -m dladmm_tpu_torch.serve``), with the whole-unroll inference
-kernel hand-written in CUDA C++ (ops/csrc/unroll.cu).
+import, the bucketed servers and ``python -m dladmm_tpu_torch.serve``)
+and the single-device training path (the manual backward, the fused
+int8 Adam sweep, the training loop, checkpoints and
+``python -m dladmm_tpu_torch.run``). Its kernels are hand-written CUDA
+C++ under ops/csrc/: the whole-unroll and trajectory forwards
+(unroll.cu) and the int8 Adam sweep (qadam_int8.cu).
 """
 
 __version__ = "0.1.0"

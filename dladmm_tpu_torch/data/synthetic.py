@@ -38,12 +38,21 @@ def _generator(seq: np.random.SeedSequence) -> torch.Generator:
 def seed_keys(config):
     """The config seed's canonical 3-way split as fresh CPU generators:
     (g_dict, g_eval, g_train). Generators are stateful, so every call
-    returns new ones; problem_matrices takes g_dict and the serving
-    CLI's --demo takes g_eval."""
+    returns new ones; problem_matrices takes g_dict, training evals and
+    the serving CLI's --demo take g_eval (so their NMSEs compare), and
+    training steps take ``step_generator``."""
     return tuple(
         _generator(s)
         for s in np.random.SeedSequence(config.train.seed).spawn(3)
     )
+
+
+def step_generator(seed: int, *index: int) -> torch.Generator:
+    """The generator of training step ``index`` (and microbatch, under
+    accumulation): a child of g_train's seed, so the data of a step
+    depends on (seed, step) alone and a resumed run draws what the cold
+    run drew (the JAX package's ``fold_in(k_train, i)``)."""
+    return _generator(np.random.SeedSequence(seed, spawn_key=(2, *index)))
 
 
 def make_dictionary(
@@ -87,6 +96,16 @@ def problem_matrices(config, A: Optional[Tensor] = None, device=None):
     return A, B
 
 
+def _to_device(t: Tensor, device) -> Tensor:
+    """Host draw -> ``device``. To a card through pinned memory without
+    waiting: the copy is ordered on the current stream, so a training
+    step that draws its batch never stalls the host on the device."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def _bernoulli_gaussian(gen, shape, sparsity: float, dtype) -> Tensor:
     """support ~ Bernoulli(sparsity), values ~ N(0, 1)."""
     support = torch.rand(shape, generator=gen) < sparsity
@@ -114,13 +133,13 @@ def make_batch(
     x_star = _bernoulli_gaussian(gen, (batch, n), sparsity_x, dtype)
     if nonneg_x:
         x_star = torch.abs(x_star)
-    x_star = x_star.to(A.device)
+    x_star = _to_device(x_star, A.device)
     if B is None:
         e_star = _bernoulli_gaussian(gen, (batch, m), sparsity_e, dtype)
-        e_star = e_star.to(A.device)
+        e_star = _to_device(e_star, A.device)
         b = x_star @ A.T + e_star
     else:
         e_star = _bernoulli_gaussian(gen, (batch, B.shape[1]), sparsity_e, dtype)
-        e_star = e_star.to(A.device)
+        e_star = _to_device(e_star, A.device)
         b = x_star @ A.T + e_star @ B.T
     return SyntheticBatch(b=b, x_star=x_star, e_star=e_star)

@@ -1,16 +1,19 @@
-"""Forward selection policy for inference (the kernel={...} switch).
+"""Forward selection policy (the kernel={...} switch).
 
-The port of ``dladmm_tpu/models/api.py`` for the serving slice:
+The port of ``dladmm_tpu/models/api.py``:
 
-  * ``auto`` / ``megakernel``: the whole-unroll kernel
-    (ops/cuda_unroll.make_unrolled_forward). On CUDA tensors that is the
-    hand-written CUDA kernel; on CPU tensors its plain version. The TPU
-    policy's VMEM tiers (whole batch, batch tiles, per-layer kernel, XLA
-    scan) collapse into this one rung: the CUDA kernel has no fit gate.
+  * ``auto`` / ``megakernel`` / ``pallas`` (the JAX package's names; the
+    same route here): the whole-unroll kernel
+    (ops/cuda_unroll.make_unrolled_forward), or with
+    ``need_trajectory`` the trajectory kernel
+    (ops/cuda_traj.make_unrolled_trajectory) whose backward is the
+    manual reverse sweep. On CUDA tensors these are the hand-written
+    CUDA kernels; on CPU tensors their plain versions. The TPU policy's
+    VMEM tiers (whole batch, batch tiles, per-layer kernel, XLA scan)
+    collapse into this one rung: the CUDA kernels have no fit gate.
   * ``reference``, or a general B: the plain loop (models.unroll).
 
-The trajectory forward (training, deep supervision) and the per-layer
-fused kernel are later slices of the port (ROADMAP.md).
+The per-layer fused kernel is a later slice of the port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -21,11 +24,12 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from dladmm_tpu_torch.models.unroll import dladmm_forward
+from dladmm_tpu_torch.ops.cuda_traj import make_unrolled_trajectory
 from dladmm_tpu_torch.ops.cuda_unroll import make_unrolled_forward
 
 ForwardFn = Callable  # (params, A, b) -> (x, z, lam)
 
-KERNELS = ("auto", "megakernel", "reference")
+KERNELS = ("auto", "megakernel", "pallas", "reference")
 
 
 def select_forward(
@@ -42,29 +46,28 @@ def select_forward(
 
     forward_fn replaces the whole unroll; step_fn plugs into
     dladmm_forward's loop. (None, None) means the plain reference loop.
-    ``device`` only names the route in the description: the kernel's
-    wrapper dispatches on the tensors it is given. n and S are read by
-    no rung yet; they keep the JAX package's signature.
+    With need_trajectory, forward_fn returns the stacked (K, S, .)
+    trajectory (train/loop.loss_fn's deep-supervision contract).
+    ``device`` only names the route in the description: the kernels'
+    wrappers dispatch on the tensors they are given. n and S are read by
+    no rung; they keep the JAX package's signature.
     """
-    if need_trajectory:
-        raise NotImplementedError(
-            "trajectory forwards (the _unroll_traj_kernel port, training "
-            "and deep supervision) are the port's next slice: ROADMAP.md "
-            "queue 2, item 1"
-        )
     if kernel not in KERNELS:
         raise ValueError(f"kernel={kernel!r}; the port offers {KERNELS}")
     if kernel == "reference" or not identity_B or d != m:
         return None, None, "plain-loop-reference"
+    if need_trajectory:
+        return make_unrolled_trajectory(), None, kernel_route(device, trajectory=True)
     return make_unrolled_forward(), None, kernel_route(device)
 
 
-def kernel_route(device) -> str:
-    """How the whole-unroll forward runs on ``device``: the CUDA kernel
-    on the card, its plain version on the CPU."""
+def kernel_route(device, trajectory: bool = False) -> str:
+    """How the selected forward runs on ``device``: the CUDA kernel on
+    the card, its plain version on the CPU."""
+    kind = "trajectory" if trajectory else "whole-unroll"
     if torch.device(device).type == "cuda":
-        return "cuda-whole-unroll-kernel"
-    return "whole-unroll-plain-cpu"
+        return f"cuda-{kind}-kernel"
+    return f"{kind}-plain-cpu"
 
 
 def resolve_forward(

@@ -1,9 +1,15 @@
-// Whole-unroll D-LADMM inference for Hopper (sm_90a), fp32 throughout.
+// Whole-unroll D-LADMM for Hopper (sm_90a), fp32 throughout: the
+// inference forward and the trajectory forward of training.
 //
-// Replaces the TPU kernel dladmm_tpu/ops/pallas_unroll.py:_unroll_kernel
-// (driven by _unrolled_forward_pallas): K layers from zero state, with an
-// elementwise prox templated into the x and z updates. For layer k, with
-// beta = max(beta_k, 1e-6) and theta clamped at >= 0 where it is used:
+// dladmm_unroll_forward replaces the TPU kernel
+// dladmm_tpu/ops/pallas_unroll.py:_unroll_kernel (driven by
+// _unrolled_forward_pallas): K layers from zero state to the final
+// state, with an elementwise prox templated into the x and z updates.
+// dladmm_unroll_trajectory replaces _unroll_traj_kernel (driven by
+// _traj_pallas): the same recurrence with the l1 prox, writing every
+// layer's state into (K, S, .) stacks tx, tz, tlam and, for the manual
+// backward, tAx. For layer k, with beta = max(beta_k, 1e-6) and theta
+// clamped at >= 0 where it is used:
 //
 //   base = z - b + lam / beta
 //   u    = Ax + base
@@ -24,21 +30,29 @@
 // stage it into shared memory, and their epilogues apply the prox (and
 // the dual update). Nothing but the state (x, z, lam, Ax) ever goes to
 // device memory. Accumulation is fp32 FMA (no TF32, no tensor cores).
+// The trajectory forward is the same 3K launches with other pointers:
+// layer k reads its input state from slice k-1 of the stacks (a zero
+// buffer for k = 0) and writes its outputs into slice k.
 //
 // Bound. Per call the work is 2*S*m*(2n+d)*K flops and the bytes are
-// K layers of W1/W2, A, b and the outputs; at the shapes the serving path
-// runs (S <= 1024) the flops dominate, so the bound is the fp32 CUDA-core
+// K layers of W1/W2, A, b and the outputs (K times the state for the
+// trajectory); at the shapes the serving and training paths run
+// (S <= 1024) the flops dominate, so the bound is the fp32 CUDA-core
 // rate. This first kernel is far from it: at small S it is bound by the
 // 3K launches and by few blocks per launch (see PERF.md).
 //
 // Races. The z phase's operand reads the OLD z and lam across all m
-// columns in every block, so z1 and lam1 go to a second pair of buffers,
-// swapped per layer (never in place). The x phase may update x in place:
-// its operand does not read x, and each x element is read and written by
-// one thread. The Ax phase overwrites Ax, which only the earlier x phase
-// read.
+// columns in every block, so z1 and lam1 never overwrite them: the
+// inference forward swaps two buffer pairs per layer, the trajectory
+// writes the next slice of its stacks. The x phase reads x_in only in
+// its epilogue, one element per thread, so the inference forward
+// updates x in place (x_in == x); its operand reads Ax_in, which the
+// Ax phase of the same layer overwrites only after the x phase ended
+// (the stream orders them). The trajectory without tAx keeps one Ax
+// scratch buffer under the same rule.
 //
-// Plain C interface, loaded with ctypes (dladmm_tpu_torch/ops/cuda_unroll.py).
+// Plain C interface, loaded with ctypes (dladmm_tpu_torch/ops/cuda_unroll.py
+// and ops/cuda_traj.py).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -67,8 +81,10 @@ struct PhaseArgs {
   const float* w;       // (N, depth) row-major: this layer's W1 or W2, or A
   const float* theta;   // (N,) this layer's thresholds (x and z phases)
   const float* beta;    // this layer's beta, one float on the device
-  float* x;             // (S, n), updated in place by the x phase
-  float* ax;            // (S, m), written by the Ax phase
+  const float* x_in;    // (S, n) x before this layer, read by the x phase
+  float* x;             // (S, n) x after it: x phase out, Ax phase in
+  const float* ax_in;   // (S, m) Ax before this layer, read by the x phase
+  float* ax;            // (S, m) Ax after it: Ax phase out, z phase in
   const float* z_in;    // (S, m) z and lam before this layer
   const float* lam_in;
   float* z_out;         // (S, m) z and lam after this layer
@@ -121,7 +137,8 @@ unroll_phase(const PhaseArgs a) {
         } else {
           // u (x phase) or v (z phase) = Ax + (z - b + lam / beta).
           const size_t o = (size_t)gr * a.m + gk;
-          v = a.ax[o] + ((a.z_in[o] - a.b[o]) + a.lam_in[o] * inv_beta);
+          const float ax = PHASE == PHASE_X ? a.ax_in[o] : a.ax[o];
+          v = ax + ((a.z_in[o] - a.b[o]) + a.lam_in[o] * inv_beta);
         }
       }
       s_op[r][kk] = v;
@@ -157,7 +174,7 @@ unroll_phase(const PhaseArgs a) {
       if (c >= N) continue;
       if (PHASE == PHASE_X) {
         const size_t o = (size_t)r * a.n + c;
-        a.x[o] = apply_prox<PROX>(a.x[o] - acc[i][j], a.theta[c], a.scale);
+        a.x[o] = apply_prox<PROX>(a.x_in[o] - acc[i][j], a.theta[c], a.scale);
       } else if (PHASE == PHASE_AX) {
         a.ax[(size_t)r * a.m + c] = acc[i][j];
       } else {
@@ -196,6 +213,29 @@ cudaError_t run_prox_phase(int prox, const PhaseArgs& a, int N,
   }
 }
 
+// The x, Ax and z phases of layer k; `a` holds the state pointers.
+cudaError_t run_layer(PhaseArgs a, const float* A, const float* W1,
+                      const float* W2, const float* th1, const float* th2,
+                      int k, int prox_x, int prox_z, float scale_x,
+                      float scale_z, cudaStream_t stream) {
+  const int m = a.m, n = a.n;
+  a.w = W1 + (size_t)k * n * m;
+  a.theta = th1 + (size_t)k * n;
+  a.scale = scale_x;
+  cudaError_t err = run_prox_phase<PHASE_X>(prox_x, a, n, stream);
+  if (err != cudaSuccess) return err;
+
+  a.w = A;
+  a.theta = nullptr;
+  err = run_phase<PHASE_AX, PROX_L1>(a, m, stream);
+  if (err != cudaSuccess) return err;
+
+  a.w = W2 + (size_t)k * m * m;
+  a.theta = th2 + (size_t)k * m;
+  a.scale = scale_z;
+  return run_prox_phase<PHASE_Z>(prox_z, a, m, stream);
+}
+
 }  // namespace
 
 // All K layers of the inference unroll, enqueued on `stream`; no sync.
@@ -226,7 +266,9 @@ extern "C" int dladmm_unroll_forward(
     PhaseArgs a;
     a.b = b;
     a.beta = beta + k;
+    a.x_in = x;  // in place: see Races
     a.x = x;
+    a.ax_in = ax;
     a.ax = ax;
     a.z_in = to_out ? z_tmp : z;
     a.lam_in = to_out ? lam_tmp : lam;
@@ -236,21 +278,52 @@ extern "C" int dladmm_unroll_forward(
     a.m = m;
     a.n = n;
 
-    a.w = W1 + (size_t)k * n * m;
-    a.theta = th1 + (size_t)k * n;
-    a.scale = scale_x;
-    err = run_prox_phase<PHASE_X>(prox_x, a, n, stream);
+    err = run_layer(a, A, W1, W2, th1, th2, k, prox_x, prox_z, scale_x, scale_z, stream);
     if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
 
-    a.w = A;
-    a.theta = nullptr;
-    err = run_phase<PHASE_AX, PROX_L1>(a, m, stream);
-    if (err != cudaSuccess) return (int)err;
+// All K layers of the trajectory forward (l1 prox), enqueued on
+// `stream`; no sync. Inputs as dladmm_unroll_forward. Outputs the stacks
+// tx (K,S,n), tz (K,S,m), tlam (K,S,m) and, with with_tax, tax (K,S,m);
+// without it `tax` is one (S,m) scratch buffer. `zeros` is scratch of
+// S*max(n,m) floats, zeroed here: layer 0's input state. Returns a
+// cudaError_t.
+extern "C" int dladmm_unroll_trajectory(
+    const float* b, const float* A, const float* W1, const float* W2,
+    const float* th1, const float* th2, const float* beta, float* tx,
+    float* tz, float* tlam, float* tax, float* zeros, int with_tax, int S,
+    int m, int n, int K, int device, void* stream_handle) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  const size_t sn = (size_t)S * n, sm = (size_t)S * m;
+  err = cudaMemsetAsync(zeros, 0, (sn > sm ? sn : sm) * sizeof(float), stream);
+  if (err != cudaSuccess) return (int)err;
 
-    a.w = W2 + (size_t)k * m * m;
-    a.theta = th2 + (size_t)k * m;
-    a.scale = scale_z;
-    err = run_prox_phase<PHASE_Z>(prox_z, a, m, stream);
+  for (int k = 0; k < K; ++k) {
+    const size_t prev = (size_t)(k - 1), cur = (size_t)k;
+    PhaseArgs a;
+    a.b = b;
+    a.beta = beta + k;
+    a.x_in = k == 0 ? zeros : tx + prev * sn;
+    a.x = tx + cur * sn;
+    if (with_tax) {
+      a.ax_in = k == 0 ? zeros : tax + prev * sm;
+      a.ax = tax + cur * sm;
+    } else {
+      a.ax_in = k == 0 ? zeros : tax;
+      a.ax = tax;
+    }
+    a.z_in = k == 0 ? zeros : tz + prev * sm;
+    a.lam_in = k == 0 ? zeros : tlam + prev * sm;
+    a.z_out = tz + cur * sm;
+    a.lam_out = tlam + cur * sm;
+    a.S = S;
+    a.m = m;
+    a.n = n;
+    err = run_layer(a, A, W1, W2, th1, th2, k, PROX_L1, PROX_L1, 1.0f, 1.0f, stream);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

@@ -1,0 +1,152 @@
+"""Trajectory forward of the unroll: the CUDA kernel, its plain version
+and the autograd Functions that train through it.
+
+The port of the trajectory half of ``dladmm_tpu/ops/pallas_unroll.py``
+(``_unroll_traj_kernel`` driven by ``_traj_pallas``, and
+``make_unrolled_trajectory``; plus the last fallback of
+``make_unrolled_forward``'s custom VJP). The kernel is the
+``dladmm_unroll_trajectory`` entry of ``csrc/unroll.cu``: the serving
+kernel's 3K fused GEMM launches, each layer reading its input state from
+slice k-1 of the stacks and writing slice k.
+
+``trajectory_forward`` is the one entry: on a CUDA tensor it launches
+the kernel or raises; on a CPU tensor it runs ``trajectory_forward_plain``.
+The TPU's VMEM gates (``traj_fits_vmem``, ``traj_tile_batch``) are
+dropped: the kernel runs at every shape. l1/l1 and B = I only, as the
+TPU kernel.
+
+Training: the forward writes the Ax stack too (``with_tax``), which with
+tx, tz, tlam is exactly the residual set of the manual backward
+(ops/unroll_vjp.bwd_from_carries), so the backward recomputes no
+forward. The backward is that plain reverse sweep; the TPU's backward
+kernels (pallas_bwd.py) are a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+from torch import Tensor
+
+from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
+from dladmm_tpu_torch.ops import cuda_build
+from dladmm_tpu_torch.ops.cuda_unroll import SRC, kernel_args, needs_grad
+from dladmm_tpu_torch.ops.unroll_vjp import _param_grads, bwd_from_carries, shifted_residuals
+
+_count_lock = threading.Lock()
+
+
+_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def trajectory_forward_plain(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
+    """The kernel's function in plain PyTorch: the plain loop from zero
+    state, stacking every layer's (x, z, lam) and, with ``with_tax``,
+    A x. Same arguments as ``trajectory_forward``."""
+    params = DLADMMParams(W1, W2, th1, th2, beta.reshape(-1))
+    _, (tx, tz, tlam) = dladmm_forward(params, A, b, capture_trajectory=True)
+    if with_tax:
+        return tx, tz, tlam, tx @ A.T
+    return tx, tz, tlam
+
+
+def trajectory_forward(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
+    """K layers of D-LADMM (l1/l1, B = I) from zero state -> the stacks
+    tx (K, S, n), tz (K, S, m), tlam (K, S, m), plus tax = tx A^T
+    (K, S, m) when ``with_tax``.
+
+    Shapes as ``cuda_unroll.unroll_forward``. CUDA tensors launch the
+    kernel; CPU tensors run the plain version. Each kernel launch adds
+    one to ``trajectory_forward.launches``."""
+    if b.device.type == "cpu":
+        return trajectory_forward_plain(b, A, W1, W2, th1, th2, beta, with_tax)
+    if b.device.type != "cuda":
+        raise ValueError(f"unsupported device {b.device}")
+    b, A, W1, W2, th1, th2, beta = kernel_args(b, A, W1, W2, th1, th2, beta)
+    S, m = b.shape
+    K, n, _ = W1.shape
+    launch = cuda_build.entry(SRC, "dladmm_unroll_trajectory", _ARGTYPES)
+    with torch.cuda.device(b.device):
+        kw = dict(dtype=torch.float32, device=b.device)
+        tx = torch.empty((K, S, n), **kw)
+        tz, tlam = (torch.empty((K, S, m), **kw) for _ in range(2))
+        tax = torch.empty((K, S, m) if with_tax else (S, m), **kw)
+        zeros = torch.empty((S * max(n, m),), **kw)
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        err = launch(
+            *(t.data_ptr() for t in (b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax, zeros)),
+            int(with_tax), S, m, n, K, b.device.index, stream,
+        )
+        cuda_build.check(SRC, err, "CUDA trajectory kernel")
+    with _count_lock:
+        trajectory_forward.launches += 1
+    return (tx, tz, tlam, tax) if with_tax else (tx, tz, tlam)
+
+
+trajectory_forward.launches = 0
+
+
+class _Trajectory(torch.autograd.Function):
+    """(W1, W2, th1, th2, beta, A, b) -> (tx, tz, tlam); with
+    ``final_only`` -> (x_K, z_K, lam_K). Forward: the trajectory kernel
+    with the Ax stack; backward: bwd_from_carries on that trajectory."""
+
+    @staticmethod
+    def forward(ctx, final_only, W1, W2, th1, th2, beta, A, b):
+        tx, tz, tlam, tax = trajectory_forward(b, A, W1, W2, th1, th2, beta, with_tax=True)
+        ctx.final_only = final_only
+        ctx.save_for_backward(W1, W2, th1, th2, beta, A, b, tx, tz, tlam, tax)
+        if final_only:
+            return tx[-1].clone(), tz[-1].clone(), tlam[-1].clone()
+        return tx, tz, tlam
+
+    @staticmethod
+    def backward(ctx, gx, gz, glam):
+        W1, W2, th1, th2, beta, A, b, tx, tz, tlam, tax = ctx.saved_tensors
+        params = DLADMMParams(W1, W2, th1, th2, beta)
+        if ctx.final_only:
+            final, traj = (gx, gz, glam), None
+        else:
+            final = (torch.zeros_like(gx[-1]), torch.zeros_like(gz[-1]), torch.zeros_like(glam[-1]))
+            traj = (gx, gz, glam)
+        need_data = ctx.needs_input_grad[6:8]
+        gparams, gA, gb = bwd_from_carries(
+            params, A, b, shifted_residuals(tx, tz, tlam, tax), final, traj,
+            data_grads=any(need_data),
+        )
+        return (None, *_param_grads(gparams, params),
+                gA if need_data[0] else None, gb if need_data[1] else None)
+
+
+def make_unrolled_trajectory():
+    """Trajectory forward(params, A, b) -> stacked per-layer (x, z, lam)
+    of shape (K, S, .): the NMSE-vs-layer eval and the deep-supervision
+    loss. Without a gradient it is the kernel with ``with_tax=False``;
+    with one, the autograd Function whose backward folds the per-layer
+    cotangents into the manual reverse sweep, fed the kernel's own
+    trajectory."""
+
+    def trajectory(params: DLADMMParams, A: Tensor, b: Tensor):
+        if needs_grad(params, A, b):
+            return _Trajectory.apply(False, *params, A, b)
+        return trajectory_forward(b, A, *params)
+
+    return trajectory
+
+
+def unrolled_forward_train(params: DLADMMParams, A: Tensor, b: Tensor):
+    """Final state (x_K, z_K, lam_K) with a gradient: the trajectory
+    kernel forward plus the manual backward (the JAX package's last
+    fallback of ``make_unrolled_forward``'s VJP; its backward kernels
+    are a later slice)."""
+    return _Trajectory.apply(True, *params, A, b)
+
+
+__all__ = [
+    "make_unrolled_trajectory",
+    "trajectory_forward",
+    "trajectory_forward_plain",
+    "unrolled_forward_train",
+]

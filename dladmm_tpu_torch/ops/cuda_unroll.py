@@ -25,101 +25,26 @@ dropped. Its only conditions are B = I (d == m) and an elementwise prox.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
-from typing import Tuple
 
 import torch
 from torch import Tensor
 
 from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
+from dladmm_tpu_torch.ops import cuda_build
 from dladmm_tpu_torch.ops.prox import get_prox, kernel_exact
 from dladmm_tpu_torch.ops.reference import make_cached_step
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "unroll.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SRC = cuda_build.CSRC / "unroll.cu"
 # The kernel's prox variants (csrc/unroll.cu, enum Prox).
 KERNEL_PROX = {"l1": 0, "nonneg_l1": 1, "box": 2, "elastic_net": 3}
 
-_lib = None
-_lib_lock = threading.Lock()
 _count_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME")
-    if home and (Path(home) / "bin" / "nvcc").is_file():
-        return str(Path(home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.is_file():
-        return str(default)
-    raise RuntimeError(
-        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
-        "unroll kernel is built from ops/csrc/unroll.cu at first use"
-    )
-
-
-def _library_path() -> Path:
-    """Where the built kernel lives: keyed by the source and the flags,
-    so an edited source never loads a stale build."""
-    h = hashlib.sha256(_SRC.read_bytes())
-    h.update(" ".join(_NVCC_FLAGS).encode())
-    return _BUILD_DIR / f"libdladmm_unroll_{h.hexdigest()[:16]}.so"
-
-
-def build() -> Tuple[Path, bool]:
-    """Compile csrc/unroll.cu with nvcc for sm_90a into the git-ignored
-    build directory unless that exact build exists. Returns (path,
-    built_now). The compiler's output, with ptxas's register and
-    shared-memory report, goes to ``<path>.log``. Raises on failure."""
-    out = _library_path()
-    if out.is_file():
-        return out, False
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    log = out.with_name(out.name + ".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {_SRC.name}:\n"
-            f"{proc.stderr[-4000:]}"
-        )
-    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-    return out, True
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            fn = lib.dladmm_unroll_forward
-            fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
-                ctypes.c_float,
-                ctypes.c_float,
-                ctypes.c_int,
-                ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-            lib.dladmm_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.dladmm_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+]
 
 
 def _check_prox(prox_x: str, prox_z: str, rho: float) -> None:
@@ -201,7 +126,7 @@ def unroll_forward(
     b, A, W1, W2, th1, th2, beta = kernel_args(b, A, W1, W2, th1, th2, beta)
     S, m = b.shape
     K, n, _ = W1.shape
-    lib = _load()
+    launch = cuda_build.entry(SRC, "dladmm_unroll_forward", _ARGTYPES)
     scale = {
         p: (1.0 / (1.0 + rho) if p == "elastic_net" else 1.0)
         for p in (prox_x, prox_z)
@@ -213,15 +138,13 @@ def unroll_forward(
             for _ in range(5)
         )
         stream = torch.cuda.current_stream(b.device).cuda_stream
-        err = lib.dladmm_unroll_forward(
+        err = launch(
             *(t.data_ptr() for t in (b, A, W1, W2, th1, th2, beta)),
             *(t.data_ptr() for t in (x, z, lam, z_tmp, lam_tmp, ax)),
             S, m, n, K, KERNEL_PROX[prox_x], KERNEL_PROX[prox_z],
             scale[prox_x], scale[prox_z], b.device.index, stream,
         )
-        if err != 0:
-            msg = lib.dladmm_cuda_error_string(err).decode()
-            raise RuntimeError(f"CUDA unroll kernel failed: error {err} ({msg})")
+        cuda_build.check(SRC, err, "CUDA unroll kernel")
     with _count_lock:
         unroll_forward.launches += 1
     return x, z, lam
@@ -278,32 +201,40 @@ def make_unrolled_inference_prox(prox_x, prox_z):
 
 
 def make_unrolled_forward():
-    """Inference forward(params, A, b) -> (x_K, z_K, lam_K) through the
-    whole-unroll kernel, l1/l1 and B = I. The TPU version's custom VJP
-    (trajectory kernel + backward kernels) belongs to the training slice
-    (ROADMAP.md); here a forward that needs a gradient raises."""
+    """forward(params, A, b) -> (x_K, z_K, lam_K) through the kernels,
+    l1/l1 and B = I. Inference (no gradient asked for) is the
+    whole-unroll kernel, whose state never leaves the kernel's buffers;
+    a forward that needs a gradient runs the trajectory kernel and the
+    manual backward (ops/cuda_traj.unrolled_forward_train), as the JAX
+    package's custom VJP does when its backward kernels do not apply."""
 
     def forward(params: DLADMMParams, A: Tensor, b: Tensor):
-        _no_grad_check(params, A, b)
+        if needs_grad(params, A, b):
+            from dladmm_tpu_torch.ops.cuda_traj import unrolled_forward_train
+
+            return unrolled_forward_train(params, A, b)
         return unroll_forward(b, A, *params)
 
     return forward
 
 
+def needs_grad(params, A, b) -> bool:
+    """True when autograd would track this forward."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in (*params, A, b))
+
+
 def _no_grad_check(params, A, b) -> None:
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (*params, A, b)
-    ):
+    if needs_grad(params, A, b):
         raise NotImplementedError(
-            "the whole-unroll kernel is inference-only in this port; its "
-            "backward is a later slice (ROADMAP.md queue 2); run under "
-            "torch.no_grad() or use models.unroll.dladmm_forward"
+            "the prox-templated kernel is inference-only, as in the JAX "
+            "package: train general-prox configs through the plain loop "
+            "(models.unroll.dladmm_forward with make_cached_step)"
         )
 
 
 __all__ = [
     "KERNEL_PROX",
-    "build",
+    "SRC",
     "make_unrolled_forward",
     "make_unrolled_inference_prox",
     "prox_megakernel_available",

@@ -30,7 +30,8 @@ ProxFn = Callable[[Tensor, Tensor], Tensor]
 
 
 def _clamp0(theta, like: Tensor) -> Tensor:
-    return torch.clamp(torch.as_tensor(theta, dtype=like.dtype, device=like.device), min=0.0)
+    t = torch.as_tensor(theta, dtype=like.dtype, device=like.device)
+    return torch.maximum(t, t.new_zeros(()))
 
 
 def prox_l1(u: Tensor, theta) -> Tensor:
@@ -40,7 +41,7 @@ def prox_l1(u: Tensor, theta) -> Tensor:
 
 def prox_nonneg_l1(u: Tensor, theta) -> Tensor:
     """One-sided shrink: prox of theta*||w||_1 + indicator(w >= 0)."""
-    return torch.clamp(u - _clamp0(theta, u), min=0.0)
+    return torch.maximum(u - _clamp0(theta, u), u.new_zeros(()))
 
 
 def prox_box(u: Tensor, theta) -> Tensor:
@@ -61,7 +62,7 @@ def prox_group_l2(u: Tensor, theta) -> Tensor:
     pos = sq > 0.0
     norm = torch.sqrt(torch.where(pos, sq, torch.ones_like(sq)))
     scale = torch.where(
-        pos, torch.clamp(1.0 - t / norm, min=0.0), torch.zeros_like(sq)
+        pos, torch.maximum(1.0 - t / norm, sq.new_zeros(())), torch.zeros_like(sq)
     )
     return u * scale
 

@@ -46,9 +46,16 @@ class LayerParams(NamedTuple):
 
 def shrink(u: Tensor, theta) -> Tensor:
     """Soft-thresholding prox of the l1 norm: sign(u) * max(|u| - theta, 0),
-    with theta clamped to >= 0."""
-    theta = torch.clamp(torch.as_tensor(theta, dtype=u.dtype, device=u.device), min=0.0)
-    return torch.sign(u) * torch.clamp(torch.abs(u) - theta, min=0.0)
+    with theta clamped to >= 0.
+
+    Every clamp on a learned quantity here and in ops/prox.py is
+    ``torch.maximum`` against a tensor, never ``torch.clamp``: at a tie
+    maximum splits the gradient 0.5/0.5 as ``jnp.maximum`` does (and as
+    the manual backward's ``_max_grad`` does), where clamp passes it
+    whole."""
+    zero = u.new_zeros(())
+    theta = torch.maximum(torch.as_tensor(theta, dtype=u.dtype, device=u.device), zero)
+    return torch.sign(u) * torch.maximum(torch.abs(u) - theta, zero)
 
 
 def apply_dict(v: Tensor, M: Tensor) -> Tensor:
@@ -68,7 +75,7 @@ def make_layer_step(prox_x=shrink, prox_z=shrink):
     """
 
     def step(A, B, b, x, z, lam, p: LayerParams):
-        beta = torch.clamp(p.beta, min=_BETA_MIN)
+        beta = torch.maximum(p.beta, p.beta.new_tensor(_BETA_MIN))
         inv_beta = 1.0 / beta
         Ax = apply_dict(x, A)
         base = apply_B(z, B) - b + lam * inv_beta
@@ -93,7 +100,7 @@ def make_cached_step(prox_x=shrink, prox_z=shrink):
     """
 
     def step(A, B, b, x, z, lam, Ax, Bz, p: LayerParams):
-        beta = torch.clamp(p.beta, min=_BETA_MIN)
+        beta = torch.maximum(p.beta, p.beta.new_tensor(_BETA_MIN))
         inv_beta = 1.0 / beta
         base = Bz - b + lam * inv_beta
         u = Ax + base

@@ -15,9 +15,11 @@ The port of ``dladmm_tpu/serve.py`` (single-device servers and CLI):
 Runs on CUDA unless the caller asks for the CPU (``device="cpu"`` or
 ``DLADMM_PLATFORM=cpu``; utils/platform.py).
 
-Later slices (ROADMAP.md): bf16 / int8 serving (``dtype``), restoring a
-training checkpoint (``--ckpt-dir``), the sharded server (``--sharded``)
-and one CUDA Graph per bucket.
+The CLI serves a training checkpoint (``--ckpt-dir``: the newest
+step_N's params and the dictionary they were trained on) or a
+reference-style PyTorch file (``--import-torch``, on the config's
+dictionary). Later slices (ROADMAP.md): bf16 / int8 serving (``dtype``),
+the sharded server (``--sharded``) and one CUDA Graph per bucket.
 """
 
 from __future__ import annotations
@@ -39,6 +41,9 @@ from dladmm_tpu_torch.ops.reference import make_cached_step
 from dladmm_tpu_torch.utils.platform import resolve_device
 
 _LATER = "is not ported yet; it is a later slice of the port (ROADMAP.md §1)"
+# The serving CLI's --kernel choices, the JAX package's (its per-layer
+# "pallas" kernel is no serving choice).
+CLI_KERNELS = ("auto", "megakernel", "reference")
 
 
 def _buckets(max_batch: int) -> Tuple[int, ...]:
@@ -363,7 +368,9 @@ def main(argv=None) -> int:
     ap.add_argument("--config", default="synthetic_small")
     src = ap.add_mutually_exclusive_group(required=True)
     src.add_argument(
-        "--ckpt-dir", help="training checkpoint dir (not ported yet)"
+        "--ckpt-dir",
+        help="training checkpoint dir: serve the newest step_N's params "
+        "on the dictionary stored with them",
     )
     src.add_argument(
         "--import-torch",
@@ -399,7 +406,7 @@ def main(argv=None) -> int:
         default="float32",
         help="serving precision (only float32 is ported yet)",
     )
-    ap.add_argument("--kernel", choices=list(KERNELS), default="auto")
+    ap.add_argument("--kernel", choices=list(CLI_KERNELS), default="auto")
     ap.add_argument(
         "--layers",
         type=int,
@@ -411,8 +418,16 @@ def main(argv=None) -> int:
         "--sharded", action="store_true", help="sharded serving (not ported yet)"
     )
     args = ap.parse_args(argv)
+    latest = None
     if args.ckpt_dir:
-        ap.error(f"--ckpt-dir (training checkpoint restore) {_LATER}; use --import-torch")
+        from dladmm_tpu_torch.utils.checkpoint import latest_step_dir
+
+        latest = latest_step_dir(args.ckpt_dir)
+        if latest is None:
+            ap.error(
+                f"no step_N checkpoint under {args.ckpt_dir!r}; train one with "
+                f"python -m dladmm_tpu_torch.run --config=... --ckpt-dir={args.ckpt_dir}"
+            )
     if args.dtype != "float32":
         ap.error(f"--dtype={args.dtype} {_LATER}")
     if args.sharded:
@@ -420,14 +435,21 @@ def main(argv=None) -> int:
 
     device = resolve_device()
     cfg = get_config(args.config)
-    A, B = problem_matrices(cfg, device=device)
     # General-prox configs: the served forward must run the SAME prox
     # pair the model was trained with.
     prox = resolve_prox(cfg.problem)
     step_fn = None if prox is None else make_cached_step(*prox)
-    params = from_torch(
-        args.import_torch, A=A, allow_pickle=args.allow_pickle, device=device
-    )
+    if latest is not None:
+        from dladmm_tpu_torch.utils.checkpoint import load_params
+
+        params, A, B = load_params(latest, device)
+        if A is None or tuple(A.shape) != (cfg.problem.m, cfg.problem.n):
+            ap.error(f"{latest} holds no dictionary of config {args.config!r}'s shape")
+    else:
+        A, B = problem_matrices(cfg, device=device)
+        params = from_torch(
+            args.import_torch, A=A, allow_pickle=args.allow_pickle, device=device
+        )
 
     demo = None
     if args.demo is not None:

@@ -1,0 +1,584 @@
+"""Training loop: data -> loss -> manual backward -> fused optimizer.
+
+The port of ``dladmm_tpu/train/loop.py`` for single-device training.
+One step draws its batch from a generator derived from (seed, step),
+runs the forward the policy selected (models/api.select_forward: the
+trajectory kernel for deep supervision on the card), backpropagates
+through the autograd Functions of ops/cuda_traj.py and ops/unroll_vjp.py
+(the manual reverse sweep), and applies the optimizer: the fused int8
+sweep (train/qadam_cuda.QAdamFused) for ``moment_dtype="int8_pallas"``,
+or optax-equivalent fp32 Adam with global or delayed norm clipping.
+
+Nothing in a step waits for the host: the batch is copied through
+pinned memory without a sync, the optimizer's step count, learning rate,
+bias corrections and clip scale are device tensors, and ``float(loss)``
+is read only at an eval. PyTorch runs eagerly, so the JAX step's ``jit``
+and buffer donation have no counterpart: the fused optimizer updates the
+masters in place instead.
+
+Loss: MSE to the ground truth, final layer only, or deep supervision
+sum_k gamma_k (||x_k - x*||^2 + ||z_k - e*||^2) (``layer_loss``).
+
+Not ported yet (ROADMAP.md §1): ``compute_dtype="bfloat16"``,
+``optimizer="fused_adam"``, the XLA-side reduced-precision moments
+(``moment_dtype`` int8/bfloat16/bfloat16_sr), ``fit_greedy`` and
+``fit_sharded``; each raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+from torch import Tensor
+
+from dladmm_tpu_torch.baselines.ladmm import ladmm_run
+from dladmm_tpu_torch.data.synthetic import make_batch, step_generator
+from dladmm_tpu_torch.metrics.core import constraint_residual, nmse_db, per_layer_nmse_db
+from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
+from dladmm_tpu_torch.ops.prox import resolve_prox
+from dladmm_tpu_torch.train.qadam_cuda import QAdamFused, global_norm
+
+_LATER = "is not ported yet; it is a later slice of the port (ROADMAP.md §1)"
+
+
+class TrainState(NamedTuple):
+    """The JAX package's TrainState without the bf16 compute copy (bf16
+    training is not ported)."""
+
+    params: DLADMMParams  # fp32 master parameters
+    opt_state: Any
+    step: int  # steps taken, on the host (the optimizer keeps its own device count)
+
+
+def make_train_state(params: DLADMMParams, optimizer) -> TrainState:
+    """Fresh TrainState on copies of ``params`` (the fused optimizer
+    updates its masters in place)."""
+    params = DLADMMParams(*(p.detach().clone().contiguous() for p in params))
+    return TrainState(params, optimizer.init(params), 0)
+
+
+def weighted_trajectory_mse(tx, tz, x_tgt, z_tgt, layer_weights):
+    """The deep-supervision objective on stacked (K, S, .) trajectories:
+    per-layer MSE of both streams, gamma_k-weighted sum. Targets of
+    shape (S, .) broadcast over the K axis."""
+    per_layer = torch.mean((tx - x_tgt) ** 2, dim=(1, 2)) + torch.mean((tz - z_tgt) ** 2, dim=(1, 2))
+    return torch.sum(layer_weights * per_layer)
+
+
+def loss_fn(
+    params: DLADMMParams,
+    A: Tensor,
+    b: Tensor,
+    x_star: Tensor,
+    z_star: Tensor,
+    B: Optional[Tensor] = None,
+    layer_weights: Optional[Tensor] = None,
+    step_fn=None,
+    forward_fn=None,
+    vjp: str = "auto",
+) -> Tensor:
+    """MSE to ground truth; final layer only, or gamma-weighted per layer.
+
+    forward_fn (from models.api.select_forward) replaces the plain loop;
+    for the final-layer loss it returns the final (x, z, lam), with
+    layer_weights the stacked (K, S, .) trajectory. Without one, the
+    l1/l1 losses take the manual backward (ops/unroll_vjp.py) when
+    vjp="auto"/"manual"; vjp="xla" (the JAX package's name) and custom
+    step_fns take autograd through the plain loop."""
+    manual_ok = forward_fn is None and step_fn is None and layer_weights is None
+    if vjp == "manual" and not manual_ok:
+        raise ValueError(
+            "vjp='manual' needs the default step, no forward_fn, and the "
+            "final-layer loss (no layer_weights)"
+        )
+    if vjp == "xla" and (forward_fn is not None or step_fn is not None):
+        raise ValueError(
+            "vjp='xla' (autograd through the plain loop) with a custom "
+            "forward_fn/step_fn would not be autograd: pass forward_fn=step_fn=None"
+        )
+    if layer_weights is None:
+        if forward_fn is not None:
+            x, z, _ = forward_fn(params, A, b)
+        elif manual_ok and vjp in ("auto", "manual"):
+            from dladmm_tpu_torch.ops.unroll_vjp import (
+                dladmm_unroll_manual,
+                dladmm_unroll_manual_general,
+            )
+
+            if B is None:
+                x, z, _ = dladmm_unroll_manual(params, A, b)
+            else:
+                x, z, _ = dladmm_unroll_manual_general(params, A, B, b)
+        else:
+            x, z, _ = dladmm_forward(params, A, b, B=B, step_fn=step_fn)
+        return torch.mean((x - x_star) ** 2) + torch.mean((z - z_star) ** 2)
+    if forward_fn is not None:
+        tx, tz, _ = forward_fn(params, A, b)
+    elif B is not None and step_fn is None and vjp == "auto":
+        from dladmm_tpu_torch.ops.unroll_vjp import dladmm_traj_manual_general
+
+        tx, tz, _ = dladmm_traj_manual_general(params, A, B, b)
+    else:
+        _, (tx, tz, _) = dladmm_forward(params, A, b, B=B, capture_trajectory=True, step_fn=step_fn)
+    return weighted_trajectory_mse(tx, tz, x_star, z_star, layer_weights)
+
+
+# -- optimizers: optax's math on tensors, all state on the device ---------
+
+
+class GradientTransformation(NamedTuple):
+    init: Callable
+    update: Callable  # (updates, state, params) -> (updates, state)
+
+
+class AdamState(NamedTuple):
+    count: Tensor
+    mu: DLADMMParams
+    nu: DLADMMParams
+
+
+class DelayedClipState(NamedTuple):
+    prev_norm: Tensor  # fp32 scalar; = max_norm before the first step
+
+
+def _count0(params) -> Tensor:
+    return torch.zeros((), dtype=torch.int32, device=params[0].device)
+
+
+def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> GradientTransformation:
+    """optax.scale_by_adam (eps_root 0, no Nesterov), fp32 moments."""
+
+    def init(params):
+        zeros = lambda: type(params)(*(torch.zeros_like(p) for p in params))  # noqa: E731
+        return AdamState(_count0(params), zeros(), zeros())
+
+    def update(grads, state, params=None):
+        kind = type(grads)
+        mu = kind(*((1 - b1) * g + b1 * m for g, m in zip(grads, state.mu)))
+        nu = kind(*((1 - b2) * (g * g) + b2 * v for g, v in zip(grads, state.nu)))
+        count = state.count + 1
+        cf = count.to(torch.float32)
+        c1, c2 = 1 - torch.pow(b1, cf), 1 - torch.pow(b2, cf)
+        out = kind(*((m / c1) / (torch.sqrt(v / c2) + eps) for m, v in zip(mu, nu)))
+        return out, AdamState(count, mu, nu)
+
+    return GradientTransformation(init, update)
+
+
+def scale_by_learning_rate(learning_rate) -> GradientTransformation:
+    """optax.scale_by_learning_rate: updates * -lr(count), the count the
+    step's own (pre-increment)."""
+
+    def init(params):
+        return _count0(params)
+
+    def update(grads, count, params=None):
+        lr = learning_rate(count) if callable(learning_rate) else learning_rate
+        return type(grads)(*(g * -lr for g in grads)), count + 1
+
+    return GradientTransformation(init, update)
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    """optax.clip_by_global_norm: t, or t / norm * max_norm above the
+    limit."""
+
+    def update(grads, state, params=None):
+        norm = global_norm(grads)
+        trigger = norm < max_norm
+        return type(grads)(*(torch.where(trigger, g, (g / norm) * max_norm) for g in grads)), state
+
+    return GradientTransformation(lambda params: (), update)
+
+
+def delayed_clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    """Global-norm clipping with a one-step-delayed norm: step i is
+    scaled by step i-1's norm (step 0 unclipped), so the norm reduction
+    and the scaled update touch each gradient once (the JAX package's
+    single-pass variant)."""
+
+    def init(params):
+        return DelayedClipState(torch.full((), max_norm, dtype=torch.float32, device=params[0].device))
+
+    def update(grads, state, params=None):
+        cur = global_norm(grads)
+        scale = torch.clamp(max_norm / torch.clamp(state.prev_norm, min=1e-16), max=1.0)
+        return type(grads)(*(g * scale for g in grads)), DelayedClipState(cur)
+
+    return GradientTransformation(init, update)
+
+
+def chain(*transforms: GradientTransformation) -> GradientTransformation:
+    def init(params):
+        return tuple(t.init(params) for t in transforms)
+
+    def update(grads, state, params=None):
+        new = []
+        for t, s in zip(transforms, state):
+            grads, s = t.update(grads, s, params)
+            new.append(s)
+        return grads, tuple(new)
+
+    return GradientTransformation(init, update)
+
+
+def apply_updates(params: DLADMMParams, updates: DLADMMParams) -> DLADMMParams:
+    return type(params)(*(p + u for p, u in zip(params, updates)))
+
+
+def warmup_cosine_decay_schedule(
+    init_value: float, peak_value: float, warmup_steps: int, decay_steps: int, end_value: float = 0.0
+):
+    """optax.warmup_cosine_decay_schedule, exactly: linear warmup from
+    init_value to peak_value over warmup_steps, then cosine decay to
+    end_value at decay_steps, in float32 on the count's device."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    decay = decay_steps - warmup_steps
+    if not decay > 0:
+        raise ValueError(f"the cosine decay needs decay_steps > warmup_steps, got {decay_steps}, {warmup_steps}")
+
+    def schedule(count: Tensor) -> Tensor:
+        count = count.to(torch.int32)
+        frac = 1 - torch.clamp(count, 0, warmup_steps).to(torch.float32) / warmup_steps
+        warm = (init_value - peak_value) * frac + peak_value
+        t = torch.clamp((count - warmup_steps).to(torch.float32), max=float(decay))
+        cosine = 0.5 * (1 + torch.cos(math.pi * t / float(decay)))
+        cool = peak_value * ((1 - alpha) * cosine + alpha)
+        return torch.where(count < warmup_steps, warm, cool)
+
+    return schedule
+
+
+def _lr_of(t):
+    """The TrainConfig's learning rate: a float, or the warmup + cosine
+    schedule optax.warmup_cosine_decay_schedule(0, lr, max(1,
+    steps // 20), steps), evaluated on the device at the step count
+    before its increment."""
+    if t.lr_schedule == "cosine":
+        return warmup_cosine_decay_schedule(0.0, t.lr, max(1, t.steps // 20), t.steps)
+    return t.lr
+
+
+def _build_optimizer(t):
+    """Adam with the TrainConfig's lr schedule and clipping: the fused
+    int8 sweep for moment_dtype="int8_pallas" (it owns its exact global
+    clip), else fp32 Adam chained after clip_by_global_norm or the
+    delayed clip."""
+    md = getattr(t, "moment_dtype", "float32")
+    clip = getattr(t, "clip_norm", None)
+    if md.endswith("_pallas"):
+        if clip and getattr(t, "clip_mode", "global") != "global":
+            raise ValueError(
+                "moment_dtype='*_pallas' implements exact global clipping "
+                "inside the fused sweep; clip_mode must be 'global'"
+            )
+        return QAdamFused(_lr_of(t), moment_fmt=md[: -len("_pallas")], clip_norm=clip)
+    if md != "float32":
+        raise NotImplementedError(
+            f"moment_dtype={md!r} (the XLA-side reduced-precision moments, "
+            f"train/qmoments.adam_qmoments) {_LATER}; use int8_pallas or float32"
+        )
+    optimizer = chain(scale_by_adam(), scale_by_learning_rate(_lr_of(t)))
+    if clip:
+        mode = getattr(t, "clip_mode", "global")
+        if mode == "delayed":
+            clipper = delayed_clip_by_global_norm(clip)
+        elif mode == "global":
+            clipper = clip_by_global_norm(clip)
+        else:
+            raise ValueError(f"clip_mode must be 'global' or 'delayed', got {mode!r}")
+        optimizer = chain(clipper, optimizer)
+    return optimizer
+
+
+# -- steps ----------------------------------------------------------------
+
+
+def _value_and_grad(params: DLADMMParams, loss_args: tuple, loss_kw: dict):
+    leaves = [p.detach().requires_grad_() for p in params]
+    loss = loss_fn(DLADMMParams(*leaves), *loss_args, **loss_kw)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), DLADMMParams(*grads)
+
+
+def _apply(optimizer, state: TrainState, grads: DLADMMParams, freeze=()) -> TrainState:
+    if freeze:
+        grads = DLADMMParams(*(
+            torch.zeros_like(g) if name in freeze else g for name, g in zip(grads._fields, grads)
+        ))
+    if hasattr(optimizer, "fused_apply"):
+        params, opt_state = optimizer.fused_apply(grads, state.opt_state, state.params)
+    else:
+        with torch.no_grad():
+            updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+            params = apply_updates(state.params, updates)
+    return TrainState(params, opt_state, state.step + 1)
+
+
+def _mean_of(parts):
+    """Mean (loss, grads) over microbatches; one part is returned as is."""
+    if len(parts) == 1:
+        return parts[0]
+    n = len(parts)
+    loss = sum(p[0] for p in parts) / n
+    return loss, DLADMMParams(*(sum(gs) / n for gs in zip(*(p[1] for p in parts))))
+
+
+def make_train_step(
+    optimizer,
+    A: Tensor,
+    batch: int,
+    sparsity_x: float = 0.1,
+    sparsity_e: float = 0.1,
+    B: Optional[Tensor] = None,
+    layer_weights: Optional[Tensor] = None,
+    step_fn=None,
+    forward_fn=None,
+    freeze: tuple = (),
+    vjp: str = "auto",
+    accum_steps: int = 1,
+    nonneg_x: bool = False,
+    seed: int = 0,
+):
+    """The training step: (state, i) -> (state, loss), i the step index.
+    It draws its batch from ``step_generator(seed, i)`` on A's device,
+    takes the gradient and applies the optimizer.
+
+    freeze: DLADMMParams field names kept at their value (their
+    gradients are zeroed). accum_steps > 1: ``batch`` stays the
+    effective batch; the step sums the gradients of accum_steps
+    microbatches of batch / accum_steps rows (generator
+    ``step_generator(seed, i, j)`` each) and applies their mean."""
+    if accum_steps < 1 or batch % accum_steps:
+        raise ValueError(f"accum_steps={accum_steps} must divide batch={batch}")
+    micro = batch // accum_steps
+    freeze = tuple(freeze)
+    kw = dict(step_fn=step_fn, forward_fn=forward_fn, vjp=vjp)
+
+    def grad_of(params, gen):
+        data = make_batch(gen, A, micro, sparsity_x, sparsity_e, A.dtype, B, nonneg_x)
+        return _value_and_grad(params, (A, data.b, data.x_star, data.e_star, B, layer_weights), kw)
+
+    def train_step(state: TrainState, i: int):
+        if accum_steps == 1:
+            loss, grads = grad_of(state.params, step_generator(seed, i))
+        else:
+            loss, grads = _mean_of([
+                grad_of(state.params, step_generator(seed, i, j)) for j in range(accum_steps)
+            ])
+        return _apply(optimizer, state, grads, freeze), loss
+
+    return train_step
+
+
+def make_train_step_from_batch(
+    optimizer,
+    A: Tensor,
+    B: Optional[Tensor] = None,
+    layer_weights: Optional[Tensor] = None,
+    step_fn=None,
+    forward_fn=None,
+    vjp: str = "auto",
+    accum_steps: int = 1,
+):
+    """Training step fed an explicit SyntheticBatch: (state, data) ->
+    (state, loss). accum_steps > 1 splits the batch's rows into equal
+    microbatches and applies the mean gradient: the exact global-mean
+    gradient of the full batch."""
+    kw = dict(step_fn=step_fn, forward_fn=forward_fn, vjp=vjp)
+
+    def step(state: TrainState, data):
+        S = data.b.shape[0]
+        if S % accum_steps:
+            raise ValueError(f"accum_steps={accum_steps} must divide the batch rows ({S})")
+        loss, grads = _mean_of([
+            _value_and_grad(state.params, (A, b, x_star, e_star, B, layer_weights), kw)
+            for b, x_star, e_star in zip(*(torch.chunk(v, accum_steps) for v in data))
+        ])
+        return _apply(optimizer, state, grads), loss
+
+    return step
+
+
+# -- evaluation -----------------------------------------------------------
+
+
+@torch.no_grad()
+def evaluate(
+    params: DLADMMParams,
+    A: Tensor,
+    data,
+    B: Optional[Tensor] = None,
+    ladmm_iters: Optional[int] = None,
+    step_fn=None,
+    prox_x=None,
+    prox_z=None,
+    use_kernel: bool = True,
+):
+    """NMSE(dB) and residual at the final layer, and the NMSE-vs-layer
+    curves of the net and of classical LADMM with the same prox pair.
+
+    The l1/l1, B = I net runs through the trajectory kernel without its
+    Ax stack (ops/cuda_traj.trajectory_forward; its plain version on the
+    CPU) unless use_kernel=False; other configs run the plain loop. The
+    JAX package's eval uses its scan: the two compute the same function.
+    Returns plain Python floats and lists."""
+    K = params.W1.shape[0]
+    if use_kernel and B is None and step_fn is None:
+        from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward
+
+        tx, tz, _ = trajectory_forward(data.b, A, *params)
+    else:
+        _, (tx, tz, _) = dladmm_forward(params, A, data.b, B=B, capture_trajectory=True, step_fn=step_fn)
+    x, z = tx[-1], tz[-1]
+    _, (lx, _, _) = ladmm_run(
+        A, data.b, B=B, iters=ladmm_iters or K, capture_trajectory=True, prox_x=prox_x, prox_z=prox_z
+    )
+    return {
+        "nmse_db": float(nmse_db(x, data.x_star)),
+        "nmse_db_z": float(nmse_db(z, data.e_star)),
+        "residual": float(constraint_residual(A, data.b, x, z, B)),
+        "nmse_curve_db": per_layer_nmse_db(tx, data.x_star).tolist(),
+        "ladmm_curve_db": per_layer_nmse_db(lx, data.x_star).tolist(),
+    }
+
+
+def _layer_weights(layer_loss, K: int, dtype=torch.float32, device=None):
+    """Deep-supervision weights: "uniform" = 1/K each; "linear" = gamma_k
+    proportional to k; None = final-layer loss only."""
+    if layer_loss is None:
+        return None
+    if layer_loss == "uniform":
+        return torch.full((K,), 1.0 / K, dtype=dtype, device=device)
+    if layer_loss == "linear":
+        w = torch.arange(1, K + 1, dtype=dtype, device=device)
+        return w / torch.sum(w)
+    raise ValueError(f"layer_loss must be None|'uniform'|'linear', got {layer_loss!r}")
+
+
+def fit(
+    config,
+    A: Optional[Tensor] = None,
+    log_fn=None,
+    step_fn=None,
+    forward_fn=None,
+    ckpt_dir: Optional[str] = None,
+    resume: bool = False,
+    init_params: Optional[DLADMMParams] = None,
+    device=None,
+):
+    """Train a D-LADMM net per config; returns (params, history).
+
+    Evaluates every ``eval_every`` steps and at the end on the eval
+    batch of ``seed_keys(config)[1]`` (the serving CLI's --demo batch).
+    With ckpt_dir, checkpoints params, optimizer state, step and the
+    dictionary at every eval; resume=True continues from the latest
+    step_N there. Runs on ``device`` (utils/platform.resolve_device:
+    cuda unless asked otherwise)."""
+    from dladmm_tpu_torch.data.synthetic import problem_matrices, seed_keys
+    from dladmm_tpu_torch.models.unroll import init_dladmm_params
+    from dladmm_tpu_torch.utils.platform import resolve_device
+
+    p, t = config.problem, config.train
+    device = resolve_device(device)
+    if t.compute_dtype == "bfloat16":
+        raise NotImplementedError(f"compute_dtype='bfloat16' {_LATER}")
+    if getattr(t, "optimizer", "adam") == "fused_adam":
+        raise NotImplementedError(f"optimizer='fused_adam' (train/fused_adam.py) {_LATER}")
+    _, g_eval, _ = seed_keys(config)
+    dtype = getattr(torch, t.dtype)
+    if A is not None:
+        A = torch.as_tensor(A).to(device, dtype)
+    A, B = problem_matrices(config, A, device=device)
+    if init_params is not None:
+        params = DLADMMParams(*(torch.as_tensor(v).to(device, dtype) for v in init_params))
+    else:
+        params = init_dladmm_params(A, B, K=p.K, beta=p.beta, dtype=dtype)
+    layer_weights = _layer_weights(t.layer_loss, p.K, dtype, device)
+
+    prox = resolve_prox(p)
+    nonneg_x = getattr(p, "nonneg_x", False)
+    prox_x_fn = prox_z_fn = None
+    if prox is not None:
+        if step_fn is not None or forward_fn is not None:
+            raise ValueError(
+                "general-prox configs own the layer step (ops/reference."
+                "make_cached_step); pass step_fn=forward_fn=None"
+            )
+        if getattr(t, "vjp", "auto") != "auto":
+            raise ValueError("general-prox configs route through autograd automatically; leave vjp='auto'")
+        from dladmm_tpu_torch.ops.reference import make_cached_step
+
+        prox_x_fn, prox_z_fn = prox
+        step_fn = make_cached_step(prox_x_fn, prox_z_fn)
+
+    optimizer = _build_optimizer(t)
+    train_step = make_train_step(
+        optimizer, A, t.batch, p.sparsity_x, p.sparsity_e, B, layer_weights, step_fn,
+        forward_fn, freeze=tuple(t.freeze), vjp=getattr(t, "vjp", "auto"),
+        accum_steps=getattr(t, "accum_steps", 1), nonneg_x=nonneg_x, seed=t.seed,
+    )
+    state = make_train_state(params, optimizer)
+    eval_data = make_batch(g_eval, A, t.eval_batch, p.sparsity_x, p.sparsity_e, dtype, B, nonneg_x)
+
+    def run_eval(st):
+        return evaluate(
+            st.params, A, eval_data, B, step_fn=step_fn, prox_x=prox_x_fn, prox_z=prox_z_fn,
+            use_kernel=t.kernel != "reference",
+        )
+
+    if ckpt_dir:
+        from dladmm_tpu_torch.utils.checkpoint import latest_step_dir, restore_checkpoint, save_checkpoint
+
+        if resume:
+            latest = latest_step_dir(ckpt_dir)
+            if latest is not None:
+                state = restore_checkpoint(latest, state)[0]
+
+    history = []
+
+    def record(step, loss, ev):
+        rec = {"step": step, "loss": loss, "nmse_db": ev["nmse_db"], "residual": ev["residual"]}
+        history.append({**rec, "curves": ev})
+        if log_fn:
+            log_fn(rec)
+
+    for i in range(state.step, t.steps):
+        state, loss = train_step(state, i)
+        if (i + 1) % t.eval_every == 0 or i + 1 == t.steps:
+            record(i + 1, float(loss), run_eval(state))
+            if ckpt_dir:
+                save_checkpoint(ckpt_dir, state, step=i + 1, A=A, B=B)
+    if not history:
+        # Resumed at (or past) the final step: report the restored model.
+        record(state.step, float("nan"), run_eval(state))
+    return state.params, history
+
+
+def fit_greedy(*args, **kwargs):
+    raise NotImplementedError(f"fit_greedy (greedy layer-wise training) {_LATER}")
+
+
+def fit_sharded(*args, **kwargs):
+    raise NotImplementedError(f"fit_sharded (DP/TP training on torch.distributed) {_LATER}")
+
+
+__all__ = [
+    "TrainState",
+    "apply_updates",
+    "chain",
+    "clip_by_global_norm",
+    "delayed_clip_by_global_norm",
+    "evaluate",
+    "fit",
+    "loss_fn",
+    "make_train_state",
+    "make_train_step",
+    "make_train_step_from_batch",
+    "scale_by_adam",
+    "scale_by_learning_rate",
+    "warmup_cosine_decay_schedule",
+    "weighted_trajectory_mse",
+]

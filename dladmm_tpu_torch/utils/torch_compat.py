@@ -11,7 +11,8 @@ theta2_k, beta_k). A user switching from the reference arrives with
 the stacked ``[K, ...]`` parameters the unroll consumes
 (models/unroll.py), and exports back for anyone round-tripping.
 ``params_from_numpy`` carries parameters that arrive as numpy arrays
-(for example the JAX package's) into the port.
+(for example the JAX package's) into the port, ``opt_state_from_numpy``
+the JAX package's int8 fused-optimizer state.
 
 Because the reference mount was empty during the survey (SURVEY.md §0),
 the exact parameter names are unknown; the importer therefore accepts the
@@ -296,6 +297,36 @@ def params_from_numpy(
     )
 
 
+def opt_state_from_numpy(state, device=None):
+    """The JAX package's fused-optimizer state (``QMomentsState`` of
+    ``QAdamFusedPallas(moment_fmt="int8")``, any object with ``count``,
+    ``mu`` and ``nu`` whose moment leaves have ``codes`` and ``scale``)
+    -> the port's train/qadam_cuda state on ``device``.
+
+    Flat-256 leaves keep their (nblocks, 256) codes and (nblocks,)
+    scales. Per-row leaves arrive with the TPU's lane-packed
+    (ceil(R/128), 128) scales and leave with (R,) scales: the packing's
+    padding rows are dropped. Everything goes through ``np.asarray``, so
+    the arrays may be the JAX package's."""
+    from dladmm_tpu_torch.train.qmoments import QMomentsState, QTensor
+
+    def leaf(q):
+        codes = np.array(q.codes)
+        scale = np.array(q.scale, dtype=np.float32)
+        if scale.ndim == 2:  # lane-packed per-row scales
+            scale = scale.reshape(-1)[: codes.shape[0]]
+        return QTensor(
+            torch.as_tensor(codes, dtype=torch.int8, device=device),
+            torch.as_tensor(scale, device=device),
+        )
+
+    return QMomentsState(
+        count=torch.as_tensor(np.array(state.count), dtype=torch.int32, device=device),
+        mu=DLADMMParams(*(leaf(q) for q in state.mu)),
+        nu=DLADMMParams(*(leaf(q) for q in state.nu)),
+    )
+
+
 def to_torch_state_dict(params: DLADMMParams) -> Dict[str, torch.Tensor]:
     """Export stacked params as a ParameterList-style torch state dict.
 
@@ -316,4 +347,10 @@ def save_torch(params: DLADMMParams, path) -> None:
     torch.save(to_torch_state_dict(params), path)
 
 
-__all__ = ["from_torch", "params_from_numpy", "to_torch_state_dict", "save_torch"]
+__all__ = [
+    "from_torch",
+    "opt_state_from_numpy",
+    "params_from_numpy",
+    "save_torch",
+    "to_torch_state_dict",
+]

@@ -1,4 +1,6 @@
-"""The CUDA whole-unroll kernel on the card, against its plain version.
+"""The port's CUDA kernels on the card, against their plain versions:
+the whole-unroll kernel, the trajectory kernel, the int8 Adam sweep, the
+training gradients through them, and fit on the card.
 
 Every test here needs a CUDA card: each is marked ``gpu`` and skips at
 run time without one. The file imports no JAX, so it also runs where
@@ -130,3 +132,108 @@ def test_servers_route_through_the_kernel(cuda_device):
             torch.as_tensor(r, device=cuda_device), server.A, *server.params
         )
         _assert_close((torch.as_tensor(xb), torch.as_tensor(zb)), (xw.cpu(), zw.cpu()))
+
+
+# -- the training slice's kernels ------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_tax", [True, False])
+@pytest.mark.parametrize("m,n,K,S", SHAPES)
+def test_trajectory_kernel_matches_plain(cuda_device, m, n, K, S, with_tax):
+    """Every layer's state in the stacks, ragged tiles and S = 1; one
+    launch per call."""
+    from dladmm_tpu_torch.ops import cuda_traj
+
+    A, b, p = _problem(m, n, K, S, seed=m + S + 1, device=cuda_device)
+    before = cuda_traj.trajectory_forward.launches
+    got = cuda_traj.trajectory_forward(b, A, *p, with_tax=with_tax)
+    want = cuda_traj.trajectory_forward_plain(b, A, *p, with_tax=with_tax)
+    torch.cuda.synchronize()
+    assert cuda_traj.trajectory_forward.launches == before + 1
+    assert len(got) == (4 if with_tax else 3)
+    _assert_close(got, want)
+    # the last layer is the inference kernel's answer
+    _assert_close([t[-1] for t in got[:3]], cuda_unroll.unroll_forward(b, A, *p))
+
+
+def _int8_state(R, L, seed, device):
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    rng = np.random.default_rng(seed)
+    t = lambda *s, scale=1.0: torch.as_tensor((scale * rng.normal(size=s)).astype(np.float32), device=device)  # noqa: E731
+    mu = tqa.quantize_rows(t(R, L, scale=1e-2))
+    nu = tqa.quantize_rows(t(R, L, scale=1e-3).abs())
+    return t(R, L), mu, nu, [t(R, L, scale=1e-2) for _ in range(3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,L", [(512, 128), (7500, 250), (3750, 250), (40000, 1000)])
+def test_int8_sweep_matches_plain(cuda_device, R, L):
+    """Three chained steps in place from a non-zero state: masters within
+    rtol 1e-6, codes within one step, scales within rtol 1e-6. The
+    leaves: the CPU tests' smallest, synthetic_small's W1 and W2, and
+    synthetic_large's W1 (R = 20 * 2000)."""
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    master, mu, nu, grads = _int8_state(R, L, seed=R, device=cuda_device)
+    ref = (master.clone(), tqa.QTensor(mu.codes.clone(), mu.scale.clone()),
+           tqa.QTensor(nu.codes.clone(), nu.scale.clone()))
+    before = tqa.adam_int8_rows.launches
+    for i, g in enumerate(grads):
+        cf = float(i + 2)
+        scal = torch.tensor([1 - 0.9**cf, 1 - 0.999**cf, 1e-3, 0.7], device=cuda_device)
+        tqa.adam_int8_rows(g, master, mu, nu, scal)
+        tqa.adam_int8_rows_plain(g, *ref, scal)
+    torch.cuda.synchronize()
+    assert tqa.adam_int8_rows.launches == before + 3
+    torch.testing.assert_close(master, ref[0], rtol=1e-6, atol=1e-9)
+    for got, want in ((mu, ref[1]), (nu, ref[2])):
+        assert int((got.codes.int() - want.codes.int()).abs().max()) <= 1
+        torch.testing.assert_close(got.scale, want.scale, rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_training_gradients_on_the_card(cuda_device):
+    """One deep-supervision loss at synthetic_small S = 64: the kernel
+    path (trajectory kernel + manual backward) against autograd through
+    the plain loop, rtol 2e-5 of each leaf's largest gradient."""
+    from dladmm_tpu_torch.models.unroll import dladmm_forward
+    from dladmm_tpu_torch.ops import cuda_traj
+    from dladmm_tpu_torch.train.loop import weighted_trajectory_mse
+
+    A, b, p = _problem(250, 500, 15, 64, seed=5, device=cuda_device)
+    w = torch.full((15,), 1 / 15, device=cuda_device)
+    x_star, z_star = torch.zeros(64, 500, device=cuda_device), torch.zeros(64, 250, device=cuda_device)
+    grads = []
+    for kernel in (True, False):
+        leaves = [t.detach().clone().requires_grad_() for t in p]
+        q = DLADMMParams(*leaves)
+        if kernel:
+            tx, tz, _ = cuda_traj.make_unrolled_trajectory()(q, A, b)
+        else:
+            _, (tx, tz, _) = dladmm_forward(q, A, b, capture_trajectory=True)
+        grads.append(torch.autograd.grad(weighted_trajectory_mse(tx, tz, x_star, z_star, w), leaves))
+    for g, want in zip(*grads):
+        torch.testing.assert_close(g, want, rtol=2e-5, atol=2e-5 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_fit_on_the_card_uses_both_kernels(cuda_device):
+    import dataclasses
+
+    from dladmm_tpu_torch.ops import cuda_traj
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+    from dladmm_tpu_torch.train.loop import fit
+    from dladmm_tpu_torch.models.api import select_forward
+    from dladmm_tpu_torch.utils.config import get_config
+
+    cfg = get_config("synthetic_small")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, steps=20, eval_every=10))
+    fwd, _, desc = select_forward(250, 500, 250, 64, need_trajectory=True, device=cuda_device)
+    assert desc == "cuda-trajectory-kernel"
+    t0, a0 = cuda_traj.trajectory_forward.launches, tqa.adam_int8_rows.launches
+    _, hist = fit(cfg, forward_fn=fwd, device=cuda_device)
+    assert cuda_traj.trajectory_forward.launches - t0 == 20 + 2  # steps + evals
+    assert tqa.adam_int8_rows.launches - a0 == 2 * 20  # W1 and W2 per step
+    assert all(np.isfinite(h["nmse_db"]) for h in hist)

@@ -172,14 +172,17 @@ def test_general_routes_match_plain_loop():
 
 
 def test_unported_options_raise():
+    """bf16 serving still raises; the trajectory forward and the
+    kernel="pallas" name (the same route as auto) are ported now, and an
+    unknown kernel name is refused."""
     A, leaves = _problem()
     p = params_from_numpy(*leaves)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tserve.InferenceServer(p, torch.as_tensor(A), buckets=(4,), dtype="bfloat16", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        select_forward(16, 32, 16, 8, need_trajectory=True)
+    assert select_forward(16, 32, 16, 8, need_trajectory=True)[2] == "cuda-trajectory-kernel"
+    assert select_forward(16, 32, 16, 8, kernel="pallas")[2] == "cuda-whole-unroll-kernel"
     with pytest.raises(ValueError, match="kernel="):
-        select_forward(16, 32, 16, 8, kernel="pallas")
+        select_forward(16, 32, 16, 8, kernel="cuda")
 
 
 def _cli(argv, capsys):

@@ -120,13 +120,23 @@ def test_layers_slice_runs_k_layers():
 
 
 def test_forward_is_inference_only():
+    """The whole-unroll kernel serves inference only: under no_grad the
+    forward is unroll_forward; a forward that needs a gradient goes to
+    the trajectory kernel and the manual backward (ops/cuda_traj.py,
+    gradients held against JAX's by tests/test_torch_traj.py), with the
+    same outputs. The prox-templated forward stays inference-only."""
     A, b, _, _, leaves = _setup(16, 32, 2, 4)
     p = params_from_numpy(*leaves)
-    p = type(p)(p.W1.requires_grad_(), *p[1:])
-    with pytest.raises(NotImplementedError, match="inference-only"):
-        cuda_unroll.make_unrolled_forward()(p, torch.as_tensor(A), torch.as_tensor(b))
+    At, bt = torch.as_tensor(A), torch.as_tensor(b)
     with torch.no_grad():
-        cuda_unroll.make_unrolled_forward()(p, torch.as_tensor(A), torch.as_tensor(b))
+        want = cuda_unroll.make_unrolled_forward()(p, At, bt)
+    p = type(p)(p.W1.requires_grad_(), *p[1:])
+    got = cuda_unroll.make_unrolled_forward()(p, At, bt)
+    assert all(g.grad_fn is not None for g in got)
+    for g, w in zip(got, want):
+        _close(g.detach(), w)
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        cuda_unroll.make_unrolled_inference_prox(tprox.prox_nonneg_l1, tprox.prox_l1)(p, At, bt)
 
 
 def test_prox_kernel_availability_reasons():
