@@ -49,6 +49,33 @@ the first fault. Each phase prints one JSON line:
  12. profile_train: torch.profiler over training steps at synthetic_small:
      device time per kernel, per phase (forward, backward loop,
      optimizer) and the busy share;
+ 13. kernel_bwd: the backward kernel against its plain version on the
+     trajectory kernel's stacks, with and without data grads, at
+     synthetic_small S = 64 (whole batch; also (K, 1) thresholds with
+     ties at theta = 0 and beta = 1e-6), S = 1024 with the policy's bs
+     and with bs = 128, and synthetic_large S = 1024; fails above
+     2e-5 * max|leaf of the plain version|;
+ 14. kernel_dense: the dense Adam sweep against its plain version on the
+     W1 and W2 leaves of both presets in all four formats, 3 chained
+     steps in place: masters within rtol 1e-6, round-to-nearest moments
+     equal, SR moments a bf16 neighbour of the fp32 moment; SR unbiased
+     over 64 seeds;
+ 15. slice_train_final: ``run.main(["--config=synthetic_small",
+     "--layer-loss=none", "--moment-dtype=float32_pallas", "--steps=1000",
+     "--ckpt-dir", tmp])`` with the trajectory, backward and dense
+     counts set to 0 just before and read just after (each > 0), route
+     cuda-whole-unroll-kernel, NMSE below LADMM's; its checkpoint served
+     at its last eval's NMSE within 0.01 dB; then 20 steps at
+     ``--batch=1024``, whose chunked-route count must be > 0. (1000
+     steps, not 300: after 300 steps of its cosine schedule the
+     final-layer loss is still above LADMM in both packages, e.g. the
+     JAX package's -9.96 dB against LADMM's -10.79 dB on the CPU);
+ 16. timing_train_final: median CUDA-event ms of a final-layer step by
+     phase, in turns: the kernel path, the path before the backward
+     kernel (trajectory kernel + plain reverse sweep) and the plain
+     path; each new kernel beside its bound and its plain version, the
+     fp32 sweep also beside torch.optim.Adam(fused=True);
+ 17. profile_train_final: device time per phase and kernel, busy share;
 
 then the kernels line and, last, the ok line. Exits non-zero, with no
 ok line, on any failure, when CUDA is not available, or when run
@@ -100,6 +127,12 @@ def bound(S: int, m: int, n: int, K: int):
     d = m
     flops = 2 * S * m * (2 * n + d) * K
     nbytes = 4 * (K * (n * m + d * m + n + d + 1) + m * n + S * m + S * (n + d + m))
+    return _bound(flops, nbytes)
+
+
+def _bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of flops over the fp32 peak and
+    bytes over the memory rate, and which of the two it is."""
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -202,8 +235,7 @@ def traj_bound(S: int, m: int, n: int, K: int, with_tax: bool):
     flops = 2 * S * m * (2 * n + m) * K
     out = K * S * (n + 2 * m + (m if with_tax else 0))
     nbytes = 4 * (K * (n * m + m * m + n + m + 1) + m * n + S * m + out)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    return _bound(flops, nbytes)
 
 
 # fp32 operations per element of the int8 sweep: two decodes (4 each),
@@ -220,8 +252,7 @@ def int8_bound(leaves):
     elems = sum(R * L for R, L in leaves)
     rows = sum(R for R, _ in leaves)
     nbytes = 16 * elems + 16 * rows + 16
-    t_ops, t_bytes = INT8_OPS_PER_ELEM * elems / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    return _bound(INT8_OPS_PER_ELEM * elems, nbytes)
 
 
 # The int8 sweep's leaves, (R, L) views: W1 (K, n, m) and W2 (K, m, m).
@@ -541,19 +572,7 @@ def profile_train(torch, device, steps: int = 5):
         stop.record()
         torch.cuda.synchronize()
     window_us = start.elapsed_time(stop) * 1e3
-    kernels = {}
-    for e in prof.key_averages():
-        dev_us = getattr(e, "device_time_total", None)
-        if dev_us is None:
-            dev_us = e.cuda_time_total
-        if e.device_type.name != "CUDA" or dev_us <= 0 or e.key.startswith("cuda"):
-            continue  # host ops and runtime calls; kernels are device events
-        name = e.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0].strip()
-        k = kernels.setdefault(name, {"us": 0.0, "calls": 0.0})
-        k["us"] += dev_us / steps
-        k["calls"] += e.count / steps
-    if not kernels:
-        raise AssertionError("the profiler recorded no device time")
+    kernels = device_kernels(prof, steps)
     busy_us = sum(v["us"] for v in kernels.values()) * steps
     groups = {"trajectory kernel (unroll_phase)": 0.0, "int8 sweep (qadam_int8_rows)": 0.0,
               "other (backward loop, loss, small leaves, data)": 0.0}
@@ -572,6 +591,490 @@ def profile_train(torch, device, steps: int = 5):
          window_ms_per_step=window_us / steps / 1e3, device_busy_share=busy_us / window_us,
          device_us_per_step_by_group=groups, device_us_per_step_by_phase=by_phase,
          top_kernels=top, distinct_kernels=len(kernels))
+
+
+# -- the final-layer training slice (phases 13-17) ---------------------------
+
+
+def bwd_bound(S: int, m: int, n: int, K: int, data_grads: bool = False):
+    """(bound_ms, bound_by) of one reverse sweep: 2*S*K*(2m^2 + 3nm)
+    flops (per layer gv, gAx1 A, gu, gW1, gW2), and b, A, the params,
+    the trajectory stacks and the cotangents read once, the parameter
+    gradients (and the gAx1 stack and gb) written once."""
+    flops = 2 * S * K * (2 * m * m + 3 * n * m)
+    params = K * (n * m + m * m + n + m + 1)
+    ins = S * m + m * n + params + K * S * (n + 3 * m) + S * (n + 2 * m)
+    outs = params + ((K + 1) * S * m if data_grads else 0)
+    return _bound(flops, 4 * (ins + outs))
+
+
+# fp32 operations per element of the dense sweep: clip scale 1, two EMAs
+# (3 + 4), the update 4 (two divisions, a square root, an addition), the
+# master 2.
+DENSE_OPS_PER_ELEM = 14
+
+
+def dense_bound(elems: int, fmt: str):
+    """(bound_ms, bound_by) of one dense sweep over ``elems`` elements:
+    g read, master read and written (12 B), mu and nu each read and
+    written in their stored width."""
+    mu_b, nu_b = {"float32": (4, 4), "bfloat16": (2, 2), "bfloat16_sr": (2, 2), "bfloat16_sr_mu": (2, 4)}[fmt]
+    return _bound(DENSE_OPS_PER_ELEM * elems, elems * (12 + 2 * mu_b + 2 * nu_b))
+
+
+def bwd_case(torch, m: int, n: int, K: int, S: int, seed: int, device, scalar_theta=False, ties=False):
+    """Problem, the trajectory kernel's stacks (with tAx) and random
+    final-state cotangents. scalar_theta: (K, 1) thresholds. ties:
+    theta1 of layer 1 zero on every other coordinate, beta of layer 0 at
+    its floor 1e-6 (layer 0 reads lam = 0, so the tie leaves the scales
+    as they are)."""
+    from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward
+
+    A, b, p = problem(torch, m=m, n=n, K=K, S=S, seed=seed, device=device)
+    if scalar_theta:
+        p = p._replace(theta1=p.theta1.mean(dim=1, keepdim=True), theta2=p.theta2.mean(dim=1, keepdim=True))
+    if ties:
+        p.theta1[1, ::2] = 0.0
+        p.beta[0] = 1e-6
+    with torch.no_grad():
+        traj = trajectory_forward(b, A, *p, with_tax=True)
+    g = torch.Generator(device=device).manual_seed(seed)
+    cts = (torch.randn((S, n), generator=g, device=device), torch.randn((S, m), generator=g, device=device),
+           0.1 * torch.randn((S, m), generator=g, device=device))
+    return A, b, p, traj, cts
+
+
+BWD_TOL = 2e-5  # kernel vs plain: max|diff| <= BWD_TOL * max|plain leaf| (tests/test_pallas_bwd.py)
+
+
+def check_bwd(torch, device):
+    """Phase 13: the backward kernel against its plain version on the
+    trajectory kernel's stacks, with and without data grads. Returns the
+    largest absolute difference of each route."""
+    from dladmm_tpu_torch.models.unroll import DLADMMParams
+    from dladmm_tpu_torch.ops.cuda_bwd import bwd_chunk_batch, unroll_bwd, unroll_bwd_plain
+
+    policy = bwd_chunk_batch(SMALL["m"], SMALL["n"], SMALL["m"], 1024)
+    cases = [
+        ("synthetic_small", SMALL, 64, None, {}),
+        ("synthetic_small", SMALL, 64, None, {"scalar_theta": True, "ties": True}),
+        ("synthetic_small", SMALL, 1024, policy, {}),
+        ("synthetic_small", SMALL, 1024, 128, {"ties": True}),
+        ("synthetic_large", LARGE, 1024, bwd_chunk_batch(LARGE["m"], LARGE["n"], LARGE["m"], 1024), {}),
+    ]
+    errs = {"whole": 0.0, "chunked": 0.0}
+    names = (*DLADMMParams._fields, "gA", "gb")
+    for label, shape, S, bs, kw in cases:
+        A, b, p, traj, cts = bwd_case(torch, S=S, seed=S + 5, device=device, **shape, **kw)
+        route = "chunked" if bs is not None and bs < S else "whole"
+        for data_grads in (True, False):
+            with torch.no_grad():
+                got = unroll_bwd(b, A, *p, *traj, *cts, bs=bs, data_grads=data_grads)
+                want = unroll_bwd_plain(b, A, *p, *traj, *cts, data_grads=data_grads)
+            torch.cuda.synchronize()
+            detail = {}
+            for name, g, w in zip(names, (*got[0], *got[1:]), (*want[0], *want[1:])):
+                if w is None or g is None:
+                    if (w is None) != (g is None):
+                        raise AssertionError(f"bwd {label} S={S}: {name} returned by one side only")
+                    continue
+                if tuple(g.shape) != tuple(w.shape) or not torch.isfinite(g).all():
+                    raise AssertionError(f"bwd {label} S={S}: {name} {tuple(g.shape)} or not finite")
+                err, scale = float((g - w).abs().max()), float(w.abs().max())
+                if not err <= BWD_TOL * scale:
+                    raise AssertionError(f"bwd {label} S={S} bs={bs}: {name} max|diff| {err} > {BWD_TOL} * {scale}")
+                detail[name] = {"max_abs_err": err, "scale": scale}
+                errs[route] = max(errs[route], err)
+            emit("kernel_bwd", case=f"{label} S={S} bs={bs} {kw or ''}".strip(), route=route,
+                 data_grads=data_grads, grads=detail)
+        del A, b, p, traj, cts, got, want
+    return errs
+
+
+DENSE_LEAVES = {
+    "synthetic_small": [(15, 500, 250), (15, 250, 250)],  # W1 (K, n, m), W2 (K, m, m)
+    "synthetic_large": [(20, 2000, 1000), (20, 1000, 1000)],
+}
+
+
+def dense_state(torch, tqa, shape, fmt: str, seed: int, device):
+    """A master, non-zero moments in the format's dtypes and 3 gradients."""
+    mu_dt, nu_dt, _, _ = tqa.DENSE_FMTS[fmt]
+    g = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda scale: scale * torch.randn(shape, generator=g, device=device)  # noqa: E731
+    return rand(0.05), rand(1e-2).to(mu_dt), (rand(3e-2) ** 2).to(nu_dt), [rand(1e-2) for _ in range(3)]
+
+
+def bf16_neighbours(torch, x):
+    """The two bf16 values around fp32 x: truncated toward zero, and one
+    bf16 step away from zero."""
+    bits = x.view(torch.int32)
+    return (bits & ~0xFFFF).view(torch.float32), ((bits & ~0xFFFF) + 0x10000).view(torch.float32)
+
+
+def dense_scal(torch, i: int, device):
+    cf = float(i + 2)
+    return torch.tensor([1 - 0.9**cf, 1 - 0.999**cf, 1e-3, 0.8], device=device)
+
+
+def check_dense(torch, tqa, device) -> float:
+    """Phase 14: the dense sweep against its plain version on the W1 and
+    W2 leaves of both presets, every format, 3 chained steps in place
+    from a non-zero state, each step held against the plain fp32 step
+    from the kernel's state before it: masters within rtol 1e-6;
+    round-to-nearest moments equal to the plain version's; SR moments a
+    bf16 neighbour of the plain fp32 moment. Then SR's bias over 64
+    seeds on synthetic_small W2. Returns the largest master difference."""
+    max_err = 0.0
+    for fmt, (_, _, sr_mu, sr_nu) in tqa.DENSE_FMTS.items():
+        for config, leaves in DENSE_LEAVES.items():
+            for name, shape in zip(("W1", "W2"), leaves):
+                master, mu, nu, grads = dense_state(torch, tqa, shape, fmt, seed=sum(shape), device=device)
+                detail = {"master_max_abs_err": 0.0}
+                for i, grad in enumerate(grads):
+                    scal = dense_scal(torch, i, device)
+                    ref = [master.clone(), mu.to(torch.float32, copy=True), nu.to(torch.float32, copy=True)]
+                    tqa.adam_dense_rows_plain(grad, *ref, scal, "float32")
+                    tqa.adam_dense_rows(grad, master, mu, nu, scal, fmt,
+                                        torch.tensor(7 + i, dtype=torch.int32, device=device))
+                    torch.cuda.synchronize()
+                    err = float((master - ref[0]).abs().max())
+                    if not (master - ref[0]).abs().le(1e-6 * ref[0].abs() + 1e-9).all():
+                        raise AssertionError(f"dense {fmt} {config} {name} step {i}: master max|diff| {err}")
+                    detail["master_max_abs_err"] = max(detail["master_max_abs_err"], err)
+                    for mname, got, want, sr in (("mu", mu, ref[1], sr_mu), ("nu", nu, ref[2], sr_nu)):
+                        if got.dtype == torch.float32:
+                            ok = torch.equal(got, want)
+                        elif sr:
+                            lo, hi = bf16_neighbours(torch, want)
+                            ok = bool(((got.float() == lo) | (got.float() == hi)).all())
+                        else:
+                            ok = torch.equal(got, want.to(torch.bfloat16))
+                        if not ok:
+                            raise AssertionError(f"dense {fmt} {config} {name} step {i}: {mname} differs")
+                max_err = max(max_err, detail["master_max_abs_err"])
+                emit("kernel_dense", case=f"{fmt} {config} {name} {shape}", steps=3, **detail)
+                del master, mu, nu, grads
+    # SR is unbiased: the mean over 64 seeds of one step from one state.
+    shape, seeds = DENSE_LEAVES["synthetic_small"][1], 64
+    for fmt in ("bfloat16_sr", "bfloat16_sr_mu"):
+        _, _, sr_mu, sr_nu = tqa.DENSE_FMTS[fmt]
+        master, mu, nu, grads = dense_state(torch, tqa, shape, fmt, seed=5, device=device)
+        scal = dense_scal(torch, 0, device)
+        ref = [master.clone(), mu.to(torch.float32, copy=True), nu.to(torch.float32, copy=True)]
+        tqa.adam_dense_rows_plain(grads[0], *ref, scal, "float32")
+        totals = [torch.zeros(shape, dtype=torch.float64, device=device) for _ in range(2)]
+        for s in range(seeds):
+            st = [master.clone(), mu.clone(), nu.clone()]
+            tqa.adam_dense_rows(grads[0], *st, scal, fmt, torch.tensor(s, dtype=torch.int32, device=device))
+            totals[0] += st[1].double()
+            totals[1] += st[2].double()
+        stats = {}
+        for mname, total, want, sr in (("mu", totals[0], ref[1], sr_mu), ("nu", totals[1], ref[2], sr_nu)):
+            if not sr:
+                continue
+            lo, hi = bf16_neighbours(torch, want)
+            step = (hi - lo).double().abs()
+            frac = torch.where(step > 0, (want.double().abs() - lo.double().abs()) / step, torch.zeros_like(step))
+            err = total / seeds - want.double()
+            # per value: within 6 standard errors of the widest draw (step / 2)
+            if not (err.abs() <= 6 * step / 2 / seeds ** 0.5 + 1e-30).all():
+                raise AssertionError(f"dense {fmt} {mname}: a value's SR mean is off by > 6 sigma")
+            # the sum over all values, with each value's own variance: z within 4
+            z = float(err.sum() / (step.pow(2) * frac * (1 - frac) / seeds).sum().sqrt())
+            if not abs(z) <= 4.0:
+                raise AssertionError(f"dense {fmt} {mname}: SR biased, z = {z}")
+            stats[mname] = {"z": z, "mean_abs_err": float(err.abs().mean())}
+        emit("kernel_dense_sr", case=f"{fmt} synthetic_small W2 {shape}", seeds=seeds, unbiased=stats)
+    return max_err
+
+
+def train_final_slice(torch, device, unroll_forward):
+    """Phase 15: the final-layer training CLI on the card, its checkpoint
+    served, then a short batch-1024 run on the chunked route. Returns
+    the counts of the 1000-step run, of its serving, and of the
+    batch-1024 run."""
+    from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj
+    from dladmm_tpu_torch.run import main as run_main
+    from dladmm_tpu_torch.serve import main as serve_main
+    from dladmm_tpu_torch.train import qadam_cuda
+
+    argv = ["--config=synthetic_small", "--layer-loss=none", "--moment-dtype=float32_pallas"]
+
+    def counts():
+        return {"trajectory_forward": cuda_traj.trajectory_forward.launches,
+                "unroll_bwd": cuda_bwd.unroll_bwd.launches["whole"],
+                "unroll_bwd_chunked": cuda_bwd.unroll_bwd.launches["chunked"],
+                "adam_dense_rows": qadam_cuda.adam_dense_rows.launches}
+
+    def run(extra):
+        out = io.StringIO()
+        cuda_traj.trajectory_forward.launches = 0
+        cuda_bwd.reset_launches()
+        qadam_cuda.adam_dense_rows.launches = 0
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            rc = run_main(argv + extra)
+        wall, launches = time.monotonic() - t0, counts()
+        if rc != 0:
+            raise AssertionError(f"run.main {extra} returned {rc}")
+        lines = out.getvalue().splitlines()
+        summary = json.loads([ln for ln in lines if ln.startswith("{")][-1])
+        if summary["route"] != "cuda-whole-unroll-kernel":
+            raise AssertionError(f"final-layer training took route {summary['route']!r}")
+        if not (math.isfinite(summary["final_nmse_db"]) and math.isfinite(summary["final_residual"])):
+            raise AssertionError(f"training diverged: {summary}")
+        return summary, launches, wall, lines
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log = Path(tmp) / "log.jsonl"
+        summary, launches, wall, lines = run(["--steps=1000", "--ckpt-dir", tmp, "--log-jsonl", str(log)])
+        record = json.loads(log.read_text().splitlines()[-1])
+        if min(launches["trajectory_forward"], launches["unroll_bwd"], launches["adam_dense_rows"]) < 1:
+            raise AssertionError(f"final-layer training did not go through all three kernels: {launches}")
+        if not math.isfinite(record["loss"]):
+            raise AssertionError(f"training loss is not finite: {record}")
+        if not summary["final_nmse_db"] < summary["ladmm_nmse_db_at_K"]:
+            raise AssertionError(f"trained NMSE {summary['final_nmse_db']} does not beat LADMM {summary['ladmm_nmse_db_at_K']}")
+        emit("slice_train_final", summary=summary, last_record=record, launches=launches, wall_s=wall,
+             table=[ln for ln in lines if ln[:5].strip().isdigit()])
+        out = io.StringIO()
+        unroll_forward.launches = 0
+        with contextlib.redirect_stdout(out):
+            rc = serve_main(["--config=synthetic_small", "--ckpt-dir", tmp, "--demo", "256"])
+        serve_launches = unroll_forward.launches
+    served = json.loads(out.getvalue().strip().splitlines()[-1])
+    if rc != 0 or served["route"] != "cuda-whole-unroll-kernel" or serve_launches < 1:
+        raise AssertionError(f"serving the checkpoint: rc {rc}, route {served['route']!r}, {serve_launches} launches")
+    if not abs(served["nmse_db"] - summary["final_nmse_db"]) <= NMSE_TOL_DB:
+        raise AssertionError(f"served NMSE {served['nmse_db']} dB != trained {summary['final_nmse_db']} dB")
+    emit("slice_train_final_serve", serve=served, trained_nmse_db=summary["final_nmse_db"], launches=serve_launches)
+
+    big, big_launches, big_wall, _ = run(["--steps=20", "--batch=1024"])
+    if big_launches["unroll_bwd_chunked"] < 1 or big_launches["unroll_bwd"] != 0:
+        raise AssertionError(f"the batch-1024 run did not take the chunked route: {big_launches}")
+    emit("slice_train_final_1024", summary=big, launches=big_launches, wall_s=big_wall)
+    return launches, serve_launches, big_launches
+
+
+def final_setup(torch, device):
+    """synthetic_small's final-layer training pieces on the card, from the
+    LADMM init: the dictionary, the float32_pallas optimizer, a state."""
+    import dataclasses
+
+    from dladmm_tpu_torch.data.synthetic import problem_matrices
+    from dladmm_tpu_torch.models.unroll import init_dladmm_params
+    from dladmm_tpu_torch.train.loop import _build_optimizer, make_train_state
+    from dladmm_tpu_torch.utils.config import get_config
+
+    cfg = get_config("synthetic_small")
+    t = dataclasses.replace(cfg.train, layer_loss=None, moment_dtype="float32_pallas")
+    A, _ = problem_matrices(cfg, device=device)
+    opt = _build_optimizer(t)
+    return A, opt, make_train_state(init_dladmm_params(A, K=cfg.problem.K), opt)
+
+
+FINAL_MODES = ("kernel", "plain_bwd", "plain")
+
+
+def phased_step_final(torch, A, opt, state, i, mode="kernel", mark=None):
+    """One final-layer training step (batch 64 from step_generator(0, i),
+    MSE of the final x and z, float32_pallas), split into data, forward,
+    backward and optimizer as ``phased_step``. mode "kernel": the port's
+    path (make_unrolled_forward: trajectory kernel, backward kernel;
+    the dense sweep). "plain_bwd": the trajectory kernel, the plain reverse
+    sweep (bwd_from_carries) on its stacks, the same sweep: the path
+    before the backward kernel. "plain": autograd through the plain loop
+    and the optimizer's functional plain path (QAdamFused.update)."""
+    from dladmm_tpu_torch.data.synthetic import make_batch, step_generator
+    from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
+    from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward
+    from dladmm_tpu_torch.ops.cuda_unroll import make_unrolled_forward
+    from dladmm_tpu_torch.ops.unroll_vjp import bwd_from_carries, shifted_residuals
+    from dladmm_tpu_torch.train.loop import TrainState, apply_updates
+
+    mark = mark or (lambda k: None)
+    mark(0)
+    data = make_batch(step_generator(0, i), A, 64)
+    leaves = [p.detach().requires_grad_() for p in state.params]
+    q = DLADMMParams(*leaves)
+    mark(1)
+    if mode == "kernel":
+        x, z, _ = make_unrolled_forward()(q, A, data.b)
+    elif mode == "plain_bwd":
+        with torch.no_grad():
+            traj = trajectory_forward(data.b, A, *state.params, with_tax=True)
+        x, z, lam = (t[-1].clone().requires_grad_() for t in traj[:3])
+    else:
+        x, z, _ = dladmm_forward(q, A, data.b)
+    loss = torch.mean((x - data.x_star) ** 2) + torch.mean((z - data.e_star) ** 2)
+    mark(2)
+    if mode == "plain_bwd":
+        gx, gz = torch.autograd.grad(loss, (x, z))
+        gp = bwd_from_carries(state.params, A, data.b, shifted_residuals(*traj), (gx, gz, torch.zeros_like(lam)),
+                              data_grads=False)[0]
+        grads = DLADMMParams(*(g.reshape(p.shape) for g, p in zip(gp, state.params)))
+    else:
+        grads = DLADMMParams(*torch.autograd.grad(loss, leaves))
+    mark(3)
+    if mode == "plain":
+        with torch.no_grad():
+            updates, opt_state = opt.update(grads, state.opt_state)
+            params = apply_updates(state.params, updates)
+    else:
+        params, opt_state = opt.fused_apply(grads, state.opt_state, state.params)
+    mark(4)
+    return TrainState(params, opt_state, state.step + 1), loss
+
+
+def time_train_final(torch, device, card):
+    """Phase 16: one final-layer step by phase, the three modes in turns;
+    then the backward kernel (both routes) and the dense sweep beside
+    their bounds, their plain versions and, for the fp32 sweep, the
+    library's fused Adam on the same leaves."""
+    from dladmm_tpu_torch.ops.cuda_bwd import unroll_bwd, unroll_bwd_plain
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    A = final_setup(torch, device)[0]
+    opts, states = {}, {}
+    for mode in FINAL_MODES:
+        _, opts[mode], states[mode] = final_setup(torch, device)
+    phases = {k: [] for k in FINAL_MODES}
+    walls = {k: [] for k in FINAL_MODES}
+    for rep in range(24):
+        for mode in (FINAL_MODES if rep % 2 == 0 else FINAL_MODES[::-1]):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[mode], _ = phased_step_final(torch, A, opts[mode], states[mode], rep, mode,
+                                                mark=lambda k: ev[k].record())
+            ev[4].synchronize()
+            walls[mode].append((time.perf_counter() - t0) * 1e3)
+            if rep >= 4:  # warm-up
+                phases[mode].append([ev[j].elapsed_time(ev[j + 1]) for j in range(4)])
+    step = {}
+    for mode in FINAL_MODES:
+        arr = np.array(phases[mode])
+        step[mode] = {
+            "step_ms": float(np.median(arr.sum(axis=1))),
+            "host_wall_ms": float(np.median(walls[mode][4:])),
+            "data_ms": float(np.median(arr[:, 0])), "forward_ms": float(np.median(arr[:, 1])),
+            "backward_ms": float(np.median(arr[:, 2])), "optimizer_ms": float(np.median(arr[:, 3])),
+        }
+    emit("timing_train_final", config="synthetic_small batch 64 final-layer loss float32_pallas",
+         step=step, steps=20, card=card)
+
+    timings = {}
+    for name, S, bs in (("unroll_bwd", 64, None), ("unroll_bwd_chunked", 1024, 128),
+                        ("unroll_bwd@1024_whole", 1024, None)):
+        A_, b, p, traj, cts = bwd_case(torch, S=S, seed=S + 31, device=device, **SMALL)
+        with torch.no_grad():
+            for _ in range(2):  # warm-up
+                unroll_bwd(b, A_, *p, *traj, *cts, bs=bs)
+                unroll_bwd_plain(b, A_, *p, *traj, *cts)
+            ms, plain_ms = median_ms(torch, [lambda: unroll_bwd(b, A_, *p, *traj, *cts, bs=bs),
+                                             lambda: unroll_bwd_plain(b, A_, *p, *traj, *cts)], 21)
+        bms, by = bwd_bound(S, **SMALL)
+        timings[name] = (ms, plain_ms, bms, by, None)
+        emit("timing_train_final_kernel", kernel=name, config=f"synthetic_small S={S} bs={bs}",
+             kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, card=card)
+        del A_, b, p, traj, cts
+
+    leaves = DENSE_LEAVES["synthetic_small"]
+    elems = sum(int(np.prod(s)) for s in leaves)
+    scal = torch.tensor([0.5, 0.05, 1e-3, 0.9], device=device)
+    for fmt in ("float32", "bfloat16"):
+        kern = [dense_state(torch, tqa, s, fmt, seed=sum(s), device=device) for s in leaves]
+        plain = [(m_.clone(), mu.clone(), nu.clone(), g) for m_, mu, nu, g in kern]
+
+        def sweep(plain_version, kern=kern, plain=plain, fmt=fmt):
+            for master, mu, nu, grads in (plain if plain_version else kern):
+                fn = tqa.adam_dense_rows_plain if plain_version else tqa.adam_dense_rows
+                fn(grads[0], master, mu, nu, scal, fmt)
+
+        fns = [lambda: sweep(False), lambda: sweep(True)]
+        library = None
+        if fmt == "float32":
+            # The yardstick: one fused-Adam step of the library on the same two leaves.
+            ps = [torch.nn.Parameter(m_.clone()) for m_, _, _, _ in kern]
+            for prm, (_, _, _, g) in zip(ps, kern):
+                prm.grad = g[0].clone()
+            library = torch.optim.Adam(ps, lr=1e-3, fused=True)
+            library.step()
+            fns.append(library.step)
+        for fn in fns:
+            fn()
+        times = median_ms(torch, fns, 31)
+        bms, by = dense_bound(elems, fmt)
+        library_ms = times[2] if library is not None else None
+        timings[f"adam_dense_rows@{fmt}"] = (times[0], times[1], bms, by, library_ms)
+        emit("timing_train_final_kernel", kernel="adam_dense_rows", config=f"{fmt} synthetic_small W1+W2 (2 launches)",
+             kernel_ms=times[0], plain_ms=times[1], library_ms=library_ms, library="torch.optim.Adam(fused=True)",
+             bound_ms=bms, bound_by=by, card=card)
+        del kern, plain, fns, library
+    return step, timings
+
+
+def profile_train_final(torch, device, steps: int = 5):
+    """Phase 17: torch.profiler over final-layer kernel-path steps: device
+    time per kernel and per group, the busy share of the CUDA-event
+    window; then 3 steps with a sync after each phase for the device
+    time of each phase."""
+    from torch.profiler import ProfilerActivity, profile
+
+    A, opt, state = final_setup(torch, device)
+    for i in range(3):
+        state, _ = phased_step_final(torch, A, opt, state, i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(steps):
+            state, _ = phased_step_final(torch, A, opt, state, 3 + i)
+        stop.record()
+        torch.cuda.synchronize()
+    window_us = start.elapsed_time(stop) * 1e3
+    kernels = device_kernels(prof, steps)
+    busy_us = sum(v["us"] for v in kernels.values()) * steps
+    groups = {"trajectory kernel (unroll_phase)": 0.0,
+              "backward kernel (bwd_phase, reduce_splits, finish)": 0.0,
+              "dense sweep (qadam_dense)": 0.0, "other (loss, norm, scalars, data, copies)": 0.0}
+    for name, v in kernels.items():
+        key = ("trajectory kernel (unroll_phase)" if "unroll_phase" in name else
+               "backward kernel (bwd_phase, reduce_splits, finish)"
+               if any(k in name for k in ("bwd_phase", "reduce_splits", "finish")) else
+               "dense sweep (qadam_dense)" if "qadam_dense" in name else
+               "other (loss, norm, scalars, data, copies)")
+        groups[key] += v["us"]
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["us"])[:15])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            state, _ = phased_step_final(torch, A, opt, state, 3 + steps + i, mark=ProfiledPhases(torch))
+    by_phase = device_us_by_phase(torch, prof, 3)
+    emit("profile_train_final", config="synthetic_small batch 64 final-layer loss float32_pallas", steps=steps,
+         window_ms_per_step=window_us / steps / 1e3, device_busy_share=busy_us / window_us,
+         device_us_per_step_by_group=groups, device_us_per_step_by_phase=by_phase,
+         top_kernels=top, distinct_kernels=len(kernels))
+
+
+def device_kernels(prof, steps: int):
+    """Device time per step and launches per step of each kernel (memset
+    and copy) by name, from a profile over ``steps`` steps."""
+    kernels = {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", None)
+        if dev_us is None:
+            dev_us = e.cuda_time_total
+        if e.device_type.name != "CUDA" or dev_us <= 0 or e.key.startswith("cuda"):
+            continue  # host ops and runtime calls; kernels are device events
+        name = e.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0].strip()
+        k = kernels.setdefault(name, {"us": 0.0, "calls": 0.0})
+        k["us"] += dev_us / steps
+        k["calls"] += e.count / steps
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time")
+    return kernels
 
 
 def main() -> int:
@@ -757,6 +1260,16 @@ def main() -> int:
     _, train_timings = time_train(torch, dev, card)
     profile_train(torch, dev)
 
+    # 13-14. the final-layer slice's kernels against their plain versions.
+    bwd_errs = check_bwd(torch, dev)
+    dense_err = check_dense(torch, qadam_cuda, dev)
+    # 15. the final-layer training slice, counted from 0; its checkpoint
+    # served; the batch-1024 run on the chunked route.
+    final_launches, final_serve_launches, big_launches = train_final_slice(torch, dev, unroll_forward)
+    # 16-17. final-layer step time and kernel times; profile.
+    _, final_timings = time_train_final(torch, dev, card)
+    profile_train_final(torch, dev)
+
     ms, plain_ms, bms, by = timings[("synthetic_small", 256)]
     entries = [{
         "name": "unroll_forward",
@@ -785,6 +1298,24 @@ def main() -> int:
             "launches": train_launches[name],  # main path: run.main --steps=300
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": None, "shape": shape,
+        })
+    for name, source, replaces, err, timing, launches, shape in (
+        ("unroll_bwd", "dladmm_tpu_torch/ops/csrc/unroll_bwd.cu", "dladmm_tpu/ops/pallas_bwd.py:56",
+         bwd_errs["whole"], "unroll_bwd", final_launches["unroll_bwd"], "synthetic_small S=64"),
+        ("unroll_bwd_chunked", "dladmm_tpu_torch/ops/csrc/unroll_bwd.cu", "dladmm_tpu/ops/pallas_bwd.py:356",
+         bwd_errs["chunked"], "unroll_bwd_chunked", big_launches["unroll_bwd_chunked"],
+         "synthetic_small S=1024 bs=128"),
+        ("adam_dense_rows", "dladmm_tpu_torch/ops/csrc/qadam_dense.cu", "dladmm_tpu/train/qadam_pallas.py:178",
+         dense_err, "adam_dense_rows@float32", final_launches["adam_dense_rows"],
+         "float32 synthetic_small W1+W2, one step"),
+    ):
+        ms, plain_ms, bms, by, library_ms = final_timings[timing]
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            # main paths: run --layer-loss=none --moment-dtype=float32_pallas
+            # --steps=1000; for the chunked route the same at --batch=1024 --steps=20
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": library_ms, "shape": shape,
         })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

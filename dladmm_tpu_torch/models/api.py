@@ -4,7 +4,8 @@ The port of ``dladmm_tpu/models/api.py``:
 
   * ``auto`` / ``megakernel`` / ``pallas`` (the JAX package's names; the
     same route here): the whole-unroll kernel
-    (ops/cuda_unroll.make_unrolled_forward), or with
+    (ops/cuda_unroll.make_unrolled_forward; with a gradient, the
+    trajectory kernel and the backward kernel, ops/cuda_bwd.py), or with
     ``need_trajectory`` the trajectory kernel
     (ops/cuda_traj.make_unrolled_trajectory) whose backward is the
     manual reverse sweep. On CUDA tensors these are the hand-written

@@ -112,15 +112,15 @@ def load(src: Path) -> ctypes.CDLL:
         return lib
 
 
-def entry(src: Path, name: str, argtypes):
+def entry(src: Path, name: str, argtypes, restype=ctypes.c_int):
     """The C function ``name`` of ``src``'s library with its argument
-    types set and an int (cudaError_t) result; typed once, then cached,
-    so a launch pays no ctypes setup."""
+    types set and, by default, an int (cudaError_t) result; typed once,
+    then cached, so a launch pays no ctypes setup."""
     fn = _entries.get((src, name))
     if fn is None:
         fn = getattr(load(src), name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _entries[(src, name)] = fn
     return fn
 

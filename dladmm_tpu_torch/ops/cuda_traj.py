@@ -3,8 +3,8 @@ and the autograd Functions that train through it.
 
 The port of the trajectory half of ``dladmm_tpu/ops/pallas_unroll.py``
 (``_unroll_traj_kernel`` driven by ``_traj_pallas``, and
-``make_unrolled_trajectory``; plus the last fallback of
-``make_unrolled_forward``'s custom VJP). The kernel is the
+``make_unrolled_trajectory``; plus ``make_unrolled_forward``'s custom
+VJP, whose forward is this kernel). The kernel is the
 ``dladmm_unroll_trajectory`` entry of ``csrc/unroll.cu``: the serving
 kernel's 3K fused GEMM launches, each layer reading its input state from
 slice k-1 of the stacks and writing slice k.
@@ -16,10 +16,14 @@ dropped: the kernel runs at every shape. l1/l1 and B = I only, as the
 TPU kernel.
 
 Training: the forward writes the Ax stack too (``with_tax``), which with
-tx, tz, tlam is exactly the residual set of the manual backward
-(ops/unroll_vjp.bwd_from_carries), so the backward recomputes no
-forward. The backward is that plain reverse sweep; the TPU's backward
-kernels (pallas_bwd.py) are a later slice of the port.
+tx, tz, tlam is exactly the residual set of the backward, so the
+backward recomputes no forward. A final-state loss
+(``unrolled_forward_train``) takes the backward kernel
+(ops/cuda_bwd.unroll_bwd, the port of pallas_bwd.py), its batch split
+chosen by ``bwd_chunk_batch``. Per-layer cotangents (deep supervision,
+``make_unrolled_trajectory``) take the plain reverse sweep
+(ops/unroll_vjp.bwd_from_carries), as in the JAX package, which has no
+backward kernel for them either.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from torch import Tensor
 
 from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
 from dladmm_tpu_torch.ops import cuda_build
+from dladmm_tpu_torch.ops.cuda_bwd import bwd_chunk_batch, unroll_bwd
 from dladmm_tpu_torch.ops.cuda_unroll import SRC, kernel_args, needs_grad
 from dladmm_tpu_torch.ops.unroll_vjp import _param_grads, bwd_from_carries, shifted_residuals
 
@@ -91,7 +96,9 @@ trajectory_forward.launches = 0
 class _Trajectory(torch.autograd.Function):
     """(W1, W2, th1, th2, beta, A, b) -> (tx, tz, tlam); with
     ``final_only`` -> (x_K, z_K, lam_K). Forward: the trajectory kernel
-    with the Ax stack; backward: bwd_from_carries on that trajectory."""
+    with the Ax stack. Backward on that trajectory: the backward kernel
+    (cuda_bwd.unroll_bwd) for ``final_only``, else bwd_from_carries with
+    the per-layer cotangents."""
 
     @staticmethod
     def forward(ctx, final_only, W1, W2, th1, th2, beta, A, b):
@@ -106,16 +113,19 @@ class _Trajectory(torch.autograd.Function):
     def backward(ctx, gx, gz, glam):
         W1, W2, th1, th2, beta, A, b, tx, tz, tlam, tax = ctx.saved_tensors
         params = DLADMMParams(W1, W2, th1, th2, beta)
+        need_data = ctx.needs_input_grad[6:8]
         if ctx.final_only:
-            final, traj = (gx, gz, glam), None
+            S, m = b.shape
+            gparams, gA, gb = unroll_bwd(
+                b, A, *params, tx, tz, tlam, tax, gx, gz, glam,
+                bs=bwd_chunk_batch(m, W1.shape[1], W2.shape[1], S), data_grads=any(need_data),
+            )
         else:
             final = (torch.zeros_like(gx[-1]), torch.zeros_like(gz[-1]), torch.zeros_like(glam[-1]))
-            traj = (gx, gz, glam)
-        need_data = ctx.needs_input_grad[6:8]
-        gparams, gA, gb = bwd_from_carries(
-            params, A, b, shifted_residuals(tx, tz, tlam, tax), final, traj,
-            data_grads=any(need_data),
-        )
+            gparams, gA, gb = bwd_from_carries(
+                params, A, b, shifted_residuals(tx, tz, tlam, tax), final, (gx, gz, glam),
+                data_grads=any(need_data),
+            )
         return (None, *_param_grads(gparams, params),
                 gA if need_data[0] else None, gb if need_data[1] else None)
 
@@ -138,9 +148,10 @@ def make_unrolled_trajectory():
 
 def unrolled_forward_train(params: DLADMMParams, A: Tensor, b: Tensor):
     """Final state (x_K, z_K, lam_K) with a gradient: the trajectory
-    kernel forward plus the manual backward (the JAX package's last
-    fallback of ``make_unrolled_forward``'s VJP; its backward kernels
-    are a later slice)."""
+    kernel forward plus the backward kernel (``make_unrolled_forward``'s
+    VJP in the JAX package: pallas_unroll.py:613-652). The TPU's three
+    backward rungs (whole batch, batch tiles, reverse scan, by VMEM fit)
+    become one kernel with an occupancy-chosen batch split."""
     return _Trajectory.apply(True, *params, A, b)
 
 

@@ -204,9 +204,9 @@ def make_unrolled_forward():
     """forward(params, A, b) -> (x_K, z_K, lam_K) through the kernels,
     l1/l1 and B = I. Inference (no gradient asked for) is the
     whole-unroll kernel, whose state never leaves the kernel's buffers;
-    a forward that needs a gradient runs the trajectory kernel and the
-    manual backward (ops/cuda_traj.unrolled_forward_train), as the JAX
-    package's custom VJP does when its backward kernels do not apply."""
+    a forward that needs a gradient runs the trajectory kernel, and its
+    backward the backward kernel (ops/cuda_traj.unrolled_forward_train,
+    ops/cuda_bwd.unroll_bwd), as the JAX package's custom VJP does."""
 
     def forward(params: DLADMMParams, A: Tensor, b: Tensor):
         if needs_grad(params, A, b):

@@ -18,7 +18,10 @@ them to XLA too). It serves three callers:
   * ``dladmm_traj_manual_general``: general-B trajectory (deep
     supervision), per-layer cotangents folded in as the sweep passes;
   * the CUDA kernels' autograd Functions (ops/cuda_traj.py), which feed
-    it the trajectory the kernel wrote, so nothing is recomputed.
+    it the trajectory the kernel wrote, so nothing is recomputed, for
+    the per-layer (deep-supervision) cotangents; and, as
+    ops/cuda_bwd.unroll_bwd_plain, the plain version of the backward
+    kernel of the final-state loss.
 
 Tie rules follow ``jnp.maximum``: the gradient of max(a, c) is split
 0.5/0.5 at a == c (``_max_grad``), at theta = 0 and beta = _BETA_MIN.

@@ -5,8 +5,9 @@ configured D-LADMM net and prints the NMSE-vs-layer table against the
 classical LADMM baseline, then one summary JSON line. Runs on CUDA
 unless ``DLADMM_PLATFORM=cpu``. The JAX CLI's flags are all accepted;
 the ones whose path is not ported yet (greedy, sharded configs, ZeRO-1,
-fused_adam, the XLA-side moment formats, bf16 compute, plots, the HBM
-audit) end in an argparse error naming ROADMAP.md.
+fused_adam, the XLA-side moment formats int8, bfloat16 and bfloat16_sr
+without ``_pallas``, bf16 compute, plots, the HBM audit) end in an
+argparse error naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -41,8 +42,8 @@ def _parser() -> argparse.ArgumentParser:
                     "(ops/unroll_vjp.py) or, with xla, autograd through the plain loop")
     ap.add_argument("--optimizer", choices=["adam", "fused_adam"], default=None)
     ap.add_argument("--moment-dtype", choices=_MOMENT_DTYPES, default=None,
-                    help="Adam moment storage; the port runs float32 and int8_pallas "
-                    "(the fused int8 sweep, train/qadam_cuda.py)")
+                    help="Adam moment storage; the port runs float32 and the *_pallas "
+                    "formats (the fused int8 and dense sweeps, train/qadam_cuda.py)")
     ap.add_argument("--prox-x", choices=_PROXES, default=None)
     ap.add_argument("--prox-z", choices=_PROXES, default=None)
     ap.add_argument("--prox-rho", type=float, default=None)
@@ -81,8 +82,9 @@ def _reject_unported(ap, args, cfg) -> None:
         ap.error(f"--optimizer=fused_adam {_LATER}")
     if t.compute_dtype != "float32":
         ap.error(f"compute_dtype={t.compute_dtype!r} (bf16 training) {_LATER}")
-    if t.moment_dtype not in ("float32", "int8_pallas"):
-        ap.error(f"--moment-dtype={t.moment_dtype} {_LATER}; the port runs float32 and int8_pallas")
+    if t.moment_dtype != "float32" and not t.moment_dtype.endswith("_pallas"):
+        ap.error(f"--moment-dtype={t.moment_dtype} (the XLA-side reduced-precision moments) "
+                 f"{_LATER}; the port runs float32 and the *_pallas formats")
 
 
 def main(argv=None) -> int:

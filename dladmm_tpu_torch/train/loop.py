@@ -1,13 +1,15 @@
-"""Training loop: data -> loss -> manual backward -> fused optimizer.
+"""Training loop: data -> loss -> backward -> fused optimizer.
 
 The port of ``dladmm_tpu/train/loop.py`` for single-device training.
 One step draws its batch from a generator derived from (seed, step),
 runs the forward the policy selected (models/api.select_forward: the
-trajectory kernel for deep supervision on the card), backpropagates
+trajectory kernel on the card, for either loss), backpropagates
 through the autograd Functions of ops/cuda_traj.py and ops/unroll_vjp.py
-(the manual reverse sweep), and applies the optimizer: the fused int8
-sweep (train/qadam_cuda.QAdamFused) for ``moment_dtype="int8_pallas"``,
-or optax-equivalent fp32 Adam with global or delayed norm clipping.
+(the backward kernel for the final-layer loss, the manual reverse sweep
+for deep supervision), and applies the optimizer: the fused sweep
+(train/qadam_cuda.QAdamFused) for ``moment_dtype="*_pallas"`` (int8,
+float32, bfloat16, bfloat16_sr, bfloat16_sr_mu moments), or
+optax-equivalent fp32 Adam with global or delayed norm clipping.
 
 Nothing in a step waits for the host: the batch is copied through
 pinned memory without a sync, the optimizer's step count, learning rate,
@@ -263,7 +265,7 @@ def _lr_of(t):
 
 def _build_optimizer(t):
     """Adam with the TrainConfig's lr schedule and clipping: the fused
-    int8 sweep for moment_dtype="int8_pallas" (it owns its exact global
+    sweep for moment_dtype="<fmt>_pallas" (it owns its exact global
     clip), else fp32 Adam chained after clip_by_global_norm or the
     delayed clip."""
     md = getattr(t, "moment_dtype", "float32")
@@ -278,7 +280,7 @@ def _build_optimizer(t):
     if md != "float32":
         raise NotImplementedError(
             f"moment_dtype={md!r} (the XLA-side reduced-precision moments, "
-            f"train/qmoments.adam_qmoments) {_LATER}; use int8_pallas or float32"
+            f"train/qmoments.adam_qmoments) {_LATER}; use float32 or a *_pallas format"
         )
     optimizer = chain(scale_by_adam(), scale_by_learning_rate(_lr_of(t)))
     if clip:

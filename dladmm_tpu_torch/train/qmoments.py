@@ -14,10 +14,16 @@ shrink. The flat codec here:
     train/qadam_cuda.py multiplies by 1/127 instead, as its TPU kernel).
 
 The fused optimizer (train/qadam_cuda.QAdamFused) keeps this codec for
-the leaves its per-row kernel does not take (θ and β stacks). The
-XLA-side ``adam_qmoments`` optimizer (``moment_dtype`` int8, bfloat16,
-bfloat16_sr without ``_pallas``) and the stochastic-rounding helper are
-not ported yet (ROADMAP.md §1).
+the leaves its per-row kernel does not take (θ and β stacks).
+
+``sr_bfloat16`` is the JAX package's stochastic rounding to bf16 (add 16
+random bits below the bf16 boundary, then truncate). Its bits come from
+a counter-based hash of a device seed tensor and the element index,
+computed with tensor ops (uint32 arithmetic emulated on int64), so no
+step waits for the host; ``jax.random``'s threefry stream is not
+reproduced. The XLA-side ``adam_qmoments`` optimizer (``moment_dtype``
+int8, bfloat16, bfloat16_sr without ``_pallas``) is not ported yet
+(ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ class QMomentsState(NamedTuple):
     count: Tensor  # int32 scalar on the device: steps taken
     mu: Any  # QTensor per leaf (same structure as the params)
     nu: Any
-    key: Any = None  # stochastic-rounding formats only; not ported
+    key: Any = None  # the XLA-side SR optimizer's PRNG key; not ported
 
 
 def _compand(blocks: Tensor):
@@ -78,4 +84,50 @@ def dequantize_q8(q: QTensor, shape) -> Tensor:
     return y.reshape(-1)[:size].reshape(tuple(shape))
 
 
-__all__ = ["BLOCK", "QTensor", "QMomentsState", "quantize_q8", "dequantize_q8"]
+U32 = 0xFFFFFFFF
+GOLDEN = 0x9E3779B9
+
+
+def mul32(a: Tensor, c: int) -> Tensor:
+    """(a * c) mod 2**32 for an int64 tensor ``a`` of uint32 values and a
+    uint32 constant ``c``, in 16-bit halves so no product leaves int64."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & U32
+
+
+def fmix32(s: Tensor) -> Tensor:
+    """The xor-shift / multiply finalizer of the JAX package's
+    ``_mix_seed`` on uint32 values held in an int64 tensor: a bijection
+    of [0, 2**32)."""
+    s = s ^ (s >> 16)
+    s = mul32(s, 0x7FEB352D)
+    s = s ^ (s >> 15)
+    s = mul32(s, 0x846CA68B)
+    return s ^ (s >> 16)
+
+
+def random_bits16(seed: Tensor, numel: int, stream: int = 0) -> Tensor:
+    """(numel,) int64 tensor of 16 random bits each on ``seed``'s device:
+    fmix32 of the element index xor a key mixed from (seed, stream).
+    ``seed`` is an integer tensor of one element, read as uint32."""
+    key = fmix32((seed.reshape(()).to(torch.int64) + (stream + 1) * GOLDEN) & U32)
+    idx = torch.arange(numel, dtype=torch.int64, device=seed.device)
+    return fmix32(idx ^ key) & 0xFFFF
+
+
+def sr_bfloat16(x: Tensor, seed: Tensor, stream: int = 0) -> Tensor:
+    """fp32 -> bf16 with stochastic rounding, as the JAX package's
+    ``qmoments.sr_bfloat16``: add 16 random bits below the bf16 mantissa
+    boundary (uint32 wrap-around), then truncate. Unbiased in
+    expectation. The bits are ``random_bits16(seed, x.numel(), stream)``:
+    ``stream`` keeps two moments rounded under one seed independent."""
+    u = x.to(torch.float32).contiguous().view(torch.int32).to(torch.int64) & U32
+    v = (u + random_bits16(seed, x.numel(), stream).view(x.shape)) & 0xFFFF0000
+    v = torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+    return v.view(torch.float32).to(torch.bfloat16)  # exact: the low 16 bits are 0
+
+
+__all__ = [
+    "BLOCK", "GOLDEN", "QTensor", "QMomentsState", "U32", "dequantize_q8", "fmix32", "mul32", "quantize_q8",
+    "random_bits16", "sr_bfloat16",
+]

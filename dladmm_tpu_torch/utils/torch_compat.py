@@ -12,7 +12,7 @@ the stacked ``[K, ...]`` parameters the unroll consumes
 (models/unroll.py), and exports back for anyone round-tripping.
 ``params_from_numpy`` carries parameters that arrive as numpy arrays
 (for example the JAX package's) into the port, ``opt_state_from_numpy``
-the JAX package's int8 fused-optimizer state.
+the JAX package's fused-optimizer state (int8 or dense moments).
 
 Because the reference mount was empty during the survey (SURVEY.md §0),
 the exact parameter names are unknown; the importer therefore accepts the
@@ -297,20 +297,33 @@ def params_from_numpy(
     )
 
 
+def _dense_from_numpy(a, device=None) -> torch.Tensor:
+    """One dense moment leaf (fp32, or bf16 as numpy's ml_dtypes
+    bfloat16, which torch cannot read directly) -> a tensor of the same
+    dtype, bit for bit."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.view(np.int16), device=device).view(torch.bfloat16)
+    return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+
 def opt_state_from_numpy(state, device=None):
     """The JAX package's fused-optimizer state (``QMomentsState`` of
-    ``QAdamFusedPallas(moment_fmt="int8")``, any object with ``count``,
-    ``mu`` and ``nu`` whose moment leaves have ``codes`` and ``scale``)
+    ``QAdamFusedPallas``, any object with ``count``, ``mu`` and ``nu``)
     -> the port's train/qadam_cuda state on ``device``.
 
-    Flat-256 leaves keep their (nblocks, 256) codes and (nblocks,)
-    scales. Per-row leaves arrive with the TPU's lane-packed
-    (ceil(R/128), 128) scales and leave with (R,) scales: the packing's
-    padding rows are dropped. Everything goes through ``np.asarray``, so
+    Int8 moment leaves (with ``codes`` and ``scale``): flat-256 leaves
+    keep their (nblocks, 256) codes and (nblocks,) scales; per-row
+    leaves arrive with the TPU's lane-packed (ceil(R/128), 128) scales
+    and leave with (R,) scales, the packing's padding rows dropped.
+    Dense moment leaves (the float32, bfloat16 and SR formats) keep
+    their shape and dtype. Everything goes through ``np.asarray``, so
     the arrays may be the JAX package's."""
     from dladmm_tpu_torch.train.qmoments import QMomentsState, QTensor
 
     def leaf(q):
+        if not hasattr(q, "codes"):
+            return _dense_from_numpy(q, device)
         codes = np.array(q.codes)
         scale = np.array(q.scale, dtype=np.float32)
         if scale.ndim == 2:  # lane-packed per-row scales

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions:
 the whole-unroll kernel, the trajectory kernel, the int8 Adam sweep, the
-training gradients through them, and fit on the card.
+backward kernel (both routes), the dense Adam sweep, the training
+gradients through them, and fit on the card.
 
 Every test here needs a CUDA card: each is marked ``gpu`` and skips at
 run time without one. The file imports no JAX, so it also runs where
@@ -9,9 +10,10 @@ with
 
     python -m pytest --noconftest -p no:cacheprovider -q -m gpu tests/test_torch_cuda.py
 
-Tolerance: 1e-4 * max(1, max|ref|) (chip_smoke.py's), because the
-kernel's FMA loop and cuBLAS sum in different orders and the unroll
-carries the difference through K layers.
+Tolerance of the forwards: 1e-4 * max(1, max|ref|) (chip_smoke.py's),
+because the kernel's FMA loop and cuBLAS sum in different orders and
+the unroll carries the difference through K layers. The backward and
+the sweeps state theirs.
 """
 
 import threading
@@ -236,4 +238,229 @@ def test_fit_on_the_card_uses_both_kernels(cuda_device):
     _, hist = fit(cfg, forward_fn=fwd, device=cuda_device)
     assert cuda_traj.trajectory_forward.launches - t0 == 20 + 2  # steps + evals
     assert tqa.adam_int8_rows.launches - a0 == 2 * 20  # W1 and W2 per step
+    assert all(np.isfinite(h["nmse_db"]) for h in hist)
+
+
+# -- the final-layer training slice's kernels --------------------------------
+
+
+def _bwd_case(m, n, K, S, seed, device, ties=False):
+    """Problem, the trajectory kernel's stacks and random final-state
+    cotangents; with ties, theta1 of layer 1 partly 0 and beta of the
+    last layer at 1e-6 (its tie point)."""
+    from dladmm_tpu_torch.ops import cuda_traj
+
+    A, b, p = _problem(m, n, K, S, seed=seed, device=device)
+    if ties:
+        p.theta1[min(1, K - 1), ::2] = 0.0
+        p.beta[K - 1] = 1e-6
+    traj = cuda_traj.trajectory_forward(b, A, *p, with_tax=True)
+    g = torch.Generator(device=device).manual_seed(seed)
+    cts = [torch.randn((S, n), generator=g, device=device), torch.randn((S, m), generator=g, device=device),
+           0.1 * torch.randn((S, m), generator=g, device=device)]
+    return A, b, p, traj, cts
+
+
+def _assert_grads_close(got, want):
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5 * float(w.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data_grads", [True, False])
+@pytest.mark.parametrize("m,n,K,S,bs,ties", [
+    (16, 32, 4, 8, None, False), (33, 77, 5, 13, None, True), (33, 77, 5, 13, 4, True),
+    (250, 500, 15, 64, None, True), (250, 500, 15, 1024, 128, False),
+])
+def test_bwd_kernel_matches_plain(cuda_device, m, n, K, S, bs, ties, data_grads):
+    """The backward kernel against its plain version on the trajectory
+    kernel's stacks: ragged tiles and slices, ties at theta = 0 and
+    beta = 1e-6, the chunked route; rtol 2e-5 and 2e-5 of each leaf's
+    largest value (tests/test_pallas_bwd.py's). One launch per call,
+    counted under its route."""
+    from dladmm_tpu_torch.ops import cuda_bwd
+
+    A, b, p, traj, cts = _bwd_case(m, n, K, S, seed=m + S, device=cuda_device, ties=ties)
+    route = "chunked" if bs is not None and bs < S else "whole"
+    before = dict(cuda_bwd.unroll_bwd.launches)
+    got = cuda_bwd.unroll_bwd(b, A, *p, *traj, *cts, bs=bs, data_grads=data_grads)
+    want = cuda_bwd.unroll_bwd_plain(b, A, *p, *traj, *cts, data_grads=data_grads)
+    torch.cuda.synchronize()
+    assert cuda_bwd.unroll_bwd.launches[route] == before[route] + 1
+    _assert_grads_close(got[0], want[0])
+    _assert_grads_close(got[1:], want[1:])
+
+
+@pytest.mark.gpu
+def test_bwd_kernel_repeats_bit_for_bit(cuda_device):
+    """No float atomics: two calls give the same bits, on both routes."""
+    from dladmm_tpu_torch.ops import cuda_bwd
+
+    A, b, p, traj, cts = _bwd_case(250, 500, 3, 512, seed=8, device=cuda_device)
+    for bs in (None, 128):
+        one = cuda_bwd.unroll_bwd(b, A, *p, *traj, *cts, bs=bs, data_grads=True)
+        two = cuda_bwd.unroll_bwd(b, A, *p, *traj, *cts, bs=bs, data_grads=True)
+        for g, w in zip([*one[0], one[1], one[2]], [*two[0], two[1], two[2]]):
+            assert torch.equal(g, w)
+
+
+def _final_loss(x, z, lam):
+    return torch.mean(x * x) + torch.mean(z * torch.cos(z)) + 0.1 * torch.mean(lam)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,reference", [(64, "plain-loop"), (64, "same-forward"), (1024, "same-forward")])
+def test_final_layer_gradients_on_the_card(cuda_device, S, reference):
+    """make_unrolled_forward's gradient (trajectory kernel + backward
+    kernel, chunked at S = 1024 by the policy), A and b included, within
+    rtol 2e-5 of each leaf's scale of: autograd through the plain loop
+    ("plain-loop"), or the plain backward on the kernel's own trajectory
+    ("same-forward", the route before the backward kernel). At S = 1024
+    only the second: there the gradient moves by 0.5% of its largest
+    value between an fp32 and an fp64 plain forward (measured on the
+    CPU at these params), so two forwards that round differently cannot
+    agree to 2e-5."""
+    from dladmm_tpu_torch.models.unroll import dladmm_forward
+    from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj
+
+    A, b, p = _problem(250, 500, 15, S, seed=S, device=cuda_device)
+    route = "chunked" if cuda_bwd.bwd_chunk_batch(250, 500, 250, S) else "whole"
+    leaves = [t.detach().clone().requires_grad_() for t in (*p, A, b)]
+    before = dict(cuda_bwd.unroll_bwd.launches)
+    x, z, lam = cuda_unroll.make_unrolled_forward()(DLADMMParams(*leaves[:5]), leaves[5], leaves[6])
+    got = torch.autograd.grad(_final_loss(x, z, lam), leaves)
+    assert cuda_bwd.unroll_bwd.launches[route] == before[route] + 1
+    if reference == "plain-loop":
+        ref = [t.detach().clone().requires_grad_() for t in (*p, A, b)]
+        x, z, lam = dladmm_forward(DLADMMParams(*ref[:5]), ref[5], ref[6])
+        want = torch.autograd.grad(_final_loss(x, z, lam), ref)
+    else:
+        traj = cuda_traj.trajectory_forward(b, A, *p, with_tax=True)
+        final = [t[-1].clone().requires_grad_() for t in traj[:3]]
+        cts = torch.autograd.grad(_final_loss(*final), final)
+        gp, gA, gb = cuda_bwd.unroll_bwd_plain(b, A, *p, *traj, *cts, data_grads=True)
+        want = (*gp, gA, gb)
+    _assert_grads_close(got, want)
+
+
+def _dense_state(shape, fmt, seed, device):
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    mu_dt, nu_dt, _, _ = tqa.DENSE_FMTS[fmt]
+    g = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda scale: scale * torch.randn(shape, generator=g, device=device)  # noqa: E731
+    return (rand(0.05), rand(1e-2).to(mu_dt), (rand(3e-2) ** 2).to(nu_dt), [rand(1e-2) for _ in range(3)])
+
+
+def _bf16_neighbours(x):
+    bits = x.view(torch.int32)
+    return (bits & ~0xFFFF).view(torch.float32), ((bits & ~0xFFFF) + 0x10000).view(torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["float32", "bfloat16", "bfloat16_sr", "bfloat16_sr_mu"])
+@pytest.mark.parametrize("shape", [(2, 256, 128), (15, 500, 250), (15, 250), (15,)])
+def test_dense_sweep_matches_plain(cuda_device, fmt, shape):
+    """Three chained steps in place from a non-zero state. Masters within
+    rtol 1e-6. Round-to-nearest moments equal to the plain version's;
+    SR moments one of the two bf16 neighbours of the plain fp32 moment
+    of the same step (other bits than the plain version's, by design)."""
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    master, mu, nu, grads = _dense_state(shape, fmt, seed=sum(shape), device=cuda_device)
+    _, _, sr_mu, sr_nu = tqa.DENSE_FMTS[fmt]
+    before = tqa.adam_dense_rows.launches
+    for i, g in enumerate(grads):
+        cf = float(i + 2)
+        scal = torch.tensor([1 - 0.9**cf, 1 - 0.999**cf, 1e-3, 0.7], device=cuda_device)
+        seed = torch.tensor(1000 + i, dtype=torch.int32, device=cuda_device)
+        ref = [master.clone(), mu.to(torch.float32, copy=True), nu.to(torch.float32, copy=True)]
+        tqa.adam_dense_rows_plain(g, *ref, scal, "float32")
+        tqa.adam_dense_rows(g, master, mu, nu, scal, fmt, seed)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(master, ref[0], rtol=1e-6, atol=1e-9)
+        for got, want, sr in ((mu, ref[1], sr_mu), (nu, ref[2], sr_nu)):
+            if got.dtype == torch.float32:
+                assert torch.equal(got, want)
+            elif sr:
+                lo, hi = _bf16_neighbours(want)
+                assert ((got.float() == lo) | (got.float() == hi)).all()
+            else:
+                assert torch.equal(got, want.to(torch.bfloat16))
+        master = ref[0].clone()  # the next step starts from the same state on both sides
+    assert tqa.adam_dense_rows.launches == before + 3
+
+
+@pytest.mark.gpu
+def test_dense_sr_is_unbiased_on_the_card(cuda_device):
+    """Over 64 seeds the mean stored SR moment is the fp32 moment within
+    5 standard errors per value and 4 for the sum."""
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    shape = (64, 128)
+    master, mu, nu, grads = _dense_state(shape, "bfloat16_sr", seed=3, device=cuda_device)
+    scal = torch.tensor([0.19, 0.002, 1e-3, 1.0], device=cuda_device)
+    ref = [master.clone(), mu.to(torch.float32, copy=True), nu.to(torch.float32, copy=True)]
+    tqa.adam_dense_rows_plain(grads[0], *ref, scal, "float32")
+    for moment, want in ((1, ref[1]), (2, ref[2])):
+        total = torch.zeros(shape, dtype=torch.float64, device=cuda_device)
+        for s in range(64):
+            st = [master.clone(), mu.clone(), nu.clone()]
+            tqa.adam_dense_rows(grads[0], *st, scal, "bfloat16_sr", torch.tensor(s, dtype=torch.int32, device=cuda_device))
+            total += st[moment].double()
+        lo, hi = _bf16_neighbours(want)
+        sigma = (hi - lo).double().abs() / 2 / 8
+        err = total / 64 - want.double()
+        assert (err.abs() <= 5 * sigma + 1e-30).all()
+        assert abs(float(err.sum())) <= 4 * float(sigma.pow(2).sum().sqrt())
+
+
+@pytest.mark.gpu
+def test_no_fallback_without_a_build(cuda_device, tmp_path, monkeypatch):
+    """With no built library and no nvcc, a CUDA call to either new
+    kernel raises; nothing runs the plain version in its place."""
+    from dladmm_tpu_torch.ops import cuda_bwd, cuda_build
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    A, b, p, traj, cts = _bwd_case(16, 32, 2, 8, seed=1, device=cuda_device)
+    master, mu, nu, grads = _dense_state((4, 8), "float32", seed=1, device=cuda_device)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "nvcc", no_nvcc)
+    monkeypatch.setattr(cuda_build, "_libs", {})
+    monkeypatch.setattr(cuda_build, "_entries", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_bwd.unroll_bwd(b, A, *p, *traj, *cts)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tqa.adam_dense_rows(grads[0], master, mu, nu, torch.ones(4, device=cuda_device), "float32")
+
+
+@pytest.mark.gpu
+def test_fit_final_layer_on_the_card_uses_the_kernels(cuda_device):
+    import dataclasses
+
+    from dladmm_tpu_torch.models.api import select_forward
+    from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+    from dladmm_tpu_torch.train.loop import fit
+    from dladmm_tpu_torch.utils.config import get_config
+
+    cfg = get_config("synthetic_small")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, steps=20, eval_every=10, layer_loss=None, moment_dtype="float32_pallas"))
+    fwd, _, desc = select_forward(250, 500, 250, 64, device=cuda_device)
+    assert desc == "cuda-whole-unroll-kernel"
+    t0, d0 = cuda_traj.trajectory_forward.launches, tqa.adam_dense_rows.launches
+    b0 = dict(cuda_bwd.unroll_bwd.launches)
+    _, hist = fit(cfg, forward_fn=fwd, device=cuda_device)
+    assert cuda_traj.trajectory_forward.launches - t0 == 20 + 2  # steps + evals
+    assert cuda_bwd.unroll_bwd.launches["whole"] - b0["whole"] == 20
+    assert cuda_bwd.unroll_bwd.launches["chunked"] == b0["chunked"]
+    assert tqa.adam_dense_rows.launches - d0 == 5 * 20  # every leaf, every step
     assert all(np.isfinite(h["nmse_db"]) for h in hist)

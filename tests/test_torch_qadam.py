@@ -161,9 +161,11 @@ def test_fp32_adam_and_clips_match_optax(clip_mode):
 
 
 def test_unported_formats_raise():
-    for md in ("bfloat16_pallas", "float32_pallas", "bfloat16_sr_pallas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tloop._build_optimizer(dataclasses.replace(CFG, moment_dtype=md))
+    """The dense fused formats build the fused optimizer; the XLA-side
+    formats (no ``_pallas``) are not ported and raise."""
+    for md in ("bfloat16_pallas", "float32_pallas", "bfloat16_sr_pallas", "bfloat16_sr_mu_pallas"):
+        opt = tloop._build_optimizer(dataclasses.replace(CFG, moment_dtype=md))
+        assert isinstance(opt, tqa.QAdamFused) and opt.moment_fmt == md[: -len("_pallas")]
     for md in ("int8", "bfloat16", "bfloat16_sr"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tloop._build_optimizer(dataclasses.replace(CFG, moment_dtype=md))
