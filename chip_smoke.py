@@ -76,6 +76,35 @@ the first fault. Each phase prints one JSON line:
      path; each new kernel beside its bound and its plain version, the
      fp32 sweep also beside torch.optim.Adam(fused=True);
  17. profile_train_final: device time per phase and kernel, busy share;
+ 18. kernel_int8_unroll: the int8 whole-unroll kernel against its plain
+     version on the same quantized inputs (perturbed LADMM-exact params,
+     a zero row) at synthetic_small S = 1, 13, 64, 256 and synthetic_large
+     S = 1024 with K = 20: expected bit for bit, fails above
+     1e-5 * max(1, max|ref|), prints the count of elements that differ;
+ 19. slice_serve_int8: ``serve.main --dtype=int8 --demo 256`` with
+     --kernel=megakernel and auto, on the phase-10 checkpoint and on the
+     LADMM-exact .pt, the int8 kernel's count set to 0 before and read
+     after each (> 0), route cuda-int8-unroll-kernel, NMSE within 0.3 dB
+     of the fp32 serve of the same requests; then an int8 InferenceServer
+     (buckets up to 256) on 1, 7, 64 and 200 rows and 8 concurrent
+     BatchingServer submits, counted the same way. Its answers equal the
+     kernel route's plain version on the same rows within 1e-5 *
+     max(1, max|ref|) and are within 1% relative Frobenius difference of
+     the reference route (the scan's operation order, whose int8 codes
+     differ somewhere at this shape: ROADMAP.md §3);
+ 20. kernel_layer: ``dladmm_forward(step_fn=fused_layer_step)`` against the
+     plain loop and the whole-unroll kernel at synthetic_small S = 64, 256,
+     3000 and synthetic_large S = 1024, tolerance TOL; the bf16-operand
+     mode within 5% relative Frobenius error of the plain loop;
+ 21. train_layer: 20 final-layer steps at synthetic_small batch 64 through
+     ``make_train_step(step_fn=fused_layer_step)``, the layer step's count
+     from 0 (> 0), finite losses; one step's gradient within 2e-5 of each
+     leaf's largest value of autograd through the plain loop;
+ 22. timing_serve_int8 / timing_layer: CUDA-event median ms of the int8
+     kernel at S = 64, 256, 1024 and of the layer step (one call, and the
+     K-layer loop beside the plain loop and the whole-unroll kernel) at
+     S = 256, each beside its plain version and bound; profiler device
+     time of each;
 
 then the kernels line and, last, the ok line. Exits non-zero, with no
 ok line, on any failure, when CUDA is not available, or when run
@@ -192,40 +221,36 @@ def median_ms(torch, fns, reps: int):
     return [float(np.median(t)) for t in times]
 
 
-def profile_unroll(torch, unroll_forward, S: int, m: int, n: int, K: int, reps: int = 5):
-    """torch.profiler over ``reps`` solves: device time per solve of
+def profile_fn(torch, fn, config: str, reps: int = 5):
+    """torch.profiler over ``reps`` calls of fn: device time per call of
     each kernel (and memset) by name, and the device's busy share of the
-    CUDA-event window around them (the rest is launch gaps)."""
+    CUDA-event window around them."""
     from torch.profiler import ProfilerActivity, profile
 
-    A, b, p = problem(torch, m=m, n=n, K=K, S=S, seed=11, device=torch.device("cuda", 0))
     with torch.no_grad():
-        unroll_forward(b, A, *p)
+        fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(reps):
-                unroll_forward(b, A, *p)
+                fn()
             stop.record()
             torch.cuda.synchronize()
     window_us = start.elapsed_time(stop) * 1e3
-    per_solve = {}
-    for e in prof.key_averages():
-        dev_us = getattr(e, "device_time_total", None)
-        if dev_us is None:
-            dev_us = e.cuda_time_total
-        if dev_us > 0 and not e.key.startswith("cuda"):
-            name = e.key.replace("void ", "").replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].strip()
-            per_solve[name] = {"us": dev_us / reps, "calls": e.count / reps}
-    busy_us = sum(v["us"] for v in per_solve.values()) * reps
-    if not per_solve:
-        raise AssertionError("the profiler recorded no device time")
-    return {"config": f"m={m} n={n} K={K} S={S}", "solves": reps,
-            "window_ms_per_solve": window_us / reps / 1e3,
-            "device_busy_share": busy_us / window_us, "per_solve": per_solve}
+    kernels = device_kernels(prof, reps)
+    busy_us = sum(v["us"] for v in kernels.values()) * reps
+    return {"config": config, "calls": reps, "window_ms_per_call": window_us / reps / 1e3,
+            "device_us_per_call": busy_us / reps, "device_busy_share": busy_us / window_us,
+            "per_call": kernels}
+
+
+def profile_unroll(torch, unroll_forward, S: int, m: int, n: int, K: int, reps: int = 5):
+    """profile_fn over ``reps`` whole-unroll solves (the rest of the
+    window is launch gaps)."""
+    A, b, p = problem(torch, m=m, n=n, K=K, S=S, seed=11, device=torch.device("cuda", 0))
+    return profile_fn(torch, lambda: unroll_forward(b, A, *p), f"m={m} n={n} K={K} S={S}", reps)
 
 
 def traj_bound(S: int, m: int, n: int, K: int, with_tax: bool):
@@ -339,45 +364,45 @@ def check_grads(torch, device):
     emit("grads", case="synthetic_small S=64 deep supervision", grads=errs)
 
 
-def train_slice(torch, device, unroll_forward):
-    """Phase 10: the training CLI on the card, then serving its
-    checkpoint. Returns the launch counts of the training run."""
+def train_slice(torch, device, unroll_forward, tmp):
+    """Phase 10: the training CLI on the card, its checkpoint written to
+    ``tmp`` (phase 19 serves it again), then serving it. Returns the
+    launch counts of the training run and of the serving."""
     from dladmm_tpu_torch.ops import cuda_traj
     from dladmm_tpu_torch.run import main as run_main
     from dladmm_tpu_torch.serve import main as serve_main
     from dladmm_tpu_torch.train import qadam_cuda
 
-    with tempfile.TemporaryDirectory() as tmp:
-        log = Path(tmp) / "log.jsonl"
-        out = io.StringIO()
-        cuda_traj.trajectory_forward.launches = 0
-        qadam_cuda.adam_int8_rows.launches = 0
-        t0 = time.monotonic()
-        with contextlib.redirect_stdout(out):
-            rc = run_main(["--config=synthetic_small", "--steps=300", "--ckpt-dir", tmp,
-                           "--log-jsonl", str(log)])
-        wall = time.monotonic() - t0
-        launches = {"trajectory_forward": cuda_traj.trajectory_forward.launches,
-                    "adam_int8_rows": qadam_cuda.adam_int8_rows.launches}
-        if rc != 0:
-            raise AssertionError(f"run.main returned {rc}")
-        lines = out.getvalue().splitlines()
-        summary = json.loads([ln for ln in lines if ln.startswith("{")][-1])
-        record = json.loads(log.read_text().splitlines()[-1])
-        if summary["route"] != "cuda-trajectory-kernel" or min(launches.values()) < 1:
-            raise AssertionError(f"training did not go through both kernels: {summary['route']!r}, {launches}")
-        if not (math.isfinite(record["loss"]) and math.isfinite(summary["final_nmse_db"])):
-            raise AssertionError(f"training diverged: {record}")
-        if not summary["final_nmse_db"] < summary["ladmm_nmse_db_at_K"]:
-            raise AssertionError(f"trained NMSE {summary['final_nmse_db']} does not beat LADMM {summary['ladmm_nmse_db_at_K']}")
-        emit("slice_train", summary=summary, last_record=record, launches=launches, wall_s=wall,
-             table=[ln for ln in lines if ln[:5].strip().isdigit()])
+    log = Path(tmp) / "log.jsonl"
+    out = io.StringIO()
+    cuda_traj.trajectory_forward.launches = 0
+    qadam_cuda.adam_int8_rows.launches = 0
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc = run_main(["--config=synthetic_small", "--steps=300", "--ckpt-dir", tmp,
+                       "--log-jsonl", str(log)])
+    wall = time.monotonic() - t0
+    launches = {"trajectory_forward": cuda_traj.trajectory_forward.launches,
+                "adam_int8_rows": qadam_cuda.adam_int8_rows.launches}
+    if rc != 0:
+        raise AssertionError(f"run.main returned {rc}")
+    lines = out.getvalue().splitlines()
+    summary = json.loads([ln for ln in lines if ln.startswith("{")][-1])
+    record = json.loads(log.read_text().splitlines()[-1])
+    if summary["route"] != "cuda-trajectory-kernel" or min(launches.values()) < 1:
+        raise AssertionError(f"training did not go through both kernels: {summary['route']!r}, {launches}")
+    if not (math.isfinite(record["loss"]) and math.isfinite(summary["final_nmse_db"])):
+        raise AssertionError(f"training diverged: {record}")
+    if not summary["final_nmse_db"] < summary["ladmm_nmse_db_at_K"]:
+        raise AssertionError(f"trained NMSE {summary['final_nmse_db']} does not beat LADMM {summary['ladmm_nmse_db_at_K']}")
+    emit("slice_train", summary=summary, last_record=record, launches=launches, wall_s=wall,
+         table=[ln for ln in lines if ln[:5].strip().isdigit()])
 
-        out = io.StringIO()
-        unroll_forward.launches = 0
-        with contextlib.redirect_stdout(out):
-            rc = serve_main(["--config=synthetic_small", "--ckpt-dir", tmp, "--demo", "256"])
-        serve_launches = unroll_forward.launches
+    out = io.StringIO()
+    unroll_forward.launches = 0
+    with contextlib.redirect_stdout(out):
+        rc = serve_main(["--config=synthetic_small", "--ckpt-dir", tmp, "--demo", "256"])
+    serve_launches = unroll_forward.launches
     served = json.loads(out.getvalue().strip().splitlines()[-1])
     if rc != 0 or served["route"] != "cuda-whole-unroll-kernel" or serve_launches < 1:
         raise AssertionError(f"serving the checkpoint: rc {rc}, route {served['route']!r}, {serve_launches} launches")
@@ -1077,6 +1102,328 @@ def device_kernels(prof, steps: int):
     return kernels
 
 
+# -- int8 serving and the per-layer fused step (phases 18-22) ---------------
+
+INT8_TOL = 1e-5  # int8 kernel vs plain: expected bit for bit; fail above INT8_TOL * max(1, max|ref|)
+INT8_NMSE_DB = 0.3  # int8 against fp32 serving of the same requests (tests/test_serve.py:283-285)
+# Published H100 SXM dense int8 tensor-core peak (NVIDIA data sheet).
+PEAK_INT8_OPS = 1979e12
+
+
+def int8_serve_bound(S: int, m: int, n: int, K: int):
+    """(bound_ms, bound_by) of one int8 solve at batch S (d = m):
+    2*S*m*(2n+d)*K integer operations against the int8 tensor-core peak;
+    bytes: K layers of int8 W1 and W2 and their scales, thresholds and
+    beta, int8 A and its scales, b read once, x, z, lam written once."""
+    d = m
+    ops = 2 * S * m * (2 * n + d) * K
+    nbytes = K * (n * m + d * m) + m * n + 4 * (K * (2 * (n + d) + 1) + m + S * m + S * (n + d + m))
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def layer_bound(S: int, m: int, n: int):
+    """(bound_ms, bound_by) of one layer-step call (d = m): 2*S*m*(2n+m)
+    fp32 flops; x, z, lam, b, Ax, A, W1, W2, thresholds and beta read
+    once, x1, z1, lam1, Ax1 written once."""
+    flops = 2 * S * m * (2 * n + m)
+    nbytes = 4 * (S * (n + 4 * m) + m * n + n * m + m * m + n + m + 1 + S * (n + 3 * m))
+    return _bound(flops, nbytes)
+
+
+def int8_case(torch, shape, S: int, seed: int, device):
+    """b (with an all-zero row, as a padded bucket has) and the quantized
+    perturbed LADMM-exact net and dictionary on the card."""
+    from dladmm_tpu_torch.ops.quantized import quantize_params
+
+    A, b, p = problem(torch, S=S, seed=seed, device=device, **shape)
+    if S > 1:
+        b[S // 2] = 0.0
+    return b, *quantize_params(p, A)
+
+
+def check_int8_unroll(torch, device) -> float:
+    """Phase 18: the int8 kernel against its plain version on the same
+    quantized inputs; prints the count of elements that differ at all."""
+    from dladmm_tpu_torch.ops.cuda_int8 import int8_unroll_forward, int8_unroll_forward_plain
+
+    max_err = 0.0
+    cases = [("synthetic_small", SMALL, S) for S in (1, 13, 64, 256)] + [("synthetic_large", LARGE, 1024)]
+    for label, shape, S in cases:
+        b, qp, qd = int8_case(torch, shape, S, seed=S + 40, device=device)
+        with torch.no_grad():
+            got = int8_unroll_forward(b, qp, qd)
+            want = int8_unroll_forward_plain(b, qp, qd)
+        torch.cuda.synchronize()
+        errs, differ = {}, {}
+        for name, g, w in zip(("x", "z", "lam"), got, want):
+            if tuple(g.shape) != tuple(w.shape) or not torch.isfinite(g).all():
+                raise AssertionError(f"int8 {label} S={S}: {name} {tuple(g.shape)} or not finite")
+            errs[name] = float((g - w).abs().max())
+            differ[name] = int((g != w).sum())
+            scale = max(1.0, float(w.abs().max()))
+            if not errs[name] <= INT8_TOL * scale:
+                raise AssertionError(f"int8 {label} S={S}: {name} max|diff| {errs[name]} > {INT8_TOL} * {scale}")
+        emit("kernel_int8_unroll", case=f"{label} S={S}", max_abs_err=errs, elements_differing=differ,
+             elements=sum(g.numel() for g in got))
+        max_err = max(max_err, *errs.values())
+        del b, qp, qd, got, want
+    return max_err
+
+
+def serve_json(serve_main, argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve_main(argv)
+    if rc != 0:
+        raise AssertionError(f"serve.main {argv} returned {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def serve_int8_slice(torch, device, sources, params, A):
+    """Phase 19: serve --dtype=int8 --demo 256 with --kernel=megakernel
+    and auto on each checkpoint source, the int8 kernel's count from 0
+    around each, NMSE within 0.3 dB of the fp32 serve of the same
+    requests; then an int8 InferenceServer (buckets up to 256) on 1, 7,
+    64 and 200 rows and 8 concurrent BatchingServer submits. Returns the
+    counts by path."""
+    from dladmm_tpu_torch.ops.cuda_int8 import int8_unroll_forward, int8_unroll_forward_plain
+    from dladmm_tpu_torch.serve import BatchingServer, InferenceServer
+    from dladmm_tpu_torch.serve import main as serve_main
+
+    launches = {}
+    for label, src in sources.items():
+        base = ["--config=synthetic_small", *src, "--demo", "256"]
+        fp32 = serve_json(serve_main, base)
+        for kernel in ("megakernel", "auto"):
+            int8_unroll_forward.launches = 0
+            got = serve_json(serve_main, base + ["--dtype=int8", f"--kernel={kernel}"])
+            n = launches[f"serve_cli {label} {kernel}"] = int8_unroll_forward.launches
+            if got["route"] != "cuda-int8-unroll-kernel" or n < 1:
+                raise AssertionError(f"int8 serving of {label} ({kernel}) did not go through the kernel: "
+                                     f"route {got['route']!r}, {n} launches")
+            delta = got["nmse_db"] - fp32["nmse_db"]
+            if not abs(delta) <= INT8_NMSE_DB:
+                raise AssertionError(f"int8 NMSE {got['nmse_db']} dB is {delta} dB from fp32 {fp32['nmse_db']} dB")
+            emit("slice_serve_int8", source=label, kernel=kernel, serve=got, fp32_nmse_db=fp32["nmse_db"],
+                 delta_db=delta, launches=n)
+
+    # The servers' path, counted from 0: 9 bucket warm-ups, 4 solves and
+    # the batched dispatches.
+    int8_unroll_forward.launches = 0
+    server = InferenceServer(params, A, max_batch=256, dtype="int8", device=device)
+    rng = np.random.default_rng(1)
+    rows = (1, 7, 64, 200)
+    reqs = [torch.from_numpy(rng.normal(size=(r, A.shape[0])).astype(np.float32)).to(device) for r in rows]
+    with torch.no_grad():
+        solved = [server.solve(r) for r in reqs]
+    small = [rng.normal(size=(s, A.shape[0])).astype(np.float32) for s in (1, 3, 5, 8, 13, 21, 34, 55)]
+    front = BatchingServer(server, max_delay_ms=5.0)
+    try:
+        with ThreadPoolExecutor(len(small)) as clients:  # 8 concurrent submits
+            futs = list(clients.map(front.submit, small))
+        batched = [f.result(timeout=120) for f in futs]
+    finally:
+        front.close()
+    launches["servers"] = int8_unroll_forward.launches
+    if launches["servers"] < 1 or set(server.routes.values()) != {"cuda-int8-unroll-kernel"}:
+        raise AssertionError(f"the int8 servers' path: routes {server.routes}, {launches['servers']} launches")
+    # Checks, not counted: the kernel route's plain version on the same rows
+    # (bit for bit expected), and the reference route (the scan's order:
+    # its int8 codes differ somewhere, ROADMAP.md §3, so only reported
+    # and held to 1% relative Frobenius difference).
+    reference = InferenceServer(params, A, max_batch=256, dtype="int8", kernel="reference", device=device)
+    with torch.no_grad():
+        for r, (x, z) in zip(reqs, solved):
+            xw, zw, _ = int8_unroll_forward_plain(r, *server._operands)
+            xr, zr = reference.solve(r)
+            torch.cuda.synchronize()
+            detail = {}
+            for name, g_, w_, r_ in (("x", x, xw, xr), ("z", z, zw, zr)):
+                err = float((g_ - w_).abs().max())
+                if not err <= INT8_TOL * max(1.0, float(w_.abs().max())):
+                    raise AssertionError(f"int8 InferenceServer rows={len(r)} {name}: {err}")
+                rel = float((g_ - r_).norm() / max(float(r_.norm()), 1e-30))
+                if not rel <= 1e-2:
+                    raise AssertionError(f"int8 InferenceServer rows={len(r)} {name}: {rel} from the reference route")
+                detail[name] = {"max_abs_err": err, "elements_differing": int((g_ != w_).sum()),
+                                "reference_route_max_abs_diff": float((g_ - r_).abs().max()),
+                                "reference_route_rel_frobenius": rel}
+            emit("slice_server_int8", rows=len(r), bucket=server._bucket_for(len(r)),
+                 route=server.routes[server._bucket_for(len(r))], detail=detail)
+        for r, (xb, zb) in zip(small, batched):
+            xs, zs = server.solve(r)
+            if not (np.array_equal(xb, xs.cpu().numpy()) and np.array_equal(zb, zs.cpu().numpy())):
+                raise AssertionError(f"int8 BatchingServer rows={len(r)} != per-request solve")
+    emit("slice_servers_int8", requests=len(small), launches=launches["servers"])
+    return launches
+
+
+def check_layer(torch, device) -> float:
+    """Phase 20: dladmm_forward(step_fn=fused_layer_step) against the plain
+    loop and the whole-unroll kernel; the bf16-operand mode within 5%
+    relative Frobenius error of the plain loop. Returns the largest
+    difference from the plain loop."""
+    from dladmm_tpu_torch.models.unroll import dladmm_forward
+    from dladmm_tpu_torch.ops.cuda_layer import fused_layer_step, make_fused_step
+    from dladmm_tpu_torch.ops.cuda_unroll import unroll_forward
+
+    bf16_step = make_fused_step(matmul_dtype=torch.bfloat16)
+    max_err = 0.0
+    for label, shape, S in (("synthetic_small", SMALL, 64), ("synthetic_small", SMALL, 256),
+                            ("synthetic_small", SMALL, 3000), ("synthetic_large", LARGE, 1024)):
+        A, b, p = problem(torch, S=S, seed=S + 60, device=device, **shape)
+        with torch.no_grad():
+            got = dladmm_forward(p, A, b, step_fn=fused_layer_step)
+            plain = dladmm_forward(p, A, b)
+            whole = unroll_forward(b, A, *p)
+            bf = dladmm_forward(p, A, b, step_fn=bf16_step)
+        torch.cuda.synchronize()
+        case = f"{label} S={S}"
+        max_err = max(max_err, compare(torch, got, plain, f"{case} vs plain loop", phase="kernel_layer"))
+        compare(torch, got, whole, f"{case} vs whole-unroll kernel", phase="kernel_layer")
+        rel = {}
+        for name, g, w in zip(("x", "z", "lam"), bf, plain):
+            rel[name] = float((g - w).norm() / (w.norm() + 1e-9))
+            if not (torch.isfinite(g).all() and rel[name] < 0.05):
+                raise AssertionError(f"bf16 operands {case}: {name} relative error {rel[name]}")
+        emit("kernel_layer", case=f"{case} bf16 operands vs fp32 plain loop", rel_frobenius=rel)
+        del A, b, p, got, plain, whole, bf
+    return max_err
+
+
+def mask_flips(torch, params, A, b):
+    """Per layer, the elements whose shrink mask (zero or not, in x and z)
+    differs between the plain loop and the fused step's forward."""
+    from dladmm_tpu_torch.ops.cuda_layer import fused_layer_step
+    from dladmm_tpu_torch.ops.reference import dladmm_layer_step_cached
+
+    flips = []
+    with torch.no_grad():
+        S, m = b.shape
+        plain = [torch.zeros((S, A.shape[1]), device=b.device)] + [torch.zeros_like(b) for _ in range(3)]
+        fused = [t.clone() for t in plain]
+        for k in range(params.K):
+            plain = list(dladmm_layer_step_cached(A, None, b, *plain, plain[1], params.layer(k)))[:4]
+            fused = list(fused_layer_step(A, None, b, *fused, fused[1], params.layer(k)))[:4]
+            flips.append(sum(int(((p != 0) != (f != 0)).sum()) for p, f in zip(plain[:2], fused[:2])))
+    return flips
+
+
+def train_layer(torch, device):
+    """Phase 21: 20 final-layer steps at synthetic_small batch 64 through
+    make_train_step(step_fn=fused_layer_step), the layer step's count
+    from 0; then one step's gradient against autograd through the plain
+    loop within 2e-5 of each leaf's largest value, at phase 9's params
+    (perturbed LADMM-exact, S = 64). At the trained state the difference
+    is reported, not held: there a threshold can fall within rounding of
+    an element, so the two fp32 forwards can zero different elements (a
+    mask flip, counted here) and no fp32 gradient is within 2e-5 of the
+    fp64 one (1e-3 measured, PERF.md). Returns the count."""
+    from dladmm_tpu_torch.data.synthetic import make_batch, step_generator
+    from dladmm_tpu_torch.models.unroll import DLADMMParams
+    from dladmm_tpu_torch.ops import cuda_layer
+    from dladmm_tpu_torch.train.loop import loss_fn, make_train_step
+
+    A, opt, state = final_setup(torch, device)
+    step = make_train_step(opt, A, 64, step_fn=cuda_layer.fused_layer_step)
+    cuda_layer.layer_step.launches = 0
+    t0 = time.monotonic()
+    losses = []
+    for i in range(20):
+        state, loss = step(state, i)
+        losses.append(float(loss))
+    wall, launches = time.monotonic() - t0, cuda_layer.layer_step.launches
+    if not all(math.isfinite(v) for v in losses) or launches < 1:
+        raise AssertionError(f"fused-step training: losses {losses}, {launches} launches")
+
+    def grads(params, A_, data):
+        out = []
+        for kw in (dict(step_fn=cuda_layer.fused_layer_step), dict(vjp="xla")):
+            leaves = [t.detach().clone().requires_grad_() for t in params]
+            loss = loss_fn(DLADMMParams(*leaves), A_, data.b, data.x_star, data.e_star, **kw)
+            out.append(torch.autograd.grad(loss, leaves))
+        torch.cuda.synchronize()
+        return out
+
+    A9, _, p9 = problem(torch, S=64, seed=9, device=device, **SMALL)
+    data9 = make_batch(torch.Generator().manual_seed(9), A9, 64)
+    errs = {}
+    for name, g, want in zip(DLADMMParams._fields, *grads(p9, A9, data9)):
+        scale = float(want.abs().max())
+        err = float((g - want).abs().max())
+        if not (g - want).abs().le(2e-5 * want.abs() + 2e-5 * scale).all():
+            raise AssertionError(f"fused-step grad {name}: max|diff| {err}, scale {scale}")
+        errs[name] = {"max_abs_err": err, "scale": scale}
+    data = make_batch(step_generator(0, 20), A, 64)
+    trained = {name: float((g - w).abs().max()) / float(w.abs().max())
+               for name, g, w in zip(DLADMMParams._fields, *grads(state.params, A, data))}
+    emit("train_layer", config="synthetic_small batch 64 final-layer loss float32_pallas, step_fn=fused_layer_step",
+         steps=20, losses=losses, wall_s=wall, launches=launches, grads_phase9_params=errs,
+         trained_state_grad_diff_over_scale=trained, trained_state_mask_flips=mask_flips(torch, state.params, A, data.b),
+         phase9_params_mask_flips=mask_flips(torch, p9, A9, data9.b))
+    return launches
+
+
+def time_int8_and_layer(torch, device, card):
+    """Phase 22: the int8 kernel at synthetic_small S = 64, 256, 1024 and
+    the layer step (one call, and the K-layer forward through it) at
+    S = 256, each beside its plain version and its bound, in turns; then
+    a profiler pass of each at S = 256 for device time."""
+    from dladmm_tpu_torch.models.unroll import dladmm_forward
+    from dladmm_tpu_torch.ops.cuda_int8 import int8_unroll_forward, int8_unroll_forward_plain
+    from dladmm_tpu_torch.ops.cuda_layer import fused_layer_step, layer_step, layer_step_plain
+    from dladmm_tpu_torch.ops.cuda_unroll import unroll_forward
+
+    timings = {}
+    with torch.no_grad():
+        for S in (64, 256, 1024):
+            b, qp, qd = int8_case(torch, SMALL, S, seed=S + 80, device=device)
+            fns = [lambda: int8_unroll_forward(b, qp, qd), lambda: int8_unroll_forward_plain(b, qp, qd)]
+            for fn in fns:  # warm-up
+                fn()
+            ms, plain_ms = median_ms(torch, fns, 21)
+            bms, by = int8_serve_bound(S, **SMALL)
+            fp32_bms, fp32_by = bound(S, **SMALL)
+            timings[("int8", S)] = (ms, plain_ms, bms, by)
+            emit("timing_serve_int8", config="synthetic_small", S=S, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                 bound_by=by, fp32_bound_ms=fp32_bms, fp32_bound_by=fp32_by, card=card)
+        int8_profile = profile_fn(torch, lambda: int8_unroll_forward(b, qp, qd), "synthetic_small S=1024")
+        b, qp, qd = int8_case(torch, SMALL, 256, seed=336, device=device)
+        int8_profile_256 = profile_fn(torch, lambda: int8_unroll_forward(b, qp, qd), "synthetic_small S=256")
+
+        S = 256
+        A, b, p = problem(torch, S=S, seed=S + 90, device=device, **SMALL)
+        m, n = SMALL["m"], SMALL["n"]
+        g = torch.Generator(device=device).manual_seed(5)
+        state = [torch.randn(shape, generator=g, device=device) for shape in ((S, n), (S, m), (S, m), (S, m))]
+        one = (b, A, *state, p.W1[3], p.W2[3], p.theta1[3].contiguous(), p.theta2[3].contiguous(),
+               p.beta[3:4].contiguous())
+        fns = [lambda: layer_step(*one), lambda: layer_step_plain(*one)]
+        for fn in fns:
+            fn()
+        ms, plain_ms = median_ms(torch, fns, 31)
+        bms, by = layer_bound(S, m, n)
+        timings[("layer", S)] = (ms, plain_ms, bms, by)
+        emit("timing_layer", kernel="layer_step", config=f"synthetic_small S={S}, one call (one layer)",
+             kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, card=card)
+        loops = [lambda: dladmm_forward(p, A, b, step_fn=fused_layer_step), lambda: dladmm_forward(p, A, b),
+                 lambda: unroll_forward(b, A, *p)]
+        for fn in loops:
+            fn()
+        loop_ms, plain_loop_ms, whole_ms = median_ms(torch, loops, 21)
+        bms, by = bound(S, **SMALL)
+        emit("timing_layer", kernel="fused-step loop", config=f"synthetic_small S={S}, K=15 calls",
+             kernel_ms=loop_ms, plain_ms=plain_loop_ms, whole_unroll_kernel_ms=whole_ms, bound_ms=bms, bound_by=by,
+             card=card)
+        layer_profile = profile_fn(torch, lambda: dladmm_forward(p, A, b, step_fn=fused_layer_step),
+                                   "synthetic_small S=256 fused-step loop")
+    emit("profile_serve_int8", **int8_profile_256)
+    emit("profile_serve_int8", **int8_profile)
+    emit("profile_layer", **layer_profile)
+    return timings
+
+
 def main() -> int:
     import torch
 
@@ -1096,6 +1443,10 @@ def main() -> int:
     from dladmm_tpu_torch.utils.torch_compat import save_torch
 
     dev = torch.device("cuda", 0)
+    # Checkpoints that later phases serve again; removed at the end.
+    work = tempfile.TemporaryDirectory()
+    ckpt10 = Path(work.name) / "train"
+    ckpt10.mkdir()
     # 1. device. The plain version's products must be full fp32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1254,7 +1605,7 @@ def main() -> int:
     check_grads(torch, dev)
 
     # 10. the training slice, counted from 0; then its checkpoint served.
-    train_launches, ckpt_serve_launches = train_slice(torch, dev, unroll_forward)
+    train_launches, ckpt_serve_launches = train_slice(torch, dev, unroll_forward, str(ckpt10))
 
     # 11-12. training step time and kernel times; profile.
     _, train_timings = time_train(torch, dev, card)
@@ -1269,6 +1620,23 @@ def main() -> int:
     # 16-17. final-layer step time and kernel times; profile.
     _, final_timings = time_train_final(torch, dev, card)
     profile_train_final(torch, dev)
+
+    # 18. the int8 kernel against its plain version.
+    int8_unroll_err = check_int8_unroll(torch, dev)
+    # 19. int8 serving: the CLI on the phase-10 checkpoint and on the
+    # LADMM-exact params, then the servers, each counted from 0.
+    ladmm_pt = Path(work.name) / "ladmm_exact.pt"
+    save_torch(params, ladmm_pt)
+    int8_launches = serve_int8_slice(
+        torch, dev, {"phase-10 checkpoint": ["--ckpt-dir", str(ckpt10)],
+                     "LADMM-exact .pt": ["--import-torch", str(ladmm_pt)]}, params, A_cfg)
+    # 20-21. the layer step against the plain loop; training through it,
+    # counted from 0.
+    layer_err = check_layer(torch, dev)
+    layer_launches = train_layer(torch, dev)
+    # 22. their times and device time.
+    new_timings = time_int8_and_layer(torch, dev, card)
+    work.cleanup()
 
     ms, plain_ms, bms, by = timings[("synthetic_small", 256)]
     entries = [{
@@ -1317,6 +1685,23 @@ def main() -> int:
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms, "shape": shape,
         })
+    ms, plain_ms, bms, by = new_timings[("int8", 256)]
+    entries.append({
+        "name": "int8_unroll_forward", "route": "cuda", "source": "dladmm_tpu_torch/ops/csrc/int8_unroll.cu",
+        "replaces": "dladmm_tpu/ops/quantized.py:197",
+        # main path: serve --dtype=int8 --kernel=megakernel --demo 256 on the phase-10 checkpoint
+        "launches": int8_launches["serve_cli phase-10 checkpoint megakernel"],
+        "launches_by_path": int8_launches, "max_abs_err": int8_unroll_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": by, "library_ms": None, "shape": "synthetic_small S=256",
+    })
+    ms, plain_ms, bms, by = new_timings[("layer", 256)]
+    entries.append({
+        "name": "layer_step", "route": "cuda", "source": "dladmm_tpu_torch/ops/csrc/unroll.cu",
+        "replaces": "dladmm_tpu/ops/pallas_layer.py:61",
+        # main path: 20 training steps through make_train_step(step_fn=fused_layer_step), K calls a forward
+        "launches": layer_launches, "max_abs_err": layer_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": by, "library_ms": None, "shape": "synthetic_small S=256, one layer",
+    })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

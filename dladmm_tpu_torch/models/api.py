@@ -14,7 +14,14 @@ The port of ``dladmm_tpu/models/api.py``:
     collapse into this one rung: the CUDA kernels have no fit gate.
   * ``reference``, or a general B: the plain loop (models.unroll).
 
-The per-layer fused kernel is a later slice of the port (ROADMAP.md).
+The per-layer fused kernel (ops/cuda_layer.py, the port of
+pallas_layer.py) is no rung here. The JAX policy took it
+("scan+fused-layer-kernel") only when the whole-unroll kernel fit VMEM
+neither whole nor in batch tiles; the port's whole-unroll kernel runs at
+every S, so that condition never holds. It is reached as a step_fn, as
+scripts/verify_tpu.py reaches it: ``dladmm_forward(params, A, b,
+step_fn=fused_layer_step)``, and for training through autograd
+``train.loop.make_train_step(..., step_fn=fused_layer_step)``.
 """
 
 from __future__ import annotations
@@ -58,14 +65,14 @@ def select_forward(
     if kernel == "reference" or not identity_B or d != m:
         return None, None, "plain-loop-reference"
     if need_trajectory:
-        return make_unrolled_trajectory(), None, kernel_route(device, trajectory=True)
+        return make_unrolled_trajectory(), None, kernel_route(device, "trajectory")
     return make_unrolled_forward(), None, kernel_route(device)
 
 
-def kernel_route(device, trajectory: bool = False) -> str:
-    """How the selected forward runs on ``device``: the CUDA kernel on
-    the card, its plain version on the CPU."""
-    kind = "trajectory" if trajectory else "whole-unroll"
+def kernel_route(device, kind: str = "whole-unroll") -> str:
+    """How a kernel route (``kind``: whole-unroll, trajectory,
+    int8-unroll) runs on ``device``: the CUDA kernel on the card, its
+    plain version on the CPU."""
     if torch.device(device).type == "cuda":
         return f"cuda-{kind}-kernel"
     return f"{kind}-plain-cpu"

@@ -8,7 +8,12 @@
 // dladmm_unroll_trajectory replaces _unroll_traj_kernel (driven by
 // _traj_pallas): the same recurrence with the l1 prox, writing every
 // layer's state into (K, S, .) stacks tx, tz, tlam and, for the manual
-// backward, tAx. For layer k, with beta = max(beta_k, 1e-6) and theta
+// backward, tAx. dladmm_layer_step replaces
+// dladmm_tpu/ops/pallas_layer.py:_layer_kernel (driven by _fused_forward):
+// ONE l1 layer from a given state (x, z, lam, b, Ax) into fresh buffers
+// (x1, z1, lam1, Ax1), its products in fp32 or with both operands
+// rounded to bf16 as they are staged (fp32 accumulation either way). For
+// layer k, with beta = max(beta_k, 1e-6) and theta
 // clamped at >= 0 where it is used:
 //
 //   base = z - b + lam / beta
@@ -32,7 +37,9 @@
 // device memory. Accumulation is fp32 FMA (no TF32, no tensor cores).
 // The trajectory forward is the same 3K launches with other pointers:
 // layer k reads its input state from slice k-1 of the stacks (a zero
-// buffer for k = 0) and writes its outputs into slice k.
+// buffer for k = 0) and writes its outputs into slice k. The layer step
+// is one layer's three launches, reading the caller's state and writing
+// new buffers, so autograd can keep the inputs for its backward.
 //
 // Bound. Per call the work is 2*S*m*(2n+d)*K flops and the bytes are
 // K layers of W1/W2, A, b and the outputs (K times the state for the
@@ -51,9 +58,10 @@
 // (the stream orders them). The trajectory without tAx keeps one Ax
 // scratch buffer under the same rule.
 //
-// Plain C interface, loaded with ctypes (dladmm_tpu_torch/ops/cuda_unroll.py
-// and ops/cuda_traj.py).
+// Plain C interface, loaded with ctypes (dladmm_tpu_torch/ops/cuda_unroll.py,
+// ops/cuda_traj.py and ops/cuda_layer.py).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -96,8 +104,9 @@ struct PhaseArgs {
 // One block computes a BM x BN tile of OUT = OPERAND(S, depth) * W^T and
 // its fused epilogue. Thread (tr, tc) owns rows tr + i*RT and columns
 // tc + j*CT, so neighbouring threads touch neighbouring columns in the
-// epilogue and read distinct shared-memory banks in the inner loop.
-template <int BM, int BN, int TM, int TN, int PHASE, int PROX>
+// epilogue and read distinct shared-memory banks in the inner loop. BF16
+// rounds both operands to bf16 (round to nearest) as they are staged.
+template <int BM, int BN, int TM, int TN, int PHASE, int PROX, bool BF16>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 unroll_phase(const PhaseArgs a) {
   constexpr int RT = BM / TM;
@@ -141,12 +150,13 @@ unroll_phase(const PhaseArgs a) {
           v = ax + ((a.z_in[o] - a.b[o]) + a.lam_in[o] * inv_beta);
         }
       }
-      s_op[r][kk] = v;
+      s_op[r][kk] = BF16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
     }
     for (int i = tid; i < BN * kBK; i += NT) {
       const int c = i / kBK, kk = i % kBK;
       const int gc = col0 + c, gk = k0 + kk;
-      s_w[c][kk] = (gc < N && gk < depth) ? a.w[(size_t)gc * depth + gk] : 0.0f;
+      const float w = (gc < N && gk < depth) ? a.w[(size_t)gc * depth + gk] : 0.0f;
+      s_w[c][kk] = BF16 ? __bfloat162float(__float2bfloat16_rn(w)) : w;
     }
     __syncthreads();
 #pragma unroll
@@ -193,27 +203,29 @@ unroll_phase(const PhaseArgs a) {
 // leave most SMs idle there.
 constexpr int kBM = 32, kBN = 32, kTM = 2, kTN = 2;
 
-template <int PHASE, int PROX>
+template <int PHASE, int PROX, bool BF16 = false>
 cudaError_t run_phase(const PhaseArgs& a, int N, cudaStream_t stream) {
   const dim3 grid((a.S + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  unroll_phase<kBM, kBN, kTM, kTN, PHASE, PROX>
+  unroll_phase<kBM, kBN, kTM, kTN, PHASE, PROX, BF16>
       <<<grid, (kBM / kTM) * (kBN / kTN), 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int PHASE>
+template <int PHASE, bool BF16 = false>
 cudaError_t run_prox_phase(int prox, const PhaseArgs& a, int N,
                            cudaStream_t stream) {
   switch (prox) {
-    case PROX_L1: return run_phase<PHASE, PROX_L1>(a, N, stream);
-    case PROX_NONNEG_L1: return run_phase<PHASE, PROX_NONNEG_L1>(a, N, stream);
-    case PROX_BOX: return run_phase<PHASE, PROX_BOX>(a, N, stream);
-    case PROX_ELASTIC_NET: return run_phase<PHASE, PROX_ELASTIC_NET>(a, N, stream);
+    case PROX_L1: return run_phase<PHASE, PROX_L1, BF16>(a, N, stream);
+    case PROX_NONNEG_L1: return run_phase<PHASE, PROX_NONNEG_L1, BF16>(a, N, stream);
+    case PROX_BOX: return run_phase<PHASE, PROX_BOX, BF16>(a, N, stream);
+    case PROX_ELASTIC_NET: return run_phase<PHASE, PROX_ELASTIC_NET, BF16>(a, N, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The x, Ax and z phases of layer k; `a` holds the state pointers.
+// The x, Ax and z phases of layer k; `a` holds the state pointers. BF16
+// is the layer step's bf16-operand option.
+template <bool BF16 = false>
 cudaError_t run_layer(PhaseArgs a, const float* A, const float* W1,
                       const float* W2, const float* th1, const float* th2,
                       int k, int prox_x, int prox_z, float scale_x,
@@ -222,18 +234,18 @@ cudaError_t run_layer(PhaseArgs a, const float* A, const float* W1,
   a.w = W1 + (size_t)k * n * m;
   a.theta = th1 + (size_t)k * n;
   a.scale = scale_x;
-  cudaError_t err = run_prox_phase<PHASE_X>(prox_x, a, n, stream);
+  cudaError_t err = run_prox_phase<PHASE_X, BF16>(prox_x, a, n, stream);
   if (err != cudaSuccess) return err;
 
   a.w = A;
   a.theta = nullptr;
-  err = run_phase<PHASE_AX, PROX_L1>(a, m, stream);
+  err = run_phase<PHASE_AX, PROX_L1, BF16>(a, m, stream);
   if (err != cudaSuccess) return err;
 
   a.w = W2 + (size_t)k * m * m;
   a.theta = th2 + (size_t)k * m;
   a.scale = scale_z;
-  return run_prox_phase<PHASE_Z>(prox_z, a, m, stream);
+  return run_prox_phase<PHASE_Z, BF16>(prox_z, a, m, stream);
 }
 
 }  // namespace
@@ -327,6 +339,40 @@ extern "C" int dladmm_unroll_trajectory(
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// One l1 layer (B = I) from the state x (S,n), z, lam, ax (S,m) into the
+// fresh outputs x1 (S,n), z1, lam1, ax1 (S,m), enqueued on `stream`; no
+// sync. Inputs b (S,m), A (m,n), W1 (n,m), W2 (m,m), th1 (n,), th2 (m,),
+// beta (1,): this layer's, fp32, contiguous, on `device`. bf16 != 0
+// rounds the products' operands to bf16. No output aliases an input.
+// Returns a cudaError_t.
+extern "C" int dladmm_layer_step(
+    const float* b, const float* A, const float* W1, const float* W2,
+    const float* th1, const float* th2, const float* beta, const float* x,
+    const float* z, const float* lam, const float* ax, float* x1, float* z1,
+    float* lam1, float* ax1, int S, int m, int n, int bf16, int device,
+    void* stream_handle) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  PhaseArgs a;
+  a.b = b;
+  a.beta = beta;
+  a.x_in = x;
+  a.x = x1;
+  a.ax_in = ax;
+  a.ax = ax1;
+  a.z_in = z;
+  a.lam_in = lam;
+  a.z_out = z1;
+  a.lam_out = lam1;
+  a.S = S;
+  a.m = m;
+  a.n = n;
+  err = bf16 ? run_layer<true>(a, A, W1, W2, th1, th2, 0, PROX_L1, PROX_L1, 1.0f, 1.0f, stream)
+             : run_layer<false>(a, A, W1, W2, th1, th2, 0, PROX_L1, PROX_L1, 1.0f, 1.0f, stream);
+  return (int)err;
 }
 
 extern "C" const char* dladmm_cuda_error_string(int err) {

@@ -132,7 +132,15 @@ def check(src: Path, err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
+def check_same_device(b, tensors: dict) -> None:
+    """Raise unless every tensor lies on b's device, before a wrapper
+    picks its kernel or plain version: a CPU/CUDA mix runs neither."""
+    for name, t in tensors.items():
+        if t.device != b.device:
+            raise ValueError(f"{name} is on {t.device}, b on {b.device}")
+
+
 __all__ = [
-    "BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "build_all", "check", "entry",
-    "library_path", "load", "nvcc",
+    "BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "build_all", "check", "check_same_device",
+    "entry", "library_path", "load", "nvcc",
 ]

@@ -11,6 +11,14 @@ The port of ``dladmm_tpu/serve.py`` (single-device servers and CLI):
   * Route: the whole-unroll CUDA kernel (models/api policy) for l1/l1
     and for trained elementwise proxes; the plain loop for general B,
     group_l2 and ``kernel="reference"``.
+  * ``dtype="int8"`` (l1/l1, identity B): the net and its dictionary are
+    quantized once at construction (ops/quantized.quantize_params) and
+    every bucket runs the int8 whole-unroll CUDA kernel
+    (ops/cuda_int8.int8_unroll_forward) for ``auto`` and ``megakernel``,
+    or the plain int8 scan (ops/quantized.dladmm_forward_int8) for
+    ``reference``. The JAX package took its scan for ``auto``; the port
+    takes the kernel, which has no fit gate (models/api.py). The quality
+    contract is the JAX package's: NMSE within 0.3 dB of fp32 serving.
 
 Runs on CUDA unless the caller asks for the CPU (``device="cpu"`` or
 ``DLADMM_PLATFORM=cpu``; utils/platform.py).
@@ -18,8 +26,8 @@ Runs on CUDA unless the caller asks for the CPU (``device="cpu"`` or
 The CLI serves a training checkpoint (``--ckpt-dir``: the newest
 step_N's params and the dictionary they were trained on) or a
 reference-style PyTorch file (``--import-torch``, on the config's
-dictionary). Later slices (ROADMAP.md): bf16 / int8 serving (``dtype``),
-the sharded server (``--sharded``) and one CUDA Graph per bucket.
+dictionary). Later slices (ROADMAP.md): bf16 serving (``dtype``), the
+sharded server (``--sharded``) and one CUDA Graph per bucket.
 """
 
 from __future__ import annotations
@@ -33,12 +41,17 @@ from torch import Tensor
 
 from dladmm_tpu_torch.models.api import KERNELS, kernel_route, resolve_forward
 from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
+from dladmm_tpu_torch.ops.cuda_int8 import dladmm_forward_int8_pallas
 from dladmm_tpu_torch.ops.cuda_unroll import (
     make_unrolled_inference_prox,
     prox_megakernel_available,
 )
+from dladmm_tpu_torch.ops.quantized import dladmm_forward_int8, quantize_params
 from dladmm_tpu_torch.ops.reference import make_cached_step
 from dladmm_tpu_torch.utils.platform import resolve_device
+
+# kernel= choices of int8 serving, as in the JAX package.
+INT8_KERNELS = ("auto", "megakernel", "reference")
 
 _LATER = "is not ported yet; it is a later slice of the port (ROADMAP.md §1)"
 # The serving CLI's --kernel choices, the JAX package's (its per-layer
@@ -57,8 +70,16 @@ def _buckets(max_batch: int) -> Tuple[int, ...]:
 
 def _prep_serving(params, A, B, dtype, layers, device):
     """Shared serving preamble: early-exit layer slice, then every
-    tensor as contiguous float32 on ``device``. Returns (params, A, B)."""
-    if dtype not in (None, "float32", torch.float32):
+    tensor as contiguous float32 on ``device``. Returns (params, A, B,
+    quantized): with dtype="int8" quantization is left to the server
+    (ops/quantized.quantize_params) and ``quantized`` is True."""
+    quantized = dtype == "int8"
+    if quantized and B is not None:
+        raise ValueError(
+            "dtype='int8' requires identity B (the quantized forward "
+            "specializes to B = I like the kernels)"
+        )
+    if not quantized and dtype not in (None, "float32", torch.float32):
         raise NotImplementedError(f"serving dtype={dtype!r} {_LATER}")
     if layers is not None:
         K = params.W1.shape[0]
@@ -70,7 +91,7 @@ def _prep_serving(params, A, B, dtype, layers, device):
         return torch.as_tensor(t).detach().to(device, torch.float32).contiguous()
 
     params = DLADMMParams(*(put(v) for v in params))
-    return params, put(A), None if B is None else put(B)
+    return params, put(A), None if B is None else put(B), quantized
 
 
 class InferenceServer:
@@ -108,11 +129,26 @@ class InferenceServer:
         proxes' variants (ops/cuda_unroll.prox_megakernel_available),
         else through the plain loop. Identity B only.
 
+        dtype="int8" serves int8-quantized weights with dynamic per-sample
+        activation quantization (module docstring): l1/l1 and identity B
+        only; kernel="auto"/"megakernel" take the int8 kernel,
+        "reference" the plain int8 scan.
+
         device: ``cuda`` unless asked otherwise (utils/platform.py)."""
         self.device = resolve_device(device)
-        params, A, B = _prep_serving(params, A, B, dtype, layers, self.device)
+        params, A, B, quantized = _prep_serving(params, A, B, dtype, layers, self.device)
         if kernel not in KERNELS:
             raise ValueError(f"kernel={kernel!r}; the port offers {KERNELS}")
+        if quantized and (step_fn is not None or prox_pair is not None):
+            raise ValueError(
+                "dtype='int8' serving is l1/l1-only (ops/quantized.py "
+                "hard-codes the shrink); serve general-prox solvers in float32"
+            )
+        if quantized and kernel not in INT8_KERNELS:
+            raise ValueError(
+                f"dtype='int8' serves via ops/quantized.py; kernel={kernel!r} "
+                f"does not apply (use one of {INT8_KERNELS})"
+            )
         if prox_pair is not None:
             if B is not None:
                 raise ValueError(
@@ -145,8 +181,21 @@ class InferenceServer:
         self.buckets = tuple(sorted(buckets or _buckets(max_batch)))
         self._forward = {}
         self.routes = {}
+        # What each bucket's forward takes before the requests: the
+        # quantized net and dictionary, or the fp32 params and A.
+        self._operands = (params, A)
+        if quantized:
+            # Quantized ONCE here; requests pay only the activations'.
+            self._operands = quantize_params(params, A)
+            int8 = (
+                (dladmm_forward_int8, "plain-loop-int8-reference")
+                if kernel == "reference"
+                else (dladmm_forward_int8_pallas, kernel_route(self.device, "int8-unroll"))
+            )
         for S in self.buckets:
-            if B is None and step_fn is None:
+            if quantized:
+                fn, desc = int8
+            elif B is None and step_fn is None:
                 fn, desc = resolve_forward(
                     m, n, d, S, kernel=kernel, device=self.device
                 )
@@ -186,7 +235,7 @@ class InferenceServer:
 
     def _run(self, bucket: int, b: Tensor):
         with torch.no_grad():
-            return self._forward[bucket](self.params, self.A, b)[:2]
+            return self._forward[bucket](*self._operands, b)[:2]
 
     def solve(self, b) -> Tuple[Tensor, Tensor]:
         """b (S, m), a tensor or an array -> (x (S, n), z (S, d)) on the
@@ -404,7 +453,8 @@ def main(argv=None) -> int:
         "--dtype",
         choices=["float32", "bfloat16", "int8"],
         default="float32",
-        help="serving precision (only float32 is ported yet)",
+        help="serving precision: float32, or int8 (l1/l1, identity B; NMSE "
+        "within 0.3 dB of float32); bfloat16 is not ported yet",
     )
     ap.add_argument("--kernel", choices=list(CLI_KERNELS), default="auto")
     ap.add_argument(
@@ -428,7 +478,7 @@ def main(argv=None) -> int:
                 f"no step_N checkpoint under {args.ckpt_dir!r}; train one with "
                 f"python -m dladmm_tpu_torch.run --config=... --ckpt-dir={args.ckpt_dir}"
             )
-    if args.dtype != "float32":
+    if args.dtype == "bfloat16":
         ap.error(f"--dtype={args.dtype} {_LATER}")
     if args.sharded:
         ap.error(f"--sharded {_LATER}")
@@ -438,6 +488,11 @@ def main(argv=None) -> int:
     # General-prox configs: the served forward must run the SAME prox
     # pair the model was trained with.
     prox = resolve_prox(cfg.problem)
+    if prox is not None and args.dtype == "int8":
+        ap.error(
+            f"--dtype=int8 is l1/l1-only; config {args.config!r} trains prox "
+            f"{cfg.problem.prox_x}/{cfg.problem.prox_z}"
+        )
     step_fn = None if prox is None else make_cached_step(*prox)
     if latest is not None:
         from dladmm_tpu_torch.utils.checkpoint import load_params
@@ -478,6 +533,7 @@ def main(argv=None) -> int:
         max_batch=max_batch,
         kernel=args.kernel,
         buckets=(max_batch,),
+        dtype=None if args.dtype == "float32" else args.dtype,
         layers=args.layers,
         B=B,
         step_fn=step_fn,

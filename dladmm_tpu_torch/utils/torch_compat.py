@@ -12,7 +12,8 @@ the stacked ``[K, ...]`` parameters the unroll consumes
 (models/unroll.py), and exports back for anyone round-tripping.
 ``params_from_numpy`` carries parameters that arrive as numpy arrays
 (for example the JAX package's) into the port, ``opt_state_from_numpy``
-the JAX package's fused-optimizer state (int8 or dense moments).
+the JAX package's fused-optimizer state (int8 or dense moments),
+``quantized_from_numpy`` its int8 serving operands.
 
 Because the reference mount was empty during the survey (SURVEY.md §0),
 the exact parameter names are unknown; the importer therefore accepts the
@@ -297,6 +298,24 @@ def params_from_numpy(
     )
 
 
+def quantized_from_numpy(qp, qd, device=None):
+    """The JAX package's int8 serving operands (``QuantizedParams`` and
+    ``QuantizedDict`` of ops/quantized.py, anything with those fields)
+    -> the port's, on ``device``: int8 codes and fp32 scales, thresholds
+    and beta, shapes unchanged. Everything goes through ``np.asarray``."""
+    from dladmm_tpu_torch.ops.quantized import QuantizedDict, QuantizedParams
+
+    def put(a, dtype):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    codes = ("W1_q", "W2_q")
+    return (
+        QuantizedParams(*(put(getattr(qp, f), torch.int8 if f in codes else torch.float32)
+                          for f in QuantizedParams._fields)),
+        QuantizedDict(put(qd.A_q, torch.int8), put(qd.A_s, torch.float32)),
+    )
+
+
 def _dense_from_numpy(a, device=None) -> torch.Tensor:
     """One dense moment leaf (fp32, or bf16 as numpy's ml_dtypes
     bfloat16, which torch cannot read directly) -> a tensor of the same
@@ -364,6 +383,7 @@ __all__ = [
     "from_torch",
     "opt_state_from_numpy",
     "params_from_numpy",
+    "quantized_from_numpy",
     "save_torch",
     "to_torch_state_dict",
 ]

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions:
 the whole-unroll kernel, the trajectory kernel, the int8 Adam sweep, the
 backward kernel (both routes), the dense Adam sweep, the training
-gradients through them, and fit on the card.
+gradients through them, fit on the card, the int8 whole-unroll kernel
+and its servers, and the per-layer fused step.
 
 Every test here needs a CUDA card: each is marked ``gpu`` and skips at
 run time without one. The file imports no JAX, so it also runs where
@@ -464,3 +465,162 @@ def test_fit_final_layer_on_the_card_uses_the_kernels(cuda_device):
     assert cuda_bwd.unroll_bwd.launches["chunked"] == b0["chunked"]
     assert tqa.adam_dense_rows.launches - d0 == 5 * 20  # every leaf, every step
     assert all(np.isfinite(h["nmse_db"]) for h in hist)
+
+
+# -- int8 serving and the per-layer fused step -------------------------------
+
+
+def _int8_case(m, n, K, S, seed, device, scalar_theta=False):
+    """b with an all-zero row (a padded bucket row) and the quantized
+    net and dictionary, on the card."""
+    from dladmm_tpu_torch.ops.quantized import quantize_params
+
+    A, b, p = _problem(m, n, K, S, seed=seed, device=device, scalar_theta=scalar_theta)
+    if S > 1:
+        b[S // 2] = 0.0
+    return b, *quantize_params(p, A)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scalar_theta", [False, True])
+@pytest.mark.parametrize("m,n,K,S", SHAPES + [(1000, 2000, 20, 64)])
+def test_int8_kernel_matches_plain_bit_for_bit(cuda_device, m, n, K, S, scalar_theta):
+    """Round-to-nearest intrinsics in the plain version's order: the
+    kernel's x, z and lam equal its plain version's bit for bit, ragged
+    tiles, S = 1, a zero row and (K, 1) thresholds included; one launch
+    per call."""
+    from dladmm_tpu_torch.ops import cuda_int8
+
+    b, qp, qd = _int8_case(m, n, K, S, seed=m + S, device=cuda_device, scalar_theta=scalar_theta)
+    before = cuda_int8.int8_unroll_forward.launches
+    got = cuda_int8.int8_unroll_forward(b, qp, qd)
+    want = cuda_int8.int8_unroll_forward_plain(b, qp, qd)
+    torch.cuda.synchronize()
+    assert cuda_int8.int8_unroll_forward.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, w), int((g != w).sum())
+    if S > 1:
+        assert (got[0][S // 2] == 0).all()
+
+
+@pytest.mark.gpu
+def test_int8_servers_on_the_card(cuda_device):
+    """dtype="int8": auto and megakernel take the kernel (one launch per
+    bucket at warm-up), reference the plain scan (none); BatchingServer
+    over the kernel route equals the kernel's plain version per request,
+    bit for bit."""
+    from dladmm_tpu_torch.ops import cuda_int8
+
+    A, _, p = _problem(64, 128, 4, 1, seed=6, device=cuda_device)
+    before = cuda_int8.int8_unroll_forward.launches
+    for kernel in ("auto", "megakernel"):
+        server = InferenceServer(p, A, max_batch=16, dtype="int8", kernel=kernel)
+        assert set(server.routes.values()) == {"cuda-int8-unroll-kernel"}
+    assert cuda_int8.int8_unroll_forward.launches == before + 2 * len(server.buckets)
+    ref = InferenceServer(p, A, max_batch=16, dtype="int8", kernel="reference")
+    assert set(ref.routes.values()) == {"plain-loop-int8-reference"}
+    assert cuda_int8.int8_unroll_forward.launches == before + 2 * len(server.buckets)
+    rng = np.random.default_rng(7)
+    reqs = [rng.normal(size=(s, 64)).astype(np.float32) for s in (1, 3, 5, 7)]
+    front = BatchingServer(server)
+    try:
+        batched = [f.result(timeout=120) for f in [front.submit(r) for r in reqs]]
+    finally:
+        front.close()
+    for r, (xb, zb) in zip(reqs, batched):
+        xw, zw, _ = cuda_int8.int8_unroll_forward_plain(torch.as_tensor(r, device=cuda_device), *server._operands)
+        assert np.array_equal(xb, xw.cpu().numpy()) and np.array_equal(zb, zw.cpu().numpy())
+
+
+def _layer_state(m, n, S, seed, device):
+    """A state after 2 plain layers, its problem and layer 2's params."""
+    from dladmm_tpu_torch.ops.reference import dladmm_layer_step_cached
+
+    A, b, p = _problem(m, n, 3, S, seed=seed, device=device)
+    x, z, lam = (torch.zeros((S, k), device=device) for k in (n, m, m))
+    Ax = torch.zeros_like(lam)
+    for k in range(2):
+        x, z, lam, Ax, _ = dladmm_layer_step_cached(A, None, b, x, z, lam, Ax, z, p.layer(k))
+    th = (p.theta1[2].contiguous(), p.theta2[2].contiguous(), p.beta[2:3].contiguous())
+    return b, A, (x, z, lam, Ax), (p.W1[2], p.W2[2], *th)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("m,n,K,S", SHAPES)
+def test_layer_step_matches_plain_in_fresh_buffers(cuda_device, m, n, K, S, bf16):
+    """One layer from a non-zero state: inputs unchanged after the call,
+    outputs in new buffers; fp32 operands within TOL of the plain step,
+    bf16 operands within 5% relative Frobenius error of it (and not equal
+    to the fp32 kernel's); one launch per call."""
+    from dladmm_tpu_torch.ops import cuda_layer
+
+    b, A, state, layer = _layer_state(m, n, S, seed=m + S + 2, device=cuda_device)
+    before = [t.clone() for t in state]
+    n0 = cuda_layer.layer_step.launches
+    md = torch.bfloat16 if bf16 else None
+    got = cuda_layer.layer_step(b, A, *state, *layer, matmul_dtype=md)
+    want = cuda_layer.layer_step_plain(b, A, *state, *layer)
+    torch.cuda.synchronize()
+    assert cuda_layer.layer_step.launches == n0 + 1
+    for t, t0 in zip(state, before):
+        assert torch.equal(t, t0)
+    assert not any(g.data_ptr() == t.data_ptr() for g in got for t in (*state, b))
+    if not bf16:
+        _assert_close(got, want)
+        return
+    fp32 = cuda_layer.layer_step(b, A, *state, *layer)
+    for g, w, f in zip(got, want, fp32):
+        if float(w.norm()) > 0:
+            assert float((g - w).norm() / w.norm()) < 0.05
+            assert not torch.equal(g, f)
+
+
+@pytest.mark.gpu
+def test_fused_step_forward_and_grads_on_the_card(cuda_device):
+    """dladmm_forward(step_fn=fused_layer_step) at synthetic_small S = 64:
+    K launches, within TOL of the plain loop; its gradient (the Function's
+    rematerialized backward) within rtol 2e-5 of each leaf's largest
+    value of autograd through the plain loop."""
+    from dladmm_tpu_torch.models.unroll import dladmm_forward
+    from dladmm_tpu_torch.ops import cuda_layer
+
+    A, b, p = _problem(250, 500, 15, 64, seed=12, device=cuda_device)
+    n0 = cuda_layer.layer_step.launches
+    with torch.no_grad():
+        _assert_close(dladmm_forward(p, A, b, step_fn=cuda_layer.fused_layer_step), dladmm_forward(p, A, b))
+    assert cuda_layer.layer_step.launches == n0 + 15
+    grads = []
+    for step in (cuda_layer.fused_layer_step, None):
+        leaves = [t.detach().clone().requires_grad_() for t in p]
+        x, z, lam = dladmm_forward(DLADMMParams(*leaves), A, b, step_fn=step)
+        grads.append(torch.autograd.grad(_final_loss(x, z, lam), leaves))
+    _assert_grads_close(*grads)
+
+
+@pytest.mark.gpu
+def test_new_kernels_raise_without_a_build_or_on_a_device_mix(cuda_device, tmp_path, monkeypatch):
+    """With no built library and no nvcc, a CUDA call to the int8 kernel
+    or the layer step raises; a CPU/CUDA mix raises before either
+    version runs."""
+    from dladmm_tpu_torch.ops import cuda_build, cuda_int8, cuda_layer
+
+    b, qp, qd = _int8_case(16, 32, 2, 8, seed=1, device=cuda_device)
+    lb, lA, state, layer = _layer_state(16, 32, 8, seed=1, device=cuda_device)
+    with pytest.raises(ValueError, match="is on"):
+        cuda_int8.int8_unroll_forward(b.cpu(), qp, qd)
+    with pytest.raises(ValueError, match="is on"):
+        cuda_layer.layer_step(lb, lA.cpu(), *state, *layer)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "nvcc", no_nvcc)
+    monkeypatch.setattr(cuda_build, "_libs", {})
+    monkeypatch.setattr(cuda_build, "_entries", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_int8.int8_unroll_forward(b, qp, qd)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_layer.layer_step(lb, lA, *state, *layer)

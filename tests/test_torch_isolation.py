@@ -28,7 +28,8 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    for m in ("ops.cuda_unroll", "ops.cuda_traj", "ops.cuda_bwd", "serve", "run", "train.loop", "train.qadam_cuda"):
+    for m in ("ops.cuda_unroll", "ops.cuda_traj", "ops.cuda_bwd", "ops.cuda_int8", "ops.cuda_layer",
+              "ops.quantized", "serve", "run", "train.loop", "train.qadam_cuda"):
         assert f"dladmm_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

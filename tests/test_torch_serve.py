@@ -245,9 +245,13 @@ def test_cli_demo_nmse_equals_ladmm(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "extra", [["--dtype=bfloat16"], ["--dtype=int8"], ["--sharded"], ["--kernel=pallas"]]
+    "extra",
+    [["--dtype=bfloat16"], ["--config=synthetic_nonneg", "--dtype=int8"], ["--sharded"], ["--kernel=pallas"]],
 )
 def test_cli_rejects_unported_options(tmp_path, extra, monkeypatch):
+    """bf16 and --sharded are not ported; int8 serves l1/l1 configs only
+    (a trained prox is refused, as in the JAX package); the per-layer
+    "pallas" kernel is no serving choice."""
     from dladmm_tpu_torch.models.unroll import init_dladmm_params
     from dladmm_tpu_torch.utils.torch_compat import save_torch
 
