@@ -27,9 +27,11 @@ the first fault. Each phase prints one JSON line:
      version in turns, beside the bound from the shapes;
   6. profile: torch.profiler device time per kernel and the device's
      busy share, at the main path's shape (synthetic_small, S = 256);
-  7. kernel_traj: the trajectory kernel against its plain version at
-     synthetic_small S = 64, 256 and synthetic_large S = 1024, with the
-     Ax stack and without, same tolerance as phase 3;
+  7. kernel_traj: the trajectory kernel (one persistent cooperative
+     launch) against its plain version at synthetic_small S = 64, 256,
+     3000 and synthetic_large S = 1024, with the Ax stack and without,
+     same tolerance as phase 3; a second call must repeat bit for bit;
+     its grid, work items per phase and barriers at each shape;
   8. kernel_int8: the int8 Adam sweep against its plain version on the
      W1 and W2 leaves of both presets, 3 chained steps in place from a
      non-zero state: masters within rtol 1e-6, codes within one step,
@@ -43,9 +45,12 @@ the first fault. Each phase prints one JSON line:
      cuda-trajectory-kernel, finite loss, final NMSE below LADMM's at
      K = 15; then ``serve.main --ckpt-dir tmp --demo 256`` serves the
      checkpoint at the trained run's final eval NMSE within 0.01 dB;
- 11. timing_train: median CUDA-event ms of one training step, kernel
-     path and plain path in turns; each training kernel's ms beside its
-     bound and its plain version's;
+ 11. timing_train: median CUDA-event ms of one training step by phase,
+     kernel path and plain path in turns; each training kernel's ms
+     beside its bound and its plain version's, the trajectory kernel at
+     synthetic_small S = 64, 256 and synthetic_large S = 1024 with its
+     profiler device time, grid, work items per phase and barriers; the
+     cost of one grid barrier at 132, 264 and 528 blocks;
  12. profile_train: torch.profiler over training steps at synthetic_small:
      device time per kernel, per phase (forward, backward loop,
      optimizer) and the busy share;
@@ -53,8 +58,10 @@ the first fault. Each phase prints one JSON line:
      trajectory kernel's stacks, with and without data grads, at
      synthetic_small S = 64 (whole batch; also (K, 1) thresholds with
      ties at theta = 0 and beta = 1e-6), S = 1024 with the policy's bs
-     and with bs = 128, and synthetic_large S = 1024; fails above
-     2e-5 * max|leaf of the plain version|;
+     (the whole batch) and with bs = 128, synthetic_large S = 1024 and
+     the smoke preset at S = 1024 (the chunked route's main path); fails
+     above 2e-5 * max|leaf of the plain version|; a second call must
+     repeat bit for bit;
  14. kernel_dense: the dense Adam sweep against its plain version on the
      W1 and W2 leaves of both presets in all four formats, 3 chained
      steps in place: masters within rtol 1e-6, round-to-nearest moments
@@ -66,6 +73,8 @@ the first fault. Each phase prints one JSON line:
      counts set to 0 just before and read just after (each > 0), route
      cuda-whole-unroll-kernel, NMSE below LADMM's; its checkpoint served
      at its last eval's NMSE within 0.01 dB; then 20 steps at
+     ``--batch=1024`` on the route bwd_chunk_batch picks (the whole
+     batch at synthetic_small), and 20 steps of the smoke preset at
      ``--batch=1024``, whose chunked-route count must be > 0. (1000
      steps, not 300: after 300 steps of its cosine schedule the
      final-layer loss is still above LADMM in both packages, e.g. the
@@ -74,7 +83,10 @@ the first fault. Each phase prints one JSON line:
      phase, in turns: the kernel path, the path before the backward
      kernel (trajectory kernel + plain reverse sweep) and the plain
      path; each new kernel beside its bound and its plain version, the
-     fp32 sweep also beside torch.optim.Adam(fused=True);
+     fp32 sweep also beside torch.optim.Adam(fused=True); the backward
+     with its profiler device time, grid, work items per phase and
+     barriers at synthetic_small S = 64 and 1024 (both routes) and at
+     the smoke preset's S = 1024, bs = 128;
  17. profile_train_final: device time per phase and kernel, busy share;
  18. kernel_int8_unroll: the int8 whole-unroll kernel against its plain
      version on the same quantized inputs (perturbed LADMM-exact params,
@@ -134,6 +146,7 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 SMALL = dict(m=250, n=500, K=15)  # synthetic_small (utils/config.py)
 LARGE = dict(m=1000, n=2000, K=20)  # synthetic_large
+SMOKE = dict(m=32, n=64, K=4)  # smoke: the chunked backward's main path at batch 1024
 
 
 def emit(phase: str, **fields) -> None:
@@ -221,25 +234,35 @@ def median_ms(torch, fns, reps: int):
     return [float(np.median(t)) for t in times]
 
 
-def profile_fn(torch, fn, config: str, reps: int = 5):
+def profile_fn(torch, fn, config: str, reps: int = 5, attempts: int = 3):
     """torch.profiler over ``reps`` calls of fn: device time per call of
     each kernel (and memset) by name, and the device's busy share of the
-    CUDA-event window around them."""
+    CUDA-event window around them. A window in which the profiler
+    recorded no device activity at all (seen once in many profiles on
+    the card, with the kernels running and checked) is profiled again,
+    up to ``attempts`` windows; then it fails."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(reps):
-                fn()
-            stop.record()
+    for attempt in range(attempts):
+        with torch.no_grad():
+            fn()
             torch.cuda.synchronize()
-    window_us = start.elapsed_time(stop) * 1e3
-    kernels = device_kernels(prof, reps)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(reps):
+                    fn()
+                stop.record()
+                torch.cuda.synchronize()
+        window_us = start.elapsed_time(stop) * 1e3
+        try:
+            kernels = device_kernels(prof, reps)
+            break
+        except AssertionError:
+            if attempt + 1 == attempts:
+                raise
+            emit("profile_retry", config=config, attempt=attempt + 1)
     busy_us = sum(v["us"] for v in kernels.values()) * reps
     return {"config": config, "calls": reps, "window_ms_per_call": window_us / reps / 1e3,
             "device_us_per_call": busy_us / reps, "device_busy_share": busy_us / window_us,
@@ -261,6 +284,70 @@ def traj_bound(S: int, m: int, n: int, K: int, with_tax: bool):
     out = K * S * (n + 2 * m + (m if with_tax else 0))
     nbytes = 4 * (K * (n * m + m * m + n + m + 1) + m * n + S * m + out)
     return _bound(flops, nbytes)
+
+
+def persistent_plan(torch, kind: str, S: int, shape: dict, bs=None) -> dict:
+    """How one call of a persistent kernel ("trajectory_forward" or
+    "unroll_bwd") spreads at this shape on this card: its grid (blocks of
+    the cooperative launch), the work items (tiles x depth slices) of
+    each phase, its grid barriers; for the backward also the items of
+    its weight-gradient launch (all K layers' gW1 and gW2 tiles x S
+    slices)."""
+    from dladmm_tpu_torch.ops import cuda_build, schedule
+    from dladmm_tpu_torch.ops.cuda_bwd import SRC as BWD_SRC
+    from dladmm_tpu_torch.ops.cuda_unroll import SRC
+
+    m, n, K = shape["m"], shape["n"], shape["K"]
+    extra = {}
+    if kind == "trajectory_forward":
+        occ = cuda_build.occupancy(SRC, "dladmm_traj_occupancy", 0)
+        grid, splits = schedule.traj_schedule(S, m, n, *occ)
+    else:
+        occ = cuda_build.occupancy(BWD_SRC, "dladmm_bwd_occupancy", 0)
+        grid, splits, wsplit = schedule.bwd_schedule(S, m, n, K, bs or S, *occ)
+        extra = {"weight_launch_items": wsplit.items, "weight_launch_s_slices": wsplit.slices,
+                 "launches_per_call": 3}
+    return {"grid": grid, "resident_blocks_per_sm": occ[0], "sms": occ[1],
+            "items_per_phase": {k: sp.items for k, sp in splits.items()},
+            "tiles_per_phase": {k: sp.tiles for k, sp in splits.items()},
+            "depth_slices_per_phase": {k: sp.slices for k, sp in splits.items()},
+            "barriers_per_call": schedule.barriers(K), **extra}
+
+
+def host_enqueue_us(torch, fn, calls: int = 50) -> float:
+    """Host µs a call of fn takes to return (its enqueue), over back-to-
+    back calls that the card runs behind it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def barrier_cost(torch, card: str) -> dict:
+    """Phase 11: the cost of one grid barrier of a cooperative launch
+    (cooperative_groups' grid sync) at the grids the persistent kernels
+    use: the median time of 1001 barriers less that of 1, over 1000."""
+    import ctypes
+
+    from dladmm_tpu_torch.ops import cuda_build
+    from dladmm_tpu_torch.ops.cuda_unroll import SRC
+
+    fn = cuda_build.entry(SRC, "dladmm_grid_barrier_probe", [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(grid, iters):
+        cuda_build.check(SRC, fn(grid, iters, 0, stream), "grid barrier probe")
+
+    us = {}
+    for grid in (132, 264, 528):
+        run(grid, 1001)
+        one, many = median_ms(torch, [lambda: run(grid, 1), lambda: run(grid, 1001)], 11)
+        us[grid] = (many - one) / 1000 * 1e3
+    emit("barrier_cost", us_per_barrier_by_grid=us, card=card)
+    return us
 
 
 # fp32 operations per element of the int8 sweep: two decodes (4 each),
@@ -524,16 +611,25 @@ def time_train(torch, device, card):
 
     timings = {}
     with torch.no_grad():
-        A_, b, p = problem(torch, S=64, seed=21, device=device, **SMALL)
-        for _ in range(2):
-            trajectory_forward(b, A_, *p, with_tax=True)
-            trajectory_forward_plain(b, A_, *p, with_tax=True)
-        ms, plain_ms = median_ms(torch, [lambda: trajectory_forward(b, A_, *p, with_tax=True),
-                                         lambda: trajectory_forward_plain(b, A_, *p, with_tax=True)], 31)
-    bms, by = traj_bound(64, with_tax=True, **SMALL)
-    timings["trajectory_forward"] = (ms, plain_ms, bms, by)
-    emit("timing_train_kernel", kernel="trajectory_forward", config="synthetic_small S=64 with_tax",
-         kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, card=card)
+        for label, shape, S, reps in (("synthetic_small", SMALL, 64, 31), ("synthetic_small", SMALL, 256, 21),
+                                      ("synthetic_large", LARGE, 1024, 5)):
+            A_, b, p = problem(torch, S=S, seed=21, device=device, **shape)
+            fns = [lambda: trajectory_forward(b, A_, *p, with_tax=True),
+                   lambda: trajectory_forward_plain(b, A_, *p, with_tax=True)]
+            for _ in range(2):
+                for fn in fns:
+                    fn()
+            ms, plain_ms = median_ms(torch, fns, reps)
+            bms, by = traj_bound(S, with_tax=True, **shape)
+            prof = profile_fn(torch, fns[0], f"{label} S={S} with_tax")
+            if S == 64:
+                timings["trajectory_forward"] = (ms, plain_ms, bms, by)
+            emit("timing_train_kernel", kernel="trajectory_forward", config=f"{label} S={S} with_tax",
+                 kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                 device_us_per_call=prof["device_us_per_call"], device_kernels=prof["per_call"],
+                 host_enqueue_us=host_enqueue_us(torch, fns[0]),
+                 **persistent_plan(torch, "trajectory_forward", S, shape), card=card)
+            del A_, b, p, fns
 
     leaves = INT8_LEAVES["synthetic_small"]
     st = [int8_state(torch, tqa, R, L, seed=R, device=device) for R, L in leaves]
@@ -599,10 +695,10 @@ def profile_train(torch, device, steps: int = 5):
     window_us = start.elapsed_time(stop) * 1e3
     kernels = device_kernels(prof, steps)
     busy_us = sum(v["us"] for v in kernels.values()) * steps
-    groups = {"trajectory kernel (unroll_phase)": 0.0, "int8 sweep (qadam_int8_rows)": 0.0,
+    groups = {"trajectory kernel (traj_persistent)": 0.0, "int8 sweep (qadam_int8_rows)": 0.0,
               "other (backward loop, loss, small leaves, data)": 0.0}
     for name, v in kernels.items():
-        key = ("trajectory kernel (unroll_phase)" if "unroll_phase" in name else
+        key = ("trajectory kernel (traj_persistent)" if "traj_persistent" in name else
                "int8 sweep (qadam_int8_rows)" if "qadam_int8" in name else
                "other (backward loop, loss, small leaves, data)")
         groups[key] += v["us"]
@@ -679,13 +775,16 @@ def check_bwd(torch, device):
     from dladmm_tpu_torch.models.unroll import DLADMMParams
     from dladmm_tpu_torch.ops.cuda_bwd import bwd_chunk_batch, unroll_bwd, unroll_bwd_plain
 
-    policy = bwd_chunk_batch(SMALL["m"], SMALL["n"], SMALL["m"], 1024)
+    def policy(shape, S):
+        return bwd_chunk_batch(shape["m"], shape["n"], shape["m"], S, shape["K"])
+
     cases = [
         ("synthetic_small", SMALL, 64, None, {}),
         ("synthetic_small", SMALL, 64, None, {"scalar_theta": True, "ties": True}),
-        ("synthetic_small", SMALL, 1024, policy, {}),
+        ("synthetic_small", SMALL, 1024, policy(SMALL, 1024), {}),
         ("synthetic_small", SMALL, 1024, 128, {"ties": True}),
-        ("synthetic_large", LARGE, 1024, bwd_chunk_batch(LARGE["m"], LARGE["n"], LARGE["m"], 1024), {}),
+        ("synthetic_large", LARGE, 1024, policy(LARGE, 1024), {}),
+        ("smoke", SMOKE, 1024, policy(SMOKE, 1024), {"ties": True}),
     ]
     errs = {"whole": 0.0, "chunked": 0.0}
     names = (*DLADMMParams._fields, "gA", "gb")
@@ -712,7 +811,13 @@ def check_bwd(torch, device):
                 errs[route] = max(errs[route], err)
             emit("kernel_bwd", case=f"{label} S={S} bs={bs} {kw or ''}".strip(), route=route,
                  data_grads=data_grads, grads=detail)
-        del A, b, p, traj, cts, got, want
+        with torch.no_grad():
+            again = unroll_bwd(b, A, *p, *traj, *cts, bs=bs, data_grads=False)
+        if not all(torch.equal(g, w) for g, w in zip(got[0], again[0])):
+            raise AssertionError(f"bwd {label} S={S} bs={bs}: a second call differs")
+        emit("kernel_bwd", case=f"{label} S={S} bs={bs}", route=route, repeats_bit_for_bit=True,
+             **persistent_plan(torch, "unroll_bwd", S, shape, bs))
+        del A, b, p, traj, cts, got, want, again
     return errs
 
 
@@ -832,14 +937,14 @@ def train_final_slice(torch, device, unroll_forward):
                 "unroll_bwd_chunked": cuda_bwd.unroll_bwd.launches["chunked"],
                 "adam_dense_rows": qadam_cuda.adam_dense_rows.launches}
 
-    def run(extra):
+    def run(extra, config="synthetic_small"):
         out = io.StringIO()
         cuda_traj.trajectory_forward.launches = 0
         cuda_bwd.reset_launches()
         qadam_cuda.adam_dense_rows.launches = 0
         t0 = time.monotonic()
         with contextlib.redirect_stdout(out):
-            rc = run_main(argv + extra)
+            rc = run_main([f"--config={config}", *argv[1:], *extra])
         wall, launches = time.monotonic() - t0, counts()
         if rc != 0:
             raise AssertionError(f"run.main {extra} returned {rc}")
@@ -875,11 +980,22 @@ def train_final_slice(torch, device, unroll_forward):
         raise AssertionError(f"served NMSE {served['nmse_db']} dB != trained {summary['final_nmse_db']} dB")
     emit("slice_train_final_serve", serve=served, trained_nmse_db=summary["final_nmse_db"], launches=serve_launches)
 
+    # Batch 1024 takes the route bwd_chunk_batch picks: the whole batch at
+    # synthetic_small, whose 15 layers' weight-gradient tiles fill a wave.
+    split = cuda_bwd.bwd_chunk_batch(SMALL["m"], SMALL["n"], SMALL["m"], 1024, SMALL["K"])
+    taken, other = ("unroll_bwd_chunked", "unroll_bwd") if split else ("unroll_bwd", "unroll_bwd_chunked")
     big, big_launches, big_wall, _ = run(["--steps=20", "--batch=1024"])
-    if big_launches["unroll_bwd_chunked"] < 1 or big_launches["unroll_bwd"] != 0:
-        raise AssertionError(f"the batch-1024 run did not take the chunked route: {big_launches}")
-    emit("slice_train_final_1024", summary=big, launches=big_launches, wall_s=big_wall)
-    return launches, serve_launches, big_launches
+    if big_launches[taken] < 1 or big_launches[other] != 0:
+        raise AssertionError(f"the batch-1024 run did not take the policy's route ({taken}): {big_launches}")
+    emit("slice_train_final_1024", summary=big, launches=big_launches, wall_s=big_wall, route=taken)
+    # The chunked route's main path: the smoke preset (4 layers, m=32,
+    # n=64: 12 weight-gradient tiles, under a wave) at batch 1024.
+    small, chunk_launches, chunk_wall, _ = run(["--steps=20", "--batch=1024"], config="smoke")
+    if chunk_launches["unroll_bwd_chunked"] < 1 or chunk_launches["unroll_bwd"] != 0:
+        raise AssertionError(f"the smoke batch-1024 run did not take the chunked route: {chunk_launches}")
+    emit("slice_train_final_chunked", config="smoke", summary=small, launches=chunk_launches, wall_s=chunk_wall,
+         bs=cuda_bwd.bwd_chunk_batch(32, 64, 32, 1024, 4))
+    return launches, serve_launches, big_launches, chunk_launches
 
 
 def final_setup(torch, device):
@@ -990,20 +1106,27 @@ def time_train_final(torch, device, card):
          step=step, steps=20, card=card)
 
     timings = {}
-    for name, S, bs in (("unroll_bwd", 64, None), ("unroll_bwd_chunked", 1024, 128),
-                        ("unroll_bwd@1024_whole", 1024, None)):
-        A_, b, p, traj, cts = bwd_case(torch, S=S, seed=S + 31, device=device, **SMALL)
+    for name, label, shape, S, bs in (
+            ("unroll_bwd", "synthetic_small", SMALL, 64, None),
+            ("unroll_bwd@1024_chunked", "synthetic_small", SMALL, 1024, 128),
+            ("unroll_bwd@1024_whole", "synthetic_small", SMALL, 1024, None),
+            ("unroll_bwd_chunked", "smoke", SMOKE, 1024, 128)):
+        A_, b, p, traj, cts = bwd_case(torch, S=S, seed=S + 31, device=device, **shape)
         with torch.no_grad():
+            fns = [lambda: unroll_bwd(b, A_, *p, *traj, *cts, bs=bs), lambda: unroll_bwd_plain(b, A_, *p, *traj, *cts)]
             for _ in range(2):  # warm-up
-                unroll_bwd(b, A_, *p, *traj, *cts, bs=bs)
-                unroll_bwd_plain(b, A_, *p, *traj, *cts)
-            ms, plain_ms = median_ms(torch, [lambda: unroll_bwd(b, A_, *p, *traj, *cts, bs=bs),
-                                             lambda: unroll_bwd_plain(b, A_, *p, *traj, *cts)], 21)
-        bms, by = bwd_bound(S, **SMALL)
+                for fn in fns:
+                    fn()
+            ms, plain_ms = median_ms(torch, fns, 21)
+            prof = profile_fn(torch, fns[0], f"{label} S={S} bs={bs}")
+        bms, by = bwd_bound(S, **shape)
         timings[name] = (ms, plain_ms, bms, by, None)
-        emit("timing_train_final_kernel", kernel=name, config=f"synthetic_small S={S} bs={bs}",
-             kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, card=card)
-        del A_, b, p, traj, cts
+        emit("timing_train_final_kernel", kernel=name, config=f"{label} S={S} bs={bs}",
+             kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+             device_us_per_call=prof["device_us_per_call"], device_kernels=prof["per_call"],
+             host_enqueue_us=host_enqueue_us(torch, fns[0]),
+             **persistent_plan(torch, "unroll_bwd", S, shape, bs), card=card)
+        del A_, b, p, traj, cts, fns
 
     leaves = DENSE_LEAVES["synthetic_small"]
     elems = sum(int(np.prod(s)) for s in leaves)
@@ -1062,13 +1185,13 @@ def profile_train_final(torch, device, steps: int = 5):
     window_us = start.elapsed_time(stop) * 1e3
     kernels = device_kernels(prof, steps)
     busy_us = sum(v["us"] for v in kernels.values()) * steps
-    groups = {"trajectory kernel (unroll_phase)": 0.0,
-              "backward kernel (bwd_phase, reduce_splits, finish)": 0.0,
+    groups = {"trajectory kernel (traj_persistent)": 0.0,
+              "backward kernel (bwd_chain, bwd_weights, finish)": 0.0,
               "dense sweep (qadam_dense)": 0.0, "other (loss, norm, scalars, data, copies)": 0.0}
     for name, v in kernels.items():
-        key = ("trajectory kernel (unroll_phase)" if "unroll_phase" in name else
-               "backward kernel (bwd_phase, reduce_splits, finish)"
-               if any(k in name for k in ("bwd_phase", "reduce_splits", "finish")) else
+        key = ("trajectory kernel (traj_persistent)" if "traj_persistent" in name else
+               "backward kernel (bwd_chain, bwd_weights, finish)"
+               if any(k in name for k in ("bwd_chain", "bwd_weights", "finish")) else
                "dense sweep (qadam_dense)" if "qadam_dense" in name else
                "other (loss, norm, scalars, data, copies)")
         groups[key] += v["us"]
@@ -1591,7 +1714,7 @@ def main() -> int:
     traj_err = 0.0
     with torch.no_grad():
         for label, shape, S in (("synthetic_small", SMALL, 64), ("synthetic_small", SMALL, 256),
-                                ("synthetic_large", LARGE, 1024)):
+                                ("synthetic_small", SMALL, 3000), ("synthetic_large", LARGE, 1024)):
             A, b, p = problem(torch, S=S, seed=S + 3, device=dev, **shape)
             for with_tax in (True, False):
                 got = trajectory_forward(b, A, *p, with_tax=with_tax)
@@ -1600,7 +1723,12 @@ def main() -> int:
                 names = ("tx", "tz", "tlam", "tax")[: len(want)]
                 traj_err = max(traj_err, compare(torch, got, want, f"{label} S={S} with_tax={with_tax}",
                                                  names=names, phase="kernel_traj"))
-            del A, b, p, got, want
+                again = trajectory_forward(b, A, *p, with_tax=with_tax)
+                if not all(torch.equal(g, w) for g, w in zip(got, again)):
+                    raise AssertionError(f"trajectory {label} S={S} with_tax={with_tax}: a second call differs")
+            emit("kernel_traj", case=f"{label} S={S}", repeats_bit_for_bit=True,
+                 **persistent_plan(torch, "trajectory_forward", S, shape))
+            del A, b, p, got, want, again
     int8_err = check_int8(torch, qadam_cuda, dev)
     check_grads(torch, dev)
 
@@ -1609,6 +1737,7 @@ def main() -> int:
 
     # 11-12. training step time and kernel times; profile.
     _, train_timings = time_train(torch, dev, card)
+    barrier_cost(torch, card)
     profile_train(torch, dev)
 
     # 13-14. the final-layer slice's kernels against their plain versions.
@@ -1616,7 +1745,7 @@ def main() -> int:
     dense_err = check_dense(torch, qadam_cuda, dev)
     # 15. the final-layer training slice, counted from 0; its checkpoint
     # served; the batch-1024 run on the chunked route.
-    final_launches, final_serve_launches, big_launches = train_final_slice(torch, dev, unroll_forward)
+    final_launches, final_serve_launches, big_launches, chunk_launches = train_final_slice(torch, dev, unroll_forward)
     # 16-17. final-layer step time and kernel times; profile.
     _, final_timings = time_train_final(torch, dev, card)
     profile_train_final(torch, dev)
@@ -1666,13 +1795,14 @@ def main() -> int:
             "launches": train_launches[name],  # main path: run.main --steps=300
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": None, "shape": shape,
+            **(persistent_plan(torch, name, 64, SMALL) if name == "trajectory_forward" else {}),
         })
     for name, source, replaces, err, timing, launches, shape in (
         ("unroll_bwd", "dladmm_tpu_torch/ops/csrc/unroll_bwd.cu", "dladmm_tpu/ops/pallas_bwd.py:56",
          bwd_errs["whole"], "unroll_bwd", final_launches["unroll_bwd"], "synthetic_small S=64"),
         ("unroll_bwd_chunked", "dladmm_tpu_torch/ops/csrc/unroll_bwd.cu", "dladmm_tpu/ops/pallas_bwd.py:356",
-         bwd_errs["chunked"], "unroll_bwd_chunked", big_launches["unroll_bwd_chunked"],
-         "synthetic_small S=1024 bs=128"),
+         bwd_errs["chunked"], "unroll_bwd_chunked", chunk_launches["unroll_bwd_chunked"],
+         "smoke S=1024 bs=128"),
         ("adam_dense_rows", "dladmm_tpu_torch/ops/csrc/qadam_dense.cu", "dladmm_tpu/train/qadam_pallas.py:178",
          dense_err, "adam_dense_rows@float32", final_launches["adam_dense_rows"],
          "float32 synthetic_small W1+W2, one step"),
@@ -1681,9 +1811,12 @@ def main() -> int:
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             # main paths: run --layer-loss=none --moment-dtype=float32_pallas
-            # --steps=1000; for the chunked route the same at --batch=1024 --steps=20
+            # --steps=1000; for the chunked route the same with --config=smoke
+            # --batch=1024 --steps=20
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms, "shape": shape,
+            **({"unroll_bwd": persistent_plan(torch, "unroll_bwd", 64, SMALL),
+                "unroll_bwd_chunked": persistent_plan(torch, "unroll_bwd", 1024, SMOKE, 128)}.get(name, {})),
         })
     ms, plain_ms, bms, by = new_timings[("int8", 256)]
     entries.append({

@@ -1,7 +1,8 @@
 """Builds the port's CUDA sources with nvcc and loads them with ctypes.
 
 Every hand-written kernel of the port is a ``.cu`` file under
-``ops/csrc/`` with a plain C interface. ``build(src)`` compiles one
+``ops/csrc/`` with a plain C interface (the persistent kernels share
+``persistent.cuh``). ``build(src)`` compiles one
 source for ``sm_90a`` into a shared library in the git-ignored
 ``dladmm_tpu_torch/_build/``, named by the source's hash and the flags,
 so an edited source never loads a stale build; ``build_all`` starts one
@@ -54,9 +55,11 @@ def nvcc() -> str:
 
 
 def library_path(src: Path) -> Path:
-    """Where the build of ``src`` lives: keyed by the source and the
-    flags."""
+    """Where the build of ``src`` lives: keyed by the source, the headers
+    beside it (``*.cuh``, which a source may include) and the flags."""
     h = hashlib.sha256(Path(src).read_bytes())
+    for header in sorted(Path(src).parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libdladmm_{Path(src).stem}_{h.hexdigest()[:16]}.so"
 
@@ -132,6 +135,23 @@ def check(src: Path, err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
+_OCC_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+_occupancy: Dict[tuple, Tuple[int, int]] = {}
+
+
+def occupancy(src, name: str, device_index: int):
+    """(blocks a SM, SMs) of a persistent kernel on the card, from its C
+    entry ``name`` (cudaOccupancyMaxActiveBlocksPerMultiprocessor and the
+    SM count); asked once per device."""
+    key = (src, name, device_index)
+    if key not in _occupancy:
+        fn = entry(src, name, _OCC_ARGTYPES)
+        bps, sms = ctypes.c_int(0), ctypes.c_int(0)
+        check(src, fn(device_index, ctypes.byref(bps), ctypes.byref(sms)), f"{name}")
+        _occupancy[key] = (bps.value, sms.value)
+    return _occupancy[key]
+
+
 def check_same_device(b, tensors: dict) -> None:
     """Raise unless every tensor lies on b's device, before a wrapper
     picks its kernel or plain version: a CPU/CUDA mix runs neither."""
@@ -142,5 +162,5 @@ def check_same_device(b, tensors: dict) -> None:
 
 __all__ = [
     "BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "build_all", "check", "check_same_device",
-    "entry", "library_path", "load", "nvcc",
+    "entry", "library_path", "load", "nvcc", "occupancy",
 ]

@@ -15,16 +15,24 @@ forward's stacks tx, tz, tlam, tAx (ops/cuda_traj.trajectory_forward
 with ``with_tax``), so nothing of the forward is recomputed. l1/l1 and
 B = I only, as the TPU kernels.
 
+Design. One persistent cooperative launch runs the V, X, U chain of
+all K layers with grid barriers; a second launch computes all K layers'
+weight gradients from the gp1 and gp2 stacks the chain stored; a third
+finishes gθ and gβ. The chain's grid and the depth split of each phase
+come from ``ops/schedule.bwd_schedule``; a grid the card cannot hold
+resident is refused by the launch and raises here.
+
 Batch split. The TPU gates (``bwd_fits_vmem``, and ``bwd_chunk_batch``
 as a VMEM fit) are dropped: the CUDA kernel keeps the cotangent state in
 device memory and streams every operand through shared-memory tiles, so
 it runs at every shape. ``bwd_chunk_batch`` is re-derived for Hopper by
-grid occupancy: the weight-gradient launch reduces over the batch inside
-each block, so at large S and narrow weights it has few blocks, each
-with a long serial loop. Splitting S into slices of bs rows multiplies
-its blocks by S / bs (each slice writes an fp32 partial, summed in slice
-order). ``bs < S`` is the chunked route, counted apart from the
-whole-batch route.
+the occupancy of the weight-gradient launch, which reduces over the
+batch inside each block: one block per (layer, 32 x 32 tile), K x
+``schedule.weight_tiles(m, n)`` blocks, each with a loop over S. When that
+is under one wave of the card, splitting S into slices of bs rows
+multiplies its blocks by S / bs (each slice writes an fp32 partial,
+summed in slice order). ``bs < S`` is the chunked route, counted apart
+from the whole-batch route.
 """
 
 from __future__ import annotations
@@ -37,53 +45,43 @@ import torch
 from torch import Tensor
 
 from dladmm_tpu_torch.models.unroll import DLADMMParams
-from dladmm_tpu_torch.ops import cuda_build
+from dladmm_tpu_torch.ops import cuda_build, schedule
 from dladmm_tpu_torch.ops.cuda_unroll import kernel_args
 from dladmm_tpu_torch.ops.unroll_vjp import _param_grads, bwd_from_carries, shifted_residuals
 
 SRC = cuda_build.CSRC / "unroll_bwd.cu"
 ROUTES = ("whole", "chunked")
-# csrc/unroll_bwd.cu: 32 x 32 output tiles of 256 threads. Its
-# weight-gradient launch uses 40 registers a thread (ptxas, sm_90a), so 6
-# such blocks fit an SM's 65,536 registers; 132 SMs on the H100.
-TILE = 32
+# csrc/unroll_bwd.cu: 32 x 32 output tiles of 256 threads. A wave of its
+# weight-gradient launch: 132 SMs on the H100 x 6 blocks an SM (at 40
+# registers a thread, 6 blocks fit an SM's 65,536).
 WAVE = 132 * 6
 MIN_SPLIT_BATCH = 256
 
 _count_lock = threading.Lock()
 
-_ARGTYPES = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_WS_ARGTYPES = [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 22 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6
+             + [ctypes.c_void_p])
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def weight_grad_blocks(m: int, n: int) -> int:
-    """Blocks of the unsplit weight-gradient launch: 32-row tiles of gW1
-    (n rows) and gW2 (m rows), 32-column tiles of their m columns."""
-    return (_cdiv(n, TILE) + _cdiv(m, TILE)) * _cdiv(m, TILE)
-
-
-def bwd_chunk_batch(m: int, n: int, d: int, S: int) -> Optional[int]:
+def bwd_chunk_batch(m: int, n: int, d: int, S: int, K: int) -> Optional[int]:
     """Rows per batch slice of the weight gradients, or None for the
     whole-batch route.
 
     Rule (Hopper occupancy, not a memory fit): split only when S >= 256
-    and the unsplit weight-gradient launch is under one wave of the
-    card (``weight_grad_blocks(m, n) < 132 SMs x 6 blocks``). Then bs is
-    the largest of 512, 256, 128 below S whose split fills a wave, else
-    128. synthetic_small (m=250, n=500: 192 blocks) splits S = 1024 into
-    8 slices of 128; synthetic_large (3040 blocks) never splits; batch 64
-    never splits. B = I (d == m) only, as the TPU's chunked kernel."""
+    and the unsplit weight-gradient launch, one block a tile of all K
+    layers, is under one wave of the card (``K *
+    schedule.weight_tiles(m, n) < 132 SMs x 6 blocks``). Then bs is the
+    largest of 512, 256, 128 below S whose split fills a wave, else 128. synthetic_small (K = 15 layers of 192
+    blocks: 2880) and synthetic_large (K = 20 of 3040) never split; the
+    smoke preset (K = 4 of 3) splits a batch of 1024 into slices of 128.
+    B = I (d == m) only, as the TPU's chunked kernel."""
     if d != m:
         return None
-    blocks = weight_grad_blocks(m, n)
+    blocks = K * schedule.weight_tiles(m, n)
     if S < MIN_SPLIT_BATCH or blocks >= WAVE:
         return None
     for bs in (512, 256, 128):
-        if bs < S and blocks * _cdiv(S, bs) >= WAVE:
+        if bs < S and blocks * schedule.cdiv(S, bs) >= WAVE:
             return bs
     return 128
 
@@ -155,20 +153,24 @@ def unroll_bwd(b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax, gx, gz, glam,
             raise TypeError(f"{name} is {t.dtype} on {t.device}; the kernel takes float32 on {b.device}")
         ins.append(t.contiguous())
     launch = cuda_build.entry(SRC, "dladmm_unroll_bwd", _ARGTYPES)
-    ws_bytes = cuda_build.entry(SRC, "dladmm_unroll_bwd_workspace_bytes", _WS_ARGTYPES,
-                                restype=ctypes.c_size_t)
+    dev = b.device.index
+    occ = cuda_build.occupancy(SRC, "dladmm_bwd_occupancy", dev)
+    grid, sp, _, lay = schedule.bwd_plan(S, m, n, K, bs, data_grads, *occ)
+    sched = (ctypes.c_int * 7)(grid, *(v for ph in ("v", "x", "u") for v in (sp[ph].slices, sp[ph].length)))
     with torch.cuda.device(b.device):
         kw = dict(dtype=torch.float32, device=b.device)
         gW1, gW2 = torch.empty((K, n, m), **kw), torch.empty((K, m, m), **kw)
         gth1, gth2, gbeta = torch.empty((K, n), **kw), torch.empty((K, m), **kw), torch.empty((K,), **kw)
         gax1 = torch.empty((K, S, m), **kw) if data_grads else None
         gb = torch.empty((S, m), **kw) if data_grads else None
-        ws = torch.empty((ws_bytes(S, m, n, K, bs, int(data_grads)),), dtype=torch.uint8, device=b.device)
+        ws = torch.empty((lay["_total"][0],), **kw)
+        bufs = (ctypes.c_void_p * len(schedule.BWD_BUFFERS))(
+            *(ws.data_ptr() + 4 * lay[name][0] for name in schedule.BWD_BUFFERS))
         ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
         err = launch(
             *(t.data_ptr() for t in (b, A, W1, W2, th1, th2, beta, *ins)),
             *(t.data_ptr() for t in (gW1, gW2, gth1, gth2, gbeta)), ptr(gax1), ptr(gb),
-            ws.data_ptr(), S, m, n, K, bs, b.device.index,
+            bufs, lay["counters"][1], sched, S, m, n, K, bs, dev,
             torch.cuda.current_stream(b.device).cuda_stream,
         )
         cuda_build.check(SRC, err, "CUDA backward kernel")
@@ -195,5 +197,4 @@ __all__ = [
     "reset_launches",
     "unroll_bwd",
     "unroll_bwd_plain",
-    "weight_grad_blocks",
 ]

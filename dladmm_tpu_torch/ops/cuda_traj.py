@@ -5,9 +5,12 @@ The port of the trajectory half of ``dladmm_tpu/ops/pallas_unroll.py``
 (``_unroll_traj_kernel`` driven by ``_traj_pallas``, and
 ``make_unrolled_trajectory``; plus ``make_unrolled_forward``'s custom
 VJP, whose forward is this kernel). The kernel is the
-``dladmm_unroll_trajectory`` entry of ``csrc/unroll.cu``: the serving
-kernel's 3K fused GEMM launches, each layer reading its input state from
-slice k-1 of the stacks and writing slice k.
+``dladmm_unroll_trajectory`` entry of ``csrc/unroll.cu``: one persistent
+cooperative launch that runs the K layers' three fused GEMM phases with a
+grid barrier between them, each layer reading its input state from slice
+k-1 of the stacks and writing slice k. Its grid and the depth split of
+each phase come from ``ops/schedule.traj_schedule``; a grid the card
+cannot hold resident is refused by the launch and raises here.
 
 ``trajectory_forward`` is the one entry: on a CUDA tensor it launches
 the kernel or raises; on a CPU tensor it runs ``trajectory_forward_plain``.
@@ -35,7 +38,7 @@ import torch
 from torch import Tensor
 
 from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
-from dladmm_tpu_torch.ops import cuda_build
+from dladmm_tpu_torch.ops import cuda_build, schedule
 from dladmm_tpu_torch.ops.cuda_bwd import bwd_chunk_batch, unroll_bwd
 from dladmm_tpu_torch.ops.cuda_unroll import SRC, kernel_args, needs_grad
 from dladmm_tpu_torch.ops.unroll_vjp import _param_grads, bwd_from_carries, shifted_residuals
@@ -43,8 +46,7 @@ from dladmm_tpu_torch.ops.unroll_vjp import _param_grads, bwd_from_carries, shif
 _count_lock = threading.Lock()
 
 
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-
+_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 
 def trajectory_forward_plain(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
     """The kernel's function in plain PyTorch: the plain loop from zero
@@ -73,16 +75,21 @@ def trajectory_forward(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
     S, m = b.shape
     K, n, _ = W1.shape
     launch = cuda_build.entry(SRC, "dladmm_unroll_trajectory", _ARGTYPES)
+    dev = b.device.index
+    grid, sp, ws = schedule.traj_plan(S, m, n, *cuda_build.occupancy(SRC, "dladmm_traj_occupancy", dev))
     with torch.cuda.device(b.device):
         kw = dict(dtype=torch.float32, device=b.device)
         tx = torch.empty((K, S, n), **kw)
         tz, tlam = (torch.empty((K, S, m), **kw) for _ in range(2))
         tax = torch.empty((K, S, m) if with_tax else (S, m), **kw)
-        zeros = torch.empty((S * max(n, m),), **kw)
+        work = torch.empty((ws["_total"][0],), **kw)
+        at = lambda name: work.data_ptr() + 4 * ws[name][0]  # noqa: E731
         stream = torch.cuda.current_stream(b.device).cuda_stream
         err = launch(
-            *(t.data_ptr() for t in (b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax, zeros)),
-            int(with_tax), S, m, n, K, b.device.index, stream,
+            *(t.data_ptr() for t in (b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax)),
+            at("zeros"), at("partials"), at("counters"), ws["counters"][1], int(with_tax),
+            S, m, n, K, grid, *(v for ph in ("x", "ax", "z") for v in (sp[ph].slices, sp[ph].length)),
+            dev, stream,
         )
         cuda_build.check(SRC, err, "CUDA trajectory kernel")
     with _count_lock:
@@ -118,7 +125,7 @@ class _Trajectory(torch.autograd.Function):
             S, m = b.shape
             gparams, gA, gb = unroll_bwd(
                 b, A, *params, tx, tz, tlam, tax, gx, gz, glam,
-                bs=bwd_chunk_batch(m, W1.shape[1], W2.shape[1], S), data_grads=any(need_data),
+                bs=bwd_chunk_batch(m, W1.shape[1], W2.shape[1], S, W1.shape[0]), data_grads=any(need_data),
             )
         else:
             final = (torch.zeros_like(gx[-1]), torch.zeros_like(gz[-1]), torch.zeros_like(glam[-1]))

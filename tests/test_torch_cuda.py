@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions:
-the whole-unroll kernel, the trajectory kernel, the int8 Adam sweep, the
-backward kernel (both routes), the dense Adam sweep, the training
+the whole-unroll kernel, the trajectory kernel (a persistent cooperative
+launch: also its repeat bit for bit, shapes with more work items than
+blocks, and a refused grid), the int8 Adam sweep, the backward kernel
+(both routes), the dense Adam sweep, the training
 gradients through them, fit on the card, the int8 whole-unroll kernel
 and its servers, and the per-layer fused step.
 
@@ -309,6 +311,81 @@ def test_bwd_kernel_repeats_bit_for_bit(cuda_device):
             assert torch.equal(g, w)
 
 
+@pytest.mark.gpu
+def test_trajectory_kernel_repeats_bit_for_bit(cuda_device):
+    """No float atomics in the persistent kernel's split-K sums: two calls
+    give the same bits, with and without the Ax stack."""
+    from dladmm_tpu_torch.ops import cuda_traj
+
+    A, b, p = _problem(250, 500, 15, 64, seed=31, device=cuda_device)
+    for with_tax in (True, False):
+        one = cuda_traj.trajectory_forward(b, A, *p, with_tax=with_tax)
+        two = cuda_traj.trajectory_forward(b, A, *p, with_tax=with_tax)
+        for g, w in zip(one, two):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,K,S", [(250, 500, 15, 3000), (1000, 2000, 20, 1024)])
+def test_trajectory_kernel_with_more_items_than_blocks(cuda_device, m, n, K, S):
+    """Shapes whose phases have more tiles than the persistent grid has
+    blocks (synthetic_small S = 3000, synthetic_large S = 1024), so every
+    block loops over several items."""
+    from dladmm_tpu_torch.ops import cuda_build, cuda_traj, schedule
+
+    A, b, p = _problem(m, n, K, S, seed=S + 7, device=cuda_device)
+    grid, splits = schedule.traj_schedule(
+        S, m, n, *cuda_build.occupancy(cuda_unroll.SRC, "dladmm_traj_occupancy", cuda_device.index or 0))
+    assert max(sp.items for sp in splits.values()) > grid
+    got = cuda_traj.trajectory_forward(b, A, *p, with_tax=True)
+    want = cuda_traj.trajectory_forward_plain(b, A, *p, with_tax=True)
+    torch.cuda.synchronize()
+    _assert_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data_grads", [True, False])
+def test_bwd_kernel_whole_batch_1024(cuda_device, data_grads):
+    """The whole-batch route at synthetic_small S = 1024 (the policy's
+    route there): every layer's 2880 weight-gradient tiles summed over
+    1024 rows, against the plain version at the backward's tolerance."""
+    from dladmm_tpu_torch.ops import cuda_bwd
+
+    A, b, p, traj, cts = _bwd_case(250, 500, 15, 1024, seed=1029, device=cuda_device)
+    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 1024, 15) is None
+    before = dict(cuda_bwd.unroll_bwd.launches)
+    got = cuda_bwd.unroll_bwd(b, A, *p, *traj, *cts, data_grads=data_grads)
+    want = cuda_bwd.unroll_bwd_plain(b, A, *p, *traj, *cts, data_grads=data_grads)
+    torch.cuda.synchronize()
+    assert cuda_bwd.unroll_bwd.launches["whole"] == before["whole"] + 1
+    _assert_grads_close(got[0], want[0])
+    _assert_grads_close(got[1:], want[1:])
+
+
+@pytest.mark.gpu
+def test_persistent_kernels_raise_when_the_grid_is_refused(cuda_device, monkeypatch):
+    """A grid larger than the card holds resident is refused by the
+    cooperative launch: both wrappers raise, count no launch and run
+    nothing in the kernel's place. Forced by patching the grid the
+    wrappers compute (ops/schedule.launch_grid)."""
+    from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj, schedule
+
+    A, b, p, traj, cts = _bwd_case(250, 500, 3, 64, seed=2, device=cuda_device)
+    monkeypatch.setattr(schedule, "launch_grid", lambda bps, sms, widest: bps * sms + 1)
+    t0, b0 = cuda_traj.trajectory_forward.launches, dict(cuda_bwd.unroll_bwd.launches)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_traj.trajectory_forward(b, A, *p, with_tax=True)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_bwd.unroll_bwd(b, A, *p, *traj, *cts)
+    assert cuda_traj.trajectory_forward.launches == t0
+    assert cuda_bwd.unroll_bwd.launches == b0
+    torch.cuda.synchronize()  # nothing was left running or faulted
+    # the refusal is not left behind for the next kernel's launch check
+    _assert_close(cuda_unroll.unroll_forward(b, A, *p), cuda_unroll.unroll_forward_plain(b, A, *p))
+    monkeypatch.undo()
+    _assert_close(cuda_traj.trajectory_forward(b, A, *p), cuda_traj.trajectory_forward_plain(b, A, *p))
+
+
 def _final_loss(x, z, lam):
     return torch.mean(x * x) + torch.mean(z * torch.cos(z)) + 0.1 * torch.mean(lam)
 
@@ -317,7 +394,7 @@ def _final_loss(x, z, lam):
 @pytest.mark.parametrize("S,reference", [(64, "plain-loop"), (64, "same-forward"), (1024, "same-forward")])
 def test_final_layer_gradients_on_the_card(cuda_device, S, reference):
     """make_unrolled_forward's gradient (trajectory kernel + backward
-    kernel, chunked at S = 1024 by the policy), A and b included, within
+    kernel, on the route the policy picks), A and b included, within
     rtol 2e-5 of each leaf's scale of: autograd through the plain loop
     ("plain-loop"), or the plain backward on the kernel's own trajectory
     ("same-forward", the route before the backward kernel). At S = 1024
@@ -329,7 +406,7 @@ def test_final_layer_gradients_on_the_card(cuda_device, S, reference):
     from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj
 
     A, b, p = _problem(250, 500, 15, S, seed=S, device=cuda_device)
-    route = "chunked" if cuda_bwd.bwd_chunk_batch(250, 500, 250, S) else "whole"
+    route = "chunked" if cuda_bwd.bwd_chunk_batch(250, 500, 250, S, 15) else "whole"
     leaves = [t.detach().clone().requires_grad_() for t in (*p, A, b)]
     before = dict(cuda_bwd.unroll_bwd.launches)
     x, z, lam = cuda_unroll.make_unrolled_forward()(DLADMMParams(*leaves[:5]), leaves[5], leaves[6])
