@@ -54,7 +54,9 @@ the first fault. Each phase prints one JSON line:
  12. profile_train: torch.profiler over training steps at synthetic_small:
      device time per kernel, per phase (forward, backward loop,
      optimizer) and the busy share;
- 13. kernel_bwd: the backward kernel against its plain version on the
+ 13. kernel_bwd: the wave of the weight-gradient launch (its resident
+     blocks a SM x SMs) that bwd_chunk_batch splits by; the backward
+     kernel against its plain version on the
      trajectory kernel's stacks, with and without data grads, at
      synthetic_small S = 64 (whole batch; also (K, 1) thresholds with
      ties at theta = 0 and beta = 1e-6), S = 1024 with the policy's bs
@@ -86,7 +88,9 @@ the first fault. Each phase prints one JSON line:
      fp32 sweep also beside torch.optim.Adam(fused=True); the backward
      with its profiler device time, grid, work items per phase and
      barriers at synthetic_small S = 64 and 1024 (both routes) and at
-     the smoke preset's S = 1024, bs = 128;
+     the smoke preset's S = 1024 (both routes: the split the policy
+     makes there, against the whole batch); the grid and work items are
+     those the wrapper launched with (``last_plan``);
  17. profile_train_final: device time per phase and kernel, busy share;
  18. kernel_int8_unroll: the int8 whole-unroll kernel against its plain
      version on the same quantized inputs (perturbed LADMM-exact params,
@@ -286,26 +290,22 @@ def traj_bound(S: int, m: int, n: int, K: int, with_tax: bool):
     return _bound(flops, nbytes)
 
 
-def persistent_plan(torch, kind: str, S: int, shape: dict, bs=None) -> dict:
-    """How one call of a persistent kernel ("trajectory_forward" or
-    "unroll_bwd") spreads at this shape on this card: its grid (blocks of
-    the cooperative launch), the work items (tiles x depth slices) of
+def launched_plan(wrapper) -> dict:
+    """How the last launch of a persistent kernel's wrapper
+    (``trajectory_forward`` or ``unroll_bwd``, which keep the plan they
+    launched with in ``last_plan``) spread on this card: its grid (blocks
+    of the cooperative launch), the work items (tiles x depth slices) of
     each phase, its grid barriers; for the backward also the items of
     its weight-gradient launch (all K layers' gW1 and gW2 tiles x S
     slices)."""
-    from dladmm_tpu_torch.ops import cuda_build, schedule
-    from dladmm_tpu_torch.ops.cuda_bwd import SRC as BWD_SRC
-    from dladmm_tpu_torch.ops.cuda_unroll import SRC
+    from dladmm_tpu_torch.ops import schedule
 
-    m, n, K = shape["m"], shape["n"], shape["K"]
-    extra = {}
-    if kind == "trajectory_forward":
-        occ = cuda_build.occupancy(SRC, "dladmm_traj_occupancy", 0)
-        grid, splits = schedule.traj_schedule(S, m, n, *occ)
-    else:
-        occ = cuda_build.occupancy(BWD_SRC, "dladmm_bwd_occupancy", 0)
-        grid, splits, wsplit = schedule.bwd_schedule(S, m, n, K, bs or S, *occ)
-        extra = {"weight_launch_items": wsplit.items, "weight_launch_s_slices": wsplit.slices,
+    occ, grid, splits, last = wrapper.last_plan
+    if isinstance(last, int):  # the trajectory: K
+        K, extra = last, {}
+    else:  # the backward: its WeightSplit
+        K = last.K
+        extra = {"weight_launch_items": last.items, "weight_launch_s_slices": last.slices,
                  "launches_per_call": 3}
     return {"grid": grid, "resident_blocks_per_sm": occ[0], "sms": occ[1],
             "items_per_phase": {k: sp.items for k, sp in splits.items()},
@@ -609,7 +609,7 @@ def time_train(torch, device, card):
         }
     emit("timing_train", config="synthetic_small batch 64 deep supervision int8", step=step, steps=20, card=card)
 
-    timings = {}
+    timings, plans = {}, {}
     with torch.no_grad():
         for label, shape, S, reps in (("synthetic_small", SMALL, 64, 31), ("synthetic_small", SMALL, 256, 21),
                                       ("synthetic_large", LARGE, 1024, 5)):
@@ -622,13 +622,15 @@ def time_train(torch, device, card):
             ms, plain_ms = median_ms(torch, fns, reps)
             bms, by = traj_bound(S, with_tax=True, **shape)
             prof = profile_fn(torch, fns[0], f"{label} S={S} with_tax")
+            enqueue_us = host_enqueue_us(torch, fns[0])
+            plan = launched_plan(trajectory_forward)
             if S == 64:
                 timings["trajectory_forward"] = (ms, plain_ms, bms, by)
+                plans["trajectory_forward"] = plan
             emit("timing_train_kernel", kernel="trajectory_forward", config=f"{label} S={S} with_tax",
                  kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                  device_us_per_call=prof["device_us_per_call"], device_kernels=prof["per_call"],
-                 host_enqueue_us=host_enqueue_us(torch, fns[0]),
-                 **persistent_plan(torch, "trajectory_forward", S, shape), card=card)
+                 host_enqueue_us=enqueue_us, **plan, card=card)
             del A_, b, p, fns
 
     leaves = INT8_LEAVES["synthetic_small"]
@@ -652,7 +654,7 @@ def time_train(torch, device, card):
         ms_l = median_ms(torch, [lambda: tqa.adam_int8_rows(grads[0], master, mu, nu, scal)], 11)[0]
         emit("timing_train_kernel", kernel="adam_int8_rows", config=f"synthetic_large R={R} L={L}",
              kernel_ms=ms_l, bound_ms=int8_bound([(R, L)])[0], bound_by="bytes", card=card)
-    return step, timings
+    return step, timings, plans
 
 
 def device_us_by_phase(torch, prof, steps: int):
@@ -773,10 +775,13 @@ def check_bwd(torch, device):
     trajectory kernel's stacks, with and without data grads. Returns the
     largest absolute difference of each route."""
     from dladmm_tpu_torch.models.unroll import DLADMMParams
-    from dladmm_tpu_torch.ops.cuda_bwd import bwd_chunk_batch, unroll_bwd, unroll_bwd_plain
+    from dladmm_tpu_torch.ops.cuda_bwd import bwd_chunk_batch, unroll_bwd, unroll_bwd_plain, weight_wave
+
+    wave = weight_wave(device)
+    emit("kernel_bwd_policy", weight_launch_wave=wave, note="bwd_weights' resident blocks a SM x SMs")
 
     def policy(shape, S):
-        return bwd_chunk_batch(shape["m"], shape["n"], shape["m"], S, shape["K"])
+        return bwd_chunk_batch(shape["m"], shape["n"], shape["m"], S, shape["K"], wave)
 
     cases = [
         ("synthetic_small", SMALL, 64, None, {}),
@@ -816,7 +821,7 @@ def check_bwd(torch, device):
         if not all(torch.equal(g, w) for g, w in zip(got[0], again[0])):
             raise AssertionError(f"bwd {label} S={S} bs={bs}: a second call differs")
         emit("kernel_bwd", case=f"{label} S={S} bs={bs}", route=route, repeats_bit_for_bit=True,
-             **persistent_plan(torch, "unroll_bwd", S, shape, bs))
+             **launched_plan(unroll_bwd))
         del A, b, p, traj, cts, got, want, again
     return errs
 
@@ -982,7 +987,8 @@ def train_final_slice(torch, device, unroll_forward):
 
     # Batch 1024 takes the route bwd_chunk_batch picks: the whole batch at
     # synthetic_small, whose 15 layers' weight-gradient tiles fill a wave.
-    split = cuda_bwd.bwd_chunk_batch(SMALL["m"], SMALL["n"], SMALL["m"], 1024, SMALL["K"])
+    wave = cuda_bwd.weight_wave(device)
+    split = cuda_bwd.bwd_chunk_batch(SMALL["m"], SMALL["n"], SMALL["m"], 1024, SMALL["K"], wave)
     taken, other = ("unroll_bwd_chunked", "unroll_bwd") if split else ("unroll_bwd", "unroll_bwd_chunked")
     big, big_launches, big_wall, _ = run(["--steps=20", "--batch=1024"])
     if big_launches[taken] < 1 or big_launches[other] != 0:
@@ -994,7 +1000,7 @@ def train_final_slice(torch, device, unroll_forward):
     if chunk_launches["unroll_bwd_chunked"] < 1 or chunk_launches["unroll_bwd"] != 0:
         raise AssertionError(f"the smoke batch-1024 run did not take the chunked route: {chunk_launches}")
     emit("slice_train_final_chunked", config="smoke", summary=small, launches=chunk_launches, wall_s=chunk_wall,
-         bs=cuda_bwd.bwd_chunk_batch(32, 64, 32, 1024, 4))
+         bs=cuda_bwd.bwd_chunk_batch(32, 64, 32, 1024, 4, wave))
     return launches, serve_launches, big_launches, chunk_launches
 
 
@@ -1105,12 +1111,13 @@ def time_train_final(torch, device, card):
     emit("timing_train_final", config="synthetic_small batch 64 final-layer loss float32_pallas",
          step=step, steps=20, card=card)
 
-    timings = {}
+    timings, plans = {}, {}
     for name, label, shape, S, bs in (
             ("unroll_bwd", "synthetic_small", SMALL, 64, None),
             ("unroll_bwd@1024_chunked", "synthetic_small", SMALL, 1024, 128),
             ("unroll_bwd@1024_whole", "synthetic_small", SMALL, 1024, None),
-            ("unroll_bwd_chunked", "smoke", SMOKE, 1024, 128)):
+            ("unroll_bwd@smoke1024_chunked", "smoke", SMOKE, 1024, 128),
+            ("unroll_bwd@smoke1024_whole", "smoke", SMOKE, 1024, None)):
         A_, b, p, traj, cts = bwd_case(torch, S=S, seed=S + 31, device=device, **shape)
         with torch.no_grad():
             fns = [lambda: unroll_bwd(b, A_, *p, *traj, *cts, bs=bs), lambda: unroll_bwd_plain(b, A_, *p, *traj, *cts)]
@@ -1120,12 +1127,13 @@ def time_train_final(torch, device, card):
             ms, plain_ms = median_ms(torch, fns, 21)
             prof = profile_fn(torch, fns[0], f"{label} S={S} bs={bs}")
         bms, by = bwd_bound(S, **shape)
+        enqueue_us = host_enqueue_us(torch, fns[0])
         timings[name] = (ms, plain_ms, bms, by, None)
+        plans[name] = launched_plan(unroll_bwd)
         emit("timing_train_final_kernel", kernel=name, config=f"{label} S={S} bs={bs}",
              kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
              device_us_per_call=prof["device_us_per_call"], device_kernels=prof["per_call"],
-             host_enqueue_us=host_enqueue_us(torch, fns[0]),
-             **persistent_plan(torch, "unroll_bwd", S, shape, bs), card=card)
+             host_enqueue_us=enqueue_us, **plans[name], card=card)
         del A_, b, p, traj, cts, fns
 
     leaves = DENSE_LEAVES["synthetic_small"]
@@ -1160,7 +1168,7 @@ def time_train_final(torch, device, card):
              kernel_ms=times[0], plain_ms=times[1], library_ms=library_ms, library="torch.optim.Adam(fused=True)",
              bound_ms=bms, bound_by=by, card=card)
         del kern, plain, fns, library
-    return step, timings
+    return step, timings, plans
 
 
 def profile_train_final(torch, device, steps: int = 5):
@@ -1585,7 +1593,8 @@ def main() -> int:
     builds = cuda_build.build_all(sources)
     for name, (lib_path, built, secs) in builds.items():
         log = Path(str(lib_path) + ".log")
-        ptxas = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln] if log.exists() else []
+        ptxas = ([ln.strip() for ln in log.read_text().splitlines()
+                  if "registers" in ln or "Compiling entry function" in ln] if log.exists() else [])
         emit("build", source=name, seconds=secs, built_now=built, library=lib_path.name, ptxas=ptxas)
     emit("build_all", seconds=time.monotonic() - t0, sources=len(builds))
 
@@ -1727,7 +1736,7 @@ def main() -> int:
                 if not all(torch.equal(g, w) for g, w in zip(got, again)):
                     raise AssertionError(f"trajectory {label} S={S} with_tax={with_tax}: a second call differs")
             emit("kernel_traj", case=f"{label} S={S}", repeats_bit_for_bit=True,
-                 **persistent_plan(torch, "trajectory_forward", S, shape))
+                 **launched_plan(trajectory_forward))
             del A, b, p, got, want, again
     int8_err = check_int8(torch, qadam_cuda, dev)
     check_grads(torch, dev)
@@ -1736,7 +1745,7 @@ def main() -> int:
     train_launches, ckpt_serve_launches = train_slice(torch, dev, unroll_forward, str(ckpt10))
 
     # 11-12. training step time and kernel times; profile.
-    _, train_timings = time_train(torch, dev, card)
+    _, train_timings, train_plans = time_train(torch, dev, card)
     barrier_cost(torch, card)
     profile_train(torch, dev)
 
@@ -1747,7 +1756,7 @@ def main() -> int:
     # served; the batch-1024 run on the chunked route.
     final_launches, final_serve_launches, big_launches, chunk_launches = train_final_slice(torch, dev, unroll_forward)
     # 16-17. final-layer step time and kernel times; profile.
-    _, final_timings = time_train_final(torch, dev, card)
+    _, final_timings, final_plans = time_train_final(torch, dev, card)
     profile_train_final(torch, dev)
 
     # 18. the int8 kernel against its plain version.
@@ -1794,15 +1803,14 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": train_launches[name],  # main path: run.main --steps=300
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": None, "shape": shape,
-            **(persistent_plan(torch, name, 64, SMALL) if name == "trajectory_forward" else {}),
+            "bound_by": by, "library_ms": None, "shape": shape, **train_plans.get(name, {}),
         })
     for name, source, replaces, err, timing, launches, shape in (
         ("unroll_bwd", "dladmm_tpu_torch/ops/csrc/unroll_bwd.cu", "dladmm_tpu/ops/pallas_bwd.py:56",
          bwd_errs["whole"], "unroll_bwd", final_launches["unroll_bwd"], "synthetic_small S=64"),
         ("unroll_bwd_chunked", "dladmm_tpu_torch/ops/csrc/unroll_bwd.cu", "dladmm_tpu/ops/pallas_bwd.py:356",
-         bwd_errs["chunked"], "unroll_bwd_chunked", chunk_launches["unroll_bwd_chunked"],
-         "smoke S=1024 bs=128"),
+         bwd_errs["chunked"], "unroll_bwd@1024_chunked", chunk_launches["unroll_bwd_chunked"],
+         "synthetic_small S=1024 bs=128"),
         ("adam_dense_rows", "dladmm_tpu_torch/ops/csrc/qadam_dense.cu", "dladmm_tpu/train/qadam_pallas.py:178",
          dense_err, "adam_dense_rows@float32", final_launches["adam_dense_rows"],
          "float32 synthetic_small W1+W2, one step"),
@@ -1811,12 +1819,12 @@ def main() -> int:
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             # main paths: run --layer-loss=none --moment-dtype=float32_pallas
-            # --steps=1000; for the chunked route the same with --config=smoke
-            # --batch=1024 --steps=20
+            # --steps=1000; the chunked route's launches are those of the same
+            # with --config=smoke --batch=1024 --steps=20 (synthetic_small does
+            # not split), its times those at synthetic_small S=1024, bs=128
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms, "shape": shape,
-            **({"unroll_bwd": persistent_plan(torch, "unroll_bwd", 64, SMALL),
-                "unroll_bwd_chunked": persistent_plan(torch, "unroll_bwd", 1024, SMOKE, 128)}.get(name, {})),
+            **final_plans.get(timing, {}),
         })
     ms, plain_ms, bms, by = new_timings[("int8", 256)]
     entries.append({

@@ -53,10 +53,14 @@
 // partials in slice order and runs the epilogue. No float atomics, so a
 // call repeats bit for bit on one card. Each block keeps the next depth
 // step's loads in flight (registers) while it computes the current one
-// from the other half of a double-buffered shared-memory tile. Rows of
-// m = 250 floats are only 8-byte aligned, so loads are 4-byte and no
-// 16-byte cp.async or TMA descriptor is used. At synthetic_small all
-// layers' W1 + W2 plus A (11.75 MB) stay in the 50 MB L2.
+// from the other half of a double-buffered shared-memory tile; 4-byte
+// loads (rows of m = 250 floats are 8-byte aligned, so no 16-byte copy or
+// TMA descriptor). A two- or three-stage cp.async pipeline for the
+// weights was measured slower on the H100: it costs registers, and so
+// resident blocks where the grid is the occupancy (PERF.md, PR 5).
+// __launch_bounds__(kPT, 4) holds the kernel at 64 registers, 4 blocks a
+// SM. At synthetic_small all layers' W1 + W2 plus A (11.75 MB) stay in
+// the 50 MB L2.
 //
 // Bound. Per call the work is 2*S*m*(2n+d)*K flops and the bytes are
 // K layers of W1/W2, A, b and the outputs (K times the state for the
@@ -375,7 +379,7 @@ __device__ void traj_phase(const TrajArgs& a, TileSmem& sm, int k) {
 
 // All K layers in one cooperative launch: x, Ax, z phases a layer with a
 // grid barrier after each but the last.
-__global__ void __launch_bounds__(kPT) traj_persistent(const TrajArgs a) {
+__global__ void __launch_bounds__(kPT, 4) traj_persistent(const TrajArgs a) {
   __shared__ TileSmem sm;
   cg::grid_group grid = cg::this_grid();
   for (int k = 0; k < a.K; ++k) {

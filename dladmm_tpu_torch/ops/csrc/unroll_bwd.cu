@@ -38,7 +38,9 @@
 // and the last block to finish a tile (an integer atomic per tile) sums
 // the partials in slice order and runs the epilogue. The next depth
 // step's loads stay in flight (registers) while the current one is
-// computed from the other half of a double-buffered shared-memory tile.
+// computed from the other half of a double-buffered shared-memory tile;
+// __launch_bounds__(kPT, 4) holds the chain at 64 registers, 4 blocks a
+// SM (at 76 it held 3, and S = 1024 took 25% longer).
 // X's epilogue writes gp1 into a (K, S, n) stack (the next layer's gx
 // carry is that slice), U's writes gp2 into a (K, S, m) stack, so the
 // weight gradients leave the chain: (2) bwd_weights, one launch for all
@@ -61,7 +63,8 @@
 // stale L1 line). Layer 0 reads a zero buffer.
 //
 // Alignment. Rows of m = 250 floats are only 8-byte aligned, so every
-// load is 4-byte: no 16-byte cp.async or TMA descriptor.
+// load is 4-byte: no 16-byte copy or TMA descriptor. A cp.async pipeline
+// for the weights was measured slower (unroll.cu, PERF.md).
 //
 // Bound. 2 S K (2 m^2 + 3 n m) flops, and the bytes of the weights, the
 // trajectory and the outputs once; at S >= 64 the flops dominate, so the
@@ -241,7 +244,7 @@ __device__ void chain_phase(const ChainArgs& a, TileSmem& sm, int k) {
 
 // Layers K-1 ... 0 in one cooperative launch: V, X, U a layer with a
 // grid barrier after each but the last.
-__global__ void __launch_bounds__(kPT) bwd_chain(const ChainArgs a) {
+__global__ void __launch_bounds__(kPT, 4) bwd_chain(const ChainArgs a) {
   __shared__ TileSmem sm;
   cg::grid_group grid = cg::this_grid();
   for (int k = a.K - 1; k >= 0; --k) {
@@ -263,8 +266,11 @@ struct WeightArgs {
   int S, m, n, K, bs;                  // rows per S slice (bs >= S: one slice)
 };
 
-// All K layers' gW1 = -gp1^T u and gW2 = -gp2^T v, one item per (layer,
-// tile, S slice): ops/schedule.weight_items' map.
+// All K layers' gW1 = -gp1^T u and gW2 = -gp2^T v, one block per (layer,
+// tile, S slice): item = tile * slices + slice; a layer's tiles are the
+// 32-row tiles of gW1 (n rows) then of gW2 (m rows), by 32-column tiles
+// (ops/schedule.WeightSplit counts them; tests/test_torch_schedule.py
+// checks this map).
 __global__ void __launch_bounds__(kPT) bwd_weights(const WeightArgs a) {
   __shared__ TileSmem sm;
   const int S = a.S, m = a.m, n = a.n;
@@ -354,6 +360,16 @@ extern "C" int dladmm_bwd_occupancy(int device, int* blocks_per_sm, int* sms) {
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bwd_chain, kPT, 0);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  return (int)err;
+}
+
+// Blocks of bwd_weights resident on one SM, and the card's SMs: the
+// wave of the weight-gradient launch (ops/cuda_bwd.bwd_chunk_batch).
+extern "C" int dladmm_bwd_weights_occupancy(int device, int* blocks_per_sm, int* sms) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bwd_weights, kPT, 0);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   return (int)err;
 }

@@ -26,13 +26,15 @@ Batch split. The TPU gates (``bwd_fits_vmem``, and ``bwd_chunk_batch``
 as a VMEM fit) are dropped: the CUDA kernel keeps the cotangent state in
 device memory and streams every operand through shared-memory tiles, so
 it runs at every shape. ``bwd_chunk_batch`` is re-derived for Hopper by
-the occupancy of the weight-gradient launch, which reduces over the
-batch inside each block: one block per (layer, 32 x 32 tile), K x
-``schedule.weight_tiles(m, n)`` blocks, each with a loop over S. When that
-is under one wave of the card, splitting S into slices of bs rows
-multiplies its blocks by S / bs (each slice writes an fp32 partial,
-summed in slice order). ``bs < S`` is the chunked route, counted apart
-from the whole-batch route.
+the occupancy of the weight-gradient launch (``bwd_weights``), which
+reduces over the batch inside each block: one block per (layer, 32 x 32
+tile), K x ``schedule.weight_tiles(m, n)`` blocks, each with a loop over
+S. When that is under one wave of the card (``weight_wave``: its
+resident blocks a SM, from cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+times the SMs), splitting S into slices of bs rows multiplies its blocks
+by S / bs (each slice writes an fp32 partial, summed in slice order).
+``bs < S`` is the chunked route, counted apart from the whole-batch
+route.
 """
 
 from __future__ import annotations
@@ -51,10 +53,6 @@ from dladmm_tpu_torch.ops.unroll_vjp import _param_grads, bwd_from_carries, shif
 
 SRC = cuda_build.CSRC / "unroll_bwd.cu"
 ROUTES = ("whole", "chunked")
-# csrc/unroll_bwd.cu: 32 x 32 output tiles of 256 threads. A wave of its
-# weight-gradient launch: 132 SMs on the H100 x 6 blocks an SM (at 40
-# registers a thread, 6 blocks fit an SM's 65,536).
-WAVE = 132 * 6
 MIN_SPLIT_BATCH = 256
 
 _count_lock = threading.Lock()
@@ -63,25 +61,34 @@ _ARGTYPES = ([ctypes.c_void_p] * 22 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.
              + [ctypes.c_void_p])
 
 
-def bwd_chunk_batch(m: int, n: int, d: int, S: int, K: int) -> Optional[int]:
+def weight_wave(device: torch.device) -> int:
+    """Blocks of the weight-gradient launch the card holds at once: its
+    resident blocks a SM times the SMs (on the H100 at 48 registers a
+    thread, 5 x 132 = 660)."""
+    bps, sms = cuda_build.occupancy(SRC, "dladmm_bwd_weights_occupancy", device.index or 0)
+    return bps * sms
+
+
+def bwd_chunk_batch(m: int, n: int, d: int, S: int, K: int, wave: int) -> Optional[int]:
     """Rows per batch slice of the weight gradients, or None for the
     whole-batch route.
 
     Rule (Hopper occupancy, not a memory fit): split only when S >= 256
     and the unsplit weight-gradient launch, one block a tile of all K
-    layers, is under one wave of the card (``K *
-    schedule.weight_tiles(m, n) < 132 SMs x 6 blocks``). Then bs is the
-    largest of 512, 256, 128 below S whose split fills a wave, else 128. synthetic_small (K = 15 layers of 192
+    layers, is under one ``wave`` of the card (``K *
+    schedule.weight_tiles(m, n) < wave``; ``weight_wave``). Then bs is
+    the largest of 512, 256, 128 below S whose split fills a wave, else
+    128. On the H100 (wave 660) synthetic_small (K = 15 layers of 192
     blocks: 2880) and synthetic_large (K = 20 of 3040) never split; the
     smoke preset (K = 4 of 3) splits a batch of 1024 into slices of 128.
     B = I (d == m) only, as the TPU's chunked kernel."""
     if d != m:
         return None
     blocks = K * schedule.weight_tiles(m, n)
-    if S < MIN_SPLIT_BATCH or blocks >= WAVE:
+    if S < MIN_SPLIT_BATCH or blocks >= wave:
         return None
     for bs in (512, 256, 128):
-        if bs < S and blocks * schedule.cdiv(S, bs) >= WAVE:
+        if bs < S and blocks * schedule.cdiv(S, bs) >= wave:
             return bs
     return 128
 
@@ -125,8 +132,10 @@ def unroll_bwd(b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax, gx, gz, glam,
 
     ``bs`` (rows per batch slice of the weight gradients): None or
     bs >= S is the whole-batch route, bs < S the chunked route. CUDA
-    tensors launch the kernel, counted in ``unroll_bwd.launches[route]``;
-    CPU tensors run the plain version."""
+    tensors launch the kernel, counted in ``unroll_bwd.launches[route]``,
+    and leave the plan it launched with in ``unroll_bwd.last_plan``
+    ((blocks a SM, SMs), chain grid, {phase: Split}, WeightSplit); CPU
+    tensors run the plain version."""
     if b.device.type == "cpu":
         return unroll_bwd_plain(b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax, gx, gz, glam,
                                 bs, data_grads)
@@ -155,7 +164,7 @@ def unroll_bwd(b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax, gx, gz, glam,
     launch = cuda_build.entry(SRC, "dladmm_unroll_bwd", _ARGTYPES)
     dev = b.device.index
     occ = cuda_build.occupancy(SRC, "dladmm_bwd_occupancy", dev)
-    grid, sp, _, lay = schedule.bwd_plan(S, m, n, K, bs, data_grads, *occ)
+    grid, sp, wsplit, lay = schedule.bwd_plan(S, m, n, K, bs, data_grads, *occ)
     sched = (ctypes.c_int * 7)(grid, *(v for ph in ("v", "x", "u") for v in (sp[ph].slices, sp[ph].length)))
     with torch.cuda.device(b.device):
         kw = dict(dtype=torch.float32, device=b.device)
@@ -176,6 +185,7 @@ def unroll_bwd(b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax, gx, gz, glam,
         cuda_build.check(SRC, err, "CUDA backward kernel")
     with _count_lock:
         unroll_bwd.launches[route] += 1
+        unroll_bwd.last_plan = (occ, grid, sp, wsplit)
     gparams = DLADMMParams(gW1, gW2, _reduce_theta(gth1, th1_p), _reduce_theta(gth2, th2_p),
                            gbeta.reshape(beta_p.shape))
     gA = torch.einsum("ksm,ksn->mn", gax1, ins[0]) if data_grads else None
@@ -183,6 +193,7 @@ def unroll_bwd(b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax, gx, gz, glam,
 
 
 unroll_bwd.launches = dict.fromkeys(ROUTES, 0)
+unroll_bwd.last_plan = None
 
 
 def reset_launches() -> None:
@@ -197,4 +208,5 @@ __all__ = [
     "reset_launches",
     "unroll_bwd",
     "unroll_bwd_plain",
+    "weight_wave",
 ]

@@ -39,7 +39,7 @@ from torch import Tensor
 
 from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
 from dladmm_tpu_torch.ops import cuda_build, schedule
-from dladmm_tpu_torch.ops.cuda_bwd import bwd_chunk_batch, unroll_bwd
+from dladmm_tpu_torch.ops.cuda_bwd import bwd_chunk_batch, unroll_bwd, weight_wave
 from dladmm_tpu_torch.ops.cuda_unroll import SRC, kernel_args, needs_grad
 from dladmm_tpu_torch.ops.unroll_vjp import _param_grads, bwd_from_carries, shifted_residuals
 
@@ -66,7 +66,9 @@ def trajectory_forward(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
 
     Shapes as ``cuda_unroll.unroll_forward``. CUDA tensors launch the
     kernel; CPU tensors run the plain version. Each kernel launch adds
-    one to ``trajectory_forward.launches``."""
+    one to ``trajectory_forward.launches`` and leaves the plan it
+    launched with in ``trajectory_forward.last_plan`` ((blocks a SM,
+    SMs), grid, {phase: Split}, K)."""
     if b.device.type == "cpu":
         return trajectory_forward_plain(b, A, W1, W2, th1, th2, beta, with_tax)
     if b.device.type != "cuda":
@@ -76,7 +78,8 @@ def trajectory_forward(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
     K, n, _ = W1.shape
     launch = cuda_build.entry(SRC, "dladmm_unroll_trajectory", _ARGTYPES)
     dev = b.device.index
-    grid, sp, ws = schedule.traj_plan(S, m, n, *cuda_build.occupancy(SRC, "dladmm_traj_occupancy", dev))
+    occ = cuda_build.occupancy(SRC, "dladmm_traj_occupancy", dev)
+    grid, sp, ws = schedule.traj_plan(S, m, n, *occ)
     with torch.cuda.device(b.device):
         kw = dict(dtype=torch.float32, device=b.device)
         tx = torch.empty((K, S, n), **kw)
@@ -94,10 +97,12 @@ def trajectory_forward(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
         cuda_build.check(SRC, err, "CUDA trajectory kernel")
     with _count_lock:
         trajectory_forward.launches += 1
+        trajectory_forward.last_plan = (occ, grid, sp, K)
     return (tx, tz, tlam, tax) if with_tax else (tx, tz, tlam)
 
 
 trajectory_forward.launches = 0
+trajectory_forward.last_plan = None
 
 
 class _Trajectory(torch.autograd.Function):
@@ -123,9 +128,10 @@ class _Trajectory(torch.autograd.Function):
         need_data = ctx.needs_input_grad[6:8]
         if ctx.final_only:
             S, m = b.shape
+            bs = (bwd_chunk_batch(m, W1.shape[1], W2.shape[1], S, W1.shape[0], weight_wave(b.device))
+                  if b.device.type == "cuda" else None)  # the plain version has no batch split
             gparams, gA, gb = unroll_bwd(
-                b, A, *params, tx, tz, tlam, tax, gx, gz, glam,
-                bs=bwd_chunk_batch(m, W1.shape[1], W2.shape[1], S, W1.shape[0]), data_grads=any(need_data),
+                b, A, *params, tx, tz, tlam, tax, gx, gz, glam, bs=bs, data_grads=any(need_data),
             )
         else:
             final = (torch.zeros_like(gx[-1]), torch.zeros_like(gz[-1]), torch.zeros_like(glam[-1]))

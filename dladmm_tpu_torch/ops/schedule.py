@@ -12,16 +12,16 @@ float atomics: a call repeats bit for bit on one card.
 
 This module is the one place that decides the split: the wrappers
 (``ops/cuda_traj.py``, ``ops/cuda_bwd.py``) compute it here and pass it
-to the kernels, whose item-to-work map ``items`` and ``weight_items``
-mirror index for index. The CPU tests check that every output tile is
-covered once and that the slices partition the depth. Nothing here
-touches the card.
+to the kernels, which decode item = tile * slices + slice (tiles
+row-major). tests/test_torch_schedule.py checks, on the CPU, that this
+map covers every output tile once and that the slices partition the
+depth. Nothing here touches the card.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Iterator, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 TILE = 32  # output tile edge of every phase (csrc: kT)
 BK = 16  # depth of one shared-memory step (csrc: kBK)
@@ -62,16 +62,6 @@ def split(rows: int, cols: int, depth: int, target: int) -> Split:
     per = max(MIN_STEPS, cdiv(steps, max(1, want)))
     length = min(steps, per) * BK
     return Split(rows, cols, depth, cdiv(depth, length), length)
-
-
-def items(sp: Split) -> Iterator[Tuple[int, int, int, int]]:
-    """(row0, col0, k_lo, k_hi) of every work item in index order: the
-    kernels' map (item = tile * slices + slice, tiles row-major)."""
-    ct = cdiv(sp.cols, TILE)
-    for it in range(sp.items):
-        tile, s = divmod(it, sp.slices)
-        k_lo = s * sp.length
-        yield tile // ct * TILE, tile % ct * TILE, k_lo, min(sp.depth, k_lo + sp.length)
 
 
 def launch_grid(blocks_per_sm: int, sms: int, widest: int) -> int:
@@ -165,21 +155,6 @@ class WeightSplit(NamedTuple):
         return self.tiles * self.slices
 
 
-def weight_items(ws: WeightSplit) -> Iterator[Tuple[int, str, int, int, int, int]]:
-    """(layer, "gW1" or "gW2", row0, col0, s_lo, s_hi) of every item in
-    index order: bwd_weights' map."""
-    t1, ct = cdiv(ws.n, TILE), cdiv(ws.m, TILE)
-    per = weight_tiles(ws.m, ws.n)
-    for it in range(ws.items):
-        tile, s = divmod(it, ws.slices)
-        k, t = divmod(tile, per)
-        rt, cb = divmod(t, ct)
-        w1 = rt < t1
-        s_lo = s * ws.bs
-        yield (k, "gW1" if w1 else "gW2", (rt if w1 else rt - t1) * TILE, cb * TILE,
-               s_lo, min(ws.S, s_lo + ws.bs))
-
-
 def bwd_schedule(S: int, m: int, n: int, K: int, bs: int, blocks_per_sm: int, sms: int):
     """(grid of the chain, {phase: Split}, WeightSplit) of one backward
     call; bs >= S is the whole batch."""
@@ -215,27 +190,18 @@ def bwd_workspace(S: int, m: int, n: int, K: int, splits: Dict[str, Split], wspl
     })
 
 
+@functools.lru_cache(maxsize=64)
 def traj_plan(S: int, m: int, n: int, blocks_per_sm: int, sms: int):
     """(grid, splits, workspace) of one trajectory call, computed once per
-    shape (keyed also by the policy in force: launch_grid, PER_SM,
-    MIN_STEPS), so a training step pays no Python for it."""
-    return _traj_plan(S, m, n, blocks_per_sm, sms, launch_grid, PER_SM, MIN_STEPS)
-
-
-@functools.lru_cache(maxsize=64)
-def _traj_plan(S, m, n, blocks_per_sm, sms, *policy):
+    shape, so a training step pays no Python for it."""
     grid, sp = traj_schedule(S, m, n, blocks_per_sm, sms)
     return grid, sp, traj_workspace(S, m, n, sp)
 
 
+@functools.lru_cache(maxsize=64)
 def bwd_plan(S: int, m: int, n: int, K: int, bs: int, data_grads: bool, blocks_per_sm: int, sms: int):
     """(grid, splits, weight split, workspace) of one backward call,
     cached as traj_plan."""
-    return _bwd_plan(S, m, n, K, bs, data_grads, blocks_per_sm, sms, launch_grid, PER_SM, MIN_STEPS)
-
-
-@functools.lru_cache(maxsize=64)
-def _bwd_plan(S, m, n, K, bs, data_grads, blocks_per_sm, sms, *policy):
     grid, sp, wsplit = bwd_schedule(S, m, n, K, bs, blocks_per_sm, sms)
     return grid, sp, wsplit, bwd_workspace(S, m, n, K, sp, wsplit, data_grads)
 
@@ -249,7 +215,7 @@ def barriers(K: int) -> int:
 
 __all__ = [
     "ALIGN", "BK", "BWD_BUFFERS", "MIN_STEPS", "PER_SM", "Split", "TILE", "WeightSplit",
-    "barriers", "bwd_plan", "bwd_schedule", "bwd_shapes", "bwd_workspace", "cdiv", "items", "launch_grid",
+    "barriers", "bwd_plan", "bwd_schedule", "bwd_shapes", "bwd_workspace", "cdiv", "launch_grid",
     "layout", "partial_floats", "split", "traj_plan", "traj_schedule", "traj_shapes", "traj_workspace",
-    "weight_items", "weight_tiles",
+    "weight_tiles",
 ]

@@ -124,24 +124,27 @@ def test_forward_grads_match_jax(scalar_theta):
 def test_chunk_policy_by_occupancy():
     """The Hopper rule: split S only at S >= 256 when the unsplit
     weight-gradient launch, K layers of 32 x 32 tiles, is under one wave
-    (132 SMs x 6 blocks). Each of synthetic_small's cases at its K = 15
-    (2880 blocks: never split), and at K = 1 (192 blocks), where the rule
-    splits as it did for one layer's launch."""
+    of the card. The wave is the H100's for that launch: 5 resident
+    blocks a SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the
+    card, chip_smoke.py phase 13) x 132 SMs. Each of synthetic_small's
+    cases at its K = 15 (2880 blocks: never split), and at K = 1 (192
+    blocks), where the rule splits as it did for one layer's launch."""
+    wave = 5 * 132
     assert schedule.weight_tiles(250, 500) == 192
-    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 1024, 15) is None  # 2880 blocks fill a wave
-    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 1024, 1) == 128  # 8 slices: 1536 blocks; 4 give 768
-    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 64, 15) is None
-    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 64, 1) is None
-    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 255, 15) is None
-    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 255, 1) is None
-    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 256, 15) is None
-    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 256, 1) == 128
-    assert cuda_bwd.bwd_chunk_batch(1000, 2000, 1000, 1024, 20) is None  # 60 800 blocks
-    assert cuda_bwd.bwd_chunk_batch(1000, 2000, 1000, 1024, 1) is None  # 3040 blocks fill a wave
-    assert cuda_bwd.bwd_chunk_batch(250, 500, 200, 1024, 15) is None  # B = I only
-    assert cuda_bwd.bwd_chunk_batch(250, 500, 200, 1024, 1) is None
-    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 4096, 15) is None
-    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 4096, 1) == 512  # 8 slices of 512 fill a wave
-    assert cuda_bwd.bwd_chunk_batch(64, 64, 64, 1024, 15) == 128  # 120 blocks: no split fills a wave
-    assert cuda_bwd.bwd_chunk_batch(64, 64, 64, 1024, 1) == 128
-    assert cuda_bwd.bwd_chunk_batch(32, 64, 32, 1024, 4) == 128  # the smoke preset: 12 blocks
+    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 1024, 15, wave) is None  # 2880 blocks fill a wave
+    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 1024, 1, wave) == 256  # 4 slices: 768 blocks; 2 give 384
+    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 64, 15, wave) is None
+    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 64, 1, wave) is None
+    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 255, 15, wave) is None
+    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 255, 1, wave) is None
+    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 256, 15, wave) is None
+    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 256, 1, wave) == 128
+    assert cuda_bwd.bwd_chunk_batch(1000, 2000, 1000, 1024, 20, wave) is None  # 60 800 blocks
+    assert cuda_bwd.bwd_chunk_batch(1000, 2000, 1000, 1024, 1, wave) is None  # 3040 blocks fill a wave
+    assert cuda_bwd.bwd_chunk_batch(250, 500, 200, 1024, 15, wave) is None  # B = I only
+    assert cuda_bwd.bwd_chunk_batch(250, 500, 200, 1024, 1, wave) is None
+    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 4096, 15, wave) is None
+    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 4096, 1, wave) == 512  # 8 slices of 512 fill a wave
+    assert cuda_bwd.bwd_chunk_batch(64, 64, 64, 1024, 15, wave) == 128  # 120 blocks; 8 slices give 960
+    assert cuda_bwd.bwd_chunk_batch(64, 64, 64, 1024, 1, wave) == 128  # 8 blocks: no split fills a wave
+    assert cuda_bwd.bwd_chunk_batch(32, 64, 32, 1024, 4, wave) == 128  # the smoke preset: 12 blocks

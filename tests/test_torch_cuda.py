@@ -331,15 +331,14 @@ def test_trajectory_kernel_with_more_items_than_blocks(cuda_device, m, n, K, S):
     """Shapes whose phases have more tiles than the persistent grid has
     blocks (synthetic_small S = 3000, synthetic_large S = 1024), so every
     block loops over several items."""
-    from dladmm_tpu_torch.ops import cuda_build, cuda_traj, schedule
+    from dladmm_tpu_torch.ops import cuda_traj
 
     A, b, p = _problem(m, n, K, S, seed=S + 7, device=cuda_device)
-    grid, splits = schedule.traj_schedule(
-        S, m, n, *cuda_build.occupancy(cuda_unroll.SRC, "dladmm_traj_occupancy", cuda_device.index or 0))
-    assert max(sp.items for sp in splits.values()) > grid
     got = cuda_traj.trajectory_forward(b, A, *p, with_tax=True)
     want = cuda_traj.trajectory_forward_plain(b, A, *p, with_tax=True)
     torch.cuda.synchronize()
+    _, grid, splits, _ = cuda_traj.trajectory_forward.last_plan  # the plan it launched with
+    assert max(sp.items for sp in splits.values()) > grid
     _assert_close(got, want)
 
 
@@ -352,7 +351,7 @@ def test_bwd_kernel_whole_batch_1024(cuda_device, data_grads):
     from dladmm_tpu_torch.ops import cuda_bwd
 
     A, b, p, traj, cts = _bwd_case(250, 500, 15, 1024, seed=1029, device=cuda_device)
-    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 1024, 15) is None
+    assert cuda_bwd.bwd_chunk_batch(250, 500, 250, 1024, 15, cuda_bwd.weight_wave(cuda_device)) is None
     before = dict(cuda_bwd.unroll_bwd.launches)
     got = cuda_bwd.unroll_bwd(b, A, *p, *traj, *cts, data_grads=data_grads)
     want = cuda_bwd.unroll_bwd_plain(b, A, *p, *traj, *cts, data_grads=data_grads)
@@ -366,12 +365,17 @@ def test_bwd_kernel_whole_batch_1024(cuda_device, data_grads):
 def test_persistent_kernels_raise_when_the_grid_is_refused(cuda_device, monkeypatch):
     """A grid larger than the card holds resident is refused by the
     cooperative launch: both wrappers raise, count no launch and run
-    nothing in the kernel's place. Forced by patching the grid the
-    wrappers compute (ops/schedule.launch_grid)."""
+    nothing in the kernel's place. Forced by patching the plans the
+    wrappers launch with (ops/schedule.traj_plan, bwd_plan) to one block
+    more than the card holds."""
     from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj, schedule
 
     A, b, p, traj, cts = _bwd_case(250, 500, 3, 64, seed=2, device=cuda_device)
-    monkeypatch.setattr(schedule, "launch_grid", lambda bps, sms, widest: bps * sms + 1)
+    traj_plan, bwd_plan = schedule.traj_plan, schedule.bwd_plan
+    monkeypatch.setattr(schedule, "traj_plan",
+                        lambda *a: (a[-2] * a[-1] + 1, *traj_plan(*a)[1:]))
+    monkeypatch.setattr(schedule, "bwd_plan",
+                        lambda *a: (a[-2] * a[-1] + 1, *bwd_plan(*a)[1:]))
     t0, b0 = cuda_traj.trajectory_forward.launches, dict(cuda_bwd.unroll_bwd.launches)
     with pytest.raises(RuntimeError, match="CUDA error"):
         cuda_traj.trajectory_forward(b, A, *p, with_tax=True)
@@ -406,7 +410,7 @@ def test_final_layer_gradients_on_the_card(cuda_device, S, reference):
     from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj
 
     A, b, p = _problem(250, 500, 15, S, seed=S, device=cuda_device)
-    route = "chunked" if cuda_bwd.bwd_chunk_batch(250, 500, 250, S, 15) else "whole"
+    route = "chunked" if cuda_bwd.bwd_chunk_batch(250, 500, 250, S, 15, cuda_bwd.weight_wave(cuda_device)) else "whole"
     leaves = [t.detach().clone().requires_grad_() for t in (*p, A, b)]
     before = dict(cuda_bwd.unroll_bwd.launches)
     x, z, lam = cuda_unroll.make_unrolled_forward()(DLADMMParams(*leaves[:5]), leaves[5], leaves[6])

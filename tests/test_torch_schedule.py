@@ -1,19 +1,66 @@
 """The work split of the persistent CUDA kernels (ops/schedule.py), on
 the CPU: the trajectory forward's x, Ax and z phases and the final-layer
-backward's V, X, U chain and its weight-gradient launch. The kernels
-walk the same item maps (``items``, ``weight_items``) index for index,
-so these checks hold for what runs on the card: every output tile is
-covered exactly once, the depth slices partition the depth, the
-workspace's buffers do not overlap, and at training's S = 64 every phase
-spreads over the grid. The kernels themselves are held against their
-plain versions by tests/test_torch_cuda.py (``gpu``) and chip_smoke.py.
+backward's V, X, U chain and its weight-gradient launch. ``items`` and
+``weight_items`` below decode a work item as the kernels do, and
+``test_kernels_decode_items_as_these_tests_do`` holds that decode to the
+kernels' source, so these checks hold for what runs on the card: every
+output tile is covered exactly once, the depth slices partition the
+depth, the workspace's buffers do not overlap, and at training's S = 64
+every phase spreads over the grid. The kernels themselves are held
+against their plain versions by tests/test_torch_cuda.py (``gpu``) and
+chip_smoke.py.
 """
 
 import itertools
 
 import pytest
 
+from dladmm_tpu_torch.ops import cuda_build
 from dladmm_tpu_torch.ops import schedule as sch
+
+# The kernels' decode of item ``it`` (csrc/unroll.cu traj_phase,
+# csrc/unroll_bwd.cu chain_phase and bwd_weights), line for line.
+CHAIN_DECODE = ("const int tile = it / sp.slices, s = it % sp.slices;",
+                "const int k_lo = s * sp.len, k_hi = min(depth, k_lo + sp.len);")
+WEIGHT_DECODE = ("const int tile = it / slices, s = it % slices;",
+                 "const int k = tile / per, t = tile % per, rt = t / ct, cb = t % ct;",
+                 "const int rows = w1 ? n : m, row0 = (w1 ? rt : rt - t1) * kT, col0 = cb * kT;",
+                 "const int s_lo = s * a.bs, s_hi = min(S, s_lo + a.bs);")
+
+
+def items(sp: sch.Split):
+    """(row0, col0, k_lo, k_hi) of every work item of a phase in index
+    order, decoded as CHAIN_DECODE (tiles row-major)."""
+    ct = -(-sp.cols // sch.TILE)
+    for it in range(sp.items):
+        tile, s = divmod(it, sp.slices)
+        k_lo = s * sp.length
+        yield tile // ct * sch.TILE, tile % ct * sch.TILE, k_lo, min(sp.depth, k_lo + sp.length)
+
+
+def weight_items(ws: sch.WeightSplit):
+    """(layer, "gW1" or "gW2", row0, col0, s_lo, s_hi) of every item of
+    the weight-gradient launch in index order, decoded as WEIGHT_DECODE."""
+    t1, ct = -(-ws.n // sch.TILE), -(-ws.m // sch.TILE)
+    per = sch.weight_tiles(ws.m, ws.n)
+    for it in range(ws.items):
+        tile, s = divmod(it, ws.slices)
+        k, t = divmod(tile, per)
+        rt, cb = divmod(t, ct)
+        w1 = rt < t1
+        s_lo = s * ws.bs
+        yield (k, "gW1" if w1 else "gW2", (rt if w1 else rt - t1) * sch.TILE, cb * sch.TILE,
+               s_lo, min(ws.S, s_lo + ws.bs))
+
+
+@pytest.mark.parametrize("source,lines", [("unroll.cu", CHAIN_DECODE), ("unroll_bwd.cu", CHAIN_DECODE),
+                                          ("unroll_bwd.cu", WEIGHT_DECODE)])
+def test_kernels_decode_items_as_these_tests_do(source, lines):
+    """The decode ``items`` and ``weight_items`` mirror stands in the
+    kernel's source, so a change to the kernels' map fails here."""
+    text = " ".join((cuda_build.CSRC / source).read_text().split())
+    for line in lines:
+        assert line in text, f"{source} no longer decodes items as: {line}"
 
 # (m, n, S): synthetic_small at training, serving and the fused step's
 # batch, synthetic_large, and ragged small shapes.
@@ -25,7 +72,7 @@ CARDS = [(4, 132), (3, 132), (1, 8)]
 
 def _check_split(sp: sch.Split):
     tiles = {}
-    for row0, col0, k_lo, k_hi in sch.items(sp):
+    for row0, col0, k_lo, k_hi in items(sp):
         assert 0 <= row0 < sp.rows and 0 <= col0 < sp.cols
         assert row0 % sch.TILE == 0 and col0 % sch.TILE == 0
         assert 0 <= k_lo < k_hi <= sp.depth
@@ -72,7 +119,7 @@ def test_weight_items_cover_every_gradient_tile_once(m, n, S, K, bs):
     order partitioning [0, S)."""
     ws = sch.WeightSplit(S, m, n, K, bs)
     seen = {}
-    for k, which, row0, col0, s_lo, s_hi in sch.weight_items(ws):
+    for k, which, row0, col0, s_lo, s_hi in weight_items(ws):
         rows = n if which == "gW1" else m
         assert 0 <= k < K and 0 <= row0 < rows and 0 <= col0 < m
         seen.setdefault((k, which, row0, col0), []).append((s_lo, s_hi))
@@ -158,13 +205,15 @@ def test_stacks_cost_what_the_design_says():
     assert stacks(1000, 2000, 1024, 20) == pytest.approx(245.76)
 
 
-def test_plan_follows_the_policy_in_force(monkeypatch):
-    """The cached plan is keyed by the policy, so a patched launch_grid
-    (the card tests' way to force a refused launch) takes effect."""
-    before = sch.traj_plan(64, 250, 500, 4, 132)[0]
-    monkeypatch.setattr(sch, "launch_grid", lambda bps, sms, widest: bps * sms + 1)
-    assert sch.traj_plan(64, 250, 500, 4, 132)[0] == 529 != before
-    assert sch.bwd_plan(64, 250, 500, 15, 64, False, 4, 132)[0] == 529
+def test_plan_is_computed_once_per_shape():
+    """A training step pays no Python for the split: the same shape and
+    occupancy give the very same plan object; another shape another."""
+    one = sch.traj_plan(64, 250, 500, 4, 132)
+    assert sch.traj_plan(64, 250, 500, 4, 132) is one
+    assert sch.traj_plan(65, 250, 500, 4, 132) is not one
+    two = sch.bwd_plan(64, 250, 500, 15, 64, False, 3, 132)
+    assert sch.bwd_plan(64, 250, 500, 15, 64, False, 3, 132) is two
+    assert sch.bwd_plan(64, 250, 500, 15, 64, True, 3, 132) is not two
 
 
 def test_barriers_per_call():
