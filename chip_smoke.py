@@ -9,11 +9,14 @@ the first fault. Each phase prints one JSON line:
   1. device: the card, its power limit (nvidia-smi), TF32 switched off;
   2. build: nvcc builds every source of ops/csrc/ from the checkout, one
      nvcc per source, all started together (timed, ptxas report);
-  3. kernel: the CUDA whole-unroll kernel against its plain PyTorch
-     version on the same inputs (perturbed LADMM-exact params) at
-     synthetic_small (S = 1, 13, 64, 256 for l1/l1; nonneg_l1, box and
-     elastic_net(0.3) as prox_x at S = 64) and synthetic_large
-     (S = 1024, K = 20); fails above 1e-4 * max(1, max|ref|);
+  3. kernel: the CUDA whole-unroll kernel (one persistent cooperative
+     launch, ``unroll_persistent``) against its plain PyTorch version on
+     the same inputs (perturbed LADMM-exact params) at synthetic_small
+     (S = 1, 13, 64, 256 for l1/l1; nonneg_l1, box and elastic_net(0.3)
+     as prox_x, then as prox_z, at S = 64; (K, 1) thresholds) and
+     synthetic_large (S = 1024, K = 20) on the tile the plan picks and on
+     the other; fails above 1e-4 * max(1, max|ref|); a second call must
+     repeat bit for bit; the grid, tile, work items and barriers of each;
   4. slice: the serving CLI (``serve.main --config=synthetic_small
      --import-torch <LADMM-exact .pt> --demo 256``), then an
      InferenceServer with buckets up to 256 on requests of 1, 7, 64 and
@@ -24,7 +27,9 @@ the first fault. Each phase prints one JSON line:
      K = 15 within 0.01 dB (the LADMM-exact init makes them the same
      function);
   5. timing: median CUDA-event time of one solve, kernel and plain
-     version in turns, beside the bound from the shapes;
+     version in turns, beside the bound from the shapes, the host's
+     enqueue and the plan; at synthetic_large S = 1024 also the kernel
+     on the other tile, in the same turns, and the device time of both;
   6. profile: torch.profiler device time per kernel and the device's
      busy share, at the main path's shape (synthetic_small, S = 256);
   7. kernel_traj: the trajectory kernel (one persistent cooperative
@@ -110,8 +115,9 @@ the first fault. Each phase prints one JSON line:
      differ somewhere at this shape: ROADMAP.md §3);
  20. kernel_layer: ``dladmm_forward(step_fn=fused_layer_step)`` against the
      plain loop and the whole-unroll kernel at synthetic_small S = 64, 256,
-     3000 and synthetic_large S = 1024, tolerance TOL; the bf16-operand
-     mode within 5% relative Frobenius error of the plain loop;
+     3000 and synthetic_large S = 1024, tolerance TOL, a second forward
+     bit for bit; the bf16-operand mode within 5% relative Frobenius
+     error of the plain loop; the layer step's plan at each;
  21. train_layer: 20 final-layer steps at synthetic_small batch 64 through
      ``make_train_step(step_fn=fused_layer_step)``, the layer step's count
      from 0 (> 0), finite losses; one step's gradient within 2e-5 of each
@@ -120,7 +126,7 @@ the first fault. Each phase prints one JSON line:
      kernel at S = 64, 256, 1024 and of the layer step (one call, and the
      K-layer loop beside the plain loop and the whole-unroll kernel) at
      S = 256, each beside its plain version and bound; profiler device
-     time of each;
+     time of each, the layer step's host enqueue and plan;
 
 then the kernels line and, last, the ok line. Exits non-zero, with no
 ok line, on any failure, when CUDA is not available, or when run
@@ -292,10 +298,11 @@ def traj_bound(S: int, m: int, n: int, K: int, with_tax: bool):
 
 def launched_plan(wrapper) -> dict:
     """How the last launch of a persistent kernel's wrapper
-    (``trajectory_forward`` or ``unroll_bwd``, which keep the plan they
-    launched with in ``last_plan``) spread on this card: its grid (blocks
-    of the cooperative launch), the work items (tiles x depth slices) of
-    each phase, its grid barriers; for the backward also the items of
+    (``unroll_forward``, ``layer_step``, ``trajectory_forward`` or
+    ``unroll_bwd``, which keep the plan they launched with in
+    ``last_plan``) spread on this card: its grid (blocks of the
+    cooperative launch), tile edge, the work items (tiles x depth slices)
+    of each phase, its grid barriers; for the backward also the items of
     its weight-gradient launch (all K layers' gW1 and gW2 tiles x S
     slices)."""
     from dladmm_tpu_torch.ops import schedule
@@ -308,10 +315,25 @@ def launched_plan(wrapper) -> dict:
         extra = {"weight_launch_items": last.items, "weight_launch_s_slices": last.slices,
                  "launches_per_call": 3}
     return {"grid": grid, "resident_blocks_per_sm": occ[0], "sms": occ[1],
+            "tile": next(iter(splits.values())).tile,
             "items_per_phase": {k: sp.items for k, sp in splits.items()},
             "tiles_per_phase": {k: sp.tiles for k, sp in splits.items()},
             "depth_slices_per_phase": {k: sp.slices for k, sp in splits.items()},
             "barriers_per_call": schedule.barriers(K), **extra}
+
+
+@contextlib.contextmanager
+def serve_tile(tile: int):
+    """The serving kernel's wrappers launch the ``tile`` kernel inside,
+    whatever ops/schedule.serve_tile would choose (the tile comparison)."""
+    from dladmm_tpu_torch.ops import schedule
+
+    plan = schedule.serve_plan
+    schedule.serve_plan = lambda *a: schedule.make_serve_plan(*a, tile=tile)
+    try:
+        yield
+    finally:
+        schedule.serve_plan = plan
 
 
 def host_enqueue_us(torch, fn, calls: int = 50) -> float:
@@ -329,7 +351,8 @@ def host_enqueue_us(torch, fn, calls: int = 50) -> float:
 def barrier_cost(torch, card: str) -> dict:
     """Phase 11: the cost of one grid barrier of a cooperative launch
     (cooperative_groups' grid sync) at the grids the persistent kernels
-    use: the median time of 1001 barriers less that of 1, over 1000."""
+    use: the median time of 1001 barriers less that of 1, over 1000; and
+    the CUDA-event time of one launch with 1 barrier, from an idle card."""
     import ctypes
 
     from dladmm_tpu_torch.ops import cuda_build
@@ -341,12 +364,12 @@ def barrier_cost(torch, card: str) -> dict:
     def run(grid, iters):
         cuda_build.check(SRC, fn(grid, iters, 0, stream), "grid barrier probe")
 
-    us = {}
+    us, launch_ms = {}, {}
     for grid in (132, 264, 528):
         run(grid, 1001)
-        one, many = median_ms(torch, [lambda: run(grid, 1), lambda: run(grid, 1001)], 11)
-        us[grid] = (many - one) / 1000 * 1e3
-    emit("barrier_cost", us_per_barrier_by_grid=us, card=card)
+        launch_ms[grid], many = median_ms(torch, [lambda: run(grid, 1), lambda: run(grid, 1001)], 11)
+        us[grid] = (many - launch_ms[grid]) / 1000 * 1e3
+    emit("barrier_cost", us_per_barrier_by_grid=us, one_launch_ms_by_grid=launch_ms, card=card)
     return us
 
 
@@ -1392,11 +1415,11 @@ def serve_int8_slice(torch, device, sources, params, A):
 
 def check_layer(torch, device) -> float:
     """Phase 20: dladmm_forward(step_fn=fused_layer_step) against the plain
-    loop and the whole-unroll kernel; the bf16-operand mode within 5%
-    relative Frobenius error of the plain loop. Returns the largest
-    difference from the plain loop."""
+    loop and the whole-unroll kernel, a second forward bit for bit; the
+    bf16-operand mode within 5% relative Frobenius error of the plain
+    loop. Returns the largest difference from the plain loop."""
     from dladmm_tpu_torch.models.unroll import dladmm_forward
-    from dladmm_tpu_torch.ops.cuda_layer import fused_layer_step, make_fused_step
+    from dladmm_tpu_torch.ops.cuda_layer import fused_layer_step, layer_step, make_fused_step
     from dladmm_tpu_torch.ops.cuda_unroll import unroll_forward
 
     bf16_step = make_fused_step(matmul_dtype=torch.bfloat16)
@@ -1406,6 +1429,8 @@ def check_layer(torch, device) -> float:
         A, b, p = problem(torch, S=S, seed=S + 60, device=device, **shape)
         with torch.no_grad():
             got = dladmm_forward(p, A, b, step_fn=fused_layer_step)
+            again = dladmm_forward(p, A, b, step_fn=fused_layer_step)
+            plan = launched_plan(layer_step)
             plain = dladmm_forward(p, A, b)
             whole = unroll_forward(b, A, *p)
             bf = dladmm_forward(p, A, b, step_fn=bf16_step)
@@ -1413,13 +1438,16 @@ def check_layer(torch, device) -> float:
         case = f"{label} S={S}"
         max_err = max(max_err, compare(torch, got, plain, f"{case} vs plain loop", phase="kernel_layer"))
         compare(torch, got, whole, f"{case} vs whole-unroll kernel", phase="kernel_layer")
+        if not all(torch.equal(g, w) for g, w in zip(got, again)):
+            raise AssertionError(f"layer step {case}: a second forward differs")
+        emit("kernel_layer", case=case, repeats_bit_for_bit=True, **plan)
         rel = {}
         for name, g, w in zip(("x", "z", "lam"), bf, plain):
             rel[name] = float((g - w).norm() / (w.norm() + 1e-9))
             if not (torch.isfinite(g).all() and rel[name] < 0.05):
                 raise AssertionError(f"bf16 operands {case}: {name} relative error {rel[name]}")
         emit("kernel_layer", case=f"{case} bf16 operands vs fp32 plain loop", rel_frobenius=rel)
-        del A, b, p, got, plain, whole, bf
+        del A, b, p, got, again, plain, whole, bf
     return max_err
 
 
@@ -1536,8 +1564,12 @@ def time_int8_and_layer(torch, device, card):
         ms, plain_ms = median_ms(torch, fns, 31)
         bms, by = layer_bound(S, m, n)
         timings[("layer", S)] = (ms, plain_ms, bms, by)
+        timings["layer_detail"] = {
+            "host_enqueue_us": host_enqueue_us(torch, fns[0]),
+            "device_us_per_call": profile_fn(torch, fns[0], f"synthetic_small S={S} one layer")["device_us_per_call"],
+            **launched_plan(layer_step)}
         emit("timing_layer", kernel="layer_step", config=f"synthetic_small S={S}, one call (one layer)",
-             kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, card=card)
+             kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, **timings["layer_detail"], card=card)
         loops = [lambda: dladmm_forward(p, A, b, step_fn=fused_layer_step), lambda: dladmm_forward(p, A, b),
                  lambda: unroll_forward(b, A, *p)]
         for fn in loops:
@@ -1546,7 +1578,7 @@ def time_int8_and_layer(torch, device, card):
         bms, by = bound(S, **SMALL)
         emit("timing_layer", kernel="fused-step loop", config=f"synthetic_small S={S}, K=15 calls",
              kernel_ms=loop_ms, plain_ms=plain_loop_ms, whole_unroll_kernel_ms=whole_ms, bound_ms=bms, bound_by=by,
-             card=card)
+             host_enqueue_us=host_enqueue_us(torch, loops[0], calls=10), card=card)
         layer_profile = profile_fn(torch, lambda: dladmm_forward(p, A, b, step_fn=fused_layer_step),
                                    "synthetic_small S=256 fused-step loop")
     emit("profile_serve_int8", **int8_profile_256)
@@ -1594,32 +1626,44 @@ def main() -> int:
     for name, (lib_path, built, secs) in builds.items():
         log = Path(str(lib_path) + ".log")
         ptxas = ([ln.strip() for ln in log.read_text().splitlines()
-                  if "registers" in ln or "Compiling entry function" in ln] if log.exists() else [])
+                  if "registers" in ln or "spill" in ln or "Compiling entry function" in ln]
+                 if log.exists() else [])
         emit("build", source=name, seconds=secs, built_now=built, library=lib_path.name, ptxas=ptxas)
     emit("build_all", seconds=time.monotonic() - t0, sources=len(builds))
 
-    # 3. kernel against its plain version, on the card.
+    # 3. kernel against its plain version, on the card; a second call must
+    # repeat bit for bit.
+    def check_unroll(label, A, b, p, **kw):
+        got = unroll_forward(b, A, *p, **kw)
+        want = unroll_forward_plain(b, A, *p, **kw)
+        again = unroll_forward(b, A, *p, **kw)
+        torch.cuda.synchronize()
+        err = compare(torch, got, want, label)
+        if not all(torch.equal(g, w) for g, w in zip(got, again)):
+            raise AssertionError(f"{label}: a second call differs")
+        emit("kernel", case=label, repeats_bit_for_bit=True, **launched_plan(unroll_forward))
+        return err
+
     max_err = 0.0
     with torch.no_grad():
         for S in (1, 13, 64, 256):
             A, b, p = problem(torch, S=S, seed=S, device=dev, **SMALL)
-            got = unroll_forward(b, A, *p)
-            want = unroll_forward_plain(b, A, *p)
-            torch.cuda.synchronize()
-            max_err = max(max_err, compare(torch, got, want, f"synthetic_small S={S} l1/l1"))
+            max_err = max(max_err, check_unroll(f"synthetic_small S={S} l1/l1", A, b, p))
         A, b, p = problem(torch, S=64, seed=64, device=dev, **SMALL)
         for prox in ("nonneg_l1", "box", "elastic_net"):
             rho = 0.3 if prox == "elastic_net" else 0.0
-            got = unroll_forward(b, A, *p, prox_x=prox, rho=rho)
-            want = unroll_forward_plain(b, A, *p, prox_x=prox, rho=rho)
-            torch.cuda.synchronize()
-            max_err = max(max_err, compare(torch, got, want, f"synthetic_small S=64 {prox}(rho={rho})/l1"))
+            max_err = max(max_err, check_unroll(f"synthetic_small S=64 {prox}(rho={rho})/l1", A, b, p,
+                                                prox_x=prox, rho=rho))
+            max_err = max(max_err, check_unroll(f"synthetic_small S=64 l1/{prox}(rho={rho})", A, b, p,
+                                                prox_z=prox, rho=rho))
+        scalar = p._replace(theta1=p.theta1.mean(dim=1, keepdim=True), theta2=p.theta2.mean(dim=1, keepdim=True))
+        max_err = max(max_err, check_unroll("synthetic_small S=64 l1/l1 (K, 1) thresholds", A, b, scalar))
         A, b, p = problem(torch, S=1024, seed=1024, device=dev, **LARGE)
-        got = unroll_forward(b, A, *p)
-        want = unroll_forward_plain(b, A, *p)
-        torch.cuda.synchronize()
-        max_err = max(max_err, compare(torch, got, want, "synthetic_large S=1024 l1/l1"))
-        del A, b, p, got, want
+        max_err = max(max_err, check_unroll("synthetic_large S=1024 l1/l1", A, b, p))
+        other = 64 if launched_plan(unroll_forward)["tile"] == 32 else 32  # the tile the plan did not pick
+        with serve_tile(other):
+            max_err = max(max_err, check_unroll(f"synthetic_large S=1024 l1/l1 tile {other}", A, b, p))
+        del A, b, p, scalar
 
     # 4. the slice: the serving CLI and the servers, LADMM-exact params.
     cfg = get_config("synthetic_small")
@@ -1690,8 +1734,9 @@ def main() -> int:
             raise AssertionError(f"BatchingServer rows={len(r)} != per-request solve")
     emit("slice_servers", requests=len(reqs), launches=server_launches)
 
-    # 5. timing at the main path's shape and the issue's others.
-    timings = {}
+    # 5. timing at the main path's shape and the other presets'; at
+    # synthetic_large also the tile the plan did not pick, in the same turns.
+    timings, serve_detail = {}, {}
     with torch.no_grad():
         for label, shape, S in (
             ("synthetic_small", SMALL, 64),
@@ -1700,21 +1745,37 @@ def main() -> int:
         ):
             A, b, p = problem(torch, S=S, seed=7, device=dev, **shape)
             reps = 9 if label == "synthetic_large" else 31
+            fns = [lambda: unroll_forward(b, A, *p), lambda: unroll_forward_plain(b, A, *p)]
+            fns[0]()
+            plan = launched_plan(unroll_forward)
+            other = 64 if plan["tile"] == 32 else 32
+
+            def on_other_tile():
+                with serve_tile(other):
+                    unroll_forward(b, A, *p)
+
+            if label == "synthetic_large":
+                fns.append(on_other_tile)
             for _ in range(2):  # warm-up
-                unroll_forward(b, A, *p)
-                unroll_forward_plain(b, A, *p)
-            ms, plain_ms = median_ms(
-                torch,
-                [lambda: unroll_forward(b, A, *p), lambda: unroll_forward_plain(b, A, *p)],
-                reps,
-            )
+                for fn in fns:
+                    fn()
+            ms, plain_ms, *other_ms = median_ms(torch, fns, reps)
             bms, by = bound(S, **shape)
             timings[(label, S)] = (ms, plain_ms, bms, by)
+            detail = {"host_enqueue_us": host_enqueue_us(torch, fns[0]),
+                      "device_us_per_call": profile_fn(torch, fns[0], f"{label} S={S}")["device_us_per_call"],
+                      **plan}
+            if other_ms:
+                detail.update(other_tile=other, other_tile_ms=other_ms[0],
+                              other_tile_device_us_per_call=profile_fn(
+                                  torch, on_other_tile, f"{label} S={S} tile {other}")["device_us_per_call"])
+            serve_detail[(label, S)] = detail
             emit("timing", config=label, S=S, kernel_ms=ms, plain_ms=plain_ms,
-                 bound_ms=bms, bound_by=by, reps=reps, card=card)
-            del A, b, p
+                 bound_ms=bms, bound_by=by, reps=reps, **detail, card=card)
+            del A, b, p, fns
     # 6. where the kernel's time goes, at the main path's shape.
-    emit("profile", **profile_unroll(torch, unroll_forward, S=256, **SMALL))
+    serve_profile = profile_unroll(torch, unroll_forward, S=256, **SMALL)
+    emit("profile", **serve_profile, **launched_plan(unroll_forward))
 
     # 7-9. the training kernels against their plain versions; gradients.
     from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward, trajectory_forward_plain
@@ -1791,6 +1852,9 @@ def main() -> int:
         "bound_ms": bms,
         "bound_by": by,
         "library_ms": None,
+        "shape": "synthetic_small S=256",
+        **serve_detail[("synthetic_small", 256)],
+        "device_us_per_call": serve_profile["device_us_per_call"],  # phase 6
     }]
     for name, source, replaces, err, shape in (
         ("trajectory_forward", "dladmm_tpu_torch/ops/csrc/unroll.cu",
@@ -1842,6 +1906,7 @@ def main() -> int:
         # main path: 20 training steps through make_train_step(step_fn=fused_layer_step), K calls a forward
         "launches": layer_launches, "max_abs_err": layer_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bms, "bound_by": by, "library_ms": None, "shape": "synthetic_small S=256, one layer",
+        **new_timings["layer_detail"],
     })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -135,19 +135,19 @@ def check(src: Path, err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
-_OCC_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 _occupancy: Dict[tuple, Tuple[int, int]] = {}
 
 
-def occupancy(src, name: str, device_index: int):
+def occupancy(src, name: str, device_index: int, *args: int):
     """(blocks a SM, SMs) of a persistent kernel on the card, from its C
-    entry ``name`` (cudaOccupancyMaxActiveBlocksPerMultiprocessor and the
-    SM count); asked once per device."""
-    key = (src, name, device_index)
+    entry ``name(*args, device, &blocks, &sms)``
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor and the SM count; the
+    int ``args`` pick an instantiation); asked once per device."""
+    key = (src, name, device_index, args)
     if key not in _occupancy:
-        fn = entry(src, name, _OCC_ARGTYPES)
+        fn = entry(src, name, [ctypes.c_int] * (len(args) + 1) + [ctypes.c_void_p] * 2)
         bps, sms = ctypes.c_int(0), ctypes.c_int(0)
-        check(src, fn(device_index, ctypes.byref(bps), ctypes.byref(sms)), f"{name}")
+        check(src, fn(*args, device_index, ctypes.byref(bps), ctypes.byref(sms)), f"{name}")
         _occupancy[key] = (bps.value, sms.value)
     return _occupancy[key]
 

@@ -143,6 +143,7 @@ def unroll_bwd(b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax, gx, gz, glam,
         raise ValueError(f"unsupported device {b.device}")
     th1_p, th2_p, beta_p = th1, th2, beta
     b, A, W1, W2, th1, th2, beta = kernel_args(b, A, W1, W2, th1, th2, beta)
+    th1, th2 = th1.contiguous(), th2.contiguous()  # this kernel reads (K, n) / (K, m) rows
     S, m = b.shape
     K, n, _ = W1.shape
     if bs is None or bs >= S:

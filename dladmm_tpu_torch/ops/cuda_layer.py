@@ -4,10 +4,12 @@ autograd Function that trains through it.
 The port of ``dladmm_tpu/ops/pallas_layer.py`` (``_layer_kernel`` driven
 by ``_fused_forward``; ``make_fused_step``, ``fused_layer_step``,
 ``auto_fused_step``). The kernel is the ``dladmm_layer_step`` entry of
-``csrc/unroll.cu``: the whole-unroll kernel's three fused GEMM launches
-for ONE l1 layer (B = I), reading the caller's state (x, z, lam, b, Ax)
-and writing fresh buffers (x1, z1, lam1, Ax1). It never updates in
-place: autograd keeps the inputs for the backward.
+``csrc/unroll.cu``: the serving kernel (``unroll_persistent``) at K = 1,
+one cooperative launch with two grid barriers, for ONE l1 layer (B = I),
+reading the caller's state (x, z, lam, b, Ax) and writing fresh buffers
+(x1, z1, lam1, Ax1). It never updates in place: autograd keeps the
+inputs for the backward. Its tile, grid and depth split come from
+``ops/schedule.serve_plan``.
 
 ``layer_step`` is the one entry: on a CUDA tensor it launches the
 kernel (built with ``nvcc`` at first use) or raises; on a CPU tensor it
@@ -38,6 +40,7 @@ import torch
 from torch import Tensor
 
 from dladmm_tpu_torch.ops import cuda_build
+from dladmm_tpu_torch.ops.cuda_unroll import plan_for
 from dladmm_tpu_torch.ops.reference import (
     _BETA_MIN,
     LayerParams,
@@ -48,7 +51,7 @@ from dladmm_tpu_torch.ops.reference import (
 SRC = cuda_build.CSRC / "unroll.cu"
 
 _count_lock = threading.Lock()
-_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 _BF16_LATER = (
     "bf16 state in the fused layer step is not ported yet; it is the bf16 "
     "item of ROADMAP.md §1 (matmul_dtype=torch.bfloat16 keeps fp32 state)"
@@ -90,7 +93,9 @@ def layer_step(b, A, x, z, lam, Ax, W1, W2, th1, th2, beta, matmul_dtype=None):
     b, z, lam, Ax (S, m); x (S, n); A (m, n); W1 (n, m); W2 (m, m);
     th1 (n,); th2 (m,); beta (1,); all float32, contiguous, on one
     device. CUDA tensors launch the kernel; CPU tensors run the plain
-    version. Each kernel launch adds one to ``layer_step.launches``."""
+    version. Each kernel launch adds one to ``layer_step.launches`` and
+    leaves the plan it launched with in ``layer_step.last_plan`` ((blocks
+    a SM, SMs), grid, {phase: Split}, 1)."""
     _check_matmul_dtype(matmul_dtype)
     tensors = {"A": A, "x": x, "z": z, "lam": lam, "Ax": Ax, "W1": W1, "W2": W2,
                "theta1": th1, "theta2": th2, "beta": beta}
@@ -114,21 +119,30 @@ def layer_step(b, A, x, z, lam, Ax, W1, W2, th1, th2, beta, matmul_dtype=None):
     if S < 1:
         raise ValueError(f"need S >= 1, got S={S}")
     launch = cuda_build.entry(SRC, "dladmm_layer_step", _ARGTYPES)
+    bf16 = matmul_dtype is not None
+    dev = b.device.index
+    plan = plan_for(S, m, n, dev, bf16, False)
+    ws, sp = plan.workspace, plan.splits
     with torch.cuda.device(b.device):
         x1 = torch.empty_like(x)
-        z1, lam1, Ax1 = (torch.empty_like(b) for _ in range(3))
+        z1, lam1, Ax1 = torch.empty((3, S, m), dtype=torch.float32, device=b.device).unbind()
+        work = torch.empty((ws["_total"][0],), dtype=torch.float32, device=b.device)
         stream = torch.cuda.current_stream(b.device).cuda_stream
         err = launch(
             *(t.data_ptr() for t in (b, A, W1, W2, th1, th2, beta, x, z, lam, Ax, x1, z1, lam1, Ax1)),
-            S, m, n, int(matmul_dtype is not None), b.device.index, stream,
+            work.data_ptr() + 4 * ws["partials"][0], work.data_ptr() + 4 * ws["counters"][0],
+            ws["counters"][1], S, m, n, int(bf16), plan.tile, plan.grid,
+            *(v for ph in ("x", "ax", "z") for v in (sp[ph].slices, sp[ph].length)), dev, stream,
         )
         cuda_build.check(SRC, err, "CUDA layer-step kernel")
     with _count_lock:
         layer_step.launches += 1
+        layer_step.last_plan = (plan.occ, plan.grid, sp, 1)
     return x1, z1, lam1, Ax1
 
 
 layer_step.launches = 0
+layer_step.last_plan = None
 
 
 class _FusedLayer(torch.autograd.Function):

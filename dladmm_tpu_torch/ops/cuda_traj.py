@@ -74,6 +74,7 @@ def trajectory_forward(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
     if b.device.type != "cuda":
         raise ValueError(f"unsupported device {b.device}")
     b, A, W1, W2, th1, th2, beta = kernel_args(b, A, W1, W2, th1, th2, beta)
+    th1, th2 = th1.contiguous(), th2.contiguous()  # this kernel reads (K, n) / (K, m) rows
     S, m = b.shape
     K, n, _ = W1.shape
     launch = cuda_build.entry(SRC, "dladmm_unroll_trajectory", _ARGTYPES)

@@ -4,8 +4,11 @@ plain PyTorch version.
 The port of the inference half of ``dladmm_tpu/ops/pallas_unroll.py``
 (``_unroll_kernel`` with ``make_unrolled_forward`` /
 ``make_unrolled_inference_prox`` / ``prox_megakernel_available``). The
-kernel is hand-written CUDA C++ for Hopper in ``csrc/unroll.cu``; its
-design, bound and race notes are at the top of that file.
+kernel is hand-written CUDA C++ for Hopper in ``csrc/unroll.cu``
+(``unroll_persistent``): one persistent cooperative launch a call, all K
+layers with grid barriers between the phases, tiles and depth slices
+from ``ops/schedule.serve_plan``; its design, bound and race notes are at
+the top of that file.
 
 ``unroll_forward`` is the one entry: on a CUDA tensor it launches the
 kernel (building it with ``nvcc`` at first use) or raises; on a CPU
@@ -31,7 +34,7 @@ import torch
 from torch import Tensor
 
 from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
-from dladmm_tpu_torch.ops import cuda_build
+from dladmm_tpu_torch.ops import cuda_build, schedule
 from dladmm_tpu_torch.ops.prox import get_prox, kernel_exact
 from dladmm_tpu_torch.ops.reference import make_cached_step
 
@@ -42,9 +45,18 @@ KERNEL_PROX = {"l1": 0, "nonneg_l1": 1, "box": 2, "elastic_net": 3}
 _count_lock = threading.Lock()
 
 
-_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-]
+_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 11 + [ctypes.c_float] * 2 + [ctypes.c_int] * 9
+             + [ctypes.c_void_p])
+
+
+def plan_for(S: int, m: int, n: int, device_index: int, bf16: bool, scratch: bool) -> schedule.ServePlan:
+    """The serving kernel's plan on this card: its tile, grid and split
+    from the occupancy of the two tile kernels (with bf16 staging: the
+    layer step's option); ``scratch``: the serving forward's second z / lam
+    pair and Ax in the workspace."""
+    occ = [cuda_build.occupancy(SRC, "dladmm_unroll_occupancy", device_index, t, int(bf16))
+           for t in schedule.TILES]
+    return schedule.serve_plan(S, m, n, *occ, scratch)
 
 
 def _check_prox(prox_x: str, prox_z: str, rho: float) -> None:
@@ -72,37 +84,38 @@ def unroll_forward_plain(
 
 def kernel_args(b, A, W1, W2, th1, th2, beta):
     """Check and shape the kernel's inputs: the kernel takes exactly
-    b (S, m), A (m, n), W1 (K, n, m), W2 (K, m, m), th1 (K, n),
-    th2 (K, m), beta (K,), all float32, contiguous, on b's device.
-    Thresholds given as (K, 1) scalars are broadcast here, as the TPU
-    driver does (pallas_unroll.py:188-193); nothing else is copied, and
-    anything else the kernel does not take raises."""
+    b (S, m), A (m, n), W1 (K, n, m), W2 (K, m, m), beta (K,), float32,
+    contiguous, and thresholds th1 (K, n), th2 (K, m) of any strides, all
+    on b's device. Thresholds given as (K, 1) scalars become (K, n) / (K, m)
+    views with a column stride of 0, as the TPU wrapper broadcasts them
+    (pallas_unroll.py:188-193); nothing is copied, and anything else the
+    kernel does not take raises."""
     S, m = b.shape
     K, n, _ = W1.shape
-    expect = {
-        "b": (b, (S, m)), "A": (A, (m, n)), "W1": (W1, (K, n, m)),
-        "W2": (W2, (K, m, m)),
-    }
-    for name, (t, shape) in expect.items():
-        if tuple(t.shape) != shape:
+    for name, t, shape in (("A", A, (m, n)), ("W1", W1, (K, n, m)), ("W2", W2, (K, m, m))):
+        if t.shape != shape:
             raise ValueError(
                 f"{name} has shape {tuple(t.shape)}, expected {shape} "
                 "(the kernel needs B = I, so W2 is (K, m, m))"
             )
     if S < 1 or K < 1:
         raise ValueError(f"need S >= 1 and K >= 1, got S={S}, K={K}")
-    th1 = th1.reshape(K, -1).expand(K, n).contiguous()
-    th2 = th2.reshape(K, -1).expand(K, m).contiguous()
-    beta = beta.reshape(K).contiguous()
-    args = {"b": b, "A": A, "W1": W1, "W2": W2, "th1": th1, "th2": th2, "beta": beta}
-    for name, t in args.items():
-        if t.device != b.device:
+    if th1.shape != (K, n):
+        th1 = th1.reshape(K, -1).expand(K, n)
+    if th2.shape != (K, m):
+        th2 = th2.reshape(K, -1).expand(K, m)
+    if beta.shape != (K,):
+        beta = beta.reshape(K)
+    args = (b, A, W1, W2, th1, th2, beta)
+    dev = b.get_device()
+    for name, t in zip(("b", "A", "W1", "W2", "th1", "th2", "beta"), args):
+        if t.get_device() != dev:
             raise ValueError(f"{name} is on {t.device}, b on {b.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} is {t.dtype}; the kernel takes float32")
-        if not t.is_contiguous():
+        if not (t.is_contiguous() or name in ("th1", "th2")):
             raise ValueError(f"{name} is not contiguous")
-    return tuple(args.values())
+    return args
 
 
 def unroll_forward(
@@ -117,7 +130,9 @@ def unroll_forward(
     is the elastic-net curvature. K is read from W1.shape[0].
 
     CUDA tensors launch the kernel; CPU tensors run the plain version.
-    Each kernel launch adds one to ``unroll_forward.launches``."""
+    Each kernel launch adds one to ``unroll_forward.launches`` and leaves
+    the plan it launched with in ``unroll_forward.last_plan`` ((blocks a
+    SM, SMs), grid, {phase: Split}, K), as ``trajectory_forward``."""
     _check_prox(prox_x, prox_z, rho)
     if b.device.type == "cpu":
         return unroll_forward_plain(b, A, W1, W2, th1, th2, beta, prox_x, prox_z, rho)
@@ -127,30 +142,36 @@ def unroll_forward(
     S, m = b.shape
     K, n, _ = W1.shape
     launch = cuda_build.entry(SRC, "dladmm_unroll_forward", _ARGTYPES)
+    dev = b.device.index
+    plan = plan_for(S, m, n, dev, False, True)
+    ws, sp = plan.workspace, plan.splits
     scale = {
         p: (1.0 / (1.0 + rho) if p == "elastic_net" else 1.0)
         for p in (prox_x, prox_z)
     }
     with torch.cuda.device(b.device):
-        x = torch.empty((S, n), dtype=torch.float32, device=b.device)
-        z, lam, z_tmp, lam_tmp, ax = (
-            torch.empty((S, m), dtype=torch.float32, device=b.device)
-            for _ in range(5)
-        )
+        kw = dict(dtype=torch.float32, device=b.device)
+        x = torch.empty((S, n), **kw)
+        z, lam = torch.empty((2, S, m), **kw).unbind()
+        work = torch.empty((ws["_total"][0],), **kw)
+        at = lambda name: work.data_ptr() + 4 * ws[name][0]  # noqa: E731
         stream = torch.cuda.current_stream(b.device).cuda_stream
         err = launch(
-            *(t.data_ptr() for t in (b, A, W1, W2, th1, th2, beta)),
-            *(t.data_ptr() for t in (x, z, lam, z_tmp, lam_tmp, ax)),
-            S, m, n, K, KERNEL_PROX[prox_x], KERNEL_PROX[prox_z],
-            scale[prox_x], scale[prox_z], b.device.index, stream,
+            *(t.data_ptr() for t in (b, A, W1, W2, th1, th2, beta, x, z, lam)),
+            *(at(name) for name in ("z_tmp", "lam_tmp", "ax", "partials", "counters")),
+            *th1.stride(), *th2.stride(), ws["counters"][1], S, m, n, K,
+            KERNEL_PROX[prox_x], KERNEL_PROX[prox_z], scale[prox_x], scale[prox_z], plan.tile, plan.grid,
+            *(v for ph in ("x", "ax", "z") for v in (sp[ph].slices, sp[ph].length)), dev, stream,
         )
         cuda_build.check(SRC, err, "CUDA unroll kernel")
     with _count_lock:
         unroll_forward.launches += 1
+        unroll_forward.last_plan = (plan.occ, plan.grid, sp, K)
     return x, z, lam
 
 
 unroll_forward.launches = 0
+unroll_forward.last_plan = None
 
 
 def _pair_reason(prox_pair) -> str:
@@ -237,6 +258,7 @@ __all__ = [
     "SRC",
     "make_unrolled_forward",
     "make_unrolled_inference_prox",
+    "plan_for",
     "prox_megakernel_available",
     "unroll_forward",
     "unroll_forward_plain",

@@ -1,21 +1,24 @@
-"""Work split of the persistent CUDA kernels: the trajectory forward
-(``csrc/unroll.cu`` ``traj_persistent``) and the final-layer backward
+"""Work split of the persistent CUDA kernels: the serving forward and
+the layer step (``csrc/unroll.cu`` ``unroll_persistent``), the trajectory
+forward (``traj_persistent``) and the final-layer backward
 (``csrc/unroll_bwd.cu`` ``bwd_chain`` and ``bwd_weights``).
 
 Every phase of those kernels is one fp32 GEMM whose output is cut into
-32 x 32 tiles. A phase with few tiles (synthetic_small at S = 64 has
-16-32) also cuts its depth into slices, so that tiles x slices work items
-fill the launch's grid; each slice writes a partial tile to a workspace,
-and the last block to finish a tile (counted by an integer atomic per
-tile) sums the partials in slice order and runs the tile's epilogue. No
-float atomics: a call repeats bit for bit on one card.
+32 x 32 tiles (the serving kernel: 32 x 32 or 64 x 64, chosen by the
+grid). A phase with few tiles (synthetic_small at S = 64 has 16-32) also
+cuts its depth into slices, so that tiles x slices work items fill the
+launch's grid; each slice writes a partial tile to a workspace, and the
+last block to finish a tile (counted by an integer atomic per tile) sums
+the partials in slice order and runs the tile's epilogue. No float
+atomics: a call repeats bit for bit on one card.
 
 This module is the one place that decides the split: the wrappers
-(``ops/cuda_traj.py``, ``ops/cuda_bwd.py``) compute it here and pass it
-to the kernels, which decode item = tile * slices + slice (tiles
-row-major). tests/test_torch_schedule.py checks, on the CPU, that this
-map covers every output tile once and that the slices partition the
-depth. Nothing here touches the card.
+(``ops/cuda_unroll.py``, ``ops/cuda_layer.py``, ``ops/cuda_traj.py``,
+``ops/cuda_bwd.py``) compute it here and pass it to the kernels, which
+decode item = tile * slices + slice (tiles row-major).
+tests/test_torch_schedule.py checks, on the CPU, that this map covers
+every output tile once and that the slices partition the depth. Nothing
+here touches the card.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from __future__ import annotations
 import functools
 from typing import Dict, NamedTuple, Tuple
 
-TILE = 32  # output tile edge of every phase (csrc: kT)
+TILE = 32  # output tile edge of every phase but the serving kernel's (csrc: kT)
+TILES = (32, 64)  # the serving kernel's tile edges (csrc: unroll_persistent<T>)
 BK = 16  # depth of one shared-memory step (csrc: kBK)
 MIN_STEPS = 2  # BK-deep steps a depth slice holds at least
 PER_SM = 2  # blocks per SM of the persistent grid when the tiles are few
@@ -35,33 +39,35 @@ def cdiv(a: int, b: int) -> int:
 
 
 class Split(NamedTuple):
-    """One phase: OUT (rows, cols) over ``depth``, cut into 32 x 32 tiles
-    and ``slices`` depth slices of ``length`` (the last may be short)."""
+    """One phase: OUT (rows, cols) over ``depth``, cut into ``tile`` x
+    ``tile`` tiles and ``slices`` depth slices of ``length`` (the last
+    may be short)."""
 
     rows: int
     cols: int
     depth: int
     slices: int
     length: int
+    tile: int = TILE
 
     @property
     def tiles(self) -> int:
-        return cdiv(self.rows, TILE) * cdiv(self.cols, TILE)
+        return cdiv(self.rows, self.tile) * cdiv(self.cols, self.tile)
 
     @property
     def items(self) -> int:
         return self.tiles * self.slices
 
 
-def split(rows: int, cols: int, depth: int, target: int) -> Split:
+def split(rows: int, cols: int, depth: int, target: int, tile: int = TILE) -> Split:
     """The coarsest depth split whose items reach ``target`` (the grid),
     with at least MIN_STEPS steps of BK a slice; one slice when the tiles
     alone reach it."""
     steps = cdiv(depth, BK)
-    want = cdiv(target, cdiv(rows, TILE) * cdiv(cols, TILE))
+    want = cdiv(target, cdiv(rows, tile) * cdiv(cols, tile))
     per = max(MIN_STEPS, cdiv(steps, max(1, want)))
     length = min(steps, per) * BK
-    return Split(rows, cols, depth, cdiv(depth, length), length)
+    return Split(rows, cols, depth, cdiv(depth, length), length, tile)
 
 
 def launch_grid(blocks_per_sm: int, sms: int, widest: int) -> int:
@@ -92,7 +98,7 @@ def traj_schedule(S: int, m: int, n: int, blocks_per_sm: int, sms: int):
 
 def partial_floats(splits) -> int:
     """Floats of split-K partials one phase needs at most (0 unsplit)."""
-    return max([sp.items * TILE * TILE for sp in splits if sp.slices > 1] or [0])
+    return max([sp.items * sp.tile * sp.tile for sp in splits if sp.slices > 1] or [0])
 
 
 def traj_workspace(S: int, m: int, n: int, splits: Dict[str, Split]) -> Dict[str, Tuple[int, int]]:
@@ -115,6 +121,64 @@ def layout(sizes: Dict[str, int]) -> Dict[str, Tuple[int, int]]:
         off += cdiv(count, ALIGN) * ALIGN
     out["_total"] = (off, 0)
     return out
+
+
+# -- the serving forward and the layer step -------------------------------------
+
+
+def serve_tile(S: int, m: int, n: int, occ64: Tuple[int, int]) -> int:
+    """64 where the widest phase's 64 x 64 tiles alone reach every
+    resident block of the 64-tile kernel (occ64: its blocks a SM, SMs),
+    so that the larger tile's fewer loads a flop cost no idle SMs; else 32,
+    whose depth slices fill the card at every serving bucket."""
+    widest = max(cdiv(r, 64) * cdiv(c, 64) for r, c, _ in traj_shapes(S, m, n).values())
+    return 64 if widest >= occ64[0] * occ64[1] else 32
+
+
+class ServePlan(NamedTuple):
+    """One call of the serving kernel: the launched instantiation's
+    occupancy (blocks a SM, SMs), its grid, {phase: Split} (all on one
+    tile edge) and {buffer: (offset, floats)} of its workspace."""
+
+    occ: Tuple[int, int]
+    grid: int
+    splits: Dict[str, Split]
+    workspace: Dict[str, Tuple[int, int]]
+
+    @property
+    def tile(self) -> int:
+        return self.splits["x"].tile
+
+
+def serve_workspace(S: int, m: int, splits: Dict[str, Split], scratch: bool) -> Dict[str, Tuple[int, int]]:
+    """{buffer: (offset, floats)}: with ``scratch`` (the serving forward)
+    the second z / lam pair and Ax, (S, m) each; the split-K partials and
+    one int32 counter per tile of the widest split phase (none unsplit)."""
+    sm = S * m if scratch else 0
+    return layout({
+        "z_tmp": sm, "lam_tmp": sm, "ax": sm,
+        "partials": partial_floats(splits.values()),
+        "counters": max([sp.tiles for sp in splits.values() if sp.slices > 1] or [0]),
+    })
+
+
+def make_serve_plan(S: int, m: int, n: int, occ32: Tuple[int, int], occ64: Tuple[int, int], scratch: bool,
+                    tile: int = 0) -> ServePlan:
+    """The plan of one serving-kernel call (``tile`` 0: serve_tile's
+    choice); occ32 / occ64 are the two tile kernels' occupancy."""
+    tile = tile or serve_tile(S, m, n, occ64)
+    occ = occ64 if tile == 64 else occ32
+    shapes = traj_shapes(S, m, n)
+    grid = launch_grid(*occ, max(cdiv(r, tile) * cdiv(c, tile) for r, c, _ in shapes.values()))
+    splits = {k: split(*v, grid, tile) for k, v in shapes.items()}
+    return ServePlan(occ, grid, splits, serve_workspace(S, m, splits, scratch))
+
+
+@functools.lru_cache(maxsize=64)
+def serve_plan(S: int, m: int, n: int, occ32: Tuple[int, int], occ64: Tuple[int, int], scratch: bool) -> ServePlan:
+    """make_serve_plan, computed once per shape and occupancy, so a call
+    pays no Python for it."""
+    return make_serve_plan(S, m, n, occ32, occ64, scratch)
 
 
 # -- the final-layer backward ---------------------------------------------------
@@ -207,15 +271,15 @@ def bwd_plan(S: int, m: int, n: int, K: int, bs: int, data_grads: bool, blocks_p
 
 
 def barriers(K: int) -> int:
-    """Grid barriers a call of either kernel waits at: three phases a
-    layer, none after the last (the backward's weight and finish
+    """Grid barriers a call of any of the kernels waits at: three phases
+    a layer, none after the last (the backward's weight and finish
     launches follow its chain kernel on the stream)."""
     return 3 * K - 1
 
 
 __all__ = [
-    "ALIGN", "BK", "BWD_BUFFERS", "MIN_STEPS", "PER_SM", "Split", "TILE", "WeightSplit",
+    "ALIGN", "BK", "BWD_BUFFERS", "MIN_STEPS", "PER_SM", "ServePlan", "Split", "TILE", "TILES", "WeightSplit",
     "barriers", "bwd_plan", "bwd_schedule", "bwd_shapes", "bwd_workspace", "cdiv", "launch_grid",
-    "layout", "partial_floats", "split", "traj_plan", "traj_schedule", "traj_shapes", "traj_workspace",
-    "weight_tiles",
+    "layout", "make_serve_plan", "partial_floats", "serve_plan", "serve_tile", "serve_workspace", "split",
+    "traj_plan", "traj_schedule", "traj_shapes", "traj_workspace", "weight_tiles",
 ]

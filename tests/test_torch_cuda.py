@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions:
-the whole-unroll kernel, the trajectory kernel (a persistent cooperative
-launch: also its repeat bit for bit, shapes with more work items than
+the whole-unroll kernel and the layer step (one persistent cooperative
+launch each: both tile edges, their repeat bit for bit, a refused grid,
+two servers on two streams at once), the trajectory kernel (also
+persistent: its repeat bit for bit, shapes with more work items than
 blocks, and a refused grid), the int8 Adam sweep, the backward kernel
 (both routes), the dense Adam sweep, the training
 gradients through them, fit on the card, the int8 whole-unroll kernel
@@ -115,6 +117,116 @@ def test_side_stream_and_worker_thread(cuda_device):
     assert not t.is_alive()
     torch.cuda.synchronize()
     _assert_close(out["r"], want)
+
+
+def _force_tile(monkeypatch, tile):
+    """Make the serving wrappers launch the ``tile`` kernel, whatever
+    ops/schedule.serve_tile would choose."""
+    from dladmm_tpu_torch.ops import schedule
+
+    monkeypatch.setattr(schedule, "serve_plan",
+                        lambda *a: schedule.make_serve_plan(*a, tile=tile))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("prox_x", ["l1", "elastic_net"])
+@pytest.mark.parametrize("m,n,K,S", SHAPES)
+def test_kernel_matches_plain_at_both_tiles(cuda_device, monkeypatch, m, n, K, S, prox_x, tile):
+    """Each tile edge of the serving kernel at every shape, whatever the
+    plan would choose there: ragged tiles, S = 1, split and unsplit
+    phases; the plan it launched with is kept in last_plan."""
+    _force_tile(monkeypatch, tile)
+    A, b, p = _problem(m, n, K, S, seed=m + S + 5, device=cuda_device)
+    got = cuda_unroll.unroll_forward(b, A, *p, prox_x=prox_x, prox_z=prox_x, rho=0.3)
+    want = cuda_unroll.unroll_forward_plain(b, A, *p, prox_x=prox_x, prox_z=prox_x, rho=0.3)
+    torch.cuda.synchronize()
+    _assert_close(got, want)
+    occ, grid, splits, k = cuda_unroll.unroll_forward.last_plan
+    assert k == K and all(sp.tile == tile for sp in splits.values()) and grid <= occ[0] * occ[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,K,S", [(250, 500, 15, 256), (1000, 2000, 20, 1024)])
+def test_serving_kernels_repeat_bit_for_bit(cuda_device, m, n, K, S):
+    """No float atomics in the serving kernel's split-K sums: two calls of
+    either entry give the same bits (synthetic_small's largest serving
+    bucket on the 32 tile, synthetic_large S = 1024 on the 64 tile; the
+    layer step in fp32 and with bf16 operands)."""
+    from dladmm_tpu_torch.ops import cuda_layer
+
+    A, b, p = _problem(m, n, K, S, seed=S + 17, device=cuda_device)
+    one, two = (cuda_unroll.unroll_forward(b, A, *p) for _ in range(2))
+    assert all(torch.equal(g, w) for g, w in zip(one, two))
+    assert cuda_unroll.unroll_forward.last_plan[2]["x"].tile == (64 if m == 1000 else 32)
+    state = (torch.zeros((S, n), device=cuda_device), *one[1:], torch.zeros_like(b))
+    layer = (p.W1[1], p.W2[1], p.theta1[1].contiguous(), p.theta2[1].contiguous(), p.beta[1:2].contiguous())
+    for md in (None, torch.bfloat16):
+        one, two = (cuda_layer.layer_step(b, A, *state, *layer, matmul_dtype=md) for _ in range(2))
+        assert all(torch.equal(g, w) for g, w in zip(one, two))
+
+
+@pytest.mark.gpu
+def test_serving_kernels_raise_when_the_grid_is_refused(cuda_device, monkeypatch):
+    """A grid larger than the card holds resident: both entries raise,
+    count no launch and leave no error behind (patched
+    ops/schedule.serve_plan: one block more than the card holds)."""
+    from dladmm_tpu_torch.ops import cuda_layer, schedule
+
+    b, A, state, layer = _layer_state(250, 500, 64, seed=3, device=cuda_device)
+    _, _, p = _problem(250, 500, 3, 64, seed=3, device=cuda_device)
+    serve_plan = schedule.serve_plan
+
+    def refused(*a):
+        plan = serve_plan(*a)
+        return plan._replace(grid=plan.occ[0] * plan.occ[1] + 1)
+
+    monkeypatch.setattr(schedule, "serve_plan", refused)
+    u0, l0 = cuda_unroll.unroll_forward.launches, cuda_layer.layer_step.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_unroll.unroll_forward(b, A, *p)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_layer.layer_step(b, A, *state, *layer)
+    assert cuda_unroll.unroll_forward.launches == u0 and cuda_layer.layer_step.launches == l0
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    _assert_close(cuda_unroll.unroll_forward(b, A, *p), cuda_unroll.unroll_forward_plain(b, A, *p))
+    _assert_close(cuda_layer.layer_step(b, A, *state, *layer), cuda_layer.layer_step_plain(b, A, *state, *layer))
+
+
+@pytest.mark.gpu
+def test_two_servers_on_two_streams_at_once(cuda_device):
+    """Two InferenceServer calls at once, from two threads on two streams,
+    each a cooperative grid of every block the card holds resident
+    (synthetic_small bucket 2048: 1024 tiles in the x phase): both finish
+    and equal one call each, bit for bit."""
+    A, _, p = _problem(250, 500, 15, 1, seed=13, device=cuda_device)
+    server = InferenceServer(p, A, buckets=(256, 2048))
+    occ, grid, _, _ = cuda_unroll.unroll_forward.last_plan
+    assert grid == occ[0] * occ[1]  # the last warm-up: bucket 2048
+    rng = np.random.default_rng(14)
+    reqs = [torch.as_tensor(rng.normal(size=(2048, 250)).astype(np.float32), device=cuda_device)
+            for _ in range(2)]
+    want = [server.solve(r) for r in reqs]
+    torch.cuda.synchronize()
+    got, start = [None, None], threading.Barrier(2)
+
+    def call(i):
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.default_stream())
+        with torch.cuda.stream(stream):
+            start.wait()
+            got[i] = server.solve(reqs[i])
+            stream.synchronize()
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for g, w in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, w))
 
 
 @pytest.mark.gpu
@@ -656,6 +768,32 @@ def test_layer_step_matches_plain_in_fresh_buffers(cuda_device, m, n, K, S, bf16
         if float(w.norm()) > 0:
             assert float((g - w).norm() / w.norm()) < 0.05
             assert not torch.equal(g, f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("m,n,K,S", SHAPES)
+def test_layer_step_matches_plain_at_both_tiles(cuda_device, monkeypatch, m, n, K, S, bf16, tile):
+    """The layer step on each tile edge of the serving kernel, whatever
+    the plan would choose: fp32 operands within TOL of the plain step;
+    bf16 operands within 1e-3 relative Frobenius error of the plain
+    step's bf16 mode (both round the same fp32 operands; a sum's order
+    can move x1 across a bf16 rounding boundary, which Ax1 then sees)."""
+    from dladmm_tpu_torch.ops import cuda_layer
+
+    _force_tile(monkeypatch, tile)
+    b, A, state, layer = _layer_state(m, n, S, seed=m + S + 9, device=cuda_device)
+    md = torch.bfloat16 if bf16 else None
+    got = cuda_layer.layer_step(b, A, *state, *layer, matmul_dtype=md)
+    want = cuda_layer.layer_step_plain(b, A, *state, *layer, matmul_dtype=md)
+    torch.cuda.synchronize()
+    if bf16:
+        for g, w in zip(got, want):
+            assert torch.isfinite(g).all() and float((g - w).norm()) <= 1e-3 * float(w.norm())
+    else:
+        _assert_close(got, want)
+    assert all(sp.tile == tile for sp in cuda_layer.layer_step.last_plan[2].values())
 
 
 @pytest.mark.gpu

@@ -1,6 +1,7 @@
 """The work split of the persistent CUDA kernels (ops/schedule.py), on
-the CPU: the trajectory forward's x, Ax and z phases and the final-layer
-backward's V, X, U chain and its weight-gradient launch. ``items`` and
+the CPU: the serving forward's and the layer step's x, Ax and z phases
+(32 or 64 tiles, chosen by the grid), the trajectory forward's and the
+final-layer backward's V, X, U chain and its weight-gradient launch. ``items`` and
 ``weight_items`` below decode a work item as the kernels do, and
 ``test_kernels_decode_items_as_these_tests_do`` holds that decode to the
 kernels' source, so these checks hold for what runs on the card: every
@@ -18,9 +19,14 @@ import pytest
 from dladmm_tpu_torch.ops import cuda_build
 from dladmm_tpu_torch.ops import schedule as sch
 
-# The kernels' decode of item ``it`` (csrc/unroll.cu traj_phase,
-# csrc/unroll_bwd.cu chain_phase and bwd_weights), line for line.
+# The kernels' decode of item ``it`` (csrc/unroll.cu traj_phase and
+# serve_phase, csrc/unroll_bwd.cu chain_phase and bwd_weights), line for
+# line.
 CHAIN_DECODE = ("const int tile = it / sp.slices, s = it % sp.slices;",
+                "const int k_lo = s * sp.len, k_hi = min(depth, k_lo + sp.len);")
+SERVE_DECODE = ("const int ct = dcdiv(N, T), items = dcdiv(S, T) * ct * sp.slices;",
+                "const int tile = it / sp.slices, s = it % sp.slices;",
+                "const int row0 = tile / ct * T, col0 = tile % ct * T;",
                 "const int k_lo = s * sp.len, k_hi = min(depth, k_lo + sp.len);")
 WEIGHT_DECODE = ("const int tile = it / slices, s = it % slices;",
                  "const int k = tile / per, t = tile % per, rt = t / ct, cb = t % ct;",
@@ -30,12 +36,13 @@ WEIGHT_DECODE = ("const int tile = it / slices, s = it % slices;",
 
 def items(sp: sch.Split):
     """(row0, col0, k_lo, k_hi) of every work item of a phase in index
-    order, decoded as CHAIN_DECODE (tiles row-major)."""
-    ct = -(-sp.cols // sch.TILE)
+    order, decoded as CHAIN_DECODE and SERVE_DECODE (tiles row-major, of
+    the split's tile edge)."""
+    ct = -(-sp.cols // sp.tile)
     for it in range(sp.items):
         tile, s = divmod(it, sp.slices)
         k_lo = s * sp.length
-        yield tile // ct * sch.TILE, tile % ct * sch.TILE, k_lo, min(sp.depth, k_lo + sp.length)
+        yield tile // ct * sp.tile, tile % ct * sp.tile, k_lo, min(sp.depth, k_lo + sp.length)
 
 
 def weight_items(ws: sch.WeightSplit):
@@ -54,7 +61,7 @@ def weight_items(ws: sch.WeightSplit):
 
 
 @pytest.mark.parametrize("source,lines", [("unroll.cu", CHAIN_DECODE), ("unroll_bwd.cu", CHAIN_DECODE),
-                                          ("unroll_bwd.cu", WEIGHT_DECODE)])
+                                          ("unroll_bwd.cu", WEIGHT_DECODE), ("unroll.cu", SERVE_DECODE)])
 def test_kernels_decode_items_as_these_tests_do(source, lines):
     """The decode ``items`` and ``weight_items`` mirror stands in the
     kernel's source, so a change to the kernels' map fails here."""
@@ -74,11 +81,11 @@ def _check_split(sp: sch.Split):
     tiles = {}
     for row0, col0, k_lo, k_hi in items(sp):
         assert 0 <= row0 < sp.rows and 0 <= col0 < sp.cols
-        assert row0 % sch.TILE == 0 and col0 % sch.TILE == 0
+        assert row0 % sp.tile == 0 and col0 % sp.tile == 0
         assert 0 <= k_lo < k_hi <= sp.depth
         tiles.setdefault((row0, col0), []).append((k_lo, k_hi))
-    rows = range(0, sp.rows, sch.TILE)
-    cols = range(0, sp.cols, sch.TILE)
+    rows = range(0, sp.rows, sp.tile)
+    cols = range(0, sp.cols, sp.tile)
     assert set(tiles) == set(itertools.product(rows, cols))  # every tile, once
     for slices in tiles.values():
         assert len(slices) == sp.slices
@@ -218,3 +225,91 @@ def test_plan_is_computed_once_per_shape():
 
 def test_barriers_per_call():
     assert sch.barriers(15) == 44
+
+
+# -- the serving forward and the layer step ------------------------------------
+
+# (m, n, S): SHAPES, and S = 1 at the ragged and the synthetic_large widths.
+SERVE_SHAPES = SHAPES + [(33, 77, 1), (1000, 2000, 1)]
+# The workspace of the serving forward (scratch) and of the layer step.
+KINDS = {"unroll_forward": True, "layer_step": False}
+
+
+def serve_cards(card):
+    """(occ32, occ64) of a card of CARDS: the 32 tile's blocks a SM, and
+    half of them (at least one) for the 64 tile (4 x 4 outputs a thread)."""
+    bps, sms = card
+    return (bps, sms), (max(1, bps // 2), sms)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("card", CARDS)
+@pytest.mark.parametrize("m,n,S", SERVE_SHAPES)
+def test_serving_items_cover_every_tile_once(m, n, S, card, kind):
+    """At both tile edges: every output tile of each phase once, the
+    slices partitioning the depth, the grid within the launched
+    kernel's resident blocks."""
+    occ32, occ64 = serve_cards(card)
+    for tile in sch.TILES:
+        plan = sch.make_serve_plan(S, m, n, occ32, occ64, KINDS[kind], tile=tile)
+        assert plan.tile == tile and plan.occ == (occ64 if tile == 64 else occ32)
+        assert 1 <= plan.grid <= plan.occ[0] * plan.occ[1]
+        assert set(plan.splits) == {"x", "ax", "z"}
+        for name, sp in plan.splits.items():
+            assert (sp.rows, sp.cols, sp.depth) == sch.traj_shapes(S, m, n)[name]
+            assert sp.tile == tile
+            _check_split(sp)
+
+
+@pytest.mark.parametrize("card", CARDS)
+@pytest.mark.parametrize("m,n,S", SERVE_SHAPES)
+def test_serving_tile_is_64_exactly_where_its_tiles_fill_the_card(m, n, S, card):
+    occ32, occ64 = serve_cards(card)
+    widest64 = max(-(-r // 64) * -(-c // 64) for r, c, _ in sch.traj_shapes(S, m, n).values())
+    want = 64 if widest64 >= occ64[0] * occ64[1] else 32
+    assert sch.serve_tile(S, m, n, occ64) == want
+    plan = sch.make_serve_plan(S, m, n, occ32, occ64, True)
+    assert plan.tile == want
+    if want == 64:  # the tiles alone fill the grid: every resident block
+        assert plan.grid == occ64[0] * occ64[1]
+
+
+def test_serving_tile_on_the_h100_shapes():
+    """With 4 blocks a SM at the 32 tile and 2 at the 64 on 132 SMs:
+    synthetic_small takes the 32 tile at every serving bucket (1 to 256,
+    the InferenceServer's powers of two) and still at S = 1024;
+    synthetic_large at S = 1024 takes the 64 tile (512 tiles of 64 in the
+    x phase, 264 resident blocks)."""
+    occ32, occ64 = (4, 132), (2, 132)
+    for S in (1, 2, 4, 8, 16, 32, 64, 128, 256, 1024):
+        assert sch.serve_plan(S, 250, 500, occ32, occ64, True).tile == 32
+    plan = sch.serve_plan(1024, 1000, 2000, occ32, occ64, True)
+    assert plan.tile == 64 and plan.grid == 264 and plan.splits["x"].tiles == 512
+    small = sch.serve_plan(256, 250, 500, occ32, occ64, True)
+    assert small.grid == 264 and all(sp.items >= 256 for sp in small.splits.values())
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("m,n,S", SERVE_SHAPES)
+def test_serving_workspace(m, n, S, kind):
+    """The serving forward's scratch (z_tmp, lam_tmp, Ax: (S, m) each;
+    none for the layer step, which writes fresh outputs), partials for
+    the largest split phase at its tile edge, a counter per tile of the
+    widest split phase (none when no phase splits)."""
+    for tile in sch.TILES:
+        plan = sch.make_serve_plan(S, m, n, (4, 132), (2, 132), KINDS[kind], tile=tile)
+        lay = plan.workspace
+        split = [sp for sp in plan.splits.values() if sp.slices > 1]
+        scratch = S * m if KINDS[kind] else 0
+        want = {"z_tmp": scratch, "lam_tmp": scratch, "ax": scratch,
+                "partials": max([sp.items * tile**2 for sp in split] or [0]),
+                "counters": max([sp.tiles for sp in split] or [0])}
+        assert {k: v[1] for k, v in lay.items() if k != "_total"} == want
+        _no_overlap(lay, sum(-(-v // sch.ALIGN) * sch.ALIGN for v in want.values()))
+
+
+def test_serving_plan_is_computed_once_per_shape():
+    one = sch.serve_plan(256, 250, 500, (4, 132), (2, 132), True)
+    assert sch.serve_plan(256, 250, 500, (4, 132), (2, 132), True) is one
+    assert sch.serve_plan(256, 250, 500, (4, 132), (2, 132), False) is not one
+    assert one == sch.make_serve_plan(256, 250, 500, (4, 132), (2, 132), True)

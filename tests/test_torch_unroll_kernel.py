@@ -88,12 +88,21 @@ def test_inference_prox_matches_jax_kernel(prox_name):
 
 
 def test_kernel_args_broadcast_and_reject():
-    """The wrapper's argument checks, reachable without a card."""
+    """The wrapper's argument checks, reachable without a card. (K, 1)
+    thresholds become (K, n) / (K, m) views with a column stride of 0
+    over the caller's storage (no copy); per-coordinate ones pass as
+    they are."""
     A, b, _, _, leaves = _setup(16, 32, 3, 5, scalar_theta=True)
     t = [torch.as_tensor(a) for a in (b, A, *leaves)]
     b_, A_, W1, W2, th1, th2, beta = cuda_unroll.kernel_args(*t)
     assert th1.shape == (3, 32) and th2.shape == (3, 16) and beta.shape == (3,)
-    assert th1.is_contiguous() and torch.equal(th1[:, 0], t[4][:, 0])
+    assert th1.stride() == (1, 0) and th2.stride() == (1, 0)
+    assert th1.data_ptr() == t[4].data_ptr() and th2.data_ptr() == t[5].data_ptr()
+    assert torch.equal(th1, t[4].expand(3, 32)) and torch.equal(th1[:, 0], t[4][:, 0])
+    _, _, _, _, leaves_pc = _setup(16, 32, 3, 5)
+    th1_pc = torch.as_tensor(leaves_pc[2])
+    got = cuda_unroll.kernel_args(*t[:4], th1_pc, *t[5:])[4]
+    assert got.stride() == (32, 1) and got.data_ptr() == th1_pc.data_ptr()
     bad_w2 = torch.zeros((3, 20, 16))
     with pytest.raises(ValueError, match="B = I"):
         cuda_unroll.kernel_args(t[0], t[1], t[2], bad_w2, *t[4:])
