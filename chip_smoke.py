@@ -40,7 +40,12 @@ the first fault. Each phase prints one JSON line:
   8. kernel_int8: the int8 Adam sweep against its plain version on the
      W1 and W2 leaves of both presets, 3 chained steps in place from a
      non-zero state: masters within rtol 1e-6, codes within one step,
-     dequantized moments within one code step;
+     dequantized moments within one code step; then kernel_step: the
+     optimizer step ``adam_step`` (prologue + one sweep over all five
+     leaves, per-row and flat-256 codecs) against ``adam_step_plain`` at
+     both presets, 3 chained steps (check_step: scalars within 2 ulp,
+     each step equal to the one-leaf sweeps run with its scalars, a
+     second step repeating bit for bit);
   9. grads: one deep-supervision loss at synthetic_small S = 64, the
      kernel path (trajectory kernel + manual backward) against autograd
      through the plain loop, within 2e-5 of each leaf's largest gradient;
@@ -48,17 +53,23 @@ the first fault. Each phase prints one JSON line:
      "--steps=300", "--ckpt-dir", tmp])``, both training kernels' counts
      set to 0 just before and read just after (both must be > 0), route
      cuda-trajectory-kernel, finite loss, final NMSE below LADMM's at
-     K = 15; then ``serve.main --ckpt-dir tmp --demo 256`` serves the
+     K = 15, the optimizer step's count (``adam_step``) two a step; then ``serve.main --ckpt-dir tmp --demo 256`` serves the
      checkpoint at the trained run's final eval NMSE within 0.01 dB;
  11. timing_train: median CUDA-event ms of one training step by phase,
      kernel path and plain path in turns; each training kernel's ms
-     beside its bound and its plain version's, the trajectory kernel at
+     beside its bound and its plain version's: the int8 step
+     (timing_step: adam_step on the five leaves, its prologue's and
+     sweep's device time each beside its bound, the host's enqueue), the
+     one-leaf sweep on W1 + W2 and at synthetic_large (device time beside
+     the bound), the trajectory kernel at
      synthetic_small S = 64, 256 and synthetic_large S = 1024 with its
      profiler device time, grid, work items per phase and barriers; the
      cost of one grid barrier at 132, 264 and 528 blocks;
  12. profile_train: torch.profiler over training steps at synthetic_small:
      device time per kernel, per phase (forward, backward loop,
-     optimizer) and the busy share;
+     optimizer) and the busy share; the optimizer phase must hold the
+     prologue and the sweep, once each a step, and no other device
+     operation;
  13. kernel_bwd: the wave of the weight-gradient launch (its resident
      blocks a SM x SMs) that bwd_chunk_batch splits by; the backward
      kernel against its plain version on the
@@ -73,11 +84,13 @@ the first fault. Each phase prints one JSON line:
      W1 and W2 leaves of both presets in all four formats, 3 chained
      steps in place: masters within rtol 1e-6, round-to-nearest moments
      equal, SR moments a bf16 neighbour of the fp32 moment; SR unbiased
-     over 64 seeds;
+     over 64 seeds; then kernel_step (phase 8's check_step) for the four
+     dense formats on all five leaves;
  15. slice_train_final: ``run.main(["--config=synthetic_small",
      "--layer-loss=none", "--moment-dtype=float32_pallas", "--steps=1000",
-     "--ckpt-dir", tmp])`` with the trajectory, backward and dense
-     counts set to 0 just before and read just after (each > 0), route
+     "--ckpt-dir", tmp])`` with the trajectory, backward and optimizer-step
+     counts set to 0 just before and read just after (each > 0; the step
+     two a step), route
      cuda-whole-unroll-kernel, NMSE below LADMM's; its checkpoint served
      at its last eval's NMSE within 0.01 dB; then 20 steps at
      ``--batch=1024`` on the route bwd_chunk_batch picks (the whole
@@ -90,13 +103,17 @@ the first fault. Each phase prints one JSON line:
      phase, in turns: the kernel path, the path before the backward
      kernel (trajectory kernel + plain reverse sweep) and the plain
      path; each new kernel beside its bound and its plain version, the
-     fp32 sweep also beside torch.optim.Adam(fused=True); the backward
+     dense steps (timing_step, fp32 and bf16 on the five leaves, fp32
+     also beside torch.optim.Adam(fused=True) on them) and the one-leaf
+     sweeps on W1 + W2; the backward
      with its profiler device time, grid, work items per phase and
      barriers at synthetic_small S = 64 and 1024 (both routes) and at
      the smoke preset's S = 1024 (both routes: the split the policy
      makes there, against the whole batch); the grid and work items are
      those the wrapper launched with (``last_plan``);
  17. profile_train_final: device time per phase and kernel, busy share;
+     the optimizer phase held to the prologue and the dense sweep as in
+     phase 12;
  18. kernel_int8_unroll: the int8 whole-unroll kernel against its plain
      version on the same quantized inputs (perturbed LADMM-exact params,
      a zero row) at synthetic_small S = 1, 13, 64, 256 and synthetic_large
@@ -161,6 +178,16 @@ SMOKE = dict(m=32, n=64, K=4)  # smoke: the chunked backward's main path at batc
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def profile_marker(torch) -> None:
+    """A short kernel (``spin_kernel``) enqueued first in a profiler window
+    and not waited for: the profiler on the card has been seen to drop the
+    first kernel enqueued after a device sync at a window's start (the
+    optimizer step's prologue, in 1 of 5 calls or in every window), so the
+    kernel it drops is this marker. Kernels of that name are left out of
+    every count."""
+    torch.cuda._sleep(1000)
 
 
 def card_line() -> str:
@@ -258,6 +285,7 @@ def profile_fn(torch, fn, config: str, reps: int = 5, attempts: int = 3):
             fn()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                profile_marker(torch)
                 start = torch.cuda.Event(enable_timing=True)
                 stop = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -442,6 +470,212 @@ def check_int8(torch, tqa, device) -> float:
     return max_err
 
 
+# -- the optimizer step: prologue + one sweep over every leaf (adam_step) -----
+
+# The five leaves of a preset: W1 (K, n, m), W2 (K, m, m), theta1 (K, n),
+# theta2 (K, m), beta (K,).
+STEP_SHAPES = {
+    label: [(s["K"], s["n"], s["m"]), (s["K"], s["m"], s["m"]), (s["K"], s["n"]), (s["K"], s["m"]), (s["K"],)]
+    for label, s in (("synthetic_small", SMALL), ("synthetic_large", LARGE))
+}
+# Bytes an element of the sweep moves: g read, master read and written,
+# mu and nu read and written in their stored width.
+SWEEP_BYTES = {"int8": 16, "float32": 28, "bfloat16": 20, "bfloat16_sr": 20, "bfloat16_sr_mu": 24}
+
+
+def step_bounds(torch, shapes, fmt: str) -> dict:
+    """(bound_ms, bound_by) of the step's two launches and of both: the
+    sweep's bytes (SWEEP_BYTES an element; int8 also 16 a row of scales,
+    per-row or flat-256) and fp32 operations, the prologue's read of g
+    (4 B an element) and its 2 operations an element (fp64)."""
+    from dladmm_tpu_torch.train.qadam_cuda import leaf_eligible
+
+    elems = sum(int(np.prod(s)) for s in shapes)
+    rows = 0
+    if fmt == "int8":
+        for s in shapes:
+            n = int(np.prod(s))
+            rows += n // s[-1] if leaf_eligible(torch.empty(s, device="meta")) else -(-n // 256)
+    ops = (INT8_OPS_PER_ELEM if fmt == "int8" else DENSE_OPS_PER_ELEM) * elems
+    sweep = _bound(ops, SWEEP_BYTES[fmt] * elems + 16 * rows + 16)
+    prologue = _bound(2 * elems, 4 * elems + 16)
+    both = _bound(ops + 2 * elems, (SWEEP_BYTES[fmt] + 4) * elems + 16 * rows + 32)
+    return {"elements": elems, "rows": rows, "sweep": sweep, "prologue": prologue, "step": both}
+
+
+def step_state(torch, tqa, shapes, fmt: str, seed: int, device):
+    """Masters, non-zero moments (int8 in each leaf's codec) and 3
+    gradient sets whose norms are 3.0, 0.3 and 2.0 (the clip is 1.0)."""
+    from dladmm_tpu_torch.models.unroll import DLADMMParams
+    from dladmm_tpu_torch.train import qmoments as tqm
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda s, scale: scale * torch.randn(s, generator=g, device=device)  # noqa: E731
+
+    def moment(x, which):
+        if fmt != "int8":
+            return x.to(tqa.DENSE_FMTS[fmt][which])
+        return tqa.quantize_rows(x.reshape(-1, x.shape[-1])) if tqa.leaf_eligible(x) else tqm.quantize_q8(x)
+
+    params = DLADMMParams(*(rand(s, 0.05) for s in shapes))
+    mu = DLADMMParams(*(moment(rand(s, 1e-2), 0) for s in shapes))
+    nu = DLADMMParams(*(moment(rand(s, 3e-2) ** 2, 1) for s in shapes))
+    total = sum(int(np.prod(s)) for s in shapes)
+    grads = [DLADMMParams(*(rand(s, scale / total ** 0.5) for s in shapes)) for scale in (3.0, 0.3, 2.0)]
+    return params, mu, nu, grads
+
+
+def clone_step_state(torch, params, mu, nu):
+    from dladmm_tpu_torch.models.unroll import DLADMMParams
+    from dladmm_tpu_torch.train.qmoments import QTensor
+
+    def tree(t):
+        return DLADMMParams(*(QTensor(q.codes.clone(), q.scale.clone()) if hasattr(q, "codes") else q.clone()
+                              for q in t))
+
+    return DLADMMParams(*(p.clone() for p in params)), tree(mu), tree(nu)
+
+
+def one_leaf_step(tqa, fmt, grads, params, mu, nu, scal, seeds):
+    """The step leaf by leaf with the kernel's scalars and seeds: the
+    one-leaf launches (adam_dense_rows; adam_int8_rows on the per-row
+    leaves) and adam_flat_plain on the flat-256 leaves."""
+    for idx, (g, p, m, v) in enumerate(zip(grads, params, mu, nu)):
+        if fmt != "int8":
+            tqa.adam_dense_rows(g, p, m, v, scal, fmt, None if seeds is None else seeds[idx:idx + 1])
+        elif tqa.leaf_eligible(p):
+            L = p.shape[-1]
+            tqa.adam_int8_rows(g.reshape(-1, L), p.view(-1, L), m, v, scal)
+        else:
+            tqa.adam_flat_plain(g, p, m, v, scal)
+
+
+def scal_ulps(torch, a, b) -> int:
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+
+
+def moment_diff(torch, fmt, got, want) -> dict:
+    """int8: the largest code difference and relative scale difference;
+    dense: the count of stored values that differ."""
+    if fmt == "int8":
+        return {"max_code_diff": max(int((a.codes.int() - b.codes.int()).abs().max()) for a, b in zip(got, want)),
+                "max_scale_rel_diff": max(float(((a.scale - b.scale).abs() / b.scale.abs()).max())
+                                          for a, b in zip(got, want))}
+    return {"values_differing": sum(int((a != b).sum()) for a, b in zip(got, want))}
+
+
+def same_state(torch, a, b) -> bool:
+    """Masters and moments (int8 codes and scales) equal bit for bit."""
+    flat = [(x, y) for ta, tb in zip(a, b) for x, y in zip(ta, tb)]
+    return all(torch.equal(x.codes, y.codes) and torch.equal(x.scale, y.scale) if hasattr(x, "codes")
+               else torch.equal(x, y) for x, y in flat)
+
+
+def plain_step_diff(torch, tqa, fmt, grads, pre, post, scal, seeds) -> dict:
+    """The plain version's step from the kernel's state before it (``pre``)
+    with the kernel's scalars and seeds, held against the kernel's state
+    after it (``post``): masters within rtol 1e-6; int8 codes within one
+    step and scales within rtol 1e-6; round-to-nearest moments equal; SR
+    moments a bf16 neighbour of the plain fp32 moment (other bits than the
+    kernel's, by design). Raises on a miss; returns the differences."""
+    params, mu, nu = clone_step_state(torch, *pre)
+    _, _, sr_mu, sr_nu = tqa.DENSE_FMTS.get(fmt, (None, None, False, False))
+    if sr_mu or sr_nu:
+        mu = [m.to(torch.float32, copy=True) for m in mu]
+        nu = [v.to(torch.float32, copy=True) for v in nu]
+    for idx, (g, p, m, v) in enumerate(zip(grads, params, mu, nu)):
+        if fmt == "int8" and tqa.leaf_eligible(p):
+            L = p.shape[-1]
+            tqa.adam_int8_rows_plain(g.reshape(-1, L), p.view(-1, L), m, v, scal)
+        elif fmt == "int8":
+            tqa.adam_flat_plain(g, p, m, v, scal)
+        else:
+            tqa.adam_dense_rows_plain(g, p, m, v, scal, "float32" if sr_mu or sr_nu else fmt,
+                                      None if seeds is None else seeds[idx])
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(post[0], params))
+    if not all((a - b).abs().le(1e-6 * b.abs() + 1e-9).all() for a, b in zip(post[0], params)):
+        raise AssertionError(f"step {fmt}: masters max|diff| {err} from the plain version")
+    out = {"master_max_abs_err": err}
+    for mname, got, want, sr in (("mu", post[1], mu, sr_mu), ("nu", post[2], nu, sr_nu)):
+        if sr:
+            ok = True
+            for a, b in zip(got, want):
+                lo, hi = bf16_neighbours(torch, b)
+                ok = ok and bool(((a.float() == lo) | (a.float() == hi)).all())
+            d = {"bf16_neighbours": ok}
+        else:
+            d = moment_diff(torch, fmt, got, want)
+            ok = (d["max_code_diff"] <= 1 and d["max_scale_rel_diff"] <= 1e-6 if fmt == "int8"
+                  else d["values_differing"] == 0)
+        if not ok:
+            raise AssertionError(f"step {fmt} {mname}: {d} from the plain version")
+        out[mname] = d
+    return out
+
+
+def check_step(torch, tqa, device, fmts) -> float:
+    """Phases 8 and 14: adam_step (prologue + one sweep) on the five leaves
+    of synthetic_small and synthetic_large, 3 chained steps with the
+    warmup-cosine rate and clip 1.0. Each step: the scalars within 2 ulp of
+    step_scalars', the count and seeds equal; the state equal to the
+    one-leaf sweeps' run with the kernel's scalars from the state before it
+    (masters and moments bit for bit, SR too; the flat int8 leaves, which
+    the one-leaf path sweeps with the plain version, within one code step);
+    and held against the plain version's step from that state
+    (plain_step_diff). A second first step from the same state repeats bit
+    for bit. Returns the largest master difference from the plain version."""
+    max_err = 0.0
+    sched = tqa.WarmupCosine(0.0, 1e-2, 2, 40)
+    names = ("W1", "W2", "theta1", "theta2", "beta")
+    for fmt in fmts:
+        for config, shapes in STEP_SHAPES.items():
+            params, mu, nu, grads = step_state(torch, tqa, shapes, fmt, seed=len(config) + len(fmt), device=device)
+            again = clone_step_state(torch, params, mu, nu)
+            count = torch.tensor(1, dtype=torch.int32, device=device)
+            detail = {"scal_max_ulps": 0, "clipped": [], "plain": []}
+            for step, g in enumerate(grads):
+                pre = clone_step_state(torch, params, mu, nu)
+                old = count
+                count, scal, seeds = tqa.adam_step(g, params, mu, nu, count, fmt, sched, 1.0)
+                pscal, pcount = tqa.step_scalars(g, old, sched, 1.0)
+                pseeds = tqa.step_seeds(pcount, fmt, len(shapes))
+                one = clone_step_state(torch, *pre)
+                one_leaf_step(tqa, fmt, g, *one, scal, seeds)
+                if step == 0:
+                    tqa.adam_step(g, *again, old, fmt, sched, 1.0)
+                torch.cuda.synchronize()
+                ulps = scal_ulps(torch, scal, pscal)
+                if not torch.equal(count, pcount) or int(count) != int(old) + 1 or ulps > 2:
+                    raise AssertionError(f"step {fmt} {config} {step}: count {int(count)}, scal {scal.tolist()} "
+                                         f"vs plain {pscal.tolist()} ({ulps} ulps)")
+                if seeds is not None and not torch.equal(seeds, pseeds):
+                    raise AssertionError(f"step {fmt} {config} {step}: seeds differ")
+                if not all(torch.equal(a, b) for a, b in zip(params, one[0])):
+                    raise AssertionError(f"step {fmt} {config} {step}: masters differ from the one-leaf sweeps")
+                for mname, got, want in (("mu", mu, one[1]), ("nu", nu, one[2])):
+                    for name, a, b in zip(names, got, want):
+                        d = moment_diff(torch, fmt, [a], [b])
+                        exact = fmt != "int8" or name in ("W1", "W2")
+                        ok = (d.get("values_differing", 0) == 0 if fmt != "int8" else
+                              d["max_code_diff"] <= (0 if exact else 1)
+                              and d["max_scale_rel_diff"] <= (0 if exact else 1e-6))
+                        if not ok:
+                            raise AssertionError(f"step {fmt} {config} {step} {mname} {name}: {d} "
+                                                 "from the one-leaf sweeps")
+                if step == 0 and not same_state(torch, (params, mu, nu), again):
+                    raise AssertionError(f"step {fmt} {config}: a second step from the same state differs")
+                plain = plain_step_diff(torch, tqa, fmt, g, pre, (params, mu, nu), scal, seeds)
+                detail["scal_max_ulps"] = max(detail["scal_max_ulps"], ulps)
+                detail["clipped"].append(float(scal[3]) < 1.0)
+                detail["plain"].append(plain)
+                max_err = max(max_err, plain["master_max_abs_err"])
+                del pre, one
+            emit("kernel_step", case=f"{fmt} {config} five leaves", steps=3, repeats_bit_for_bit=True, **detail)
+            del params, mu, nu, grads, again
+    return max_err
+
+
 def check_grads(torch, device):
     """Phase 9: the deep-supervision gradient through the kernels against
     autograd through the plain loop, synthetic_small S = 64."""
@@ -486,14 +720,14 @@ def train_slice(torch, device, unroll_forward, tmp):
     log = Path(tmp) / "log.jsonl"
     out = io.StringIO()
     cuda_traj.trajectory_forward.launches = 0
-    qadam_cuda.adam_int8_rows.launches = 0
+    qadam_cuda.adam_step.launches = 0
     t0 = time.monotonic()
     with contextlib.redirect_stdout(out):
         rc = run_main(["--config=synthetic_small", "--steps=300", "--ckpt-dir", tmp,
                        "--log-jsonl", str(log)])
     wall = time.monotonic() - t0
     launches = {"trajectory_forward": cuda_traj.trajectory_forward.launches,
-                "adam_int8_rows": qadam_cuda.adam_int8_rows.launches}
+                "adam_step": qadam_cuda.adam_step.launches}
     if rc != 0:
         raise AssertionError(f"run.main returned {rc}")
     lines = out.getvalue().splitlines()
@@ -501,6 +735,8 @@ def train_slice(torch, device, unroll_forward, tmp):
     record = json.loads(log.read_text().splitlines()[-1])
     if summary["route"] != "cuda-trajectory-kernel" or min(launches.values()) < 1:
         raise AssertionError(f"training did not go through both kernels: {summary['route']!r}, {launches}")
+    if launches["adam_step"] != 2 * 300:
+        raise AssertionError(f"the optimizer launched {launches['adam_step']} kernels in 300 steps, not 2 a step")
     if not (math.isfinite(record["loss"]) and math.isfinite(summary["final_nmse_db"])):
         raise AssertionError(f"training diverged: {record}")
     if not summary["final_nmse_db"] < summary["ladmm_nmse_db_at_K"]:
@@ -669,19 +905,80 @@ def time_train(torch, device, card):
 
     ms, plain_ms = median_ms(torch, [lambda: sweep(False), lambda: sweep(True)], 31)
     bms, by = int8_bound(leaves)
-    timings["adam_int8_rows"] = (ms, plain_ms, bms, by)
-    emit("timing_train_kernel", kernel="adam_int8_rows", config="synthetic_small W1+W2 (2 launches)",
-         kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, card=card)
+    emit("timing_train_kernel", kernel="adam_int8_rows", config="synthetic_small W1+W2 (2 one-leaf launches)",
+         kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+         device_us_per_call=profile_fn(torch, lambda: sweep(False), "int8 W1+W2")["device_us_per_call"], card=card)
     for R, L in INT8_LEAVES["synthetic_large"]:
         master, mu, nu, grads = int8_state(torch, tqa, R, L, seed=R, device=device)
-        ms_l = median_ms(torch, [lambda: tqa.adam_int8_rows(grads[0], master, mu, nu, scal)], 11)[0]
-        emit("timing_train_kernel", kernel="adam_int8_rows", config=f"synthetic_large R={R} L={L}",
-             kernel_ms=ms_l, bound_ms=int8_bound([(R, L)])[0], bound_by="bytes", card=card)
+        fn = lambda: tqa.adam_int8_rows(grads[0], master, mu, nu, scal)  # noqa: E731
+        ms_l = median_ms(torch, [fn], 11)[0]
+        bms_l = int8_bound([(R, L)])[0]
+        dev_us = profile_fn(torch, fn, f"synthetic_large R={R} L={L}")["device_us_per_call"]
+        emit("timing_train_kernel", kernel="adam_int8_rows", config=f"synthetic_large R={R} L={L} (one launch)",
+             kernel_ms=ms_l, device_us_per_call=dev_us, bound_ms=bms_l, bound_by="bytes",
+             device_share_of_bound=bms_l * 1e3 / dev_us, card=card)
+        del master, mu, nu, grads
+    timings["adam_step@int8"] = time_step(torch, tqa, device, card, "int8")
     return step, timings, plans
 
 
+def time_step(torch, tqa, device, card, fmt: str, library: bool = False) -> dict:
+    """adam_step on synthetic_small's five leaves (the recipe's rate and
+    clip) beside adam_step_plain and, with ``library``, one
+    torch.optim.Adam(fused=True) step on the same five leaves, in turns;
+    then the profiler's device time of the prologue and of the sweep, each
+    beside its bound, and the host's enqueue. Returns the kernels line's
+    numbers."""
+    shapes = STEP_SHAPES["synthetic_small"]
+    params, mu, nu, grads = step_state(torch, tqa, shapes, fmt, seed=41, device=device)
+    plain = clone_step_state(torch, params, mu, nu)
+    sched = tqa.WarmupCosine(0.0, 1e-2, 15, 300)
+    count = torch.tensor(20, dtype=torch.int32, device=device)
+    fns = [lambda: tqa.adam_step(grads[0], params, mu, nu, count, fmt, sched, 1.0),
+           lambda: tqa.adam_step_plain(grads[0], *plain, count, fmt, sched, 1.0)]
+    if library:
+        ps = [torch.nn.Parameter(p.clone()) for p in params]
+        for prm, g in zip(ps, grads[0]):
+            prm.grad = g.clone()
+        opt = torch.optim.Adam(ps, lr=1e-3, fused=True)
+        fns.append(opt.step)
+    for fn in fns:
+        fn()
+    times = median_ms(torch, fns, 31)
+    bounds = step_bounds(torch, shapes, fmt)
+    warm = profile_fn(torch, fns[0], f"adam_step {fmt} synthetic_small five leaves")
+    # Cold: each step after writing 128 MB, so that its leaves come from
+    # device memory, as in a training step, and not from the 50 MB L2.
+    flush = torch.empty(32 << 20, device=device)
+    cold = profile_fn(torch, lambda: (flush.zero_(), fns[0]()), f"adam_step {fmt} after an L2 flush")
+    out = {"ms": times[0], "plain_ms": times[1], "library_ms": times[2] if library else None,
+           "bound_ms": bounds["step"][0], "bound_by": bounds["step"][1],
+           "host_enqueue_us": host_enqueue_us(torch, fns[0]), "elements": bounds["elements"]}
+    for label, prof in (("warm", warm), ("cold", cold)):
+        out[f"{label}_kernels"] = prof["per_call"]
+        for part, key in (("prologue", "adam_prologue"), ("sweep", "sweep")):
+            # µs a launch: the profiler may drop some of a window's launches
+            hits = [v for k, v in prof["per_call"].items() if key in k]
+            calls = sum(v["calls"] for v in hits)
+            us = sum(v["us"] for v in hits) / calls if calls else None
+            out[f"{part}_{label}_device_us"] = us
+            out[f"{part}_bound_us"] = bounds[part][0] * 1e3
+            out[f"{part}_bound_by"] = bounds[part][1]
+            out[f"{part}_{label}_share_of_bound"] = bounds[part][0] * 1e3 / us if us else None
+        parts = [out[f"{p}_{label}_device_us"] for p in ("prologue", "sweep")]
+        out[f"{label}_device_us"] = sum(parts) if None not in parts else None
+    emit("timing_step", kernel="adam_step", config=f"{fmt} synthetic_small five leaves (2 launches)",
+         library="torch.optim.Adam(fused=True)" if library else None, **out, card=card)
+    return out
+
+
+def kernel_name(key: str) -> str:
+    return key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0].strip()
+
+
 def device_us_by_phase(torch, prof, steps: int):
-    """Device time per step of each phase of ProfiledPhases-marked steps:
+    """Device time per step of each phase of ProfiledPhases-marked steps,
+    and each phase's device operations by name (µs and calls a step):
     each kernel, memset or copy goes to the phase whose host range holds
     its start. The profiler also mirrors each range onto the device
     timeline as an annotation spanning its kernels; those spans are not
@@ -690,12 +987,83 @@ def device_us_by_phase(torch, prof, steps: int):
               for e in prof.events()
               if e.name.startswith("phase.") and e.device_type.name == "CPU"]
     per = {name: 0.0 for name in PHASES}
+    ops = {name: {} for name in PHASES}
     for e in prof.events():
-        if e.device_type.name != "CUDA" or e.name.startswith(("phase.", "cuda")):
+        if e.device_type.name != "CUDA" or e.name.startswith(("phase.", "cuda")) or "spin_kernel" in e.name:
             continue
         hit = [name for t0, t1, name in ranges if t0 <= e.time_range.start <= t1]
-        per[hit[0] if hit else "data"] += e.time_range.elapsed_us() / steps
-    return per
+        phase = hit[0] if hit else "data"
+        per[phase] += e.time_range.elapsed_us() / steps
+        op = ops[phase].setdefault(kernel_name(e.name), {"us": 0.0, "calls": 0.0})
+        op["us"] += e.time_range.elapsed_us() / steps
+        op["calls"] += 1 / steps
+    return per, ops
+
+
+class OptimizerProfile:
+    """phased_step's ``mark`` that profiles the optimizer phase alone, from
+    mark(3) to mark(4), each after a device sync: the device operations of
+    that phase by name, µs and calls summed over the steps."""
+
+    def __init__(self, torch):
+        self.torch, self.prof, self.ops, self.steps = torch, None, {}, 0
+
+    def __call__(self, k: int) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        if k == 3:
+            self.torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            profile_marker(self.torch)
+        elif k == 4:
+            self.torch.cuda.synchronize()
+            self.prof.__exit__(None, None, None)
+            self.steps += 1
+            try:
+                found = device_kernels(self.prof, 1)
+            except AssertionError:  # the profiler recorded no device activity
+                return
+            for name, v in found.items():
+                op = self.ops.setdefault(name, {"us": 0.0, "calls": 0.0})
+                op["us"] += v["us"]
+                op["calls"] += v["calls"]
+
+
+def optimizer_phase(torch, run, sweep: str, attempts: int = 3):
+    """Device time a step by phase of 3 ProfiledPhases-marked steps
+    (``run(mark)``), then the optimizer phase of 3 more profiled alone
+    (OptimizerProfile) and held to the step's two port kernels: no device
+    operation but the prologue and the sweep ``sweep``, the sweep once a
+    step, and adam_step's count two a step. The profiler on the card has
+    been seen to drop the prologue of a step from its records (its
+    ``calls`` then read below 1; PERF.md §7); a run in which it recorded
+    nothing is made again, up to ``attempts``. Returns the by-phase µs and
+    the optimizer's operations (µs and launches a step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dladmm_tpu_torch.train import qadam_cuda
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profile_marker(torch)
+        run(ProfiledPhases(torch))
+    by_phase, _ = device_us_by_phase(torch, prof, 3)
+    for attempt in range(attempts):
+        alone = OptimizerProfile(torch)
+        launches = qadam_cuda.adam_step.launches
+        run(alone)
+        launches = qadam_cuda.adam_step.launches - launches
+        if alone.ops:
+            break
+        emit("profile_retry", config="optimizer phase", attempt=attempt + 1)
+    ops = {name: {"us": v["us"] / alone.steps, "calls": v["calls"] / alone.steps} for name, v in alone.ops.items()}
+    swept = [name for name in ops if name.startswith(sweep)]
+    others = [name for name in ops if name != "adam_prologue" and not name.startswith(sweep)]
+    if others or len(swept) != 1 or any(v["calls"] > 1.0 for v in ops.values()) or launches != 2 * alone.steps:
+        raise AssertionError(f"the optimizer phase ran {ops} ({launches} adam_step launches in {alone.steps} "
+                             f"steps), not the prologue and {sweep}, once each a step")
+    return by_phase, {"ops_per_step": ops, "adam_step_launches_per_step": launches / alone.steps,
+                      "device_us_per_step": sum(v["us"] for v in ops.values())}
 
 
 def profile_train(torch, device, steps: int = 5):
@@ -710,6 +1078,7 @@ def profile_train(torch, device, steps: int = 5):
         state, _ = phased_step(torch, A, w, fwd, opt, state, i)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profile_marker(torch)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -720,23 +1089,25 @@ def profile_train(torch, device, steps: int = 5):
     window_us = start.elapsed_time(stop) * 1e3
     kernels = device_kernels(prof, steps)
     busy_us = sum(v["us"] for v in kernels.values()) * steps
-    groups = {"trajectory kernel (traj_persistent)": 0.0, "int8 sweep (qadam_int8_rows)": 0.0,
-              "other (backward loop, loss, small leaves, data)": 0.0}
+    groups = {"trajectory kernel (traj_persistent)": 0.0, "optimizer step (adam_prologue, qadam_int8_sweep)": 0.0,
+              "other (backward loop, loss, data)": 0.0}
     for name, v in kernels.items():
         key = ("trajectory kernel (traj_persistent)" if "traj_persistent" in name else
-               "int8 sweep (qadam_int8_rows)" if "qadam_int8" in name else
-               "other (backward loop, loss, small leaves, data)")
+               "optimizer step (adam_prologue, qadam_int8_sweep)" if "adam_prologue" in name or "qadam_int8" in name
+               else "other (backward loop, loss, data)")
         groups[key] += v["us"]
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["us"])[:15])
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def run(mark):
+        nonlocal state
         for i in range(3):
-            state, _ = phased_step(torch, A, w, fwd, opt, state, 3 + steps + i, mark=ProfiledPhases(torch))
-    by_phase = device_us_by_phase(torch, prof, 3)
+            state, _ = phased_step(torch, A, w, fwd, opt, state, 3 + steps + i, mark=mark)
+
+    by_phase, opt_ops = optimizer_phase(torch, run, "qadam_int8_sweep")
     emit("profile_train", config="synthetic_small batch 64 deep supervision int8", steps=steps,
          window_ms_per_step=window_us / steps / 1e3, device_busy_share=busy_us / window_us,
          device_us_per_step_by_group=groups, device_us_per_step_by_phase=by_phase,
-         top_kernels=top, distinct_kernels=len(kernels))
+         optimizer_phase_alone=opt_ops, top_kernels=top, distinct_kernels=len(kernels))
 
 
 # -- the final-layer training slice (phases 13-17) ---------------------------
@@ -963,13 +1334,13 @@ def train_final_slice(torch, device, unroll_forward):
         return {"trajectory_forward": cuda_traj.trajectory_forward.launches,
                 "unroll_bwd": cuda_bwd.unroll_bwd.launches["whole"],
                 "unroll_bwd_chunked": cuda_bwd.unroll_bwd.launches["chunked"],
-                "adam_dense_rows": qadam_cuda.adam_dense_rows.launches}
+                "adam_step": qadam_cuda.adam_step.launches}
 
     def run(extra, config="synthetic_small"):
         out = io.StringIO()
         cuda_traj.trajectory_forward.launches = 0
         cuda_bwd.reset_launches()
-        qadam_cuda.adam_dense_rows.launches = 0
+        qadam_cuda.adam_step.launches = 0
         t0 = time.monotonic()
         with contextlib.redirect_stdout(out):
             rc = run_main([f"--config={config}", *argv[1:], *extra])
@@ -988,8 +1359,10 @@ def train_final_slice(torch, device, unroll_forward):
         log = Path(tmp) / "log.jsonl"
         summary, launches, wall, lines = run(["--steps=1000", "--ckpt-dir", tmp, "--log-jsonl", str(log)])
         record = json.loads(log.read_text().splitlines()[-1])
-        if min(launches["trajectory_forward"], launches["unroll_bwd"], launches["adam_dense_rows"]) < 1:
+        if min(launches["trajectory_forward"], launches["unroll_bwd"], launches["adam_step"]) < 1:
             raise AssertionError(f"final-layer training did not go through all three kernels: {launches}")
+        if launches["adam_step"] != 2 * 1000:
+            raise AssertionError(f"the optimizer launched {launches['adam_step']} kernels in 1000 steps, not 2 a step")
         if not math.isfinite(record["loss"]):
             raise AssertionError(f"training loss is not finite: {record}")
         if not summary["final_nmse_db"] < summary["ladmm_nmse_db_at_K"]:
@@ -1186,11 +1559,14 @@ def time_train_final(torch, device, card):
         times = median_ms(torch, fns, 31)
         bms, by = dense_bound(elems, fmt)
         library_ms = times[2] if library is not None else None
-        timings[f"adam_dense_rows@{fmt}"] = (times[0], times[1], bms, by, library_ms)
-        emit("timing_train_final_kernel", kernel="adam_dense_rows", config=f"{fmt} synthetic_small W1+W2 (2 launches)",
+        emit("timing_train_final_kernel", kernel="adam_dense_rows",
+             config=f"{fmt} synthetic_small W1+W2 (2 one-leaf launches)",
              kernel_ms=times[0], plain_ms=times[1], library_ms=library_ms, library="torch.optim.Adam(fused=True)",
-             bound_ms=bms, bound_by=by, card=card)
+             bound_ms=bms, bound_by=by,
+             device_us_per_call=profile_fn(torch, fns[0], f"dense {fmt} W1+W2")["device_us_per_call"], card=card)
         del kern, plain, fns, library
+    for fmt in ("float32", "bfloat16"):
+        timings[f"adam_step@{fmt}"] = time_step(torch, tqa, device, card, fmt, library=fmt == "float32")
     return step, timings, plans
 
 
@@ -1206,6 +1582,7 @@ def profile_train_final(torch, device, steps: int = 5):
         state, _ = phased_step_final(torch, A, opt, state, i)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profile_marker(torch)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1218,23 +1595,27 @@ def profile_train_final(torch, device, steps: int = 5):
     busy_us = sum(v["us"] for v in kernels.values()) * steps
     groups = {"trajectory kernel (traj_persistent)": 0.0,
               "backward kernel (bwd_chain, bwd_weights, finish)": 0.0,
-              "dense sweep (qadam_dense)": 0.0, "other (loss, norm, scalars, data, copies)": 0.0}
+              "optimizer step (adam_prologue, qadam_dense_sweep)": 0.0, "other (loss, data, copies)": 0.0}
     for name, v in kernels.items():
         key = ("trajectory kernel (traj_persistent)" if "traj_persistent" in name else
                "backward kernel (bwd_chain, bwd_weights, finish)"
                if any(k in name for k in ("bwd_chain", "bwd_weights", "finish")) else
-               "dense sweep (qadam_dense)" if "qadam_dense" in name else
-               "other (loss, norm, scalars, data, copies)")
+               "optimizer step (adam_prologue, qadam_dense_sweep)"
+               if "adam_prologue" in name or "qadam_dense" in name else
+               "other (loss, data, copies)")
         groups[key] += v["us"]
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["us"])[:15])
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run(mark):
+        nonlocal state
         for i in range(3):
-            state, _ = phased_step_final(torch, A, opt, state, 3 + steps + i, mark=ProfiledPhases(torch))
-    by_phase = device_us_by_phase(torch, prof, 3)
+            state, _ = phased_step_final(torch, A, opt, state, 3 + steps + i, mark=mark)
+
+    by_phase, opt_ops = optimizer_phase(torch, run, "qadam_dense_sweep")
     emit("profile_train_final", config="synthetic_small batch 64 final-layer loss float32_pallas", steps=steps,
          window_ms_per_step=window_us / steps / 1e3, device_busy_share=busy_us / window_us,
          device_us_per_step_by_group=groups, device_us_per_step_by_phase=by_phase,
-         top_kernels=top, distinct_kernels=len(kernels))
+         optimizer_phase_alone=opt_ops, top_kernels=top, distinct_kernels=len(kernels))
 
 
 def device_kernels(prof, steps: int):
@@ -1245,8 +1626,8 @@ def device_kernels(prof, steps: int):
         dev_us = getattr(e, "device_time_total", None)
         if dev_us is None:
             dev_us = e.cuda_time_total
-        if e.device_type.name != "CUDA" or dev_us <= 0 or e.key.startswith("cuda"):
-            continue  # host ops and runtime calls; kernels are device events
+        if e.device_type.name != "CUDA" or dev_us <= 0 or e.key.startswith("cuda") or "spin_kernel" in e.key:
+            continue  # host ops, runtime calls and the window's marker; kernels are device events
         name = e.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0].strip()
         k = kernels.setdefault(name, {"us": 0.0, "calls": 0.0})
         k["us"] += dev_us / steps
@@ -1799,7 +2180,7 @@ def main() -> int:
             emit("kernel_traj", case=f"{label} S={S}", repeats_bit_for_bit=True,
                  **launched_plan(trajectory_forward))
             del A, b, p, got, want, again
-    int8_err = check_int8(torch, qadam_cuda, dev)
+    int8_err = max(check_int8(torch, qadam_cuda, dev), check_step(torch, qadam_cuda, dev, ["int8"]))
     check_grads(torch, dev)
 
     # 10. the training slice, counted from 0; then its checkpoint served.
@@ -1812,7 +2193,7 @@ def main() -> int:
 
     # 13-14. the final-layer slice's kernels against their plain versions.
     bwd_errs = check_bwd(torch, dev)
-    dense_err = check_dense(torch, qadam_cuda, dev)
+    dense_err = max(check_dense(torch, qadam_cuda, dev), check_step(torch, qadam_cuda, dev, list(qadam_cuda.DENSE_FMTS)))
     # 15. the final-layer training slice, counted from 0; its checkpoint
     # served; the batch-1024 run on the chunked route.
     final_launches, final_serve_launches, big_launches, chunk_launches = train_final_slice(torch, dev, unroll_forward)
@@ -1856,28 +2237,35 @@ def main() -> int:
         **serve_detail[("synthetic_small", 256)],
         "device_us_per_call": serve_profile["device_us_per_call"],  # phase 6
     }]
-    for name, source, replaces, err, shape in (
-        ("trajectory_forward", "dladmm_tpu_torch/ops/csrc/unroll.cu",
-         "dladmm_tpu/ops/pallas_unroll.py:266", traj_err, "synthetic_small S=64 with_tax"),
-        ("adam_int8_rows", "dladmm_tpu_torch/ops/csrc/qadam_int8.cu",
-         "dladmm_tpu/train/qadam_pallas.py:129", int8_err, "synthetic_small W1+W2, one step"),
-    ):
-        ms, plain_ms, bms, by = train_timings[name]
-        entries.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": train_launches[name],  # main path: run.main --steps=300
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": None, "shape": shape, **train_plans.get(name, {}),
-        })
+    ms, plain_ms, bms, by = train_timings["trajectory_forward"]
+    entries.append({
+        "name": "trajectory_forward", "route": "cuda", "source": "dladmm_tpu_torch/ops/csrc/unroll.cu",
+        "replaces": "dladmm_tpu/ops/pallas_unroll.py:266",
+        "launches": train_launches["trajectory_forward"],  # main path: run.main --steps=300
+        "max_abs_err": traj_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+        "bound_by": by, "library_ms": None, "shape": "synthetic_small S=64 with_tax",
+        **train_plans["trajectory_forward"],
+    })
+
+    def step_entry(name, source, replaces, err, launches, timing, shape):
+        """Rows 3 and 6: the step's entry adam_step (prologue + sweep, both
+        launches counted), timed on synthetic_small's five leaves."""
+        t = dict(timing)
+        return {"name": name, "entry": "adam_step", "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": t.pop("ms"), "plain_ms": t.pop("plain_ms"),
+                "bound_ms": t.pop("bound_ms"), "bound_by": t.pop("bound_by"), "library_ms": t.pop("library_ms"),
+                "shape": shape, **t}
+
+    # main path: run.main --steps=300, two launches a step
+    entries.append(step_entry("adam_int8_rows", "dladmm_tpu_torch/ops/csrc/qadam_int8.cu",
+                              "dladmm_tpu/train/qadam_pallas.py:129", int8_err, train_launches["adam_step"],
+                              train_timings["adam_step@int8"], "int8 synthetic_small five leaves, one step"))
     for name, source, replaces, err, timing, launches, shape in (
         ("unroll_bwd", "dladmm_tpu_torch/ops/csrc/unroll_bwd.cu", "dladmm_tpu/ops/pallas_bwd.py:56",
          bwd_errs["whole"], "unroll_bwd", final_launches["unroll_bwd"], "synthetic_small S=64"),
         ("unroll_bwd_chunked", "dladmm_tpu_torch/ops/csrc/unroll_bwd.cu", "dladmm_tpu/ops/pallas_bwd.py:356",
          bwd_errs["chunked"], "unroll_bwd@1024_chunked", chunk_launches["unroll_bwd_chunked"],
          "synthetic_small S=1024 bs=128"),
-        ("adam_dense_rows", "dladmm_tpu_torch/ops/csrc/qadam_dense.cu", "dladmm_tpu/train/qadam_pallas.py:178",
-         dense_err, "adam_dense_rows@float32", final_launches["adam_dense_rows"],
-         "float32 synthetic_small W1+W2, one step"),
     ):
         ms, plain_ms, bms, by, library_ms = final_timings[timing]
         entries.append({
@@ -1890,6 +2278,10 @@ def main() -> int:
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms, "shape": shape,
             **final_plans.get(timing, {}),
         })
+    # main path: run --layer-loss=none --moment-dtype=float32_pallas --steps=1000, two launches a step
+    entries.append(step_entry("adam_dense_rows", "dladmm_tpu_torch/ops/csrc/qadam_dense.cu",
+                              "dladmm_tpu/train/qadam_pallas.py:178", dense_err, final_launches["adam_step"],
+                              final_timings["adam_step@float32"], "float32 synthetic_small five leaves, one step"))
     ms, plain_ms, bms, by = new_timings[("int8", 256)]
     entries.append({
         "name": "int8_unroll_forward", "route": "cuda", "source": "dladmm_tpu_torch/ops/csrc/int8_unroll.cu",

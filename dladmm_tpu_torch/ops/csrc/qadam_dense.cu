@@ -1,9 +1,9 @@
 // One-pass Adam sweep with dense moments (fp32, bf16, or bf16 stored by
-// stochastic rounding), for Hopper (sm_90a).
+// stochastic rounding) over a table of leaves, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel dladmm_tpu/train/qadam_pallas.py:_make_kernel_dense
-// (driven by _leaf_apply_pallas). For one parameter leaf of N elements,
-// in one pass and in place, element i:
+// (driven by _leaf_apply_pallas). For each element i of each leaf, in one
+// pass and in place:
 //
 //   g'      = g * clip_scale
 //   mu'     = b1 * mu + (1 - b1) * g'
@@ -13,20 +13,26 @@
 //
 // mu and nu are read and written as fp32 or bf16 (the moment formats of
 // _DENSE_FMTS: float32, bfloat16, bfloat16_sr with both moments SR-bf16,
-// bfloat16_sr_mu with an SR-bf16 mu and an fp32 nu). A round-to-nearest
-// store is __float2bfloat16_rn; a stochastic store adds 16 random bits to
-// the fp32 pattern below the bf16 boundary (uint32 wrap-around) and
-// truncates, as qmoments.sr_bfloat16. The bits come from Philox4x32-10,
-// written out below: key (seed, 0), counter (i as two 32-bit words, 0, 0),
-// word x for mu and word y for nu, so each element of each moment has its
-// own bits and a launch repeats bit for bit. The seed is the leaf's _mix_seed(count, idx),
-// an int32 on the device. c1, c2 (bias corrections), lr and clip_scale
+// bfloat16_sr_mu with an SR-bf16 mu and an fp32 nu); every leaf of a step
+// has the step's format. A round-to-nearest store is __float2bfloat16_rn;
+// a stochastic store adds 16 random bits to the fp32 pattern below the
+// bf16 boundary (uint32 wrap-around) and truncates, as qmoments.sr_bfloat16.
+// The bits come from Philox4x32-10, written out below: key (the leaf's
+// seed, 0), counter (i as two 32-bit words, 0, 0), i the element's index
+// in its leaf, word x for mu and word y for nu. So each element of each
+// moment has its own bits, a launch repeats bit for bit, and one launch
+// over the table stores the bits that one launch a leaf stores. The seed
+// is the leaf's _mix_seed(count, idx), an int32 on the device (the
+// prologue of adam_step.cuh writes them). c1, c2, lr and clip_scale
 // arrive as four floats on the device: the host never reads them.
 //
-// Design. Elementwise, one thread per element over a grid-stride loop.
-// Each element is read once and written once, so the sweep is bound by
-// device-memory bytes: 28 per element with fp32 moments (g, master read
-// and written, mu and nu read and written), 20 with bf16 moments. The
+// Design. Each element is read once and written once, so the sweep is
+// bound by device-memory bytes: 28 an element with fp32 moments (g,
+// master read and written, mu and nu read and written), 20 with bf16
+// moments. A work block is 2048 elements of one leaf (the table's prefix
+// says which); a thread takes 8 consecutive elements with 16-byte
+// accesses (two for fp32, one for 8 bf16) where the leaf's pointers are
+// 16-byte aligned, scalar accesses otherwise and at the leaf's tail. The
 // arithmetic uses the round-to-nearest intrinsics in the JAX kernel's
 // order (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn): nvcc may not
 // contract them into FMAs, so the kernel computes what the plain PyTorch
@@ -35,14 +41,12 @@
 // Plain C interface, loaded with ctypes (dladmm_tpu_torch/train/qadam_cuda.py).
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
+
+#include "adam_step.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;
+constexpr int kVec = 8;  // elements a thread a work block
 
 enum Fmt { FMT_FLOAT32 = 0, FMT_BFLOAT16 = 1, FMT_BFLOAT16_SR = 2, FMT_BFLOAT16_SR_MU = 3 };
 
@@ -85,75 +89,189 @@ __device__ __forceinline__ __nv_bfloat16 store<__nv_bfloat16, true>(float x, uin
   return __nv_bfloat16(raw);
 }
 
-template <typename MuT, typename NuT, bool SR_MU, bool SR_NU>
-__global__ void __launch_bounds__(kThreads)
-qadam_dense(const float* __restrict__ g, float* __restrict__ master, MuT* __restrict__ mu,
-            NuT* __restrict__ nu, const float* __restrict__ scal, const int* __restrict__ seed,
-            long long N, float b1, float omb1, float b2, float omb2, float eps) {
-  const float c1 = scal[0], c2 = scal[1], lr = scal[2], cs = scal[3];
-  const uint32_t key = (SR_MU || SR_NU) ? (uint32_t)*seed : 0u;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < N; i += stride) {
-    const float gs = __fmul_rn(g[i], cs);
-    const float m = __fadd_rn(__fmul_rn(b1, load(mu[i])), __fmul_rn(omb1, gs));
-    const float v = __fadd_rn(__fmul_rn(b2, load(nu[i])), __fmul_rn(__fmul_rn(omb2, gs), gs));
-    const float upd = __fdiv_rn(__fdiv_rn(m, c1), __fadd_rn(__fsqrt_rn(__fdiv_rn(v, c2)), eps));
-    master[i] = __fsub_rn(master[i], __fmul_rn(lr, upd));
-    uint4 r = make_uint4(0u, 0u, 0u, 0u);
-    if (SR_MU || SR_NU)
-      r = philox4x32_10(make_uint4((uint32_t)i, (uint32_t)(i >> 32), 0u, 0u), make_uint2(key, 0u));
-    mu[i] = store<MuT, SR_MU>(m, r.x);
-    nu[i] = store<NuT, SR_NU>(v, r.y);
+// Eight consecutive elements from p + i0 as floats: 16-byte loads when
+// `vec`, else scalar loads of those below n (0 past it).
+__device__ __forceinline__ void load8(const float* p, long long i0, long long n, bool vec, float* v) {
+  if (vec) {
+    const float4 a = *reinterpret_cast<const float4*>(p + i0);
+    const float4 b = *reinterpret_cast<const float4*>(p + i0 + 4);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) v[e] = i0 + e < n ? p[i0 + e] : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, long long i0, long long n, bool vec, float* v) {
+  if (vec) {
+    const uint4 a = *reinterpret_cast<const uint4*>(p + i0);
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&a);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) v[e] = __bfloat162float(h[e]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) v[e] = i0 + e < n ? load(p[i0 + e]) : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void store8(float* p, long long i0, long long n, bool vec, const float* v) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p + i0) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(p + i0 + 4) = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+      if (i0 + e < n) p[i0 + e] = v[e];
+  }
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, long long i0, long long n, bool vec,
+                                       const __nv_bfloat16* v) {
+  if (vec) {
+    uint4 a;
+    __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&a);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) h[e] = v[e];
+    *reinterpret_cast<uint4*>(p + i0) = a;
+  } else {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+      if (i0 + e < n) p[i0 + e] = v[e];
   }
 }
 
 template <typename MuT, typename NuT, bool SR_MU, bool SR_NU>
-cudaError_t run(const float* g, float* master, void* mu, void* nu, const float* scal,
-                const int* seed, long long N, float b1, float omb1, float b2, float omb2,
-                float eps, cudaStream_t stream) {
-  const long long want = (N + kThreads - 1) / kThreads;
-  const int blocks = (int)(want < kMaxBlocks ? want : kMaxBlocks);
-  qadam_dense<MuT, NuT, SR_MU, SR_NU><<<blocks, kThreads, 0, stream>>>(
-      g, master, static_cast<MuT*>(mu), static_cast<NuT*>(nu), scal, seed, N, b1, omb1, b2, omb2,
-      eps);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(kStepThreads)
+qadam_dense_sweep(const __grid_constant__ Table t, const float* __restrict__ scal, const Coeffs k) {
+  const float c1 = scal[0], c2 = scal[1], lr = scal[2], cs = scal[3];
+  for (int w = blockIdx.x; w < t.blocks; w += gridDim.x) {
+    const Leaf& lf = t.leaf[leaf_of_block(t, w)];
+    const long long i0 = (long long)(w - lf.block0) * kChunk + threadIdx.x * kVec;
+    const long long n = lf.n;
+    if (i0 >= n) continue;
+    const bool vec = lf.vec == kVec && i0 + kVec <= n;
+    MuT* mu = static_cast<MuT*>(lf.mu);
+    NuT* nu = static_cast<NuT*>(lf.nu);
+    float g[kVec], ms[kVec], m[kVec], v[kVec];
+    load8(lf.g, i0, n, vec, g);
+    load8(lf.master, i0, n, vec, ms);
+    load8(mu, i0, n, vec, m);
+    load8(nu, i0, n, vec, v);
+    const uint32_t key = (SR_MU || SR_NU) ? (uint32_t)*lf.seed : 0u;
+    MuT mo[kVec];
+    NuT no[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      const float gs = __fmul_rn(g[e], cs);
+      const float mm = __fadd_rn(__fmul_rn(k.b1, m[e]), __fmul_rn(k.omb1, gs));
+      const float vv = __fadd_rn(__fmul_rn(k.b2, v[e]), __fmul_rn(__fmul_rn(k.omb2, gs), gs));
+      const float upd = __fdiv_rn(__fdiv_rn(mm, c1), __fadd_rn(__fsqrt_rn(__fdiv_rn(vv, c2)), k.eps));
+      ms[e] = __fsub_rn(ms[e], __fmul_rn(lr, upd));
+      uint4 r = make_uint4(0u, 0u, 0u, 0u);
+      if (SR_MU || SR_NU) {
+        const long long i = i0 + e;
+        r = philox4x32_10(make_uint4((uint32_t)i, (uint32_t)(i >> 32), 0u, 0u), make_uint2(key, 0u));
+      }
+      mo[e] = store<MuT, SR_MU>(mm, r.x);
+      no[e] = store<NuT, SR_NU>(vv, r.y);
+    }
+    store8(lf.master, i0, n, vec, ms);
+    store8(mu, i0, n, vec, mo);
+    store8(nu, i0, n, vec, no);
+  }
+}
+
+const void* dense_sweep(int fmt) {
+  switch (fmt) {
+    case FMT_FLOAT32: return (const void*)qadam_dense_sweep<float, float, false, false>;
+    case FMT_BFLOAT16: return (const void*)qadam_dense_sweep<__nv_bfloat16, __nv_bfloat16, false, false>;
+    case FMT_BFLOAT16_SR: return (const void*)qadam_dense_sweep<__nv_bfloat16, __nv_bfloat16, true, true>;
+    case FMT_BFLOAT16_SR_MU: return (const void*)qadam_dense_sweep<__nv_bfloat16, float, true, false>;
+    default: return nullptr;
+  }
+}
+
+bool sr(int fmt) { return fmt == FMT_BFLOAT16_SR || fmt == FMT_BFLOAT16_SR_MU; }
+
+// Launch the sweep of format fmt on `grid` blocks. A refused launch runs
+// nothing; its error is cleared and returned.
+cudaError_t launch_sweep(int fmt, const Table& t, const float* scal, const Coeffs& k, int grid,
+                         cudaStream_t stream) {
+  const void* fn = dense_sweep(fmt);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  void* args[] = {(void*)&t, (void*)&scal, (void*)&k};
+  const cudaError_t err = cudaLaunchKernel(fn, dim3(grid), dim3(kStepThreads), args, 0, stream);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// Elements a thread's access takes: 8 (16-byte accesses) where every
+// pointer of the leaf is 16-byte aligned, else 1 (train/qadam_cuda.dense_vec).
+inline int dense_vec(const void* g, const void* master, const void* mu, const void* nu) {
+  return aligned16(g) && aligned16(master) && aligned16(mu) && aligned16(nu) ? kVec : 1;
 }
 
 }  // namespace
 
+// One optimizer step over a table of dense leaves (adam_step.cuh gives
+// the layout of the host arrays; ints[8] is the format: 0 float32, 1
+// bfloat16, 2 bfloat16_sr, 3 bfloat16_sr_mu), enqueued on `stream`: the
+// prologue, then the sweep; no sync. Returns a
+// cudaError_t; a refused launch's error is cleared for later launches'
+// checks.
+extern "C" int dladmm_adam_step_dense(const long long* ptrs, const long long* ints, const double* flts,
+                                      int device, void* stream_handle) {
+  Table t;
+  StepScalars s;
+  Coeffs k;
+  const int fmt = (int)ints[8];
+  if (!read_step(ptrs, ints, flts, t, s, k) || dense_sweep(fmt) == nullptr) return (int)cudaErrorInvalidValue;
+  if (sr(fmt) && s.seeds == nullptr) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < t.nleaves; ++i) {
+    const Leaf& lf = t.leaf[i];
+    if (lf.codec != CODEC_DENSE || (lf.vec != 1 && lf.vec != kVec) || (sr(fmt) && lf.seed == nullptr))
+      return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  err = launch_prologue(t, s, (int)ints[3], stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_sweep(fmt, t, s.scal, k, t.blocks, stream);
+}
+
 // One Adam step on a leaf of N elements, in place, enqueued on `stream`;
-// no sync. g, master fp32 (N,); mu, nu in the format's types (fmt: 0
-// float32, 1 bfloat16, 2 bfloat16_sr, 3 bfloat16_sr_mu); scal fp32
-// [c1, c2, lr, clip_scale] and seed (one int32, read only by the SR
-// formats; may be null otherwise) on the device. omb1 and omb2 are
-// (1 - b1) and (1 - b2) rounded once from double, as the JAX package
-// forms them. Returns a cudaError_t.
+// no sync: the sweep with a one-leaf table. g, master fp32 (N,); mu, nu in
+// the format's types (fmt as above); scal fp32 [c1, c2, lr, clip_scale]
+// and seed (one int32, read only by the SR formats; may be null
+// otherwise) on the device. omb1 and omb2 are (1 - b1) and (1 - b2)
+// rounded once from double, as the JAX package forms them. Returns a
+// cudaError_t.
 extern "C" int dladmm_qadam_dense(const float* g, float* master, void* mu, void* nu,
                                   const float* scal, const int* seed, long long N, int fmt,
                                   float b1, float omb1, float b2, float omb2, float eps,
                                   int device, void* stream_handle) {
-  if (N < 1) return (int)cudaErrorInvalidValue;
-  if ((fmt == FMT_BFLOAT16_SR || fmt == FMT_BFLOAT16_SR_MU) && seed == nullptr)
-    return (int)cudaErrorInvalidValue;
+  if (N < 1 || dense_sweep(fmt) == nullptr) return (int)cudaErrorInvalidValue;
+  if (sr(fmt) && seed == nullptr) return (int)cudaErrorInvalidValue;
+  Table t{};
+  t.nleaves = 1;
+  Leaf& lf = t.leaf[0];
+  lf.g = g;
+  lf.master = master;
+  lf.mu = mu;
+  lf.nu = nu;
+  lf.seed = seed;
+  lf.n = N;
+  lf.codec = CODEC_DENSE;
+  lf.vec = dense_vec(g, master, mu, nu);
+  t.blocks = (int)((N + kChunk - 1) / kChunk);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  switch (fmt) {
-    case FMT_FLOAT32:
-      return (int)run<float, float, false, false>(g, master, mu, nu, scal, seed, N, b1, omb1, b2,
-                                                  omb2, eps, stream);
-    case FMT_BFLOAT16:
-      return (int)run<__nv_bfloat16, __nv_bfloat16, false, false>(g, master, mu, nu, scal, seed, N,
-                                                                  b1, omb1, b2, omb2, eps, stream);
-    case FMT_BFLOAT16_SR:
-      return (int)run<__nv_bfloat16, __nv_bfloat16, true, true>(g, master, mu, nu, scal, seed, N, b1,
-                                                                omb1, b2, omb2, eps, stream);
-    case FMT_BFLOAT16_SR_MU:
-      return (int)run<__nv_bfloat16, float, true, false>(g, master, mu, nu, scal, seed, N, b1, omb1,
-                                                         b2, omb2, eps, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch_sweep(fmt, t, scal, Coeffs{b1, omb1, b2, omb2, eps, 0.0f}, t.blocks,
+                           static_cast<cudaStream_t>(stream_handle));
 }
 
 extern "C" const char* dladmm_cuda_error_string(int err) {

@@ -29,7 +29,6 @@ Not ported yet (ROADMAP.md §1): ``compute_dtype="bfloat16"``,
 
 from __future__ import annotations
 
-import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -40,7 +39,7 @@ from dladmm_tpu_torch.data.synthetic import make_batch, step_generator
 from dladmm_tpu_torch.metrics.core import constraint_residual, nmse_db, per_layer_nmse_db
 from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
 from dladmm_tpu_torch.ops.prox import resolve_prox
-from dladmm_tpu_torch.train.qadam_cuda import QAdamFused, global_norm
+from dladmm_tpu_torch.train.qadam_cuda import QAdamFused, WarmupCosine, global_norm
 
 _LATER = "is not ported yet; it is a later slice of the port (ROADMAP.md §1)"
 
@@ -235,22 +234,10 @@ def warmup_cosine_decay_schedule(
 ):
     """optax.warmup_cosine_decay_schedule, exactly: linear warmup from
     init_value to peak_value over warmup_steps, then cosine decay to
-    end_value at decay_steps, in float32 on the count's device."""
-    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
-    decay = decay_steps - warmup_steps
-    if not decay > 0:
-        raise ValueError(f"the cosine decay needs decay_steps > warmup_steps, got {decay_steps}, {warmup_steps}")
-
-    def schedule(count: Tensor) -> Tensor:
-        count = count.to(torch.int32)
-        frac = 1 - torch.clamp(count, 0, warmup_steps).to(torch.float32) / warmup_steps
-        warm = (init_value - peak_value) * frac + peak_value
-        t = torch.clamp((count - warmup_steps).to(torch.float32), max=float(decay))
-        cosine = 0.5 * (1 + torch.cos(math.pi * t / float(decay)))
-        cool = peak_value * ((1 - alpha) * cosine + alpha)
-        return torch.where(count < warmup_steps, warm, cool)
-
-    return schedule
+    end_value at decay_steps, in float32 on the count's device. A
+    ``WarmupCosine``, which the fused step's prologue evaluates on the
+    card from its fields."""
+    return WarmupCosine(init_value, peak_value, warmup_steps, decay_steps, end_value)
 
 
 def _lr_of(t):

@@ -75,8 +75,10 @@ def quantize_q8(x: Tensor, block: int = BLOCK) -> QTensor:
 
 def dequantize_q8(q: QTensor, shape) -> Tensor:
     """QTensor -> fp32 tensor of ``shape`` (inverse of quantize_q8 up to
-    the int8 rounding)."""
-    c = q.codes.to(torch.float32) / 127.0
+    the int8 rounding). A true division by 127 on every device (PyTorch's
+    CUDA division by a Python number multiplies by its reciprocal), as
+    the int8 sweep's flat codec divides."""
+    c = q.codes.to(torch.float32) / torch.full((), 127.0, device=q.codes.device)
     y = torch.sign(c) * c * c * q.scale[:, None]
     size = 1
     for s in shape:

@@ -21,6 +21,7 @@ the unroll carries the difference through K layers. The backward and
 the sweeps state theirs.
 """
 
+import dataclasses
 import threading
 
 import numpy as np
@@ -349,10 +350,10 @@ def test_fit_on_the_card_uses_both_kernels(cuda_device):
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, steps=20, eval_every=10))
     fwd, _, desc = select_forward(250, 500, 250, 64, need_trajectory=True, device=cuda_device)
     assert desc == "cuda-trajectory-kernel"
-    t0, a0 = cuda_traj.trajectory_forward.launches, tqa.adam_int8_rows.launches
+    t0, a0 = cuda_traj.trajectory_forward.launches, tqa.adam_step.launches
     _, hist = fit(cfg, forward_fn=fwd, device=cuda_device)
     assert cuda_traj.trajectory_forward.launches - t0 == 20 + 2  # steps + evals
-    assert tqa.adam_int8_rows.launches - a0 == 2 * 20  # W1 and W2 per step
+    assert tqa.adam_step.launches - a0 == 2 * 20  # prologue and sweep per step
     assert all(np.isfinite(h["nmse_db"]) for h in hist)
 
 
@@ -650,13 +651,13 @@ def test_fit_final_layer_on_the_card_uses_the_kernels(cuda_device):
         cfg.train, steps=20, eval_every=10, layer_loss=None, moment_dtype="float32_pallas"))
     fwd, _, desc = select_forward(250, 500, 250, 64, device=cuda_device)
     assert desc == "cuda-whole-unroll-kernel"
-    t0, d0 = cuda_traj.trajectory_forward.launches, tqa.adam_dense_rows.launches
+    t0, d0 = cuda_traj.trajectory_forward.launches, tqa.adam_step.launches
     b0 = dict(cuda_bwd.unroll_bwd.launches)
     _, hist = fit(cfg, forward_fn=fwd, device=cuda_device)
     assert cuda_traj.trajectory_forward.launches - t0 == 20 + 2  # steps + evals
     assert cuda_bwd.unroll_bwd.launches["whole"] - b0["whole"] == 20
     assert cuda_bwd.unroll_bwd.launches["chunked"] == b0["chunked"]
-    assert tqa.adam_dense_rows.launches - d0 == 5 * 20  # every leaf, every step
+    assert tqa.adam_step.launches - d0 == 2 * 20  # prologue and sweep over every leaf, every step
     assert all(np.isfinite(h["nmse_db"]) for h in hist)
 
 
@@ -843,3 +844,243 @@ def test_new_kernels_raise_without_a_build_or_on_a_device_mix(cuda_device, tmp_p
         cuda_int8.int8_unroll_forward(b, qp, qd)
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_layer.layer_step(lb, lA, *state, *layer)
+
+
+# -- the optimizer step: prologue and one sweep over every leaf --------------
+
+STEP_PRESETS = {"synthetic_small": (250, 500, 15), "synthetic_large": (1000, 2000, 20)}
+STEP_FMTS = ["int8", "float32", "bfloat16", "bfloat16_sr", "bfloat16_sr_mu"]
+
+
+def _step_state(shapes, fmt, seed, device):
+    """Masters, non-zero moments in the format (int8 in each leaf's codec)
+    and 3 gradient sets; the first and last above the clip, the middle
+    below it."""
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+    from dladmm_tpu_torch.train import qmoments as tqm
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda s, scale: scale * torch.randn(s, generator=g, device=device)  # noqa: E731
+    params = DLADMMParams(*(rand(s, 0.05) for s in shapes))
+
+    def moment(x, which):
+        if fmt != "int8":
+            return x.to(tqa.DENSE_FMTS[fmt][which])
+        if tqa.leaf_eligible(x):
+            return tqa.quantize_rows(x.reshape(-1, x.shape[-1]))
+        return tqm.quantize_q8(x)
+
+    mu = DLADMMParams(*(moment(rand(s, 1e-2), 0) for s in shapes))
+    nu = DLADMMParams(*(moment(rand(s, 3e-2) ** 2, 1) for s in shapes))
+    total = sum(int(np.prod(s)) for s in shapes)
+    grads = [DLADMMParams(*(rand(s, scale / total ** 0.5) for s in shapes)) for scale in (3.0, 0.3, 2.0)]
+    return params, mu, nu, grads
+
+
+def _clone(tree):
+    from dladmm_tpu_torch.train import qmoments as tqm
+
+    return DLADMMParams(*(tqm.QTensor(q.codes.clone(), q.scale.clone()) if hasattr(q, "codes") else q.clone()
+                          for q in tree))
+
+
+def _clone_all(state):
+    params, mu, nu = state
+    return DLADMMParams(*(p.clone() for p in params)), _clone(mu), _clone(nu)
+
+
+def _within_ulps(a, b, ulps=2):
+    ai, bi = a.contiguous().view(torch.int32).long(), b.contiguous().view(torch.int32).long()
+    return bool(((ai - bi).abs() <= ulps).all())
+
+
+def _one_leaf_step(fmt, grads, params, mu, nu, scal, seeds):
+    """The step sweep by sweep with the kernel's scalars and seeds: the
+    one-leaf launches (adam_dense_rows; adam_int8_rows on the per-row
+    leaves) and adam_flat_plain on the flat-256 leaves."""
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    for idx, (g, p, m, v) in enumerate(zip(grads, params, mu, nu)):
+        if fmt != "int8":
+            tqa.adam_dense_rows(g, p, m, v, scal, fmt, None if seeds is None else seeds[idx:idx + 1])
+        elif tqa.leaf_eligible(p):
+            L = p.shape[-1]
+            tqa.adam_int8_rows(g.reshape(-1, L), p.view(-1, L), m, v, scal)
+        else:
+            tqa.adam_flat_plain(g, p, m, v, scal)
+
+
+def _assert_moments(fmt, got, want, exact):
+    """int8: codes within one step, scales within rtol 1e-6 (equal where
+    ``exact``); dense: equal."""
+    for a, b in zip(got, want):
+        if fmt == "int8":
+            diff = int((a.codes.int() - b.codes.int()).abs().max())
+            assert diff == 0 if exact else diff <= 1
+            torch.testing.assert_close(a.scale, b.scale, rtol=0 if exact else 1e-6, atol=0)
+        else:
+            assert torch.equal(a, b)
+
+
+def _assert_plain_step(fmt, grads, pre, post, scal, seeds):
+    """The plain version's step from the kernel's state before it (``pre``),
+    with the kernel's scalars and seeds, against the kernel's state after
+    it: masters within rtol 1e-6; int8 codes within one step and scales
+    within rtol 1e-6; round-to-nearest moments equal; SR moments a bf16
+    neighbour of the plain fp32 moment (other bits than the kernel's, by
+    design)."""
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    params, mu, nu = _clone_all(pre)
+    _, _, sr_mu, sr_nu = tqa.DENSE_FMTS.get(fmt, (None, None, False, False))
+    if sr_mu or sr_nu:
+        mu = DLADMMParams(*(m.to(torch.float32, copy=True) for m in mu))
+        nu = DLADMMParams(*(v.to(torch.float32, copy=True) for v in nu))
+    for idx, (g, p, m, v) in enumerate(zip(grads, params, mu, nu)):
+        if fmt == "int8" and tqa.leaf_eligible(p):
+            L = p.shape[-1]
+            tqa.adam_int8_rows_plain(g.reshape(-1, L), p.view(-1, L), m, v, scal)
+        elif fmt == "int8":
+            tqa.adam_flat_plain(g, p, m, v, scal)
+        else:
+            tqa.adam_dense_rows_plain(g, p, m, v, scal, "float32" if sr_mu or sr_nu else fmt,
+                                      None if seeds is None else seeds[idx])
+    for a, b in zip(post[0], params):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
+    for got, want, sr in ((post[1], mu, sr_mu), (post[2], nu, sr_nu)):
+        if not sr:
+            _assert_moments(fmt, got, want, exact=False)
+            continue
+        for a, b in zip(got, want):
+            lo, hi = _bf16_neighbours(b)
+            assert ((a.float() == lo) | (a.float() == hi)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", STEP_FMTS)
+@pytest.mark.parametrize("preset", list(STEP_PRESETS))
+def test_adam_step_matches_plain(cuda_device, preset, fmt):
+    """adam_step (prologue + one sweep, 2 launches a step) over the five
+    leaves of a preset, 3 chained steps with the warmup-cosine rate and a
+    clip. Each step: its scalars within 2 ulp of step_scalars', the count
+    and seeds equal; its state equal to the one-leaf sweeps' run with its
+    scalars from the state before it (masters and moments bit for bit, SR
+    too; flat int8 codes, which the one-leaf path sweeps with the plain
+    version, within one step); and held against the plain version's step
+    from that state (_assert_plain_step)."""
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    m, n, K = STEP_PRESETS[preset]
+    shapes = [(K, n, m), (K, m, m), (K, n), (K, m), (K,)]
+    params, mu, nu, grads = _step_state(shapes, fmt, seed=K + len(fmt), device=cuda_device)
+    sched = tqa.WarmupCosine(0.0, 1e-2, 2, 40)
+    count = torch.tensor(1, dtype=torch.int32, device=cuda_device)
+    before = tqa.adam_step.launches
+    for step, g in enumerate(grads):
+        pre = _clone_all((params, mu, nu))
+        old = count.clone()
+        count, scal, seeds = tqa.adam_step(g, params, mu, nu, count, fmt, sched, 1.0)
+        pscal, pcount = tqa.step_scalars(g, old, sched, 1.0)
+        pseeds = tqa.step_seeds(pcount, fmt, len(shapes))
+        one = _clone_all(pre)
+        _one_leaf_step(fmt, g, *one, scal, seeds)
+        torch.cuda.synchronize()
+        assert torch.equal(old, count - 1) and torch.equal(count, pcount)
+        assert _within_ulps(scal, pscal), (step, scal.tolist(), pscal.tolist())
+        assert (float(scal[3]) < 1.0) == (step != 1)
+        assert (seeds is None) == (pseeds is None) and (seeds is None or torch.equal(seeds, pseeds))
+        for a, b in zip(params, one[0]):
+            assert torch.equal(a, b)
+        for moment, want in ((mu, one[1]), (nu, one[2])):
+            for name, a, b in zip(DLADMMParams._fields, moment, want):
+                _assert_moments(fmt, [a], [b], exact=fmt != "int8" or name in ("W1", "W2"))
+        _assert_plain_step(fmt, g, pre, (params, mu, nu), scal, seeds)
+    assert tqa.adam_step.launches == before + 2 * len(grads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "float32", "bfloat16_sr"])
+def test_adam_step_scalar_paths_and_rate_modes(cuda_device, fmt):
+    """Odd widths take the scalar accesses: an int8 leaf of L = 251 (and
+    flat leaves of odd size), dense leaves one float off 16-byte alignment;
+    each with a constant rate, a plain callable and no clip: the scalars
+    within 2 ulp and the state equal to the one-leaf sweeps' run with the
+    kernel's scalars."""
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    shapes = [(2, 256, 251), (3, 7, 5), (33,), (2, 300), (1,)]
+    for lr, clip in ((3e-3, None), (lambda c: 1e-3 / (1.0 + c.to(torch.float32)), 0.5)):
+        params, mu, nu, grads = _step_state(shapes, fmt, seed=251, device=cuda_device)
+        if fmt != "int8":  # views one element in: 4-byte aligned only
+            def shift(t):
+                buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+                buf[1:] = t.reshape(-1)
+                return buf[1:].view(t.shape)
+
+            params, mu, nu = (DLADMMParams(*map(shift, tree)) for tree in (params, mu, nu))
+            grads = [DLADMMParams(*map(shift, g)) for g in grads]
+            plan = tqa.step_plan(tuple(tqa._leaf_spec(i, *leaf, fmt)[0] for i, leaf in
+                                       enumerate(zip(grads[0], params, mu, nu))))
+            assert {lp.vec for lp in plan.leaves} == {1}
+        else:
+            assert tqa.int8_vec(251, 0, 0, 0, 0) == 1 and tqa.leaf_eligible(params[0])
+        count = torch.tensor(0, dtype=torch.int32, device=cuda_device)
+        for g in grads:
+            ref = (DLADMMParams(*(p.clone() for p in params)), _clone(mu), _clone(nu))
+            new, scal, seeds = tqa.adam_step(g, params, mu, nu, count, fmt, lr, clip)
+            _, pscal, _ = tqa.adam_step_plain(g, *_clone_all(ref), count, fmt, lr, clip)
+            _one_leaf_step(fmt, g, *ref, scal, seeds)
+            torch.cuda.synchronize()
+            assert _within_ulps(scal, pscal), (scal.tolist(), pscal.tolist())
+            for a, b in zip(params, ref[0]):
+                assert torch.equal(a, b)
+            for moment, want in ((mu, ref[1]), (nu, ref[2])):
+                for name, a, b in zip(DLADMMParams._fields, moment, want):
+                    _assert_moments(fmt, [a], [b], exact=fmt != "int8" or name == "W1")
+            count = new
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "bfloat16_sr"])
+def test_adam_step_repeats_bit_for_bit(cuda_device, fmt):
+    """Two steps from the same state and gradients (synthetic_large: the
+    norm over 512 blocks' partials) write the same bits and scalars."""
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    m, n, K = STEP_PRESETS["synthetic_large"]
+    shapes = [(K, n, m), (K, m, m), (K, n), (K, m), (K,)]
+    params, mu, nu, grads = _step_state(shapes, fmt, seed=3, device=cuda_device)
+    runs = []
+    for _ in range(2):
+        state = _clone_all((params, mu, nu))
+        count = torch.tensor(5, dtype=torch.int32, device=cuda_device)
+        _, scal, _ = tqa.adam_step(grads[0], *state, count, fmt, 1e-3, 1.0)
+        runs.append((state, scal))
+    torch.cuda.synchronize()
+    (s1, c1), (s2, c2) = runs
+    assert torch.equal(c1, c2)
+    for a, b in zip(s1[0], s2[0]):
+        assert torch.equal(a, b)
+    for t1, t2 in zip(s1[1:], s2[1:]):
+        _assert_moments(fmt, t1, t2, exact=True)
+
+
+@pytest.mark.gpu
+def test_adam_step_raises_when_the_launch_is_refused(cuda_device, monkeypatch):
+    """A sweep of 0 blocks is refused by the launch: adam_step raises,
+    counts no launch, and clears the error so that the next step runs."""
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    shapes = [(2, 256, 128), (2, 128, 128), (2, 256), (2, 128), (2,)]
+    params, mu, nu, grads = _step_state(shapes, "float32", seed=1, device=cuda_device)
+    count = torch.tensor(0, dtype=torch.int32, device=cuda_device)
+    plan = tqa.step_plan
+    monkeypatch.setattr(tqa, "step_plan", lambda specs: dataclasses.replace(plan(specs), blocks=0))
+    before = tqa.adam_step.launches
+    with pytest.raises(RuntimeError, match="CUDA Adam step failed"):
+        tqa.adam_step(grads[0], params, mu, nu, count, "float32", 1e-3, 1.0)
+    assert tqa.adam_step.launches == before
+    monkeypatch.setattr(tqa, "step_plan", plan)
+    new, _, _ = tqa.adam_step(grads[0], params, mu, nu, count, "float32", 1e-3, 1.0)
+    torch.cuda.synchronize()
+    assert int(new) == 1 and tqa.adam_step.launches == before + 2
