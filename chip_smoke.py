@@ -181,12 +181,12 @@ def emit(phase: str, **fields) -> None:
 
 
 def profile_marker(torch) -> None:
-    """A short kernel (``spin_kernel``) enqueued first in a profiler window
-    and not waited for: the profiler on the card has been seen to drop the
-    first kernel enqueued after a device sync at a window's start (the
-    optimizer step's prologue, in 1 of 5 calls or in every window), so the
-    kernel it drops is this marker. Kernels of that name are left out of
-    every count."""
+    """A short kernel (``spin_kernel``) enqueued first in a profiler session
+    and not waited for: the profiler on the card has been seen to leave
+    the first kernel of a session out of its records, late in a process
+    (the optimizer step's prologue, when the session opened on it), so the
+    kernel it leaves out is this marker. Kernels of that name are left
+    out of every count."""
     torch.cuda._sleep(1000)
 
 
@@ -484,10 +484,16 @@ SWEEP_BYTES = {"int8": 16, "float32": 28, "bfloat16": 20, "bfloat16_sr": 20, "bf
 
 
 def step_bounds(torch, shapes, fmt: str) -> dict:
-    """(bound_ms, bound_by) of the step's two launches and of both: the
-    sweep's bytes (SWEEP_BYTES an element; int8 also 16 a row of scales,
-    per-row or flat-256) and fp32 operations, the prologue's read of g
-    (4 B an element) and its 2 operations an element (fp64)."""
+    """(bound_ms, bound_by) of the step as a function and of each of its
+    launches. The step ("step") reads each input once and writes each
+    output once: SWEEP_BYTES an element (g once: its sum of squares needs
+    no second pass over it), int8 also 16 B a row of scales (per-row or
+    flat-256), the count in and out and the 4 scalars; the sweep's fp32
+    operations and the norm's 2 an element. The sweep ("sweep") moves the
+    same bytes and reads the 4 scalars; the prologue ("prologue") reads
+    g (4 B an element) for 2 operations an element (fp64). Its second
+    read of g is the two launches' own cost: "two_launches" is both
+    launches' bytes and operations together."""
     from dladmm_tpu_torch.train.qadam_cuda import leaf_eligible
 
     elems = sum(int(np.prod(s)) for s in shapes)
@@ -497,121 +503,12 @@ def step_bounds(torch, shapes, fmt: str) -> dict:
             n = int(np.prod(s))
             rows += n // s[-1] if leaf_eligible(torch.empty(s, device="meta")) else -(-n // 256)
     ops = (INT8_OPS_PER_ELEM if fmt == "int8" else DENSE_OPS_PER_ELEM) * elems
-    sweep = _bound(ops, SWEEP_BYTES[fmt] * elems + 16 * rows + 16)
-    prologue = _bound(2 * elems, 4 * elems + 16)
-    both = _bound(ops + 2 * elems, (SWEEP_BYTES[fmt] + 4) * elems + 16 * rows + 32)
-    return {"elements": elems, "rows": rows, "sweep": sweep, "prologue": prologue, "step": both}
-
-
-def step_state(torch, tqa, shapes, fmt: str, seed: int, device):
-    """Masters, non-zero moments (int8 in each leaf's codec) and 3
-    gradient sets whose norms are 3.0, 0.3 and 2.0 (the clip is 1.0)."""
-    from dladmm_tpu_torch.models.unroll import DLADMMParams
-    from dladmm_tpu_torch.train import qmoments as tqm
-
-    g = torch.Generator(device=device).manual_seed(seed)
-    rand = lambda s, scale: scale * torch.randn(s, generator=g, device=device)  # noqa: E731
-
-    def moment(x, which):
-        if fmt != "int8":
-            return x.to(tqa.DENSE_FMTS[fmt][which])
-        return tqa.quantize_rows(x.reshape(-1, x.shape[-1])) if tqa.leaf_eligible(x) else tqm.quantize_q8(x)
-
-    params = DLADMMParams(*(rand(s, 0.05) for s in shapes))
-    mu = DLADMMParams(*(moment(rand(s, 1e-2), 0) for s in shapes))
-    nu = DLADMMParams(*(moment(rand(s, 3e-2) ** 2, 1) for s in shapes))
-    total = sum(int(np.prod(s)) for s in shapes)
-    grads = [DLADMMParams(*(rand(s, scale / total ** 0.5) for s in shapes)) for scale in (3.0, 0.3, 2.0)]
-    return params, mu, nu, grads
-
-
-def clone_step_state(torch, params, mu, nu):
-    from dladmm_tpu_torch.models.unroll import DLADMMParams
-    from dladmm_tpu_torch.train.qmoments import QTensor
-
-    def tree(t):
-        return DLADMMParams(*(QTensor(q.codes.clone(), q.scale.clone()) if hasattr(q, "codes") else q.clone()
-                              for q in t))
-
-    return DLADMMParams(*(p.clone() for p in params)), tree(mu), tree(nu)
-
-
-def one_leaf_step(tqa, fmt, grads, params, mu, nu, scal, seeds):
-    """The step leaf by leaf with the kernel's scalars and seeds: the
-    one-leaf launches (adam_dense_rows; adam_int8_rows on the per-row
-    leaves) and adam_flat_plain on the flat-256 leaves."""
-    for idx, (g, p, m, v) in enumerate(zip(grads, params, mu, nu)):
-        if fmt != "int8":
-            tqa.adam_dense_rows(g, p, m, v, scal, fmt, None if seeds is None else seeds[idx:idx + 1])
-        elif tqa.leaf_eligible(p):
-            L = p.shape[-1]
-            tqa.adam_int8_rows(g.reshape(-1, L), p.view(-1, L), m, v, scal)
-        else:
-            tqa.adam_flat_plain(g, p, m, v, scal)
-
-
-def scal_ulps(torch, a, b) -> int:
-    return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
-
-
-def moment_diff(torch, fmt, got, want) -> dict:
-    """int8: the largest code difference and relative scale difference;
-    dense: the count of stored values that differ."""
-    if fmt == "int8":
-        return {"max_code_diff": max(int((a.codes.int() - b.codes.int()).abs().max()) for a, b in zip(got, want)),
-                "max_scale_rel_diff": max(float(((a.scale - b.scale).abs() / b.scale.abs()).max())
-                                          for a, b in zip(got, want))}
-    return {"values_differing": sum(int((a != b).sum()) for a, b in zip(got, want))}
-
-
-def same_state(torch, a, b) -> bool:
-    """Masters and moments (int8 codes and scales) equal bit for bit."""
-    flat = [(x, y) for ta, tb in zip(a, b) for x, y in zip(ta, tb)]
-    return all(torch.equal(x.codes, y.codes) and torch.equal(x.scale, y.scale) if hasattr(x, "codes")
-               else torch.equal(x, y) for x, y in flat)
-
-
-def plain_step_diff(torch, tqa, fmt, grads, pre, post, scal, seeds) -> dict:
-    """The plain version's step from the kernel's state before it (``pre``)
-    with the kernel's scalars and seeds, held against the kernel's state
-    after it (``post``): masters within rtol 1e-6; int8 codes within one
-    step and scales within rtol 1e-6; round-to-nearest moments equal; SR
-    moments a bf16 neighbour of the plain fp32 moment (other bits than the
-    kernel's, by design). Raises on a miss; returns the differences."""
-    params, mu, nu = clone_step_state(torch, *pre)
-    _, _, sr_mu, sr_nu = tqa.DENSE_FMTS.get(fmt, (None, None, False, False))
-    if sr_mu or sr_nu:
-        mu = [m.to(torch.float32, copy=True) for m in mu]
-        nu = [v.to(torch.float32, copy=True) for v in nu]
-    for idx, (g, p, m, v) in enumerate(zip(grads, params, mu, nu)):
-        if fmt == "int8" and tqa.leaf_eligible(p):
-            L = p.shape[-1]
-            tqa.adam_int8_rows_plain(g.reshape(-1, L), p.view(-1, L), m, v, scal)
-        elif fmt == "int8":
-            tqa.adam_flat_plain(g, p, m, v, scal)
-        else:
-            tqa.adam_dense_rows_plain(g, p, m, v, scal, "float32" if sr_mu or sr_nu else fmt,
-                                      None if seeds is None else seeds[idx])
-    torch.cuda.synchronize()
-    err = max(float((a - b).abs().max()) for a, b in zip(post[0], params))
-    if not all((a - b).abs().le(1e-6 * b.abs() + 1e-9).all() for a, b in zip(post[0], params)):
-        raise AssertionError(f"step {fmt}: masters max|diff| {err} from the plain version")
-    out = {"master_max_abs_err": err}
-    for mname, got, want, sr in (("mu", post[1], mu, sr_mu), ("nu", post[2], nu, sr_nu)):
-        if sr:
-            ok = True
-            for a, b in zip(got, want):
-                lo, hi = bf16_neighbours(torch, b)
-                ok = ok and bool(((a.float() == lo) | (a.float() == hi)).all())
-            d = {"bf16_neighbours": ok}
-        else:
-            d = moment_diff(torch, fmt, got, want)
-            ok = (d["max_code_diff"] <= 1 and d["max_scale_rel_diff"] <= 1e-6 if fmt == "int8"
-                  else d["values_differing"] == 0)
-        if not ok:
-            raise AssertionError(f"step {fmt} {mname}: {d} from the plain version")
-        out[mname] = d
-    return out
+    sweep_bytes = SWEEP_BYTES[fmt] * elems + 16 * rows + 16
+    return {"elements": elems, "rows": rows,
+            "step": _bound(ops + 2 * elems, sweep_bytes + 8),
+            "sweep": _bound(ops, sweep_bytes),
+            "prologue": _bound(2 * elems, 4 * elems + 16),
+            "two_launches": _bound(ops + 2 * elems, sweep_bytes + 4 * elems + 32)}
 
 
 def check_step(torch, tqa, device, fmts) -> float:
@@ -620,52 +517,44 @@ def check_step(torch, tqa, device, fmts) -> float:
     warmup-cosine rate and clip 1.0. Each step: the scalars within 2 ulp of
     step_scalars', the count and seeds equal; the state equal to the
     one-leaf sweeps' run with the kernel's scalars from the state before it
-    (masters and moments bit for bit, SR too; the flat int8 leaves, which
-    the one-leaf path sweeps with the plain version, within one code step);
-    and held against the plain version's step from that state
-    (plain_step_diff). A second first step from the same state repeats bit
-    for bit. Returns the largest master difference from the plain version."""
+    (step_checks.check_against_one_leaf: masters and moments bit for bit,
+    SR too; the flat int8 leaves, which the one-leaf path sweeps with the
+    plain version, within one code step); and held against the plain
+    version's step from that state (step_checks.plain_step_diff). A second
+    first step from the same state repeats bit for bit. Returns the
+    largest master difference from the plain version."""
+    from dladmm_tpu_torch.train import step_checks as sc
+
     max_err = 0.0
     sched = tqa.WarmupCosine(0.0, 1e-2, 2, 40)
-    names = ("W1", "W2", "theta1", "theta2", "beta")
     for fmt in fmts:
         for config, shapes in STEP_SHAPES.items():
-            params, mu, nu, grads = step_state(torch, tqa, shapes, fmt, seed=len(config) + len(fmt), device=device)
-            again = clone_step_state(torch, params, mu, nu)
+            params, mu, nu, grads = sc.step_state(shapes, fmt, seed=len(config) + len(fmt), device=device)
+            again = sc.clone_state(params, mu, nu)
             count = torch.tensor(1, dtype=torch.int32, device=device)
             detail = {"scal_max_ulps": 0, "clipped": [], "plain": []}
             for step, g in enumerate(grads):
-                pre = clone_step_state(torch, params, mu, nu)
+                label = f"step {fmt} {config} {step}"
+                pre = sc.clone_state(params, mu, nu)
                 old = count
                 count, scal, seeds = tqa.adam_step(g, params, mu, nu, count, fmt, sched, 1.0)
                 pscal, pcount = tqa.step_scalars(g, old, sched, 1.0)
                 pseeds = tqa.step_seeds(pcount, fmt, len(shapes))
-                one = clone_step_state(torch, *pre)
-                one_leaf_step(tqa, fmt, g, *one, scal, seeds)
+                one = sc.clone_state(*pre)
+                sc.one_leaf_step(fmt, g, *one, scal, seeds)
                 if step == 0:
                     tqa.adam_step(g, *again, old, fmt, sched, 1.0)
                 torch.cuda.synchronize()
-                ulps = scal_ulps(torch, scal, pscal)
+                ulps = sc.scal_ulps(scal, pscal)
                 if not torch.equal(count, pcount) or int(count) != int(old) + 1 or ulps > 2:
-                    raise AssertionError(f"step {fmt} {config} {step}: count {int(count)}, scal {scal.tolist()} "
+                    raise AssertionError(f"{label}: count {int(count)}, scal {scal.tolist()} "
                                          f"vs plain {pscal.tolist()} ({ulps} ulps)")
                 if seeds is not None and not torch.equal(seeds, pseeds):
-                    raise AssertionError(f"step {fmt} {config} {step}: seeds differ")
-                if not all(torch.equal(a, b) for a, b in zip(params, one[0])):
-                    raise AssertionError(f"step {fmt} {config} {step}: masters differ from the one-leaf sweeps")
-                for mname, got, want in (("mu", mu, one[1]), ("nu", nu, one[2])):
-                    for name, a, b in zip(names, got, want):
-                        d = moment_diff(torch, fmt, [a], [b])
-                        exact = fmt != "int8" or name in ("W1", "W2")
-                        ok = (d.get("values_differing", 0) == 0 if fmt != "int8" else
-                              d["max_code_diff"] <= (0 if exact else 1)
-                              and d["max_scale_rel_diff"] <= (0 if exact else 1e-6))
-                        if not ok:
-                            raise AssertionError(f"step {fmt} {config} {step} {mname} {name}: {d} "
-                                                 "from the one-leaf sweeps")
-                if step == 0 and not same_state(torch, (params, mu, nu), again):
-                    raise AssertionError(f"step {fmt} {config}: a second step from the same state differs")
-                plain = plain_step_diff(torch, tqa, fmt, g, pre, (params, mu, nu), scal, seeds)
+                    raise AssertionError(f"{label}: seeds differ")
+                sc.check_against_one_leaf(fmt, (params, mu, nu), one, label)
+                if step == 0 and not sc.same_state((params, mu, nu), again):
+                    raise AssertionError(f"{label}: a second step from the same state differs")
+                plain = sc.plain_step_diff(fmt, g, pre, (params, mu, nu), scal, seeds, label)
                 detail["scal_max_ulps"] = max(detail["scal_max_ulps"], ulps)
                 detail["clipped"].append(float(scal[3]) < 1.0)
                 detail["plain"].append(plain)
@@ -928,10 +817,13 @@ def time_step(torch, tqa, device, card, fmt: str, library: bool = False) -> dict
     torch.optim.Adam(fused=True) step on the same five leaves, in turns;
     then the profiler's device time of the prologue and of the sweep, each
     beside its bound, and the host's enqueue. Returns the kernels line's
-    numbers."""
+    numbers: bound_ms is the step's one-pass bound (step_bounds "step");
+    the two launches' own bound stands beside it."""
+    from dladmm_tpu_torch.train import step_checks as sc
+
     shapes = STEP_SHAPES["synthetic_small"]
-    params, mu, nu, grads = step_state(torch, tqa, shapes, fmt, seed=41, device=device)
-    plain = clone_step_state(torch, params, mu, nu)
+    params, mu, nu, grads = sc.step_state(shapes, fmt, seed=41, device=device)
+    plain = sc.clone_state(params, mu, nu)
     sched = tqa.WarmupCosine(0.0, 1e-2, 15, 300)
     count = torch.tensor(20, dtype=torch.int32, device=device)
     fns = [lambda: tqa.adam_step(grads[0], params, mu, nu, count, fmt, sched, 1.0),
@@ -953,6 +845,7 @@ def time_step(torch, tqa, device, card, fmt: str, library: bool = False) -> dict
     cold = profile_fn(torch, lambda: (flush.zero_(), fns[0]()), f"adam_step {fmt} after an L2 flush")
     out = {"ms": times[0], "plain_ms": times[1], "library_ms": times[2] if library else None,
            "bound_ms": bounds["step"][0], "bound_by": bounds["step"][1],
+           "two_launches_bound_ms": bounds["two_launches"][0],
            "host_enqueue_us": host_enqueue_us(torch, fns[0]), "elements": bounds["elements"]}
     for label, prof in (("warm", warm), ("cold", cold)):
         out[f"{label}_kernels"] = prof["per_call"]
@@ -1000,70 +893,42 @@ def device_us_by_phase(torch, prof, steps: int):
     return per, ops
 
 
-class OptimizerProfile:
-    """phased_step's ``mark`` that profiles the optimizer phase alone, from
-    mark(3) to mark(4), each after a device sync: the device operations of
-    that phase by name, µs and calls summed over the steps."""
-
-    def __init__(self, torch):
-        self.torch, self.prof, self.ops, self.steps = torch, None, {}, 0
-
-    def __call__(self, k: int) -> None:
-        from torch.profiler import ProfilerActivity, profile
-
-        if k == 3:
-            self.torch.cuda.synchronize()
-            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            self.prof.__enter__()
-            profile_marker(self.torch)
-        elif k == 4:
-            self.torch.cuda.synchronize()
-            self.prof.__exit__(None, None, None)
-            self.steps += 1
-            try:
-                found = device_kernels(self.prof, 1)
-            except AssertionError:  # the profiler recorded no device activity
-                return
-            for name, v in found.items():
-                op = self.ops.setdefault(name, {"us": 0.0, "calls": 0.0})
-                op["us"] += v["us"]
-                op["calls"] += v["calls"]
-
-
 def optimizer_phase(torch, run, sweep: str, attempts: int = 3):
     """Device time a step by phase of 3 ProfiledPhases-marked steps
-    (``run(mark)``), then the optimizer phase of 3 more profiled alone
-    (OptimizerProfile) and held to the step's two port kernels: no device
-    operation but the prologue and the sweep ``sweep``, the sweep once a
-    step, and adam_step's count two a step. The profiler on the card has
-    been seen to drop the prologue of a step from its records (its
-    ``calls`` then read below 1; PERF.md §7); a run in which it recorded
-    nothing is made again, up to ``attempts``. Returns the by-phase µs and
-    the optimizer's operations (µs and launches a step)."""
+    (``run(mark)``) in one profiler session, and the optimizer phase's
+    device operations, held to the step's two port kernels: the prologue
+    and the sweep ``sweep``, each recorded once a step, and no other
+    device operation; adam_step's count two a step. The profiler on the
+    card has been seen to leave a launch out of its records (PERF.md §7):
+    a session whose optimizer phase misses a launch of the two kernels is
+    profiled again, up to ``attempts`` sessions, and each retry is
+    reported; a session that holds any other device operation fails at
+    once. Returns the by-phase µs and the optimizer's operations (µs and
+    launches a step) of the first complete session."""
     from torch.profiler import ProfilerActivity, profile
 
     from dladmm_tpu_torch.train import qadam_cuda
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profile_marker(torch)
-        run(ProfiledPhases(torch))
-    by_phase, _ = device_us_by_phase(torch, prof, 3)
+    steps = 3
     for attempt in range(attempts):
-        alone = OptimizerProfile(torch)
-        launches = qadam_cuda.adam_step.launches
-        run(alone)
-        launches = qadam_cuda.adam_step.launches - launches
-        if alone.ops:
-            break
-        emit("profile_retry", config="optimizer phase", attempt=attempt + 1)
-    ops = {name: {"us": v["us"] / alone.steps, "calls": v["calls"] / alone.steps} for name, v in alone.ops.items()}
-    swept = [name for name in ops if name.startswith(sweep)]
-    others = [name for name in ops if name != "adam_prologue" and not name.startswith(sweep)]
-    if others or len(swept) != 1 or any(v["calls"] > 1.0 for v in ops.values()) or launches != 2 * alone.steps:
-        raise AssertionError(f"the optimizer phase ran {ops} ({launches} adam_step launches in {alone.steps} "
-                             f"steps), not the prologue and {sweep}, once each a step")
-    return by_phase, {"ops_per_step": ops, "adam_step_launches_per_step": launches / alone.steps,
-                      "device_us_per_step": sum(v["us"] for v in ops.values())}
+        before = qadam_cuda.adam_step.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profile_marker(torch)
+            run(ProfiledPhases(torch))
+        launches = qadam_cuda.adam_step.launches - before
+        by_phase, ops = device_us_by_phase(torch, prof, steps)
+        ops = ops["optimizer"]
+        swept = [name for name in ops if name.startswith(sweep)]
+        others = [name for name in ops if name != "adam_prologue" and not name.startswith(sweep)]
+        if others or len(swept) > 1 or launches != 2 * steps or any(v["calls"] > 1 + 1e-9 for v in ops.values()):
+            raise AssertionError(f"the optimizer phase ran {ops} ({launches} adam_step launches in {steps} steps), "
+                                 f"not the prologue and {sweep}, once each a step")
+        if "adam_prologue" in ops and swept and all(abs(v["calls"] - 1) < 1e-9 for v in ops.values()):
+            return by_phase, {"ops_per_step": ops, "adam_step_launches_per_step": launches / steps,
+                              "device_us_per_step": sum(v["us"] for v in ops.values()), "sessions": attempt + 1}
+        emit("profile_retry", config="optimizer phase", attempt=attempt + 1, recorded=ops)
+    raise AssertionError(f"in {attempts} profiler sessions the optimizer phase never recorded the prologue "
+                         f"and {sweep} once a step: {ops}")
 
 
 def profile_train(torch, device, steps: int = 5):
@@ -1107,7 +972,7 @@ def profile_train(torch, device, steps: int = 5):
     emit("profile_train", config="synthetic_small batch 64 deep supervision int8", steps=steps,
          window_ms_per_step=window_us / steps / 1e3, device_busy_share=busy_us / window_us,
          device_us_per_step_by_group=groups, device_us_per_step_by_phase=by_phase,
-         optimizer_phase_alone=opt_ops, top_kernels=top, distinct_kernels=len(kernels))
+         optimizer_phase=opt_ops, top_kernels=top, distinct_kernels=len(kernels))
 
 
 # -- the final-layer training slice (phases 13-17) ---------------------------
@@ -1234,13 +1099,6 @@ def dense_state(torch, tqa, shape, fmt: str, seed: int, device):
     return rand(0.05), rand(1e-2).to(mu_dt), (rand(3e-2) ** 2).to(nu_dt), [rand(1e-2) for _ in range(3)]
 
 
-def bf16_neighbours(torch, x):
-    """The two bf16 values around fp32 x: truncated toward zero, and one
-    bf16 step away from zero."""
-    bits = x.view(torch.int32)
-    return (bits & ~0xFFFF).view(torch.float32), ((bits & ~0xFFFF) + 0x10000).view(torch.float32)
-
-
 def dense_scal(torch, i: int, device):
     cf = float(i + 2)
     return torch.tensor([1 - 0.9**cf, 1 - 0.999**cf, 1e-3, 0.8], device=device)
@@ -1254,6 +1112,8 @@ def check_dense(torch, tqa, device) -> float:
     round-to-nearest moments equal to the plain version's; SR moments a
     bf16 neighbour of the plain fp32 moment. Then SR's bias over 64
     seeds on synthetic_small W2. Returns the largest master difference."""
+    from dladmm_tpu_torch.train.step_checks import bf16_neighbours
+
     max_err = 0.0
     for fmt, (_, _, sr_mu, sr_nu) in tqa.DENSE_FMTS.items():
         for config, leaves in DENSE_LEAVES.items():
@@ -1275,7 +1135,7 @@ def check_dense(torch, tqa, device) -> float:
                         if got.dtype == torch.float32:
                             ok = torch.equal(got, want)
                         elif sr:
-                            lo, hi = bf16_neighbours(torch, want)
+                            lo, hi = bf16_neighbours(want)
                             ok = bool(((got.float() == lo) | (got.float() == hi)).all())
                         else:
                             ok = torch.equal(got, want.to(torch.bfloat16))
@@ -1302,7 +1162,7 @@ def check_dense(torch, tqa, device) -> float:
         for mname, total, want, sr in (("mu", totals[0], ref[1], sr_mu), ("nu", totals[1], ref[2], sr_nu)):
             if not sr:
                 continue
-            lo, hi = bf16_neighbours(torch, want)
+            lo, hi = bf16_neighbours(want)
             step = (hi - lo).double().abs()
             frac = torch.where(step > 0, (want.double().abs() - lo.double().abs()) / step, torch.zeros_like(step))
             err = total / seeds - want.double()
@@ -1615,7 +1475,7 @@ def profile_train_final(torch, device, steps: int = 5):
     emit("profile_train_final", config="synthetic_small batch 64 final-layer loss float32_pallas", steps=steps,
          window_ms_per_step=window_us / steps / 1e3, device_busy_share=busy_us / window_us,
          device_us_per_step_by_group=groups, device_us_per_step_by_phase=by_phase,
-         optimizer_phase_alone=opt_ops, top_kernels=top, distinct_kernels=len(kernels))
+         optimizer_phase=opt_ops, top_kernels=top, distinct_kernels=len(kernels))
 
 
 def device_kernels(prof, steps: int):

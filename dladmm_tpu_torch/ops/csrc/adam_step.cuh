@@ -10,9 +10,12 @@
 // to the device. A leaf carries its codec, its pointers, its element
 // count, its (rows, L) view and the first work block of the sweep and of
 // the norm in a prefix over the leaves: work block w belongs to the last
-// leaf whose first block is <= w.
+// leaf whose first block is <= w. The rules of that layout live here once
+// (lay_out): the one-leaf entries fill a table by them, and a step's
+// entry refuses a host table that differs, before it enqueues anything.
 //
-// The prologue computes what QAdamFused._scalars and _seeds compute:
+// The prologue computes what qadam_cuda.step_scalars and step_seeds
+// compute:
 //
 //   norm       = sqrt(sum over every leaf of g^2), summed in fp64 and
 //                rounded once to fp32 (the plain version's fp32 sums in
@@ -103,6 +106,75 @@ struct StepScalars {
 struct Coeffs {  // the sweep's constants
   float b1, omb1, b2, omb2, eps, inv127;
 };
+
+// -- the table's layout rules (train/qadam_cuda.step_plan packs the same) ----
+
+constexpr int kBlockWarps = kStepThreads / 32;  // warps a block of the sweeps
+constexpr int kDenseVec = 8;                     // elements a thread a dense work block
+
+inline bool aligned(const void* p, int bytes) { return ((uintptr_t)p % bytes) == 0; }
+
+// Warps of the int8 sweep a row of L codes takes: the power of two W with
+// 256 W >= L, so no thread holds more than 8 of the row's elements.
+inline int int8_warps(int L) {
+  int w = 1;
+  while (kStepThreads * w < L) w *= 2;
+  return w;
+}
+
+// Elements a vector access of a leaf takes. int8: 4, then 2, where L is a
+// multiple and every pointer is aligned to it (4 V bytes for fp32, V for
+// codes), else 1. Dense: 8 (16-byte accesses) where every pointer is
+// 16-byte aligned, else 1.
+inline int leaf_vec(const Leaf& lf) {
+  if (lf.codec == CODEC_DENSE)
+    return aligned(lf.g, 16) && aligned(lf.master, 16) && aligned(lf.mu, 16) && aligned(lf.nu, 16) ? kDenseVec : 1;
+  for (int v = 4; v > 1; v /= 2)
+    if (lf.L % v == 0 && aligned(lf.g, 4 * v) && aligned(lf.master, 4 * v) && aligned(lf.mu, v) && aligned(lf.nu, v))
+      return v;
+  return 1;
+}
+
+// Each leaf's warps, vector width, first work block and first norm chunk,
+// and the table's totals, by the rules above: an int8 work block holds
+// kBlockWarps / warps rows, a dense work block and a norm chunk kChunk
+// elements, and each leaf's blocks and chunks follow the previous leaf's.
+// With `fill` they are written (the one-leaf entries); otherwise the
+// host's table must hold them already. False on a table that differs or
+// that the sweeps do not take.
+inline bool lay_out(Table& t, bool fill) {
+  long long block0 = 0, chunk0 = 0;
+  for (int i = 0; i < t.nleaves; ++i) {
+    Leaf& lf = t.leaf[i];
+    const bool dense = lf.codec == CODEC_DENSE;
+    const int warps = dense ? 0 : int8_warps(lf.L);
+    if (warps > kBlockWarps || lf.n < 1 || (!dense && lf.rows < 1)) return false;
+    const long long chunks = (lf.n + kChunk - 1) / kChunk;
+    const int per = dense ? 0 : kBlockWarps / warps;
+    const long long blocks = dense ? chunks : (lf.rows + per - 1) / per;
+    const int vec = leaf_vec(lf);
+    if (fill) {
+      lf.warps = warps;
+      lf.vec = vec;
+      lf.block0 = (int)block0;
+      lf.chunk0 = (int)chunk0;
+    } else if (lf.warps != warps || lf.vec != vec || lf.block0 != block0 || lf.chunk0 != chunk0) {
+      return false;
+    }
+    block0 += blocks;
+    chunk0 += chunks;
+    if (block0 > INT32_MAX || chunk0 > INT32_MAX) return false;
+  }
+  if (fill) {
+    t.blocks = (int)block0;
+    t.chunks = (int)chunk0;
+  }
+  return t.blocks == block0 && t.chunks == chunk0;
+}
+
+// Blocks of the prologue's launch with a clip: one a chunk, at most
+// kMaxNormBlocks.
+inline int norm_blocks(const Table& t) { return t.chunks < kMaxNormBlocks ? t.chunks : kMaxNormBlocks; }
 
 // The leaf of work block w: the last whose first block is <= w.
 __device__ __forceinline__ int leaf_of_block(const Table& t, int w) {
@@ -248,7 +320,6 @@ inline bool read_step(const long long* ptrs, const long long* ints, const double
     lf.vec = (int)d[5];
     lf.block0 = (int)d[6];
     lf.chunk0 = (int)d[7];
-    if (lf.n < 1) return false;
   }
   s.count = reinterpret_cast<const int*>(ptrs[0]);
   s.count_out = reinterpret_cast<int*>(ptrs[1]);
@@ -273,15 +344,15 @@ inline bool read_step(const long long* ptrs, const long long* ints, const double
   k = Coeffs{(float)flts[7], (float)flts[8], (float)flts[9], (float)flts[10], (float)flts[11], (float)flts[12]};
   if (s.lr_mode == LR_PTR && s.lr_ptr == nullptr) return false;
   if (s.lr_mode == LR_COSINE && (s.warmup < 1 || s.decay < 1)) return false;
-  if (s.has_clip && (int)ints[3] > kMaxNormBlocks) return false;
-  return true;
+  // The host's layout must be the one the rules above give, so that a
+  // step the sweep would refuse is refused here, before the prologue runs.
+  return lay_out(t, false) && t.blocks >= 1 && (int)ints[3] == norm_blocks(t);
 }
 
-// Launch the prologue on `norm_blocks` blocks (one without a clip). A
+// Launch the prologue: norm_blocks(t) blocks, one without a clip. A
 // refused launch runs nothing; its error is cleared and returned.
-inline cudaError_t launch_prologue(const Table& t, const StepScalars& s, int norm_blocks,
-                                   cudaStream_t stream) {
-  adam_prologue<<<s.has_clip ? norm_blocks : 1, kStepThreads, 0, stream>>>(t, s);
+inline cudaError_t launch_prologue(const Table& t, const StepScalars& s, cudaStream_t stream) {
+  adam_prologue<<<s.has_clip ? norm_blocks(t) : 1, kStepThreads, 0, stream>>>(t, s);
   return cudaGetLastError();
 }
 

@@ -46,7 +46,7 @@
 
 namespace {
 
-constexpr int kVec = 8;  // elements a thread a work block
+constexpr int kVec = kDenseVec;  // elements a thread a work block
 
 enum Fmt { FMT_FLOAT32 = 0, FMT_BFLOAT16 = 1, FMT_BFLOAT16_SR = 2, FMT_BFLOAT16_SR_MU = 3 };
 
@@ -206,22 +206,14 @@ cudaError_t launch_sweep(int fmt, const Table& t, const float* scal, const Coeff
   return err;
 }
 
-inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
-// Elements a thread's access takes: 8 (16-byte accesses) where every
-// pointer of the leaf is 16-byte aligned, else 1 (train/qadam_cuda.dense_vec).
-inline int dense_vec(const void* g, const void* master, const void* mu, const void* nu) {
-  return aligned16(g) && aligned16(master) && aligned16(mu) && aligned16(nu) ? kVec : 1;
-}
-
 }  // namespace
 
 // One optimizer step over a table of dense leaves (adam_step.cuh gives
 // the layout of the host arrays; ints[8] is the format: 0 float32, 1
 // bfloat16, 2 bfloat16_sr, 3 bfloat16_sr_mu), enqueued on `stream`: the
-// prologue, then the sweep; no sync. Returns a
-// cudaError_t; a refused launch's error is cleared for later launches'
-// checks.
+// prologue, then the sweep; no sync. A table the sweep does not take is
+// refused before either is enqueued. Returns a cudaError_t; a refused
+// launch's error is cleared for later launches' checks.
 extern "C" int dladmm_adam_step_dense(const long long* ptrs, const long long* ints, const double* flts,
                                       int device, void* stream_handle) {
   Table t;
@@ -232,13 +224,13 @@ extern "C" int dladmm_adam_step_dense(const long long* ptrs, const long long* in
   if (sr(fmt) && s.seeds == nullptr) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < t.nleaves; ++i) {
     const Leaf& lf = t.leaf[i];
-    if (lf.codec != CODEC_DENSE || (lf.vec != 1 && lf.vec != kVec) || (sr(fmt) && lf.seed == nullptr))
+    if (lf.codec != CODEC_DENSE || (sr(fmt) && lf.seed == nullptr))
       return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  err = launch_prologue(t, s, (int)ints[3], stream);
+  err = launch_prologue(t, s, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_sweep(fmt, t, s.scal, k, t.blocks, stream);
 }
@@ -266,8 +258,7 @@ extern "C" int dladmm_qadam_dense(const float* g, float* master, void* mu, void*
   lf.seed = seed;
   lf.n = N;
   lf.codec = CODEC_DENSE;
-  lf.vec = dense_vec(g, master, mu, nu);
-  t.blocks = (int)((N + kChunk - 1) / kChunk);
+  if (!lay_out(t, true)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_sweep(fmt, t, scal, Coeffs{b1, omb1, b2, omb2, eps, 0.0f}, t.blocks,

@@ -49,7 +49,6 @@
 namespace {
 
 constexpr int kPerThread = 8;  // elements a thread: rows up to 2048 wide
-constexpr int kBlockWarps = kStepThreads / 32;
 
 __device__ __forceinline__ float sign_of(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
@@ -265,26 +264,6 @@ qadam_int8_sweep(const __grid_constant__ Table t, const float* __restrict__ scal
   }
 }
 
-// Warps a row of L codes takes: the power of two W with 256 W >= L
-// (train/qadam_cuda.int8_warps).
-inline int int8_warps(int L) {
-  int w = 1;
-  while (kStepThreads * w < L) w *= 2;
-  return w;
-}
-
-inline bool aligned(const void* p, int bytes) { return ((uintptr_t)p % bytes) == 0; }
-
-// Elements a vector access of a row takes: 4, then 2, where L is a
-// multiple and every pointer is aligned to it (4 V bytes for fp32, V for
-// codes); else 1 (train/qadam_cuda.int8_vec).
-inline int int8_vec(const void* g, const void* master, const void* muc, const void* nuc, int L) {
-  for (int v = 4; v > 1; v /= 2)
-    if (L % v == 0 && aligned(g, 4 * v) && aligned(master, 4 * v) && aligned(muc, v) && aligned(nuc, v))
-      return v;
-  return 1;
-}
-
 bool leaf_ok(const Leaf& lf) {
   const bool codec = lf.codec == CODEC_ROWS || lf.codec == CODEC_FLAT;
   const bool warps = lf.warps == 1 || lf.warps == 2 || lf.warps == 4 || lf.warps == 8;
@@ -297,8 +276,9 @@ bool leaf_ok(const Leaf& lf) {
 
 // One optimizer step over a table of int8 leaves (adam_step.cuh gives the
 // layout of the host arrays), enqueued on `stream`: the prologue, then
-// the sweep; no sync. Returns a cudaError_t; a refused
-// launch's error is cleared for later launches' checks.
+// the sweep; no sync. A table the sweep does not take is refused before
+// either is enqueued. Returns a cudaError_t; a refused launch's error is
+// cleared for later launches' checks.
 extern "C" int dladmm_adam_step_int8(const long long* ptrs, const long long* ints, const double* flts,
                                      int device, void* stream_handle) {
   Table t;
@@ -310,7 +290,7 @@ extern "C" int dladmm_adam_step_int8(const long long* ptrs, const long long* int
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  err = launch_prologue(t, s, (int)ints[3], stream);
+  err = launch_prologue(t, s, stream);
   if (err != cudaSuccess) return (int)err;
   qadam_int8_sweep<<<t.blocks, kStepThreads, 0, stream>>>(t, s.scal, k);
   return (int)cudaGetLastError();
@@ -341,10 +321,7 @@ extern "C" int dladmm_qadam_int8_rows(
   lf.codec = CODEC_ROWS;
   lf.rows = R;
   lf.L = L;
-  lf.warps = int8_warps(L);
-  lf.vec = int8_vec(g, master, mu_c, nu_c, L);
-  const int per = kBlockWarps / lf.warps;
-  t.blocks = (R + per - 1) / per;
+  if (!lay_out(t, true)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   qadam_int8_sweep<<<t.blocks, kStepThreads, 0, static_cast<cudaStream_t>(stream_handle)>>>(

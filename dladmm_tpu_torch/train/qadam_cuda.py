@@ -391,8 +391,8 @@ def int8_warps(L: int) -> int:
 def int8_vec(L: int, g: int, master: int, mu_codes: int, nu_codes: int) -> int:
     """Elements a vector access of an int8 row takes, from the data
     pointers: 4, then 2, where L is a multiple and every pointer is
-    aligned to it (4 V bytes for fp32, V for codes); else 1 (qadam_int8.cu
-    int8_vec)."""
+    aligned to it (4 V bytes for fp32, V for codes); else 1
+    (ops/csrc/adam_step.cuh leaf_vec)."""
     for v in (4, 2):
         if L % v == 0 and g % (4 * v) == 0 and master % (4 * v) == 0 and mu_codes % v == 0 and nu_codes % v == 0:
             return v
@@ -402,7 +402,7 @@ def int8_vec(L: int, g: int, master: int, mu_codes: int, nu_codes: int) -> int:
 def dense_vec(*ptrs: int) -> int:
     """Elements a thread's access of a dense leaf takes: 8 (16-byte
     accesses) where every pointer is 16-byte aligned, else 1
-    (qadam_dense.cu dense_vec)."""
+    (ops/csrc/adam_step.cuh leaf_vec)."""
     return 8 if all(p % 16 == 0 for p in ptrs) else 1
 
 
@@ -432,7 +432,9 @@ def step_plan(specs: tuple) -> StepPlan:
     vec): an int8 row of L codes takes int8_warps(L) warps, so a work
     block (8 warps) holds 8 // warps rows; a dense work block and a norm
     chunk hold CHUNK elements; each leaf's work blocks and chunks follow
-    the previous leaf's."""
+    the previous leaf's. These are the rules of ops/csrc/adam_step.cuh
+    lay_out, which the C entry holds the packed table to: a table that
+    differs is refused before anything is enqueued."""
     if not 1 <= len(specs) <= MAX_LEAVES:
         raise ValueError(f"the sweep takes 1 to {MAX_LEAVES} leaves, got {len(specs)}")
     leaves, block0, chunk0 = [], 0, 0
@@ -557,7 +559,14 @@ def adam_step(grads, params, mu, nu, count: Tensor, fmt: str, learning_rate, cli
     leaves; nothing is read back. ``learning_rate`` is a float, a
     WarmupCosine (evaluated in the prologue) or any other callable
     (evaluated here into a device scalar the prologue reads). On CPU
-    tensors, adam_step_plain."""
+    tensors, adam_step_plain.
+
+    A table the C entry does not take (its layout other than step_plan's
+    rules give there) is refused before either launch is enqueued: the
+    step raises and counts nothing. A launch the runtime refuses raises
+    too, with its error cleared, and counts nothing; if it is the
+    sweep's, the prologue has run, writing only this call's new buffers
+    and leaving its counter cleared."""
     device = params[0].device
     if device.type == "cpu":
         return adam_step_plain(grads, params, mu, nu, count, fmt, learning_rate, clip_norm, b1, b2, eps)
@@ -659,23 +668,13 @@ class QAdamFused:
             nu=type(params)(*(self._zero_moment(p, 1) for p in params)),
         )
 
-    def _scalars(self, grads, state: QMomentsState):
-        """[c1, c2, lr, clip_scale] as a (4,) fp32 device tensor, and the
-        incremented count; all on the device."""
-        return step_scalars(grads, state.count, self.learning_rate, self.clip_norm, self.b1, self.b2)
-
-    def _seeds(self, count: Tensor, nleaves: int):
-        """The SR formats' per-leaf seeds _mix_seed(count, idx), one
-        device tensor; None for the other formats."""
-        return step_seeds(count, self.moment_fmt, nleaves)
-
     @torch.no_grad()
     def update(self, grads, state: QMomentsState, params=None):
         """optax semantics: (updates, new_state), updates the NEGATED
         scaled step; the state is new, the inputs are untouched."""
         del params
-        scal, count = self._scalars(grads, state)
-        seeds = self._seeds(count, len(grads))
+        scal, count = step_scalars(grads, state.count, self.learning_rate, self.clip_norm, self.b1, self.b2)
+        seeds = step_seeds(count, self.moment_fmt, len(grads))
         ups, mus, nus = [], [], []
         for idx, (g, mu, nu) in enumerate(zip(grads, state.mu, state.nu)):
             rows = not self.dense and leaf_eligible(g)

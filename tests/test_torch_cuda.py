@@ -31,6 +31,7 @@ import torch
 from dladmm_tpu_torch.models.unroll import DLADMMParams, init_dladmm_params
 from dladmm_tpu_torch.ops import cuda_unroll
 from dladmm_tpu_torch.serve import BatchingServer, InferenceServer
+from dladmm_tpu_torch.train.step_checks import bf16_neighbours
 
 TOL = 1e-4
 SHAPES = [(16, 32, 4, 8), (33, 77, 5, 13), (250, 500, 15, 1), (250, 500, 15, 64)]
@@ -551,11 +552,6 @@ def _dense_state(shape, fmt, seed, device):
     return (rand(0.05), rand(1e-2).to(mu_dt), (rand(3e-2) ** 2).to(nu_dt), [rand(1e-2) for _ in range(3)])
 
 
-def _bf16_neighbours(x):
-    bits = x.view(torch.int32)
-    return (bits & ~0xFFFF).view(torch.float32), ((bits & ~0xFFFF) + 0x10000).view(torch.float32)
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("fmt", ["float32", "bfloat16", "bfloat16_sr", "bfloat16_sr_mu"])
 @pytest.mark.parametrize("shape", [(2, 256, 128), (15, 500, 250), (15, 250), (15,)])
@@ -582,7 +578,7 @@ def test_dense_sweep_matches_plain(cuda_device, fmt, shape):
             if got.dtype == torch.float32:
                 assert torch.equal(got, want)
             elif sr:
-                lo, hi = _bf16_neighbours(want)
+                lo, hi = bf16_neighbours(want)
                 assert ((got.float() == lo) | (got.float() == hi)).all()
             else:
                 assert torch.equal(got, want.to(torch.bfloat16))
@@ -607,7 +603,7 @@ def test_dense_sr_is_unbiased_on_the_card(cuda_device):
             st = [master.clone(), mu.clone(), nu.clone()]
             tqa.adam_dense_rows(grads[0], *st, scal, "bfloat16_sr", torch.tensor(s, dtype=torch.int32, device=cuda_device))
             total += st[moment].double()
-        lo, hi = _bf16_neighbours(want)
+        lo, hi = bf16_neighbours(want)
         sigma = (hi - lo).double().abs() / 2 / 8
         err = total / 64 - want.double()
         assert (err.abs() <= 5 * sigma + 1e-30).all()
@@ -852,110 +848,6 @@ STEP_PRESETS = {"synthetic_small": (250, 500, 15), "synthetic_large": (1000, 200
 STEP_FMTS = ["int8", "float32", "bfloat16", "bfloat16_sr", "bfloat16_sr_mu"]
 
 
-def _step_state(shapes, fmt, seed, device):
-    """Masters, non-zero moments in the format (int8 in each leaf's codec)
-    and 3 gradient sets; the first and last above the clip, the middle
-    below it."""
-    from dladmm_tpu_torch.train import qadam_cuda as tqa
-    from dladmm_tpu_torch.train import qmoments as tqm
-
-    g = torch.Generator(device=device).manual_seed(seed)
-    rand = lambda s, scale: scale * torch.randn(s, generator=g, device=device)  # noqa: E731
-    params = DLADMMParams(*(rand(s, 0.05) for s in shapes))
-
-    def moment(x, which):
-        if fmt != "int8":
-            return x.to(tqa.DENSE_FMTS[fmt][which])
-        if tqa.leaf_eligible(x):
-            return tqa.quantize_rows(x.reshape(-1, x.shape[-1]))
-        return tqm.quantize_q8(x)
-
-    mu = DLADMMParams(*(moment(rand(s, 1e-2), 0) for s in shapes))
-    nu = DLADMMParams(*(moment(rand(s, 3e-2) ** 2, 1) for s in shapes))
-    total = sum(int(np.prod(s)) for s in shapes)
-    grads = [DLADMMParams(*(rand(s, scale / total ** 0.5) for s in shapes)) for scale in (3.0, 0.3, 2.0)]
-    return params, mu, nu, grads
-
-
-def _clone(tree):
-    from dladmm_tpu_torch.train import qmoments as tqm
-
-    return DLADMMParams(*(tqm.QTensor(q.codes.clone(), q.scale.clone()) if hasattr(q, "codes") else q.clone()
-                          for q in tree))
-
-
-def _clone_all(state):
-    params, mu, nu = state
-    return DLADMMParams(*(p.clone() for p in params)), _clone(mu), _clone(nu)
-
-
-def _within_ulps(a, b, ulps=2):
-    ai, bi = a.contiguous().view(torch.int32).long(), b.contiguous().view(torch.int32).long()
-    return bool(((ai - bi).abs() <= ulps).all())
-
-
-def _one_leaf_step(fmt, grads, params, mu, nu, scal, seeds):
-    """The step sweep by sweep with the kernel's scalars and seeds: the
-    one-leaf launches (adam_dense_rows; adam_int8_rows on the per-row
-    leaves) and adam_flat_plain on the flat-256 leaves."""
-    from dladmm_tpu_torch.train import qadam_cuda as tqa
-
-    for idx, (g, p, m, v) in enumerate(zip(grads, params, mu, nu)):
-        if fmt != "int8":
-            tqa.adam_dense_rows(g, p, m, v, scal, fmt, None if seeds is None else seeds[idx:idx + 1])
-        elif tqa.leaf_eligible(p):
-            L = p.shape[-1]
-            tqa.adam_int8_rows(g.reshape(-1, L), p.view(-1, L), m, v, scal)
-        else:
-            tqa.adam_flat_plain(g, p, m, v, scal)
-
-
-def _assert_moments(fmt, got, want, exact):
-    """int8: codes within one step, scales within rtol 1e-6 (equal where
-    ``exact``); dense: equal."""
-    for a, b in zip(got, want):
-        if fmt == "int8":
-            diff = int((a.codes.int() - b.codes.int()).abs().max())
-            assert diff == 0 if exact else diff <= 1
-            torch.testing.assert_close(a.scale, b.scale, rtol=0 if exact else 1e-6, atol=0)
-        else:
-            assert torch.equal(a, b)
-
-
-def _assert_plain_step(fmt, grads, pre, post, scal, seeds):
-    """The plain version's step from the kernel's state before it (``pre``),
-    with the kernel's scalars and seeds, against the kernel's state after
-    it: masters within rtol 1e-6; int8 codes within one step and scales
-    within rtol 1e-6; round-to-nearest moments equal; SR moments a bf16
-    neighbour of the plain fp32 moment (other bits than the kernel's, by
-    design)."""
-    from dladmm_tpu_torch.train import qadam_cuda as tqa
-
-    params, mu, nu = _clone_all(pre)
-    _, _, sr_mu, sr_nu = tqa.DENSE_FMTS.get(fmt, (None, None, False, False))
-    if sr_mu or sr_nu:
-        mu = DLADMMParams(*(m.to(torch.float32, copy=True) for m in mu))
-        nu = DLADMMParams(*(v.to(torch.float32, copy=True) for v in nu))
-    for idx, (g, p, m, v) in enumerate(zip(grads, params, mu, nu)):
-        if fmt == "int8" and tqa.leaf_eligible(p):
-            L = p.shape[-1]
-            tqa.adam_int8_rows_plain(g.reshape(-1, L), p.view(-1, L), m, v, scal)
-        elif fmt == "int8":
-            tqa.adam_flat_plain(g, p, m, v, scal)
-        else:
-            tqa.adam_dense_rows_plain(g, p, m, v, scal, "float32" if sr_mu or sr_nu else fmt,
-                                      None if seeds is None else seeds[idx])
-    for a, b in zip(post[0], params):
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
-    for got, want, sr in ((post[1], mu, sr_mu), (post[2], nu, sr_nu)):
-        if not sr:
-            _assert_moments(fmt, got, want, exact=False)
-            continue
-        for a, b in zip(got, want):
-            lo, hi = _bf16_neighbours(b)
-            assert ((a.float() == lo) | (a.float() == hi)).all()
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("fmt", STEP_FMTS)
 @pytest.mark.parametrize("preset", list(STEP_PRESETS))
@@ -967,34 +859,30 @@ def test_adam_step_matches_plain(cuda_device, preset, fmt):
     scalars from the state before it (masters and moments bit for bit, SR
     too; flat int8 codes, which the one-leaf path sweeps with the plain
     version, within one step); and held against the plain version's step
-    from that state (_assert_plain_step)."""
+    from that state (step_checks.plain_step_diff)."""
     from dladmm_tpu_torch.train import qadam_cuda as tqa
+    from dladmm_tpu_torch.train import step_checks as sc
 
-    m, n, K = STEP_PRESETS[preset]
-    shapes = [(K, n, m), (K, m, m), (K, n), (K, m), (K,)]
-    params, mu, nu, grads = _step_state(shapes, fmt, seed=K + len(fmt), device=cuda_device)
+    shapes = sc.preset_shapes(*STEP_PRESETS[preset])
+    params, mu, nu, grads = sc.step_state(shapes, fmt, seed=shapes[0][0] + len(fmt), device=cuda_device)
     sched = tqa.WarmupCosine(0.0, 1e-2, 2, 40)
     count = torch.tensor(1, dtype=torch.int32, device=cuda_device)
     before = tqa.adam_step.launches
     for step, g in enumerate(grads):
-        pre = _clone_all((params, mu, nu))
+        pre = sc.clone_state(params, mu, nu)
         old = count.clone()
         count, scal, seeds = tqa.adam_step(g, params, mu, nu, count, fmt, sched, 1.0)
         pscal, pcount = tqa.step_scalars(g, old, sched, 1.0)
         pseeds = tqa.step_seeds(pcount, fmt, len(shapes))
-        one = _clone_all(pre)
-        _one_leaf_step(fmt, g, *one, scal, seeds)
+        one = sc.clone_state(*pre)
+        sc.one_leaf_step(fmt, g, *one, scal, seeds)
         torch.cuda.synchronize()
         assert torch.equal(old, count - 1) and torch.equal(count, pcount)
-        assert _within_ulps(scal, pscal), (step, scal.tolist(), pscal.tolist())
+        assert sc.scal_ulps(scal, pscal) <= 2, (step, scal.tolist(), pscal.tolist())
         assert (float(scal[3]) < 1.0) == (step != 1)
         assert (seeds is None) == (pseeds is None) and (seeds is None or torch.equal(seeds, pseeds))
-        for a, b in zip(params, one[0]):
-            assert torch.equal(a, b)
-        for moment, want in ((mu, one[1]), (nu, one[2])):
-            for name, a, b in zip(DLADMMParams._fields, moment, want):
-                _assert_moments(fmt, [a], [b], exact=fmt != "int8" or name in ("W1", "W2"))
-        _assert_plain_step(fmt, g, pre, (params, mu, nu), scal, seeds)
+        sc.check_against_one_leaf(fmt, (params, mu, nu), one, f"step {step}")
+        sc.plain_step_diff(fmt, g, pre, (params, mu, nu), scal, seeds)
     assert tqa.adam_step.launches == before + 2 * len(grads)
 
 
@@ -1007,10 +895,11 @@ def test_adam_step_scalar_paths_and_rate_modes(cuda_device, fmt):
     within 2 ulp and the state equal to the one-leaf sweeps' run with the
     kernel's scalars."""
     from dladmm_tpu_torch.train import qadam_cuda as tqa
+    from dladmm_tpu_torch.train import step_checks as sc
 
     shapes = [(2, 256, 251), (3, 7, 5), (33,), (2, 300), (1,)]
     for lr, clip in ((3e-3, None), (lambda c: 1e-3 / (1.0 + c.to(torch.float32)), 0.5)):
-        params, mu, nu, grads = _step_state(shapes, fmt, seed=251, device=cuda_device)
+        params, mu, nu, grads = sc.step_state(shapes, fmt, seed=251, device=cuda_device)
         if fmt != "int8":  # views one element in: 4-byte aligned only
             def shift(t):
                 buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
@@ -1026,17 +915,13 @@ def test_adam_step_scalar_paths_and_rate_modes(cuda_device, fmt):
             assert tqa.int8_vec(251, 0, 0, 0, 0) == 1 and tqa.leaf_eligible(params[0])
         count = torch.tensor(0, dtype=torch.int32, device=cuda_device)
         for g in grads:
-            ref = (DLADMMParams(*(p.clone() for p in params)), _clone(mu), _clone(nu))
+            ref = sc.clone_state(params, mu, nu)
             new, scal, seeds = tqa.adam_step(g, params, mu, nu, count, fmt, lr, clip)
-            _, pscal, _ = tqa.adam_step_plain(g, *_clone_all(ref), count, fmt, lr, clip)
-            _one_leaf_step(fmt, g, *ref, scal, seeds)
+            _, pscal, _ = tqa.adam_step_plain(g, *sc.clone_state(*ref), count, fmt, lr, clip)
+            sc.one_leaf_step(fmt, g, *ref, scal, seeds)
             torch.cuda.synchronize()
-            assert _within_ulps(scal, pscal), (scal.tolist(), pscal.tolist())
-            for a, b in zip(params, ref[0]):
-                assert torch.equal(a, b)
-            for moment, want in ((mu, ref[1]), (nu, ref[2])):
-                for name, a, b in zip(DLADMMParams._fields, moment, want):
-                    _assert_moments(fmt, [a], [b], exact=fmt != "int8" or name == "W1")
+            assert sc.scal_ulps(scal, pscal) <= 2, (scal.tolist(), pscal.tolist())
+            sc.check_against_one_leaf(fmt, (params, mu, nu), ref, "odd widths")
             count = new
 
 
@@ -1046,41 +931,49 @@ def test_adam_step_repeats_bit_for_bit(cuda_device, fmt):
     """Two steps from the same state and gradients (synthetic_large: the
     norm over 512 blocks' partials) write the same bits and scalars."""
     from dladmm_tpu_torch.train import qadam_cuda as tqa
+    from dladmm_tpu_torch.train import step_checks as sc
 
-    m, n, K = STEP_PRESETS["synthetic_large"]
-    shapes = [(K, n, m), (K, m, m), (K, n), (K, m), (K,)]
-    params, mu, nu, grads = _step_state(shapes, fmt, seed=3, device=cuda_device)
+    shapes = sc.preset_shapes(*STEP_PRESETS["synthetic_large"])
+    params, mu, nu, grads = sc.step_state(shapes, fmt, seed=3, device=cuda_device)
     runs = []
     for _ in range(2):
-        state = _clone_all((params, mu, nu))
+        state = sc.clone_state(params, mu, nu)
         count = torch.tensor(5, dtype=torch.int32, device=cuda_device)
         _, scal, _ = tqa.adam_step(grads[0], *state, count, fmt, 1e-3, 1.0)
         runs.append((state, scal))
     torch.cuda.synchronize()
     (s1, c1), (s2, c2) = runs
     assert torch.equal(c1, c2)
-    for a, b in zip(s1[0], s2[0]):
-        assert torch.equal(a, b)
-    for t1, t2 in zip(s1[1:], s2[1:]):
-        _assert_moments(fmt, t1, t2, exact=True)
+    assert sc.same_state(s1, s2)
 
 
 @pytest.mark.gpu
 def test_adam_step_raises_when_the_launch_is_refused(cuda_device, monkeypatch):
-    """A sweep of 0 blocks is refused by the launch: adam_step raises,
-    counts no launch, and clears the error so that the next step runs."""
+    """A packed table other than the C side's layout rules give (a sweep
+    of 0 blocks; a leaf's vector width narrower than its alignment allows)
+    is refused before either launch is enqueued: adam_step raises, counts
+    no launch and leaves the state as it was, and the next step runs."""
     from dladmm_tpu_torch.train import qadam_cuda as tqa
+    from dladmm_tpu_torch.train import step_checks as sc
 
     shapes = [(2, 256, 128), (2, 128, 128), (2, 256), (2, 128), (2,)]
-    params, mu, nu, grads = _step_state(shapes, "float32", seed=1, device=cuda_device)
+    params, mu, nu, grads = sc.step_state(shapes, "float32", seed=1, device=cuda_device)
     count = torch.tensor(0, dtype=torch.int32, device=cuda_device)
     plan = tqa.step_plan
-    monkeypatch.setattr(tqa, "step_plan", lambda specs: dataclasses.replace(plan(specs), blocks=0))
-    before = tqa.adam_step.launches
-    with pytest.raises(RuntimeError, match="CUDA Adam step failed"):
-        tqa.adam_step(grads[0], params, mu, nu, count, "float32", 1e-3, 1.0)
-    assert tqa.adam_step.launches == before
-    monkeypatch.setattr(tqa, "step_plan", plan)
-    new, _, _ = tqa.adam_step(grads[0], params, mu, nu, count, "float32", 1e-3, 1.0)
-    torch.cuda.synchronize()
-    assert int(new) == 1 and tqa.adam_step.launches == before + 2
+    specs = tuple(tqa._leaf_spec(i, *leaf, "float32")[0] for i, leaf in enumerate(zip(grads[0], params, mu, nu)))
+    assert plan(specs).leaves[0].vec == 8
+
+    def narrow(p):
+        return dataclasses.replace(p, leaves=(dataclasses.replace(p.leaves[0], vec=1),) + p.leaves[1:])
+
+    for bad in (lambda specs: dataclasses.replace(plan(specs), blocks=0), lambda specs: narrow(plan(specs))):
+        before, state = tqa.adam_step.launches, sc.clone_state(params, mu, nu)
+        monkeypatch.setattr(tqa, "step_plan", bad)
+        with pytest.raises(RuntimeError, match="CUDA Adam step failed"):
+            tqa.adam_step(grads[0], params, mu, nu, count, "float32", 1e-3, 1.0)
+        torch.cuda.synchronize()
+        assert tqa.adam_step.launches == before and sc.same_state((params, mu, nu), state)
+        monkeypatch.setattr(tqa, "step_plan", plan)
+        new, _, _ = tqa.adam_step(grads[0], params, mu, nu, count, "float32", 1e-3, 1.0)
+        torch.cuda.synchronize()
+        assert int(new) == 1 and tqa.adam_step.launches == before + 2

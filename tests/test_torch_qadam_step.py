@@ -165,6 +165,38 @@ def test_table_groups_and_alignment_rules():
         tqa.step_plan(((tqa.CODEC_DENSE, 10, 0, 0, 8),) * 9)
 
 
+def _header_ints(text):
+    """The integer constants and enumerators of ops/csrc/adam_step.cuh
+    (``kName = a [* or / b ...]``, integers or earlier constants),
+    evaluated in order, left to right."""
+    import re
+
+    consts = {}
+    for name, expr in re.findall(r"\b(k[A-Z]\w*|CODEC_[A-Z]+)\s*=\s*([\w\s*/]+?)\s*[,;}]", text):
+        tokens = re.findall(r"\w+|[*/]", expr)
+        value = lambda t: consts[t] if t in consts else int(t)  # noqa: E731
+        v = value(tokens[0])
+        for op, t in zip(tokens[1::2], tokens[2::2]):
+            v = v * value(t) if op == "*" else v // value(t)
+        consts[name] = v
+    return consts
+
+
+def test_plan_constants_are_the_headers():
+    """step_plan and pack_step use the numbers the C side lays the table
+    out with (adam_step.cuh: threads, warps and chunk of a work block,
+    leaves, norm blocks, codecs and the host arrays' strides)."""
+    from dladmm_tpu_torch.ops import cuda_build
+
+    c = _header_ints((cuda_build.CSRC / "adam_step.cuh").read_text())
+    assert c["kChunk"] == tqa.CHUNK and c["kMaxLeaves"] == tqa.MAX_LEAVES
+    assert c["kMaxNormBlocks"] == tqa.NORM_BLOCKS and c["kBlockWarps"] == tqa.BLOCK_WARPS
+    assert (c["CODEC_ROWS"], c["CODEC_FLAT"], c["CODEC_DENSE"]) == (tqa.CODEC_ROWS, tqa.CODEC_FLAT, tqa.CODEC_DENSE)
+    plan = tqa.step_plan(_int8_specs(SHAPES))
+    ptrs, ints, _ = tqa.pack_step(plan, [0] * c["kPtrHead"], [[0] * c["kPtrLeaf"]] * 5, 0, None, False, 0, [])
+    assert len(ptrs) == c["kPtrHead"] + 5 * c["kPtrLeaf"] and len(ints) == c["kIntHead"] + 5 * c["kIntLeaf"]
+
+
 def test_packed_arrays_follow_the_header_layout():
     """pack_step: 7 pointers a step and 7 a leaf, 9 ints and 8 a leaf, 13
     floats (ops/csrc/adam_step.cuh)."""
@@ -348,8 +380,8 @@ def test_step_plain_sr_is_unbiased_over_step_counts():
 def _fused_apply_before(opt, grads, state, params):
     """QAdamFused.fused_apply as it was before the step became one table:
     per-leaf plain sweeps, new flat-256 QTensors."""
-    scal, count = opt._scalars(grads, state)
-    seeds = opt._seeds(count, len(grads))
+    scal, count = tqa.step_scalars(grads, state.count, opt.learning_rate, opt.clip_norm, opt.b1, opt.b2)
+    seeds = tqa.step_seeds(count, opt.moment_fmt, len(grads))
     mus, nus = [], []
     for idx, (g, master, mu, nu) in enumerate(zip(grads, params, state.mu, state.nu)):
         if opt.dense:
