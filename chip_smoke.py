@@ -114,11 +114,15 @@ the first fault. Each phase prints one JSON line:
  17. profile_train_final: device time per phase and kernel, busy share;
      the optimizer phase held to the prologue and the dense sweep as in
      phase 12;
- 18. kernel_int8_unroll: the int8 whole-unroll kernel against its plain
-     version on the same quantized inputs (perturbed LADMM-exact params,
-     a zero row) at synthetic_small S = 1, 13, 64, 256 and synthetic_large
+ 18. kernel_int8_unroll: the int8 whole-unroll kernel (one persistent
+     cooperative launch, ``int8_persistent``) against its plain version on
+     the same quantized inputs (perturbed LADMM-exact params, a zero row)
+     at synthetic_small S = 1, 13, 64, 256, 1024 and synthetic_large
      S = 1024 with K = 20: expected bit for bit, fails above
-     1e-5 * max(1, max|ref|), prints the count of elements that differ;
+     1e-5 * max(1, max|ref|), prints the count of elements that differ
+     and the plan (grid, tile, items, depth slices, barriers); a second
+     call must repeat bit for bit, and a profiled solve must hold the one
+     port kernel and no other device operation but a counters' memset;
  19. slice_serve_int8: ``serve.main --dtype=int8 --demo 256`` with
      --kernel=megakernel and auto, on the phase-10 checkpoint and on the
      LADMM-exact .pt, the int8 kernel's count set to 0 before and read
@@ -140,7 +144,9 @@ the first fault. Each phase prints one JSON line:
      from 0 (> 0), finite losses; one step's gradient within 2e-5 of each
      leaf's largest value of autograd through the plain loop;
  22. timing_serve_int8 / timing_layer: CUDA-event median ms of the int8
-     kernel at S = 64, 256, 1024 and of the layer step (one call, and the
+     kernel at synthetic_small S = 64, 256, 1024 and synthetic_large
+     S = 1024, each with its profiler device time (one kernel a solve),
+     host enqueue and plan, and of the layer step (one call, and the
      K-layer loop beside the plain loop and the whole-unroll kernel) at
      S = 256, each beside its plain version and bound; profiler device
      time of each, the layer step's host enqueue and plan;
@@ -148,6 +154,13 @@ the first fault. Each phase prints one JSON line:
 then the kernels line and, last, the ok line. Exits non-zero, with no
 ok line, on any failure, when CUDA is not available, or when run
 without the rest of the repository.
+
+    python3 chip_smoke.py --int8-turns
+
+times only the int8 kernel as phase 22 does (no plain version), with
+the ``dladmm_tpu_torch`` beside this file: a copy of this file in a
+checkout of another commit times that commit's kernel, so that two
+commits can be timed in turns on one card.
 """
 
 from __future__ import annotations
@@ -324,7 +337,7 @@ def traj_bound(S: int, m: int, n: int, K: int, with_tax: bool):
     return _bound(flops, nbytes)
 
 
-def launched_plan(wrapper) -> dict:
+def launched_plan(wrapper, barriers=None) -> dict:
     """How the last launch of a persistent kernel's wrapper
     (``unroll_forward``, ``layer_step``, ``trajectory_forward`` or
     ``unroll_bwd``, which keep the plan they launched with in
@@ -332,7 +345,9 @@ def launched_plan(wrapper) -> dict:
     cooperative launch), tile edge, the work items (tiles x depth slices)
     of each phase, its grid barriers; for the backward also the items of
     its weight-gradient launch (all K layers' gW1 and gW2 tiles x S
-    slices)."""
+    slices). ``barriers``: the kernel's rule for its barriers from K
+    (``schedule.barriers`` by default; the int8 kernel's is
+    ``schedule.int8_barriers``)."""
     from dladmm_tpu_torch.ops import schedule
 
     occ, grid, splits, last = wrapper.last_plan
@@ -347,7 +362,7 @@ def launched_plan(wrapper) -> dict:
             "items_per_phase": {k: sp.items for k, sp in splits.items()},
             "tiles_per_phase": {k: sp.tiles for k, sp in splits.items()},
             "depth_slices_per_phase": {k: sp.slices for k, sp in splits.items()},
-            "barriers_per_call": schedule.barriers(K), **extra}
+            "barriers_per_call": (barriers or schedule.barriers)(K), **extra}
 
 
 @contextlib.contextmanager
@@ -1537,18 +1552,40 @@ def int8_case(torch, shape, S: int, seed: int, device):
     return b, *quantize_params(p, A)
 
 
+def int8_plan(int8_unroll_forward) -> dict:
+    """The plan of the int8 kernel's last launch (launched_plan), with its
+    depth slices' length in bytes."""
+    from dladmm_tpu_torch.ops import schedule
+
+    return {**launched_plan(int8_unroll_forward, schedule.int8_barriers),
+            "slice_bytes_per_phase": {k: sp.length for k, sp in int8_unroll_forward.last_plan[2].items()}}
+
+
+def one_kernel_a_solve(per_call: dict, label: str) -> None:
+    """A profiled int8 solve must hold the one port kernel (int8_persistent)
+    and no other device operation but a counters' memset."""
+    port = {k: v for k, v in per_call.items() if "int8_persistent" in k}
+    other = {k: v for k, v in per_call.items() if k not in port and "Memset" not in k}
+    if len(port) != 1 or other or not all(v["calls"] <= 1.0 for v in per_call.values()):
+        raise AssertionError(f"int8 {label}: a solve ran {per_call}, not one int8_persistent launch")
+
+
 def check_int8_unroll(torch, device) -> float:
     """Phase 18: the int8 kernel against its plain version on the same
-    quantized inputs; prints the count of elements that differ at all."""
+    quantized inputs; prints the count of elements that differ at all,
+    the plan, and checks that a second call repeats bit for bit and that
+    a profiled solve is one kernel."""
     from dladmm_tpu_torch.ops.cuda_int8 import int8_unroll_forward, int8_unroll_forward_plain
 
     max_err = 0.0
-    cases = [("synthetic_small", SMALL, S) for S in (1, 13, 64, 256)] + [("synthetic_large", LARGE, 1024)]
+    cases = [("synthetic_small", SMALL, S) for S in (1, 13, 64, 256, 1024)] + [("synthetic_large", LARGE, 1024)]
     for label, shape, S in cases:
         b, qp, qd = int8_case(torch, shape, S, seed=S + 40, device=device)
         with torch.no_grad():
             got = int8_unroll_forward(b, qp, qd)
+            plan = int8_plan(int8_unroll_forward)
             want = int8_unroll_forward_plain(b, qp, qd)
+            again = int8_unroll_forward(b, qp, qd)
         torch.cuda.synchronize()
         errs, differ = {}, {}
         for name, g, w in zip(("x", "z", "lam"), got, want):
@@ -1559,10 +1596,15 @@ def check_int8_unroll(torch, device) -> float:
             scale = max(1.0, float(w.abs().max()))
             if not errs[name] <= INT8_TOL * scale:
                 raise AssertionError(f"int8 {label} S={S}: {name} max|diff| {errs[name]} > {INT8_TOL} * {scale}")
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"int8 {label} S={S}: a second call differs")
+        prof = profile_fn(torch, lambda: int8_unroll_forward(b, qp, qd), f"int8 {label} S={S}", reps=3)
+        one_kernel_a_solve(prof["per_call"], f"{label} S={S}")
         emit("kernel_int8_unroll", case=f"{label} S={S}", max_abs_err=errs, elements_differing=differ,
-             elements=sum(g.numel() for g in got))
+             elements=sum(g.numel() for g in got), repeats_bit_for_bit=True,
+             device_ops_per_solve=prof["per_call"], **plan)
         max_err = max(max_err, *errs.values())
-        del b, qp, qd, got, want
+        del b, qp, qd, got, want, again
     return max_err
 
 
@@ -1765,33 +1807,83 @@ def train_layer(torch, device):
     return launches
 
 
+def back_to_back_ms(torch, fn, calls: int = 20, rounds: int = 3) -> float:
+    """Median over ``rounds`` of the CUDA-event ms a call of ``calls``
+    back-to-back calls take: the card's time a call wherever the host
+    enqueues a call faster than the card runs it (host_enqueue_us
+    says), whatever the profiler records."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / calls)
+    return float(np.median(times))
+
+
+INT8_SHAPES = [("synthetic_small", SMALL, 64), ("synthetic_small", SMALL, 256), ("synthetic_small", SMALL, 1024),
+               ("synthetic_large", LARGE, 1024)]
+
+
+def time_int8(torch, device, card, plain: bool = True):
+    """The int8 kernel at INT8_SHAPES: CUDA-event median ms of one call
+    from an idle card (beside its plain version, in turns, with
+    ``plain``), back-to-back ms, host enqueue, the profiler's device µs
+    a launch and launches recorded a solve (it has recorded fewer int8
+    launches than ran: PERF.md §7), the plan where the wrapper keeps one.
+    Returns ({key: (ms, plain_ms, bound_ms, bound_by), key + ("detail",):
+    {...}}, profiles)."""
+    from dladmm_tpu_torch.ops.cuda_int8 import int8_unroll_forward, int8_unroll_forward_plain
+
+    timings, profiles = {}, []
+    with torch.no_grad():
+        for label, shape, S in INT8_SHAPES:
+            large = label == "synthetic_large"
+            b, qp, qd = int8_case(torch, shape, S, seed=S + 80, device=device)
+            fns = [lambda: int8_unroll_forward(b, qp, qd)]
+            if plain:
+                fns.append(lambda: int8_unroll_forward_plain(b, qp, qd))
+            for fn in fns:  # warm-up
+                fn()
+            ms, *plain_ms = median_ms(torch, fns, 9 if large else 21)
+            bms, by = int8_serve_bound(S, **shape)
+            prof = profile_fn(torch, fns[0], f"{label} S={S}")
+            ops = prof["per_call"]
+            detail = {"back_to_back_ms": back_to_back_ms(torch, fns[0], calls=5 if large else 20),
+                      "host_enqueue_us": host_enqueue_us(torch, fns[0], calls=10 if large else 50),
+                      "device_us_per_launch": {k: v["us"] / v["calls"] for k, v in ops.items()},
+                      "launches_recorded_per_solve": {k: v["calls"] for k, v in ops.items()}}
+            if getattr(int8_unroll_forward, "last_plan", None) is not None:
+                one_kernel_a_solve(ops, f"{label} S={S}")
+                detail["device_us_per_call"] = sum(detail["device_us_per_launch"].values())
+                detail.update(int8_plan(int8_unroll_forward))
+            key = ("int8", S) if not large else ("int8_large", S)
+            timings[key] = (ms, plain_ms[0] if plain_ms else None, bms, by)
+            timings[key + ("detail",)] = detail
+            emit("timing_serve_int8", config=label, S=S, kernel_ms=ms, plain_ms=timings[key][1], bound_ms=bms,
+                 bound_by=by, **detail, card=card)
+            profiles.append(prof)
+            del b, qp, qd, fns
+    return timings, profiles
+
+
 def time_int8_and_layer(torch, device, card):
     """Phase 22: the int8 kernel at synthetic_small S = 64, 256, 1024 and
-    the layer step (one call, and the K-layer forward through it) at
-    S = 256, each beside its plain version and its bound, in turns; then
-    a profiler pass of each at S = 256 for device time."""
+    synthetic_large S = 1024, and the layer step (one call, and the
+    K-layer forward through it) at S = 256, each beside its plain version
+    and its bound, in turns; the int8 kernel's device time, host enqueue
+    and plan at each S; a profiler pass of the layer step."""
     from dladmm_tpu_torch.models.unroll import dladmm_forward
-    from dladmm_tpu_torch.ops.cuda_int8 import int8_unroll_forward, int8_unroll_forward_plain
     from dladmm_tpu_torch.ops.cuda_layer import fused_layer_step, layer_step, layer_step_plain
     from dladmm_tpu_torch.ops.cuda_unroll import unroll_forward
 
-    timings = {}
+    timings, int8_profiles = time_int8(torch, device, card)
     with torch.no_grad():
-        for S in (64, 256, 1024):
-            b, qp, qd = int8_case(torch, SMALL, S, seed=S + 80, device=device)
-            fns = [lambda: int8_unroll_forward(b, qp, qd), lambda: int8_unroll_forward_plain(b, qp, qd)]
-            for fn in fns:  # warm-up
-                fn()
-            ms, plain_ms = median_ms(torch, fns, 21)
-            bms, by = int8_serve_bound(S, **SMALL)
-            fp32_bms, fp32_by = bound(S, **SMALL)
-            timings[("int8", S)] = (ms, plain_ms, bms, by)
-            emit("timing_serve_int8", config="synthetic_small", S=S, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                 bound_by=by, fp32_bound_ms=fp32_bms, fp32_bound_by=fp32_by, card=card)
-        int8_profile = profile_fn(torch, lambda: int8_unroll_forward(b, qp, qd), "synthetic_small S=1024")
-        b, qp, qd = int8_case(torch, SMALL, 256, seed=336, device=device)
-        int8_profile_256 = profile_fn(torch, lambda: int8_unroll_forward(b, qp, qd), "synthetic_small S=256")
-
         S = 256
         A, b, p = problem(torch, S=S, seed=S + 90, device=device, **SMALL)
         m, n = SMALL["m"], SMALL["n"]
@@ -1822,8 +1914,8 @@ def time_int8_and_layer(torch, device, card):
              host_enqueue_us=host_enqueue_us(torch, loops[0], calls=10), card=card)
         layer_profile = profile_fn(torch, lambda: dladmm_forward(p, A, b, step_fn=fused_layer_step),
                                    "synthetic_small S=256 fused-step loop")
-    emit("profile_serve_int8", **int8_profile_256)
-    emit("profile_serve_int8", **int8_profile)
+    for prof in int8_profiles:
+        emit("profile_serve_int8", **prof)
     emit("profile_layer", **layer_profile)
     return timings
 
@@ -1835,6 +1927,11 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this test needs the card",
               file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--int8-turns"]:
+        card = card_line()
+        print(card, flush=True)
+        time_int8(torch, torch.device("cuda", 0), card, plain=False)
+        return 0
     from dladmm_tpu_torch.baselines.ladmm import ladmm_run
     from dladmm_tpu_torch.data.synthetic import make_batch, problem_matrices, seed_keys
     from dladmm_tpu_torch.metrics.core import nmse_db
@@ -2150,6 +2247,9 @@ def main() -> int:
         "launches": int8_launches["serve_cli phase-10 checkpoint megakernel"],
         "launches_by_path": int8_launches, "max_abs_err": int8_unroll_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bms, "bound_by": by, "library_ms": None, "shape": "synthetic_small S=256",
+        **new_timings[("int8", 256, "detail")],
+        "synthetic_large_S1024": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), new_timings[("int8_large", 1024)]),
+                                      **new_timings[("int8_large", 1024, "detail")]),
     })
     ms, plain_ms, bms, by = new_timings[("layer", 256)]
     entries.append({

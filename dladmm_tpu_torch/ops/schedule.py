@@ -1,11 +1,13 @@
 """Work split of the persistent CUDA kernels: the serving forward and
 the layer step (``csrc/unroll.cu`` ``unroll_persistent``), the trajectory
-forward (``traj_persistent``) and the final-layer backward
-(``csrc/unroll_bwd.cu`` ``bwd_chain`` and ``bwd_weights``).
+forward (``traj_persistent``), the final-layer backward
+(``csrc/unroll_bwd.cu`` ``bwd_chain`` and ``bwd_weights``) and the int8
+serving forward (``csrc/int8_unroll.cu`` ``int8_persistent``: int32
+partials, depth in bytes, ``int8_plan``).
 
-Every phase of those kernels is one fp32 GEMM whose output is cut into
-32 x 32 tiles (the serving kernel: 32 x 32 or 64 x 64, chosen by the
-grid). A phase with few tiles (synthetic_small at S = 64 has 16-32) also
+Every phase of those kernels is one GEMM (fp32, or int8 codes into
+int32) whose output is cut into 32 x 32 tiles (the serving kernels: 32
+x 32 or 64 x 64, chosen by the grid). A phase with few tiles (synthetic_small at S = 64 has 16-32) also
 cuts its depth into slices, so that tiles x slices work items fill the
 launch's grid; each slice writes a partial tile to a workspace, and the
 last block to finish a tile (counted by an integer atomic per tile) sums
@@ -14,7 +16,7 @@ atomics: a call repeats bit for bit on one card.
 
 This module is the one place that decides the split: the wrappers
 (``ops/cuda_unroll.py``, ``ops/cuda_layer.py``, ``ops/cuda_traj.py``,
-``ops/cuda_bwd.py``) compute it here and pass it to the kernels, which
+``ops/cuda_bwd.py``, ``ops/cuda_int8.py``) compute it here and pass it to the kernels, which
 decode item = tile * slices + slice (tiles row-major).
 tests/test_torch_schedule.py checks, on the CPU, that this map covers
 every output tile once and that the slices partition the depth. Nothing
@@ -59,14 +61,15 @@ class Split(NamedTuple):
         return self.tiles * self.slices
 
 
-def split(rows: int, cols: int, depth: int, target: int, tile: int = TILE) -> Split:
+def split(rows: int, cols: int, depth: int, target: int, tile: int = TILE, bk: int = BK,
+          min_steps: int = MIN_STEPS) -> Split:
     """The coarsest depth split whose items reach ``target`` (the grid),
-    with at least MIN_STEPS steps of BK a slice; one slice when the tiles
-    alone reach it."""
-    steps = cdiv(depth, BK)
+    with at least ``min_steps`` steps of ``bk`` a slice; one slice when
+    the tiles alone reach it."""
+    steps = cdiv(depth, bk)
     want = cdiv(target, cdiv(rows, tile) * cdiv(cols, tile))
-    per = max(MIN_STEPS, cdiv(steps, max(1, want)))
-    length = min(steps, per) * BK
+    per = max(min_steps, cdiv(steps, max(1, want)))
+    length = min(steps, per) * bk
     return Split(rows, cols, depth, cdiv(depth, length), length, tile)
 
 
@@ -136,9 +139,10 @@ def serve_tile(S: int, m: int, n: int, occ64: Tuple[int, int]) -> int:
 
 
 class ServePlan(NamedTuple):
-    """One call of the serving kernel: the launched instantiation's
-    occupancy (blocks a SM, SMs), its grid, {phase: Split} (all on one
-    tile edge) and {buffer: (offset, floats)} of its workspace."""
+    """One call of a serving kernel (fp32 or int8): the launched
+    instantiation's occupancy (blocks a SM, SMs), its grid, {phase: Split}
+    (all on one tile edge) and {buffer: (offset, floats)} of its
+    workspace."""
 
     occ: Tuple[int, int]
     grid: int
@@ -179,6 +183,68 @@ def serve_plan(S: int, m: int, n: int, occ32: Tuple[int, int], occ64: Tuple[int,
     """make_serve_plan, computed once per shape and occupancy, so a call
     pays no Python for it."""
     return make_serve_plan(S, m, n, occ32, occ64, scratch)
+
+
+# -- int8 serving ----------------------------------------------------------------
+
+INT8_TILES = (32, 64)  # the int8 kernel's tile edges (csrc/int8_unroll.cu: int8_persistent<T>)
+INT8_BK = 64  # bytes of depth of one staging step, two m16n8k32 steps (csrc: kBK)
+INT8_BUFFERS = ("u", "v", "ax", "amax", "partials", "counters")
+
+
+def int8_barriers(K: int) -> int:
+    """Grid barriers of one int8 call: after the first phase (layer 0's u)
+    and between the three phases of every layer."""
+    return 3 * K
+
+
+def int8_workspace(S: int, m: int, splits: Dict[str, Split]) -> Dict[str, Tuple[int, int]]:
+    """{buffer: (offset, words)}: the fp32 u, v and Ax (S, m) each; the
+    three row-maxima vectors (3S ints); the int32 split-K partials of the
+    largest split phase (items x tile x tile); a counter a tile of the
+    widest split phase (none unsplit). csrc/int8_unroll.cu lay_out holds
+    the same rules and refuses others."""
+    sm = S * m
+    return layout({
+        "u": sm, "v": sm, "ax": sm, "amax": 3 * S,
+        "partials": partial_floats(splits.values()),
+        "counters": max([sp.tiles for sp in splits.values() if sp.slices > 1] or [0]),
+    })
+
+
+def int8_split(rows: int, cols: int, depth: int, slices: int, tile: int) -> Split:
+    """``depth`` cut into about ``slices`` slices of whole INT8_BK steps
+    (fewer where the steps run out)."""
+    steps = cdiv(depth, INT8_BK)
+    length = cdiv(steps, max(1, min(slices, steps))) * INT8_BK
+    return Split(rows, cols, depth, cdiv(depth, length), length, tile)
+
+
+def make_int8_plan(S: int, m: int, n: int, occ: Tuple[Tuple[int, int], ...], tile: int = 0,
+                   slices: int = 0) -> ServePlan:
+    """The plan of one int8 call (its splits' depth in bytes, slices of
+    whole INT8_BK steps; its workspace in INT8_BUFFERS order, in 4-byte
+    words). ``occ``: (blocks a SM, SMs) of each INT8_TILES kernel.
+    ``tile`` 0 takes serve_tile's rule (64 where its tiles alone fill the
+    64 kernel's resident blocks); ``slices`` 0 cuts each phase's depth as
+    ``split`` does for the grid, else into about that many slices (a
+    forced choice, for the card tests)."""
+    tile = tile or serve_tile(S, m, n, occ[INT8_TILES.index(64)])
+    o = occ[INT8_TILES.index(tile)]
+    shapes = traj_shapes(S, m, n)
+    grid = launch_grid(*o, max(cdiv(r, tile) * cdiv(c, tile) for r, c, _ in shapes.values()))
+    if slices:
+        splits = {k: int8_split(*v, slices, tile) for k, v in shapes.items()}
+    else:
+        splits = {k: split(*v, grid, tile, INT8_BK, 1) for k, v in shapes.items()}
+    return ServePlan(o, grid, splits, int8_workspace(S, m, splits))
+
+
+@functools.lru_cache(maxsize=64)
+def int8_plan(S: int, m: int, n: int, occ: Tuple[Tuple[int, int], ...]) -> ServePlan:
+    """make_int8_plan, computed once per shape and occupancy, so a call
+    pays no Python for it."""
+    return make_int8_plan(S, m, n, occ)
 
 
 # -- the final-layer backward ---------------------------------------------------
@@ -278,8 +344,8 @@ def barriers(K: int) -> int:
 
 
 __all__ = [
-    "ALIGN", "BK", "BWD_BUFFERS", "MIN_STEPS", "PER_SM", "ServePlan", "Split", "TILE", "TILES", "WeightSplit",
-    "barriers", "bwd_plan", "bwd_schedule", "bwd_shapes", "bwd_workspace", "cdiv", "launch_grid",
+    "ALIGN", "BK", "BWD_BUFFERS", "INT8_BK", "INT8_BUFFERS", "INT8_TILES", "MIN_STEPS", "PER_SM", "ServePlan", "Split", "TILE", "TILES", "WeightSplit",
+    "barriers", "bwd_plan", "int8_barriers", "int8_plan", "int8_split", "int8_workspace", "make_int8_plan", "bwd_schedule", "bwd_shapes", "bwd_workspace", "cdiv", "launch_grid",
     "layout", "make_serve_plan", "partial_floats", "serve_plan", "serve_tile", "serve_workspace", "split",
     "traj_plan", "traj_schedule", "traj_shapes", "traj_workspace", "weight_tiles",
 ]

@@ -723,6 +723,149 @@ def test_int8_servers_on_the_card(cuda_device):
         assert np.array_equal(xb, xw.cpu().numpy()) and np.array_equal(zb, zw.cpu().numpy())
 
 
+def _force_int8_plan(monkeypatch, **choice):
+    """Make the int8 wrapper launch with a forced tile and/or depth slices
+    (ops/schedule.make_int8_plan's ``tile`` and ``slices``)."""
+    from dladmm_tpu_torch.ops import schedule
+
+    monkeypatch.setattr(schedule, "int8_plan", lambda *a: schedule.make_int8_plan(*a, **choice))
+
+
+def _assert_bit_equal(got, want):
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, w), int((g != w).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slices", [1, 2, 3, 8])
+@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("m,n,K,S", [(37, 75, 3, 13), (33, 77, 5, 1), (250, 500, 15, 64)])
+def test_int8_kernel_matches_plain_at_every_plan_choice(cuda_device, monkeypatch, m, n, K, S, tile, slices):
+    """Each tile edge and depth split the plan can make (forced: one slice,
+    a few, and as many as the 64-byte steps allow), at odd widths (weight
+    rows of 37, 75 and 33, 77 bytes: staged a byte or two at a time) and
+    at synthetic_small: bit for bit, the plan kept in last_plan."""
+    from dladmm_tpu_torch.ops import cuda_int8
+
+    _force_int8_plan(monkeypatch, tile=tile, slices=slices)
+    b, qp, qd = _int8_case(m, n, K, S, seed=m + S + slices, device=cuda_device)
+    got = cuda_int8.int8_unroll_forward(b, qp, qd)
+    want = cuda_int8.int8_unroll_forward_plain(b, qp, qd)
+    torch.cuda.synchronize()
+    _assert_bit_equal(got, want)
+    occ, grid, splits, k = cuda_int8.int8_unroll_forward.last_plan
+    assert k == K and grid <= occ[0] * occ[1] and all(sp.tile == tile for sp in splits.values())
+    assert all(1 <= sp.slices <= slices for sp in splits.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,K,S", [(250, 500, 15, 256), (1000, 2000, 20, 64)])
+def test_int8_kernel_repeats_bit_for_bit(cuda_device, m, n, K, S):
+    """Row maxima by integer atomics and split-K sums in int32: a second
+    call gives the same bits."""
+    from dladmm_tpu_torch.ops import cuda_int8
+
+    b, qp, qd = _int8_case(m, n, K, S, seed=S + 21, device=cuda_device)
+    one, two = (cuda_int8.int8_unroll_forward(b, qp, qd) for _ in range(2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(one, two))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 64, 256])
+def test_int8_solve_is_one_kernel_under_the_profiler(cuda_device, S):
+    """A solve enqueues the one cooperative kernel and no other device
+    operation (no memset, no copy of the thresholds): every device event
+    the profiler records over three solves is int8_persistent."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dladmm_tpu_torch.ops import cuda_int8
+
+    b, qp, qd = _int8_case(250, 500, 15, S, seed=S + 22, device=cuda_device)
+    qp = qp._replace(theta1=qp.theta1.mean(dim=1, keepdim=True), theta2=qp.theta2.mean(dim=1, keepdim=True))
+    cuda_int8.int8_unroll_forward(b, qp, qd)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            cuda_int8.int8_unroll_forward(b, qp, qd)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    assert names and len(names) <= 3, names
+    assert all("int8_persistent" in name for name in names), names
+
+
+@pytest.mark.gpu
+def test_int8_kernel_raises_when_the_grid_or_plan_is_refused(cuda_device, monkeypatch):
+    """A grid larger than the card holds resident, and a plan whose
+    workspace or split breaks the kernel's layout rules (csrc lay_out):
+    the wrapper raises, counts no launch and leaves no error behind, and
+    the next call runs."""
+    from dladmm_tpu_torch.ops import cuda_int8, schedule
+
+    b, qp, qd = _int8_case(250, 500, 3, 64, seed=23, device=cuda_device)
+    int8_plan = schedule.int8_plan
+
+    def bad_grid(*a):
+        plan = int8_plan(*a)
+        return plan._replace(grid=plan.occ[0] * plan.occ[1] + 1)
+
+    def bad_workspace(*a):
+        plan = int8_plan(*a)
+        ws = dict(plan.workspace)
+        ws["v"] = ws["u"]
+        return plan._replace(workspace=ws)
+
+    def bad_split(*a):
+        plan = int8_plan(*a)
+        sp = dict(plan.splits)
+        sp["ax"] = sp["ax"]._replace(length=sp["ax"].length - 32)
+        return plan._replace(splits=sp)
+
+    for bad in (bad_grid, bad_workspace, bad_split):
+        monkeypatch.setattr(schedule, "int8_plan", bad)
+        before = cuda_int8.int8_unroll_forward.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            cuda_int8.int8_unroll_forward(b, qp, qd)
+        assert cuda_int8.int8_unroll_forward.launches == before
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        _assert_bit_equal(cuda_int8.int8_unroll_forward(b, qp, qd), cuda_int8.int8_unroll_forward_plain(b, qp, qd))
+
+
+@pytest.mark.gpu
+def test_int8_solves_on_two_streams_at_once(cuda_device):
+    """Two int8 solves at once, from two threads on two streams, each a
+    cooperative grid of every block the card holds resident
+    (synthetic_small S = 2048): both finish and equal one call each, bit
+    for bit."""
+    from dladmm_tpu_torch.ops import cuda_int8
+
+    cases = [_int8_case(250, 500, 15, 2048, seed=24 + i, device=cuda_device) for i in range(2)]
+    want = [cuda_int8.int8_unroll_forward(*c) for c in cases]
+    occ, grid, _, _ = cuda_int8.int8_unroll_forward.last_plan
+    assert grid == occ[0] * occ[1]
+    torch.cuda.synchronize()
+    got, start = [None, None], threading.Barrier(2)
+
+    def call(i):
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.default_stream())
+        with torch.cuda.stream(stream):
+            start.wait()
+            got[i] = cuda_int8.int8_unroll_forward(*cases[i])
+            stream.synchronize()
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for g, w in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, w))
+
+
 def _layer_state(m, n, S, seed, device):
     """A state after 2 plain layers, its problem and layer 2's params."""
     from dladmm_tpu_torch.ops.reference import dladmm_layer_step_cached
