@@ -14,6 +14,10 @@ The port of ``dladmm_tpu/models/api.py``:
     collapse into this one rung: the CUDA kernels have no fit gate.
   * ``reference``, or a general B: the plain loop (models.unroll).
 
+bf16 inputs run the same rungs: the whole-unroll kernel's bf16-storage
+variant, or the plain loop in bf16 (the JAX package's scan); the route
+names say bf16 (``kernel_route``, ``plain_route``).
+
 The per-layer fused kernel (ops/cuda_layer.py, the port of
 pallas_layer.py) is no rung here. The JAX policy took it
 ("scan+fused-layer-kernel") only when the whole-unroll kernel fit VMEM
@@ -49,6 +53,7 @@ def select_forward(
     need_trajectory: bool = False,
     identity_B: bool = True,
     device="cuda",
+    dtype=torch.float32,
 ) -> Tuple[Optional[ForwardFn], Optional[Callable], str]:
     """Returns (forward_fn, step_fn, description), as the JAX package's.
 
@@ -56,26 +61,39 @@ def select_forward(
     dladmm_forward's loop. (None, None) means the plain reference loop.
     With need_trajectory, forward_fn returns the stacked (K, S, .)
     trajectory (train/loop.loss_fn's deep-supervision contract).
-    ``device`` only names the route in the description: the kernels'
+    ``device`` and ``dtype`` (the served storage type, float32 or
+    bfloat16) only name the route in the description: the kernels'
     wrappers dispatch on the tensors they are given. n and S are read by
     no rung; they keep the JAX package's signature.
     """
     if kernel not in KERNELS:
         raise ValueError(f"kernel={kernel!r}; the port offers {KERNELS}")
     if kernel == "reference" or not identity_B or d != m:
-        return None, None, "plain-loop-reference"
+        return None, None, plain_route("reference", dtype)
     if need_trajectory:
-        return make_unrolled_trajectory(), None, kernel_route(device, "trajectory")
-    return make_unrolled_forward(), None, kernel_route(device)
+        return make_unrolled_trajectory(), None, kernel_route(device, "trajectory", dtype)
+    return make_unrolled_forward(), None, kernel_route(device, dtype=dtype)
 
 
-def kernel_route(device, kind: str = "whole-unroll") -> str:
+def _bf16(dtype) -> bool:
+    return dtype in (torch.bfloat16, "bfloat16")
+
+
+def kernel_route(device, kind: str = "whole-unroll", dtype=torch.float32) -> str:
     """How a kernel route (``kind``: whole-unroll, trajectory,
     int8-unroll) runs on ``device``: the CUDA kernel on the card, its
-    plain version on the CPU."""
+    plain version on the CPU; bf16 storage says so
+    (``cuda-whole-unroll-bf16-kernel``)."""
+    kind = f"{kind}-bf16" if _bf16(dtype) else kind
     if torch.device(device).type == "cuda":
         return f"cuda-{kind}-kernel"
     return f"{kind}-plain-cpu"
+
+
+def plain_route(kind: str, dtype=torch.float32) -> str:
+    """The name of a plain-loop route (``kind``: reference, general-B,
+    prox), with its dtype where it is bf16 (``plain-loop-bf16-reference``)."""
+    return f"plain-loop-bf16-{kind}" if _bf16(dtype) else f"plain-loop-{kind}"
 
 
 def resolve_forward(
@@ -87,12 +105,13 @@ def resolve_forward(
     need_trajectory: bool = False,
     identity_B: bool = True,
     device="cuda",
+    dtype=torch.float32,
 ) -> Tuple[ForwardFn, str]:
     """select_forward collapsed to ONE callable (params, A, b) ->
     (x, z, lam): the kernel when selected, else the plain loop with the
     selected (or default) step_fn."""
     forward_fn, step_fn, desc = select_forward(
-        m, n, d, S, kernel, need_trajectory, identity_B, device
+        m, n, d, S, kernel, need_trajectory, identity_B, device, dtype
     )
     if forward_fn is None:
         forward_fn = functools.partial(dladmm_forward, step_fn=step_fn)

@@ -7,6 +7,8 @@
 // (TILE or the serving plan's tile, BK). T is 32 (2 x 2 outputs a
 // thread) everywhere but the serving kernel's 64 (4 x 4); BF16 rounds
 // both operands to bf16 as they are staged (the layer step's option).
+// The operands arrive as fp32 whatever their storage (the serving
+// kernel's bf16 storage widens them as it loads them).
 
 #pragma once
 

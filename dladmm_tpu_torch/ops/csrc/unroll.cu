@@ -1,6 +1,7 @@
-// Whole-unroll D-LADMM for Hopper (sm_90a), fp32 throughout: the
-// inference forward, the per-layer step and the trajectory forward of
-// training, each one persistent cooperative launch.
+// Whole-unroll D-LADMM for Hopper (sm_90a), fp32 arithmetic throughout:
+// the inference forward, the per-layer step and the trajectory forward
+// of training, each one persistent cooperative launch. The inference
+// forward and the layer step also take bf16 storage (below).
 //
 // dladmm_unroll_forward replaces the TPU kernel
 // dladmm_tpu/ops/pallas_unroll.py:_unroll_kernel (driven by
@@ -60,6 +61,25 @@
 // synthetic_small all layers' W1 + W2 plus A (11.75 MB) stay in the 50 MB
 // L2.
 //
+// bf16 storage. dladmm_unroll_forward_bf16 and dladmm_layer_step_bf16
+// (unroll_persistent<T, BF16, __nv_bfloat16>) replace _unroll_kernel and
+// _layer_kernel on bf16 refs (serve --dtype=bfloat16; the layer step on
+// bf16 state), and keep their rule: b, A, W1, W2 and the thresholds (and
+// beta, or an fp32 beta) are read as bf16 and widened exactly; the layer
+// runs in fp32 in the order above; only its four stores round to nearest
+// (x1, z1, lam1, Ax1). Within a layer the Ax phase reads the unrounded
+// x1, and v and the dual update the unrounded Ax1; the next layer reads
+// the rounded values. So x and Ax stay in fp32 buffers of the workspace
+// and are rounded where the next layer reads them (layer k > 0), which
+// equals reading a bf16 store; z and lam are stored as bf16 at once (only
+// the next layer reads them); the last layer also writes x (and the
+// step its Ax) as bf16 outputs. The products stay fp32 FMA on the CUDA
+// cores: a bf16 tensor-core product would round the fp32 operand (u, x1
+// or v) and change the result (splitting it into two bf16 halves for
+// wgmma is an open question, PERF.md §7). bf16 storage halves the bytes
+// of the weights (W1 + W2 + A: 375 KB a layer at synthetic_small, 12 MB
+// at synthetic_large) but not the flops, which bound the call.
+//
 // Bound. Per call the work is 2*S*m*(2n+d)*K flops and the bytes are
 // K layers of W1/W2, A, b and the outputs (K times the state for the
 // trajectory); at the shapes the serving and training paths run
@@ -75,12 +95,19 @@
 // thread of the tile's last block, so the serving forward updates x in
 // place; its operand reads Ax_in, which the Ax phase of the same layer
 // overwrites only after the barrier that ends the x phase, so Ax is
-// updated in place too. The trajectory without tAx keeps one Ax scratch
+// updated in place too. With bf16 storage these are the fp32 x and Ax
+// buffers, under the same rule: the x epilogue rounds the old element
+// it then overwrites with the unrounded x1; the Ax phase reads whole rows
+// of x1 after the x phase's barrier, the z phase Ax1 after the Ax
+// phase's; the bf16 x output is written by the last layer and read by
+// nobody in the call. The trajectory without tAx keeps one Ax scratch
 // buffer under the same rule. The layer step reads the caller's state
-// and writes fresh buffers. State written in the call is read with
-// __ldcg (L2, never a stale L1 line); the weights with __ldg. Layer 0 of
-// the serving forward reads the zero state through a block-uniform
-// branch, so nothing is cleared before the launch but the counters.
+// and writes fresh buffers (on bf16 state its x1 and Ax1 also go to the
+// fp32 buffers, which the Ax and z phases read). State written in the
+// call is read with __ldcg (L2, never a stale L1 line); the weights with
+// __ldg. Layer 0 of the serving forward reads the zero state through a
+// block-uniform branch, so nothing is cleared before the launch but the
+// counters.
 //
 // Plain C interface, loaded with ctypes (dladmm_tpu_torch/ops/cuda_unroll.py,
 // ops/cuda_traj.py and ops/cuda_layer.py).
@@ -242,14 +269,35 @@ __global__ void __launch_bounds__(kPT, 4) traj_persistent(const TrajArgs a) {
 
 // -- the persistent serving forward and layer step -------------------------
 
+// Storage types of the serving kernel's weights, b, thresholds and state:
+// float, or __nv_bfloat16 (bf16 storage, fp32 arithmetic: every value is
+// widened exactly where it is read and rounded to nearest only where a
+// layer stores x1, z1, lam1 and Ax1).
+__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float ldcg(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+// v as a bf16 store would hold it.
+__device__ __forceinline__ float rounded(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+template <class TS>
 struct ServeArgs {
-  const float *b, *A, *W1, *W2, *th1, *th2, *beta;
-  int th1_k, th1_c, th2_k, th2_c;  // threshold strides (layer, column); column 0: a (K, 1) scalar
+  const TS *b, *A, *W1, *W2, *th1, *th2;
+  const float* beta;                // (K,) fp32, or null where beta16 is given
+  const __nv_bfloat16* beta16;      // (K,) bf16 (bf16 storage only), or null
+  int th1_k, th1_c, th2_k, th2_c;   // threshold strides (layer, column); column 0: a (K, 1) scalar
   // Layer 0's input state: the layer step's (x, z, lam, Ax); all null
   // for the serving forward, whose layer 0 reads the zero state.
-  const float *x0, *z0, *lam0, *ax0;
-  float *x, *ax;                    // x and Ax after each layer, in place from layer 1 on
-  float *z[2], *lam[2];             // layer k writes pair (K - 1 - k) & 1: the last, pair 0
+  const TS *x0, *z0, *lam0, *ax0;
+  float *x, *ax;                    // x and Ax after each layer, fp32 and unrounded, in place from layer 1 on
+  TS *xo, *axo;                     // bf16 storage: x of the last layer and (the step) its Ax, rounded; else null
+  TS *z[2], *lam[2];                // layer k writes pair (K - 1 - k) & 1: the last, pair 0
   float* part;                      // split-K partials
   int* cnt;                         // one counter a tile
   int S, m, n, K, prox_x, prox_z;
@@ -257,21 +305,31 @@ struct ServeArgs {
   Split sx, sax, sz;                // the x, Ax and z phases' depth splits
 };
 
-// One phase of layer k over all its items on T x T tiles.
-template <int PHASE, int T, bool BF16>
-__device__ void serve_phase(const ServeArgs& a, TileSmemT<T>& sm, int k) {
+// One phase of layer k over all its items on T x T tiles. With bf16
+// storage (TS = __nv_bfloat16) the x and Ax the previous layer left in
+// the fp32 buffers are read rounded, as that layer stored them; this
+// layer's Ax1 feeds v and the dual update unrounded, and x1 the Ax
+// product.
+template <int PHASE, int T, bool BF16, class TS>
+__device__ void serve_phase(const ServeArgs<TS>& a, TileSmemT<T>& sm, int k) {
   constexpr int TM = T / kPR, TN = T / kPC;
+  constexpr bool S16 = sizeof(TS) == 2;
   const int S = a.S, m = a.m, n = a.n;
   const int N = PHASE == PHASE_X ? n : m, depth = PHASE == PHASE_AX ? n : m;
   const Split sp = PHASE == PHASE_X ? a.sx : (PHASE == PHASE_AX ? a.sax : a.sz);
-  const float beta = fmaxf(__ldg(a.beta + k), 1e-6f), inv_beta = 1.0f / beta;
-  const float* x_in = k ? a.x : a.x0;
-  const float* z_in = k ? ((a.K - k) & 1 ? a.z[1] : a.z[0]) : a.z0;
-  const float* lam_in = k ? ((a.K - k) & 1 ? a.lam[1] : a.lam[0]) : a.lam0;
-  const float* ax_in = k ? a.ax : a.ax0;
-  const bool zero = x_in == nullptr;  // the zero state (serving, layer 0)
-  const float* w = PHASE == PHASE_X ? a.W1 + (size_t)k * n * m : a.W2 + (size_t)k * m * m;
-  const float* th = PHASE == PHASE_X ? a.th1 + (size_t)k * a.th1_k : a.th2 + (size_t)k * a.th2_k;
+  const float beta = fmaxf(a.beta16 ? __bfloat162float(a.beta16[k]) : __ldg(a.beta + k), 1e-6f);
+  const float inv_beta = 1.0f / beta;
+  const TS* z_in = k ? ((a.K - k) & 1 ? a.z[1] : a.z[0]) : a.z0;
+  const TS* lam_in = k ? ((a.K - k) & 1 ? a.lam[1] : a.lam[0]) : a.lam0;
+  const bool zero = k == 0 && a.x0 == nullptr;  // the zero state (serving, layer 0)
+  // The previous layer's x or Ax as it stored them (layer 0: the input).
+  auto state = [&](const float* p, const TS* p0, size_t o) {
+    if (k == 0) return ldcg(p0 + o);
+    const float v = __ldcg(p + o);
+    return S16 ? rounded(v) : v;
+  };
+  const TS* w = PHASE == PHASE_X ? a.W1 + (size_t)k * n * m : a.W2 + (size_t)k * m * m;
+  const TS* th = PHASE == PHASE_X ? a.th1 + (size_t)k * a.th1_k : a.th2 + (size_t)k * a.th2_k;
   const int th_c = PHASE == PHASE_X ? a.th1_c : a.th2_c;
   const int prox = PHASE == PHASE_X ? a.prox_x : a.prox_z;
   const float scale = PHASE == PHASE_X ? a.scale_x : a.scale_z;
@@ -287,23 +345,26 @@ __device__ void serve_phase(const ServeArgs& a, TileSmemT<T>& sm, int k) {
       tile_gemm<true, true, T, BF16>(
           sm, S, m, row0, col0, k_lo, k_hi,
           [&](int r, int q) { return __ldcg(a.x + (size_t)r * n + q); },
-          [&](int c, int q) { return __ldg(a.A + (size_t)c * n + q); }, acc);
+          [&](int c, int q) { return ldg(a.A + (size_t)c * n + q); }, acc);
     } else {
       // u (x phase) or v (z phase) = Ax + (z - b + lam / beta).
-      const float* axo = PHASE == PHASE_X ? ax_in : a.ax;
       tile_gemm<true, true, T, BF16>(
           sm, S, N, row0, col0, k_lo, k_hi,
           [&](int r, int q) {
             const size_t o = (size_t)r * m + q;
             float zi = 0.0f, li = 0.0f, ai = 0.0f;
             if (!zero) {
-              zi = __ldcg(z_in + o);
-              li = __ldcg(lam_in + o);
+              zi = ldcg(z_in + o);
+              li = ldcg(lam_in + o);
             }
-            if (PHASE == PHASE_Z || !zero) ai = __ldcg(axo + o);
-            return ai + ((zi - __ldg(a.b + o)) + li * inv_beta);
+            if (PHASE == PHASE_Z) {
+              ai = __ldcg(a.ax + o);
+            } else if (!zero) {
+              ai = state(a.ax, a.ax0, o);
+            }
+            return ai + ((zi - ldg(a.b + o)) + li * inv_beta);
           },
-          [&](int c, int q) { return __ldg(w + (size_t)c * m + q); }, acc);
+          [&](int c, int q) { return ldg(w + (size_t)c * m + q); }, acc);
     }
     // The epilogue: its inputs e (x_in; or z_in, lam_in, Ax, b) and the
     // column's threshold do not depend on the sum. The 32 tile loads them
@@ -315,33 +376,45 @@ __device__ void serve_phase(const ServeArgs& a, TileSmemT<T>& sm, int k) {
       e[0] = e[1] = e[2] = e[3] = 0.0f;
       if (r >= S || c >= N) return;
       if constexpr (PHASE == PHASE_X) {
-        if (!zero) e[0] = __ldcg(x_in + (size_t)r * n + c);
+        if (!zero) e[0] = state(a.x, a.x0, (size_t)r * n + c);
       } else if constexpr (PHASE == PHASE_Z) {
         const size_t o = (size_t)r * m + c;
         if (!zero) {
-          e[0] = __ldcg(z_in + o);
-          e[1] = __ldcg(lam_in + o);
+          e[0] = ldcg(z_in + o);
+          e[1] = ldcg(lam_in + o);
         }
         e[2] = __ldcg(a.ax + o);
-        e[3] = __ldg(a.b + o);
+        e[3] = ldg(a.b + o);
       }
     };
     auto theta = [&](int j) {
       const int c = col0 + tc + j * kPC;
-      return PHASE != PHASE_AX && c < N ? __ldg(th + (size_t)c * th_c) : 0.0f;
+      return PHASE != PHASE_AX && c < N ? ldg(th + (size_t)c * th_c) : 0.0f;
     };
     auto output = [&](int i, int j, const float (&e)[4], float sum, float t) {
       const int r = row0 + tr + i * kPR, c = col0 + tc + j * kPC;
       if (r >= S || c >= N) return;
       if constexpr (PHASE == PHASE_X) {
-        a.x[(size_t)r * n + c] = prox_of(prox, e[0] - sum, t, scale);
+        const size_t o = (size_t)r * n + c;
+        const float x1 = prox_of(prox, e[0] - sum, t, scale);
+        a.x[o] = x1;
+        if constexpr (S16) {
+          if (k + 1 == a.K) put(a.xo + o, x1);
+        }
       } else if constexpr (PHASE == PHASE_AX) {
-        a.ax[(size_t)r * m + c] = sum;
+        const size_t o = (size_t)r * m + c;
+        a.ax[o] = sum;
+        if constexpr (S16) {
+          if (a.axo != nullptr) put(a.axo + o, sum);
+        }
       } else {
         const size_t o = (size_t)r * m + c;
         const float z1 = prox_of(prox, e[0] - sum, t, scale);
-        ((a.K - 1 - k) & 1 ? a.z[1] : a.z[0])[o] = z1;
-        ((a.K - 1 - k) & 1 ? a.lam[1] : a.lam[0])[o] = e[1] + beta * ((e[2] + z1) - e[3]);
+        const float lam1 = e[1] + beta * ((e[2] + z1) - e[3]);
+        TS* zo = (a.K - 1 - k) & 1 ? a.z[1] : a.z[0];
+        TS* lo = (a.K - 1 - k) & 1 ? a.lam[1] : a.lam[0];
+        put(zo + o, z1);
+        put(lo + o, lam1);
       }
     };
     if constexpr (T == kT) {
@@ -376,24 +449,31 @@ __device__ void serve_phase(const ServeArgs& a, TileSmemT<T>& sm, int k) {
 // All K layers in one cooperative launch: x, Ax, z phases a layer with a
 // grid barrier after each but the last. The 32 tile keeps the
 // trajectory's 4 blocks a SM; the 64 tile asks for 2.
-template <int T, bool BF16>
-__global__ void __launch_bounds__(kPT, T == kT ? 4 : 2) unroll_persistent(const ServeArgs a) {
+template <int T, bool BF16, class TS>
+__global__ void __launch_bounds__(kPT, T == kT ? 4 : 2) unroll_persistent(const ServeArgs<TS> a) {
   __shared__ TileSmemT<T> sm;
   cg::grid_group grid = cg::this_grid();
   for (int k = 0; k < a.K; ++k) {
-    serve_phase<PHASE_X, T, BF16>(a, sm, k);
+    serve_phase<PHASE_X, T, BF16, TS>(a, sm, k);
     grid.sync();
-    serve_phase<PHASE_AX, T, BF16>(a, sm, k);
+    serve_phase<PHASE_AX, T, BF16, TS>(a, sm, k);
     grid.sync();
-    serve_phase<PHASE_Z, T, BF16>(a, sm, k);
+    serve_phase<PHASE_Z, T, BF16, TS>(a, sm, k);
     if (k + 1 < a.K) grid.sync();
   }
 }
 
-// The instantiation of a tile edge and staging, or null.
+// The instantiation of a tile edge, staging and storage, or null.
+template <class TS>
 const void* serve_kernel(int tile, int bf16) {
-  if (tile == 32) return bf16 ? (const void*)unroll_persistent<32, true> : (const void*)unroll_persistent<32, false>;
-  if (tile == 64) return bf16 ? (const void*)unroll_persistent<64, true> : (const void*)unroll_persistent<64, false>;
+  if (tile == 32) return bf16 ? (const void*)unroll_persistent<32, true, TS> : (const void*)unroll_persistent<32, false, TS>;
+  if (tile == 64) return bf16 ? (const void*)unroll_persistent<64, true, TS> : (const void*)unroll_persistent<64, false, TS>;
+  return nullptr;
+}
+
+const void* serve_kernel(int tile, int bf16, int storage) {
+  if (storage == 0) return serve_kernel<float>(tile, bf16);
+  if (storage == 1) return serve_kernel<__nv_bfloat16>(tile, bf16);
   return nullptr;
 }
 
@@ -401,11 +481,13 @@ const void* serve_kernel(int tile, int bf16) {
 // `grid` blocks of the chosen instantiation on `stream`. A refused launch
 // (a grid the card cannot hold resident) runs nothing; its error is
 // cleared for later launches' checks and returned.
-cudaError_t launch_serve(ServeArgs& a, int n_counters, int tile, int bf16, int grid,
+template <class TS>
+cudaError_t launch_serve(ServeArgs<TS>& a, int n_counters, int tile, int bf16, int grid,
                          int device, cudaStream_t stream) {
-  const void* fn = serve_kernel(tile, bf16);
+  const void* fn = serve_kernel<TS>(tile, bf16);
   if (fn == nullptr || a.S < 1 || a.m < 1 || a.n < 1 || a.K < 1 || grid < 1 ||
-      a.sx.len < 1 || a.sax.len < 1 || a.sz.len < 1)
+      a.sx.len < 1 || a.sax.len < 1 || a.sz.len < 1 || (a.beta == nullptr) == (a.beta16 == nullptr) ||
+      a.x == nullptr || a.ax == nullptr)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess && n_counters > 0)
@@ -421,6 +503,39 @@ cudaError_t launch_serve(ServeArgs& a, int n_counters, int tile, int bf16, int g
 __global__ void __launch_bounds__(kPT) barrier_probe(int iters) {
   cg::grid_group grid = cg::this_grid();
   for (int i = 0; i < iters; ++i) grid.sync();
+}
+
+// The serving forward of either storage (the C entries below).
+template <class TS>
+int unroll_forward(const TS* b, const TS* A, const TS* W1, const TS* W2, const TS* th1, const TS* th2,
+                   const float* beta, const __nv_bfloat16* beta16, float* x, TS* xo, TS* z, TS* lam,
+                   TS* z_tmp, TS* lam_tmp, float* ax, float* partials, int* counters, int th1_k,
+                   int th1_c, int th2_k, int th2_c, int n_counters, int S, int m, int n, int K,
+                   int prox_x, int prox_z, float scale_x, float scale_z, int tile, int grid,
+                   const Split (&sp)[3], int device, void* stream_handle) {
+  if (prox_x < PROX_L1 || prox_x > PROX_ELASTIC_NET || prox_z < PROX_L1 || prox_z > PROX_ELASTIC_NET)
+    return (int)cudaErrorInvalidValue;
+  ServeArgs<TS> a{b, A, W1, W2, th1, th2, beta, beta16, th1_k, th1_c, th2_k, th2_c,
+                  nullptr, nullptr, nullptr, nullptr,  // layer 0 reads the zero state
+                  x, ax, xo, nullptr,                  // x, Ax in place: see Races
+                  {z, z_tmp}, {lam, lam_tmp}, partials, counters,
+                  S, m, n, K, prox_x, prox_z, scale_x, scale_z, sp[0], sp[1], sp[2]};
+  return (int)launch_serve(a, n_counters, tile, 0, grid, device, static_cast<cudaStream_t>(stream_handle));
+}
+
+// One l1 layer of either storage (the C entries below).
+template <class TS>
+int layer_step(const TS* b, const TS* A, const TS* W1, const TS* W2, const TS* th1, const TS* th2,
+               const float* beta, const TS* x, const TS* z, const TS* lam, const TS* ax, float* xw,
+               TS* xo, TS* z1, TS* lam1, float* axw, TS* axo, float* partials, int* counters,
+               int n_counters, int S, int m, int n, int bf16, int tile, int grid, const Split (&sp)[3],
+               int device, void* stream_handle) {
+  if (x == nullptr || z == nullptr || lam == nullptr || ax == nullptr) return (int)cudaErrorInvalidValue;
+  ServeArgs<TS> a{b, A, W1, W2, th1, th2, beta, nullptr, 0, 1, 0, 1, x, z, lam, ax,
+                  xw, axw, xo, axo, {z1, nullptr}, {lam1, nullptr}, partials, counters,
+                  S, m, n, 1, PROX_L1, PROX_L1, 1.0f, 1.0f, sp[0], sp[1], sp[2]};
+  return (int)launch_serve(a, n_counters, tile, bf16 != 0, grid, device,
+                           static_cast<cudaStream_t>(stream_handle));
 }
 
 }  // namespace
@@ -444,21 +559,40 @@ extern "C" int dladmm_unroll_forward(
     int K, int prox_x, int prox_z, float scale_x, float scale_z, int tile, int grid,
     int x_slices, int x_len, int ax_slices, int ax_len, int z_slices, int z_len,
     int device, void* stream_handle) {
-  if (prox_x < PROX_L1 || prox_x > PROX_ELASTIC_NET || prox_z < PROX_L1 || prox_z > PROX_ELASTIC_NET)
-    return (int)cudaErrorInvalidValue;
-  ServeArgs a{b, A, W1, W2, th1, th2, beta, th1_k, th1_c, th2_k, th2_c,
-              nullptr, nullptr, nullptr, nullptr,  // layer 0 reads the zero state
-              x, ax, {z, z_tmp}, {lam, lam_tmp}, partials, counters,  // x, Ax in place: see Races
-              S, m, n, K, prox_x, prox_z, scale_x, scale_z,
-              Split{x_slices, x_len}, Split{ax_slices, ax_len}, Split{z_slices, z_len}};
-  return (int)launch_serve(a, n_counters, tile, 0, grid, device, static_cast<cudaStream_t>(stream_handle));
+  const Split sp[3] = {{x_slices, x_len}, {ax_slices, ax_len}, {z_slices, z_len}};
+  return unroll_forward<float>(b, A, W1, W2, th1, th2, beta, nullptr, x, nullptr, z, lam, z_tmp, lam_tmp, ax,
+                               partials, counters, th1_k, th1_c, th2_k, th2_c, n_counters, S, m, n, K,
+                               prox_x, prox_z, scale_x, scale_z, tile, grid, sp, device, stream_handle);
 }
 
-// Blocks of unroll_persistent<tile, bf16> resident on one SM, and the
-// card's SMs: the grid ceiling of its cooperative launch
-// (ops/schedule.serve_plan).
-extern "C" int dladmm_unroll_occupancy(int tile, int bf16, int device, int* blocks_per_sm, int* sms) {
-  const void* fn = serve_kernel(tile, bf16);
+// dladmm_unroll_forward with bf16 storage: b, A, W1, W2, th1, th2 and
+// the outputs x, z, lam (and the scratch z_tmp, lam_tmp) are bf16; beta
+// is fp32 (`beta`) or bf16 (`beta16`), the other null. Arithmetic is
+// fp32, rounded where a layer stores its state; the workspace holds that
+// state's fp32 x (S,n) and Ax (S,m) between the phases (`x_work`,
+// `ax_work`). Returns a cudaError_t.
+extern "C" int dladmm_unroll_forward_bf16(
+    const __nv_bfloat16* b, const __nv_bfloat16* A, const __nv_bfloat16* W1, const __nv_bfloat16* W2,
+    const __nv_bfloat16* th1, const __nv_bfloat16* th2, const float* beta, const __nv_bfloat16* beta16,
+    __nv_bfloat16* x, __nv_bfloat16* z, __nv_bfloat16* lam, __nv_bfloat16* z_tmp, __nv_bfloat16* lam_tmp,
+    float* ax_work, float* x_work, float* partials, int* counters,
+    int th1_k, int th1_c, int th2_k, int th2_c, int n_counters, int S, int m, int n,
+    int K, int prox_x, int prox_z, float scale_x, float scale_z, int tile, int grid,
+    int x_slices, int x_len, int ax_slices, int ax_len, int z_slices, int z_len,
+    int device, void* stream_handle) {
+  const Split sp[3] = {{x_slices, x_len}, {ax_slices, ax_len}, {z_slices, z_len}};
+  return unroll_forward<__nv_bfloat16>(b, A, W1, W2, th1, th2, beta, beta16, x_work, x, z, lam, z_tmp,
+                                       lam_tmp, ax_work, partials, counters, th1_k, th1_c, th2_k, th2_c,
+                                       n_counters, S, m, n, K, prox_x, prox_z, scale_x, scale_z, tile,
+                                       grid, sp, device, stream_handle);
+}
+
+// Blocks of unroll_persistent<tile, bf16, storage> (storage 0: fp32, 1:
+// bf16) resident on one SM, and the card's SMs: the grid ceiling of its
+// cooperative launch (ops/schedule.serve_plan).
+extern "C" int dladmm_unroll_occupancy(int tile, int bf16, int storage, int device, int* blocks_per_sm,
+                                       int* sms) {
+  const void* fn = serve_kernel(tile, bf16, storage);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kPT, 0);
@@ -538,13 +672,30 @@ extern "C" int dladmm_layer_step(
     float* lam1, float* ax1, float* partials, int* counters, int n_counters, int S, int m,
     int n, int bf16, int tile, int grid, int x_slices, int x_len, int ax_slices, int ax_len,
     int z_slices, int z_len, int device, void* stream_handle) {
-  if (x == nullptr || z == nullptr || lam == nullptr || ax == nullptr) return (int)cudaErrorInvalidValue;
-  ServeArgs a{b, A, W1, W2, th1, th2, beta, 0, 1, 0, 1, x, z, lam, ax,
-              x1, ax1, {z1, nullptr}, {lam1, nullptr}, partials, counters,
-              S, m, n, 1, PROX_L1, PROX_L1, 1.0f, 1.0f,
-              Split{x_slices, x_len}, Split{ax_slices, ax_len}, Split{z_slices, z_len}};
-  return (int)launch_serve(a, n_counters, tile, bf16 != 0, grid, device,
-                           static_cast<cudaStream_t>(stream_handle));
+  const Split sp[3] = {{x_slices, x_len}, {ax_slices, ax_len}, {z_slices, z_len}};
+  return layer_step<float>(b, A, W1, W2, th1, th2, beta, x, z, lam, ax, x1, nullptr, z1, lam1, ax1,
+                           nullptr, partials, counters, n_counters, S, m, n, bf16, tile, grid, sp,
+                           device, stream_handle);
+}
+
+// dladmm_layer_step on bf16 state: b, A, W1, W2, th1, th2, the state
+// x, z, lam, ax and the outputs x1, z1, lam1, ax1 are bf16, beta fp32.
+// The layer runs in fp32 and rounds only its four stores; the fresh x1
+// and Ax1 stay fp32 in the workspace (`x_work` (S,n), `ax_work` (S,m))
+// for the Ax and z phases, which read them unrounded. Returns a
+// cudaError_t.
+extern "C" int dladmm_layer_step_bf16(
+    const __nv_bfloat16* b, const __nv_bfloat16* A, const __nv_bfloat16* W1, const __nv_bfloat16* W2,
+    const __nv_bfloat16* th1, const __nv_bfloat16* th2, const float* beta, const __nv_bfloat16* x,
+    const __nv_bfloat16* z, const __nv_bfloat16* lam, const __nv_bfloat16* ax, __nv_bfloat16* x1,
+    __nv_bfloat16* z1, __nv_bfloat16* lam1, __nv_bfloat16* ax1, float* ax_work, float* x_work,
+    float* partials, int* counters, int n_counters, int S, int m, int n, int bf16, int tile, int grid,
+    int x_slices, int x_len, int ax_slices, int ax_len, int z_slices, int z_len, int device,
+    void* stream_handle) {
+  const Split sp[3] = {{x_slices, x_len}, {ax_slices, ax_len}, {z_slices, z_len}};
+  return layer_step<__nv_bfloat16>(b, A, W1, W2, th1, th2, beta, x, z, lam, ax, x_work, x1, z1, lam1,
+                                   ax_work, ax1, partials, counters, n_counters, S, m, n, bf16, tile,
+                                   grid, sp, device, stream_handle);
 }
 
 extern "C" const char* dladmm_cuda_error_string(int err) {

@@ -21,8 +21,12 @@ The step_fn from ``make_fused_step`` plugs into
 backward, as the JAX package's custom VJP, recomputes the plain fp32
 step under autograd and returns its vector-Jacobian product
 (pallas_layer.py:221-228). ``matmul_dtype=torch.bfloat16`` rounds both
-operands of each product to bf16 (fp32 accumulation and state), as
-``_dot_t`` does; state in bf16 is not ported (ROADMAP.md §1, bf16).
+operands of each product to bf16 (fp32 accumulation), as ``_dot_t``
+does. The state may be bf16 (with A, b, the weights and the thresholds
+in bf16, beta fp32): the layer then runs in fp32 and rounds only the
+four values it stores, as ``_layer_kernel`` on bf16 refs does; the
+kernel keeps the fresh x1 and Ax1 in fp32 until its Ax and z phases have
+read them (``dladmm_layer_step_bf16``).
 
 Eligibility. The TPU kernel kept every weight resident in VMEM
 (``weights_fit_vmem``, ~13 MB); the CUDA kernel streams weights through
@@ -52,10 +56,8 @@ SRC = cuda_build.CSRC / "unroll.cu"
 
 _count_lock = threading.Lock()
 _ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
-_BF16_LATER = (
-    "bf16 state in the fused layer step is not ported yet; it is the bf16 "
-    "item of ROADMAP.md §1 (matmul_dtype=torch.bfloat16 keeps fp32 state)"
-)
+# dladmm_layer_step_bf16: the fp32 homes of x1 and Ax1 more.
+_ARGTYPES_BF16 = [ctypes.c_void_p] * 2 + _ARGTYPES
 
 
 def _check_matmul_dtype(matmul_dtype) -> None:
@@ -71,8 +73,16 @@ def _bf16_dot_t(v: Tensor, M: Tensor) -> Tensor:
 def layer_step_plain(b, A, x, z, lam, Ax, W1, W2, th1, th2, beta, matmul_dtype=None):
     """The kernel's function in plain PyTorch: one cached l1 layer
     (B = I) -> (x1, z1, lam1, Ax1). With bf16 operands, the same
-    recurrence with each product's operands rounded to bf16."""
+    recurrence with each product's operands rounded to bf16. On bf16
+    state (bf16 b, A, x, z, lam, Ax, weights and thresholds; fp32 beta)
+    the layer runs in fp32 on the widened inputs and only its four
+    outputs round to bf16, as the JAX package's ``_layer_kernel`` stores
+    them."""
     _check_matmul_dtype(matmul_dtype)
+    if b.dtype == torch.bfloat16:
+        args = (b, A, x, z, lam, Ax, W1, W2, th1, th2, beta)
+        out = layer_step_plain(*(t.float() for t in args), matmul_dtype=matmul_dtype)
+        return tuple(t.to(torch.bfloat16) for t in out)
     beta = beta.reshape(())
     if matmul_dtype is None:
         x1, z1, lam1, Ax1, _ = dladmm_layer_step_cached(
@@ -91,15 +101,23 @@ def layer_step(b, A, x, z, lam, Ax, W1, W2, th1, th2, beta, matmul_dtype=None):
     """One l1 layer of D-LADMM (B = I) -> fresh (x1, z1, lam1, Ax1).
 
     b, z, lam, Ax (S, m); x (S, n); A (m, n); W1 (n, m); W2 (m, m);
-    th1 (n,); th2 (m,); beta (1,); all float32, contiguous, on one
-    device. CUDA tensors launch the kernel; CPU tensors run the plain
-    version. Each kernel launch adds one to ``layer_step.launches`` and
-    leaves the plan it launched with in ``layer_step.last_plan`` ((blocks
-    a SM, SMs), grid, {phase: Split}, 1)."""
+    th1 (n,); th2 (m,): all float32, or all bfloat16 (bf16 state, outputs
+    in bf16); beta (1,) float32; contiguous, on one device. CUDA tensors
+    launch the kernel; CPU tensors run the plain version. Each kernel
+    launch adds one to ``layer_step.launches`` and leaves the plan it
+    launched with in ``layer_step.last_plan`` ((blocks a SM, SMs), grid,
+    {phase: Split}, 1)."""
     _check_matmul_dtype(matmul_dtype)
     tensors = {"A": A, "x": x, "z": z, "lam": lam, "Ax": Ax, "W1": W1, "W2": W2,
                "theta1": th1, "theta2": th2, "beta": beta}
     cuda_build.check_same_device(b, tensors)
+    storage = b.dtype
+    if storage not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"b is {storage}; the kernel takes float32 or bfloat16 state")
+    for name, t in tensors.items():
+        want = torch.float32 if name == "beta" else storage
+        if t.dtype != want:
+            raise TypeError(f"{name} is {t.dtype}; the kernel takes {want} here (b is {storage}, beta float32)")
     if b.device.type == "cpu":
         return layer_step_plain(b, A, x, z, lam, Ax, W1, W2, th1, th2, beta, matmul_dtype)
     if b.device.type != "cuda":
@@ -112,25 +130,30 @@ def layer_step(b, A, x, z, lam, Ax, W1, W2, th1, th2, beta, matmul_dtype=None):
     for name, (t, shape) in expect.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape} (B = I)")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}; the kernel takes float32")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
     if S < 1:
         raise ValueError(f"need S >= 1, got S={S}")
-    launch = cuda_build.entry(SRC, "dladmm_layer_step", _ARGTYPES)
+    bf16_state = storage == torch.bfloat16
+    if bf16_state:
+        launch = cuda_build.entry(SRC, "dladmm_layer_step_bf16", _ARGTYPES_BF16)
+        homes = ("ax", "x")  # the fp32 x1 and Ax1 the Ax and z phases read
+    else:
+        launch = cuda_build.entry(SRC, "dladmm_layer_step", _ARGTYPES)
+        homes = ()
     bf16 = matmul_dtype is not None
     dev = b.device.index
-    plan = plan_for(S, m, n, dev, bf16, False)
+    plan = plan_for(S, m, n, dev, bf16, False, bf16_state)
     ws, sp = plan.workspace, plan.splits
     with torch.cuda.device(b.device):
         x1 = torch.empty_like(x)
-        z1, lam1, Ax1 = torch.empty((3, S, m), dtype=torch.float32, device=b.device).unbind()
+        z1, lam1, Ax1 = torch.empty((3, S, m), dtype=storage, device=b.device).unbind()
         work = torch.empty((ws["_total"][0],), dtype=torch.float32, device=b.device)
+        at = lambda name: work.data_ptr() + 4 * ws[name][0]  # noqa: E731
         stream = torch.cuda.current_stream(b.device).cuda_stream
         err = launch(
             *(t.data_ptr() for t in (b, A, W1, W2, th1, th2, beta, x, z, lam, Ax, x1, z1, lam1, Ax1)),
-            work.data_ptr() + 4 * ws["partials"][0], work.data_ptr() + 4 * ws["counters"][0],
+            *(at(name) for name in (*homes, "partials", "counters")),
             ws["counters"][1], S, m, n, int(bf16), plan.tile, plan.grid,
             *(v for ph in ("x", "ax", "z") for v in (sp[ph].slices, sp[ph].length)), dev, stream,
         )
@@ -147,8 +170,11 @@ layer_step.last_plan = None
 
 class _FusedLayer(torch.autograd.Function):
     """``layer_step``'s arguments -> (x1, z1, lam1, Ax1) through it; the
-    backward rematerializes the plain fp32 step (B = I) from the saved
-    inputs and returns its VJP."""
+    backward rematerializes the plain step (B = I) from the saved inputs
+    and returns its VJP. On bf16 state that step runs on the widened
+    inputs and its outputs are fp32, as the JAX package's reference step
+    promotes them through its fp32 beta: the cotangents are aligned to
+    them, and each gradient comes back in its leaf's dtype."""
 
     @staticmethod
     def forward(ctx, matmul_dtype, *args):
@@ -160,7 +186,8 @@ class _FusedLayer(torch.autograd.Function):
         need = ctx.needs_input_grad[1:]
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
-            outs, cts = zip(*((o, c) for o, c in zip(layer_step_plain(*leaves), cts) if o.requires_grad))
+            outs = layer_step_plain(*(t.float() for t in leaves))
+            outs, cts = zip(*((o, c.to(o.dtype)) for o, c in zip(outs, cts) if o.requires_grad))
             wrt = [t for t, n in zip(leaves, need) if n]
             grads = iter(torch.autograd.grad(outs, wrt, cts, allow_unused=True))
         return (None, *(next(grads) if n else None for n in need))
@@ -170,20 +197,21 @@ def make_fused_step(block_s: int = 256, matmul_dtype=None):
     """A cached-signature step_fn through the layer kernel, for
     ``dladmm_forward(step_fn=...)`` and, with autograd, for
     ``train.loop.make_train_step(step_fn=...)``. A general B goes to the
-    plain step (the kernel is B = I). ``block_s`` is kept for the JAX
-    package's signature and ignored (module docstring)."""
+    plain step (the kernel is B = I). The state may be float32 or
+    bfloat16 (then A, b and the weights are too); the thresholds are
+    cast to the state's type and beta to float32, as the JAX package's
+    step_fn does. ``block_s`` is kept for the JAX package's signature
+    and ignored (module docstring)."""
     _check_matmul_dtype(matmul_dtype)
 
     def step_fn(A, B, b, x, z, lam, Ax, Bz, p: LayerParams):
         if B is not None:
             return dladmm_layer_step_cached(A, B, b, x, z, lam, Ax, Bz, p)
-        if any(t.dtype != torch.float32 for t in (A, b, x, z, lam, Ax, *p)):
-            raise NotImplementedError(_BF16_LATER)
         n, m = p.W1.shape
-        th1 = p.theta1.reshape(-1).expand(n).contiguous()
-        th2 = p.theta2.reshape(-1).expand(m).contiguous()
+        th1 = p.theta1.reshape(-1).to(x.dtype).expand(n).contiguous()
+        th2 = p.theta2.reshape(-1).to(z.dtype).expand(m).contiguous()
         x1, z1, lam1, Ax1 = _FusedLayer.apply(
-            matmul_dtype, b, A, x, z, lam, Ax, p.W1, p.W2, th1, th2, p.beta.reshape(1)
+            matmul_dtype, b, A, x, z, lam, Ax, p.W1, p.W2, th1, th2, p.beta.reshape(1).float()
         )
         return x1, z1, lam1, Ax1, z1
 

@@ -154,35 +154,45 @@ class ServePlan(NamedTuple):
         return self.splits["x"].tile
 
 
-def serve_workspace(S: int, m: int, splits: Dict[str, Split], scratch: bool) -> Dict[str, Tuple[int, int]]:
-    """{buffer: (offset, floats)}: with ``scratch`` (the serving forward)
+def serve_workspace(S: int, m: int, n: int, splits: Dict[str, Split], scratch: bool,
+                    bf16_state: bool = False) -> Dict[str, Tuple[int, int]]:
+    """{buffer: (offset, words)}: with ``scratch`` (the serving forward)
     the second z / lam pair and Ax, (S, m) each; the split-K partials and
-    one int32 counter per tile of the widest split phase (none unsplit)."""
+    one int32 counter per tile of the widest split phase (none unsplit).
+    With ``bf16_state`` (bf16 storage, csrc/unroll.cu) the z / lam pair is
+    bf16 (half the words), and the workspace also holds the fp32 Ax (S, m)
+    and x (S, n) that the layers' phases pass on unrounded, for the
+    serving forward and the layer step alike."""
     sm = S * m if scratch else 0
+    sizes = {"z_tmp": sm, "lam_tmp": sm, "ax": sm}
+    if bf16_state:
+        sizes = {"z_tmp": cdiv(sm, 2), "lam_tmp": cdiv(sm, 2), "ax": S * m, "x": S * n}
     return layout({
-        "z_tmp": sm, "lam_tmp": sm, "ax": sm,
+        **sizes,
         "partials": partial_floats(splits.values()),
         "counters": max([sp.tiles for sp in splits.values() if sp.slices > 1] or [0]),
     })
 
 
 def make_serve_plan(S: int, m: int, n: int, occ32: Tuple[int, int], occ64: Tuple[int, int], scratch: bool,
-                    tile: int = 0) -> ServePlan:
+                    bf16_state: bool = False, tile: int = 0) -> ServePlan:
     """The plan of one serving-kernel call (``tile`` 0: serve_tile's
-    choice); occ32 / occ64 are the two tile kernels' occupancy."""
+    choice); occ32 / occ64 are the two tile kernels' occupancy (of the
+    instantiation of the call's storage and staging)."""
     tile = tile or serve_tile(S, m, n, occ64)
     occ = occ64 if tile == 64 else occ32
     shapes = traj_shapes(S, m, n)
     grid = launch_grid(*occ, max(cdiv(r, tile) * cdiv(c, tile) for r, c, _ in shapes.values()))
     splits = {k: split(*v, grid, tile) for k, v in shapes.items()}
-    return ServePlan(occ, grid, splits, serve_workspace(S, m, splits, scratch))
+    return ServePlan(occ, grid, splits, serve_workspace(S, m, n, splits, scratch, bf16_state))
 
 
 @functools.lru_cache(maxsize=64)
-def serve_plan(S: int, m: int, n: int, occ32: Tuple[int, int], occ64: Tuple[int, int], scratch: bool) -> ServePlan:
+def serve_plan(S: int, m: int, n: int, occ32: Tuple[int, int], occ64: Tuple[int, int], scratch: bool,
+               bf16_state: bool = False) -> ServePlan:
     """make_serve_plan, computed once per shape and occupancy, so a call
     pays no Python for it."""
-    return make_serve_plan(S, m, n, occ32, occ64, scratch)
+    return make_serve_plan(S, m, n, occ32, occ64, scratch, bf16_state)
 
 
 # -- int8 serving ----------------------------------------------------------------

@@ -19,6 +19,13 @@ The port of ``dladmm_tpu/serve.py`` (single-device servers and CLI):
     ``reference``. The JAX package took its scan for ``auto``; the port
     takes the kernel, which has no fit gate (models/api.py). The quality
     contract is the JAX package's: NMSE within 0.3 dB of fp32 serving.
+  * ``dtype=torch.bfloat16`` (or ``"bfloat16"``): params, A and B are
+    cast to bf16 once at construction and each request per call, as the
+    JAX package does; the whole-unroll kernel's bf16-storage variant
+    (fp32 arithmetic, each layer's stored state rounded to bf16,
+    ops/cuda_unroll.unroll_forward_plain_bf16) serves l1/l1 and the
+    trained elementwise proxes, the plain loop in bf16 general B,
+    group_l2 and ``kernel="reference"``. x and z come back in bf16.
 
 Runs on CUDA unless the caller asks for the CPU (``device="cpu"`` or
 ``DLADMM_PLATFORM=cpu``; utils/platform.py).
@@ -26,8 +33,8 @@ Runs on CUDA unless the caller asks for the CPU (``device="cpu"`` or
 The CLI serves a training checkpoint (``--ckpt-dir``: the newest
 step_N's params and the dictionary they were trained on) or a
 reference-style PyTorch file (``--import-torch``, on the config's
-dictionary). Later slices (ROADMAP.md): bf16 serving (``dtype``), the
-sharded server (``--sharded``) and one CUDA Graph per bucket.
+dictionary). Later slices (ROADMAP.md): the sharded server
+(``--sharded``) and one CUDA Graph per bucket.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from dladmm_tpu_torch.models.api import KERNELS, kernel_route, resolve_forward
+from dladmm_tpu_torch.models.api import KERNELS, kernel_route, plain_route, resolve_forward
 from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
 from dladmm_tpu_torch.ops.cuda_int8 import dladmm_forward_int8_pallas
 from dladmm_tpu_torch.ops.cuda_unroll import (
@@ -70,8 +77,10 @@ def _buckets(max_batch: int) -> Tuple[int, ...]:
 
 def _prep_serving(params, A, B, dtype, layers, device):
     """Shared serving preamble: early-exit layer slice, then every
-    tensor as contiguous float32 on ``device``. Returns (params, A, B,
-    quantized): with dtype="int8" quantization is left to the server
+    tensor as a contiguous tensor of the serving type on ``device``:
+    bfloat16 for ``dtype`` torch.bfloat16 or "bfloat16", float32 for
+    None, "float32" or torch.float32 and for "int8". Returns (params, A,
+    B, quantized): with dtype="int8" quantization is left to the server
     (ops/quantized.quantize_params) and ``quantized`` is True."""
     quantized = dtype == "int8"
     if quantized and B is not None:
@@ -79,8 +88,12 @@ def _prep_serving(params, A, B, dtype, layers, device):
             "dtype='int8' requires identity B (the quantized forward "
             "specializes to B = I like the kernels)"
         )
-    if not quantized and dtype not in (None, "float32", torch.float32):
-        raise NotImplementedError(f"serving dtype={dtype!r} {_LATER}")
+    if dtype in (torch.bfloat16, "bfloat16"):
+        storage = torch.bfloat16
+    elif quantized or dtype in (None, "float32", torch.float32):
+        storage = torch.float32
+    else:
+        raise ValueError(f"serving dtype={dtype!r}; the port serves float32, bfloat16 and int8")
     if layers is not None:
         K = params.W1.shape[0]
         if not 1 <= layers <= K:
@@ -88,7 +101,7 @@ def _prep_serving(params, A, B, dtype, layers, device):
         params = DLADMMParams(*(v[:layers] for v in params))
 
     def put(t):
-        return torch.as_tensor(t).detach().to(device, torch.float32).contiguous()
+        return torch.as_tensor(t).detach().to(device, storage).contiguous()
 
     params = DLADMMParams(*(put(v) for v in params))
     return params, put(A), None if B is None else put(B), quantized
@@ -134,6 +147,10 @@ class InferenceServer:
         only; kernel="auto"/"megakernel" take the int8 kernel,
         "reference" the plain int8 scan.
 
+        dtype=torch.bfloat16 (or "bfloat16") serves in bf16: params, A
+        and B are cast once here, requests on each call (``request_dtype``),
+        and x, z come back in bf16 (module docstring).
+
         device: ``cuda`` unless asked otherwise (utils/platform.py)."""
         self.device = resolve_device(device)
         params, A, B, quantized = _prep_serving(params, A, B, dtype, layers, self.device)
@@ -142,7 +159,8 @@ class InferenceServer:
         if quantized and (step_fn is not None or prox_pair is not None):
             raise ValueError(
                 "dtype='int8' serving is l1/l1-only (ops/quantized.py "
-                "hard-codes the shrink); serve general-prox solvers in float32"
+                "hard-codes the shrink); serve general-prox solvers in float32 "
+                "or bfloat16"
             )
         if quantized and kernel not in INT8_KERNELS:
             raise ValueError(
@@ -178,6 +196,9 @@ class InferenceServer:
         self.A = A
         self.B = B
         self.m = m
+        # The type requests are cast to: the served type, but float32 for
+        # int8 (the kernel quantizes the activations itself).
+        self.request_dtype = A.dtype
         self.buckets = tuple(sorted(buckets or _buckets(max_batch)))
         self._forward = {}
         self.routes = {}
@@ -197,7 +218,7 @@ class InferenceServer:
                 fn, desc = int8
             elif B is None and step_fn is None:
                 fn, desc = resolve_forward(
-                    m, n, d, S, kernel=kernel, device=self.device
+                    m, n, d, S, kernel=kernel, device=self.device, dtype=A.dtype
                 )
             elif B is None:
                 avail, why = prox_megakernel_available(prox_pair, m, d)
@@ -209,19 +230,19 @@ class InferenceServer:
                     )
                 if use_kernel:
                     fn = make_unrolled_inference_prox(*prox_pair)
-                    desc = kernel_route(self.device) + "-prox"
+                    desc = kernel_route(self.device, dtype=A.dtype) + "-prox"
                 else:
                     fn = functools.partial(dladmm_forward, step_fn=step_fn)
-                    desc = "plain-loop-prox"
+                    desc = plain_route("prox", A.dtype)
             else:
                 fn = functools.partial(dladmm_forward, B=B, step_fn=step_fn)
-                desc = "plain-loop-general-B"
+                desc = plain_route("general-B", A.dtype)
             self._forward[S] = fn
             self.routes[S] = desc
         # Run every bucket once now: the kernel's build and first launch
         # happen here, never on a request.
         for S in self.buckets:
-            self._run(S, torch.zeros((S, m), device=self.device))
+            self._run(S, torch.zeros((S, m), dtype=self.request_dtype, device=self.device))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -239,14 +260,18 @@ class InferenceServer:
 
     def solve(self, b) -> Tuple[Tensor, Tensor]:
         """b (S, m), a tensor or an array -> (x (S, n), z (S, d)) on the
-        server's device; pads to the bucket size and slices back. Rows
-        are independent, so results are exact."""
+        server's device, in the served type (bf16 for a bf16 server);
+        the request is cast to ``request_dtype`` (through float32, as the
+        JAX package's requests are), padded to the bucket size and sliced
+        back. Rows are independent, so results are exact."""
         b = torch.as_tensor(b)
         if b.ndim != 2 or b.shape[1] != self.m:
             raise ValueError(f"expected (S, {self.m}), got {tuple(b.shape)}")
         S = b.shape[0]
         bucket = self._bucket_for(S)
-        b = b.to(self.device, torch.float32)
+        if b.dtype != self.request_dtype:
+            b = b.to(torch.float32)
+        b = b.to(self.device, self.request_dtype)
         if bucket != S:
             b = torch.cat([b, b.new_zeros((bucket - S, self.m))])
         x, z = self._run(bucket, b.contiguous())
@@ -271,6 +296,10 @@ class BatchingServer:
     >>> fut = bs.submit(b_rows)          # (s, m), any small s
     >>> x, z = fut.result()              # numpy (s, n), (s, d)
     >>> bs.close()
+
+    Over a bf16 server the futures resolve to float32 arrays holding the
+    bf16 results exactly (numpy has no bf16; the JAX package's server
+    returns ml_dtypes bf16 arrays).
     """
 
     def __init__(self, server: InferenceServer, max_delay_ms: float = 2.0):
@@ -290,15 +319,16 @@ class BatchingServer:
         self._worker.start()
 
     def submit(self, b):
-        """Enqueue a (s, m) request (s <= the largest bucket); returns a
-        concurrent.futures.Future resolving to numpy (x (s, n), z (s, d))."""
+        """Enqueue a (s, m) request (s <= the largest bucket), cast to the
+        server's ``request_dtype``; returns a concurrent.futures.Future
+        resolving to numpy float32 (x (s, n), z (s, d))."""
         from concurrent.futures import Future
 
         if self._closed:
             raise RuntimeError("BatchingServer is closed")
-        b = np.asarray(b, dtype=np.float32)
+        b = torch.as_tensor(np.asarray(b, dtype=np.float32)).to(self.server.request_dtype)
         if b.ndim != 2 or b.shape[1] != self.server.m:
-            raise ValueError(f"expected (s, {self.server.m}), got {b.shape}")
+            raise ValueError(f"expected (s, {self.server.m}), got {tuple(b.shape)}")
         if b.shape[0] > self.max_rows:
             raise ValueError(
                 f"request rows {b.shape[0]} exceed the largest bucket "
@@ -373,10 +403,10 @@ class BatchingServer:
         ]
         if not window:
             return
-        bs = np.concatenate([b for b, _ in window])
+        bs = torch.cat([b for b, _ in window])
         try:
-            x, z = self.server.solve(torch.from_numpy(bs))
-            x, z = x.cpu().numpy(), z.cpu().numpy()
+            x, z = self.server.solve(bs)
+            x, z = x.float().cpu().numpy(), z.float().cpu().numpy()
         except Exception as e:  # surface device errors on the futures
             for _, fut in window:
                 fut.set_exception(e)
@@ -453,8 +483,9 @@ def main(argv=None) -> int:
         "--dtype",
         choices=["float32", "bfloat16", "int8"],
         default="float32",
-        help="serving precision: float32, or int8 (l1/l1, identity B; NMSE "
-        "within 0.3 dB of float32); bfloat16 is not ported yet",
+        help="serving precision: float32; bfloat16 (params, A and requests "
+        "cast once, x and z in bf16); or int8 (l1/l1, identity B; NMSE "
+        "within 0.3 dB of float32)",
     )
     ap.add_argument("--kernel", choices=list(CLI_KERNELS), default="auto")
     ap.add_argument(
@@ -478,8 +509,6 @@ def main(argv=None) -> int:
                 f"no step_N checkpoint under {args.ckpt_dir!r}; train one with "
                 f"python -m dladmm_tpu_torch.run --config=... --ckpt-dir={args.ckpt_dir}"
             )
-    if args.dtype == "bfloat16":
-        ap.error(f"--dtype={args.dtype} {_LATER}")
     if args.sharded:
         ap.error(f"--sharded {_LATER}")
 
@@ -547,6 +576,7 @@ def main(argv=None) -> int:
     x, z = x.cpu(), z.cpu()  # waits for the device
     solve_s = time.monotonic() - t_solve
 
+    x, z = x.float(), z.float()  # bf16 values, exactly (numpy has no bf16)
     if args.out:
         np.savez(args.out, x=x.numpy(), z=z.numpy())
     summary = {

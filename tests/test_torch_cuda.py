@@ -1120,3 +1120,176 @@ def test_adam_step_raises_when_the_launch_is_refused(cuda_device, monkeypatch):
         new, _, _ = tqa.adam_step(grads[0], params, mu, nu, count, "float32", 1e-3, 1.0)
         torch.cuda.synchronize()
         assert int(new) == 1 and tqa.adam_step.launches == before + 2
+
+
+# -- bf16 serving and the layer step on bf16 state ---------------------------
+
+# bf16 kernel against its plain version: each output within BF16_TOL_ULPS
+# bf16 ulps of its largest magnitude (chip_smoke.py's tolerance and its
+# derivation: another summation order moves the plain version by up to 3).
+BF16_TOL_ULPS = 12.0
+
+
+def _problem16(m, n, K, S, seed, device, scalar_theta=False):
+    A, b, p = _problem(m, n, K, S, seed, device, scalar_theta)
+    return A.bfloat16(), b.bfloat16(), DLADMMParams(*(t.bfloat16() for t in p))
+
+
+def _assert_bf16_close(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape
+        assert torch.isfinite(g.float()).all()
+        top = float(w.float().abs().max())
+        ulp = 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= BF16_TOL_ULPS * ulp, (err, ulp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("prox", ["l1", "nonneg_l1", "box", "elastic_net"])
+@pytest.mark.parametrize("m,n,K,S", SHAPES)
+def test_bf16_kernel_matches_plain(cuda_device, monkeypatch, m, n, K, S, prox, tile):
+    """The bf16-storage serving kernel against unroll_forward_plain_bf16 at
+    both tile edges, every prox (as prox_x and prox_z at once; elastic net
+    at rho 0.3), ragged tiles and S = 1, bf16 beta; a second call bit for
+    bit."""
+    _force_tile(monkeypatch, tile)
+    A, b, p = _problem16(m, n, K, S, seed=m + S + 25, device=cuda_device)
+    kw = dict(prox_x=prox, prox_z=prox, rho=0.3)
+    got = cuda_unroll.unroll_forward(b, A, *p, **kw)
+    again = cuda_unroll.unroll_forward(b, A, *p, **kw)
+    torch.cuda.synchronize()
+    _assert_bf16_close(got, cuda_unroll.unroll_forward_plain_bf16(b, A, *p, **kw))
+    assert all(torch.equal(g, w) for g, w in zip(got, again))
+    assert cuda_unroll.unroll_forward.last_plan[2]["x"].tile == tile
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,K,S", [(250, 500, 15, 256), (1000, 2000, 20, 1024)])
+def test_bf16_kernel_with_fp32_beta_and_scalar_thresholds(cuda_device, m, n, K, S):
+    """fp32 beta beside bf16 storage (the other beta pointer) and (K, 1)
+    thresholds, at synthetic_small's largest serving bucket and at
+    synthetic_large S = 1024 (the 64 tile)."""
+    A, b, p = _problem16(m, n, K, S, seed=S + 27, device=cuda_device, scalar_theta=True)
+    p = p._replace(beta=p.beta.float())
+    got = cuda_unroll.unroll_forward(b, A, *p)
+    torch.cuda.synchronize()
+    _assert_bf16_close(got, cuda_unroll.unroll_forward_plain_bf16(b, A, *p))
+    assert cuda_unroll.unroll_forward.last_plan[2]["x"].tile == (64 if m == 1000 else 32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("matmul_dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("m,n,S", [(16, 32, 8), (33, 77, 13), (250, 500, 256)])
+def test_bf16_layer_step_matches_plain(cuda_device, m, n, S, matmul_dtype):
+    """The layer step on bf16 state (bf16 outputs, fp32 beta) against its
+    plain version, a second call bit for bit; and the K-layer loop through
+    the fused step equals the bf16 whole-unroll kernel bit for bit: both
+    read each layer's stored bf16 state, on the same plan."""
+    from dladmm_tpu_torch.models.unroll import dladmm_forward
+    from dladmm_tpu_torch.ops import cuda_layer
+
+    A, b, p = _problem16(m, n, 4, S, seed=S + 29, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(S)
+    state = [torch.randn(s, generator=g, device=cuda_device).bfloat16() for s in ((S, n), (S, m), (S, m), (S, m))]
+    one = (b, A, *state, p.W1[1], p.W2[1], p.theta1[1].contiguous(), p.theta2[1].contiguous(), p.beta[1:2].float())
+    got = cuda_layer.layer_step(*one, matmul_dtype=matmul_dtype)
+    again = cuda_layer.layer_step(*one, matmul_dtype=matmul_dtype)
+    torch.cuda.synchronize()
+    _assert_bf16_close(got, cuda_layer.layer_step_plain(*one, matmul_dtype=matmul_dtype))
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    if matmul_dtype is None:
+        loop = dladmm_forward(p, A, b, step_fn=cuda_layer.fused_layer_step)
+        whole = cuda_unroll.unroll_forward(b, A, *p)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(loop, whole))
+
+
+@pytest.mark.gpu
+def test_bf16_launch_refused_on_mixed_dtypes(cuda_device):
+    """A mix of storage types is refused before anything is launched: bf16
+    b with fp32 weights, fp16, a bf16 beta in the layer step; no launch is
+    counted and the next call runs."""
+    from dladmm_tpu_torch.ops import cuda_layer
+
+    A, b, p = _problem(33, 77, 3, 13, seed=31, device=cuda_device)
+    A16, b16, p16 = A.bfloat16(), b.bfloat16(), DLADMMParams(*(t.bfloat16() for t in p))
+    u0, l0 = cuda_unroll.unroll_forward.launches, cuda_layer.layer_step.launches
+    for bad in ((b16, A16, p), (b16, A, p16), (b.half(), A.half(), DLADMMParams(*(t.half() for t in p)))):
+        with pytest.raises(TypeError, match="the kernel takes"):
+            cuda_unroll.unroll_forward(bad[0], bad[1], *bad[2])
+    state = [torch.zeros((13, k), dtype=torch.bfloat16, device=cuda_device) for k in (77, 33, 33, 33)]
+    layer = (p16.W1[0], p16.W2[0], p16.theta1[0].contiguous(), p16.theta2[0].contiguous())
+    with pytest.raises(TypeError, match="the kernel takes"):
+        cuda_layer.layer_step(b16, A16, *state, *layer, p16.beta[:1])
+    with pytest.raises(TypeError, match="the kernel takes"):
+        cuda_layer.layer_step(b16, A16, *state, p.W1[0], *layer[1:], p.beta[:1])
+    assert cuda_unroll.unroll_forward.launches == u0 and cuda_layer.layer_step.launches == l0
+    torch.cuda.synchronize()
+    _assert_bf16_close(cuda_unroll.unroll_forward(b16, A16, *p16), cuda_unroll.unroll_forward_plain_bf16(b16, A16, *p16))
+
+
+@pytest.mark.gpu
+def test_bf16_kernels_raise_when_the_grid_is_refused(cuda_device, monkeypatch):
+    """The bf16 entries, like the fp32 ones: a grid one block larger than
+    the card holds resident raises, counts no launch and leaves no error
+    behind."""
+    from dladmm_tpu_torch.ops import cuda_layer, schedule
+
+    A, b, p = _problem16(250, 500, 3, 64, seed=33, device=cuda_device)
+    state = [torch.zeros((64, k), dtype=torch.bfloat16, device=cuda_device) for k in (500, 250, 250, 250)]
+    one = (b, A, *state, p.W1[0], p.W2[0], p.theta1[0].contiguous(), p.theta2[0].contiguous(), p.beta[:1].float())
+    serve_plan = schedule.serve_plan
+
+    def refused(*a):
+        plan = serve_plan(*a)
+        return plan._replace(grid=plan.occ[0] * plan.occ[1] + 1)
+
+    monkeypatch.setattr(schedule, "serve_plan", refused)
+    u0, l0 = cuda_unroll.unroll_forward.launches, cuda_layer.layer_step.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_unroll.unroll_forward(b, A, *p)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_layer.layer_step(*one)
+    assert cuda_unroll.unroll_forward.launches == u0 and cuda_layer.layer_step.launches == l0
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    _assert_bf16_close(cuda_unroll.unroll_forward(b, A, *p), cuda_unroll.unroll_forward_plain_bf16(b, A, *p))
+    _assert_bf16_close(cuda_layer.layer_step(*one), cuda_layer.layer_step_plain(*one))
+
+
+@pytest.mark.gpu
+def test_two_bf16_servers_on_two_streams_at_once(cuda_device):
+    """Two bf16 InferenceServer calls at once, from two threads on two
+    streams, each a cooperative grid of every block the card holds
+    resident (synthetic_small bucket 2048): both finish and equal one call
+    each, bit for bit; the routes are the bf16 kernel's."""
+    A, _, p = _problem(250, 500, 15, 1, seed=35, device=cuda_device)
+    server = InferenceServer(p, A, buckets=(256, 2048), dtype=torch.bfloat16)
+    assert set(server.routes.values()) == {"cuda-whole-unroll-bf16-kernel"}
+    occ, grid, _, _ = cuda_unroll.unroll_forward.last_plan
+    assert grid == occ[0] * occ[1]
+    rng = np.random.default_rng(36)
+    reqs = [torch.as_tensor(rng.normal(size=(2048, 250)).astype(np.float32), device=cuda_device)
+            for _ in range(2)]
+    want = [server.solve(r) for r in reqs]
+    torch.cuda.synchronize()
+    got, start = [None, None], threading.Barrier(2)
+
+    def call(i):
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.default_stream())
+        with torch.cuda.stream(stream):
+            start.wait()
+            got[i] = server.solve(reqs[i])
+            stream.synchronize()
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for g, w in zip(got, want):
+        assert all(a.dtype == torch.bfloat16 and torch.equal(a, b) for a, b in zip(g, w))

@@ -24,7 +24,7 @@ from dladmm_tpu.models.unroll import init_dladmm_params as j_init
 from dladmm_tpu.ops.pallas_layer import make_fused_step as j_make_fused_step
 from dladmm_tpu_torch.models.api import select_forward
 from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
-from dladmm_tpu_torch.ops import cuda_layer
+from dladmm_tpu_torch.ops import cuda_layer, cuda_unroll
 from dladmm_tpu_torch.utils.torch_compat import params_from_numpy
 
 
@@ -103,9 +103,13 @@ def test_bf16_operand_mode():
 
 
 def test_general_b_and_validation():
-    """A general B goes to the plain step; bf16 state and other operand
-    types raise; auto_fused_step is the fp32 step at every shape and
-    block_s changes nothing."""
+    """A general B goes to the plain step; bf16 state runs (K bf16 steps
+    equal the bf16-storage whole unroll's plain version, bit for bit:
+    both store the state rounded after each layer; its values are held
+    against the JAX package in tests/test_torch_bf16_serve.py), while a
+    state whose type differs from the weights' and other operand types
+    raise; auto_fused_step is the fp32 step at every shape and block_s
+    changes nothing."""
     A, b, _, _, leaves = _setup(16, 32, 8, K=3)
     tA, tb, _ = _torch(A, b, leaves)
     rng = np.random.default_rng(1)
@@ -117,8 +121,15 @@ def test_general_b_and_validation():
                     dladmm_forward(p, tA, tb, B=B)):
         assert torch.equal(g, w)
     tp = params_from_numpy(*leaves)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dladmm_forward(tp.to(torch.bfloat16), tA.bfloat16(), tb.bfloat16(), step_fn=cuda_layer.fused_layer_step)
+    p16 = DLADMMParams(*(t.to(torch.bfloat16) for t in tp))
+    got = dladmm_forward(p16, tA.bfloat16(), tb.bfloat16(), step_fn=cuda_layer.fused_layer_step)
+    want = cuda_unroll.unroll_forward_plain_bf16(tb.bfloat16(), tA.bfloat16(), *p16)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, w)
+    with pytest.raises(TypeError, match="the kernel takes"):
+        dladmm_forward(tp, tA.bfloat16(), tb.bfloat16(), step_fn=cuda_layer.fused_layer_step)
+    with pytest.raises(TypeError, match="the kernel takes"):
+        dladmm_forward(tp, tA.double(), tb.double(), step_fn=cuda_layer.fused_layer_step)
     with pytest.raises(ValueError, match="matmul_dtype"):
         cuda_layer.make_fused_step(matmul_dtype=torch.float16)
     want = dladmm_forward(tp, tA, tb)

@@ -238,8 +238,11 @@ def test_int8_server_rejections():
         tserve.InferenceServer(p, At, dtype="int8", step_fn=make_cached_step(*pair), **kw)
     with pytest.raises(ValueError, match="kernel="):
         tserve.InferenceServer(p, At, dtype="int8", kernel="pallas", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.InferenceServer(p, At, dtype="bfloat16", **kw)
+    # bf16 serves now (tests/test_torch_bf16_serve.py); a type the port
+    # does not serve is refused.
+    assert tserve.InferenceServer(p, At, dtype="bfloat16", **kw).routes == {4: "whole-unroll-bf16-plain-cpu"}
+    with pytest.raises(ValueError, match="float32, bfloat16 and int8"):
+        tserve.InferenceServer(p, At, dtype=torch.float16, **kw)
 
 
 def _cli(argv, capsys):

@@ -313,3 +313,32 @@ def test_serving_plan_is_computed_once_per_shape():
     assert sch.serve_plan(256, 250, 500, (4, 132), (2, 132), True) is one
     assert sch.serve_plan(256, 250, 500, (4, 132), (2, 132), False) is not one
     assert one == sch.make_serve_plan(256, 250, 500, (4, 132), (2, 132), True)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("m,n,S", SERVE_SHAPES)
+def test_serving_workspace_on_bf16_state(m, n, S, kind):
+    """bf16 storage (csrc/unroll.cu, unroll_persistent<T, BF16,
+    __nv_bfloat16>): the serving forward's second z / lam pair in bf16
+    (half the words), and for the serving forward and the layer step alike
+    the fp32 Ax (S, m) and x (S, n) that the phases pass on unrounded; the
+    tiles, grid and splits are the fp32 plan's at the same occupancy."""
+    for tile in sch.TILES:
+        plan = sch.make_serve_plan(S, m, n, (4, 132), (2, 132), KINDS[kind], True, tile=tile)
+        fp32 = sch.make_serve_plan(S, m, n, (4, 132), (2, 132), KINDS[kind], tile=tile)
+        assert (plan.occ, plan.grid, plan.splits) == (fp32.occ, fp32.grid, fp32.splits)
+        lay = plan.workspace
+        split = [sp for sp in plan.splits.values() if sp.slices > 1]
+        pair = -(-S * m // 2) if KINDS[kind] else 0
+        want = {"z_tmp": pair, "lam_tmp": pair, "ax": S * m, "x": S * n,
+                "partials": max([sp.items * tile**2 for sp in split] or [0]),
+                "counters": max([sp.tiles for sp in split] or [0])}
+        assert {k: v[1] for k, v in lay.items() if k != "_total"} == want
+        _no_overlap(lay, sum(-(-v // sch.ALIGN) * sch.ALIGN for v in want.values()))
+
+
+def test_bf16_serving_plan_is_its_own_cache_entry():
+    one = sch.serve_plan(256, 250, 500, (4, 132), (2, 132), True, True)
+    assert sch.serve_plan(256, 250, 500, (4, 132), (2, 132), True, True) is one
+    assert one.workspace != sch.serve_plan(256, 250, 500, (4, 132), (2, 132), True).workspace
+    assert one == sch.make_serve_plan(256, 250, 500, (4, 132), (2, 132), True, True)

@@ -172,13 +172,23 @@ def test_general_routes_match_plain_loop():
 
 
 def test_unported_options_raise():
-    """bf16 serving still raises; the trajectory forward and the
-    kernel="pallas" name (the same route as auto) are ported now, and an
-    unknown kernel name is refused."""
+    """bf16 serving runs (route and output type; its values are held
+    against the JAX package in tests/test_torch_bf16_serve.py), and a bf16
+    forward that needs a gradient (bf16 training) still raises; the
+    trajectory forward and the kernel="pallas" name (the same route as
+    auto) are ported now, and an unknown kernel name is refused."""
+    from dladmm_tpu_torch.ops.cuda_unroll import make_unrolled_forward
+
     A, leaves = _problem()
     p = params_from_numpy(*leaves)
+    srv = tserve.InferenceServer(p, torch.as_tensor(A), buckets=(4,), dtype="bfloat16", device="cpu")
+    assert srv.routes == {4: "whole-unroll-bf16-plain-cpu"} and srv.params.W1.dtype == torch.bfloat16
+    x, z = srv.solve(_requests(3, A.shape[0], seed=3))
+    assert x.dtype == z.dtype == torch.bfloat16 and x.shape == (3, A.shape[1])
+    p16 = params_from_numpy(*leaves, dtype=torch.bfloat16)
+    p16.W1.requires_grad_()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.InferenceServer(p, torch.as_tensor(A), buckets=(4,), dtype="bfloat16", device="cpu")
+        make_unrolled_forward()(p16, torch.as_tensor(A).bfloat16(), torch.as_tensor(_requests(3, A.shape[0], 3)).bfloat16())
     assert select_forward(16, 32, 16, 8, need_trajectory=True)[2] == "cuda-trajectory-kernel"
     assert select_forward(16, 32, 16, 8, kernel="pallas")[2] == "cuda-whole-unroll-kernel"
     with pytest.raises(ValueError, match="kernel="):
@@ -246,12 +256,14 @@ def test_cli_demo_nmse_equals_ladmm(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize(
     "extra",
-    [["--dtype=bfloat16"], ["--config=synthetic_nonneg", "--dtype=int8"], ["--sharded"], ["--kernel=pallas"]],
+    [["--dtype=bfloat16", "--sharded"], ["--config=synthetic_nonneg", "--dtype=int8"], ["--sharded"],
+     ["--kernel=pallas"]],
 )
 def test_cli_rejects_unported_options(tmp_path, extra, monkeypatch):
-    """bf16 and --sharded are not ported; int8 serves l1/l1 configs only
-    (a trained prox is refused, as in the JAX package); the per-layer
-    "pallas" kernel is no serving choice."""
+    """--sharded is not ported, in bf16 (which serves unsharded) or
+    float32; int8 serves l1/l1 configs only (a trained prox is refused,
+    as in the JAX package); the per-layer "pallas" kernel is no serving
+    choice."""
     from dladmm_tpu_torch.models.unroll import init_dladmm_params
     from dladmm_tpu_torch.utils.torch_compat import save_torch
 
