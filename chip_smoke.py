@@ -177,6 +177,46 @@ the first fault. Each phase prints one JSON line:
      bf16 plain version) at synthetic_small S = 64, 256, 1024 and
      synthetic_large S = 1024, each beside its bound; one layer step on
      bf16 state at S = 256 beside its plain version and the fp32 step;
+ 26. kernel_traj_bf16: the bf16 trajectory kernel (``traj_persistent`` on
+     bf16 storage: the state fp32 between phases and layers, only the
+     stack stores rounded) against ``trajectory_forward_plain_bf16`` at
+     synthetic_small S = 64, 256 and synthetic_large S = 1024, with the Ax
+     stack and without: each stack within TRAJ16_TOL_ULPS = 1 bf16 ulp of
+     its largest magnitude, with the elements that differ; a second call
+     bit for bit; launches counted apart from fp32's; the plan;
+ 27. kernel_bwd_bf16: the bf16 backward against ``unroll_bwd_plain_bf16``
+     on the bf16 trajectory kernel's stacks, with and without data grads:
+     synthetic_small S = 64 (whole batch; also (K, 1) thresholds with ties
+     at theta = 0 and beta = 1e-6), S = 1024 with bs = 128, and the smoke
+     preset at S = 1024 (the chunked route): each gradient within
+     BWD16_TOL_ULPS = 2 bf16 ulps of its leaf's largest magnitude; a second
+     call bit for bit;
+ 28. kernel_step_bf16: ``adam_step`` on bf16 gradients with the bf16
+     compute copy, int8 and the four dense formats, both presets' five
+     leaves, 3 chained steps: the state equal to the one-leaf sweeps' run
+     on the widened gradients, held against the plain version as in
+     phases 8 and 14, the copy equal bit for bit to the kernel's new master
+     rounded, the clip scale within 2^-7 of step_scalars';
+ 29. slice_train_bf16: ``fit`` on synthetic_small with
+     compute_dtype="bfloat16" (its forward from models/api.select_forward,
+     as run.py builds it), recipe (a) (final-layer loss, float32_pallas,
+     constant 2e-4, 600 steps) and (b) (the shipped recipe: deep
+     supervision, int8_pallas, clip 1.0, cosine; 300 steps), each beside
+     its fp32 twin on the same seed; every training kernel's count from 0
+     around each run (each bf16 kernel of the path > 0, no fp32 training
+     kernel but the eval's trajectory on the fp32 masters); (a) on the
+     smoke preset at batch 1024 (the chunked route); finite losses, the
+     final NMSE within 0.1 dB (a) / 0.2 dB (b) of fp32, (a) below LADMM at
+     K = 15; the bf16 (a) checkpoint served at its last eval's NMSE within
+     0.01 dB;
+ 30. timing_train_bf16: a step by phase, bf16 and fp32 in turns, (a) and
+     (b) at synthetic_small batch 64 and (a) at synthetic_large batch
+     1024; each bf16 kernel (trajectory and backward at synthetic_small
+     S = 64 and synthetic_large S = 1024, the chunked backward, the step on
+     bf16 gradients) beside its fp32 twin in turns: ms, profiler device µs
+     (events where the profiler records nothing), its bound (2-byte
+     storage) and its plain version; the optimizer phase of bf16 steps held
+     to the prologue and one sweep a step;
 
 then the kernels line and, last, the ok line. Exits non-zero, with no
 ok line, on any failure, when CUDA is not available, or when run
@@ -193,6 +233,10 @@ commits can be timed in turns on one card.
 
 runs only phase 25: bf16 and fp32 serving (and the layer step) in
 turns.
+
+    python3 chip_smoke.py --bf16-train
+
+builds every source and runs only phases 26-30 (bf16 training).
 """
 
 from __future__ import annotations
@@ -368,13 +412,13 @@ def profile_unroll(torch, unroll_forward, S: int, m: int, n: int, K: int, reps: 
     return profile_fn(torch, lambda: unroll_forward(b, A, *p), f"m={m} n={n} K={K} S={S}", reps)
 
 
-def traj_bound(S: int, m: int, n: int, K: int, with_tax: bool):
+def traj_bound(S: int, m: int, n: int, K: int, with_tax: bool, itemsize: int = 4):
     """(bound_ms, bound_by) of one trajectory forward: the solve's flops,
     and K layers of weights, A and b read once and the K-deep stacks
-    written once."""
+    written once, each ``itemsize`` bytes (2: bf16 storage)."""
     flops = 2 * S * m * (2 * n + m) * K
     out = K * S * (n + 2 * m + (m if with_tax else 0))
-    nbytes = 4 * (K * (n * m + m * m + n + m + 1) + m * n + S * m + out)
+    nbytes = itemsize * (K * (n * m + m * m + n + m + 1) + m * n + S * m + out)
     return _bound(flops, nbytes)
 
 
@@ -776,7 +820,7 @@ def phased_step(torch, A, w, fwd, opt, state, i, plain=False, mark=None):
             updates, opt_state = opt.update(grads, state.opt_state)
             params = apply_updates(state.params, updates)
     else:
-        params, opt_state = opt.fused_apply(grads, state.opt_state, state.params)
+        params, opt_state, _ = opt.fused_apply(grads, state.opt_state, state.params)
     mark(4)
     return TrainState(params, opt_state, state.step + 1), loss
 
@@ -960,18 +1004,20 @@ def optimizer_phase(torch, run, sweep: str, attempts: int = 3):
     profiled again, up to ``attempts`` sessions, and each retry is
     reported; a session that holds any other device operation fails at
     once. Returns the by-phase µs and the optimizer's operations (µs and
-    launches a step) of the first complete session."""
+    launches a step) of the first complete session. Steps on fp32 or on
+    bf16 gradients alike (adam_step.launches and launches_bf16)."""
     from torch.profiler import ProfilerActivity, profile
 
     from dladmm_tpu_torch.train import qadam_cuda
 
     steps = 3
+    count = lambda: qadam_cuda.adam_step.launches + qadam_cuda.adam_step.launches_bf16  # noqa: E731
     for attempt in range(attempts):
-        before = qadam_cuda.adam_step.launches
+        before = count()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             profile_marker(torch)
             run(ProfiledPhases(torch))
-        launches = qadam_cuda.adam_step.launches - before
+        launches = count() - before
         by_phase, ops = device_us_by_phase(torch, prof, steps)
         ops = ops["optimizer"]
         swept = [name for name in ops if name.startswith(sweep)]
@@ -1034,16 +1080,17 @@ def profile_train(torch, device, steps: int = 5):
 # -- the final-layer training slice (phases 13-17) ---------------------------
 
 
-def bwd_bound(S: int, m: int, n: int, K: int, data_grads: bool = False):
+def bwd_bound(S: int, m: int, n: int, K: int, data_grads: bool = False, itemsize: int = 4):
     """(bound_ms, bound_by) of one reverse sweep: 2*S*K*(2m^2 + 3nm)
     flops (per layer gv, gAx1 A, gu, gW1, gW2), and b, A, the params,
     the trajectory stacks and the cotangents read once, the parameter
-    gradients (and the gAx1 stack and gb) written once."""
+    gradients (and the gAx1 stack and gb) written once, each ``itemsize``
+    bytes (2: bf16 storage)."""
     flops = 2 * S * K * (2 * m * m + 3 * n * m)
     params = K * (n * m + m * m + n + m + 1)
     ins = S * m + m * n + params + K * S * (n + 3 * m) + S * (n + 2 * m)
     outs = params + ((K + 1) * S * m if data_grads else 0)
-    return _bound(flops, 4 * (ins + outs))
+    return _bound(flops, itemsize * (ins + outs))
 
 
 # fp32 operations per element of the dense sweep: clip scale 1, two EMAs
@@ -1381,7 +1428,7 @@ def phased_step_final(torch, A, opt, state, i, mode="kernel", mark=None):
             updates, opt_state = opt.update(grads, state.opt_state)
             params = apply_updates(state.params, updates)
     else:
-        params, opt_state = opt.fused_apply(grads, state.opt_state, state.params)
+        params, opt_state, _ = opt.fused_apply(grads, state.opt_state, state.params)
     mark(4)
     return TrainState(params, opt_state, state.step + 1), loss
 
@@ -2012,11 +2059,11 @@ def products_in_fp64():
         reference.apply_dict = plain
 
 
-def bf16_diff(got, want) -> dict:
+def bf16_diff(got, want, names=("x", "z", "lam", "Ax")) -> dict:
     """{output: (max|diff| in bf16 ulps of max|ref|, elements differing,
-    max|diff|)} of two bf16 results."""
+    max|diff|)} of two results of one dtype (bf16, or fp32 for gbeta)."""
     out = {}
-    for name, g, w in zip(("x", "z", "lam", "Ax"), got, want):
+    for name, g, w in zip(names, got, want):
         if tuple(g.shape) != tuple(w.shape) or g.dtype != w.dtype:
             raise AssertionError(f"{name}: {tuple(g.shape)} {g.dtype} against {tuple(w.shape)} {w.dtype}")
         d = (g.float() - w.float()).abs()
@@ -2319,6 +2366,571 @@ def time_bf16(torch, device, card):
     return out
 
 
+# -- bf16 training (phases 26-30) ---------------------------------------------
+
+# The bf16 trajectory kernel against its plain version: each stack within
+# this many bf16 ulps of its largest magnitude. The state stays fp32, so
+# another summation order moves a stored value by at most the one
+# rounding it meets: one ulp of that value, at most one of the largest.
+TRAJ16_TOL_ULPS = 1.0
+# The bf16 backward kernel against unroll_bwd_plain_bf16: each gradient
+# within this many bf16 ulps of its leaf's largest magnitude. Each is
+# rounded once on output (one ulp at most); the activations it rounds on
+# the way (gp2, gAx1, gp1) may round the other way after another fp32
+# summation order, moving a sum by a fraction of an ulp more.
+BWD16_TOL_ULPS = 2.0
+# The step on bf16 gradients: the clip scale of the kernel (fp64 leaf sums)
+# and of the plain version (fp32 leaf sums), each leaf's sum then rounded
+# to bf16: where one rounds the other way, the total moves by at most one
+# bf16 step of that sum (2^-8 of the total) and the norm by half as much;
+# held at 2^-7.
+STEP16_SCALE_REL = 2.0 ** -7
+
+
+def check_traj_bf16(torch, device) -> float:
+    """Phase 26: the bf16 trajectory kernel (``traj_persistent`` on bf16
+    storage: fp32 state, rounded stack stores) against
+    trajectory_forward_plain_bf16 at synthetic_small S = 64, 256 and
+    synthetic_large S = 1024, with and without the Ax stack: each stack
+    within TRAJ16_TOL_ULPS; a second call bit for bit; its launches counted
+    in launches_bf16 only; the plan. Returns the largest max|diff|."""
+    from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward, trajectory_forward_plain_bf16
+
+    worst = 0.0
+    with torch.no_grad():
+        for label, shape, S in (("synthetic_small", SMALL, 64), ("synthetic_small", SMALL, 256),
+                                ("synthetic_large", LARGE, 1024)):
+            A, b, p = bf16_case(torch, shape, S, seed=S + 17, device=device)
+            for with_tax in (True, False):
+                n32, n16 = trajectory_forward.launches, trajectory_forward.launches_bf16
+                got = trajectory_forward(b, A, *p, with_tax=with_tax)
+                again = trajectory_forward(b, A, *p, with_tax=with_tax)
+                want = trajectory_forward_plain_bf16(b, A, *p, with_tax=with_tax)
+                torch.cuda.synchronize()
+                if trajectory_forward.launches != n32 or trajectory_forward.launches_bf16 != n16 + 2:
+                    raise AssertionError("bf16 trajectory launches not counted apart from fp32 ones")
+                names = ("tx", "tz", "tlam", "tax")[: len(want)]
+                for g in got:
+                    if g.dtype != torch.bfloat16 or not torch.isfinite(g.float()).all():
+                        raise AssertionError(f"traj bf16 {label} S={S}: a stack is {g.dtype} or not finite")
+                diff = bf16_diff(got, want, names)
+                for name, (ulps, _, err) in diff.items():
+                    if not ulps <= TRAJ16_TOL_ULPS:
+                        raise AssertionError(f"traj bf16 {label} S={S} with_tax={with_tax}: {name} "
+                                             f"{ulps} bf16 ulps > {TRAJ16_TOL_ULPS}")
+                    worst = max(worst, err)
+                if not all(torch.equal(g, w) for g, w in zip(got, again)):
+                    raise AssertionError(f"traj bf16 {label} S={S} with_tax={with_tax}: a second call differs")
+                emit("kernel_traj_bf16", case=f"{label} S={S} with_tax={with_tax}",
+                     ulps_of_max={k: v[0] for k, v in diff.items()},
+                     elements_differing={k: v[1] for k, v in diff.items()},
+                     elements={k: g.numel() for k, g in zip(names, got)},
+                     max_abs_err={k: v[2] for k, v in diff.items()}, tolerance_ulps=TRAJ16_TOL_ULPS,
+                     repeats_bit_for_bit=True, **launched_plan(trajectory_forward))
+                del got, again, want
+            del A, b, p
+    return worst
+
+
+def bwd16_case(torch, shape, S: int, seed: int, device, scalar_theta=False, ties=False):
+    """bwd_case in bf16: the params, A and b cast to bf16 (ties set after
+    the cast, so that they hold in bf16), the bf16 trajectory kernel's
+    stacks and bf16 cotangents."""
+    from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward
+
+    A, b, p = bf16_case(torch, shape, S, seed=seed, device=device)
+    if scalar_theta:
+        p = p._replace(theta1=p.theta1.float().mean(dim=1, keepdim=True).bfloat16(),
+                       theta2=p.theta2.float().mean(dim=1, keepdim=True).bfloat16())
+    if ties:
+        p.theta1[1, ::2] = 0.0
+        p.beta[0] = 1e-6
+    with torch.no_grad():
+        traj = trajectory_forward(b, A, *p, with_tax=True)
+    g = torch.Generator(device=device).manual_seed(seed)
+    n, m = shape["n"], shape["m"]
+    cts = (torch.randn((S, n), generator=g, device=device).bfloat16(),
+           torch.randn((S, m), generator=g, device=device).bfloat16(),
+           (0.1 * torch.randn((S, m), generator=g, device=device)).bfloat16())
+    return A, b, p, traj, cts
+
+
+def check_bwd_bf16(torch, device) -> dict:
+    """Phase 27: the bf16 backward kernel against unroll_bwd_plain_bf16 on
+    the bf16 trajectory kernel's stacks, with and without data grads:
+    synthetic_small S = 64 (whole batch; also (K, 1) thresholds with ties
+    at theta = 0 and beta = 1e-6), S = 1024 with bs = 128, and the smoke
+    preset at S = 1024 on the policy's split (the chunked route); each
+    gradient within BWD16_TOL_ULPS bf16 ulps of its leaf's largest
+    magnitude, with the elements that differ; a second call bit for bit;
+    launches counted in launches_bf16 only. Returns the largest max|diff|
+    of each route."""
+    from dladmm_tpu_torch.models.unroll import DLADMMParams
+    from dladmm_tpu_torch.ops.cuda_bwd import bwd_chunk_batch, unroll_bwd, unroll_bwd_plain_bf16, weight_wave
+
+    wave = weight_wave(device)
+    cases = [
+        ("synthetic_small", SMALL, 64, None, {}),
+        ("synthetic_small", SMALL, 64, None, {"scalar_theta": True, "ties": True}),
+        ("synthetic_small", SMALL, 1024, 128, {}),
+        ("smoke", SMOKE, 1024, bwd_chunk_batch(SMOKE["m"], SMOKE["n"], SMOKE["m"], 1024, SMOKE["K"], wave),
+         {"ties": True}),
+    ]
+    errs = {"whole": 0.0, "chunked": 0.0}
+    names = (*DLADMMParams._fields, "gA", "gb")
+    for label, shape, S, bs, kw in cases:
+        A, b, p, traj, cts = bwd16_case(torch, shape, S, seed=S + 23, device=device, **kw)
+        route = "chunked" if bs is not None and bs < S else "whole"
+        for data_grads in (True, False):
+            n32, n16 = dict(unroll_bwd.launches), dict(unroll_bwd.launches_bf16)
+            with torch.no_grad():
+                got = unroll_bwd(b, A, *p, *traj, *cts, bs=bs, data_grads=data_grads)
+                want = unroll_bwd_plain_bf16(b, A, *p, *traj, *cts, bs=bs, data_grads=data_grads)
+            torch.cuda.synchronize()
+            if unroll_bwd.launches != n32 or unroll_bwd.launches_bf16[route] != n16[route] + 1:
+                raise AssertionError("bf16 backward launches not counted apart from fp32 ones")
+            pairs = [(nm, g, w) for nm, g, w in zip(names, (*got[0], *got[1:]), (*want[0], *want[1:]))
+                     if g is not None or w is not None]
+            for nm, g, w in pairs:
+                if g is None or w is None or not torch.isfinite(g.float()).all():
+                    raise AssertionError(f"bwd bf16 {label} S={S}: {nm} missing or not finite")
+            diff = bf16_diff([g for _, g, _ in pairs], [w for _, _, w in pairs], [nm for nm, _, _ in pairs])
+            for nm, (ulps, _, err) in diff.items():
+                if not ulps <= BWD16_TOL_ULPS:
+                    raise AssertionError(f"bwd bf16 {label} S={S} bs={bs}: {nm} {ulps} bf16 ulps > {BWD16_TOL_ULPS}")
+                errs[route] = max(errs[route], err)
+            emit("kernel_bwd_bf16", case=f"{label} S={S} bs={bs} {kw or ''}".strip(), route=route,
+                 data_grads=data_grads, ulps_of_max={k: v[0] for k, v in diff.items()},
+                 elements_differing={k: v[1] for k, v in diff.items()},
+                 elements={nm: g.numel() for nm, g, _ in pairs},
+                 max_abs_err={k: v[2] for k, v in diff.items()}, tolerance_ulps=BWD16_TOL_ULPS,
+                 dtypes={nm: str(g.dtype) for nm, g, _ in pairs})
+        with torch.no_grad():
+            again = unroll_bwd(b, A, *p, *traj, *cts, bs=bs, data_grads=False)
+        if not all(torch.equal(g, w) for g, w in zip(got[0], again[0])):
+            raise AssertionError(f"bwd bf16 {label} S={S} bs={bs}: a second call differs")
+        emit("kernel_bwd_bf16", case=f"{label} S={S} bs={bs}", route=route, repeats_bit_for_bit=True,
+             **launched_plan(unroll_bwd))
+        del A, b, p, traj, cts, got, want, again
+    return errs
+
+
+def check_step_bf16(torch, tqa, device) -> float:
+    """Phase 28: adam_step on bf16 gradient leaves with the bf16 compute
+    copy, int8 and the four dense formats, on the five leaves of
+    synthetic_small and synthetic_large, 3 chained steps (warmup-cosine,
+    clip 1.0) from phase 8's state with its gradients rounded to bf16:
+    each step's state equal bit for bit to the one-leaf sweeps' run on the
+    widened gradients with the step's scalars (the flat int8 leaves within
+    a code step), and held against the plain version's step as in phases 8
+    and 14 (step_checks.plain_step_diff); the copy equal bit for bit to
+    the kernel's new master rounded to nearest; [c1, c2, lr] within 2 fp32
+    ulps of step_scalars' and the clip scale within STEP16_SCALE_REL of
+    it (the bf16 norm); launches counted in launches_bf16 only; a second
+    first step bit for bit. Returns the largest master difference from
+    the plain version."""
+    from dladmm_tpu_torch.train import step_checks as sc
+
+    max_err = 0.0
+    sched = tqa.WarmupCosine(0.0, 1e-2, 2, 40)
+    for fmt in ("int8", *tqa.DENSE_FMTS):
+        for config, shapes in STEP_SHAPES.items():
+            params, mu, nu, grads32 = sc.step_state(shapes, fmt, seed=len(config) + len(fmt) + 1, device=device)
+            grads = [type(g)(*(t.bfloat16() for t in g)) for g in grads32]
+            copy = type(params)(*(torch.empty_like(t, dtype=torch.bfloat16) for t in params))
+            again = sc.clone_state(params, mu, nu)
+            copy2 = type(params)(*(torch.empty_like(t, dtype=torch.bfloat16) for t in params))
+            count = torch.tensor(1, dtype=torch.int32, device=device)
+            detail = {"scal_max_ulps": 0, "clip_scale_rel": 0.0, "clipped": [], "plain": []}
+            for step, g in enumerate(grads):
+                label = f"step bf16 {fmt} {config} {step}"
+                pre = sc.clone_state(params, mu, nu)
+                old = count
+                n32, n16 = tqa.adam_step.launches, tqa.adam_step.launches_bf16
+                count, scal, seeds = tqa.adam_step(g, params, mu, nu, count, fmt, sched, 1.0, copy=copy)
+                if tqa.adam_step.launches != n32 or tqa.adam_step.launches_bf16 != n16 + 2:
+                    raise AssertionError(f"{label}: bf16 steps not counted apart from fp32 ones")
+                pscal, pcount = tqa.step_scalars(g, old, sched, 1.0)
+                one = sc.clone_state(*pre)
+                sc.one_leaf_step(fmt, [t.float() for t in g], *one, scal, seeds)
+                if step == 0:
+                    tqa.adam_step(g, *again, old, fmt, sched, 1.0, copy=copy2)
+                torch.cuda.synchronize()
+                ulps = sc.scal_ulps(scal[:3], pscal[:3])
+                rel = abs(float(scal[3]) - float(pscal[3])) / float(pscal[3])
+                if not torch.equal(count, pcount) or ulps > 2 or not rel <= STEP16_SCALE_REL:
+                    raise AssertionError(f"{label}: count {int(count)}, scal {scal.tolist()} vs plain "
+                                         f"{pscal.tolist()} ({ulps} ulps, clip scale {rel} relative)")
+                sc.check_against_one_leaf(fmt, (params, mu, nu), one, label)
+                if not all(torch.equal(c, t.to(torch.bfloat16)) for c, t in zip(copy, params)):
+                    raise AssertionError(f"{label}: the copy is not the new master rounded")
+                if step == 0 and not (sc.same_state((params, mu, nu), again)
+                                      and all(torch.equal(a, b) for a, b in zip(copy, copy2))):
+                    raise AssertionError(f"{label}: a second step from the same state differs")
+                plain = sc.plain_step_diff(fmt, g, pre, (params, mu, nu), scal, seeds, label)
+                detail["scal_max_ulps"] = max(detail["scal_max_ulps"], ulps)
+                detail["clip_scale_rel"] = max(detail["clip_scale_rel"], rel)
+                detail["clipped"].append(float(scal[3]) < 1.0)
+                detail["plain"].append(plain)
+                max_err = max(max_err, plain["master_max_abs_err"])
+                del pre, one
+            emit("kernel_step_bf16", case=f"{fmt} {config} five leaves", steps=3, copy_is_rounded_master=True,
+                 repeats_bit_for_bit=True, **detail)
+            del params, mu, nu, grads, grads32, again, copy, copy2
+    return max_err
+
+
+# The two bf16 training recipes of the slice on synthetic_small: (a) the
+# final-layer loss at constant 2e-4 (BASELINE.md:125,210: the JAX
+# package's bf16 quality record, -11.52 against fp32's -11.54 dB at 600
+# steps), (b) the shipped recipe (deep supervision, int8 moments, clip
+# 1.0, cosine) at 300 steps. The limit of each on |bf16 - fp32| NMSE on
+# the same seed.
+BF16_RECIPES = {
+    "a": (dict(steps=600, lr=2e-4, lr_schedule=None, clip_norm=None, layer_loss=None,
+               moment_dtype="float32_pallas", eval_every=600), 0.1),
+    "b": (dict(steps=300, layer_loss="uniform", moment_dtype="int8_pallas", clip_norm=1.0,
+               lr_schedule="cosine", eval_every=300), 0.2),
+}
+
+
+def reset_training_counts() -> None:
+    """Every training kernel's launch count, fp32 and bf16, set to 0."""
+    from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj
+    from dladmm_tpu_torch.train import qadam_cuda
+
+    cuda_traj.trajectory_forward.launches = cuda_traj.trajectory_forward.launches_bf16 = 0
+    cuda_bwd.reset_launches()
+    qadam_cuda.adam_step.launches = qadam_cuda.adam_step.launches_bf16 = 0
+
+
+def training_counts() -> dict:
+    from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj
+    from dladmm_tpu_torch.train import qadam_cuda
+
+    return {"trajectory_forward": cuda_traj.trajectory_forward.launches,
+            "trajectory_forward_bf16": cuda_traj.trajectory_forward.launches_bf16,
+            **{f"unroll_bwd_{r}": v for r, v in cuda_bwd.unroll_bwd.launches.items()},
+            **{f"unroll_bwd_{r}_bf16": v for r, v in cuda_bwd.unroll_bwd.launches_bf16.items()},
+            "adam_step": qadam_cuda.adam_step.launches, "adam_step_bf16": qadam_cuda.adam_step.launches_bf16}
+
+
+def train_bf16_slice(torch, device, tmp) -> dict:
+    """Phase 29: bf16 training through the entry points a user calls:
+    ``fit`` on synthetic_small with compute_dtype="bfloat16", its forward
+    built as run.py builds it (models/api.select_forward), for recipe (a)
+    and (b), then the same on fp32 from the same seed. Every training
+    kernel's count is set to 0 just before each run and read just after:
+    a bf16 run launches the bf16 trajectory kernel once a step, (a) the
+    bf16 backward kernel once a step, the bf16 step twice a step, and no
+    fp32 training kernel (the fp32 trajectory kernel only at the eval,
+    which runs on the fp32 masters); an fp32 run launches no bf16 kernel.
+    Finite losses; the final NMSE, residual and the gap to fp32 (within
+    the recipe's limit), (a) below the port's LADMM at K = 15; the bf16 (a)
+    run's checkpoint (``tmp``) served by ``serve.main --ckpt-dir`` at its
+    last eval's NMSE within 0.01 dB. Returns {recipe: the bf16 run's
+    results and launches}."""
+    import dataclasses
+
+    from dladmm_tpu_torch.models.api import select_forward
+    from dladmm_tpu_torch.serve import main as serve_main
+    from dladmm_tpu_torch.train.loop import fit
+    from dladmm_tpu_torch.utils.config import get_config
+
+    base = get_config("synthetic_small")
+    p = base.problem
+    out = {}
+    for recipe, (train, limit) in BF16_RECIPES.items():
+        results = {}
+        for cd in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(base, train=dataclasses.replace(base.train, compute_dtype=cd, **train))
+            t = cfg.train
+            fwd, _, route = select_forward(p.m, p.n, p.m, t.batch, need_trajectory=t.layer_loss is not None,
+                                           device=device, dtype=cd)
+            ckpt = tmp if (cd == "bfloat16" and recipe == "a") else None
+            reset_training_counts()
+            t0 = time.monotonic()
+            _, hist = fit(cfg, forward_fn=fwd, ckpt_dir=ckpt, device=device)
+            wall = time.monotonic() - t0
+            counts = training_counts()
+            last = hist[-1]
+            if not all(math.isfinite(h["loss"]) and math.isfinite(h["nmse_db"]) for h in hist):
+                raise AssertionError(f"bf16 slice ({recipe}) {cd}: not finite: {hist[-1]}")
+            steps, evals = t.steps, len(hist)
+            if cd == "bfloat16":
+                want = {"trajectory_forward_bf16": steps, "trajectory_forward": evals,
+                        "unroll_bwd_whole_bf16": steps if recipe == "a" else 0, "adam_step_bf16": 2 * steps}
+                moved = {k: v for k, v in counts.items() if k not in want and v}
+            else:
+                want = {"trajectory_forward": steps + evals, "unroll_bwd_whole": steps if recipe == "a" else 0,
+                        "adam_step": 2 * steps}
+                moved = {k: v for k, v in counts.items() if k not in want and v}
+            if any(counts[k] != v for k, v in want.items()) or moved:
+                raise AssertionError(f"bf16 slice ({recipe}) {cd}: launches {counts}, expected {want} and no other")
+            results[cd] = {"final_nmse_db": last["nmse_db"], "final_residual": last["residual"],
+                           "last_loss": last["loss"], "ladmm_nmse_db_at_K": last["curves"]["ladmm_curve_db"][-1],
+                           "route": route, "launches": counts, "fit_wall_s": wall}
+        gap = results["bfloat16"]["final_nmse_db"] - results["float32"]["final_nmse_db"]
+        if not abs(gap) <= limit:
+            raise AssertionError(f"bf16 slice ({recipe}): NMSE {results['bfloat16']['final_nmse_db']} dB, "
+                                 f"fp32 {results['float32']['final_nmse_db']} dB: gap {gap} > {limit}")
+        if recipe == "a" and not results["bfloat16"]["final_nmse_db"] < results["bfloat16"]["ladmm_nmse_db_at_K"]:
+            raise AssertionError(f"bf16 slice (a): NMSE {results['bfloat16']['final_nmse_db']} does not beat "
+                                 f"LADMM {results['bfloat16']['ladmm_nmse_db_at_K']}")
+        emit("slice_train_bf16", recipe=recipe, config="synthetic_small batch 64", train=train,
+             bf16=results["bfloat16"], fp32=results["float32"], gap_db=gap, limit_db=limit)
+        out[recipe] = results["bfloat16"]
+    # The chunked route's main path: recipe (a) at the smoke preset's batch
+    # 1024, where bwd_chunk_batch splits the weight gradients.
+    smoke = get_config("smoke")
+    cfg = dataclasses.replace(smoke, train=dataclasses.replace(
+        smoke.train, compute_dtype="bfloat16", batch=1024, steps=20, eval_every=20, layer_loss=None,
+        moment_dtype="float32_pallas", lr=2e-4, lr_schedule=None, clip_norm=None))
+    sp = smoke.problem
+    fwd, _, route = select_forward(sp.m, sp.n, sp.m, 1024, device=device, dtype="bfloat16")
+    reset_training_counts()
+    _, hist = fit(cfg, forward_fn=fwd, device=device)
+    counts = training_counts()
+    if counts["unroll_bwd_chunked_bf16"] != 20 or counts["unroll_bwd_whole_bf16"] or counts["unroll_bwd_chunked"] \
+            or not math.isfinite(hist[-1]["loss"]):
+        raise AssertionError(f"smoke batch 1024 bf16: {counts}, {hist[-1]}")
+    emit("slice_train_bf16", recipe="a on smoke batch 1024 (chunked backward)", route=route, launches=counts,
+         final_nmse_db=hist[-1]["nmse_db"], last_loss=hist[-1]["loss"])
+    out["chunked"] = {"launches": counts}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_main(["--config=synthetic_small", "--ckpt-dir", tmp, "--demo", "256"])
+    served = json.loads(buf.getvalue().strip().splitlines()[-1])
+    trained = out["a"]["final_nmse_db"]
+    if rc != 0 or served["route"] != "cuda-whole-unroll-kernel" or not abs(served["nmse_db"] - trained) <= NMSE_TOL_DB:
+        raise AssertionError(f"serving the bf16 checkpoint: rc {rc}, {served}, trained {trained} dB")
+    emit("slice_train_bf16_serve", serve=served, trained_nmse_db=trained)
+    return out
+
+
+def phased_step_bf16(torch, A, A16, opt, state, i, recipe, bf16, mark=None, batch=64):
+    """One training step of recipe (a) or (b) (``batch`` rows from
+    step_generator(0, i)), split into data, forward, backward and
+    optimizer as ``phased_step``: in bf16 on the state's compute copy (b
+    cast each step, A16 once), the fused step rewriting the copy; or the
+    fp32 twin on the masters."""
+    from dladmm_tpu_torch.data.synthetic import make_batch, step_generator
+    from dladmm_tpu_torch.models.unroll import DLADMMParams
+    from dladmm_tpu_torch.ops.cuda_traj import make_unrolled_trajectory
+    from dladmm_tpu_torch.ops.cuda_unroll import make_unrolled_forward
+    from dladmm_tpu_torch.train.loop import TrainState, _layer_weights, weighted_trajectory_mse
+
+    mark = mark or (lambda k: None)
+    mark(0)
+    data = make_batch(step_generator(0, i), A, batch)
+    b = data.b.to(torch.bfloat16) if bf16 else data.b
+    src = state.compute_params if bf16 else state.params
+    leaves = [t.detach().requires_grad_() for t in src]
+    q = DLADMMParams(*leaves)
+    mark(1)
+    if recipe == "a":
+        x, z, _ = make_unrolled_forward()(q, A16 if bf16 else A, b)
+        loss = torch.mean((x - data.x_star) ** 2) + torch.mean((z - data.e_star) ** 2)
+    else:
+        tx, tz, _ = make_unrolled_trajectory()(q, A16 if bf16 else A, b)
+        w = _layer_weights("uniform", len(state.params.beta), device=A.device)
+        loss = weighted_trajectory_mse(tx, tz, data.x_star, data.e_star, w)
+    mark(2)
+    grads = DLADMMParams(*torch.autograd.grad(loss, leaves))
+    mark(3)
+    params, opt_state, cp = opt.fused_apply(grads, state.opt_state, state.params,
+                                            torch.bfloat16 if bf16 else None, state.compute_params)
+    mark(4)
+    return TrainState(params, opt_state, state.step + 1, cp), loss
+
+
+def bf16_setup(torch, device, recipe, bf16, shape=None):
+    """Dictionary, its bf16 cast, the recipe's optimizer and a fresh state
+    (with the compute copy for bf16) at synthetic_small (or ``shape``)."""
+    import dataclasses
+
+    from dladmm_tpu_torch.data.synthetic import make_dictionary
+    from dladmm_tpu_torch.models.unroll import init_dladmm_params
+    from dladmm_tpu_torch.train.loop import _build_optimizer, make_train_state
+    from dladmm_tpu_torch.utils.config import get_config
+
+    shape = shape or SMALL
+    base = get_config("synthetic_small").train
+    t = dataclasses.replace(base, **BF16_RECIPES[recipe][0])
+    A = make_dictionary(torch.Generator().manual_seed(0), shape["m"], shape["n"]).to(device)
+    opt = _build_optimizer(t)
+    state = make_train_state(init_dladmm_params(A, K=shape["K"]), opt, torch.bfloat16 if bf16 else None)
+    return A, A.bfloat16(), opt, state
+
+
+def time_train_bf16(torch, device, card) -> dict:
+    """Phase 30: bf16 training beside fp32, in turns. (1) A step by phase
+    (CUDA events, median of 20 after 4 warm-ups), bf16 and fp32 in turns,
+    recipe (a) and (b) at synthetic_small batch 64, and (a) at
+    synthetic_large batch 1024 (6 after 2). (2) Each bf16 kernel beside
+    its fp32 twin, in turns: CUDA-event ms, the profiler's device µs a
+    call (``profile_fn(events_fallback=True)``), the bound (stacks and
+    gradients at 2 bytes) and the bf16 plain version's ms: the trajectory
+    kernel (with tAx) and the backward at synthetic_small S = 64 and
+    synthetic_large S = 1024, the chunked backward at the smoke preset's
+    S = 1024 and synthetic_small S = 1024 (bs = 128), the step on bf16
+    gradients with the copy (int8 and float32, the prologue's and the
+    sweep's device µs). (3) The optimizer phase of bf16 steps held to the
+    prologue and one sweep a step (optimizer_phase), with the device µs
+    a step by phase. Returns the kernels line's numbers."""
+    from dladmm_tpu_torch.ops.cuda_bwd import unroll_bwd, unroll_bwd_plain_bf16
+    from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward, trajectory_forward_plain_bf16
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    out = {"step": {}}
+    for recipe, shape, label, reps, warm in (("a", SMALL, "synthetic_small batch 64", 24, 4),
+                                             ("b", SMALL, "synthetic_small batch 64", 24, 4),
+                                             ("a", LARGE, "synthetic_large batch 1024", 8, 2)):
+        S = 1024 if shape is LARGE else 64
+        runs = {}
+        for kind in ("bf16", "fp32"):
+            A, A16, opt, state = bf16_setup(torch, device, recipe, kind == "bf16", shape)
+            runs[kind] = [A, A16, opt, state]
+        phases = {k: [] for k in runs}
+        for rep in range(reps):
+            for kind in (("bf16", "fp32") if rep % 2 == 0 else ("fp32", "bf16")):
+                A, A16, opt, state = runs[kind]
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+                torch.cuda.synchronize()
+                runs[kind][3], _ = phased_step_bf16(torch, A, A16, opt, state, rep, recipe, kind == "bf16",
+                                                    mark=lambda k: ev[k].record(), batch=S)
+                ev[4].synchronize()
+                if rep >= warm:
+                    phases[kind].append([ev[j].elapsed_time(ev[j + 1]) for j in range(4)])
+        step = {}
+        for kind in runs:
+            arr = np.array(phases[kind])
+            step[kind] = {"step_ms": float(np.median(arr.sum(axis=1))), "data_ms": float(np.median(arr[:, 0])),
+                          "forward_ms": float(np.median(arr[:, 1])), "backward_ms": float(np.median(arr[:, 2])),
+                          "optimizer_ms": float(np.median(arr[:, 3]))}
+        key = f"{recipe} {label}"
+        out["step"][key] = step
+        emit("timing_train_bf16", recipe=recipe, config=label, step=step, steps=reps - warm,
+             bf16_over_fp32_step=step["bf16"]["step_ms"] / step["fp32"]["step_ms"], card=card)
+        del runs
+
+    def turns(name, config, fn16, fn32, plain16, bound16, bound32, reps):
+        for fn in (fn16, fn32, plain16):
+            fn()
+        ms16, ms32, plain_ms = median_ms(torch, [fn16, fn32, plain16], reps)
+        b2b = {"bf16": [], "fp32": []}
+        for turn in range(4):
+            for kind in (("bf16", "fp32") if turn % 2 == 0 else ("fp32", "bf16")):
+                b2b[kind].append(back_to_back_ms(torch, fn16 if kind == "bf16" else fn32, calls=5, rounds=1))
+        dev16 = profile_fn(torch, fn16, f"bf16 {name} {config}", events_fallback=True)
+        dev32 = profile_fn(torch, fn32, f"fp32 {name} {config}", events_fallback=True)
+        # µs a launch of each kernel: the profiler may drop some of a window's launches
+        per_launch = lambda prof: {k: v["us"] / v["calls"] for k, v in prof["per_call"].items() if v["calls"]}  # noqa: E731
+        row = {"ms": ms16, "plain_ms": plain_ms, "bound_ms": bound16[0], "bound_by": bound16[1],
+               "device_us_per_call": dev16["device_us_per_call"], "device_kernels": dev16["per_call"],
+               "device_us_per_launch": per_launch(dev16),
+               "back_to_back_ms": float(np.median(b2b["bf16"])), "host_enqueue_us": host_enqueue_us(torch, fn16),
+               "fp32": {"ms": ms32, "device_us_per_call": dev32["device_us_per_call"], "bound_ms": bound32[0],
+                        "device_us_per_launch": per_launch(dev32),
+                        "back_to_back_ms": float(np.median(b2b["fp32"]))}}
+        emit("timing_train_bf16_kernel", kernel=name, config=config, **row,
+             bf16_over_fp32_device=row["device_us_per_call"] / row["fp32"]["device_us_per_call"], card=card)
+        return row
+
+    with torch.no_grad():
+        for label, shape, S in (("synthetic_small", SMALL, 64), ("synthetic_large", LARGE, 1024)):
+            A, b, p = problem(torch, S=S, seed=S + 41, device=device, **shape)
+            A16, b16, p16 = A.bfloat16(), b.bfloat16(), type(p)(*(t.bfloat16() for t in p))
+            reps = 21 if S == 64 else 7
+            row = turns("trajectory_forward", f"{label} S={S} with_tax",
+                        lambda: trajectory_forward(b16, A16, *p16, with_tax=True),
+                        lambda: trajectory_forward(b, A, *p, with_tax=True),
+                        lambda: trajectory_forward_plain_bf16(b16, A16, *p16, with_tax=True),
+                        traj_bound(S, with_tax=True, itemsize=2, **shape), traj_bound(S, with_tax=True, **shape), reps)
+            row.update(launched_plan(trajectory_forward))
+            out[("trajectory_forward", label, S)] = row
+            del A, b, p, A16, b16, p16
+        for name, label, shape, S, bs in (("unroll_bwd", "synthetic_small", SMALL, 64, None),
+                                          ("unroll_bwd", "synthetic_large", LARGE, 1024, None),
+                                          ("unroll_bwd_chunked", "synthetic_small", SMALL, 1024, 128),
+                                          ("unroll_bwd_chunked", "smoke", SMOKE, 1024, 128)):
+            A, b, p, traj, cts = bwd16_case(torch, shape, S, seed=S + 43, device=device)
+            A32, b32, p32, traj32, cts32 = A.float(), b.float(), type(p)(*(t.float() for t in p)), \
+                [t.float() for t in traj], [t.float() for t in cts]
+            row = turns(name, f"{label} S={S} bs={bs}",
+                        lambda: unroll_bwd(b, A, *p, *traj, *cts, bs=bs),
+                        lambda: unroll_bwd(b32, A32, *p32, *traj32, *cts32, bs=bs),
+                        lambda: unroll_bwd_plain_bf16(b, A, *p, *traj, *cts, bs=bs),
+                        bwd_bound(S, itemsize=2, **shape), bwd_bound(S, **shape), 21 if S == 64 else 7)
+            row.update(launched_plan(unroll_bwd))
+            out[(name, label, S)] = row
+            del A, b, p, traj, cts, A32, b32, p32, traj32, cts32
+
+    from dladmm_tpu_torch.train import step_checks as sc
+
+    shapes = STEP_SHAPES["synthetic_small"]
+    sched = tqa.WarmupCosine(0.0, 1e-2, 15, 300)
+    for fmt in ("int8", "float32"):
+        params, mu, nu, grads = sc.step_state(shapes, fmt, seed=43, device=device)
+        g16 = type(grads[0])(*(t.bfloat16() for t in grads[0]))
+        copy = type(params)(*(torch.empty_like(t, dtype=torch.bfloat16) for t in params))
+        twin = sc.clone_state(params, mu, nu)
+        plain = sc.clone_state(params, mu, nu)
+        pcopy = type(params)(*(torch.empty_like(t, dtype=torch.bfloat16) for t in params))
+        count = torch.tensor(20, dtype=torch.int32, device=device)
+        fn16 = lambda: tqa.adam_step(g16, params, mu, nu, count, fmt, sched, 1.0, copy=copy)  # noqa: E731
+        fn32 = lambda: tqa.adam_step(grads[0], *twin, count, fmt, sched, 1.0)  # noqa: E731
+        plain16 = lambda: tqa.adam_step_plain(g16, *plain, count, fmt, sched, 1.0, copy=pcopy)  # noqa: E731
+        bounds = step_bounds(torch, shapes, fmt)  # bf16 g (2 B less) and the copy (2 B more): the same bytes
+        row = turns("adam_step", f"{fmt} synthetic_small five leaves, bf16 gradients + copy", fn16, fn32, plain16,
+                    bounds["step"], bounds["step"], 31)
+        # the prologue reads g once: 2 bytes an element in bf16
+        part_bounds = {"prologue": _bound(2 * bounds["elements"], 2 * bounds["elements"] + 16),
+                       "sweep": bounds["sweep"]}
+        for part, key in (("prologue", "adam_prologue"), ("sweep", "sweep")):
+            hits = [v for k, v in row["device_kernels"].items() if key in k]
+            calls = sum(v["calls"] for v in hits)
+            row[f"{part}_device_us"] = sum(v["us"] for v in hits) / calls if calls else None
+            row[f"{part}_bound_us"] = part_bounds[part][0] * 1e3
+        out[("adam_step", fmt)] = row
+        del params, mu, nu, grads, g16, copy, twin, plain, pcopy
+
+    for recipe, sweep in (("a", "qadam_dense_sweep"), ("b", "qadam_int8_sweep")):
+        A, A16, opt, state = bf16_setup(torch, device, recipe, True)
+        for i in range(3):
+            state, _ = phased_step_bf16(torch, A, A16, opt, state, i, recipe, True)
+        box = [state]
+
+        def run(mark, box=box, A=A, A16=A16, opt=opt, recipe=recipe):
+            for i in range(3):
+                box[0], _ = phased_step_bf16(torch, A, A16, opt, box[0], 3 + i, recipe, True, mark=mark)
+
+        by_phase, opt_ops = optimizer_phase(torch, run, sweep)
+        out[("profile", recipe)] = {"device_us_per_step_by_phase": by_phase, "optimizer_phase": opt_ops}
+        emit("profile_train_bf16", recipe=recipe, config="synthetic_small batch 64, bf16",
+             device_us_per_step_by_phase=by_phase, optimizer_phase=opt_ops, card=card)
+        del A, A16, opt, state, box
+    return out
+
+
+def build_phase() -> None:
+    """Phase 2: nvcc builds every source of ops/csrc/ from this checkout,
+    one nvcc per source, all started together; each source's ptxas report
+    (registers, spills) is printed."""
+    from dladmm_tpu_torch.ops import cuda_build
+
+    sources = sorted(cuda_build.CSRC.glob("*.cu"))
+    t0 = time.monotonic()
+    builds = cuda_build.build_all(sources)
+    for name, (lib_path, built, secs) in builds.items():
+        log = Path(str(lib_path) + ".log")
+        ptxas = ([ln.strip() for ln in log.read_text().splitlines()
+                  if "registers" in ln or "spill" in ln or "Compiling entry function" in ln]
+                 if log.exists() else [])
+        emit("build", source=name, seconds=secs, built_now=built, library=lib_path.name, ptxas=ptxas)
+    emit("build_all", seconds=time.monotonic() - t0, sources=len(builds))
+
+
 def main() -> int:
     import torch
 
@@ -2331,6 +2943,21 @@ def main() -> int:
         print(card, flush=True)
         time_int8(torch, torch.device("cuda", 0), card, plain=False)
         return 0
+    if sys.argv[1:] == ["--bf16-train"]:
+        from dladmm_tpu_torch.train import qadam_cuda
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = card_line()
+        print(card, flush=True)
+        build_phase()
+        dev = torch.device("cuda", 0)
+        check_traj_bf16(torch, dev)
+        check_bwd_bf16(torch, dev)
+        check_step_bf16(torch, qadam_cuda, dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            train_bf16_slice(torch, dev, tmp)
+        time_train_bf16(torch, dev, card)
+        return 0
     if sys.argv[1:] == ["--bf16-turns"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         card = card_line()
@@ -2341,7 +2968,6 @@ def main() -> int:
     from dladmm_tpu_torch.data.synthetic import make_batch, problem_matrices, seed_keys
     from dladmm_tpu_torch.metrics.core import nmse_db
     from dladmm_tpu_torch.models.unroll import init_dladmm_params
-    from dladmm_tpu_torch.ops import cuda_build
     from dladmm_tpu_torch.ops.cuda_unroll import unroll_forward, unroll_forward_plain
     from dladmm_tpu_torch.serve import BatchingServer, InferenceServer
     from dladmm_tpu_torch.serve import main as serve_main
@@ -2363,16 +2989,7 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda, tf32=False)
 
     # 2. build, from the sources in this checkout: one nvcc per source.
-    sources = sorted(cuda_build.CSRC.glob("*.cu"))
-    t0 = time.monotonic()
-    builds = cuda_build.build_all(sources)
-    for name, (lib_path, built, secs) in builds.items():
-        log = Path(str(lib_path) + ".log")
-        ptxas = ([ln.strip() for ln in log.read_text().splitlines()
-                  if "registers" in ln or "spill" in ln or "Compiling entry function" in ln]
-                 if log.exists() else [])
-        emit("build", source=name, seconds=secs, built_now=built, library=lib_path.name, ptxas=ptxas)
-    emit("build_all", seconds=time.monotonic() - t0, sources=len(builds))
+    build_phase()
 
     # 3. kernel against its plain version, on the card; a second call must
     # repeat bit for bit.
@@ -2589,6 +3206,17 @@ def main() -> int:
                      "phase-10 checkpoint": ["--ckpt-dir", str(ckpt10)]}, params, A_cfg)
     # 25. bf16 and fp32 in turns: times, device time, bounds.
     bf16_timings = time_bf16(torch, dev, card)
+    # 26-28. bf16 training's kernels against their plain versions.
+    traj16_err = check_traj_bf16(torch, dev)
+    bwd16_errs = check_bwd_bf16(torch, dev)
+    step16_err = check_step_bf16(torch, qadam_cuda, dev)
+    # 29. bf16 training through fit, recipes (a) and (b), each kernel counted
+    # from 0; fp32 twins; the bf16 checkpoint served.
+    ckpt29 = Path(work.name) / "train_bf16"
+    ckpt29.mkdir()
+    slice16 = train_bf16_slice(torch, dev, str(ckpt29))
+    # 30. bf16 training beside fp32, in turns.
+    train16 = time_train_bf16(torch, dev, card)
     work.cleanup()
 
     ms, plain_ms, bms, by = timings[("synthetic_small", 256)]
@@ -2688,6 +3316,42 @@ def main() -> int:
     }
     entries[-1]["bf16"] = {"launches": bf16_loop_launches, "max_abs_err": bf16_layer_err, "library_ms": None,
                            "shape": "synthetic_small S=256, one layer, bf16 state", **bf16_timings["layer"]}
+
+    def bf16_entry(name, source, replaces, launches, err, row, shape, **extra):
+        """Rows 2-6 in bf16 (phases 26-30): main paths fit on
+        synthetic_small with compute_dtype="bfloat16", recipe (a) (rows 2,
+        4, 6) or (b) (row 3); the chunked backward's launches are those of
+        recipe (a) at the smoke preset's batch 1024 (synthetic_small does
+        not split), its times at the smoke preset's S = 1024."""
+        keep = {k: v for k, v in row.items() if k not in ("device_kernels",)}
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "storage": "bfloat16",
+                "launches": launches, "max_abs_err": err, "ms": keep.pop("ms"), "plain_ms": keep.pop("plain_ms"),
+                "bound_ms": keep.pop("bound_ms"), "bound_by": keep.pop("bound_by"), "library_ms": None,
+                "shape": shape, "fp32_in_turns": keep.pop("fp32"), **keep, **extra}
+
+    la, lb = slice16["a"]["launches"], slice16["b"]["launches"]
+    entries += [
+        bf16_entry("trajectory_forward_bf16", "dladmm_tpu_torch/ops/csrc/unroll.cu",
+                   "dladmm_tpu/ops/pallas_unroll.py:266", la["trajectory_forward_bf16"], traj16_err,
+                   train16[("trajectory_forward", "synthetic_small", 64)], "synthetic_small S=64 with_tax",
+                   launches_by_path={"a": la["trajectory_forward_bf16"], "b": lb["trajectory_forward_bf16"]},
+                   synthetic_large_S1024=train16[("trajectory_forward", "synthetic_large", 1024)]),
+        bf16_entry("adam_int8_rows_bf16", "dladmm_tpu_torch/ops/csrc/qadam_int8.cu",
+                   "dladmm_tpu/train/qadam_pallas.py:129", lb["adam_step_bf16"], step16_err,
+                   train16[("adam_step", "int8")], "int8 synthetic_small five leaves, bf16 gradients + copy",
+                   entry="adam_step"),
+        bf16_entry("unroll_bwd_bf16", "dladmm_tpu_torch/ops/csrc/unroll_bwd.cu", "dladmm_tpu/ops/pallas_bwd.py:56",
+                   la["unroll_bwd_whole_bf16"], bwd16_errs["whole"], train16[("unroll_bwd", "synthetic_small", 64)],
+                   "synthetic_small S=64", synthetic_large_S1024=train16[("unroll_bwd", "synthetic_large", 1024)]),
+        bf16_entry("unroll_bwd_chunked_bf16", "dladmm_tpu_torch/ops/csrc/unroll_bwd.cu",
+                   "dladmm_tpu/ops/pallas_bwd.py:356", slice16["chunked"]["launches"]["unroll_bwd_chunked_bf16"],
+                   bwd16_errs["chunked"], train16[("unroll_bwd_chunked", "smoke", 1024)], "smoke S=1024 bs=128",
+                   synthetic_small_S1024_bs128=train16[("unroll_bwd_chunked", "synthetic_small", 1024)]),
+        bf16_entry("adam_dense_rows_bf16", "dladmm_tpu_torch/ops/csrc/qadam_dense.cu",
+                   "dladmm_tpu/train/qadam_pallas.py:178", la["adam_step_bf16"], step16_err,
+                   train16[("adam_step", "float32")], "float32 synthetic_small five leaves, bf16 gradients + copy",
+                   entry="adam_step"),
+    ]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

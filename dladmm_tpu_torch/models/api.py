@@ -14,9 +14,11 @@ The port of ``dladmm_tpu/models/api.py``:
     collapse into this one rung: the CUDA kernels have no fit gate.
   * ``reference``, or a general B: the plain loop (models.unroll).
 
-bf16 inputs run the same rungs: the whole-unroll kernel's bf16-storage
-variant, or the plain loop in bf16 (the JAX package's scan); the route
-names say bf16 (``kernel_route``, ``plain_route``).
+bf16 inputs run the same rungs: the bf16-storage variants of the
+whole-unroll and trajectory kernels (with a gradient, bf16 training:
+the trajectory and backward kernels' bf16 variants), or the plain loop
+in bf16 (the JAX package's scan); the route names say bf16
+(``kernel_route``, ``plain_route``).
 
 The per-layer fused kernel (ops/cuda_layer.py, the port of
 pallas_layer.py) is no rung here. The JAX policy took it

@@ -14,12 +14,23 @@
 // (lay_out): the one-leaf entries fill a table by them, and a step's
 // entry refuses a host table that differs, before it enqueues anything.
 //
+// bf16 gradients (bf16 training). A step's gradients are all fp32 or all
+// bf16 (Table::g16); bf16 ones are widened exactly where they are read.
+// A leaf may also carry a bf16 compute copy (Leaf::copy): the sweep then
+// writes round_rn(new master) into it, in place, in the same pass
+// (emit_copy in qadam_pallas.py).
+//
 // The prologue computes what qadam_cuda.step_scalars and step_seeds
 // compute:
 //
 //   norm       = sqrt(sum over every leaf of g^2), summed in fp64 and
 //                rounded once to fp32 (the plain version's fp32 sums in
-//                PyTorch's order land within rounding of it)
+//                PyTorch's order land within rounding of it); on bf16
+//                gradients the norm of the JAX package's jitted step
+//                (optax.global_norm(grads).astype(f32) in _scalars): each
+//                leaf's sum of squares (fp64 here, fp32 there) rounded to
+//                bf16, the leaves' sums added in bf16 in leaf order, the
+//                square root of that bf16 total in fp32
 //   clip_scale = min(1, clip / max(norm, 1e-16)), 1 without a clip; the
 //                division as PyTorch's Python-number / tensor computes it,
 //                reciprocal(max(...)) * clip
@@ -39,9 +50,9 @@
 //
 // The host arrays of a step (train/qadam_cuda.py packs them):
 //   ptrs: count, count_out, scal, seeds, lr_ptr, partials, counter, then
-//         per leaf g, master, mu, nu, mu_scale, nu_scale, seed
+//         per leaf g, master, mu, nu, mu_scale, nu_scale, seed, copy
 //   ints: nleaves, blocks, chunks, norm_blocks, lr_mode, warmup, decay,
-//         has_clip, fmt, then per leaf codec, n, rows, L, warps, vec,
+//         has_clip, fmt, g16, then per leaf codec, n, rows, L, warps, vec,
 //         block0, chunk0 (the sweep launches one block a work block)
 //   flts: lr, init - peak, peak, pi, 1 - alpha, alpha, clip, b1, 1 - b1,
 //         b2, 1 - b2, eps, 1/127
@@ -50,6 +61,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -60,20 +72,21 @@ namespace {
 constexpr int kStepThreads = 256;
 constexpr int kMaxLeaves = 8;
 constexpr int kChunk = kStepThreads * 8;  // elements of a norm chunk and of a dense work block
-constexpr int kMaxNormBlocks = 512;       // size of the partials workspace
-constexpr int kPtrHead = 7, kPtrLeaf = 7, kIntHead = 9, kIntLeaf = 8;
+constexpr int kMaxNormBlocks = 512;       // blocks of the prologue at most (kMaxLeaves partials each)
+constexpr int kPtrHead = 7, kPtrLeaf = 8, kIntHead = 10, kIntLeaf = 8;
 
 enum Codec { CODEC_ROWS = 0, CODEC_FLAT = 1, CODEC_DENSE = 2 };
 enum LrMode { LR_CONST = 0, LR_COSINE = 1, LR_PTR = 2 };
 
 struct Leaf {
-  const float* g;
+  const void* g;      // fp32, or bf16 where the table's g16 is set
   float* master;
   void* mu;           // int8 codes or the dense moment
   void* nu;
   float* mu_s;        // int8 scales, one a row (null for dense)
   float* nu_s;
   const int* seed;    // the leaf's SR seed (dense SR formats), else null
+  __nv_bfloat16* copy;  // the bf16 compute copy written from the new master, or null
   long long n;        // elements of g and master
   int codec;          // Codec
   int rows;           // int8: rows of the codes, (R, L) or (nblocks, 256)
@@ -87,6 +100,7 @@ struct Leaf {
 struct Table {
   Leaf leaf[kMaxLeaves];
   int nleaves;
+  int g16;     // every leaf's g is bf16 (else fp32)
   int blocks;  // work blocks of the sweep
   int chunks;  // chunks of the norm
 };
@@ -123,14 +137,17 @@ inline int int8_warps(int L) {
 }
 
 // Elements a vector access of a leaf takes. int8: 4, then 2, where L is a
-// multiple and every pointer is aligned to it (4 V bytes for fp32, V for
-// codes), else 1. Dense: 8 (16-byte accesses) where every pointer is
-// 16-byte aligned, else 1.
-inline int leaf_vec(const Leaf& lf) {
+// multiple and every pointer is aligned to it (4 V bytes for fp32, 2 V
+// for bf16 (g16, copy), V for codes), else 1. Dense: 8 (16-byte accesses
+// of fp32 and bf16) where every pointer is 16-byte aligned, else 1.
+inline int leaf_vec(const Leaf& lf, bool g16) {
+  const bool copy16 = lf.copy == nullptr || aligned(lf.copy, 16);
   if (lf.codec == CODEC_DENSE)
-    return aligned(lf.g, 16) && aligned(lf.master, 16) && aligned(lf.mu, 16) && aligned(lf.nu, 16) ? kDenseVec : 1;
+    return aligned(lf.g, 16) && aligned(lf.master, 16) && aligned(lf.mu, 16) && aligned(lf.nu, 16) && copy16
+               ? kDenseVec : 1;
   for (int v = 4; v > 1; v /= 2)
-    if (lf.L % v == 0 && aligned(lf.g, 4 * v) && aligned(lf.master, 4 * v) && aligned(lf.mu, v) && aligned(lf.nu, v))
+    if (lf.L % v == 0 && aligned(lf.g, (g16 ? 2 : 4) * v) && aligned(lf.master, 4 * v) && aligned(lf.mu, v) &&
+        aligned(lf.nu, v) && (lf.copy == nullptr || aligned(lf.copy, 2 * v)))
       return v;
   return 1;
 }
@@ -152,7 +169,7 @@ inline bool lay_out(Table& t, bool fill) {
     const long long chunks = (lf.n + kChunk - 1) / kChunk;
     const int per = dense ? 0 : kBlockWarps / warps;
     const long long blocks = dense ? chunks : (lf.rows + per - 1) / per;
-    const int vec = leaf_vec(lf);
+    const int vec = leaf_vec(lf, t.g16 != 0);
     if (fill) {
       lf.warps = warps;
       lf.vec = vec;
@@ -228,54 +245,153 @@ __device__ __forceinline__ float cosine_lr(int c, const StepScalars& s) {
   return __fmul_rn(s.peak, __fadd_rn(__fmul_rn(s.one_m_alpha, cosine), s.alpha));
 }
 
+// Eight elements of a leaf's gradient from index i0 (0 past its end), as
+// floats: 16-byte loads where they are aligned and whole.
+__device__ __forceinline__ void grad8(const Leaf& lf, bool g16, long long i0, float* v) {
+  if (g16) {
+    const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(lf.g);
+    if (i0 + 8 <= lf.n && ((uintptr_t)(g + i0) & 15) == 0) {
+      const uint4 a = __ldcg(reinterpret_cast<const uint4*>(g + i0));
+      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&a);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(h[k]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = i0 + k < lf.n ? __bfloat162float(g[i0 + k]) : 0.0f;
+    }
+    return;
+  }
+  const float* g = static_cast<const float*>(lf.g);
+  if (i0 + 8 <= lf.n && ((uintptr_t)g & 15) == 0) {
+    const float4 a = __ldcg(reinterpret_cast<const float4*>(g + i0));
+    const float4 b = __ldcg(reinterpret_cast<const float4*>(g + i0 + 4));
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = i0 + k < lf.n ? g[i0 + k] : 0.0f;
+  }
+}
+
+// v as a bf16 value holds it.
+__device__ __forceinline__ float bf16_rounded(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+// Whether this block is the last of the grid to arrive at the counter
+// (which it then clears for the next step), after its partials are out.
+__device__ __forceinline__ bool last_block(const StepScalars& s, int* last) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    *last = atomicAdd(s.counter, 1) == (int)gridDim.x - 1;
+    if (*last) *s.counter = 0;  // the next step finds it cleared
+  }
+  __syncthreads();
+  if (*last) __threadfence();
+  return *last;
+}
+
+// The global norm of fp32 gradients: one fp64 sum over every leaf
+// (thread 0 of the last block gets it).
+__device__ double sum_of_squares(const Table& t, const StepScalars& s, double* red, int* last, bool* done) {
+  double acc = 0.0;
+  for (int c = blockIdx.x; c < t.chunks; c += gridDim.x) {
+    const Leaf& lf = t.leaf[leaf_of_chunk(t, c)];
+    float v[8];
+    grad8(lf, false, (long long)(c - lf.chunk0) * kChunk + threadIdx.x * 8, v);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc = fma((double)v[k], (double)v[k], acc);
+  }
+  double sumsq = block_sum(acc, red);
+  *done = true;
+  if (gridDim.x > 1) {
+    if (threadIdx.x == 0) __stcg(s.partials + blockIdx.x, sumsq);
+    if (!last_block(s, last)) {
+      *done = false;
+      return 0.0;
+    }
+    double p = 0.0;
+    for (int b = threadIdx.x; b < (int)gridDim.x; b += kStepThreads) p += __ldcg(s.partials + b);
+    sumsq = block_sum(p, red);
+  }
+  return sqrt(sumsq);
+}
+
+// The global norm of bf16 gradients as the JAX package's jitted step
+// computes it: each leaf's sum of squares (fp64 here) rounded to bf16,
+// those added in bf16 in leaf order, the fp32 square root of that bf16
+// total (XLA keeps it in fp32 there: the norm is cast to fp32 at once,
+// and excess precision is allowed). A block's chunks run in leaf order,
+// so it sums leaf by leaf (block-uniform changes of leaf); its partials
+// are one a leaf, and the last block sums each leaf's in block order.
+// Thread 0 of the last block gets the norm.
+__device__ double bf16_norm(const Table& t, const StepScalars& s, double* red, int* last, bool* done) {
+  __shared__ double leaf_sum[kMaxLeaves];
+  if (threadIdx.x < kMaxLeaves) leaf_sum[threadIdx.x] = 0.0;
+  double acc = 0.0;
+  int cur = -1;
+  for (int c = blockIdx.x; c < t.chunks; c += gridDim.x) {
+    const int li = leaf_of_chunk(t, c);
+    if (li != cur) {
+      if (cur >= 0) {
+        const double bs = block_sum(acc, red);
+        if (threadIdx.x == 0) leaf_sum[cur] += bs;
+      }
+      acc = 0.0;
+      cur = li;
+    }
+    const Leaf& lf = t.leaf[li];
+    float v[8];
+    grad8(lf, true, (long long)(c - lf.chunk0) * kChunk + threadIdx.x * 8, v);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc = fma((double)v[k], (double)v[k], acc);
+  }
+  if (cur >= 0) {
+    const double bs = block_sum(acc, red);
+    if (threadIdx.x == 0) leaf_sum[cur] += bs;
+  }
+  __syncthreads();
+  *done = true;
+  if (gridDim.x > 1) {
+    if (threadIdx.x < kMaxLeaves) __stcg(s.partials + (size_t)blockIdx.x * kMaxLeaves + threadIdx.x, leaf_sum[threadIdx.x]);
+    if (!last_block(s, last)) {
+      *done = false;
+      return 0.0;
+    }
+    for (int l = 0; l < t.nleaves; ++l) {
+      double p = 0.0;
+      for (int b = threadIdx.x; b < (int)gridDim.x; b += kStepThreads)
+        p += __ldcg(s.partials + (size_t)b * kMaxLeaves + l);
+      const double total = block_sum(p, red);
+      if (threadIdx.x == 0) leaf_sum[l] = total;
+    }
+  }
+  float norm2 = 0.0f;
+  if (threadIdx.x == 0)
+    for (int l = 0; l < t.nleaves; ++l) {
+      const float leaf = bf16_rounded(__double2float_rn(leaf_sum[l]));
+      norm2 = l ? bf16_rounded(__fadd_rn(norm2, leaf)) : leaf;
+    }
+  return (double)__fsqrt_rn(norm2);
+}
+
 __global__ void __launch_bounds__(kStepThreads)
 adam_prologue(const __grid_constant__ Table t, const __grid_constant__ StepScalars s) {
   __shared__ double red[kStepThreads / 32];
   __shared__ int last;
-  double sumsq = 0.0;
+  double norm = 0.0;
   if (s.has_clip) {
-    double acc = 0.0;
-    for (int c = blockIdx.x; c < t.chunks; c += gridDim.x) {
-      const Leaf& lf = t.leaf[leaf_of_chunk(t, c)];
-      const long long i0 = (long long)(c - lf.chunk0) * kChunk + threadIdx.x * 8;
-      float v[8];
-      if (i0 + 8 <= lf.n && ((uintptr_t)lf.g & 15) == 0) {
-        const float4 a = __ldcg(reinterpret_cast<const float4*>(lf.g + i0));
-        const float4 b = __ldcg(reinterpret_cast<const float4*>(lf.g + i0 + 4));
-        v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-        v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-      } else {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) v[k] = i0 + k < lf.n ? lf.g[i0 + k] : 0.0f;
-      }
-#pragma unroll
-      for (int k = 0; k < 8; ++k) acc = fma((double)v[k], (double)v[k], acc);
-    }
-    sumsq = block_sum(acc, red);
-    if (gridDim.x > 1) {
-      if (threadIdx.x == 0) __stcg(s.partials + blockIdx.x, sumsq);
-      __threadfence();
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        last = atomicAdd(s.counter, 1) == (int)gridDim.x - 1;
-        if (last) *s.counter = 0;  // the next step finds it cleared
-      }
-      __syncthreads();
-      if (!last) return;
-      __threadfence();
-      double p = 0.0;
-      for (int b = threadIdx.x; b < (int)gridDim.x; b += kStepThreads) p += __ldcg(s.partials + b);
-      sumsq = block_sum(p, red);
-    }
+    bool done;
+    norm = t.g16 ? bf16_norm(t, s, red, &last, &done) : sum_of_squares(t, s, red, &last, &done);
+    if (!done) return;
   }
   const int count = *s.count + 1;
   if (threadIdx.x == 0) {
     const float cf = (float)count;
     float scale = 1.0f;
     if (s.has_clip) {
-      const float norm = __double2float_rn(__dsqrt_rn(sumsq));
+      const float nrm = __double2float_rn(norm);
       const float tiny = 1e-16f;
-      const float q = __fmul_rn(__frcp_rn(norm < tiny ? tiny : norm), s.clip);  // NaN stays NaN
+      const float q = __fmul_rn(__frcp_rn(nrm < tiny ? tiny : nrm), s.clip);  // NaN stays NaN
       scale = q > 1.0f ? 1.0f : q;
     }
     const float lr = s.lr_mode == LR_CONST ? s.lr
@@ -301,17 +417,19 @@ inline bool read_step(const long long* ptrs, const long long* ints, const double
   t.nleaves = nl;
   t.blocks = (int)ints[1];
   t.chunks = (int)ints[2];
+  t.g16 = (int)ints[9];
   for (int i = 0; i < nl; ++i) {
     const long long* p = ptrs + kPtrHead + i * kPtrLeaf;
     const long long* d = ints + kIntHead + i * kIntLeaf;
     Leaf& lf = t.leaf[i];
-    lf.g = reinterpret_cast<const float*>(p[0]);
+    lf.g = reinterpret_cast<const void*>(p[0]);
     lf.master = reinterpret_cast<float*>(p[1]);
     lf.mu = reinterpret_cast<void*>(p[2]);
     lf.nu = reinterpret_cast<void*>(p[3]);
     lf.mu_s = reinterpret_cast<float*>(p[4]);
     lf.nu_s = reinterpret_cast<float*>(p[5]);
     lf.seed = reinterpret_cast<const int*>(p[6]);
+    lf.copy = reinterpret_cast<__nv_bfloat16*>(p[7]);
     lf.codec = (int)d[0];
     lf.n = d[1];
     lf.rows = (int)d[2];

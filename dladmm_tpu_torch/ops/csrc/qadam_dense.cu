@@ -10,6 +10,12 @@
 //   nu'     = b2 * nu + (1 - b2) * g' * g'
 //   master -= lr * (mu' / c1) / (sqrt(nu' / c2) + eps)
 //   mu, nu  <- mu', nu' in their stored types
+//   copy    <- round_rn(master)               (bf16 training: the compute copy)
+//
+// g is fp32 or bf16 (bf16 training's gradients, widened exactly), and a
+// leaf may carry its bf16 compute copy, written in the same pass
+// (emit_copy of the JAX kernel); the bytes an element stay 28 with fp32
+// moments (2 fewer read of g, 2 more written to the copy).
 //
 // mu and nu are read and written as fp32 or bf16 (the moment formats of
 // _DENSE_FMTS: float32, bfloat16, bfloat16_sr with both moments SR-bf16,
@@ -154,7 +160,11 @@ qadam_dense_sweep(const __grid_constant__ Table t, const float* __restrict__ sca
     MuT* mu = static_cast<MuT*>(lf.mu);
     NuT* nu = static_cast<NuT*>(lf.nu);
     float g[kVec], ms[kVec], m[kVec], v[kVec];
-    load8(lf.g, i0, n, vec, g);
+    if (t.g16) {
+      load8(static_cast<const __nv_bfloat16*>(lf.g), i0, n, vec, g);
+    } else {
+      load8(static_cast<const float*>(lf.g), i0, n, vec, g);
+    }
     load8(lf.master, i0, n, vec, ms);
     load8(mu, i0, n, vec, m);
     load8(nu, i0, n, vec, v);
@@ -179,6 +189,12 @@ qadam_dense_sweep(const __grid_constant__ Table t, const float* __restrict__ sca
     store8(lf.master, i0, n, vec, ms);
     store8(mu, i0, n, vec, mo);
     store8(nu, i0, n, vec, no);
+    if (lf.copy != nullptr) {
+      __nv_bfloat16 cp[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) cp[e] = __float2bfloat16_rn(ms[e]);
+      store8(lf.copy, i0, n, vec, cp);
+    }
   }
 }
 
@@ -210,7 +226,9 @@ cudaError_t launch_sweep(int fmt, const Table& t, const float* scal, const Coeff
 
 // One optimizer step over a table of dense leaves (adam_step.cuh gives
 // the layout of the host arrays; ints[8] is the format: 0 float32, 1
-// bfloat16, 2 bfloat16_sr, 3 bfloat16_sr_mu), enqueued on `stream`: the
+// bfloat16, 2 bfloat16_sr, 3 bfloat16_sr_mu; ints[9] 1 for bf16
+// gradients; a leaf's copy pointer, where not null, receives its bf16
+// compute copy), enqueued on `stream`: the
 // prologue, then the sweep; no sync. A table the sweep does not take is
 // refused before either is enqueued. Returns a cudaError_t; a refused
 // launch's error is cleared for later launches' checks.

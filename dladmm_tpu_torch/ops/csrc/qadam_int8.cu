@@ -14,6 +14,11 @@
 //   master -= lr * (mu' / c1) / (sqrt(nu' / c2) + eps)
 //   scale_r = absmax of the row (1.0 for an all-zero row), per moment
 //   code    = round_half_even(127 * sign(y) * sqrt(|y|)), y = mu' / scale_r
+//   copy    = round_rn(master)        (bf16 training: the compute copy)
+//
+// g is fp32 or bf16 (bf16 training's gradients, widened exactly), and a
+// leaf may carry its bf16 compute copy, written in the same pass
+// (emit_copy of the JAX kernel): 16 bytes an element either way.
 //
 // Two codecs share the launch (train/qadam_cuda.leaf_eligible picks a
 // leaf's): per-row, codes (R, L) and scales (R,) on the (R, L) view of W1
@@ -43,6 +48,8 @@
 // what the plain PyTorch versions compute, operation for operation.
 //
 // Plain C interface, loaded with ctypes (dladmm_tpu_torch/train/qadam_cuda.py).
+
+#include <cuda_bf16.h>
 
 #include "adam_step.cuh"
 
@@ -89,6 +96,38 @@ __device__ __forceinline__ void store_f(float* p, const float* v) {
   }
 }
 
+// V bf16 values from p, widened.
+template <int V>
+__device__ __forceinline__ void load_h(const __nv_bfloat16* p, float* v) {
+  if constexpr (V == 4) {
+    const uint2 a = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&a);
+    v[0] = __bfloat162float(h[0]); v[1] = __bfloat162float(h[1]);
+    v[2] = __bfloat162float(h[2]); v[3] = __bfloat162float(h[3]);
+  } else if constexpr (V == 2) {
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(p);
+    v[0] = __low2float(a); v[1] = __high2float(a);
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
+
+// V floats rounded to bf16 into p.
+template <int V>
+__device__ __forceinline__ void store_h(__nv_bfloat16* p, const float* v) {
+  if constexpr (V == 4) {
+    uint2 a;
+    __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&a);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[e] = __float2bfloat16_rn(v[e]);
+    *reinterpret_cast<uint2*>(p) = a;
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+  } else {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+}
+
 template <int V>
 __device__ __forceinline__ void load_c(const int8_t* p, int8_t* v) {
   if constexpr (V == 4) {
@@ -123,7 +162,7 @@ __device__ __forceinline__ void group_sync(int id, int threads) {
 // index in the group, grp the group's index in the block; red holds the
 // block's per-warp maxima.
 template <int W, int V>
-__device__ __forceinline__ void row_update(const Leaf& lf, int row, int t, int grp, float (*red)[2],
+__device__ __forceinline__ void row_update(const Leaf& lf, bool g16, int row, int t, int grp, float (*red)[2],
                                            const float* __restrict__ scal, const Coeffs& k) {
   constexpr int G = 32 * W, C = kPerThread / V;
   const bool flat = lf.codec == CODEC_FLAT;
@@ -132,8 +171,10 @@ __device__ __forceinline__ void row_update(const Leaf& lf, int row, int t, int g
   const int valid = left < lf.L ? (int)left : lf.L;  // elements with g and master
   const float c1 = scal[0], c2 = scal[1], lr = scal[2], cs = scal[3];
   const float smu = lf.mu_s[row], snu = lf.nu_s[row];
-  const float* g = lf.g + base;
+  const float* g = g16 ? nullptr : static_cast<const float*>(lf.g) + base;
+  const __nv_bfloat16* gh = g16 ? static_cast<const __nv_bfloat16*>(lf.g) + base : nullptr;
   float* master = lf.master + base;
+  __nv_bfloat16* copy = lf.copy == nullptr ? nullptr : lf.copy + base;
   int8_t* muc = static_cast<int8_t*>(lf.mu) + base;
   int8_t* nuc = static_cast<int8_t*>(lf.nu) + base;
 
@@ -151,13 +192,17 @@ __device__ __forceinline__ void row_update(const Leaf& lf, int row, int t, int g
     load_c<V>(muc + j0, cm + c * V);
     load_c<V>(nuc + j0, cn + c * V);
     if (j0 + V <= valid) {
-      load_f<V>(g + j0, gv + c * V);
+      if (g16) {
+        load_h<V>(gh + j0, gv + c * V);
+      } else {
+        load_f<V>(g + j0, gv + c * V);
+      }
       load_f<V>(master + j0, mv + c * V);
     } else {
 #pragma unroll
       for (int v = 0; v < V; ++v)
         if (j0 + v < valid) {
-          gv[c * V + v] = g[j0 + v];
+          gv[c * V + v] = g16 ? __bfloat162float(gh[j0 + v]) : g[j0 + v];
           mv[c * V + v] = master[j0 + v];
         }
     }
@@ -186,10 +231,14 @@ __device__ __forceinline__ void row_update(const Leaf& lf, int row, int t, int g
     const int j0 = (c * G + t) * V;
     if (j0 + V <= valid) {
       store_f<V>(master + j0, mv + c * V);
+      if (copy != nullptr) store_h<V>(copy + j0, mv + c * V);
     } else {
 #pragma unroll
       for (int v = 0; v < V; ++v)
-        if (j0 + v < valid) master[j0 + v] = mv[c * V + v];
+        if (j0 + v < valid) {
+          master[j0 + v] = mv[c * V + v];
+          if (copy != nullptr) copy[j0 + v] = __float2bfloat16_rn(mv[c * V + v]);
+        }
     }
   }
 
@@ -238,6 +287,7 @@ __global__ void __launch_bounds__(kStepThreads)
 qadam_int8_sweep(const __grid_constant__ Table t, const float* __restrict__ scal, const Coeffs k) {
   __shared__ float red[kBlockWarps][2];
   const int warp = threadIdx.x / 32;
+  const bool g16 = t.g16 != 0;
   for (int w = blockIdx.x; w < t.blocks; w += gridDim.x) {
     const Leaf& lf = t.leaf[leaf_of_block(t, w)];
     const int W = lf.warps, grp = warp / W;
@@ -245,18 +295,18 @@ qadam_int8_sweep(const __grid_constant__ Table t, const float* __restrict__ scal
     const int tg = threadIdx.x - grp * 32 * W;
     if (row < lf.rows) {
       switch (W * 8 + lf.vec) {
-        case 1 * 8 + 4: row_update<1, 4>(lf, row, tg, grp, red, scal, k); break;
-        case 1 * 8 + 2: row_update<1, 2>(lf, row, tg, grp, red, scal, k); break;
-        case 1 * 8 + 1: row_update<1, 1>(lf, row, tg, grp, red, scal, k); break;
-        case 2 * 8 + 4: row_update<2, 4>(lf, row, tg, grp, red, scal, k); break;
-        case 2 * 8 + 2: row_update<2, 2>(lf, row, tg, grp, red, scal, k); break;
-        case 2 * 8 + 1: row_update<2, 1>(lf, row, tg, grp, red, scal, k); break;
-        case 4 * 8 + 4: row_update<4, 4>(lf, row, tg, grp, red, scal, k); break;
-        case 4 * 8 + 2: row_update<4, 2>(lf, row, tg, grp, red, scal, k); break;
-        case 4 * 8 + 1: row_update<4, 1>(lf, row, tg, grp, red, scal, k); break;
-        case 8 * 8 + 4: row_update<8, 4>(lf, row, tg, grp, red, scal, k); break;
-        case 8 * 8 + 2: row_update<8, 2>(lf, row, tg, grp, red, scal, k); break;
-        case 8 * 8 + 1: row_update<8, 1>(lf, row, tg, grp, red, scal, k); break;
+        case 1 * 8 + 4: row_update<1, 4>(lf, g16, row, tg, grp, red, scal, k); break;
+        case 1 * 8 + 2: row_update<1, 2>(lf, g16, row, tg, grp, red, scal, k); break;
+        case 1 * 8 + 1: row_update<1, 1>(lf, g16, row, tg, grp, red, scal, k); break;
+        case 2 * 8 + 4: row_update<2, 4>(lf, g16, row, tg, grp, red, scal, k); break;
+        case 2 * 8 + 2: row_update<2, 2>(lf, g16, row, tg, grp, red, scal, k); break;
+        case 2 * 8 + 1: row_update<2, 1>(lf, g16, row, tg, grp, red, scal, k); break;
+        case 4 * 8 + 4: row_update<4, 4>(lf, g16, row, tg, grp, red, scal, k); break;
+        case 4 * 8 + 2: row_update<4, 2>(lf, g16, row, tg, grp, red, scal, k); break;
+        case 4 * 8 + 1: row_update<4, 1>(lf, g16, row, tg, grp, red, scal, k); break;
+        case 8 * 8 + 4: row_update<8, 4>(lf, g16, row, tg, grp, red, scal, k); break;
+        case 8 * 8 + 2: row_update<8, 2>(lf, g16, row, tg, grp, red, scal, k); break;
+        case 8 * 8 + 1: row_update<8, 1>(lf, g16, row, tg, grp, red, scal, k); break;
         default: break;
       }
     }
@@ -275,7 +325,9 @@ bool leaf_ok(const Leaf& lf) {
 }  // namespace
 
 // One optimizer step over a table of int8 leaves (adam_step.cuh gives the
-// layout of the host arrays), enqueued on `stream`: the prologue, then
+// layout of the host arrays; ints[9] 1 for bf16 gradients; a leaf's copy
+// pointer, where not null, receives its bf16 compute copy), enqueued on
+// `stream`: the prologue, then
 // the sweep; no sync. A table the sweep does not take is refused before
 // either is enqueued. Returns a cudaError_t; a refused launch's error is
 // cleared for later launches' checks.

@@ -1,7 +1,7 @@
 // Whole-unroll D-LADMM for Hopper (sm_90a), fp32 arithmetic throughout:
 // the inference forward, the per-layer step and the trajectory forward
-// of training, each one persistent cooperative launch. The inference
-// forward and the layer step also take bf16 storage (below).
+// of training, each one persistent cooperative launch. All three also
+// take bf16 storage (below).
 //
 // dladmm_unroll_forward replaces the TPU kernel
 // dladmm_tpu/ops/pallas_unroll.py:_unroll_kernel (driven by
@@ -80,6 +80,18 @@
 // of the weights (W1 + W2 + A: 375 KB a layer at synthetic_small, 12 MB
 // at synthetic_large) but not the flops, which bound the call.
 //
+// bf16 trajectory. dladmm_unroll_trajectory_bf16 (traj_persistent on
+// __nv_bfloat16) replaces _unroll_traj_kernel on bf16 refs (bf16
+// training) and keeps its rule, which is not the serving rule above: the
+// JAX kernel carries x, z, lam and Ax in fp32 scratch from layer to layer
+// and rounds only the stack stores. So the state lives in fp32 buffers of
+// the workspace (x and Ax in place, as the serving forward keeps them; z
+// and lam in two pairs, layer k writing pair k & 1, for the race noted
+// below), no layer reads the rounded stacks, and each epilogue writes the
+// fp32 state and the bf16 stack. Its plain version is
+// ops/cuda_traj.trajectory_forward_plain_bf16 (the fp32 trajectory of the
+// widened inputs, rounded).
+//
 // Bound. Per call the work is 2*S*m*(2n+d)*K flops and the bytes are
 // K layers of W1/W2, A, b and the outputs (K times the state for the
 // trajectory); at the shapes the serving and training paths run
@@ -150,12 +162,36 @@ __device__ __forceinline__ float prox_of(int p, float u, float theta, float scal
   }
 }
 
+// Storage types of the kernels' weights, b, thresholds and stored state:
+// float, or __nv_bfloat16 (bf16 storage, fp32 arithmetic: every value is
+// widened exactly where it is read and rounded to nearest only where it
+// is stored).
+__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float ldcg(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+// v as a bf16 store would hold it.
+__device__ __forceinline__ float rounded(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
 // -- the persistent trajectory forward --------------------------------------
 
+template <class TS>
 struct TrajArgs {
-  const float *b, *A, *W1, *W2, *th1, *th2, *beta;
-  float *tx, *tz, *tlam, *tax;  // stacks; tax is one (S, m) buffer without with_tax
+  const TS *b, *A, *W1, *W2, *th1, *th2;
+  const float* beta;            // (K,) fp32, or null where beta16 is given
+  const __nv_bfloat16* beta16;  // (K,) bf16 (bf16 storage only), or null
+  TS *tx, *tz, *tlam, *tax;     // stacks; fp32: tax is one (S, m) buffer without with_tax
   const float* zeros;           // S * max(n, m) zeros: layer 0's input state
+  // bf16 storage: the fp32 state between the phases, never rounded: x
+  // (S, n) and Ax (S, m) in place, z and lam (S, m) in two pairs (layer k
+  // writes pair k & 1). Null for fp32, whose state is its stacks.
+  float *xw, *axw, *zw[2], *lamw[2];
   float* part;                  // split-K partials
   int* cnt;                     // one counter a tile
   int with_tax, S, m, n, K;
@@ -163,22 +199,48 @@ struct TrajArgs {
 };
 
 // One phase of layer k over all its items (l1 prox, as the TPU kernel).
-template <int PHASE>
-__device__ void traj_phase(const TrajArgs& a, TileSmem& sm, int k) {
+// fp32 storage reads layer k's input state from slice k-1 of the stacks.
+// bf16 storage keeps the state in fp32 (TrajArgs::xw ...) and rounds only
+// the stack stores: the rule of _unroll_traj_kernel on bf16 refs, whose
+// state lives in fp32 scratch (its stacks are rounded copies of it).
+template <int PHASE, class TS>
+__device__ void traj_phase(const TrajArgs<TS>& a, TileSmem& sm, int k) {
+  constexpr bool S16 = sizeof(TS) == 2;
   const int S = a.S, m = a.m, n = a.n;
   const size_t sn = (size_t)S * n, smm = (size_t)S * m;
   const int N = PHASE == PHASE_X ? n : m, depth = PHASE == PHASE_AX ? n : m;
   const Split sp = PHASE == PHASE_X ? a.sx : (PHASE == PHASE_AX ? a.sax : a.sz);
-  const float beta = fmaxf(__ldg(a.beta + k), 1e-6f), inv_beta = 1.0f / beta;
-  const float* x_in = k ? a.tx + (k - 1) * sn : a.zeros;
-  const float* z_in = k ? a.tz + (k - 1) * smm : a.zeros;
-  const float* lam_in = k ? a.tlam + (k - 1) * smm : a.zeros;
-  const float* ax_in = k ? (a.with_tax ? a.tax + (k - 1) * smm : a.tax) : a.zeros;
-  float* x = a.tx + k * sn;
-  float* ax = a.with_tax ? a.tax + k * smm : a.tax;
-  const float* W1 = a.W1 + (size_t)k * n * m;
-  const float* W2 = a.W2 + (size_t)k * m * m;
-  const float* th = PHASE == PHASE_X ? a.th1 + (size_t)k * n : a.th2 + (size_t)k * m;
+  float beta_k;
+  if constexpr (S16) {
+    beta_k = a.beta16 ? __bfloat162float(a.beta16[k]) : __ldg(a.beta + k);
+  } else {
+    beta_k = __ldg(a.beta + k);
+  }
+  const float beta = fmaxf(beta_k, 1e-6f), inv_beta = 1.0f / beta;
+  const float *x_in, *z_in, *lam_in, *ax_in;
+  float *x, *ax, *z_out, *lam_out;
+  if constexpr (S16) {
+    x_in = k ? a.xw : a.zeros;
+    z_in = k ? a.zw[(k - 1) & 1] : a.zeros;
+    lam_in = k ? a.lamw[(k - 1) & 1] : a.zeros;
+    ax_in = k ? a.axw : a.zeros;
+    x = a.xw;
+    ax = a.axw;
+    z_out = a.zw[k & 1];
+    lam_out = a.lamw[k & 1];
+  } else {
+    x_in = k ? a.tx + (k - 1) * sn : a.zeros;
+    z_in = k ? a.tz + (k - 1) * smm : a.zeros;
+    lam_in = k ? a.tlam + (k - 1) * smm : a.zeros;
+    ax_in = k ? (a.with_tax ? a.tax + (k - 1) * smm : a.tax) : a.zeros;
+    x = a.tx + k * sn;
+    ax = a.with_tax ? a.tax + k * smm : a.tax;
+    z_out = a.tz + k * smm;
+    lam_out = a.tlam + k * smm;
+  }
+  const TS* W1 = a.W1 + (size_t)k * n * m;
+  const TS* W2 = a.W2 + (size_t)k * m * m;
+  const TS* th = PHASE == PHASE_X ? a.th1 + (size_t)k * n : a.th2 + (size_t)k * m;
   const int ct = dcdiv(N, kT), items = dcdiv(S, kT) * ct * sp.slices;
   const int tid = threadIdx.x, tr = tid / kPC, tc = tid % kPC;
 
@@ -191,18 +253,18 @@ __device__ void traj_phase(const TrajArgs& a, TileSmem& sm, int k) {
       tile_gemm<true, true>(
           sm, S, m, row0, col0, k_lo, k_hi,
           [&](int r, int q) { return __ldcg(x + (size_t)r * n + q); },
-          [&](int c, int q) { return __ldg(a.A + (size_t)c * n + q); }, acc);
+          [&](int c, int q) { return ldg(a.A + (size_t)c * n + q); }, acc);
     } else {
       // u (x phase) or v (z phase) = Ax + (z - b + lam / beta).
       const float* axo = PHASE == PHASE_X ? ax_in : ax;
-      const float* w = PHASE == PHASE_X ? W1 : W2;
+      const TS* w = PHASE == PHASE_X ? W1 : W2;
       tile_gemm<true, true>(
           sm, S, N, row0, col0, k_lo, k_hi,
           [&](int r, int q) {
             const size_t o = (size_t)r * m + q;
-            return __ldcg(axo + o) + ((__ldcg(z_in + o) - __ldg(a.b + o)) + __ldcg(lam_in + o) * inv_beta);
+            return __ldcg(axo + o) + ((__ldcg(z_in + o) - ldg(a.b + o)) + __ldcg(lam_in + o) * inv_beta);
           },
-          [&](int c, int q) { return __ldg(w + (size_t)c * m + q); }, acc);
+          [&](int c, int q) { return ldg(w + (size_t)c * m + q); }, acc);
     }
     // The epilogue's inputs do not depend on the sum: they are loaded
     // before the reduction, so that their latency overlaps it.
@@ -210,7 +272,7 @@ __device__ void traj_phase(const TrajArgs& a, TileSmem& sm, int k) {
     if constexpr (PHASE != PHASE_AX) {
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        if (col0 + tc + j * kPC < N) thv[j] = __ldg(th + col0 + tc + j * kPC);
+        if (col0 + tc + j * kPC < N) thv[j] = ldg(th + col0 + tc + j * kPC);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -224,7 +286,7 @@ __device__ void traj_phase(const TrajArgs& a, TileSmem& sm, int k) {
             e0[i][j] = __ldcg(z_in + o);
             e1[i][j] = __ldcg(lam_in + o);
             e2[i][j] = __ldcg(ax + o);
-            e3[i][j] = __ldg(a.b + o);
+            e3[i][j] = ldg(a.b + o);
           }
         }
     }
@@ -238,14 +300,26 @@ __device__ void traj_phase(const TrajArgs& a, TileSmem& sm, int k) {
         const int c = col0 + tc + j * kPC;
         if (c >= N) continue;
         if constexpr (PHASE == PHASE_X) {
-          x[(size_t)r * n + c] = apply_prox<PROX_L1>(e0[i][j] - acc[i][j], thv[j], 1.0f);
+          const size_t o = (size_t)r * n + c;
+          const float x1 = apply_prox<PROX_L1>(e0[i][j] - acc[i][j], thv[j], 1.0f);
+          x[o] = x1;
+          if constexpr (S16) put(a.tx + k * sn + o, x1);
         } else if constexpr (PHASE == PHASE_AX) {
-          ax[(size_t)r * m + c] = acc[i][j];
+          const size_t o = (size_t)r * m + c;
+          ax[o] = acc[i][j];
+          if constexpr (S16) {
+            if (a.with_tax) put(a.tax + k * smm + o, acc[i][j]);
+          }
         } else {
           const size_t o = (size_t)r * m + c;
           const float z1 = apply_prox<PROX_L1>(e0[i][j] - acc[i][j], thv[j], 1.0f);
-          a.tz[k * smm + o] = z1;
-          a.tlam[k * smm + o] = e1[i][j] + beta * ((e2[i][j] + z1) - e3[i][j]);
+          const float lam1 = e1[i][j] + beta * ((e2[i][j] + z1) - e3[i][j]);
+          z_out[o] = z1;
+          lam_out[o] = lam1;
+          if constexpr (S16) {
+            put(a.tz + k * smm + o, z1);
+            put(a.tlam + k * smm + o, lam1);
+          }
         }
       }
     }
@@ -254,37 +328,21 @@ __device__ void traj_phase(const TrajArgs& a, TileSmem& sm, int k) {
 
 // All K layers in one cooperative launch: x, Ax, z phases a layer with a
 // grid barrier after each but the last.
-__global__ void __launch_bounds__(kPT, 4) traj_persistent(const TrajArgs a) {
+template <class TS>
+__global__ void __launch_bounds__(kPT, 4) traj_persistent(const TrajArgs<TS> a) {
   __shared__ TileSmem sm;
   cg::grid_group grid = cg::this_grid();
   for (int k = 0; k < a.K; ++k) {
-    traj_phase<PHASE_X>(a, sm, k);
+    traj_phase<PHASE_X, TS>(a, sm, k);
     grid.sync();
-    traj_phase<PHASE_AX>(a, sm, k);
+    traj_phase<PHASE_AX, TS>(a, sm, k);
     grid.sync();
-    traj_phase<PHASE_Z>(a, sm, k);
+    traj_phase<PHASE_Z, TS>(a, sm, k);
     if (k + 1 < a.K) grid.sync();
   }
 }
 
 // -- the persistent serving forward and layer step -------------------------
-
-// Storage types of the serving kernel's weights, b, thresholds and state:
-// float, or __nv_bfloat16 (bf16 storage, fp32 arithmetic: every value is
-// widened exactly where it is read and rounded to nearest only where a
-// layer stores x1, z1, lam1 and Ax1).
-__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float ldcg(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
-}
-__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldg(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
-}
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-// v as a bf16 store would hold it.
-__device__ __forceinline__ float rounded(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 
 template <class TS>
 struct ServeArgs {
@@ -600,15 +658,49 @@ extern "C" int dladmm_unroll_occupancy(int tile, int bf16, int storage, int devi
   return (int)err;
 }
 
-// Blocks of traj_persistent resident on one SM, and the card's SMs: the
-// grid ceiling of its cooperative launch (ops/schedule.launch_grid).
+// Blocks of traj_persistent<float> resident on one SM, and the card's
+// SMs: the grid ceiling of its cooperative launch (ops/schedule.launch_grid).
 extern "C" int dladmm_traj_occupancy(int device, int* blocks_per_sm, int* sms) {
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, traj_persistent, kPT, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, traj_persistent<float>, kPT, 0);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   return (int)err;
 }
+
+// dladmm_traj_occupancy of the bf16-storage instantiation.
+extern "C" int dladmm_traj_occupancy_bf16(int device, int* blocks_per_sm, int* sms) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, traj_persistent<__nv_bfloat16>, kPT, 0);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  return (int)err;
+}
+
+namespace {
+
+// Clear `zeros` and the counters and launch `grid` blocks of
+// traj_persistent<TS> on `stream`. A refused launch runs nothing; its
+// error is cleared for later launches' checks and returned.
+template <class TS>
+int launch_traj(TrajArgs<TS>& a, float* zeros, int n_counters, int grid, int device, void* stream_handle) {
+  if (a.S < 1 || a.m < 1 || a.n < 1 || a.K < 1 || grid < 1 || a.sx.len < 1 || a.sax.len < 1 ||
+      a.sz.len < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  const size_t sn = (size_t)a.S * a.n, sm = (size_t)a.S * a.m;
+  err = cudaMemsetAsync(zeros, 0, (sn > sm ? sn : sm) * sizeof(float), stream);
+  if (err == cudaSuccess) err = cudaMemsetAsync(a.cnt, 0, (size_t)n_counters * sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel((const void*)traj_persistent<TS>, dim3(grid), dim3(kPT), args, 0, stream);
+  if (err != cudaSuccess) cudaGetLastError();
+  return (int)err;
+}
+
+}  // namespace
 
 // All K layers of the trajectory forward (l1 prox) as one cooperative
 // launch of `grid` blocks on `stream`; no sync. Inputs as
@@ -627,23 +719,38 @@ extern "C" int dladmm_unroll_trajectory(
     int n_counters, int with_tax, int S, int m, int n, int K, int grid, int x_slices,
     int x_len, int ax_slices, int ax_len, int z_slices, int z_len, int device,
     void* stream_handle) {
-  if (S < 1 || m < 1 || n < 1 || K < 1 || grid < 1 || x_len < 1 || ax_len < 1 || z_len < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const size_t sn = (size_t)S * n, sm = (size_t)S * m;
-  err = cudaMemsetAsync(zeros, 0, (sn > sm ? sn : sm) * sizeof(float), stream);
-  if (err == cudaSuccess) err = cudaMemsetAsync(counters, 0, (size_t)n_counters * sizeof(int), stream);
-  if (err != cudaSuccess) return (int)err;
+  TrajArgs<float> a{b, A, W1, W2, th1, th2, beta, nullptr, tx, tz, tlam, tax, zeros,
+                    nullptr, nullptr, {nullptr, nullptr}, {nullptr, nullptr}, partials, counters,
+                    with_tax, S, m, n, K,
+                    Split{x_slices, x_len}, Split{ax_slices, ax_len}, Split{z_slices, z_len}};
+  return launch_traj(a, zeros, n_counters, grid, device, stream_handle);
+}
 
-  TrajArgs a{b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax, zeros, partials, counters,
-             with_tax, S, m, n, K,
-             Split{x_slices, x_len}, Split{ax_slices, ax_len}, Split{z_slices, z_len}};
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)traj_persistent, dim3(grid), dim3(kPT), args, 0, stream);
-  if (err != cudaSuccess) cudaGetLastError();  // a refused launch: clear it for later launches' checks
-  return (int)err;
+// dladmm_unroll_trajectory with bf16 storage: b, A, W1, W2, th1, th2 and
+// the stacks tx, tz, tlam (and, with with_tax, tax (K,S,m)) are bf16;
+// beta is fp32 (`beta`) or bf16 (`beta16`), the other null. Arithmetic is
+// fp32 and the state stays fp32 between the phases and layers, in the
+// workspace (ops/schedule.traj_workspace with bf16_state): x_work (S,n),
+// ax_work (S,m), and z_work, lam_work, each two (S,m) buffers one after
+// the other; only the stack stores round. Without with_tax `tax` is
+// null. Returns a cudaError_t.
+extern "C" int dladmm_unroll_trajectory_bf16(
+    const __nv_bfloat16* b, const __nv_bfloat16* A, const __nv_bfloat16* W1, const __nv_bfloat16* W2,
+    const __nv_bfloat16* th1, const __nv_bfloat16* th2, const float* beta, const __nv_bfloat16* beta16,
+    __nv_bfloat16* tx, __nv_bfloat16* tz, __nv_bfloat16* tlam, __nv_bfloat16* tax, float* x_work,
+    float* ax_work, float* z_work, float* lam_work, float* zeros, float* partials, int* counters,
+    int n_counters, int with_tax, int S, int m, int n, int K, int grid, int x_slices,
+    int x_len, int ax_slices, int ax_len, int z_slices, int z_len, int device,
+    void* stream_handle) {
+  if ((beta == nullptr) == (beta16 == nullptr) || (with_tax != 0) != (tax != nullptr) || x_work == nullptr ||
+      ax_work == nullptr || z_work == nullptr || lam_work == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const size_t sm = (size_t)S * m;
+  TrajArgs<__nv_bfloat16> a{b, A, W1, W2, th1, th2, beta, beta16, tx, tz, tlam, tax, zeros,
+                            x_work, ax_work, {z_work, z_work + sm}, {lam_work, lam_work + sm},
+                            partials, counters, with_tax, S, m, n, K,
+                            Split{x_slices, x_len}, Split{ax_slices, ax_len}, Split{z_slices, z_len}};
+  return launch_traj(a, zeros, n_counters, grid, device, stream_handle);
 }
 
 // `iters` grid barriers in one cooperative launch of `grid` blocks.

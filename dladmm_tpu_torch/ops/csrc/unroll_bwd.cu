@@ -1,5 +1,6 @@
 // Reverse sweep of the K-layer D-LADMM unroll for the final-state loss,
-// for Hopper (sm_90a), fp32 throughout.
+// for Hopper (sm_90a), fp32 arithmetic throughout, on fp32 or bf16
+// storage (below).
 //
 // dladmm_unroll_bwd replaces the TPU kernels
 // dladmm_tpu/ops/pallas_bwd.py:_bwd_kernel (driven by unroll_bwd_pallas,
@@ -51,6 +52,23 @@
 // TPU's cross-tile accumulation). (3) finish: gth1, gth2, gbeta from the
 // per-tile partials, in a fixed order, with the tie factors.
 //
+// bf16 storage. dladmm_unroll_bwd_bf16 (bwd_chain, bwd_weights and finish
+// on __nv_bfloat16) replaces the same TPU kernels on bf16 refs (bf16
+// training) and keeps their rule: the stacks, the cotangents, the weights
+// and A are read as bf16 and widened exactly; the cotangent state stays
+// fp32 from layer to layer (the carries in the workspace, the gp1 / gp2
+// stacks and every partial); an activation is rounded to bf16 only where
+// it meets a bf16 weight or A, as the chain stages it (gp2 for gv, gAx1
+// for gp1, gp1 for gu: dot32 in pallas_bwd.py); gW1 and gW2 are fp32 sums
+// (their other operand, u or v, is fp32 there) and every gradient is
+// rounded once as it is stored (gbeta in beta's storage). gb (data
+// grads) follows the TPU route: rounded to bf16 every layer on the whole
+// batch (_bwd_kernel), summed in fp32 and rounded once on batch slices
+// (_bwd_kernel_chunked). The plain version is
+// ops/cuda_bwd.unroll_bwd_plain_bf16. The products stay fp32 FMA: a bf16
+// tensor-core product would also round the fp32 activation where the
+// rule keeps it fp32 (gW1, gW2).
+//
 // Determinism. No float atomics; every sum runs in a fixed order. A
 // call repeats bit for bit on one card.
 //
@@ -60,7 +78,8 @@
 // writes this layer's gp1 slice; U reads gp1 across columns and rewrites
 // gz, glam, gAx, gb element by element. Phases are ordered by the grid
 // barrier. State written in the call is read with __ldcg (L2, never a
-// stale L1 line). Layer 0 reads a zero buffer.
+// stale L1 line). Layer K-1 reads the caller's final-state cotangents
+// (its U phase writes the first carries), layer 0 a zero buffer.
 //
 // Alignment. Rows of m = 250 floats are only 8-byte aligned, so every
 // load is 4-byte: no 16-byte copy or TMA descriptor. A cp.async pipeline
@@ -74,6 +93,7 @@
 // Plain C interface, loaded with ctypes (dladmm_tpu_torch/ops/cuda_bwd.py).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -127,15 +147,41 @@ __device__ __forceinline__ double block_sum(double v, TileSmem& sm) {
   return s;
 }
 
+// Storage of the inputs, the stacks, the cotangents and the gradients:
+// float, or __nv_bfloat16 (bf16 storage: read and widened exactly,
+// rounded to nearest where a gradient or the gAx1 stack is stored).
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+// v as a bf16 value holds it.
+__device__ __forceinline__ float rounded(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+template <class TS>
+__device__ __forceinline__ float beta_at(const float* beta, const __nv_bfloat16* beta16, int k) {
+  if constexpr (sizeof(TS) == 2) {
+    if (beta16 != nullptr) return __bfloat162float(beta16[k]);
+  }
+  return __ldg(beta + k);
+}
+
+template <class TS>
 struct ChainArgs {
-  const float *b, *A, *W1, *W2, *beta;
-  const float *tx, *tz, *tlam, *tax;  // the forward's stacks (K, S, .)
-  const float* gx0;                   // (S, n) final-state cotangent of x
-  const float* zeros;                 // (S, m) zeros: layer 0's lam_in
+  const TS *b, *A, *W1, *W2;
+  const float* beta;                  // (K,) fp32, or null where beta16 is given
+  const __nv_bfloat16* beta16;        // (K,) bf16 (bf16 storage only), or null
+  const TS *tx, *tz, *tlam, *tax;     // the forward's stacks (K, S, .)
+  const TS *gx0, *gz0, *glam0;        // (S, n), (S, m), (S, m) final-state cotangents
+  const TS* zeros;                    // (S, m) zeros: layer 0's lam_in
   float *gz, *glam, *gax, *gv;        // (S, m) carries, updated in place; this layer's gv
   float* gax1;                        // (K, S, m) stack with gax1_stack, else one (S, m)
   int gax1_stack;
+  TS* gax1_out;                       // bf16 with data grads: the rounded (K, S, m) gAx1 stack, else null
   float* gb;                          // (S, m) accumulated gb, or null
+  TS* gb_out;                         // bf16: gb rounded, written by layer 0, or null
+  int gb_round;                       // bf16, whole batch: gb rounded to bf16 every layer
   float *gp1, *gp2;                   // (K, S, n) and (K, S, m) stacks
   float *th1p, *th2p;                 // (K, row tiles, n) / (K, row tiles, m) column partials
   double* betap;                      // (K, U tiles, 2) gbeta partials
@@ -145,24 +191,32 @@ struct ChainArgs {
   Split sv, sx, su;
 };
 
-// One chain phase of layer k over all its items.
-template <int PHASE>
-__device__ void chain_phase(const ChainArgs& a, TileSmem& sm, int k) {
+// One chain phase of layer k over all its items. Layer K-1 reads the
+// final-state cotangents gx0, gz0, glam0; the carries hold the later
+// layers'. With bf16 storage the cotangent state stays fp32, and an
+// activation is rounded to bf16 where it meets a bf16 weight or A (the
+// staged operands gp2, gAx1, gp1: dot32 in pallas_bwd.py).
+template <int PHASE, class TS>
+__device__ void chain_phase(const ChainArgs<TS>& a, TileSmem& sm, int k) {
+  constexpr bool S16 = sizeof(TS) == 2;
   const int S = a.S, m = a.m, n = a.n;
   const size_t sn = (size_t)S * n, smm = (size_t)S * m;
   const int N = PHASE == PHASE_X ? n : m, depth = PHASE == PHASE_U ? n : m;
   const Split sp = PHASE == PHASE_V ? a.sv : (PHASE == PHASE_X ? a.sx : a.su);
-  const float beta = fmaxf(__ldg(a.beta + k), kBetaMin), ib = 1.0f / beta;
-  const float* x1 = a.tx + k * sn;
-  const float* z1s = a.tz + k * smm;
-  const float* ax1 = a.tax + k * smm;
-  const float* lam_in = k ? a.tlam + (k - 1) * smm : a.zeros;
-  const float* gx_in = k + 1 < a.K ? a.gp1 + (k + 1) * sn : a.gx0;
+  const float beta = fmaxf(beta_at<TS>(a.beta, a.beta16, k), kBetaMin), ib = 1.0f / beta;
+  const TS* x1 = a.tx + k * sn;
+  const TS* z1s = a.tz + k * smm;
+  const TS* ax1 = a.tax + k * smm;
+  const TS* lam_in = k ? a.tlam + (k - 1) * smm : a.zeros;
+  const bool top = k + 1 == a.K;
   float* gp1 = a.gp1 + k * sn;
   float* gp2 = a.gp2 + k * smm;
   float* gax1 = a.gax1_stack ? a.gax1 + k * smm : a.gax1;
-  const float* W1 = a.W1 + (size_t)k * n * m;
-  const float* W2 = a.W2 + (size_t)k * m * m;
+  const TS* W1 = a.W1 + (size_t)k * n * m;
+  const TS* W2 = a.W2 + (size_t)k * m * m;
+  auto gz_at = [&](size_t o) { return top ? ldg(a.gz0 + o) : __ldcg(a.gz + o); };
+  auto glam_at = [&](size_t o) { return top ? ldg(a.glam0 + o) : __ldcg(a.glam + o); };
+  auto operand = [&](float v) { return S16 ? rounded(v) : v; };
   const int rt = dcdiv(S, kT), ct = dcdiv(N, kT), items = rt * ct * sp.slices;
   const int tid = threadIdx.x, tr = tid / kPC, tc = tid % kPC;
 
@@ -176,17 +230,18 @@ __device__ void chain_phase(const ChainArgs& a, TileSmem& sm, int k) {
           sm, S, m, row0, col0, k_lo, k_hi,
           [&](int r, int q) {
             const size_t o = (size_t)r * m + q;
-            return (__ldcg(a.gz + o) + beta * __ldcg(a.glam + o)) * nonzero(__ldg(z1s + o));
+            return operand((gz_at(o) + beta * glam_at(o)) * nonzero(ldg(z1s + o)));
           },
-          [&](int c, int q) { return __ldg(W2 + (size_t)q * m + c); }, acc);
+          [&](int c, int q) { return ldg(W2 + (size_t)q * m + c); }, acc);
     } else if constexpr (PHASE == PHASE_X) {
       tile_gemm<true, false>(
-          sm, S, n, row0, col0, k_lo, k_hi, [&](int r, int q) { return __ldcg(gax1 + (size_t)r * m + q); },
-          [&](int c, int q) { return __ldg(a.A + (size_t)q * n + c); }, acc);
+          sm, S, n, row0, col0, k_lo, k_hi,
+          [&](int r, int q) { return operand(__ldcg(gax1 + (size_t)r * m + q)); },
+          [&](int c, int q) { return ldg(a.A + (size_t)q * n + c); }, acc);
     } else {
       tile_gemm<true, false>(
-          sm, S, m, row0, col0, k_lo, k_hi, [&](int r, int q) { return __ldcg(gp1 + (size_t)r * n + q); },
-          [&](int c, int q) { return __ldg(W1 + (size_t)q * m + c); }, acc);
+          sm, S, m, row0, col0, k_lo, k_hi, [&](int r, int q) { return operand(__ldcg(gp1 + (size_t)r * n + q)); },
+          [&](int c, int q) { return ldg(W1 + (size_t)q * m + c); }, acc);
     }
     if (!reduce_slices(sm, acc, a.part, a.cnt, tile, s, sp.slices)) continue;
 
@@ -203,27 +258,43 @@ __device__ void chain_phase(const ChainArgs& a, TileSmem& sm, int k) {
           const size_t o = (size_t)r * m + c;
           const float gv = -acc[i][j];
           a.gv[o] = gv;
-          gax1[o] = (__ldcg(a.gax + o) + beta * __ldcg(a.glam + o)) + gv;
+          const float g = (__ldcg(a.gax + o) + beta * glam_at(o)) + gv;
+          gax1[o] = g;
+          if constexpr (S16) {
+            if (a.gax1_out) put(a.gax1_out + k * smm + o, g);
+          }
         } else if constexpr (PHASE == PHASE_X) {
           const size_t o = (size_t)r * n + c;
-          const float x = __ldg(x1 + o);
-          const float g = (__ldcg(gx_in + o) + acc[i][j]) * nonzero(x);
+          const float x = ldg(x1 + o);
+          const float gx = top ? ldg(a.gx0 + o) : __ldcg(a.gp1 + (k + 1) * sn + o);
+          const float g = (gx + acc[i][j]) * nonzero(x);
           gp1[o] = g;
           colp[j] += g * sign_of(x);
         } else {
           const size_t o = (size_t)r * m + c;
-          const float glam1 = __ldcg(a.glam + o), z1 = __ldg(z1s + o);
-          const float g2 = (__ldcg(a.gz + o) + beta * glam1) * nonzero(z1);
+          const float glam1 = glam_at(o), z1 = ldg(z1s + o);
+          const float g2 = (gz_at(o) + beta * glam1) * nonzero(z1);
           const float gu = -acc[i][j];
           const float gbase = __ldcg(a.gv + o) + gu;
           gp2[o] = g2;
           a.gz[o] = g2 + gbase;
           a.glam[o] = glam1 + gbase * ib;
           a.gax[o] = gu;
-          if (a.gb) a.gb[o] = (__ldcg(a.gb + o) - gbase) - beta * glam1;
+          if (a.gb) {
+            if constexpr (S16) {
+              // gb + (-gbase - beta glam): per layer in bf16 on the whole
+              // batch (_bwd_kernel), in fp32 on batch slices.
+              const float step = -gbase - beta * glam1, prev = __ldcg(a.gb + o);
+              const float gb = a.gb_round ? rounded(prev + rounded(step)) : prev + step;
+              a.gb[o] = gb;
+              if (k == 0) put(a.gb_out + o, gb);
+            } else {
+              a.gb[o] = (__ldcg(a.gb + o) - gbase) - beta * glam1;
+            }
+          }
           colp[j] += g2 * sign_of(z1);
-          p_res += (double)(glam1 * ((__ldg(ax1 + o) + z1) - __ldg(a.b + o)));
-          p_lam += (double)(gbase * __ldcg(lam_in + o));
+          p_res += (double)(glam1 * ((ldg(ax1 + o) + z1) - ldg(a.b + o)));
+          p_lam += (double)(gbase * ldg(lam_in + o));
         }
       }
     }
@@ -244,23 +315,27 @@ __device__ void chain_phase(const ChainArgs& a, TileSmem& sm, int k) {
 
 // Layers K-1 ... 0 in one cooperative launch: V, X, U a layer with a
 // grid barrier after each but the last.
-__global__ void __launch_bounds__(kPT, 4) bwd_chain(const ChainArgs a) {
+template <class TS>
+__global__ void __launch_bounds__(kPT, 4) bwd_chain(const ChainArgs<TS> a) {
   __shared__ TileSmem sm;
   cg::grid_group grid = cg::this_grid();
   for (int k = a.K - 1; k >= 0; --k) {
-    chain_phase<PHASE_V>(a, sm, k);
+    chain_phase<PHASE_V, TS>(a, sm, k);
     grid.sync();
-    chain_phase<PHASE_X>(a, sm, k);
+    chain_phase<PHASE_X, TS>(a, sm, k);
     grid.sync();
-    chain_phase<PHASE_U>(a, sm, k);
+    chain_phase<PHASE_U, TS>(a, sm, k);
     if (k > 0) grid.sync();
   }
 }
 
+template <class TS>
 struct WeightArgs {
-  const float *b, *beta, *tz, *tlam, *tax, *zeros;
+  const TS *b, *tz, *tlam, *tax, *zeros;
+  const float* beta;
+  const __nv_bfloat16* beta16;
   const float *gp1, *gp2;              // the chain's stacks
-  float *gW1, *gW2;                    // (K, n, m), (K, m, m)
+  TS *gW1, *gW2;                       // (K, n, m), (K, m, m)
   float* part;
   int* cnt;
   int S, m, n, K, bs;                  // rows per S slice (bs >= S: one slice)
@@ -270,8 +345,10 @@ struct WeightArgs {
 // tile, S slice): item = tile * slices + slice; a layer's tiles are the
 // 32-row tiles of gW1 (n rows) then of gW2 (m rows), by 32-column tiles
 // (ops/schedule.WeightSplit counts them; tests/test_torch_schedule.py
-// checks this map).
-__global__ void __launch_bounds__(kPT) bwd_weights(const WeightArgs a) {
+// checks this map). The sums are fp32 in both storages (u and v are
+// fp32 there too); bf16 rounds each gradient once as it stores it.
+template <class TS>
+__global__ void __launch_bounds__(kPT) bwd_weights(const WeightArgs<TS> a) {
   __shared__ TileSmem sm;
   const int S = a.S, m = a.m, n = a.n;
   const size_t sn = (size_t)S * n, smm = (size_t)S * m;
@@ -284,56 +361,59 @@ __global__ void __launch_bounds__(kPT) bwd_weights(const WeightArgs a) {
     const bool w1 = rt < t1;
     const int rows = w1 ? n : m, row0 = (w1 ? rt : rt - t1) * kT, col0 = cb * kT;
     const int s_lo = s * a.bs, s_hi = min(S, s_lo + a.bs);
-    const float ib = 1.0f / fmaxf(__ldg(a.beta + k), kBetaMin);
+    const float ib = 1.0f / fmaxf(beta_at<TS>(a.beta, a.beta16, k), kBetaMin);
     const float* gp = w1 ? a.gp1 + k * sn : a.gp2 + k * smm;
     const int ld = w1 ? n : m;
-    const float* z_in = k ? a.tz + (k - 1) * smm : a.zeros;
-    const float* lam_in = k ? a.tlam + (k - 1) * smm : a.zeros;
-    const float* uv = w1 ? (k ? a.tax + (k - 1) * smm : a.zeros) : a.tax + k * smm;
+    const TS* z_in = k ? a.tz + (k - 1) * smm : a.zeros;
+    const TS* lam_in = k ? a.tlam + (k - 1) * smm : a.zeros;
+    const TS* uv = w1 ? (k ? a.tax + (k - 1) * smm : a.zeros) : a.tax + k * smm;
     float acc[2][2];
     tile_gemm<false, false>(
         sm, rows, m, row0, col0, s_lo, s_hi, [&](int r, int q) { return __ldg(gp + (size_t)q * ld + r); },
         [&](int c, int q) {
           const size_t o = (size_t)q * m + c;
-          const float base = (__ldg(z_in + o) - __ldg(a.b + o)) + __ldg(lam_in + o) * ib;
-          return __ldg(uv + o) + base;
+          const float base = (ldg(z_in + o) - ldg(a.b + o)) + ldg(lam_in + o) * ib;
+          return ldg(uv + o) + base;
         },
         acc);
     if (!reduce_slices(sm, acc, a.part, a.cnt, tile, s, slices)) continue;
-    float* out = w1 ? a.gW1 + (size_t)k * n * m : a.gW2 + (size_t)k * m * m;
+    TS* out = w1 ? a.gW1 + (size_t)k * n * m : a.gW2 + (size_t)k * m * m;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = row0 + tr + i * kPR;
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int c = col0 + tc + j * kPC;
-        if (r < rows && c < m) out[(size_t)r * m + c] = -acc[i][j];
+        if (r < rows && c < m) put(out + (size_t)r * m + c, -acc[i][j]);
       }
     }
   }
 }
 
 // After the chain: gth1, gth2 and gbeta of every layer from the partials,
-// summed in row-tile (gth) or tile (gbeta) order.
+// summed in row-tile (gth) or tile (gbeta) order. bf16 rounds gth1, gth2
+// once as it stores them, and gbeta where beta is bf16 (gbeta16).
+template <class TS>
 __global__ void __launch_bounds__(256)
-finish(const float* __restrict__ th1, const float* __restrict__ th2,
-       const float* __restrict__ beta, const float* __restrict__ th1_part,
-       const float* __restrict__ th2_part, const double* __restrict__ beta_part,
-       float* __restrict__ gth1, float* __restrict__ gth2, float* __restrict__ gbeta,
-       int K, int m, int n, int nrb, int nblk_u) {
+finish(const TS* __restrict__ th1, const TS* __restrict__ th2,
+       const float* __restrict__ beta, const __nv_bfloat16* __restrict__ beta16,
+       const float* __restrict__ th1_part, const float* __restrict__ th2_part,
+       const double* __restrict__ beta_part, TS* __restrict__ gth1, TS* __restrict__ gth2,
+       float* __restrict__ gbeta, __nv_bfloat16* __restrict__ gbeta16, int K, int m, int n, int nrb,
+       int nblk_u) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < K * n) {
     const int k = i / n, c = i % n;
     const float* p = th1_part + (size_t)k * nrb * n + c;
     float s = 0.0f;
     for (int rb = 0; rb < nrb; ++rb) s += p[(size_t)rb * n];
-    gth1[i] = -s * tie(th1[i], 0.0f);
+    put(gth1 + i, -s * tie(ldg(th1 + i), 0.0f));
   } else if (i < K * (n + m)) {
     const int j = i - K * n, k = j / m, c = j % m;
     const float* p = th2_part + (size_t)k * nrb * m + c;
     float s = 0.0f;
     for (int rb = 0; rb < nrb; ++rb) s += p[(size_t)rb * m];
-    gth2[j] = -s * tie(th2[j], 0.0f);
+    put(gth2 + j, -s * tie(ldg(th2 + j), 0.0f));
   } else if (i < K * (n + m + 1)) {
     const int k = i - K * (n + m);
     const double* p = beta_part + (size_t)k * nblk_u * 2;
@@ -342,34 +422,162 @@ finish(const float* __restrict__ th1, const float* __restrict__ th2,
       s_res += p[2 * q];
       s_lam += p[2 * q + 1];
     }
-    const float bt = fmaxf(beta[k], kBetaMin);
+    const float braw = beta_at<TS>(beta, beta16, k);
+    const float bt = fmaxf(braw, kBetaMin);
     const double ib = (double)(1.0f / bt);
-    gbeta[k] = (float)(s_res - s_lam * ib * ib) * tie(beta[k], kBetaMin);
+    const float g = (float)(s_res - s_lam * ib * ib) * tie(braw, kBetaMin);
+    if (gbeta16 != nullptr) {
+      gbeta16[k] = __float2bfloat16_rn(g);
+    } else {
+      gbeta[k] = g;
+    }
   }
 }
 
 // Workspace buffers, in the order ops/schedule.BWD_BUFFERS lists them.
 enum Buf { B_GZ, B_GLAM, B_GAX, B_GV, B_GAX1, B_ZEROS, B_GP1, B_GP2, B_TH1P, B_TH2P, B_BETAP,
-           B_PART, B_CNT, B_COUNT };
+           B_PART, B_CNT, B_GB, B_COUNT };
+
+// The three launches of one reverse sweep (the C entries below), after
+// their workspace is cleared. A refused chain launch runs nothing; its
+// error is cleared for later launches' checks and returned.
+template <class TS>
+int run_bwd(const TS* b, const TS* A, const TS* W1, const TS* W2, const TS* th1, const TS* th2,
+            const float* beta, const __nv_bfloat16* beta16, const TS* tx, const TS* tz, const TS* tlam,
+            const TS* tax, const TS* gx0, const TS* gz0, const TS* glam0, TS* gW1, TS* gW2, TS* gth1,
+            TS* gth2, float* gbeta, __nv_bfloat16* gbeta16, float* gax1_stack, TS* gax1_out, TS* gb_out,
+            void* const* bufs, int n_counters, const int* sched, int S, int m, int n, int K, int bs,
+            int device, void* stream_handle) {
+  constexpr bool S16 = sizeof(TS) == 2;
+  if (S < 1 || m < 1 || n < 1 || K < 1 || bs < 1) return (int)cudaErrorInvalidValue;
+  if ((beta == nullptr) == (beta16 == nullptr) || (gbeta == nullptr) == (gbeta16 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (S16 ? (gax1_out == nullptr) != (gb_out == nullptr) : (gax1_stack == nullptr) != (gb_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int grid = sched[0];
+  if (grid < 1 || sched[2] < 1 || sched[4] < 1 || sched[6] < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  if (bs > S) bs = S;
+  float* ws[B_COUNT];
+  for (int i = 0; i < B_COUNT; ++i) ws[i] = static_cast<float*>(bufs[i]);
+  int* cnt = reinterpret_cast<int*>(ws[B_CNT]);
+  const size_t smb = (size_t)S * m * sizeof(float);
+  // fp32 accumulates gb in the caller's output; bf16 in the workspace.
+  float* gb = S16 ? (gb_out ? ws[B_GB] : nullptr) : reinterpret_cast<float*>(gb_out);
+
+  err = cudaMemsetAsync(ws[B_GAX], 0, smb, stream);
+  if (err == cudaSuccess) err = cudaMemsetAsync(ws[B_ZEROS], 0, smb, stream);
+  if (err == cudaSuccess) err = cudaMemsetAsync(cnt, 0, (size_t)n_counters * sizeof(int), stream);
+  if (err == cudaSuccess && gb) err = cudaMemsetAsync(gb, 0, smb, stream);
+  if (err != cudaSuccess) return (int)err;
+
+  ChainArgs<TS> c;
+  c.b = b;
+  c.A = A;
+  c.W1 = W1;
+  c.W2 = W2;
+  c.beta = beta;
+  c.beta16 = beta16;
+  c.tx = tx;
+  c.tz = tz;
+  c.tlam = tlam;
+  c.tax = tax;
+  c.gx0 = gx0;
+  c.gz0 = gz0;
+  c.glam0 = glam0;
+  c.zeros = reinterpret_cast<const TS*>(ws[B_ZEROS]);
+  c.gz = ws[B_GZ];
+  c.glam = ws[B_GLAM];
+  c.gax = ws[B_GAX];
+  c.gv = ws[B_GV];
+  c.gax1_stack = gax1_stack != nullptr;
+  c.gax1 = gax1_stack ? gax1_stack : ws[B_GAX1];
+  c.gax1_out = gax1_out;
+  c.gb = gb;
+  c.gb_out = S16 ? gb_out : nullptr;
+  c.gb_round = bs >= S;
+  c.gp1 = ws[B_GP1];
+  c.gp2 = ws[B_GP2];
+  c.th1p = ws[B_TH1P];
+  c.th2p = ws[B_TH2P];
+  c.betap = reinterpret_cast<double*>(ws[B_BETAP]);
+  c.part = ws[B_PART];
+  c.cnt = cnt;
+  c.S = S;
+  c.m = m;
+  c.n = n;
+  c.K = K;
+  c.sv = Split{sched[1], sched[2]};
+  c.sx = Split{sched[3], sched[4]};
+  c.su = Split{sched[5], sched[6]};
+  void* args[] = {&c};
+  err = cudaLaunchCooperativeKernel((const void*)bwd_chain<TS>, dim3(grid), dim3(kPT), args, 0, stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch: clear it for later launches' checks
+    return (int)err;
+  }
+
+  WeightArgs<TS> w;
+  w.b = b;
+  w.tz = tz;
+  w.tlam = tlam;
+  w.tax = tax;
+  w.zeros = reinterpret_cast<const TS*>(ws[B_ZEROS]);
+  w.beta = beta;
+  w.beta16 = beta16;
+  w.gp1 = ws[B_GP1];
+  w.gp2 = ws[B_GP2];
+  w.gW1 = gW1;
+  w.gW2 = gW2;
+  w.part = ws[B_PART];
+  w.cnt = cnt;
+  w.S = S;
+  w.m = m;
+  w.n = n;
+  w.K = K;
+  w.bs = bs;
+  const int items = K * (cdiv(n, kT) + cdiv(m, kT)) * cdiv(m, kT) * cdiv(S, bs);
+  bwd_weights<TS><<<items, kPT, 0, stream>>>(w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int nrb = cdiv(S, kT), total = K * (n + m + 1);
+  finish<TS><<<cdiv(total, 256), 256, 0, stream>>>(
+      th1, th2, beta, beta16, ws[B_TH1P], ws[B_TH2P], reinterpret_cast<const double*>(ws[B_BETAP]),
+      gth1, gth2, gbeta, gbeta16, K, m, n, nrb, nrb * cdiv(m, kT));
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
-// Blocks of bwd_chain resident on one SM, and the card's SMs: the grid
-// ceiling of its cooperative launch (ops/schedule.launch_grid).
+// Blocks of bwd_chain<float> resident on one SM, and the card's SMs: the
+// grid ceiling of its cooperative launch (ops/schedule.launch_grid).
 extern "C" int dladmm_bwd_occupancy(int device, int* blocks_per_sm, int* sms) {
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bwd_chain, kPT, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bwd_chain<float>, kPT, 0);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   return (int)err;
 }
 
-// Blocks of bwd_weights resident on one SM, and the card's SMs: the
-// wave of the weight-gradient launch (ops/cuda_bwd.bwd_chunk_batch).
+// dladmm_bwd_occupancy of the bf16-storage chain.
+extern "C" int dladmm_bwd_occupancy_bf16(int device, int* blocks_per_sm, int* sms) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bwd_chain<__nv_bfloat16>, kPT, 0);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  return (int)err;
+}
+
+// Blocks of bwd_weights<float> resident on one SM, and the card's SMs:
+// the wave of the weight-gradient launch (ops/cuda_bwd.bwd_chunk_batch,
+// for either storage).
 extern "C" int dladmm_bwd_weights_occupancy(int device, int* blocks_per_sm, int* sms) {
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bwd_weights, kPT, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bwd_weights<float>, kPT, 0);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   return (int)err;
 }
@@ -394,95 +602,30 @@ extern "C" int dladmm_unroll_bwd(
     float* gW2, float* gth1, float* gth2, float* gbeta, float* gax1_stack, float* gb,
     void* const* bufs, int n_counters, const int* sched, int S, int m, int n, int K, int bs,
     int device, void* stream_handle) {
-  if (S < 1 || m < 1 || n < 1 || K < 1 || bs < 1) return (int)cudaErrorInvalidValue;
-  if ((gax1_stack == nullptr) != (gb == nullptr)) return (int)cudaErrorInvalidValue;
-  const int grid = sched[0];
-  if (grid < 1 || sched[2] < 1 || sched[4] < 1 || sched[6] < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  if (bs > S) bs = S;
-  float* ws[B_COUNT];
-  for (int i = 0; i < B_COUNT; ++i) ws[i] = static_cast<float*>(bufs[i]);
-  int* cnt = reinterpret_cast<int*>(ws[B_CNT]);
-  const size_t smb = (size_t)S * m * sizeof(float);
+  return run_bwd<float>(b, A, W1, W2, th1, th2, beta, nullptr, tx, tz, tlam, tax, gx0, gz0, glam0, gW1, gW2,
+                        gth1, gth2, gbeta, nullptr, gax1_stack, nullptr, gb, bufs, n_counters, sched, S, m,
+                        n, K, bs, device, stream_handle);
+}
 
-  err = cudaMemcpyAsync(ws[B_GZ], gz0, smb, cudaMemcpyDeviceToDevice, stream);
-  if (err == cudaSuccess) err = cudaMemcpyAsync(ws[B_GLAM], glam0, smb, cudaMemcpyDeviceToDevice, stream);
-  if (err == cudaSuccess) err = cudaMemsetAsync(ws[B_GAX], 0, smb, stream);
-  if (err == cudaSuccess) err = cudaMemsetAsync(ws[B_ZEROS], 0, smb, stream);
-  if (err == cudaSuccess) err = cudaMemsetAsync(cnt, 0, (size_t)n_counters * sizeof(int), stream);
-  if (err == cudaSuccess && gb) err = cudaMemsetAsync(gb, 0, smb, stream);
-  if (err != cudaSuccess) return (int)err;
-
-  ChainArgs c;
-  c.b = b;
-  c.A = A;
-  c.W1 = W1;
-  c.W2 = W2;
-  c.beta = beta;
-  c.tx = tx;
-  c.tz = tz;
-  c.tlam = tlam;
-  c.tax = tax;
-  c.gx0 = gx0;
-  c.zeros = ws[B_ZEROS];
-  c.gz = ws[B_GZ];
-  c.glam = ws[B_GLAM];
-  c.gax = ws[B_GAX];
-  c.gv = ws[B_GV];
-  c.gax1_stack = gax1_stack != nullptr;
-  c.gax1 = gax1_stack ? gax1_stack : ws[B_GAX1];
-  c.gb = gb;
-  c.gp1 = ws[B_GP1];
-  c.gp2 = ws[B_GP2];
-  c.th1p = ws[B_TH1P];
-  c.th2p = ws[B_TH2P];
-  c.betap = reinterpret_cast<double*>(ws[B_BETAP]);
-  c.part = ws[B_PART];
-  c.cnt = cnt;
-  c.S = S;
-  c.m = m;
-  c.n = n;
-  c.K = K;
-  c.sv = Split{sched[1], sched[2]};
-  c.sx = Split{sched[3], sched[4]};
-  c.su = Split{sched[5], sched[6]};
-  void* args[] = {&c};
-  err = cudaLaunchCooperativeKernel((const void*)bwd_chain, dim3(grid), dim3(kPT), args, 0, stream);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // a refused launch: clear it for later launches' checks
-    return (int)err;
-  }
-
-  WeightArgs w;
-  w.b = b;
-  w.beta = beta;
-  w.tz = tz;
-  w.tlam = tlam;
-  w.tax = tax;
-  w.zeros = ws[B_ZEROS];
-  w.gp1 = ws[B_GP1];
-  w.gp2 = ws[B_GP2];
-  w.gW1 = gW1;
-  w.gW2 = gW2;
-  w.part = ws[B_PART];
-  w.cnt = cnt;
-  w.S = S;
-  w.m = m;
-  w.n = n;
-  w.K = K;
-  w.bs = bs;
-  const int items = K * (cdiv(n, kT) + cdiv(m, kT)) * cdiv(m, kT) * cdiv(S, bs);
-  bwd_weights<<<items, kPT, 0, stream>>>(w);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const int nrb = cdiv(S, kT), total = K * (n + m + 1);
-  finish<<<cdiv(total, 256), 256, 0, stream>>>(
-      th1, th2, beta, ws[B_TH1P], ws[B_TH2P], reinterpret_cast<const double*>(ws[B_BETAP]),
-      gth1, gth2, gbeta, K, m, n, nrb, nrb * cdiv(m, kT));
-  return (int)cudaGetLastError();
+// dladmm_unroll_bwd with bf16 storage (bf16 training): b, A, W1, W2,
+// th1, th2, the stacks, the cotangents and the outputs gW1, gW2, gth1,
+// gth2 are bf16; beta is fp32 (`beta`, then gbeta is fp32) or bf16
+// (`beta16`, then `gbeta16` is bf16), the other null. With data_grads
+// the bf16 gAx1 stack (K,S,m) and gb (S,m), else both null. The
+// cotangent state, the gp stacks and every partial stay fp32 in the
+// workspace, which also holds gb's fp32 accumulator (B_GB). Returns a
+// cudaError_t.
+extern "C" int dladmm_unroll_bwd_bf16(
+    const __nv_bfloat16* b, const __nv_bfloat16* A, const __nv_bfloat16* W1, const __nv_bfloat16* W2,
+    const __nv_bfloat16* th1, const __nv_bfloat16* th2, const float* beta, const __nv_bfloat16* beta16,
+    const __nv_bfloat16* tx, const __nv_bfloat16* tz, const __nv_bfloat16* tlam, const __nv_bfloat16* tax,
+    const __nv_bfloat16* gx0, const __nv_bfloat16* gz0, const __nv_bfloat16* glam0, __nv_bfloat16* gW1,
+    __nv_bfloat16* gW2, __nv_bfloat16* gth1, __nv_bfloat16* gth2, float* gbeta, __nv_bfloat16* gbeta16,
+    __nv_bfloat16* gax1_stack, __nv_bfloat16* gb, void* const* bufs, int n_counters, const int* sched,
+    int S, int m, int n, int K, int bs, int device, void* stream_handle) {
+  return run_bwd<__nv_bfloat16>(b, A, W1, W2, th1, th2, beta, beta16, tx, tz, tlam, tax, gx0, gz0, glam0,
+                                gW1, gW2, gth1, gth2, gbeta, gbeta16, nullptr, gax1_stack, gb, bufs,
+                                n_counters, sched, S, m, n, K, bs, device, stream_handle);
 }
 
 extern "C" const char* dladmm_cuda_error_string(int err) {

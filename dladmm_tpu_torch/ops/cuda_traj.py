@@ -18,6 +18,16 @@ The TPU's VMEM gates (``traj_fits_vmem``, ``traj_tile_batch``) are
 dropped: the kernel runs at every shape. l1/l1 and B = I only, as the
 TPU kernel.
 
+bf16. bf16 b, A, weights and thresholds (bf16 training,
+``compute_dtype="bfloat16"``) take the kernel's bf16-storage variant
+(``dladmm_unroll_trajectory_bf16``), counted apart in
+``trajectory_forward.launches_bf16``. Its rule is the JAX kernel's on
+bf16 refs: the state stays fp32 from layer to layer (its scratch), and
+only the stack stores round to bf16, so it is an fp32 unroll on the
+widened inputs whose stacks are rounded where they are stored
+(``trajectory_forward_plain_bf16``). It is not the bf16 serving kernel's
+rule, which rounds the state between layers.
+
 Training: the forward writes the Ax stack too (``with_tax``), which with
 tx, tz, tlam is exactly the residual set of the backward, so the
 backward recomputes no forward. A final-state loss
@@ -40,13 +50,15 @@ from torch import Tensor
 from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
 from dladmm_tpu_torch.ops import cuda_build, schedule
 from dladmm_tpu_torch.ops.cuda_bwd import bwd_chunk_batch, unroll_bwd, weight_wave
-from dladmm_tpu_torch.ops.cuda_unroll import SRC, kernel_args, needs_grad
+from dladmm_tpu_torch.ops.cuda_unroll import SRC, kernel_args, needs_grad, storage_dtype
 from dladmm_tpu_torch.ops.unroll_vjp import _param_grads, bwd_from_carries, shifted_residuals
 
 _count_lock = threading.Lock()
 
 
 _ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+# dladmm_unroll_trajectory_bf16: a bf16 beta pointer and the fp32 state's four buffers more.
+_ARGTYPES_BF16 = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 
 def trajectory_forward_plain(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
     """The kernel's function in plain PyTorch: the plain loop from zero
@@ -59,17 +71,32 @@ def trajectory_forward_plain(b, A, W1, W2, th1, th2, beta, with_tax: bool = Fals
     return tx, tz, tlam
 
 
+def trajectory_forward_plain_bf16(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
+    """The bf16-storage kernel's function in plain PyTorch, the rule of
+    the JAX package's ``_unroll_traj_kernel`` on bf16 refs: the fp32
+    trajectory (``trajectory_forward_plain``) of the exactly widened
+    inputs, its stacks rounded to nearest bf16 where they are stored.
+    The state between layers is never rounded. Returns bf16 stacks."""
+    out = trajectory_forward_plain(*(t.float() for t in (b, A, W1, W2, th1, th2, beta)), with_tax)
+    return tuple(t.to(torch.bfloat16) for t in out)
+
+
 def trajectory_forward(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
     """K layers of D-LADMM (l1/l1, B = I) from zero state -> the stacks
     tx (K, S, n), tz (K, S, m), tlam (K, S, m), plus tax = tx A^T
     (K, S, m) when ``with_tax``.
 
-    Shapes as ``cuda_unroll.unroll_forward``. CUDA tensors launch the
-    kernel; CPU tensors run the plain version. Each kernel launch adds
-    one to ``trajectory_forward.launches`` and leaves the plan it
-    launched with in ``trajectory_forward.last_plan`` ((blocks a SM,
-    SMs), grid, {phase: Split}, K)."""
+    Shapes as ``cuda_unroll.unroll_forward``; the storage type is b's,
+    float32 or bfloat16, as there (``storage_dtype``), and the stacks are
+    in it. CUDA tensors launch the kernel; CPU tensors run the plain
+    version (``trajectory_forward_plain_bf16`` for bf16). Each kernel
+    launch adds one to ``trajectory_forward.launches`` (bf16 storage:
+    ``launches_bf16``) and leaves the plan it launched with in
+    ``trajectory_forward.last_plan`` ((blocks a SM, SMs), grid, {phase:
+    Split}, K)."""
     if b.device.type == "cpu":
+        if storage_dtype(b, A, W1, W2, th1, th2, beta) == torch.bfloat16:
+            return trajectory_forward_plain_bf16(b, A, W1, W2, th1, th2, beta, with_tax)
         return trajectory_forward_plain(b, A, W1, W2, th1, th2, beta, with_tax)
     if b.device.type != "cuda":
         raise ValueError(f"unsupported device {b.device}")
@@ -77,32 +104,54 @@ def trajectory_forward(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
     th1, th2 = th1.contiguous(), th2.contiguous()  # this kernel reads (K, n) / (K, m) rows
     S, m = b.shape
     K, n, _ = W1.shape
-    launch = cuda_build.entry(SRC, "dladmm_unroll_trajectory", _ARGTYPES)
+    bf16 = b.dtype == torch.bfloat16
     dev = b.device.index
-    occ = cuda_build.occupancy(SRC, "dladmm_traj_occupancy", dev)
-    grid, sp, ws = schedule.traj_plan(S, m, n, *occ)
+    if bf16:
+        launch = cuda_build.entry(SRC, "dladmm_unroll_trajectory_bf16", _ARGTYPES_BF16)
+        occ = cuda_build.occupancy(SRC, "dladmm_traj_occupancy_bf16", dev)
+        grid, sp, ws = schedule.traj_plan(S, m, n, *occ, bf16_state=True)
+    else:
+        launch = cuda_build.entry(SRC, "dladmm_unroll_trajectory", _ARGTYPES)
+        occ = cuda_build.occupancy(SRC, "dladmm_traj_occupancy", dev)
+        grid, sp, ws = schedule.traj_plan(S, m, n, *occ)
     with torch.cuda.device(b.device):
-        kw = dict(dtype=torch.float32, device=b.device)
+        kw = dict(dtype=b.dtype, device=b.device)
         tx = torch.empty((K, S, n), **kw)
         tz, tlam = (torch.empty((K, S, m), **kw) for _ in range(2))
-        tax = torch.empty((K, S, m) if with_tax else (S, m), **kw)
-        work = torch.empty((ws["_total"][0],), **kw)
+        if with_tax:
+            tax = torch.empty((K, S, m), **kw)
+        else:  # fp32: the kernel's Ax scratch; bf16 keeps Ax in the workspace
+            tax = None if bf16 else torch.empty((S, m), **kw)
+        work = torch.empty((ws["_total"][0],), dtype=torch.float32, device=b.device)
         at = lambda name: work.data_ptr() + 4 * ws[name][0]  # noqa: E731
         stream = torch.cuda.current_stream(b.device).cuda_stream
-        err = launch(
-            *(t.data_ptr() for t in (b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax)),
-            at("zeros"), at("partials"), at("counters"), ws["counters"][1], int(with_tax),
-            S, m, n, K, grid, *(v for ph in ("x", "ax", "z") for v in (sp[ph].slices, sp[ph].length)),
-            dev, stream,
-        )
+        sched = (*(v for ph in ("x", "ax", "z") for v in (sp[ph].slices, sp[ph].length)), dev, stream)
+        head = (ws["counters"][1], int(with_tax), S, m, n, K, grid)
+        if bf16:
+            betas = (beta, None) if beta.dtype == torch.float32 else (None, beta)
+            err = launch(
+                *(t.data_ptr() for t in (b, A, W1, W2, th1, th2)),
+                *(None if t is None else t.data_ptr() for t in (*betas, tx, tz, tlam, tax)),
+                *(at(name) for name in ("x", "ax", "z", "lam", "zeros", "partials", "counters")),
+                *head, *sched,
+            )
+        else:
+            err = launch(
+                *(t.data_ptr() for t in (b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax)),
+                at("zeros"), at("partials"), at("counters"), *head, *sched,
+            )
         cuda_build.check(SRC, err, "CUDA trajectory kernel")
     with _count_lock:
-        trajectory_forward.launches += 1
+        if bf16:
+            trajectory_forward.launches_bf16 += 1
+        else:
+            trajectory_forward.launches += 1
         trajectory_forward.last_plan = (occ, grid, sp, K)
     return (tx, tz, tlam, tax) if with_tax else (tx, tz, tlam)
 
 
 trajectory_forward.launches = 0
+trajectory_forward.launches_bf16 = 0
 trajectory_forward.last_plan = None
 
 
@@ -111,7 +160,10 @@ class _Trajectory(torch.autograd.Function):
     ``final_only`` -> (x_K, z_K, lam_K). Forward: the trajectory kernel
     with the Ax stack. Backward on that trajectory: the backward kernel
     (cuda_bwd.unroll_bwd) for ``final_only``, else bwd_from_carries with
-    the per-layer cotangents."""
+    the per-layer cotangents. In bf16 (bf16 training) both are the bf16
+    variants, as in the JAX package (pallas_unroll.py:480-530, 593-652):
+    the bf16 kernels, and bwd_from_carries on the bf16 stacks, every
+    operation in bf16."""
 
     @staticmethod
     def forward(ctx, final_only, W1, W2, th1, th2, beta, A, b):
@@ -173,5 +225,6 @@ __all__ = [
     "make_unrolled_trajectory",
     "trajectory_forward",
     "trajectory_forward_plain",
+    "trajectory_forward_plain_bf16",
     "unrolled_forward_train",
 ]

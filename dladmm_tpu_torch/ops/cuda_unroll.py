@@ -24,8 +24,9 @@ torch.bfloat16)``) take the kernel's bf16-storage variant
 state rounded to bf16, the rule of the JAX package's kernel on bf16
 refs. ``unroll_forward_plain`` fed bf16 is another function, the JAX
 package's bf16 scan (every operation rounded), which the plain-loop
-routes serve. A bf16 forward that needs a gradient (bf16 training) is
-not ported and raises.
+routes serve. A bf16 forward that needs a gradient (bf16 training) runs
+the bf16 trajectory and backward kernels (ops/cuda_traj.py,
+ops/cuda_bwd.py), as an fp32 one runs theirs.
 
 Eligibility. The TPU kernel was gated by VMEM fit (``unroll_fits_vmem``,
 ``unroll_tile_batch``: one layer's weights plus the batch state in
@@ -61,10 +62,6 @@ _ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 11 + [ctypes.c_float] * 2
 _ARGTYPES_BF16 = [ctypes.c_void_p] * 2 + _ARGTYPES
 # The kernel's storage types (csrc/unroll.cu: unroll_persistent<T, BF16, TS>).
 STORAGE = (torch.float32, torch.bfloat16)
-_BF16_TRAINING = (
-    "a bf16 forward that needs a gradient is bf16 training, not ported yet "
-    "(ROADMAP.md §1, bf16 training: the trajectory and backward kernels in bf16)"
-)
 
 
 def plan_for(S: int, m: int, n: int, device_index: int, bf16: bool, scratch: bool,
@@ -312,14 +309,12 @@ def make_unrolled_forward():
     a forward that needs a gradient runs the trajectory kernel, and its
     backward the backward kernel (ops/cuda_traj.unrolled_forward_train,
     ops/cuda_bwd.unroll_bwd), as the JAX package's custom VJP does.
-    bf16 params, A and b take the bf16-storage kernel for inference; with
-    a gradient they raise NotImplementedError (bf16 training is not
-    ported)."""
+    bf16 params, A and b take the bf16-storage kernels: the serving
+    kernel for inference, the trajectory and backward kernels with a
+    gradient (bf16 training)."""
 
     def forward(params: DLADMMParams, A: Tensor, b: Tensor):
         if needs_grad(params, A, b):
-            if any(t.dtype == torch.bfloat16 for t in (*params, A, b)):
-                raise NotImplementedError(_BF16_TRAINING)
             from dladmm_tpu_torch.ops.cuda_traj import unrolled_forward_train
 
             return unrolled_forward_train(params, A, b)

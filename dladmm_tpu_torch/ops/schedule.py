@@ -104,13 +104,19 @@ def partial_floats(splits) -> int:
     return max([sp.items * sp.tile * sp.tile for sp in splits if sp.slices > 1] or [0])
 
 
-def traj_workspace(S: int, m: int, n: int, splits: Dict[str, Split]) -> Dict[str, Tuple[int, int]]:
+def traj_workspace(S: int, m: int, n: int, splits: Dict[str, Split],
+                   bf16_state: bool = False) -> Dict[str, Tuple[int, int]]:
     """{buffer: (offset, floats)} of the trajectory's workspace: the zero
-    state of layer 0, the partials and one int32 counter per tile."""
+    state of layer 0, the partials and one int32 counter per tile. With
+    ``bf16_state`` (bf16 storage, csrc/unroll.cu) also the fp32 state the
+    layers pass on unrounded: x (S, n), Ax (S, m), and z and lam, two
+    (S, m) buffers each."""
+    state = {"x": S * n, "ax": S * m, "z": 2 * S * m, "lam": 2 * S * m} if bf16_state else {}
     return layout({
         "zeros": S * max(n, m),
         "partials": partial_floats(splits.values()),
         "counters": max(sp.tiles for sp in splits.values()),
+        **state,
     })
 
 
@@ -305,45 +311,50 @@ def bwd_schedule(S: int, m: int, n: int, K: int, bs: int, blocks_per_sm: int, sm
 
 
 BWD_BUFFERS = ("gz", "glam", "gax", "gv", "gax1", "zeros", "gp1", "gp2", "th1p", "th2p", "betap",
-               "partials", "counters")
+               "partials", "counters", "gb")
 
 
 def bwd_workspace(S: int, m: int, n: int, K: int, splits: Dict[str, Split], wsplit: WeightSplit,
-                  data_grads: bool) -> Dict[str, Tuple[int, int]]:
+                  data_grads: bool, bf16: bool = False) -> Dict[str, Tuple[int, int]]:
     """{buffer: (offset, floats)} of the backward's workspace, in
     BWD_BUFFERS order (csrc/unroll_bwd.cu reads the pointers in it): the
     cotangent carries, this layer's gv and gAx1 (the caller's stack with
     data_grads), the zero state, the gp1 (K, S, n) and gp2 (K, S, m)
     stacks the weight gradients read, the gth1/gth2 column partials per
     32-row block, two gbeta partials (fp64) per U tile, the split-K
-    partials of the chain or of the weight launch, and the counters."""
+    partials of the chain or of the weight launch, and the counters.
+    With ``bf16`` (bf16 storage) gAx1 is always the fp32 buffer here (the
+    caller's stack is its rounded copy), and gb's fp32 accumulator is too
+    (with data_grads)."""
     sm = S * m
     nrb = cdiv(S, TILE)
     wpart = wsplit.items * TILE * TILE if wsplit.slices > 1 else 0
     return layout({
-        "gz": sm, "glam": sm, "gax": sm, "gv": sm, "gax1": 0 if data_grads else sm, "zeros": sm,
+        "gz": sm, "glam": sm, "gax": sm, "gv": sm, "gax1": 0 if data_grads and not bf16 else sm, "zeros": sm,
         "gp1": K * S * n, "gp2": K * sm,
         "th1p": K * nrb * n, "th2p": K * nrb * m,
         "betap": K * splits["u"].tiles * 4,
         "partials": max(partial_floats(splits.values()), wpart),
         "counters": max(max(sp.tiles for sp in splits.values()), wsplit.tiles),
+        "gb": sm if data_grads and bf16 else 0,
     })
 
 
 @functools.lru_cache(maxsize=64)
-def traj_plan(S: int, m: int, n: int, blocks_per_sm: int, sms: int):
+def traj_plan(S: int, m: int, n: int, blocks_per_sm: int, sms: int, bf16_state: bool = False):
     """(grid, splits, workspace) of one trajectory call, computed once per
     shape, so a training step pays no Python for it."""
     grid, sp = traj_schedule(S, m, n, blocks_per_sm, sms)
-    return grid, sp, traj_workspace(S, m, n, sp)
+    return grid, sp, traj_workspace(S, m, n, sp, bf16_state)
 
 
 @functools.lru_cache(maxsize=64)
-def bwd_plan(S: int, m: int, n: int, K: int, bs: int, data_grads: bool, blocks_per_sm: int, sms: int):
+def bwd_plan(S: int, m: int, n: int, K: int, bs: int, data_grads: bool, blocks_per_sm: int, sms: int,
+             bf16: bool = False):
     """(grid, splits, weight split, workspace) of one backward call,
     cached as traj_plan."""
     grid, sp, wsplit = bwd_schedule(S, m, n, K, bs, blocks_per_sm, sms)
-    return grid, sp, wsplit, bwd_workspace(S, m, n, K, sp, wsplit, data_grads)
+    return grid, sp, wsplit, bwd_workspace(S, m, n, K, sp, wsplit, data_grads, bf16)
 
 
 def barriers(K: int) -> int:

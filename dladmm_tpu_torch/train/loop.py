@@ -21,10 +21,19 @@ masters in place instead.
 Loss: MSE to the ground truth, final layer only, or deep supervision
 sum_k gamma_k (||x_k - x*||^2 + ||z_k - e*||^2) (``layer_loss``).
 
-Not ported yet (ROADMAP.md §1): ``compute_dtype="bfloat16"``,
-``optimizer="fused_adam"``, the XLA-side reduced-precision moments
-(``moment_dtype`` int8/bfloat16/bfloat16_sr), ``fit_greedy`` and
-``fit_sharded``; each raises NotImplementedError.
+bf16 training (``compute_dtype="bfloat16"``), as the JAX package runs
+it: the state keeps a persistent bf16 copy of the fp32 masters
+(``TrainState.compute_params``); the loss and its gradient run on that
+copy with A cast once and b each step (the targets stay fp32), through
+the bf16 kernels on the card; the bf16 gradients go to the optimizer,
+whose fused sweep updates the fp32 masters and rewrites the copy in the
+same pass (a plain optimizer re-casts it). Checkpoints hold the masters
+only; a resume casts the copy again. Evals run on the fp32 masters.
+
+Not ported yet (ROADMAP.md §1): ``optimizer="fused_adam"``, the
+XLA-side reduced-precision moments (``moment_dtype``
+int8/bfloat16/bfloat16_sr), ``fit_greedy`` and ``fit_sharded``; each
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -45,19 +54,28 @@ _LATER = "is not ported yet; it is a later slice of the port (ROADMAP.md §1)"
 
 
 class TrainState(NamedTuple):
-    """The JAX package's TrainState without the bf16 compute copy (bf16
-    training is not ported)."""
+    """The JAX package's TrainState."""
 
     params: DLADMMParams  # fp32 master parameters
     opt_state: Any
     step: int  # steps taken, on the host (the optimizer keeps its own device count)
+    # bf16 training: the persistent compute-precision copy of params, which
+    # the loss runs on and the fused optimizer rewrites in its sweep. None
+    # in fp32 runs (and in checkpoints, which hold the three fields above).
+    compute_params: Optional[DLADMMParams] = None
 
 
-def make_train_state(params: DLADMMParams, optimizer) -> TrainState:
+def _cast(params: DLADMMParams, dtype) -> DLADMMParams:
+    return DLADMMParams(*(p.to(dtype) for p in params))
+
+
+def make_train_state(params: DLADMMParams, optimizer, compute_dtype=None) -> TrainState:
     """Fresh TrainState on copies of ``params`` (the fused optimizer
-    updates its masters in place)."""
+    updates its masters in place); with ``compute_dtype`` (torch.bfloat16)
+    also the compute-precision copy (TrainState.compute_params)."""
     params = DLADMMParams(*(p.detach().clone().contiguous() for p in params))
-    return TrainState(params, optimizer.init(params), 0)
+    cp = None if compute_dtype is None else _cast(params, compute_dtype)
+    return TrainState(params, optimizer.init(params), 0, cp)
 
 
 def weighted_trajectory_mse(tx, tz, x_tgt, z_tgt, layer_weights):
@@ -78,9 +96,13 @@ def loss_fn(
     layer_weights: Optional[Tensor] = None,
     step_fn=None,
     forward_fn=None,
+    compute_dtype=None,
     vjp: str = "auto",
 ) -> Tensor:
     """MSE to ground truth; final layer only, or gamma-weighted per layer.
+
+    compute_dtype (torch.bfloat16) runs the whole unroll in bf16: params,
+    A, b (and B) are cast to it; the targets and the loss stay fp32.
 
     forward_fn (from models.api.select_forward) replaces the plain loop;
     for the final-layer loss it returns the final (x, z, lam), with
@@ -88,6 +110,10 @@ def loss_fn(
     l1/l1 losses take the manual backward (ops/unroll_vjp.py) when
     vjp="auto"/"manual"; vjp="xla" (the JAX package's name) and custom
     step_fns take autograd through the plain loop."""
+    if compute_dtype is not None:
+        params = _cast(params, compute_dtype)
+        A, b = A.to(compute_dtype), b.to(compute_dtype)
+        B = None if B is None else B.to(compute_dtype)
     manual_ok = forward_fn is None and step_fn is None and layer_weights is None
     if vjp == "manual" and not manual_ok:
         raise ValueError(
@@ -184,12 +210,13 @@ def scale_by_learning_rate(learning_rate) -> GradientTransformation:
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """optax.clip_by_global_norm: t, or t / norm * max_norm above the
-    limit."""
+    limit (the norm cast to t's dtype first, as optax does: bf16 gradients
+    stay bf16)."""
 
     def update(grads, state, params=None):
         norm = global_norm(grads)
         trigger = norm < max_norm
-        return type(grads)(*(torch.where(trigger, g, (g / norm) * max_norm) for g in grads)), state
+        return type(grads)(*(torch.where(trigger, g, (g / norm.to(g.dtype)) * max_norm) for g in grads)), state
 
     return GradientTransformation(lambda params: (), update)
 
@@ -204,9 +231,9 @@ def delayed_clip_by_global_norm(max_norm: float) -> GradientTransformation:
         return DelayedClipState(torch.full((), max_norm, dtype=torch.float32, device=params[0].device))
 
     def update(grads, state, params=None):
-        cur = global_norm(grads)
+        cur = global_norm(grads).to(torch.float32)
         scale = torch.clamp(max_norm / torch.clamp(state.prev_norm, min=1e-16), max=1.0)
-        return type(grads)(*(g * scale for g in grads)), DelayedClipState(cur)
+        return type(grads)(*(g * scale.to(g.dtype) for g in grads)), DelayedClipState(cur)
 
     return GradientTransformation(init, update)
 
@@ -292,27 +319,63 @@ def _value_and_grad(params: DLADMMParams, loss_args: tuple, loss_kw: dict):
     return loss.detach(), DLADMMParams(*grads)
 
 
-def _apply(optimizer, state: TrainState, grads: DLADMMParams, freeze=()) -> TrainState:
+def _apply(optimizer, state: TrainState, grads: DLADMMParams, freeze=(), compute_dtype=None) -> TrainState:
+    """The optimizer step on the masters; with a compute copy in the state
+    the copy too: the fused sweep writes it in its pass, a plain
+    optimizer's new masters are cast again."""
     if freeze:
         grads = DLADMMParams(*(
             torch.zeros_like(g) if name in freeze else g for name, g in zip(grads._fields, grads)
         ))
+    cp = state.compute_params
     if hasattr(optimizer, "fused_apply"):
-        params, opt_state = optimizer.fused_apply(grads, state.opt_state, state.params)
+        params, opt_state, cp = optimizer.fused_apply(
+            grads, state.opt_state, state.params, compute_dtype if cp is not None else None, cp)
     else:
         with torch.no_grad():
             updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
             params = apply_updates(state.params, updates)
-    return TrainState(params, opt_state, state.step + 1)
+            cp = None if cp is None else _cast(params, compute_dtype)
+    return TrainState(params, opt_state, state.step + 1, cp)
 
 
 def _mean_of(parts):
-    """Mean (loss, grads) over microbatches; one part is returned as is."""
+    """Mean (loss, grads) over microbatches; one part is returned as is.
+    The sums run in fp32 (bf16 microbatch gradients widen, as the JAX
+    package's fp32 accumulators make them)."""
     if len(parts) == 1:
         return parts[0]
     n = len(parts)
     loss = sum(p[0] for p in parts) / n
-    return loss, DLADMMParams(*(sum(gs) / n for gs in zip(*(p[1] for p in parts))))
+    return loss, DLADMMParams(*(sum(g.float() for g in gs) / n for gs in zip(*(p[1] for p in parts))))
+
+
+def _check_state(state: TrainState, compute_dtype) -> None:
+    if compute_dtype is None and state.compute_params is not None:
+        raise ValueError(
+            "state carries compute_params but the step was built without "
+            "compute_dtype: build both from the same config "
+            "(make_train_state(..., compute_dtype=...) pairs with "
+            "make_train_step(..., compute_dtype=...))"
+        )
+
+
+def _grad_fn(A, B, layer_weights, kw, compute_dtype):
+    """(state, b, x_star, e_star) -> (loss, grads): on the state's compute
+    copy with A (and B) cast once here and b each call where the state
+    carries one, else on the masters (with compute_dtype, cast inside the
+    loss)."""
+    A_c = A if compute_dtype is None else A.to(compute_dtype)
+    B_c = B if B is None or compute_dtype is None else B.to(compute_dtype)
+
+    def grad(state: TrainState, b, x_star, e_star):
+        if compute_dtype is not None and state.compute_params is not None:
+            return _value_and_grad(state.compute_params,
+                                   (A_c, b.to(compute_dtype), x_star, e_star, B_c, layer_weights), kw)
+        return _value_and_grad(state.params, (A, b, x_star, e_star, B, layer_weights),
+                               {**kw, "compute_dtype": compute_dtype})
+
+    return grad
 
 
 def make_train_step(
@@ -330,10 +393,17 @@ def make_train_step(
     accum_steps: int = 1,
     nonneg_x: bool = False,
     seed: int = 0,
+    compute_dtype=None,
 ):
     """The training step: (state, i) -> (state, loss), i the step index.
     It draws its batch from ``step_generator(seed, i)`` on A's device,
     takes the gradient and applies the optimizer.
+
+    compute_dtype (torch.bfloat16): bf16 training; build the state with
+    make_train_state(..., compute_dtype=...) so that the loss runs on its
+    persistent bf16 copy (A cast once, b each step, targets fp32) and the
+    optimizer rewrites that copy. A state with a copy and a step without
+    compute_dtype raise ValueError.
 
     freeze: DLADMMParams field names kept at their value (their
     gradients are zeroed). accum_steps > 1: ``batch`` stays the
@@ -344,20 +414,21 @@ def make_train_step(
         raise ValueError(f"accum_steps={accum_steps} must divide batch={batch}")
     micro = batch // accum_steps
     freeze = tuple(freeze)
-    kw = dict(step_fn=step_fn, forward_fn=forward_fn, vjp=vjp)
+    grad = _grad_fn(A, B, layer_weights, dict(step_fn=step_fn, forward_fn=forward_fn, vjp=vjp), compute_dtype)
 
-    def grad_of(params, gen):
+    def grad_of(state, gen):
         data = make_batch(gen, A, micro, sparsity_x, sparsity_e, A.dtype, B, nonneg_x)
-        return _value_and_grad(params, (A, data.b, data.x_star, data.e_star, B, layer_weights), kw)
+        return grad(state, data.b, data.x_star, data.e_star)
 
     def train_step(state: TrainState, i: int):
+        _check_state(state, compute_dtype)
         if accum_steps == 1:
-            loss, grads = grad_of(state.params, step_generator(seed, i))
+            loss, grads = grad_of(state, step_generator(seed, i))
         else:
             loss, grads = _mean_of([
-                grad_of(state.params, step_generator(seed, i, j)) for j in range(accum_steps)
+                grad_of(state, step_generator(seed, i, j)) for j in range(accum_steps)
             ])
-        return _apply(optimizer, state, grads, freeze), loss
+        return _apply(optimizer, state, grads, freeze, compute_dtype), loss
 
     return train_step
 
@@ -371,22 +442,24 @@ def make_train_step_from_batch(
     forward_fn=None,
     vjp: str = "auto",
     accum_steps: int = 1,
+    compute_dtype=None,
 ):
     """Training step fed an explicit SyntheticBatch: (state, data) ->
     (state, loss). accum_steps > 1 splits the batch's rows into equal
     microbatches and applies the mean gradient: the exact global-mean
-    gradient of the full batch."""
-    kw = dict(step_fn=step_fn, forward_fn=forward_fn, vjp=vjp)
+    gradient of the full batch. compute_dtype as make_train_step's."""
+    grad = _grad_fn(A, B, layer_weights, dict(step_fn=step_fn, forward_fn=forward_fn, vjp=vjp), compute_dtype)
 
     def step(state: TrainState, data):
+        _check_state(state, compute_dtype)
         S = data.b.shape[0]
         if S % accum_steps:
             raise ValueError(f"accum_steps={accum_steps} must divide the batch rows ({S})")
         loss, grads = _mean_of([
-            _value_and_grad(state.params, (A, b, x_star, e_star, B, layer_weights), kw)
+            grad(state, b, x_star, e_star)
             for b, x_star, e_star in zip(*(torch.chunk(v, accum_steps) for v in data))
         ])
-        return _apply(optimizer, state, grads), loss
+        return _apply(optimizer, state, grads, compute_dtype=compute_dtype), loss
 
     return step
 
@@ -465,15 +538,16 @@ def fit(
     With ckpt_dir, checkpoints params, optimizer state, step and the
     dictionary at every eval; resume=True continues from the latest
     step_N there. Runs on ``device`` (utils/platform.resolve_device:
-    cuda unless asked otherwise)."""
+    cuda unless asked otherwise). ``compute_dtype="bfloat16"`` trains in
+    bf16 on a persistent copy of the fp32 masters (module docstring); the
+    checkpoints hold the masters, and a resume casts the copy again."""
     from dladmm_tpu_torch.data.synthetic import problem_matrices, seed_keys
     from dladmm_tpu_torch.models.unroll import init_dladmm_params
     from dladmm_tpu_torch.utils.platform import resolve_device
 
     p, t = config.problem, config.train
     device = resolve_device(device)
-    if t.compute_dtype == "bfloat16":
-        raise NotImplementedError(f"compute_dtype='bfloat16' {_LATER}")
+    compute_dtype = torch.bfloat16 if t.compute_dtype == "bfloat16" else None
     if getattr(t, "optimizer", "adam") == "fused_adam":
         raise NotImplementedError(f"optimizer='fused_adam' (train/fused_adam.py) {_LATER}")
     _, g_eval, _ = seed_keys(config)
@@ -508,8 +582,9 @@ def fit(
         optimizer, A, t.batch, p.sparsity_x, p.sparsity_e, B, layer_weights, step_fn,
         forward_fn, freeze=tuple(t.freeze), vjp=getattr(t, "vjp", "auto"),
         accum_steps=getattr(t, "accum_steps", 1), nonneg_x=nonneg_x, seed=t.seed,
+        compute_dtype=compute_dtype,
     )
-    state = make_train_state(params, optimizer)
+    state = make_train_state(params, optimizer, compute_dtype)
     eval_data = make_batch(g_eval, A, t.eval_batch, p.sparsity_x, p.sparsity_e, dtype, B, nonneg_x)
 
     def run_eval(st):
@@ -524,7 +599,11 @@ def fit(
         if resume:
             latest = latest_step_dir(ckpt_dir)
             if latest is not None:
-                state = restore_checkpoint(latest, state)[0]
+                # Checkpoints hold the three canonical fields; the copy is
+                # cast again from the restored masters.
+                state = restore_checkpoint(latest, state._replace(compute_params=None))[0]
+                if compute_dtype is not None:
+                    state = state._replace(compute_params=_cast(state.params, compute_dtype))
 
     history = []
 
@@ -539,7 +618,7 @@ def fit(
         if (i + 1) % t.eval_every == 0 or i + 1 == t.steps:
             record(i + 1, float(loss), run_eval(state))
             if ckpt_dir:
-                save_checkpoint(ckpt_dir, state, step=i + 1, A=A, B=B)
+                save_checkpoint(ckpt_dir, state._replace(compute_params=None), step=i + 1, A=A, B=B)
     if not history:
         # Resumed at (or past) the final step: report the restored model.
         record(state.step, float("nan"), run_eval(state))

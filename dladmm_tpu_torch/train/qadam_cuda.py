@@ -41,8 +41,17 @@ Moment formats (``moment_fmt``):
     bits.
 
 ``adam_int8_rows`` and ``adam_dense_rows`` sweep one leaf with given
-scalars (the same kernels on a one-leaf table). There is no bf16 compute
-copy: bf16 training is not ported (ROADMAP.md §1).
+scalars (the same kernels on a one-leaf table).
+
+bf16 training (``compute_dtype="bfloat16"``): the gradients arrive in
+bf16 (all of a step's leaves; widened exactly where they are read), and
+the step also writes the bf16 compute copy of the new masters into the
+persistent copy ``copy``, in place, in the same sweep: still two
+launches, nothing read back (``emit_copy`` of the JAX kernels). The clip
+norm of bf16 gradients is the JAX package's in its jitted step
+(``optax.global_norm(grads).astype(f32)``): each leaf's fp32 sum of
+squares rounded to bf16, those added in bf16, the square root in fp32
+(``global_norm``).
 """
 
 from __future__ import annotations
@@ -286,7 +295,18 @@ def adam_flat_plain(g, master, mu: QTensor, nu: QTensor, scal, b1=0.9, b2=0.999,
 
 def global_norm(tensors) -> Tensor:
     """sqrt of the sum of squares over every tensor (optax.global_norm),
-    as a device scalar."""
+    as a device scalar. On bf16 tensors, as the JAX package's jitted step
+    computes ``optax.global_norm(grads).astype(f32)`` (XLA on the CPU,
+    with excess precision): each tensor's sum of squares in fp32 rounded
+    to bf16, those sums added in bf16 in order, the square root of that
+    bf16 total in fp32 (not rounded to bf16); returned as fp32."""
+    tensors = list(tensors)
+    if tensors and tensors[0].dtype == torch.bfloat16:
+        total = None
+        for t in tensors:
+            s = torch.sum(torch.square(t.float())).to(torch.bfloat16)
+            total = s if total is None else total + s
+        return torch.sqrt(total.float())
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
 
 
@@ -388,13 +408,15 @@ def int8_warps(L: int) -> int:
     return w
 
 
-def int8_vec(L: int, g: int, master: int, mu_codes: int, nu_codes: int) -> int:
+def int8_vec(L: int, g: int, master: int, mu_codes: int, nu_codes: int, g_bytes: int = 4, copy: int = 0) -> int:
     """Elements a vector access of an int8 row takes, from the data
     pointers: 4, then 2, where L is a multiple and every pointer is
-    aligned to it (4 V bytes for fp32, V for codes); else 1
-    (ops/csrc/adam_step.cuh leaf_vec)."""
+    aligned to it (4 V bytes for fp32, 2 V for bf16: g with g_bytes 2 and
+    the compute copy, V for codes); else 1 (ops/csrc/adam_step.cuh
+    leaf_vec)."""
     for v in (4, 2):
-        if L % v == 0 and g % (4 * v) == 0 and master % (4 * v) == 0 and mu_codes % v == 0 and nu_codes % v == 0:
+        if (L % v == 0 and g % (g_bytes * v) == 0 and master % (4 * v) == 0 and mu_codes % v == 0
+                and nu_codes % v == 0 and copy % (2 * v) == 0):
             return v
     return 1
 
@@ -451,14 +473,16 @@ def step_plan(specs: tuple) -> StepPlan:
 
 
 def pack_step(plan: StepPlan, head_ptrs, leaf_ptrs, lr_mode: int, schedule, has_clip: bool, fmt: int,
-              floats):
+              floats, g16: bool = False):
     """The three host arrays of one step (ops/csrc/adam_step.cuh gives the
-    layout): pointers (the step's buffers, then 7 a leaf), ints (the
-    table's sizes, the rate's mode and schedule steps, the clip and the
-    format, then 8 a leaf) and floats."""
+    layout): pointers (the step's buffers, then 8 a leaf), ints (the
+    table's sizes, the rate's mode and schedule steps, the clip, the
+    format and whether the gradients are bf16, then 8 a leaf) and
+    floats."""
     warmup, decay = (schedule.warmup_steps, schedule.decay) if schedule is not None else (0, 0)
     ptrs = list(head_ptrs)
-    ints = [len(plan.leaves), plan.blocks, plan.chunks, plan.norm_blocks, lr_mode, warmup, decay, int(has_clip), fmt]
+    ints = [len(plan.leaves), plan.blocks, plan.chunks, plan.norm_blocks, lr_mode, warmup, decay, int(has_clip), fmt,
+            int(g16)]
     for lp, lptrs in zip(plan.leaves, leaf_ptrs):
         ptrs += lptrs
         ints += [lp.codec, lp.n, lp.rows, lp.L, lp.warps, lp.vec, lp.block0, lp.chunk0]
@@ -471,13 +495,14 @@ _workspaces: dict = {}
 
 
 def _workspace(device: torch.device, stream: int):
-    """The prologue's partials (NORM_BLOCKS fp64) and its counter (one
-    int32, zeroed once; the last block of each step clears it again), kept
-    per device and stream so that steps on two streams never share one."""
+    """The prologue's partials (NORM_BLOCKS x MAX_LEAVES fp64: a leaf's
+    each, for bf16 gradients) and its counter (one int32, zeroed once; the
+    last block of each step clears it again), kept per device and stream
+    so that steps on two streams never share one."""
     key = (device.index, stream)
     ws = _workspaces.get(key)
     if ws is None:
-        ws = _workspaces[key] = (torch.empty(NORM_BLOCKS, dtype=torch.float64, device=device),
+        ws = _workspaces[key] = (torch.empty(NORM_BLOCKS * MAX_LEAVES, dtype=torch.float64, device=device),
                                  torch.zeros(1, dtype=torch.int32, device=device))
     return ws
 
@@ -500,38 +525,45 @@ def _check(device_index: int, checks) -> None:
             _expect(name, t, dtype, shape, torch.device("cuda", device_index))
 
 
-def _leaf_spec(idx: int, g, master, mu, nu, fmt: str):
-    """(spec, pointers) of one leaf of the table, after checking it."""
+def _leaf_spec(idx: int, g, master, mu, nu, fmt: str, g_dt=torch.float32, copy=None):
+    """(spec, pointers) of one leaf of the table, after checking it; the
+    pointers without the seed and the copy, which follow them. g is of
+    ``g_dt`` (float32 or bfloat16: the step's); ``copy`` a bf16 compute
+    copy or None."""
     dev, shape = master.get_device(), master.shape
     n = master.numel()
+    checks = [(f"leaf {idx} master", master, torch.float32, shape), (f"leaf {idx} g", g, g_dt, shape)]
+    if copy is not None:
+        checks.append((f"leaf {idx} copy", copy, torch.bfloat16, shape))
+    cp = 0 if copy is None else copy.data_ptr()
     if fmt in DENSE_FMTS:
         mu_dt, nu_dt, _, _ = DENSE_FMTS[fmt]
-        _check(dev, ((f"leaf {idx} master", master, torch.float32, shape), (f"leaf {idx} g", g, torch.float32, shape),
-                     (f"leaf {idx} mu", mu, mu_dt, shape), (f"leaf {idx} nu", nu, nu_dt, shape)))
+        _check(dev, (*checks, (f"leaf {idx} mu", mu, mu_dt, shape), (f"leaf {idx} nu", nu, nu_dt, shape)))
         ptrs = [g.data_ptr(), master.data_ptr(), mu.data_ptr(), nu.data_ptr()]
-        return (CODEC_DENSE, n, 0, 0, dense_vec(*ptrs)), ptrs + [0, 0]
+        return (CODEC_DENSE, n, 0, 0, dense_vec(*ptrs, cp)), ptrs + [0, 0]
     if leaf_eligible(master):
         codec, L = CODEC_ROWS, shape[-1]
         rows = n // L
     else:
         codec, L = CODEC_FLAT, BLOCK
         rows = -(-n // BLOCK)
-    _check(dev, ((f"leaf {idx} master", master, torch.float32, shape), (f"leaf {idx} g", g, torch.float32, shape),
+    _check(dev, (*checks,
                  (f"leaf {idx} mu.codes", mu.codes, torch.int8, (rows, L)),
                  (f"leaf {idx} mu.scale", mu.scale, torch.float32, (rows,)),
                  (f"leaf {idx} nu.codes", nu.codes, torch.int8, (rows, L)),
                  (f"leaf {idx} nu.scale", nu.scale, torch.float32, (rows,))))
     ptrs = [g.data_ptr(), master.data_ptr(), mu.codes.data_ptr(), nu.codes.data_ptr(), mu.scale.data_ptr(),
             nu.scale.data_ptr()]
-    return (codec, n, rows, L, int8_vec(L, *ptrs[:4])), ptrs
+    return (codec, n, rows, L, int8_vec(L, *ptrs[:4], g_bytes=g.element_size(), copy=cp)), ptrs
 
 
 def adam_step_plain(grads, params, mu, nu, count: Tensor, fmt: str, learning_rate, clip_norm=None,
-                    b1=0.9, b2=0.999, eps=1e-8):
+                    b1=0.9, b2=0.999, eps=1e-8, copy=None):
     """adam_step's function in plain PyTorch, with its signature and its
     in-place writes: step_scalars and step_seeds, then each leaf's plain
     sweep (adam_dense_rows_plain, adam_int8_rows_plain on the (R, L) view,
-    adam_flat_plain). Returns (count + 1, scal, seeds)."""
+    adam_flat_plain), and with ``copy`` each new master rounded to bf16
+    into its copy. Returns (count + 1, scal, seeds)."""
     scal, new_count = step_scalars(grads, count, learning_rate, clip_norm, b1, b2)
     seeds = step_seeds(new_count, fmt, len(grads))
     for idx, (g, master, m, v) in enumerate(zip(grads, params, mu, nu)):
@@ -542,21 +574,28 @@ def adam_step_plain(grads, params, mu, nu, count: Tensor, fmt: str, learning_rat
             adam_int8_rows_plain(g.reshape(-1, L), master.view(-1, L), m, v, scal, b1, b2, eps)
         else:
             adam_flat_plain(g, master, m, v, scal, b1, b2, eps)
+        if copy is not None:
+            copy[idx].copy_(master.to(torch.bfloat16))
     return new_count, scal, seeds
 
 
 def adam_step(grads, params, mu, nu, count: Tensor, fmt: str, learning_rate, clip_norm=None,
-              b1=0.9, b2=0.999, eps=1e-8):
+              b1=0.9, b2=0.999, eps=1e-8, copy=None):
     """One optimizer step over every leaf, in place on the fp32 masters
     ``params`` and on the moments ``mu``, ``nu`` (dense tensors, or int8
     QTensors in each leaf's codec: per-row or flat-256). ``count`` is the
     step count before the step (int32 scalar), left as it is. Returns
     (count + 1, scal [c1, c2, lr, clip_scale], seeds or None), all new
-    device tensors.
+    device tensors. The gradients are all fp32 or all bf16 (bf16
+    training; their clip norm is the JAX package's bf16 one,
+    ``global_norm``); ``copy``, where given, is a bf16 tensor a leaf (the
+    persistent compute copy), into which the sweep writes the new master
+    rounded to nearest.
 
-    On CUDA tensors two launches (counted in ``adam_step.launches``): the
-    prologue (norm, scalars, count, seeds) and one sweep over the table of
-    leaves; nothing is read back. ``learning_rate`` is a float, a
+    On CUDA tensors two launches (counted in ``adam_step.launches``, and
+    those of bf16 gradients in ``adam_step.launches_bf16``): the prologue
+    (norm, scalars, count, seeds) and one sweep over the table of leaves;
+    nothing is read back. ``learning_rate`` is a float, a
     WarmupCosine (evaluated in the prologue) or any other callable
     (evaluated here into a device scalar the prologue reads). On CPU
     tensors, adam_step_plain.
@@ -569,16 +608,20 @@ def adam_step(grads, params, mu, nu, count: Tensor, fmt: str, learning_rate, cli
     and leaving its counter cleared."""
     device = params[0].device
     if device.type == "cpu":
-        return adam_step_plain(grads, params, mu, nu, count, fmt, learning_rate, clip_norm, b1, b2, eps)
+        return adam_step_plain(grads, params, mu, nu, count, fmt, learning_rate, clip_norm, b1, b2, eps, copy)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     if fmt not in MOMENT_FMTS:
         raise ValueError(f"fmt must be one of {MOMENT_FMTS}, got {fmt!r}")
     _expect("count", count, torch.int32, (), device)
+    if copy is not None and len(copy) != len(params):
+        raise ValueError(f"copy has {len(copy)} leaves, params {len(params)}")
+    g16 = grads[0].dtype == torch.bfloat16
+    g_dt = torch.bfloat16 if g16 else torch.float32
     specs, leaf_ptrs = [], []
     grads = [g.contiguous() for g in grads]  # held until the launch is enqueued
     for idx, (g, master, m, v) in enumerate(zip(grads, params, mu, nu)):
-        spec, ptrs = _leaf_spec(idx, g, master, m, v, fmt)
+        spec, ptrs = _leaf_spec(idx, g, master, m, v, fmt, g_dt, None if copy is None else copy[idx])
         specs.append(spec)
         leaf_ptrs.append(ptrs)
     plan = step_plan(tuple(specs))
@@ -588,6 +631,7 @@ def adam_step(grads, params, mu, nu, count: Tensor, fmt: str, learning_rate, cli
     seeds = torch.empty(len(specs), dtype=torch.int32, device=device) if sr else None
     for idx, ptrs in enumerate(leaf_ptrs):
         ptrs.append(seeds.data_ptr() + 4 * idx if sr else 0)
+        ptrs.append(0 if copy is None else copy[idx].data_ptr())
     schedule, lr_t, lr = None, None, 0.0
     if isinstance(learning_rate, WarmupCosine):
         mode, schedule = _LR_COSINE, learning_rate
@@ -604,7 +648,7 @@ def adam_step(grads, params, mu, nu, count: Tensor, fmt: str, learning_rate, cli
     floats = [lr, s.init_value - s.peak_value, s.peak_value, math.pi, 1.0 - s.alpha, s.alpha,
               0.0 if clip_norm is None else float(clip_norm), b1, 1.0 - b1, b2, 1.0 - b2, eps, _INV127]
     ptrs, ints, flts = pack_step(plan, head, leaf_ptrs, mode, schedule, clip_norm is not None,
-                                 _DENSE_CODE.get(fmt, 0), floats)
+                                 _DENSE_CODE.get(fmt, 0), floats, g16)
     src, name = (DENSE_SRC, "dladmm_adam_step_dense") if fmt in DENSE_FMTS else (SRC, "dladmm_adam_step_int8")
     launch = cuda_build.entry(src, name, _STEP_ARGTYPES)
     arrays = array.array("q", ptrs), array.array("q", ints), array.array("d", flts)  # alive through the call
@@ -612,11 +656,15 @@ def adam_step(grads, params, mu, nu, count: Tensor, fmt: str, learning_rate, cli
         err = launch(*(a.buffer_info()[0] for a in arrays), device.index, stream)
         cuda_build.check(src, err, "CUDA Adam step")
     with _count_lock:
-        adam_step.launches += 2
+        if g16:
+            adam_step.launches_bf16 += 2
+        else:
+            adam_step.launches += 2
     return new_count, scal, seeds
 
 
 adam_step.launches = 0
+adam_step.launches_bf16 = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -624,10 +672,11 @@ class QAdamFused:
     """Fused-sweep Adam with int8 or dense moments (the port of
     QAdamFusedPallas).
 
-    ``fused_apply(grads, state, params)`` is the step of the training
-    loop, in place on the fp32 masters and the state's moments:
-    ``adam_step``, two launches on the card; ``update`` is the optax-style
-    plain path (same math, returns the negated step and a new state).
+    ``fused_apply(grads, state, params, compute_dtype)`` is the step of
+    the training loop, in place on the fp32 masters and the state's
+    moments: ``adam_step``, two launches on the card; ``update`` is the
+    optax-style plain path (same math, returns the negated step and a new
+    state).
     Exact global-norm clipping is one scalar computed from the grads on
     the device."""
 
@@ -701,15 +750,25 @@ class QAdamFused:
         return kind(*ups), QMomentsState(count=count, mu=kind(*mus), nu=kind(*nus))
 
     @torch.no_grad()
-    def fused_apply(self, grads, state: QMomentsState, params):
+    def fused_apply(self, grads, state: QMomentsState, params, compute_dtype=None, compute_params=None):
         """One step in place on the fp32 masters ``params`` and on the
         state's moments (every codec, the flat-256 leaves too); returns
-        (params, state), the state with the new count. (The JAX package's
-        third result, the bf16 compute copy, belongs to bf16 training,
-        which is not ported: ROADMAP.md §1.)"""
+        (params, state, compute_params), the state with the new count, as
+        the JAX package's. With ``compute_dtype`` (torch.bfloat16) the same
+        sweep writes the new masters rounded to bf16 into
+        ``compute_params`` (the persistent copy, in place; new tensors if
+        None) and returns it; else the third result is None. The
+        gradients may be fp32 or bf16 (bf16 training)."""
+        if compute_dtype is not None and compute_dtype != torch.bfloat16:
+            raise ValueError(f"compute_dtype must be torch.bfloat16 or None, got {compute_dtype}")
+        copy = None
+        if compute_dtype is not None:
+            copy = compute_params
+            if copy is None:
+                copy = type(params)(*(torch.empty_like(p, dtype=torch.bfloat16) for p in params))
         count, _, _ = adam_step(grads, params, state.mu, state.nu, state.count, self.moment_fmt,
-                                self.learning_rate, self.clip_norm, self.b1, self.b2, self.eps)
-        return params, QMomentsState(count=count, mu=state.mu, nu=state.nu)
+                                self.learning_rate, self.clip_norm, self.b1, self.b2, self.eps, copy)
+        return params, QMomentsState(count=count, mu=state.mu, nu=state.nu), copy
 
 
 __all__ = [

@@ -11,6 +11,12 @@ trained with (``serve --ckpt-dir``), whatever generator drew it.
 NamedTuples (DLADMMParams, optimizer states, QTensor) are written as
 dicts of their fields; ``restore_checkpoint`` reads them back into the
 structure, shapes, dtypes and devices of a template state.
+
+A TrainState is saved as its three canonical fields (params, optimizer
+state, step): bf16 training's compute copy (``compute_params``) is
+derivable from the fp32 masters and is never written, so a checkpoint of
+a bf16 run and an old 3-field one load alike, with ``compute_params``
+None (train/loop.fit casts it again on resume).
 """
 
 from __future__ import annotations
@@ -55,8 +61,9 @@ def _restore(template, data, where: str = "state"):
 
 
 def save_checkpoint(path: str, state, step: int, A=None, B=None) -> str:
-    """Write ``state`` (a TrainState) with the dictionary A (and B) to
-    ``path/step_N.pt``, atomically. Returns the file written."""
+    """Write ``state`` (a TrainState; its compute copy is left out) with
+    the dictionary A (and B) to ``path/step_N.pt``, atomically. Returns
+    the file written."""
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     target = os.path.join(path, _STEP_FILE.format(step))
@@ -80,7 +87,8 @@ def _load(path: str) -> dict:
 def restore_checkpoint(path: str, template) -> tuple:
     """Read a checkpoint file into the structure, dtypes and devices of
     ``template`` (a TrainState built for the same config). Returns
-    (state, A, B) with A and B as CPU tensors (B None for B = I)."""
+    (state, A, B) with A and B as CPU tensors (B None for B = I); the
+    state's compute copy, where it has the field, is None."""
     data = _load(path)
     state = type(template)(
         _restore(template.params, data["params"], "params"),

@@ -5,8 +5,8 @@ and ``PRESETS`` are kept field for field identical (pinned by
 tests/test_torch_unroll.py), so a config name means the same problem in
 both packages. Training-only fields (optimizer, moments, sharding) are
 carried for that parity; the fields whose path is not ported yet
-(sharding, bf16 compute, fused_adam, the XLA-side moment formats) raise
-where they are read (train/loop.py, run.py).
+(sharding, fused_adam, the XLA-side moment formats) raise where they
+are read (train/loop.py, run.py).
 """
 
 from __future__ import annotations

@@ -1293,3 +1293,187 @@ def test_two_bf16_servers_on_two_streams_at_once(cuda_device):
     assert not any(t.is_alive() for t in threads)
     for g, w in zip(got, want):
         assert all(a.dtype == torch.bfloat16 and torch.equal(a, b) for a, b in zip(g, w))
+
+
+# -- bf16 training: the bf16 trajectory, backward and step --------------------
+
+TRAJ16_TOL_ULPS = 1.0  # chip_smoke.py's: the state stays fp32, a stored value meets one rounding
+BWD16_TOL_ULPS = 2.0  # chip_smoke.py's: gradients rounded once, activations rounded where staged
+
+
+def _within_ulps(got, want, ulps):
+    """Each bf16 result within ``ulps`` bf16 ulps of its largest
+    magnitude (a result whose plain version is all zero: equal)."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.isfinite(g.float()).all()
+        top = float(w.float().abs().max())
+        ulp = 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= ulps * ulp, (err, ulp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_tax", [True, False])
+@pytest.mark.parametrize("m,n,K,S", SHAPES)
+def test_bf16_trajectory_kernel_matches_plain(cuda_device, m, n, K, S, with_tax):
+    """The bf16 trajectory kernel (fp32 state, rounded stack stores)
+    against trajectory_forward_plain_bf16: each stack within
+    TRAJ16_TOL_ULPS bf16 ulps of its largest magnitude, bf16 stacks, a
+    second call bit for bit; its launch counted in launches_bf16."""
+    from dladmm_tpu_torch.ops import cuda_traj
+
+    A, b, p = _problem16(m, n, K, S, seed=m + S + 1, device=cuda_device)
+    n16, n32 = cuda_traj.trajectory_forward.launches_bf16, cuda_traj.trajectory_forward.launches
+    got = cuda_traj.trajectory_forward(b, A, *p, with_tax=with_tax)
+    again = cuda_traj.trajectory_forward(b, A, *p, with_tax=with_tax)
+    want = cuda_traj.trajectory_forward_plain_bf16(b, A, *p, with_tax=with_tax)
+    torch.cuda.synchronize()
+    assert cuda_traj.trajectory_forward.launches_bf16 == n16 + 2 and cuda_traj.trajectory_forward.launches == n32
+    assert len(got) == (4 if with_tax else 3)
+    _within_ulps(got, want, TRAJ16_TOL_ULPS)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def _bwd16_case(m, n, K, S, seed, device, ties=False):
+    """_bwd_case in bf16: the bf16 trajectory kernel's stacks, bf16
+    cotangents; ties set on the bf16 params."""
+    from dladmm_tpu_torch.ops import cuda_traj
+
+    A, b, p = _problem16(m, n, K, S, seed, device)
+    if ties:
+        p.theta1[min(1, K - 1), ::2] = 0.0
+        p.beta[K - 1] = 1e-6
+    traj = cuda_traj.trajectory_forward(b, A, *p, with_tax=True)
+    g = torch.Generator(device=device).manual_seed(seed)
+    cts = [torch.randn((S, n), generator=g, device=device).bfloat16(),
+           torch.randn((S, m), generator=g, device=device).bfloat16(),
+           (0.1 * torch.randn((S, m), generator=g, device=device)).bfloat16()]
+    return A, b, p, traj, cts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data_grads", [True, False])
+@pytest.mark.parametrize("m,n,K,S,bs,ties", [
+    (16, 32, 4, 8, None, False), (33, 77, 5, 13, None, True), (33, 77, 5, 13, 4, True),
+    (250, 500, 15, 64, None, True), (250, 500, 15, 1024, 128, False),
+])
+def test_bf16_bwd_kernel_matches_plain(cuda_device, m, n, K, S, bs, ties, data_grads):
+    """The bf16 backward kernel against unroll_bwd_plain_bf16 on the bf16
+    trajectory kernel's stacks: both routes, ragged tiles, ties; each
+    gradient bf16 (gbeta in beta's dtype) within BWD16_TOL_ULPS bf16 ulps
+    of its leaf's largest magnitude; a second call bit for bit; one launch
+    a call counted under its route in launches_bf16."""
+    from dladmm_tpu_torch.ops import cuda_bwd
+
+    A, b, p, traj, cts = _bwd16_case(m, n, K, S, seed=m + S + 2, device=cuda_device, ties=ties)
+    route = "chunked" if bs is not None and bs < S else "whole"
+    before, before32 = dict(cuda_bwd.unroll_bwd.launches_bf16), dict(cuda_bwd.unroll_bwd.launches)
+    got = cuda_bwd.unroll_bwd(b, A, *p, *traj, *cts, bs=bs, data_grads=data_grads)
+    again = cuda_bwd.unroll_bwd(b, A, *p, *traj, *cts, bs=bs, data_grads=data_grads)
+    want = cuda_bwd.unroll_bwd_plain_bf16(b, A, *p, *traj, *cts, bs=bs, data_grads=data_grads)
+    torch.cuda.synchronize()
+    assert cuda_bwd.unroll_bwd.launches_bf16[route] == before[route] + 2
+    assert cuda_bwd.unroll_bwd.launches == before32
+    assert all(g.dtype == torch.bfloat16 for g in got[0])
+    pairs = [(g, w) for g, w in zip((*got[0], *got[1:]), (*want[0], *want[1:])) if w is not None]
+    assert all(g is not None for g, _ in pairs) and (got[1] is None) == (not data_grads)
+    _within_ulps([g for g, _ in pairs], [w for _, w in pairs], BWD16_TOL_ULPS)
+    assert all(torch.equal(g, a) for g, a in zip(got[0], again[0]))
+
+
+@pytest.mark.gpu
+def test_bf16_training_kernels_take_an_fp32_beta(cuda_device):
+    """bf16 storage with an fp32 beta (the storage rule allows it): the
+    trajectory and backward kernels against their plain versions, gbeta
+    in fp32."""
+    from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj
+
+    A, b, p, traj, cts = _bwd16_case(33, 77, 5, 13, seed=9, device=cuda_device, ties=True)
+    p = p._replace(beta=p.beta.float())
+    got = cuda_traj.trajectory_forward(b, A, *p, with_tax=True)
+    _within_ulps(got, cuda_traj.trajectory_forward_plain_bf16(b, A, *p, with_tax=True), TRAJ16_TOL_ULPS)
+    for bs in (None, 4):
+        g = cuda_bwd.unroll_bwd(b, A, *p, *got, *cts, bs=bs, data_grads=True)
+        w = cuda_bwd.unroll_bwd_plain_bf16(b, A, *p, *got, *cts, bs=bs, data_grads=True)
+        torch.cuda.synchronize()
+        assert g[0].beta.dtype == w[0].beta.dtype == torch.float32
+        _within_ulps([*g[0], *g[1:]], [*w[0], *w[1:]], BWD16_TOL_ULPS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "float32", "bfloat16", "bfloat16_sr", "bfloat16_sr_mu"])
+def test_bf16_adam_step_writes_the_copy(cuda_device, fmt):
+    """adam_step on bf16 gradients with the compute copy, 3 chained
+    steps on synthetic_small's five leaves (chip_smoke.py phase 28): the
+    state equal to the one-leaf sweeps' run on the widened gradients with
+    the step's scalars, held against the plain version's step, the copy
+    equal to the new master rounded, the clip scale within 2^-7 of
+    step_scalars'; counted in launches_bf16."""
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+    from dladmm_tpu_torch.train import step_checks as sc
+
+    shapes = sc.preset_shapes(250, 500, 15)
+    params, mu, nu, grads32 = sc.step_state(shapes, fmt, seed=71, device=cuda_device)
+    grads = [DLADMMParams(*(t.bfloat16() for t in g)) for g in grads32]
+    copy = DLADMMParams(*(torch.empty_like(t, dtype=torch.bfloat16) for t in params))
+    sched = tqa.WarmupCosine(0.0, 1e-2, 2, 40)
+    count = torch.tensor(1, dtype=torch.int32, device=cuda_device)
+    for step, g in enumerate(grads):
+        pre = sc.clone_state(params, mu, nu)
+        old, n16 = count, tqa.adam_step.launches_bf16
+        count, scal, seeds = tqa.adam_step(g, params, mu, nu, count, fmt, sched, 1.0, copy=copy)
+        assert tqa.adam_step.launches_bf16 == n16 + 2
+        pscal, pcount = tqa.step_scalars(g, old, sched, 1.0)
+        one = sc.clone_state(*pre)
+        sc.one_leaf_step(fmt, [t.float() for t in g], *one, scal, seeds)
+        torch.cuda.synchronize()
+        assert torch.equal(count, pcount) and sc.scal_ulps(scal[:3], pscal[:3]) <= 2
+        assert abs(float(scal[3]) - float(pscal[3])) <= 2.0 ** -7 * float(pscal[3])
+        sc.check_against_one_leaf(fmt, (params, mu, nu), one, f"step {step}")
+        sc.plain_step_diff(fmt, g, pre, (params, mu, nu), scal, seeds, f"step {step}")
+        assert all(torch.equal(c, t.bfloat16()) for c, t in zip(copy, params))
+
+
+@pytest.mark.gpu
+def test_bf16_training_kernels_raise_when_the_grid_is_refused(cuda_device, monkeypatch):
+    """The bf16 trajectory and backward entries, like the fp32 ones: a
+    grid one block larger than the card holds resident raises, counts no
+    launch and leaves no error behind; a bf16 step with fp32 masters of
+    another shape, or a mix of fp32 and bf16 gradients, is refused before
+    anything is enqueued."""
+    from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj, schedule
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    A, b, p, traj, cts = _bwd16_case(250, 500, 3, 64, seed=3, device=cuda_device)
+    traj_plan, bwd_plan = schedule.traj_plan, schedule.bwd_plan
+    monkeypatch.setattr(schedule, "traj_plan",
+                        lambda *a, **kw: (a[3] * a[4] + 1, *traj_plan(*a, **kw)[1:]))
+    monkeypatch.setattr(schedule, "bwd_plan",
+                        lambda *a, **kw: (a[6] * a[7] + 1, *bwd_plan(*a, **kw)[1:]))
+    t0, b0 = cuda_traj.trajectory_forward.launches_bf16, dict(cuda_bwd.unroll_bwd.launches_bf16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_traj.trajectory_forward(b, A, *p, with_tax=True)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_bwd.unroll_bwd(b, A, *p, *traj, *cts)
+    assert cuda_traj.trajectory_forward.launches_bf16 == t0 and cuda_bwd.unroll_bwd.launches_bf16 == b0
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    _within_ulps(cuda_traj.trajectory_forward(b, A, *p), cuda_traj.trajectory_forward_plain_bf16(b, A, *p),
+                 TRAJ16_TOL_ULPS)
+    params = DLADMMParams(*(t.float().contiguous() for t in p))
+    opt = tqa.QAdamFused(1e-3, moment_fmt="float32")
+    state = opt.init(params)
+    g16 = DLADMMParams(*(torch.zeros_like(t, dtype=torch.bfloat16) for t in params))
+    mixed = g16._replace(beta=torch.zeros_like(params.beta))
+    s0 = tqa.adam_step.launches_bf16
+    with pytest.raises(ValueError, match="leaf 4 g"):
+        opt.fused_apply(mixed, state, params, torch.bfloat16)
+    bad = DLADMMParams(*(torch.empty_like(t, dtype=torch.bfloat16) for t in params))._replace(
+        W2=torch.empty((3, 250, 249), dtype=torch.bfloat16, device=cuda_device))
+    with pytest.raises(ValueError, match="leaf 1 copy"):
+        opt.fused_apply(g16, state, params, torch.bfloat16, bad)
+    assert tqa.adam_step.launches_bf16 == s0
+    _, _, copy = opt.fused_apply(g16, state, params, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert all(torch.equal(c, t.bfloat16()) for c, t in zip(copy, params))

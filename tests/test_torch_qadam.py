@@ -104,7 +104,8 @@ def test_fused_sweep_matches_jax_over_three_steps():
     for step in range(3):
         g = _leaves(10 + step, scale=0.5 if step else 3.0)  # step 0 is clipped
         jp, js, _ = jopt.fused_apply(JParams(*map(jnp.asarray, g)), js, jp)
-        tp, ts = topt.fused_apply(_t(g), ts, tp)
+        tp, ts, cp = topt.fused_apply(_t(g), ts, tp)
+        assert cp is None
     _assert_state_close(tp, ts, jp, js)
 
 

@@ -96,7 +96,7 @@ def test_fused_sweep_matches_jax_over_three_steps(fmt):
     for step in range(3):
         g = _leaves(10 + step, scale=0.5 if step else 3.0)  # step 0 is clipped
         jp, js, _ = jopt.fused_apply(JParams(*map(jnp.asarray, g)), js, jp)
-        tp, ts = topt.fused_apply(params_from_numpy(*g), ts, tp)
+        tp, ts, _ = topt.fused_apply(params_from_numpy(*g), ts, tp)
     _assert_masters_close(tp, jp)
     kernel_leaves = [n for n, v in zip(JParams._fields, jp) if jqa.leaf_eligible(v)]
     assert kernel_leaves == ["W1"]
@@ -185,7 +185,7 @@ def test_sr_formats_step(fmt):
     _, want = exact.update(params_from_numpy(*g), f32)
     _, upd_state = topt.update(params_from_numpy(*g), ts)
     jp, js, _ = jopt.fused_apply(JParams(*map(jnp.asarray, g)), js, jp)
-    tp, ts = topt.fused_apply(params_from_numpy(*g), ts, tp)
+    tp, ts, _ = topt.fused_apply(params_from_numpy(*g), ts, tp)
     _assert_masters_close(tp, jp)
     for moment, dt in (("mu", mu_dt), ("nu", nu_dt)):
         for name, got, w, u in zip(JParams._fields, getattr(ts, moment), getattr(want, moment),

@@ -198,17 +198,19 @@ def test_plan_constants_are_the_headers():
 
 
 def test_packed_arrays_follow_the_header_layout():
-    """pack_step: 7 pointers a step and 7 a leaf, 9 ints and 8 a leaf, 13
-    floats (ops/csrc/adam_step.cuh)."""
+    """pack_step: 7 pointers a step and 8 a leaf (the last the bf16
+    compute copy), 10 ints (the last whether the gradients are bf16) and
+    8 a leaf, 13 floats (ops/csrc/adam_step.cuh)."""
     plan = tqa.step_plan(_int8_specs(SHAPES))
     sched = tqa.WarmupCosine(0.0, 1e-2, 2, 40)
-    leaf_ptrs = [[100 * i + k for k in range(7)] for i in range(5)]
-    ptrs, ints, flts = tqa.pack_step(plan, list(range(7)), leaf_ptrs, 1, sched, True, 0, list(range(13)))
-    assert len(ptrs) == 7 + 7 * 5 and ptrs[7:14] == leaf_ptrs[0]
-    assert ints[:9] == [5, plan.blocks, plan.chunks, plan.norm_blocks, 1, 2, 38, 1, 0]
-    lp = plan.leaves[3]
-    assert ints[9 + 8 * 3:9 + 8 * 4] == [lp.codec, lp.n, lp.rows, lp.L, lp.warps, lp.vec, lp.block0, lp.chunk0]
-    assert len(flts) == 13
+    leaf_ptrs = [[100 * i + k for k in range(8)] for i in range(5)]
+    for g16 in (False, True):
+        ptrs, ints, flts = tqa.pack_step(plan, list(range(7)), leaf_ptrs, 1, sched, True, 0, list(range(13)), g16)
+        assert len(ptrs) == 7 + 8 * 5 and ptrs[7:15] == leaf_ptrs[0]
+        assert ints[:10] == [5, plan.blocks, plan.chunks, plan.norm_blocks, 1, 2, 38, 1, 0, int(g16)]
+        lp = plan.leaves[3]
+        assert ints[10 + 8 * 3:10 + 8 * 4] == [lp.codec, lp.n, lp.rows, lp.L, lp.warps, lp.vec, lp.block0, lp.chunk0]
+        assert len(flts) == 13
 
 
 # -- the prologue's scalars ---------------------------------------------------
@@ -415,7 +417,8 @@ def test_fused_apply_on_the_cpu_returns_what_it_returned(fmt):
         g = params_from_numpy(*_leaves(60 + step, scale=2.0 if step == 0 else 0.3))
         count0 = ts.count.clone()
         ids = [id(q) for q in ts.mu]
-        tp, ts2 = opt.fused_apply(g, ts, tp)
+        tp, ts2, cp = opt.fused_apply(g, ts, tp)
+        assert cp is None
         assert torch.equal(ts.count, count0) and int(ts2.count) == int(count0) + 1
         assert [id(q) for q in ts2.mu] == ids
         ts = ts2

@@ -173,8 +173,9 @@ def test_general_routes_match_plain_loop():
 
 def test_unported_options_raise():
     """bf16 serving runs (route and output type; its values are held
-    against the JAX package in tests/test_torch_bf16_serve.py), and a bf16
-    forward that needs a gradient (bf16 training) still raises; the
+    against the JAX package in tests/test_torch_bf16_serve.py), and so
+    does a bf16 forward that needs a gradient (bf16 training: bf16 final
+    state, bf16 gradients; values in tests/test_torch_bf16_train.py); the
     trajectory forward and the kernel="pallas" name (the same route as
     auto) are ported now, and an unknown kernel name is refused."""
     from dladmm_tpu_torch.ops.cuda_unroll import make_unrolled_forward
@@ -187,8 +188,11 @@ def test_unported_options_raise():
     assert x.dtype == z.dtype == torch.bfloat16 and x.shape == (3, A.shape[1])
     p16 = params_from_numpy(*leaves, dtype=torch.bfloat16)
     p16.W1.requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_unrolled_forward()(p16, torch.as_tensor(A).bfloat16(), torch.as_tensor(_requests(3, A.shape[0], 3)).bfloat16())
+    xk, zk, _ = make_unrolled_forward()(p16, torch.as_tensor(A).bfloat16(),
+                                        torch.as_tensor(_requests(3, A.shape[0], 3)).bfloat16())
+    assert xk.dtype == zk.dtype == torch.bfloat16 and xk.shape == (3, A.shape[1])
+    (gW1,) = torch.autograd.grad(xk.float().square().sum() + zk.float().square().sum(), [p16.W1])
+    assert gW1.dtype == torch.bfloat16 and gW1.shape == p16.W1.shape and torch.isfinite(gW1).all()
     assert select_forward(16, 32, 16, 8, need_trajectory=True)[2] == "cuda-trajectory-kernel"
     assert select_forward(16, 32, 16, 8, kernel="pallas")[2] == "cuda-whole-unroll-kernel"
     with pytest.raises(ValueError, match="kernel="):
