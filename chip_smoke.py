@@ -260,6 +260,8 @@ NMSE_TOL_DB = 0.01
 # cores, and HBM3. The bound of a call is the larger of the two times.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# Published H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet).
+PEAK_BF16_FLOPS = 989e12
 SMALL = dict(m=250, n=500, K=15)  # synthetic_small (utils/config.py)
 LARGE = dict(m=1000, n=2000, K=20)  # synthetic_large
 SMOKE = dict(m=32, n=64, K=4)  # smoke: the chunked backward's main path at batch 1024
@@ -1085,12 +1087,21 @@ def bwd_bound(S: int, m: int, n: int, K: int, data_grads: bool = False, itemsize
     flops (per layer gv, gAx1 A, gu, gW1, gW2), and b, A, the params,
     the trajectory stacks and the cotangents read once, the parameter
     gradients (and the gAx1 stack and gb) written once, each ``itemsize``
-    bytes (2: bf16 storage)."""
-    flops = 2 * S * K * (2 * m * m + 3 * n * m)
+    bytes (2: bf16 storage). In bf16 three of the five products have
+    bf16 operands only (gv = round(gp2) W2, round(gAx1) A, gu =
+    round(gp1) W1: 2*S*K*(m^2 + 2nm)), which the bf16 tensor cores take
+    exactly with fp32 sums; gW1 and gW2 (2*S*K*(m^2 + nm)) multiply fp32
+    cotangents and stay at the fp32 peak. The two units can run at once,
+    so the operations' time is the larger of the two."""
     params = K * (n * m + m * m + n + m + 1)
     ins = S * m + m * n + params + K * S * (n + 3 * m) + S * (n + 2 * m)
     outs = params + ((K + 1) * S * m if data_grads else 0)
-    return _bound(flops, itemsize * (ins + outs))
+    t_bytes = itemsize * (ins + outs) / PEAK_BYTES_PER_S
+    if itemsize == 4:
+        t_ops = 2 * S * K * (2 * m * m + 3 * n * m) / PEAK_FP32_FLOPS
+    else:
+        t_ops = max(2 * S * K * (m * m + 2 * n * m) / PEAK_BF16_FLOPS, 2 * S * K * (m * m + n * m) / PEAK_FP32_FLOPS)
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 # fp32 operations per element of the dense sweep: clip scale 1, two EMAs
@@ -2382,8 +2393,9 @@ BWD16_TOL_ULPS = 2.0
 # The step on bf16 gradients: the clip scale of the kernel (fp64 leaf sums)
 # and of the plain version (fp32 leaf sums), each leaf's sum then rounded
 # to bf16: where one rounds the other way, the total moves by at most one
-# bf16 step of that sum (2^-8 of the total) and the norm by half as much;
-# held at 2^-7.
+# bf16 step of that sum and its rounding by one more, the norm by half of
+# both; held at 2^-7. The kernel's own rule is held to equality apart
+# (step_checks.clip_scale_diff).
 STEP16_SCALE_REL = 2.0 ** -7
 
 
@@ -2468,7 +2480,8 @@ def check_bwd_bf16(torch, device) -> dict:
     from dladmm_tpu_torch.models.unroll import DLADMMParams
     from dladmm_tpu_torch.ops.cuda_bwd import bwd_chunk_batch, unroll_bwd, unroll_bwd_plain_bf16, weight_wave
 
-    wave = weight_wave(device)
+    wave = weight_wave(device, bf16=True)
+    emit("kernel_bwd_bf16", weight_wave=wave, fp32_weight_wave=weight_wave(device))
     cases = [
         ("synthetic_small", SMALL, 64, None, {}),
         ("synthetic_small", SMALL, 64, None, {"scalar_theta": True, "ties": True}),
@@ -2515,7 +2528,7 @@ def check_bwd_bf16(torch, device) -> dict:
     return errs
 
 
-def check_step_bf16(torch, tqa, device) -> float:
+def check_step_bf16(torch, tqa, device) -> dict:
     """Phase 28: adam_step on bf16 gradient leaves with the bf16 compute
     copy, int8 and the four dense formats, on the five leaves of
     synthetic_small and synthetic_large, 3 chained steps (warmup-cosine,
@@ -2526,12 +2539,14 @@ def check_step_bf16(torch, tqa, device) -> float:
     and 14 (step_checks.plain_step_diff); the copy equal bit for bit to
     the kernel's new master rounded to nearest; [c1, c2, lr] within 2 fp32
     ulps of step_scalars' and the clip scale within STEP16_SCALE_REL of
-    it (the bf16 norm); launches counted in launches_bf16 only; a second
-    first step bit for bit. Returns the largest master difference from
-    the plain version."""
+    it (the bf16 norm), and equal to the scale of the prologue's rule
+    computed apart, which the fp32 norm's scale fails
+    (step_checks.clip_scale_diff); launches counted in launches_bf16
+    only; a second first step bit for bit. Returns each format's largest
+    master difference from the plain version."""
     from dladmm_tpu_torch.train import step_checks as sc
 
-    max_err = 0.0
+    max_err = {}
     sched = tqa.WarmupCosine(0.0, 1e-2, 2, 40)
     for fmt in ("int8", *tqa.DENSE_FMTS):
         for config, shapes in STEP_SHAPES.items():
@@ -2541,7 +2556,8 @@ def check_step_bf16(torch, tqa, device) -> float:
             again = sc.clone_state(params, mu, nu)
             copy2 = type(params)(*(torch.empty_like(t, dtype=torch.bfloat16) for t in params))
             count = torch.tensor(1, dtype=torch.int32, device=device)
-            detail = {"scal_max_ulps": 0, "clip_scale_rel": 0.0, "clipped": [], "plain": []}
+            detail = {"scal_max_ulps": 0, "clip_scale_rel": 0.0, "clip_scale_rule_rel": 0.0,
+                      "fp32_norm_clip_scale_rel": [], "near_boundary": [], "clipped": [], "plain": []}
             for step, g in enumerate(grads):
                 label = f"step bf16 {fmt} {config} {step}"
                 pre = sc.clone_state(params, mu, nu)
@@ -2561,6 +2577,7 @@ def check_step_bf16(torch, tqa, device) -> float:
                 if not torch.equal(count, pcount) or ulps > 2 or not rel <= STEP16_SCALE_REL:
                     raise AssertionError(f"{label}: count {int(count)}, scal {scal.tolist()} vs plain "
                                          f"{pscal.tolist()} ({ulps} ulps, clip scale {rel} relative)")
+                rule = sc.clip_scale_diff(g, 1.0, float(scal[3]), label)
                 sc.check_against_one_leaf(fmt, (params, mu, nu), one, label)
                 if not all(torch.equal(c, t.to(torch.bfloat16)) for c, t in zip(copy, params)):
                     raise AssertionError(f"{label}: the copy is not the new master rounded")
@@ -2570,9 +2587,12 @@ def check_step_bf16(torch, tqa, device) -> float:
                 plain = sc.plain_step_diff(fmt, g, pre, (params, mu, nu), scal, seeds, label)
                 detail["scal_max_ulps"] = max(detail["scal_max_ulps"], ulps)
                 detail["clip_scale_rel"] = max(detail["clip_scale_rel"], rel)
+                detail["clip_scale_rule_rel"] = max(detail["clip_scale_rule_rel"], rule["rel"])
+                detail["fp32_norm_clip_scale_rel"].append(rule["fp32_norm_rel"])
+                detail["near_boundary"].append(rule["near_boundary"])
                 detail["clipped"].append(float(scal[3]) < 1.0)
                 detail["plain"].append(plain)
-                max_err = max(max_err, plain["master_max_abs_err"])
+                max_err[fmt] = max(max_err.get(fmt, 0.0), plain["master_max_abs_err"])
                 del pre, one
             emit("kernel_step_bf16", case=f"{fmt} {config} five leaves", steps=3, copy_is_rounded_master=True,
                  repeats_bit_for_bit=True, **detail)
@@ -3209,7 +3229,7 @@ def main() -> int:
     # 26-28. bf16 training's kernels against their plain versions.
     traj16_err = check_traj_bf16(torch, dev)
     bwd16_errs = check_bwd_bf16(torch, dev)
-    step16_err = check_step_bf16(torch, qadam_cuda, dev)
+    step16_errs = check_step_bf16(torch, qadam_cuda, dev)
     # 29. bf16 training through fit, recipes (a) and (b), each kernel counted
     # from 0; fp32 twins; the bf16 checkpoint served.
     ckpt29 = Path(work.name) / "train_bf16"
@@ -3337,7 +3357,7 @@ def main() -> int:
                    launches_by_path={"a": la["trajectory_forward_bf16"], "b": lb["trajectory_forward_bf16"]},
                    synthetic_large_S1024=train16[("trajectory_forward", "synthetic_large", 1024)]),
         bf16_entry("adam_int8_rows_bf16", "dladmm_tpu_torch/ops/csrc/qadam_int8.cu",
-                   "dladmm_tpu/train/qadam_pallas.py:129", lb["adam_step_bf16"], step16_err,
+                   "dladmm_tpu/train/qadam_pallas.py:129", lb["adam_step_bf16"], step16_errs["int8"],
                    train16[("adam_step", "int8")], "int8 synthetic_small five leaves, bf16 gradients + copy",
                    entry="adam_step"),
         bf16_entry("unroll_bwd_bf16", "dladmm_tpu_torch/ops/csrc/unroll_bwd.cu", "dladmm_tpu/ops/pallas_bwd.py:56",
@@ -3348,9 +3368,10 @@ def main() -> int:
                    bwd16_errs["chunked"], train16[("unroll_bwd_chunked", "smoke", 1024)], "smoke S=1024 bs=128",
                    synthetic_small_S1024_bs128=train16[("unroll_bwd_chunked", "synthetic_small", 1024)]),
         bf16_entry("adam_dense_rows_bf16", "dladmm_tpu_torch/ops/csrc/qadam_dense.cu",
-                   "dladmm_tpu/train/qadam_pallas.py:178", la["adam_step_bf16"], step16_err,
+                   "dladmm_tpu/train/qadam_pallas.py:178", la["adam_step_bf16"], step16_errs["float32"],
                    train16[("adam_step", "float32")], "float32 synthetic_small five leaves, bf16 gradients + copy",
-                   entry="adam_step"),
+                   entry="adam_step",
+                   max_abs_err_by_dense_format={f: e for f, e in step16_errs.items() if f != "int8"}),
     ]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

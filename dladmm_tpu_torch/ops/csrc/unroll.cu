@@ -658,21 +658,13 @@ extern "C" int dladmm_unroll_occupancy(int tile, int bf16, int storage, int devi
   return (int)err;
 }
 
-// Blocks of traj_persistent<float> resident on one SM, and the card's
-// SMs: the grid ceiling of its cooperative launch (ops/schedule.launch_grid).
-extern "C" int dladmm_traj_occupancy(int device, int* blocks_per_sm, int* sms) {
+// Blocks of traj_persistent<storage> (0: fp32, 1: bf16) resident on one
+// SM, and the card's SMs: the grid ceiling of its cooperative launch
+// (ops/schedule.launch_grid).
+extern "C" int dladmm_traj_occupancy(int storage, int device, int* blocks_per_sm, int* sms) {
+  const void* fn = storage ? (const void*)traj_persistent<__nv_bfloat16> : (const void*)traj_persistent<float>;
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, traj_persistent<float>, kPT, 0);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
-  return (int)err;
-}
-
-// dladmm_traj_occupancy of the bf16-storage instantiation.
-extern "C" int dladmm_traj_occupancy_bf16(int device, int* blocks_per_sm, int* sms) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, traj_persistent<__nv_bfloat16>, kPT, 0);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kPT, 0);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   return (int)err;
 }

@@ -552,32 +552,23 @@ int run_bwd(const TS* b, const TS* A, const TS* W1, const TS* W2, const TS* th1,
 
 }  // namespace
 
-// Blocks of bwd_chain<float> resident on one SM, and the card's SMs: the
-// grid ceiling of its cooperative launch (ops/schedule.launch_grid).
-extern "C" int dladmm_bwd_occupancy(int device, int* blocks_per_sm, int* sms) {
+// Blocks of bwd_chain<storage> (0: fp32, 1: bf16) resident on one SM, and
+// the card's SMs: the grid ceiling of its cooperative launch
+// (ops/schedule.launch_grid).
+extern "C" int dladmm_bwd_occupancy(int storage, int device, int* blocks_per_sm, int* sms) {
+  const void* fn = storage ? (const void*)bwd_chain<__nv_bfloat16> : (const void*)bwd_chain<float>;
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bwd_chain<float>, kPT, 0);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kPT, 0);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   return (int)err;
 }
 
-// dladmm_bwd_occupancy of the bf16-storage chain.
-extern "C" int dladmm_bwd_occupancy_bf16(int device, int* blocks_per_sm, int* sms) {
+// Blocks of bwd_weights<storage> resident on one SM, and the card's SMs:
+// the wave of the weight-gradient launch (ops/cuda_bwd.bwd_chunk_batch).
+extern "C" int dladmm_bwd_weights_occupancy(int storage, int device, int* blocks_per_sm, int* sms) {
+  const void* fn = storage ? (const void*)bwd_weights<__nv_bfloat16> : (const void*)bwd_weights<float>;
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bwd_chain<__nv_bfloat16>, kPT, 0);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
-  return (int)err;
-}
-
-// Blocks of bwd_weights<float> resident on one SM, and the card's SMs:
-// the wave of the weight-gradient launch (ops/cuda_bwd.bwd_chunk_batch,
-// for either storage).
-extern "C" int dladmm_bwd_weights_occupancy(int device, int* blocks_per_sm, int* sms) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bwd_weights<float>, kPT, 0);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kPT, 0);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   return (int)err;
 }

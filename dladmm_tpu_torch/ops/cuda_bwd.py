@@ -66,11 +66,12 @@ _ARGTYPES_BF16 = ([ctypes.c_void_p] * 24 + [ctypes.c_int, ctypes.c_void_p] + [ct
                   + [ctypes.c_void_p])
 
 
-def weight_wave(device: torch.device) -> int:
-    """Blocks of the weight-gradient launch the card holds at once: its
-    resident blocks a SM times the SMs (on the H100 at 48 registers a
-    thread, 5 x 132 = 660)."""
-    bps, sms = cuda_build.occupancy(SRC, "dladmm_bwd_weights_occupancy", device.index or 0)
+def weight_wave(device: torch.device, bf16: bool = False) -> int:
+    """Blocks of the weight-gradient launch (its fp32 or, with ``bf16``,
+    its bf16-storage instantiation) the card holds at once: its resident
+    blocks a SM times the SMs (on the H100 at 48 registers a thread,
+    5 x 132 = 660)."""
+    bps, sms = cuda_build.occupancy(SRC, "dladmm_bwd_weights_occupancy", device.index or 0, int(bf16))
     return bps * sms
 
 
@@ -266,14 +267,11 @@ def unroll_bwd(b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax, gx, gz, glam,
             raise TypeError(f"{name} is {t.dtype} on {t.device}; the kernel takes b's {dt} on {b.device}")
         ins.append(t.contiguous())
     dev = b.device.index
-    if bf16:
-        launch = cuda_build.entry(SRC, "dladmm_unroll_bwd_bf16", _ARGTYPES_BF16)
-        occ = cuda_build.occupancy(SRC, "dladmm_bwd_occupancy_bf16", dev)
-        grid, sp, wsplit, lay = schedule.bwd_plan(S, m, n, K, bs, data_grads, *occ, bf16=True)
-    else:
-        launch = cuda_build.entry(SRC, "dladmm_unroll_bwd", _ARGTYPES)
-        occ = cuda_build.occupancy(SRC, "dladmm_bwd_occupancy", dev)
-        grid, sp, wsplit, lay = schedule.bwd_plan(S, m, n, K, bs, data_grads, *occ)
+    launch = (cuda_build.entry(SRC, "dladmm_unroll_bwd_bf16", _ARGTYPES_BF16) if bf16
+              else cuda_build.entry(SRC, "dladmm_unroll_bwd", _ARGTYPES))
+    occ = cuda_build.occupancy(SRC, "dladmm_bwd_occupancy", dev, int(bf16))
+    grid, sp, wsplit, lay = schedule.bwd_plan(S, m, n, K, bs, data_grads, *occ,
+                                              **({"bf16": True} if bf16 else {}))
     sched = (ctypes.c_int * 7)(grid, *(v for ph in ("v", "x", "u") for v in (sp[ph].slices, sp[ph].length)))
     with torch.cuda.device(b.device):
         kw = dict(dtype=dt, device=b.device)

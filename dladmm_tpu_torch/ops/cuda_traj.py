@@ -106,14 +106,10 @@ def trajectory_forward(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
     K, n, _ = W1.shape
     bf16 = b.dtype == torch.bfloat16
     dev = b.device.index
-    if bf16:
-        launch = cuda_build.entry(SRC, "dladmm_unroll_trajectory_bf16", _ARGTYPES_BF16)
-        occ = cuda_build.occupancy(SRC, "dladmm_traj_occupancy_bf16", dev)
-        grid, sp, ws = schedule.traj_plan(S, m, n, *occ, bf16_state=True)
-    else:
-        launch = cuda_build.entry(SRC, "dladmm_unroll_trajectory", _ARGTYPES)
-        occ = cuda_build.occupancy(SRC, "dladmm_traj_occupancy", dev)
-        grid, sp, ws = schedule.traj_plan(S, m, n, *occ)
+    launch = (cuda_build.entry(SRC, "dladmm_unroll_trajectory_bf16", _ARGTYPES_BF16) if bf16
+              else cuda_build.entry(SRC, "dladmm_unroll_trajectory", _ARGTYPES))
+    occ = cuda_build.occupancy(SRC, "dladmm_traj_occupancy", dev, int(bf16))
+    grid, sp, ws = schedule.traj_plan(S, m, n, *occ, **({"bf16_state": True} if bf16 else {}))
     with torch.cuda.device(b.device):
         kw = dict(dtype=b.dtype, device=b.device)
         tx = torch.empty((K, S, n), **kw)
@@ -181,8 +177,10 @@ class _Trajectory(torch.autograd.Function):
         need_data = ctx.needs_input_grad[6:8]
         if ctx.final_only:
             S, m = b.shape
-            bs = (bwd_chunk_batch(m, W1.shape[1], W2.shape[1], S, W1.shape[0], weight_wave(b.device))
-                  if b.device.type == "cuda" else None)  # the plain version has no batch split
+            bs = None  # the plain version has no batch split
+            if b.device.type == "cuda":
+                wave = weight_wave(b.device, b.dtype == torch.bfloat16)
+                bs = bwd_chunk_batch(m, W1.shape[1], W2.shape[1], S, W1.shape[0], wave)
             gparams, gA, gb = unroll_bwd(
                 b, A, *params, tx, tz, tlam, tax, gx, gz, glam, bs=bs, data_grads=any(need_data),
             )

@@ -130,6 +130,50 @@ def check_against_one_leaf(fmt: str, post, one, label: str) -> None:
                 raise AssertionError(f"{label} {mname} {name}: {d} from the one-leaf sweeps")
 
 
+def _f32(x) -> Tensor:
+    return torch.tensor(x, dtype=torch.float64).to(torch.float32)
+
+
+def _prologue_scale(norm: Tensor, clip: float) -> float:
+    """The prologue's clip scale of an fp32 norm (a CPU scalar): the
+    fp32 reciprocal of max(norm, 1e-16) times the clip, at most 1."""
+    q = torch.reciprocal(torch.clamp(norm, min=1e-16)) * _f32(clip)
+    return min(float(q), 1.0)
+
+
+def clip_scale_diff(grads, clip: float, got: float, label: str) -> dict:
+    """The step's clip scale ``got`` on bf16 gradients against the
+    prologue's own rule (adam_step.cuh ``bf16_norm``), computed apart:
+    each leaf's sum of squares in fp64, rounded to fp32 and then to bf16,
+    those added in bf16 in leaf order, the fp32 square root of that
+    total. Equal; where a leaf's sum lies within 2^-30 of a rounding
+    boundary (the kernel's fp64 order may round it the other way) within
+    2^-7: that leaf one bf16 step off moves the total by at most one bf16
+    step of it, its rounding by one more, the norm by half of both. The
+    control: where the step clips, the scale of the fp32 path's norm (the
+    exact fp64 sum's root) must differ from the rule's, so the check
+    tells the two rules apart. Raises AssertionError on a miss; returns
+    the relative differences."""
+    exact, norm2, near = 0.0, None, False
+    for t in grads:
+        s = float(torch.sum(torch.square(t.double())))
+        exact += s
+        leaf, lo, hi = (_f32(v).to(torch.bfloat16).to(torch.float32)
+                        for v in (s, s * (1 - 2.0 ** -30), s * (1 + 2.0 ** -30)))
+        near = near or not (torch.equal(leaf, lo) and torch.equal(leaf, hi))
+        norm2 = leaf if norm2 is None else (norm2 + leaf).to(torch.bfloat16).to(torch.float32)
+    rule = _prologue_scale(torch.sqrt(norm2), clip)
+    control = _prologue_scale(_f32(exact ** 0.5), clip)
+    limit = 2.0 ** -7 if near else 0.0
+    rel, ctrl = abs(got - rule) / rule, abs(control - rule) / rule
+    if not rel <= limit:
+        raise AssertionError(f"{label}: clip scale {got} vs the bf16 norm's {rule} ({rel} relative > {limit})")
+    if rule < 1.0 and ctrl == 0.0:
+        raise AssertionError(f"{label}: the fp32 norm's clip scale {control} equals the bf16 norm's; "
+                             "the check cannot tell the two apart")
+    return {"rel": rel, "fp32_norm_rel": ctrl, "near_boundary": near, "clipped": rule < 1.0}
+
+
 def plain_step_diff(fmt: str, grads, pre, post, scal, seeds, label: str = "step") -> dict:
     """The plain version's step from the state before it (``pre``) with
     the step's scalars and seeds, held against the step's state after it
@@ -177,6 +221,7 @@ __all__ = [
     "bf16_neighbours",
     "check_against_one_leaf",
     "clone_state",
+    "clip_scale_diff",
     "clone_tree",
     "moment_diff",
     "moments_agree",

@@ -271,6 +271,24 @@ def test_bf16_global_norm_is_the_jax_steps(seed):
     assert float(tqa.global_norm([t.float() for t in tg])) == pytest.approx(exact, rel=1e-6)
 
 
+@pytest.mark.parametrize("seed", range(6))
+def test_clip_scale_check_tells_the_bf16_norm_from_the_fp32_one(seed):
+    """step_checks.clip_scale_diff (the card's check of the prologue's
+    bf16 norm) passes the clip scale of the JAX package's jitted norm and
+    refuses that of the fp32 path's norm, at a clip of half the norm."""
+    from dladmm_tpu_torch.train import step_checks as sc
+
+    _, tg = _grads16(seed, 10.0 ** (seed / 2 - 3))
+    clip = 0.5 * float(tqa.global_norm([t.float() for t in tg]))
+    count = torch.tensor(1, dtype=torch.int32)
+    bf16_scale = float(tqa.step_scalars(tg, count, 1e-3, clip)[0][3])
+    fp32_scale = float(tqa.step_scalars([t.float() for t in tg], count, 1e-3, clip)[0][3])
+    diff = sc.clip_scale_diff(tg, clip, bf16_scale, f"seed {seed}")
+    assert diff["clipped"] and diff["rel"] == 0.0 and diff["fp32_norm_rel"] > 0.0
+    with pytest.raises(AssertionError, match="clip scale"):
+        sc.clip_scale_diff(tg, clip, fp32_scale, f"seed {seed}")
+
+
 @pytest.mark.parametrize("fmt", ["int8", "float32"])
 def test_step_plain_with_copy_matches_jax(fmt):
     """adam_step_plain on bf16 gradients with the compute copy against

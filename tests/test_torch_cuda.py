@@ -1409,7 +1409,9 @@ def test_bf16_adam_step_writes_the_copy(cuda_device, fmt):
     state equal to the one-leaf sweeps' run on the widened gradients with
     the step's scalars, held against the plain version's step, the copy
     equal to the new master rounded, the clip scale within 2^-7 of
-    step_scalars'; counted in launches_bf16."""
+    step_scalars' and equal to the prologue's bf16-norm rule computed
+    apart, which the fp32 norm's scale fails (step_checks.clip_scale_diff);
+    counted in launches_bf16."""
     from dladmm_tpu_torch.train import qadam_cuda as tqa
     from dladmm_tpu_torch.train import step_checks as sc
 
@@ -1430,6 +1432,8 @@ def test_bf16_adam_step_writes_the_copy(cuda_device, fmt):
         torch.cuda.synchronize()
         assert torch.equal(count, pcount) and sc.scal_ulps(scal[:3], pscal[:3]) <= 2
         assert abs(float(scal[3]) - float(pscal[3])) <= 2.0 ** -7 * float(pscal[3])
+        rule = sc.clip_scale_diff(g, 1.0, float(scal[3]), f"step {step}")
+        assert rule["clipped"] == (step != 1)
         sc.check_against_one_leaf(fmt, (params, mu, nu), one, f"step {step}")
         sc.plain_step_diff(fmt, g, pre, (params, mu, nu), scal, seeds, f"step {step}")
         assert all(torch.equal(c, t.bfloat16()) for c, t in zip(copy, params))
