@@ -217,6 +217,39 @@ the first fault. Each phase prints one JSON line:
      (events where the profiler records nothing), its bound (2-byte
      storage) and its plain version; the optimizer phase of bf16 steps held
      to the prologue and one sweep a step;
+ 31. kernel_patch: rows 1, 2, 4 and 5 at the image benchmark's shape
+     (m = 64, n = 256, the DCT dictionary; b the median-DC residuals of
+     impulse-corrupted patches) at K = 15 and 8, S = 225, 961 and 3844
+     (no multiple of the 32 or 64 tile): the whole-unroll and trajectory
+     kernels within TOL of their plain versions, the backward within
+     BWD_TOL on the route bwd_chunk_batch picks, on the whole batch and on
+     forced slices of 128 rows; a second call bit for bit; each plan;
+ 32. slice_denoise: ``run_denoise.main`` (a) the full DCT run (400 steps,
+     four 128 x 128 images, density 0.1), (b) --dict=learned, (c)
+     --mode=inpaint --quick --density=0.3, (d) --layer-loss=uniform
+     --quick, (e) --quick --save, then --load --input-image on a saved
+     corrupted image (bit for bit with the in-process denoise_image);
+     each path's kernels counted from 0 (each > 0, the backward on the
+     policy's route, the optimizer step never); the mean PSNR gain over
+     the CLI's test stream (its three images and the next, 200 in all)
+     at least 28.3 (a), 28.7 (b) and 14.9 dB (c), observed pixels exact;
+ 33. slice_solver: DLADMMSolver on synthetic_small's dictionary: the
+     untrained solve at LADMM's NMSE within 0.01 dB, nmse_curve and
+     trajectory through the trajectory kernel, fit (300 steps at lr 1e-4)
+     through the trajectory and backward kernels lowering the last layer's
+     NMSE (its default lr's 300-step NMSE reported beside), a
+     nonneg_l1 solve through the prox variant; each call counted from 0;
+ 34. slice_train_xla_moments: ``run --config=synthetic_small --steps=1000``
+     with int8_pallas, int8, bfloat16 and bfloat16_sr (each XLA-side
+     format within 0.2 dB of int8_pallas and below LADMM), bfloat16 with
+     --clip-mode=delayed, ``fit`` in bf16 compute with bfloat16 moments,
+     and int8 resumed from its step-500 checkpoint equal bit for bit to
+     the uninterrupted run; counted from 0;
+ 35. timing_denoise: a train_denoiser step at S = 3844 by phase (CUDA
+     events, profiler device µs by phase); rows 1, 2, 4 and 5 at the patch
+     shape beside their plain versions and bounds; the optimizer phase of
+     phase 34's steps (device µs, launches a step) for each XLA-side
+     format beside int8_pallas;
 
 then the kernels line and, last, the ok line. Exits non-zero, with no
 ok line, on any failure, when CUDA is not available, or when run
@@ -237,6 +270,11 @@ turns.
     python3 chip_smoke.py --bf16-train
 
 builds every source and runs only phases 26-30 (bf16 training).
+
+    python3 chip_smoke.py --denoise
+
+builds every source and runs only phases 31-35 (the image benchmark, the
+solver and the XLA-side moment formats), then their kernels entries.
 """
 
 from __future__ import annotations
@@ -798,7 +836,8 @@ def phased_step(torch, A, w, fwd, opt, state, i, plain=False, mark=None):
     start of phase k and ``mark(4)`` at the end (CUDA events, or
     ProfiledPhases). plain=True runs the plain counterpart: autograd
     through the plain loop and the optimizer's functional plain path
-    (QAdamFused.update)."""
+    (QAdamFused.update); an optimizer without a fused step (the XLA-side
+    moment formats, train/qmoments.py) takes its functional path always."""
     from dladmm_tpu_torch.data.synthetic import make_batch, step_generator
     from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
     from dladmm_tpu_torch.train.loop import TrainState, apply_updates, weighted_trajectory_mse
@@ -817,9 +856,9 @@ def phased_step(torch, A, w, fwd, opt, state, i, plain=False, mark=None):
     mark(2)
     grads = DLADMMParams(*torch.autograd.grad(loss, leaves))
     mark(3)
-    if plain:
+    if plain or not hasattr(opt, "fused_apply"):
         with torch.no_grad():
-            updates, opt_state = opt.update(grads, state.opt_state)
+            updates, opt_state = opt.update(grads, state.opt_state, state.params)
             params = apply_updates(state.params, updates)
     else:
         params, opt_state, _ = opt.fused_apply(grads, state.opt_state, state.params)
@@ -1147,7 +1186,6 @@ def check_bwd(torch, device):
     """Phase 13: the backward kernel against its plain version on the
     trajectory kernel's stacks, with and without data grads. Returns the
     largest absolute difference of each route."""
-    from dladmm_tpu_torch.models.unroll import DLADMMParams
     from dladmm_tpu_torch.ops.cuda_bwd import bwd_chunk_batch, unroll_bwd, unroll_bwd_plain, weight_wave
 
     wave = weight_wave(device)
@@ -1165,7 +1203,6 @@ def check_bwd(torch, device):
         ("smoke", SMOKE, 1024, policy(SMOKE, 1024), {"ties": True}),
     ]
     errs = {"whole": 0.0, "chunked": 0.0}
-    names = (*DLADMMParams._fields, "gA", "gb")
     for label, shape, S, bs, kw in cases:
         A, b, p, traj, cts = bwd_case(torch, S=S, seed=S + 5, device=device, **shape, **kw)
         route = "chunked" if bs is not None and bs < S else "whole"
@@ -1174,19 +1211,8 @@ def check_bwd(torch, device):
                 got = unroll_bwd(b, A, *p, *traj, *cts, bs=bs, data_grads=data_grads)
                 want = unroll_bwd_plain(b, A, *p, *traj, *cts, data_grads=data_grads)
             torch.cuda.synchronize()
-            detail = {}
-            for name, g, w in zip(names, (*got[0], *got[1:]), (*want[0], *want[1:])):
-                if w is None or g is None:
-                    if (w is None) != (g is None):
-                        raise AssertionError(f"bwd {label} S={S}: {name} returned by one side only")
-                    continue
-                if tuple(g.shape) != tuple(w.shape) or not torch.isfinite(g).all():
-                    raise AssertionError(f"bwd {label} S={S}: {name} {tuple(g.shape)} or not finite")
-                err, scale = float((g - w).abs().max()), float(w.abs().max())
-                if not err <= BWD_TOL * scale:
-                    raise AssertionError(f"bwd {label} S={S} bs={bs}: {name} max|diff| {err} > {BWD_TOL} * {scale}")
-                detail[name] = {"max_abs_err": err, "scale": scale}
-                errs[route] = max(errs[route], err)
+            detail = compare_grads(torch, got, want, f"bwd {label} S={S} bs={bs}")
+            errs[route] = max(errs[route], *(v["max_abs_err"] for v in detail.values()))
             emit("kernel_bwd", case=f"{label} S={S} bs={bs} {kw or ''}".strip(), route=route,
                  data_grads=data_grads, grads=detail)
         with torch.no_grad():
@@ -2615,20 +2641,24 @@ BF16_RECIPES = {
 
 
 def reset_training_counts() -> None:
-    """Every training kernel's launch count, fp32 and bf16, set to 0."""
-    from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj
+    """Every training kernel's launch count, fp32 and bf16, and the
+    whole-unroll kernel's (run_denoise and the solver serve through it),
+    set to 0."""
+    from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj, cuda_unroll
     from dladmm_tpu_torch.train import qadam_cuda
 
     cuda_traj.trajectory_forward.launches = cuda_traj.trajectory_forward.launches_bf16 = 0
     cuda_bwd.reset_launches()
     qadam_cuda.adam_step.launches = qadam_cuda.adam_step.launches_bf16 = 0
+    cuda_unroll.unroll_forward.launches = 0
 
 
 def training_counts() -> dict:
-    from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj
+    from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj, cuda_unroll
     from dladmm_tpu_torch.train import qadam_cuda
 
-    return {"trajectory_forward": cuda_traj.trajectory_forward.launches,
+    return {"unroll_forward": cuda_unroll.unroll_forward.launches,
+            "trajectory_forward": cuda_traj.trajectory_forward.launches,
             "trajectory_forward_bf16": cuda_traj.trajectory_forward.launches_bf16,
             **{f"unroll_bwd_{r}": v for r, v in cuda_bwd.unroll_bwd.launches.items()},
             **{f"unroll_bwd_{r}_bf16": v for r, v in cuda_bwd.unroll_bwd.launches_bf16.items()},
@@ -2933,6 +2963,624 @@ def time_train_bf16(torch, device, card) -> dict:
     return out
 
 
+# -- the image benchmark, the solver and the XLA-side moments (phases 31-35) --
+
+PATCH = dict(m=64, n=256)  # run_denoise: 8 x 8 patches, the 16 x 16 DCT atoms
+# (K, S): the full run (K = 15) and --quick (K = 8) at S = 225 (one 64 x 64
+# image), 961 (one 128 x 128: the served test image) and 3844 (the four
+# training images); no S is a multiple of the 32 or 64 tile.
+PATCH_CASES = ((15, 225), (15, 961), (15, 3844), (8, 225), (8, 961), (8, 3844))
+# The quality gates of phase 32 (mean PSNR gain, dB), held on the mean
+# over the CLI's own test stream: its three images and the next ones, to
+# DENOISE_EVAL_IMAGES in all (module docstring, phase 32).
+DENOISE_GATES = {"dct": 28.3, "learned": 28.7, "inpaint": 14.9}
+DENOISE_EVAL_IMAGES = 200
+FIT_LR = 1e-4  # phase 33's DLADMMSolver.fit learning rate (solver_slice)
+XLA_FORMATS = ("int8", "bfloat16", "bfloat16_sr")
+XLA_NMSE_DB = 0.2  # an XLA-side format's final NMSE against int8_pallas's
+
+
+def patch_case(torch, K: int, S: int, seed: int, device):
+    """The image benchmark's shape on the card: the DCT dictionary, b the
+    median-DC residuals of 8 x 8 patches of impulse-corrupted synthetic
+    images (S = 225: one 64 x 64 image; 961: one 128 x 128; 3844: four),
+    and LADMM-exact params perturbed as problem()'s."""
+    from dladmm_tpu_torch.data.dictionary import dct_dictionary
+    from dladmm_tpu_torch.data.images import extract_patches, patch_dc, salt_pepper, synthetic_image
+    from dladmm_tpu_torch.models.unroll import DLADMMParams, init_dladmm_params
+
+    size, count = {225: (64, 1), 961: (128, 1), 3844: (128, 4)}[S]
+    g = torch.Generator(device=device).manual_seed(seed)
+    A = dct_dictionary(device=device)
+    patches = torch.cat([extract_patches(salt_pepper(g, synthetic_image(size, device=device), 0.1))
+                         for _ in range(count)])
+    b = (patches - patch_dc(patches)).contiguous()
+    gc = torch.Generator().manual_seed(seed)
+    p0 = init_dladmm_params(A.cpu(), K=K)
+    leaves = [leaf + 0.05 * torch.randn(leaf.shape, generator=gc) * leaf.pow(2).mean().sqrt() for leaf in p0]
+    return A, b, DLADMMParams(*leaves).to(device)
+
+
+def compare_grads(torch, got, want, label: str) -> dict:
+    """Each gradient (the params', gA, gb) of a backward kernel against its
+    plain version: finite, the same shape, within BWD_TOL of the plain
+    leaf's largest magnitude. Returns {name: (max|diff|, scale)}."""
+    from dladmm_tpu_torch.models.unroll import DLADMMParams
+
+    detail = {}
+    for name, g, w in zip((*DLADMMParams._fields, "gA", "gb"), (*got[0], *got[1:]), (*want[0], *want[1:])):
+        if w is None or g is None:
+            if (w is None) != (g is None):
+                raise AssertionError(f"{label}: {name} returned by one side only")
+            continue
+        if tuple(g.shape) != tuple(w.shape) or not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: {name} {tuple(g.shape)} or not finite")
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        if not err <= BWD_TOL * scale:
+            raise AssertionError(f"{label}: {name} max|diff| {err} > {BWD_TOL} * {scale}")
+        detail[name] = {"max_abs_err": err, "scale": scale}
+    return detail
+
+
+def check_patch(torch, device) -> dict:
+    """Phase 31: rows 1, 2, 4 and 5 at the image benchmark's shape (m = 64,
+    n = 256, the DCT dictionary) for each of PATCH_CASES against their
+    plain versions: the whole-unroll and trajectory kernels within TOL,
+    the backward within BWD_TOL on the route bwd_chunk_batch picks, on the
+    whole batch, and on slices of 128 rows (forced, where 128 < S); each
+    call a second time, bit for bit; the plan of each. Returns the largest
+    absolute difference of each row."""
+    from dladmm_tpu_torch.ops.cuda_bwd import bwd_chunk_batch, unroll_bwd, unroll_bwd_plain, weight_wave
+    from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward, trajectory_forward_plain
+    from dladmm_tpu_torch.ops.cuda_unroll import unroll_forward, unroll_forward_plain
+
+    wave = weight_wave(device)
+    errs = {"unroll_forward": 0.0, "trajectory_forward": 0.0, "whole": 0.0, "chunked": 0.0}
+    for K, S in PATCH_CASES:
+        label = f"patch m=64 n=256 K={K} S={S}"
+        A, b, p = patch_case(torch, K, S, seed=S + K, device=device)
+        with torch.no_grad():
+            got = unroll_forward(b, A, *p)
+            want = unroll_forward_plain(b, A, *p)
+            again = unroll_forward(b, A, *p)
+            torch.cuda.synchronize()
+            errs["unroll_forward"] = max(errs["unroll_forward"], compare(torch, got, want, label, phase="kernel_patch"))
+            if not all(torch.equal(g, w) for g, w in zip(got, again)):
+                raise AssertionError(f"{label}: the whole-unroll kernel's second call differs")
+            emit("kernel_patch", kernel="unroll_forward", case=label, repeats_bit_for_bit=True,
+                 **launched_plan(unroll_forward))
+            traj = trajectory_forward(b, A, *p, with_tax=True)
+            want = trajectory_forward_plain(b, A, *p, with_tax=True)
+            again = trajectory_forward(b, A, *p, with_tax=True)
+            torch.cuda.synchronize()
+            errs["trajectory_forward"] = max(errs["trajectory_forward"], compare(
+                torch, traj, want, label, names=("tx", "tz", "tlam", "tax"), phase="kernel_patch"))
+            if not all(torch.equal(g, w) for g, w in zip(traj, again)):
+                raise AssertionError(f"{label}: the trajectory kernel's second call differs")
+            emit("kernel_patch", kernel="trajectory_forward", case=label, repeats_bit_for_bit=True,
+                 **launched_plan(trajectory_forward))
+            gen = torch.Generator(device=device).manual_seed(S)
+            cts = [torch.randn(t[-1].shape, generator=gen, device=device) for t in traj[:3]]
+            want = unroll_bwd_plain(b, A, *p, *traj, *cts, data_grads=True)
+            policy = bwd_chunk_batch(PATCH["m"], PATCH["n"], PATCH["m"], S, K, wave)
+            for bs in dict.fromkeys((policy, None, 128 if 128 < S else None)):
+                route = "chunked" if bs is not None and bs < S else "whole"
+                case = f"{label} bs={bs}" + (" (the policy's)" if bs == policy else "")
+                got = unroll_bwd(b, A, *p, *traj, *cts, bs=bs, data_grads=True)
+                again = unroll_bwd(b, A, *p, *traj, *cts, bs=bs, data_grads=True)
+                torch.cuda.synchronize()
+                detail = compare_grads(torch, got, want, f"bwd {case}")
+                errs[route] = max(errs[route], *(v["max_abs_err"] for v in detail.values()))
+                if not all(torch.equal(g, w) for g, w in zip((*got[0], *got[1:]), (*again[0], *again[1:]))):
+                    raise AssertionError(f"bwd {case}: a second call differs")
+                emit("kernel_patch", kernel="unroll_bwd", case=case, route=route, policy_bs=policy, grads=detail,
+                     repeats_bit_for_bit=True, **launched_plan(unroll_bwd))
+        del A, b, p, traj, want, got, again, cts
+    return errs
+
+
+def run_json(main, argv):
+    """(last JSON line, stdout lines, host seconds) of a CLI's main(argv);
+    a non-zero return fails."""
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    wall = time.monotonic() - t0
+    if rc != 0:
+        raise AssertionError(f"{main.__module__}.main {argv} returned {rc}")
+    lines = out.getvalue().splitlines()
+    return json.loads([ln for ln in lines if ln.startswith("{")][-1]), lines, wall
+
+
+def denoise_gains(torch, net: str, size: int, mode: str, density: float, seed: int, count: int, device):
+    """PSNR gains (dB, unrounded) of a saved denoiser on the CLI's test
+    stream of --seed ``seed`` continued to ``count`` images: the first
+    three are the CLI's own (run_denoise._apply_or_benchmark). In inpaint
+    mode the observed pixels must come back exactly."""
+    from dladmm_tpu_torch.data.images import synthetic_image
+    from dladmm_tpu_torch.metrics.core import psnr
+    from dladmm_tpu_torch.run_denoise import _corrupt, child_seeds, denoise_image, load_denoiser
+
+    params, A = load_denoiser(net, device)
+    g = torch.Generator(device=device).manual_seed(child_seeds(seed)[1])
+    clean = synthetic_image(size, device=device)
+    gains, rounded = [], []
+    for i in range(count):
+        noisy, mask = _corrupt(g, clean, mode, density)
+        recon = denoise_image(params, A, noisy, mask=mask)
+        if mask is not None and not torch.equal(recon[mask > 0], noisy[mask > 0]):
+            raise AssertionError(f"{net}: image {i}: an observed pixel did not pass through exactly")
+        pd, pn = float(psnr(recon, clean)), float(psnr(noisy, clean))
+        gains.append(pd - pn)
+        rounded.append(round(pd, 2) - round(pn, 2))
+    return gains, rounded
+
+
+def denoise_slice(torch, device, tmp) -> dict:
+    """Phase 32: ``run_denoise.main`` on the card through the paths a user
+    calls, each path's kernel counts set to 0 just before it and read just
+    after (each of its kernels > 0, each route as bwd_chunk_batch picks):
+    (a) the full DCT run, (b) --dict=learned, (c) --mode=inpaint --quick
+    --density=0.3, (d) --layer-loss=uniform --quick (the trajectory kernel
+    with the plain reverse sweep: no backward kernel), (e) --quick --save,
+    then --load --input-image on a saved corrupted image, whose output must
+    equal the in-process denoise_image bit for bit. Quality gates
+    (DENOISE_GATES, the JAX package's gains less 0.47-0.54 dB): the mean
+    gain over the CLI's test stream continued to DENOISE_EVAL_IMAGES
+    images (the CLI's three first; a mean of three swings by dB with one
+    image whose impulses cluster where few patches cover, PERF.md §7).
+    Returns {path: results and launches}."""
+    from dladmm_tpu_torch.data.images import synthetic_image
+    from dladmm_tpu_torch.ops.cuda_bwd import bwd_chunk_batch, weight_wave
+    from dladmm_tpu_torch.run_denoise import _corrupt, denoise_image, load_denoiser
+    from dladmm_tpu_torch.run_denoise import main as denoise_main
+
+    wave = weight_wave(device)
+    paths = {
+        "dct": (["--save"], dict(K=15, S=3844, steps=400, size=128, mode="denoise", density=0.1, tests=3)),
+        "learned": (["--dict=learned", "--save"], dict(K=15, S=3844, steps=400, size=128, mode="denoise",
+                                                       density=0.1, tests=3)),
+        "inpaint": (["--mode=inpaint", "--quick", "--density=0.3", "--save"],
+                    dict(K=8, S=450, steps=60, size=64, mode="inpaint", density=0.3, tests=3)),
+        "layer_loss_uniform": (["--layer-loss=uniform", "--quick", "--save"],
+                               dict(K=8, S=450, steps=60, size=64, mode="denoise", density=0.1, tests=3)),
+        "quick_save": (["--quick", "--save"], dict(K=8, S=450, steps=60, size=64, mode="denoise", density=0.1,
+                                                   tests=3)),
+    }
+    out = {}
+    for name, (argv, spec) in paths.items():
+        net = str(Path(tmp) / f"{name}.npz")
+        reset_training_counts()
+        summary, _, wall = run_json(denoise_main, [*argv, net])
+        counts = {k: v for k, v in training_counts().items() if v}
+        bs = bwd_chunk_batch(PATCH["m"], PATCH["n"], PATCH["m"], spec["S"], spec["K"], wave)
+        route = "chunked" if bs is not None and bs < spec["S"] else "whole"
+        want = {"trajectory_forward": spec["steps"], "unroll_forward": spec["tests"]}
+        if name != "layer_loss_uniform":  # deep supervision: the plain reverse sweep
+            want[f"unroll_bwd_{route}"] = spec["steps"]
+        if counts != want or summary["route"] != "cuda-whole-unroll-kernel":
+            raise AssertionError(f"run_denoise {name}: launches {counts}, expected {want}; route {summary['route']!r}")
+        cli_gain = summary["mean_psnr_gain_db"]
+        gains, rounded = denoise_gains(torch, net, spec["size"], spec["mode"], spec["density"], 0,
+                                       DENOISE_EVAL_IMAGES if name in DENOISE_GATES else 3, device)
+        first = [r["psnr_denoised_db"] - r["psnr_noisy_db"] for r in summary["results"]]
+        if not np.allclose(rounded[:3], first, atol=1e-9):
+            raise AssertionError(f"run_denoise {name}: the saved net's first test images {rounded[:3]} "
+                                 f"are not the CLI's {first}")
+        mean = float(np.mean(gains))
+        if not all(math.isfinite(v) for v in gains) or not cli_gain > 0:
+            raise AssertionError(f"run_denoise {name}: gains {gains[:3]}..., CLI mean {cli_gain}")
+        gate = DENOISE_GATES.get(name)
+        if gate is not None and not mean >= gate:
+            raise AssertionError(f"run_denoise {name}: mean gain {mean} dB over {len(gains)} images < {gate} dB "
+                                 f"(the CLI's three: {cli_gain} dB)")
+        out[name] = {"summary": summary, "launches": counts, "bwd_route": route, "bs": bs, "wall_s": wall,
+                     "cli_mean_gain_db": cli_gain, "mean_gain_db": mean, "images": len(gains),
+                     "gain_db_p10": float(np.percentile(gains, 10)), "gain_db_min": float(np.min(gains)),
+                     "gate_db": gate}
+        emit("slice_denoise", path=name, argv=argv, **out[name])
+
+    # (e) the saved --quick net restores a saved corrupted image through the CLI
+    net = str(Path(tmp) / "quick_save.npz")
+    g = torch.Generator(device=device).manual_seed(7)
+    noisy, _ = _corrupt(g, synthetic_image(64, device=device), "denoise", 0.1)
+    inp, rec = Path(tmp) / "noisy.npy", Path(tmp) / "recon.npy"
+    np.save(inp, noisy.cpu().numpy())
+    reset_training_counts()
+    summary, _, _ = run_json(denoise_main, ["--load", net, "--input-image", str(inp), "--output-image", str(rec)])
+    counts = {k: v for k, v in training_counts().items() if v}
+    params, A = load_denoiser(net, device)
+    direct = denoise_image(params, A, noisy).cpu().numpy()
+    if counts != {"unroll_forward": 1} or summary["shape"] != [64, 64]:
+        raise AssertionError(f"run_denoise --load --input-image: {summary}, launches {counts}")
+    if not np.array_equal(np.load(rec), direct):
+        raise AssertionError("run_denoise --load --input-image differs from the in-process denoise_image")
+    out["load_input_image"] = {"summary": summary, "launches": counts, "bit_for_bit": True}
+    emit("slice_denoise", path="load_input_image", **out["load_input_image"])
+    return out
+
+
+def solver_slice(torch, device) -> dict:
+    """Phase 33: DLADMMSolver on synthetic_small's dictionary on the card,
+    each call's kernels counted from 0: the untrained solve (whole-unroll
+    kernel) equals the port's classical LADMM at K = 15 within 0.01 dB;
+    nmse_curve and trajectory run the trajectory kernel (the curve's last
+    layer is the solve's NMSE); fit for 300 steps at lr FIT_LR (trajectory
+    and backward kernels, once a step each) lowers the last layer's NMSE;
+    a nonneg_l1 solver serves through the whole-unroll kernel's prox
+    variant (within TOL of its plain version, x >= 0). fit's default lr
+    (1e-3, constant) first raises this loss from the LADMM-exact init at
+    this shape, as the JAX package's final-layer loss does (-9.96 dB on the CPU
+    against LADMM's -10.79 at 300 steps; phase 15 trains 1000 for it): its
+    300-step NMSE is reported beside. Returns each call's launches."""
+    from dladmm_tpu_torch.baselines.ladmm import ladmm_run
+    from dladmm_tpu_torch.data.synthetic import make_batch, problem_matrices, seed_keys
+    from dladmm_tpu_torch.metrics.core import nmse_db
+    from dladmm_tpu_torch.models import DLADMMSolver
+    from dladmm_tpu_torch.ops.cuda_unroll import unroll_forward_plain
+    from dladmm_tpu_torch.utils.config import get_config
+
+    cfg = get_config("synthetic_small")
+    A, _ = problem_matrices(cfg, device=device)
+    demo = make_batch(seed_keys(cfg)[1], A, 256)
+    solver = DLADMMSolver.create(A, K=15)
+    launches = {}
+
+    def counted(name, fn):
+        reset_training_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        launches[name] = {k: v for k, v in training_counts().items() if v}
+        return result
+
+    x, _ = counted("solve", lambda: solver.solve(demo.b))
+    with torch.no_grad():
+        xl, _, _ = ladmm_run(A, demo.b, iters=15, beta=cfg.problem.beta)
+    solve_db, ladmm_db = float(nmse_db(x, demo.x_star)), float(nmse_db(xl, demo.x_star))
+    curve0 = counted("nmse_curve", lambda: solver.nmse_curve(demo.b, demo.x_star))
+    traj = counted("trajectory", lambda: solver.trajectory(demo.b))
+    trained = counted("fit", lambda: solver.fit(0, steps=300, batch=64, lr=FIT_LR))
+    curve1 = trained.nmse_curve(demo.b, demo.x_star)
+    default_lr_db = float(solver.fit(0, steps=300, batch=64).nmse_curve(demo.b, demo.x_star)[-1])
+    nonneg = DLADMMSolver.create(A, K=15, prox_x="nonneg_l1")
+    xn, zn = counted("solve_nonneg_l1", lambda: nonneg.solve(demo.b))
+    with torch.no_grad():
+        want = unroll_forward_plain(demo.b, A, *nonneg.params, prox_x="nonneg_l1")
+    torch.cuda.synchronize()
+    err = compare(torch, (xn, zn), want[:2], "solver nonneg_l1 S=256", names=("x", "z"), phase="slice_solver")
+    expect = {"solve": {"unroll_forward": 1}, "nmse_curve": {"trajectory_forward": 1},
+              "trajectory": {"trajectory_forward": 1},
+              "fit": {"trajectory_forward": 300, "unroll_bwd_whole": 300},
+              "solve_nonneg_l1": {"unroll_forward": 1}}
+    if launches != expect:
+        raise AssertionError(f"the solver's calls launched {launches}, expected {expect}")
+    if not abs(solve_db - ladmm_db) <= NMSE_TOL_DB or not abs(float(curve0[-1]) - solve_db) <= NMSE_TOL_DB:
+        raise AssertionError(f"untrained solve {solve_db} dB, curve {float(curve0[-1])} dB, LADMM {ladmm_db} dB")
+    if tuple(traj[0].shape) != (15, 256, cfg.problem.n) or not float(curve1[-1]) < float(curve0[-1]):
+        raise AssertionError(f"fit did not lower the last layer's NMSE: {float(curve0[-1])} -> {float(curve1[-1])}")
+    if not float(xn.min()) >= 0.0:
+        raise AssertionError("the nonneg_l1 solver returned a negative x")
+    result = {"solve_nmse_db": solve_db, "ladmm_nmse_db": ladmm_db, "curve_untrained_db": curve0.tolist(),
+              "curve_trained_db": curve1.tolist(), "fit_lr": FIT_LR, "default_lr_trained_db": default_lr_db,
+              "nonneg_max_abs_err": err, "launches": launches}
+    emit("slice_solver", config="synthetic_small A, demo batch 256", **result)
+    return result
+
+
+def xla_moments_slice(torch, device, tmp) -> dict:
+    """Phase 34: ``run --config=synthetic_small --steps=1000`` (the shipped
+    recipe: deep supervision, clip 1.0, cosine) with --moment-dtype
+    int8_pallas, then int8, bfloat16 and bfloat16_sr (the XLA-side
+    formats, plain PyTorch: no optimizer kernel), each with the training
+    counts from 0 (the trajectory kernel once a step and at the eval; the
+    optimizer step two a step for int8_pallas and none for the others);
+    each XLA-side format's final NMSE within XLA_NMSE_DB of int8_pallas's
+    and below LADMM at K = 15. Then bfloat16 with --clip-mode=delayed,
+    and ``fit`` with compute_dtype="bfloat16" and bfloat16 moments (the
+    bf16 trajectory kernel, bf16 gradients widened by the optimizer),
+    each below LADMM. Then int8 through ``fit`` with checkpoints every
+    500 steps: a run resumed from its step-500 checkpoint (QTensor
+    moments) ends where the uninterrupted one ends, bit for bit, at the
+    CLI's int8 run's NMSE within 0.01 dB. Returns {run: results and
+    launches}."""
+    import dataclasses
+    import shutil
+
+    from dladmm_tpu_torch.models.api import select_forward
+    from dladmm_tpu_torch.run import main as run_main
+    from dladmm_tpu_torch.train.loop import fit
+    from dladmm_tpu_torch.utils.config import get_config
+
+    base = ["--config=synthetic_small", "--steps=1000"]
+    out = {}
+
+    def cli(name, extra, want):
+        reset_training_counts()
+        summary, lines, wall = run_json(run_main, [*base, *extra])
+        counts = {k: v for k, v in training_counts().items() if v}
+        if counts != want or summary["route"] != "cuda-trajectory-kernel":
+            raise AssertionError(f"run {extra}: launches {counts}, expected {want}; route {summary['route']!r}")
+        if not math.isfinite(summary["final_nmse_db"]) or not summary["final_nmse_db"] < summary["ladmm_nmse_db_at_K"]:
+            raise AssertionError(f"run {extra}: NMSE {summary['final_nmse_db']} against LADMM "
+                                 f"{summary['ladmm_nmse_db_at_K']}")
+        out[name] = {"summary": summary, "launches": counts, "wall_s": wall}
+        return summary
+
+    ref = cli("int8_pallas", ["--moment-dtype=int8_pallas"], {"trajectory_forward": 1001, "adam_step": 2000})
+    for fmt in XLA_FORMATS:
+        got = cli(fmt, [f"--moment-dtype={fmt}"], {"trajectory_forward": 1001})
+        gap = got["final_nmse_db"] - ref["final_nmse_db"]
+        out[fmt]["gap_to_int8_pallas_db"] = gap
+        if not abs(gap) <= XLA_NMSE_DB:
+            raise AssertionError(f"--moment-dtype={fmt}: NMSE {got['final_nmse_db']} dB, int8_pallas "
+                                 f"{ref['final_nmse_db']} dB: gap {gap} > {XLA_NMSE_DB}")
+        emit("slice_train_xla_moments", run=fmt, **out[fmt])
+    emit("slice_train_xla_moments", run="int8_pallas", **out["int8_pallas"])
+    cli("bfloat16_delayed", ["--moment-dtype=bfloat16", "--clip-mode=delayed"], {"trajectory_forward": 1001})
+    out["bfloat16_delayed"]["gap_to_int8_pallas_db"] = (out["bfloat16_delayed"]["summary"]["final_nmse_db"]
+                                                       - ref["final_nmse_db"])
+    emit("slice_train_xla_moments", run="bfloat16 --clip-mode=delayed", **out["bfloat16_delayed"])
+
+    cfg = get_config("synthetic_small")
+    p = cfg.problem
+
+    def fit_run(train, ckpt=None, resume=False):
+        c = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, steps=1000, **train))
+        fwd, _, route = select_forward(p.m, p.n, p.m, c.train.batch, need_trajectory=True, device=device,
+                                       dtype=c.train.compute_dtype)
+        reset_training_counts()
+        t0 = time.monotonic()
+        params, hist = fit(c, forward_fn=fwd, ckpt_dir=ckpt, resume=resume, device=device)
+        return params, hist, {k: v for k, v in training_counts().items() if v}, route, time.monotonic() - t0
+
+    _, hist, counts, route, wall = fit_run({"compute_dtype": "bfloat16", "moment_dtype": "bfloat16"})
+    last = hist[-1]
+    if counts != {"trajectory_forward_bf16": 1000, "trajectory_forward": 1} or \
+            not last["nmse_db"] < last["curves"]["ladmm_curve_db"][-1]:
+        raise AssertionError(f"fit bf16 compute, bfloat16 moments: {counts}, NMSE {last['nmse_db']}")
+    out["fit_bf16_compute"] = {"final_nmse_db": last["nmse_db"], "final_residual": last["residual"],
+                               "gap_to_int8_pallas_db": last["nmse_db"] - ref["final_nmse_db"],
+                               "launches": counts, "route": route, "wall_s": wall}
+    emit("slice_train_xla_moments", run="fit compute_dtype=bfloat16, moment_dtype=bfloat16",
+         **out["fit_bf16_compute"])
+
+    cold, warm = Path(tmp) / "cold", Path(tmp) / "warm"
+    full, hist, counts, _, wall = fit_run({"moment_dtype": "int8", "eval_every": 500}, ckpt=str(cold))
+    warm.mkdir()
+    shutil.copy(cold / "step_500.pt", warm / "step_500.pt")
+    resumed, rhist, rcounts, _, rwall = fit_run({"moment_dtype": "int8", "eval_every": 500}, ckpt=str(warm),
+                                                resume=True)
+    if [h["step"] for h in rhist] != [1000] or rcounts != {"trajectory_forward": 501}:
+        raise AssertionError(f"resume from step 500: {[h['step'] for h in rhist]}, launches {rcounts}")
+    if not all(torch.equal(a, b) for a, b in zip(resumed, full)):
+        raise AssertionError("the run resumed from step 500 does not end where the uninterrupted run ends")
+    if not abs(hist[-1]["nmse_db"] - out["int8"]["summary"]["final_nmse_db"]) <= NMSE_TOL_DB:
+        raise AssertionError(f"fit int8 {hist[-1]['nmse_db']} dB != the CLI's {out['int8']['summary']['final_nmse_db']}")
+    out["resume_int8"] = {"final_nmse_db": rhist[-1]["nmse_db"], "bit_for_bit": True, "launches": rcounts,
+                          "uninterrupted_launches": counts, "wall_s": rwall}
+    emit("slice_train_xla_moments", run="int8 resumed from step 500", **out["resume_int8"])
+    return out
+
+
+def phased_denoise_step(torch, A, images, gen, opt, state, lw=None, mark=None):
+    """One train_denoiser step (run_denoise.py), split into data (corrupt
+    and patchify the four images), forward (denoise_loss), backward and
+    optimizer (plain fp32 Adam), as ``phased_step``."""
+    from dladmm_tpu_torch.models.unroll import DLADMMParams
+    from dladmm_tpu_torch.run_denoise import _make_patch_batch, denoise_loss
+    from dladmm_tpu_torch.train.loop import _apply
+
+    mark = mark or (lambda k: None)
+    mark(0)
+    b, tr, tn = _make_patch_batch(gen, images, 0.1, 8, 4)
+    leaves = [p.detach().requires_grad_() for p in state.params]
+    mark(1)
+    loss = denoise_loss(DLADMMParams(*leaves), A, b, tr, tn, lw)
+    mark(2)
+    grads = DLADMMParams(*torch.autograd.grad(loss, leaves))
+    mark(3)
+    state = _apply(opt, state, grads)
+    mark(4)
+    return state, loss
+
+
+def time_phases(torch, step, reps: int = 24, warm: int = 4) -> dict:
+    """Median CUDA-event ms of each phase of ``step(mark)`` over ``reps``
+    steps after ``warm``, and the host's wall ms a step."""
+    phases, walls = [], []
+    for rep in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(lambda k: ev[k].record())
+        ev[4].synchronize()
+        if rep >= warm:
+            walls.append((time.perf_counter() - t0) * 1e3)
+            phases.append([ev[j].elapsed_time(ev[j + 1]) for j in range(4)])
+    arr = np.array(phases)
+    return {"step_ms": float(np.median(arr.sum(axis=1))), "host_wall_ms": float(np.median(walls)),
+            **{f"{name}_ms": float(np.median(arr[:, j])) for j, name in enumerate(PHASES)}}
+
+
+def time_denoise(torch, device, card) -> dict:
+    """Phase 35: (1) one train_denoiser step at S = 3844 (K = 15, the full
+    run) by phase: CUDA events, and the profiler's device µs by phase and
+    by kernel; (2) rows 1, 2, 4 and 5 at the patch shape: CUDA-event ms
+    beside the plain version (in turns), profiler device µs, the bound,
+    host enqueue and plan; (3) the optimizer phase of phase 34's steps:
+    device µs and launches a step of each XLA-side format beside
+    int8_pallas (the prologue and one sweep). Returns the kernels' timings."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dladmm_tpu_torch.data.dictionary import dct_dictionary
+    from dladmm_tpu_torch.data.images import synthetic_image
+    from dladmm_tpu_torch.models.unroll import init_dladmm_params
+    from dladmm_tpu_torch.ops.cuda_bwd import bwd_chunk_batch, unroll_bwd, unroll_bwd_plain, weight_wave
+    from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward, trajectory_forward_plain
+    from dladmm_tpu_torch.ops.cuda_unroll import unroll_forward, unroll_forward_plain
+    from dladmm_tpu_torch.train.loop import _build_optimizer, adam, make_train_state
+
+    A = dct_dictionary(device=device)
+    images = [synthetic_image(128, device=device) for _ in range(4)]
+    opt = adam(1e-3)  # train_denoiser's
+    state = make_train_state(init_dladmm_params(A, K=15), opt)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def step(mark=None):
+        nonlocal state
+        state, _ = phased_denoise_step(torch, A, images, gen, opt, state, mark=mark)
+
+    by_events = time_phases(torch, step)
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profile_marker(torch)
+        for _ in range(3):
+            step(ProfiledPhases(torch))
+    by_phase, ops = device_us_by_phase(torch, prof, 3)
+    top = {ph: dict(sorted(v.items(), key=lambda kv: -kv[1]["us"])[:6]) for ph, v in ops.items()}
+    emit("timing_denoise", config="train_denoiser step, DCT, K=15, S=3844 (4 images of 128^2)", step=by_events,
+         device_us_per_step_by_phase=by_phase, device_ops_per_step={ph: round(sum(v["calls"] for v in o.values()), 3)
+                                                                    for ph, o in ops.items()},
+         top_ops_by_phase=top, card=card)
+
+    wave = weight_wave(device)
+    timings = {}
+    cases = (("unroll_forward", 15, 961, None), ("unroll_forward", 15, 225, None),
+             ("trajectory_forward", 15, 3844, None), ("trajectory_forward", 8, 450, None),
+             ("unroll_bwd", 15, 225, None), ("unroll_bwd", 15, 3844, None),
+             ("unroll_bwd_chunked", 15, 3844, "policy"), ("unroll_bwd_chunked", 8, 450, "policy"))
+    for name, K, S, bs in cases:
+        A_, b, p = patch_case(torch, K, 3844 if S == 450 else S, seed=S + 41, device=device)
+        if S == 450:
+            b = b[:450].contiguous()  # --quick: two 64 x 64 images' worth of patches
+        with torch.no_grad():
+            if name == "unroll_forward":
+                fns = [lambda: unroll_forward(b, A_, *p), lambda: unroll_forward_plain(b, A_, *p)]
+                bms, by = bound(S, K=K, **PATCH)
+            elif name == "trajectory_forward":
+                fns = [lambda: trajectory_forward(b, A_, *p, with_tax=True),
+                       lambda: trajectory_forward_plain(b, A_, *p, with_tax=True)]
+                bms, by = traj_bound(S, K=K, with_tax=True, **PATCH)
+            else:
+                traj = trajectory_forward(b, A_, *p, with_tax=True)
+                g = torch.Generator(device=device).manual_seed(S)
+                cts = [torch.randn(t[-1].shape, generator=g, device=device) for t in traj[:3]]
+                if bs == "policy":
+                    bs = bwd_chunk_batch(PATCH["m"], PATCH["n"], PATCH["m"], S, K, wave)
+                fns = [lambda: unroll_bwd(b, A_, *p, *traj, *cts, bs=bs),
+                       lambda: unroll_bwd_plain(b, A_, *p, *traj, *cts)]
+                bms, by = bwd_bound(S, K=K, **PATCH)
+            for _ in range(2):
+                for fn in fns:
+                    fn()
+            ms, plain_ms = median_ms(torch, fns, 15)
+            prof = profile_fn(torch, fns[0], f"{name} K={K} S={S}", events_fallback=True)
+            plan = launched_plan({"unroll_forward": unroll_forward, "trajectory_forward": trajectory_forward}.get(
+                name, unroll_bwd))
+            key = f"{name} K={K} S={S}" + (f" bs={bs}" if name.startswith("unroll_bwd") else "")
+            timings[(name, K, S)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                                     "device_us_per_call": prof["device_us_per_call"], "bs": bs,
+                                     "host_enqueue_us": host_enqueue_us(torch, fns[0], calls=20), **plan}
+            emit("timing_denoise_kernel", kernel=key, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                 device_us_per_call=prof["device_us_per_call"], device_kernels=prof["per_call"], **plan, card=card)
+        del A_, b, p, fns
+
+    import dataclasses
+
+    from dladmm_tpu_torch.utils.config import get_config
+
+    cfg = get_config("synthetic_small")
+    _, A_s, w, fwd, _, _ = train_setup(torch, device)
+    opt_phase = {}
+    for fmt in ("int8_pallas", *XLA_FORMATS):
+        opt_f = _build_optimizer(dataclasses.replace(cfg.train, moment_dtype=fmt))
+        st = make_train_state(init_dladmm_params(A_s, K=cfg.problem.K), opt_f)
+        i = 0
+
+        def one(mark=None, opt_f=opt_f):
+            nonlocal st, i
+            st, _ = phased_step(torch, A_s, w, fwd, opt_f, st, i, mark=mark)
+            i += 1
+
+        events = time_phases(torch, one, reps=16)
+
+        def run(mark):
+            for _ in range(3):
+                one(mark)
+
+        if fmt == "int8_pallas":
+            by_phase, opt_ops = optimizer_phase(torch, run, "qadam_int8_sweep")
+        else:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                profile_marker(torch)
+                run(ProfiledPhases(torch))
+            by_phase, ops = device_us_by_phase(torch, prof, 3)
+            opt_ops = {"device_us_per_step": by_phase["optimizer"],
+                       "launches_per_step": sum(v["calls"] for v in ops["optimizer"].values()),
+                       "ops_per_step": dict(sorted(ops["optimizer"].items(), key=lambda kv: -kv[1]["us"])[:8])}
+        opt_phase[fmt] = {"step_by_events": events, "device_us_per_step_by_phase": by_phase, "optimizer": opt_ops}
+        emit("timing_xla_moments", moment_dtype=fmt, config="synthetic_small batch 64 deep supervision",
+             **opt_phase[fmt], card=card)
+    return timings, opt_phase
+
+
+def patch_entries(errs: dict, denoise: dict, solver: dict, timings: dict) -> list:
+    """The kernels line's entries of rows 1, 2, 4 and 5 at the image
+    benchmark's shape (phases 31-35): launches from each new path's run
+    counted from 0, the main path's first (run_denoise's full DCT run; for
+    the whole-batch backward, which no run_denoise path takes at its
+    batches, DLADMMSolver.fit)."""
+    def by_path(key):
+        paths = {f"run_denoise {k}": v["launches"].get(key, 0) for k, v in denoise.items()}
+        paths.update({f"DLADMMSolver.{k}": v.get(key, 0) for k, v in solver["launches"].items()})
+        return paths
+
+    rows = (
+        ("unroll_forward", "unroll_forward", "dladmm_tpu/ops/pallas_unroll.py:36", "unroll_forward",
+         ("unroll_forward", 15, 961), "run_denoise (full DCT run): the three test images",
+         denoise["dct"]["launches"]["unroll_forward"]),
+        ("trajectory_forward", "trajectory_forward", "dladmm_tpu/ops/pallas_unroll.py:266", "trajectory_forward",
+         ("trajectory_forward", 15, 3844), "run_denoise (full DCT run): 400 training steps",
+         denoise["dct"]["launches"]["trajectory_forward"]),
+        ("unroll_bwd", "unroll_bwd_whole", "dladmm_tpu/ops/pallas_bwd.py:56", "whole",
+         ("unroll_bwd", 15, 225), "DLADMMSolver.fit (synthetic_small A, 300 steps at batch 64)",
+         solver["launches"]["fit"]["unroll_bwd_whole"]),
+        ("unroll_bwd_chunked", "unroll_bwd_chunked", "dladmm_tpu/ops/pallas_bwd.py:356", "chunked",
+         ("unroll_bwd_chunked", 15, 3844), "run_denoise (full DCT run): 400 training steps",
+         denoise["dct"]["launches"]["unroll_bwd_chunked"]),
+    )
+    source = {"unroll_bwd": "dladmm_tpu_torch/ops/csrc/unroll_bwd.cu",
+              "unroll_bwd_chunked": "dladmm_tpu_torch/ops/csrc/unroll_bwd.cu"}
+    entries = []
+    for name, count_key, replaces, err_key, tkey, main_path, launches in rows:
+        t = dict(timings[tkey])
+        entries.append({
+            "name": f"{name}_patch", "route": "cuda", "source": source.get(name, "dladmm_tpu_torch/ops/csrc/unroll.cu"),
+            "replaces": replaces, "launches": launches, "main_path": main_path,
+            "launches_by_path": by_path(count_key), "max_abs_err": errs[err_key],
+            "ms": t.pop("ms"), "plain_ms": t.pop("plain_ms"), "bound_ms": t.pop("bound_ms"),
+            "bound_by": t.pop("bound_by"), "library_ms": None,
+            "shape": f"m=64 n=256 K={tkey[1]} S={tkey[2]}", **t,
+        })
+    return entries
+
+
+def denoise_phases(torch, dev, card) -> list:
+    """Phases 31-35 in order; returns their kernels-line entries."""
+    patch_errs = check_patch(torch, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        denoise = denoise_slice(torch, dev, tmp)
+    solver = solver_slice(torch, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        xla_moments_slice(torch, dev, tmp)
+    timings, _ = time_denoise(torch, dev, card)
+    return patch_entries(patch_errs, denoise, solver, timings)
+
+
 def build_phase() -> None:
     """Phase 2: nvcc builds every source of ops/csrc/ from this checkout,
     one nvcc per source, all started together; each source's ptxas report
@@ -2977,6 +3625,14 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             train_bf16_slice(torch, dev, tmp)
         time_train_bf16(torch, dev, card)
+        return 0
+    if sys.argv[1:] == ["--denoise"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        card = card_line()
+        print(card, flush=True)
+        build_phase()
+        print(json.dumps({"kernels": denoise_phases(torch, torch.device("cuda", 0), card)}), flush=True)
         return 0
     if sys.argv[1:] == ["--bf16-turns"]:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3238,6 +3894,9 @@ def main() -> int:
     # 30. bf16 training beside fp32, in turns.
     train16 = time_train_bf16(torch, dev, card)
     work.cleanup()
+    # 31-35. the image benchmark's shape, run_denoise, DLADMMSolver and the
+    # XLA-side moment formats, each path counted from 0; their times.
+    entries_patch = denoise_phases(torch, dev, card)
 
     ms, plain_ms, bms, by = timings[("synthetic_small", 256)]
     entries = [{
@@ -3373,6 +4032,7 @@ def main() -> int:
                    entry="adam_step",
                    max_abs_err_by_dense_format={f: e for f, e in step16_errs.items() if f != "int8"}),
     ]
+    entries += entries_patch
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

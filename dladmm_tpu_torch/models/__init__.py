@@ -5,3 +5,13 @@ from dladmm_tpu_torch.models.unroll import (  # noqa: F401
     init_dladmm_params,
     spectral_norm_sq,
 )
+
+
+def __getattr__(name):
+    # DLADMMSolver is loaded on first use: models.solver reaches the ops
+    # modules, which import models.unroll through this package.
+    if name == "DLADMMSolver":
+        from dladmm_tpu_torch.models.solver import DLADMMSolver
+
+        return DLADMMSolver
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

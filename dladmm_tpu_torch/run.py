@@ -5,9 +5,9 @@ configured D-LADMM net and prints the NMSE-vs-layer table against the
 classical LADMM baseline, then one summary JSON line. Runs on CUDA
 unless ``DLADMM_PLATFORM=cpu``. The JAX CLI's flags are all accepted;
 the ones whose path is not ported yet (greedy, sharded configs, ZeRO-1,
-fused_adam, the XLA-side moment formats int8, bfloat16 and bfloat16_sr
-without ``_pallas``, plots, the HBM audit) end in an argparse error
-naming ROADMAP.md. A config with ``compute_dtype="bfloat16"`` trains in
+fused_adam, the HBM audit) end in an argparse error naming ROADMAP.md.
+``--plot`` writes the NMSE-vs-layer figure (utils/plots.py; needs
+matplotlib). A config with ``compute_dtype="bfloat16"`` trains in
 bf16 (train/loop.fit); the two presets that ship it are sharded, which
 the sharding check stops.
 """
@@ -44,14 +44,16 @@ def _parser() -> argparse.ArgumentParser:
                     "(ops/unroll_vjp.py) or, with xla, autograd through the plain loop")
     ap.add_argument("--optimizer", choices=["adam", "fused_adam"], default=None)
     ap.add_argument("--moment-dtype", choices=_MOMENT_DTYPES, default=None,
-                    help="Adam moment storage; the port runs float32 and the *_pallas "
-                    "formats (the fused int8 and dense sweeps, train/qadam_cuda.py)")
+                    help="Adam moment storage: float32, the XLA-side int8 / bfloat16 / "
+                    "bfloat16_sr (train/qmoments.py), or a *_pallas format (the fused "
+                    "int8 and dense sweeps, train/qadam_cuda.py)")
     ap.add_argument("--prox-x", choices=_PROXES, default=None)
     ap.add_argument("--prox-z", choices=_PROXES, default=None)
     ap.add_argument("--prox-rho", type=float, default=None)
     ap.add_argument("--nonneg-x", action="store_true")
     ap.add_argument("--log-jsonl", default=None, help="append per-eval scalar records here")
-    ap.add_argument("--plot", default=None)
+    ap.add_argument("--plot", default=None, metavar="PNG",
+                    help="write the NMSE-vs-layer figure of the last eval here")
     ap.add_argument("--ckpt-dir", default=None, help="checkpoint directory")
     ap.add_argument("--hbm-gb", type=float, default=None)
     ap.add_argument("--resume", action="store_true", help="resume from latest checkpoint")
@@ -76,15 +78,10 @@ def _reject_unported(ap, args, cfg) -> None:
         ap.error(f"--zero1 {_LATER}")
     if args.hbm_gb is not None:
         ap.error(f"--hbm-gb (the sharded memory audit) {_LATER}")
-    if args.plot:
-        ap.error(f"--plot (utils/plots.py, with the image benchmark) {_LATER}")
     if s.data_axis * s.model_axis > 1:
         ap.error(f"config {cfg.name!r} is sharded; fit_sharded {_LATER}")
     if t.optimizer == "fused_adam":
         ap.error(f"--optimizer=fused_adam {_LATER}")
-    if t.moment_dtype != "float32" and not t.moment_dtype.endswith("_pallas"):
-        ap.error(f"--moment-dtype={t.moment_dtype} (the XLA-side reduced-precision moments) "
-                 f"{_LATER}; the port runs float32 and the *_pallas formats")
 
 
 def main(argv=None) -> int:
@@ -170,6 +167,13 @@ def main(argv=None) -> int:
     wall = time.monotonic() - t0
     last = history[-1]
     curves = last["curves"]
+    if args.plot:
+        from dladmm_tpu_torch.utils.plots import save_nmse_curve_plot
+
+        save_nmse_curve_plot(args.plot, [float(v) for v in curves["nmse_curve_db"]],
+                             [float(v) for v in curves["ladmm_curve_db"]],
+                             title=f"{cfg.name}: NMSE vs layer (K={p.K})")
+        print(f"plot saved: {args.plot}")
     print(f"\nconfig={cfg.name}  steps={t.steps}")
     print(f"{'layer':>5} {'D-LADMM NMSE(dB)':>18} {'LADMM NMSE(dB)':>16}")
     for k, (a, b) in enumerate(zip(curves["nmse_curve_db"], curves["ladmm_curve_db"]), 1):

@@ -9,7 +9,9 @@ through the autograd Functions of ops/cuda_traj.py and ops/unroll_vjp.py
 for deep supervision), and applies the optimizer: the fused sweep
 (train/qadam_cuda.QAdamFused) for ``moment_dtype="*_pallas"`` (int8,
 float32, bfloat16, bfloat16_sr, bfloat16_sr_mu moments), or
-optax-equivalent fp32 Adam with global or delayed norm clipping.
+optax-equivalent Adam with global or delayed norm clipping: fp32 moments,
+or the XLA-side int8, bfloat16 and bfloat16_sr moments
+(train/qmoments.adam_qmoments).
 
 Nothing in a step waits for the host: the batch is copied through
 pinned memory without a sync, the optimizer's step count, learning rate,
@@ -30,10 +32,8 @@ whose fused sweep updates the fp32 masters and rewrites the copy in the
 same pass (a plain optimizer re-casts it). Checkpoints hold the masters
 only; a resume casts the copy again. Evals run on the fp32 masters.
 
-Not ported yet (ROADMAP.md §1): ``optimizer="fused_adam"``, the
-XLA-side reduced-precision moments (``moment_dtype``
-int8/bfloat16/bfloat16_sr), ``fit_greedy`` and ``fit_sharded``; each
-raises NotImplementedError.
+Not ported yet (ROADMAP.md §1): ``optimizer="fused_adam"``,
+``fit_greedy`` and ``fit_sharded``; each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -194,6 +194,11 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Grad
     return GradientTransformation(init, update)
 
 
+def adam(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> GradientTransformation:
+    """optax.adam: scale_by_adam then scale_by_learning_rate, fp32 moments."""
+    return chain(scale_by_adam(b1, b2, eps), scale_by_learning_rate(learning_rate))
+
+
 def scale_by_learning_rate(learning_rate) -> GradientTransformation:
     """optax.scale_by_learning_rate: updates * -lr(count), the count the
     step's own (pre-increment)."""
@@ -280,8 +285,9 @@ def _lr_of(t):
 def _build_optimizer(t):
     """Adam with the TrainConfig's lr schedule and clipping: the fused
     sweep for moment_dtype="<fmt>_pallas" (it owns its exact global
-    clip), else fp32 Adam chained after clip_by_global_norm or the
-    delayed clip."""
+    clip), else fp32 Adam (float32) or the XLA-side reduced-precision
+    moments (int8, bfloat16, bfloat16_sr: train/qmoments.adam_qmoments),
+    chained after clip_by_global_norm or the delayed clip."""
     md = getattr(t, "moment_dtype", "float32")
     clip = getattr(t, "clip_norm", None)
     if md.endswith("_pallas"):
@@ -291,12 +297,12 @@ def _build_optimizer(t):
                 "inside the fused sweep; clip_mode must be 'global'"
             )
         return QAdamFused(_lr_of(t), moment_fmt=md[: -len("_pallas")], clip_norm=clip)
-    if md != "float32":
-        raise NotImplementedError(
-            f"moment_dtype={md!r} (the XLA-side reduced-precision moments, "
-            f"train/qmoments.adam_qmoments) {_LATER}; use float32 or a *_pallas format"
-        )
-    optimizer = chain(scale_by_adam(), scale_by_learning_rate(_lr_of(t)))
+    if md == "float32":
+        optimizer = adam(_lr_of(t))
+    else:
+        from dladmm_tpu_torch.train.qmoments import adam_qmoments
+
+        optimizer = adam_qmoments(_lr_of(t), moment_dtype=md)
     if clip:
         mode = getattr(t, "clip_mode", "global")
         if mode == "delayed":
@@ -635,6 +641,7 @@ def fit_sharded(*args, **kwargs):
 
 __all__ = [
     "TrainState",
+    "adam",
     "apply_updates",
     "chain",
     "clip_by_global_norm",

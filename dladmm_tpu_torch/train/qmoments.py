@@ -21,14 +21,22 @@ random bits below the bf16 boundary, then truncate). Its bits come from
 a counter-based hash of a device seed tensor and the element index,
 computed with tensor ops (uint32 arithmetic emulated on int64), so no
 step waits for the host; ``jax.random``'s threefry stream is not
-reproduced. The XLA-side ``adam_qmoments`` optimizer (``moment_dtype``
-int8, bfloat16, bfloat16_sr without ``_pallas``) is not ported yet
-(ROADMAP.md §1).
+reproduced.
+
+``scale_by_adam_qmoments`` / ``adam_qmoments`` are the XLA-side
+optimizer of ``moment_dtype`` int8, bfloat16 and bfloat16_sr (without
+``_pallas``): optax-style transformations in plain PyTorch whose update
+math is fp32 and op for op the JAX package's; only the stored moments
+shrink (the flat codec for int8, bf16 for the others). The JAX package
+compiles them through XLA, so they have no kernel here either. The SR
+format's PRNG key is a device int32 seed (17 at init), advanced once a
+step (``_next_key``), as ``jax.random.split`` advances the JAX key; each
+leaf's mu and nu take their own stream of it.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 from torch import Tensor
@@ -50,7 +58,7 @@ class QMomentsState(NamedTuple):
     count: Tensor  # int32 scalar on the device: steps taken
     mu: Any  # QTensor per leaf (same structure as the params)
     nu: Any
-    key: Any = None  # the XLA-side SR optimizer's PRNG key; not ported
+    key: Any = None  # bfloat16_sr (XLA-side): int32 seed tensor of the step's SR bits
 
 
 def _compand(blocks: Tensor):
@@ -129,7 +137,101 @@ def sr_bfloat16(x: Tensor, seed: Tensor, stream: int = 0) -> Tensor:
     return v.view(torch.float32).to(torch.bfloat16)  # exact: the low 16 bits are 0
 
 
+# -- the XLA-side optimizer (moment_dtype int8 / bfloat16 / bfloat16_sr) -------
+
+FORMATS = ("bfloat16", "bfloat16_sr", "int8")
+SR_KEY0 = 17  # the JAX package's jax.random.PRNGKey(17)
+
+
+def _next_key(key: Tensor) -> Tensor:
+    """The SR key of the next step: fmix32 of (key + GOLDEN) mod 2**32,
+    as an int32 tensor on the key's device."""
+    s = fmix32((key.to(torch.int64) + GOLDEN) & U32)
+    return torch.where(s >= 1 << 31, s - (1 << 32), s).to(torch.int32)
+
+
+def _encode(tree, moment_dtype: str, key: Optional[Tensor] = None, stream0: int = 0):
+    """fp32 leaves -> the stored format: QTensors (int8), or bf16 leaves,
+    rounded stochastically under ``key`` (bfloat16_sr; leaf i on stream
+    stream0 + 2 i) or to nearest (bfloat16, and bfloat16_sr without a
+    key: zeros at init)."""
+    kind = type(tree)
+    if moment_dtype == "int8":
+        return kind(*(quantize_q8(v) for v in tree))
+    if moment_dtype == "bfloat16_sr" and key is not None:
+        return kind(*(sr_bfloat16(v, key, stream0 + 2 * i) for i, v in enumerate(tree)))
+    return kind(*(v.to(torch.bfloat16) for v in tree))
+
+
+def _decode(tree, like, moment_dtype: str):
+    """The stored moments -> fp32 leaves of ``like``'s shapes."""
+    kind = type(like)
+    if moment_dtype == "int8":
+        return kind(*(dequantize_q8(q, g.shape) for q, g in zip(tree, like)))
+    return kind(*(v.to(torch.float32) for v in tree))
+
+
+def scale_by_adam_qmoments(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, moment_dtype: str = "bfloat16"):
+    """optax.scale_by_adam with reduced-precision stored moments, the
+    JAX package's: the EMAs, bias corrections and mu_hat / (sqrt(nu_hat)
+    + eps) in fp32 on gradients widened with ``.to(float32)`` (bf16
+    gradients under ``compute_dtype`` too); only the state's storage
+    differs. Chain it with scale_by_learning_rate as scale_by_adam.
+    Returns a train/loop.GradientTransformation."""
+    from dladmm_tpu_torch.train.loop import GradientTransformation
+
+    if moment_dtype not in FORMATS:
+        raise ValueError(
+            "moment_dtype must be 'bfloat16', 'bfloat16_sr', or 'int8', "
+            f"got {moment_dtype!r} (float32 is plain Adam)"
+        )
+    sr = moment_dtype == "bfloat16_sr"
+
+    def init(params):
+        device = params[0].device
+        zeros = type(params)(*(torch.zeros(p.shape, dtype=torch.float32, device=device) for p in params))
+        # Zeros are exact in every storage format: no SR key at init.
+        fmt = "bfloat16" if sr else moment_dtype
+        return QMomentsState(
+            count=torch.zeros((), dtype=torch.int32, device=device),
+            mu=_encode(zeros, fmt),
+            nu=_encode(zeros, fmt),
+            key=torch.full((), SR_KEY0, dtype=torch.int32, device=device) if sr else None,
+        )
+
+    def update(updates, state, params=None):
+        del params
+        kind = type(updates)
+        mu = _decode(state.mu, updates, moment_dtype)
+        nu = _decode(state.nu, updates, moment_dtype)
+        mu = kind(*(b1 * m + (1.0 - b1) * g.to(torch.float32) for m, g in zip(mu, updates)))
+        nu = kind(*(b2 * v + (1.0 - b2) * torch.square(g.to(torch.float32)) for v, g in zip(nu, updates)))
+        count = state.count + 1
+        cf = count.to(torch.float32)
+        c1, c2 = 1.0 - torch.pow(b1, cf), 1.0 - torch.pow(b2, cf)
+        out = kind(*((m / c1) / (torch.sqrt(v / c2) + eps) for m, v in zip(mu, nu)))
+        key = state.key
+        return out, QMomentsState(
+            count=count,
+            mu=_encode(mu, moment_dtype, key, 0),
+            nu=_encode(nu, moment_dtype, key, 1),
+            key=_next_key(key) if sr else None,
+        )
+
+    return GradientTransformation(init, update)
+
+
+def adam_qmoments(
+    learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, moment_dtype: str = "bfloat16"
+):
+    """Adam(learning_rate) with reduced-precision moments: scale_by_adam_qmoments
+    chained with scale_by_learning_rate (train/loop.py)."""
+    from dladmm_tpu_torch.train.loop import chain, scale_by_learning_rate
+
+    return chain(scale_by_adam_qmoments(b1, b2, eps, moment_dtype), scale_by_learning_rate(learning_rate))
+
+
 __all__ = [
-    "BLOCK", "GOLDEN", "QTensor", "QMomentsState", "U32", "dequantize_q8", "fmix32", "mul32", "quantize_q8",
-    "random_bits16", "sr_bfloat16",
+    "BLOCK", "FORMATS", "GOLDEN", "QTensor", "QMomentsState", "SR_KEY0", "U32", "adam_qmoments", "dequantize_q8",
+    "fmix32", "mul32", "quantize_q8", "random_bits16", "scale_by_adam_qmoments", "sr_bfloat16",
 ]

@@ -1481,3 +1481,122 @@ def test_bf16_training_kernels_raise_when_the_grid_is_refused(cuda_device, monke
     _, _, copy = opt.fused_apply(g16, state, params, torch.bfloat16)
     torch.cuda.synchronize()
     assert all(torch.equal(c, t.bfloat16()) for c, t in zip(copy, params))
+
+
+def _patch_case(K, S, seed, device):
+    """The image benchmark's shape: the 64 x 256 DCT dictionary, b the
+    median-DC residuals of 8 x 8 patches of impulse-corrupted synthetic
+    images (S = 225: one 64 x 64 image; 961: one 128 x 128; 3844: four),
+    and LADMM-exact params plus 0.05 N(0,1) * RMS of each leaf."""
+    from dladmm_tpu_torch.data.dictionary import dct_dictionary
+    from dladmm_tpu_torch.data.images import extract_patches, patch_dc, salt_pepper, synthetic_image
+
+    size, count = {225: (64, 1), 961: (128, 1), 3844: (128, 4)}[S]
+    g = torch.Generator(device=device).manual_seed(seed)
+    A = dct_dictionary(device=device)
+    patches = torch.cat([extract_patches(salt_pepper(g, synthetic_image(size, device=device), 0.1))
+                         for _ in range(count)])
+    b = (patches - patch_dc(patches)).contiguous()
+    rng = np.random.default_rng(seed)
+    p0 = init_dladmm_params(A.cpu(), K=K)
+    leaves = [leaf + 0.05 * torch.as_tensor(rng.normal(size=tuple(leaf.shape)).astype(np.float32))
+              * leaf.pow(2).mean().sqrt() for leaf in p0]
+    return A, b, DLADMMParams(*leaves).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [8, 15])
+@pytest.mark.parametrize("S", [225, 961, 3844])
+def test_patch_shape_kernels_match_plain(cuda_device, K, S):
+    """Rows 1, 2, 4 and 5 at the image benchmark's shape (m = 64, n = 256,
+    S tails that are no multiple of the 32 tile): the whole-unroll and
+    trajectory kernels within TOL of their plain versions, the backward on
+    the route bwd_chunk_batch picks, on the whole batch and on slices of
+    128 rows within 2e-5 of each leaf's largest gradient; each repeats bit
+    for bit."""
+    from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj
+
+    A, b, p = _patch_case(K, S, seed=S + K, device=cuda_device)
+    got = cuda_unroll.unroll_forward(b, A, *p)
+    _assert_close(got, cuda_unroll.unroll_forward_plain(b, A, *p))
+    assert all(torch.equal(g, w) for g, w in zip(got, cuda_unroll.unroll_forward(b, A, *p)))
+    traj = cuda_traj.trajectory_forward(b, A, *p, with_tax=True)
+    _assert_close(traj, cuda_traj.trajectory_forward_plain(b, A, *p, with_tax=True))
+    assert all(torch.equal(g, w) for g, w in zip(traj, cuda_traj.trajectory_forward(b, A, *p, with_tax=True)))
+    gen = torch.Generator(device=cuda_device).manual_seed(S)
+    cts = [torch.randn(t[-1].shape, generator=gen, device=cuda_device) for t in traj[:3]]
+    want = cuda_bwd.unroll_bwd_plain(b, A, *p, *traj, *cts, data_grads=True)
+    policy = cuda_bwd.bwd_chunk_batch(64, 256, 64, S, K, cuda_bwd.weight_wave(cuda_device))
+    for bs in {policy, None, 128}:
+        route = "chunked" if bs is not None and bs < S else "whole"
+        before = dict(cuda_bwd.unroll_bwd.launches)
+        one = cuda_bwd.unroll_bwd(b, A, *p, *traj, *cts, bs=bs, data_grads=True)
+        two = cuda_bwd.unroll_bwd(b, A, *p, *traj, *cts, bs=bs, data_grads=True)
+        torch.cuda.synchronize()
+        assert cuda_bwd.unroll_bwd.launches[route] == before[route] + 2
+        _assert_grads_close(one[0], want[0])
+        _assert_grads_close(one[1:], want[1:])
+        for g, w in zip([*one[0], one[1], one[2]], [*two[0], two[1], two[2]]):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_solver_on_the_card(cuda_device):
+    """DLADMMSolver with A on the card: solve through the whole-unroll
+    kernel, trajectories and nmse_curve through the trajectory kernel, fit
+    through the trajectory and backward kernels, a nonneg_l1 solve through
+    the kernel's prox variant; answers within TOL of the kernels' plain
+    versions on the card."""
+    from dladmm_tpu_torch.models import DLADMMSolver
+    from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj
+
+    A, b, _ = _problem(250, 500, 15, 64, seed=11, device=cuda_device)
+    gpu = DLADMMSolver.create(A, K=15)
+    u0, t0 = cuda_unroll.unroll_forward.launches, cuda_traj.trajectory_forward.launches
+    solved, traj = gpu.solve(b), gpu.trajectory(b)
+    assert cuda_unroll.unroll_forward.launches == u0 + 1 and cuda_traj.trajectory_forward.launches == t0 + 1
+    _assert_close(solved, cuda_unroll.unroll_forward_plain(b, A, *gpu.params)[:2])
+    _assert_close(traj, cuda_traj.trajectory_forward_plain(b, A, *gpu.params))
+    x_star = torch.zeros((64, 500), device=cuda_device)
+    x_star[:, ::7] = 1.0
+    assert gpu.nmse_curve(b, x_star).shape == (15,)
+    w0 = cuda_bwd.unroll_bwd.launches["whole"]
+    trained = gpu.fit(0, steps=3, batch=64)
+    assert cuda_bwd.unroll_bwd.launches["whole"] == w0 + 3
+    assert trained.params.W1.device.type == "cuda" and torch.isfinite(trained.residual(b))
+    nonneg = DLADMMSolver.create(A, K=15, prox_x="nonneg_l1")
+    u1 = cuda_unroll.unroll_forward.launches
+    x, z = nonneg.solve(b)
+    assert cuda_unroll.unroll_forward.launches == u1 + 1 and float(x.min()) >= 0.0
+    _assert_close((x, z), cuda_unroll.unroll_forward_plain(b, A, *nonneg.params, prox_x="nonneg_l1")[:2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "bfloat16", "bfloat16_sr"])
+def test_xla_side_step_on_the_card_equals_cpu(cuda_device, fmt):
+    """The XLA-side reduced-precision Adam (train/qmoments.adam_qmoments)
+    on the card, 3 steps of the same gradients as on the CPU: the stored
+    moments, the count and the SR key equal; the updates within 1e-6 of
+    each leaf's largest (pow of the bias corrections may round apart)."""
+    from dladmm_tpu_torch.train import qmoments as tqm
+
+    rng = np.random.default_rng(4)
+    shapes = [(15, 256, 64), (15, 64, 64), (15, 256), (15, 64), (15,)]
+    params = DLADMMParams(*(torch.as_tensor(rng.normal(size=s).astype(np.float32)) for s in shapes))
+    grads = [DLADMMParams(*(torch.as_tensor((0.1 * rng.normal(size=s)).astype(np.float32)) for s in shapes))
+             for _ in range(3)]
+    opt = tqm.adam_qmoments(1e-2, moment_dtype=fmt)
+    cs, gs = opt.init(params), opt.init(params.to(cuda_device))
+    for g in grads:
+        cu, cs = opt.update(g, cs, params)
+        gu, gs = opt.update(g.to(cuda_device), gs, params.to(cuda_device))
+        for a, w in zip(gu, cu):
+            torch.testing.assert_close(a.cpu(), w, rtol=1e-6, atol=1e-6 * float(w.abs().max()))
+        qc, qg = cs[0], gs[0]
+        assert int(qc.count) == int(qg.count)
+        assert (qc.key is None and qg.key is None) or torch.equal(qc.key, qg.key.cpu())
+        for mc, mg in zip((*qc.mu, *qc.nu), (*qg.mu, *qg.nu)):
+            if fmt == "int8":
+                assert torch.equal(mc.codes, mg.codes.cpu()) and torch.equal(mc.scale, mg.scale.cpu())
+            else:
+                assert torch.equal(mc, mg.cpu())

@@ -29,7 +29,9 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     for m in ("ops.cuda_unroll", "ops.cuda_traj", "ops.cuda_bwd", "ops.cuda_int8", "ops.cuda_layer",
-              "ops.quantized", "serve", "run", "train.loop", "train.qadam_cuda"):
+              "ops.quantized", "serve", "run", "train.loop", "train.qadam_cuda", "train.qmoments",
+              "models.solver", "run_denoise", "data.images", "data.dictionary", "data.fixtures",
+              "utils.plots"):
         assert f"dladmm_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -114,3 +116,10 @@ def test_server_and_cli_do_not_fall_back_to_cpu(monkeypatch, tmp_path):
     save_torch(params, ckpt)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--config=smoke", "--import-torch", str(ckpt), "--demo", "2"])
+    from dladmm_tpu_torch import run_denoise
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_denoise.main(["--quick"])
+    monkeypatch.setenv("DLADMM_PLATFORM", "cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_denoise.main(["--quick"])

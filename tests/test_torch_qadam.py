@@ -163,13 +163,21 @@ def test_fp32_adam_and_clips_match_optax(clip_mode):
 
 def test_unported_formats_raise():
     """The dense fused formats build the fused optimizer; the XLA-side
-    formats (no ``_pallas``) are not ported and raise."""
+    formats (no ``_pallas``) now build the clip chained before
+    adam_qmoments (train/qmoments.py) and take a step, its moments in
+    their storage format; bad settings still raise."""
     for md in ("bfloat16_pallas", "float32_pallas", "bfloat16_sr_pallas", "bfloat16_sr_mu_pallas"):
         opt = tloop._build_optimizer(dataclasses.replace(CFG, moment_dtype=md))
         assert isinstance(opt, tqa.QAdamFused) and opt.moment_fmt == md[: -len("_pallas")]
+    p = _t(_leaves(5))
     for md in ("int8", "bfloat16", "bfloat16_sr"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tloop._build_optimizer(dataclasses.replace(CFG, moment_dtype=md))
+        opt = tloop._build_optimizer(dataclasses.replace(CFG, moment_dtype=md))
+        assert not isinstance(opt, tqa.QAdamFused)
+        updates, state = opt.update(_t(_leaves(6)), opt.init(p), p)
+        qstate = state[1][0]
+        assert isinstance(qstate, tqm.QMomentsState) and int(qstate.count) == 1
+        assert isinstance(qstate.mu.W1, tqm.QTensor) if md == "int8" else qstate.mu.W1.dtype == torch.bfloat16
+        assert all(bool(torch.isfinite(u).all()) for u in updates)  # step 0 of the warmup: lr 0
     with pytest.raises(ValueError, match="clip_mode"):
         tloop._build_optimizer(dataclasses.replace(CFG, clip_mode="delayed"))
     with pytest.raises(ValueError, match="moment_fmt"):

@@ -181,8 +181,8 @@ def test_run_cli_then_serve_ckpt_dir(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--greedy"], ["--zero1"], ["--optimizer=fused_adam"], ["--moment-dtype=bfloat16"],
-    ["--hbm-gb=80"], ["--plot=x.png"], ["--config=tp_small"], ["--eval-only"],
+    ["--greedy"], ["--zero1"], ["--optimizer=fused_adam"],
+    ["--hbm-gb=80"], ["--config=tp_small"], ["--eval-only"],
 ])
 def test_run_cli_rejects_unported_options(extra, monkeypatch):
     monkeypatch.setenv("DLADMM_PLATFORM", "cpu")
