@@ -251,9 +251,51 @@ the first fault. Each phase prints one JSON line:
      phase 34's steps (device µs, launches a step) for each XLA-side
      format beside int8_pallas;
 
+ 36. slice_train_fused: ``run --config=synthetic_small
+     --optimizer=fused_adam --clip-mode=delayed --moment-dtype=float32
+     --steps=1000`` (Adam inside the reverse sweep, plain PyTorch) beside
+     the same run on the optax chain, counted from 0: NMSE within
+     FUSED_NMSE_DB (0.05 dB) of each other, both below LADMM; ``fit`` with
+     the fused optimizer in bf16 compute (300 steps) below LADMM; a run
+     resumed from its step-100 checkpoint bit for bit;
+     timing_train_fused: both steps' ms (in turns), device µs and device
+     launches a step;
+ 37. kernel_greedy: rows 2 and 4 at depths K = 1, 2, 3 (S = 64 and 1024
+     with bs = 128) against their plain versions, a second call bit for
+     bit, their times at S = 64; slice_train_greedy: ``run
+     --config=synthetic_small --greedy --steps=1000``, the kernels counted
+     from 0 in every stage (the trajectory and backward kernels and the
+     int8 step once a step), below LADMM;
+ 38. slice_dp: fit_sharded on synthetic_small over 2 gloo ranks sharing
+     the card and over 1 NCCL rank (this script's ``--dp-worker``, one
+     process a rank): the replicated step (int8 sweep), ZeRO-1 (the dense
+     sweep on each rank's (rows, 256) slice, the exact clip) and the DP
+     fused step, 3 steps each from a perturbed LADMM init against the
+     single-process global-batch fit (losses rtol 1e-5; one NCCL rank bit
+     for bit), each 2-rank step's params against the single-process step
+     from the same state (rtol 5e-5 / atol 1e-6, int8 1e-3 * lr, outside
+     Adam's eps region), the kernels counted on every rank; timing_dp:
+     the DP step's ms beside the single-process step's;
+ 39. slice_general_b_dp: ``run --config=general_b_dp`` on its 4 gloo ranks
+     (200 steps), below general LADMM;
+ 40. detect_hbm_bytes on the card; slice_multihost: the multihost preset at
+     its shape (batch 65536 in bf16 over 8 ranks), 2 steps, where
+     fit_sharded's audit passes with the card shared by the 8 ranks
+     (else printed and skipped);
+     slice_serve_sharded: ``serve --sharded --ckpt-dir`` (phase 36's
+     checkpoint) in float32, bfloat16 and int8 at the unsharded serve's
+     NMSE within 0.01 dB, and a ShardedInferenceServer of two parts on the
+     card against InferenceServer (TOL; bf16 BF16_TOL_ULPS), counted from 0;
+
 then the kernels line and, last, the ok line. Exits non-zero, with no
 ok line, on any failure, when CUDA is not available, or when run
 without the rest of the repository.
+
+    python3 chip_smoke.py --sharded
+
+builds every source and runs only phases 36-40, then their kernels
+entries (rows 2 and 4 at greedy's depths, with every new path's
+launches).
 
     python3 chip_smoke.py --int8-turns
 
@@ -3581,6 +3623,803 @@ def denoise_phases(torch, dev, card) -> list:
     return patch_entries(patch_errs, denoise, solver, timings)
 
 
+# -- fused_adam, greedy, data parallelism, sharded serving (phases 36-40) ----
+
+FUSED_NMSE_DB = 0.05  # fused_adam against the optax delayed-clip run at 1000 steps
+GREEDY_DEPTHS = (1, 2, 3)
+# DP against the single-process global-batch fit, 3 steps from a perturbed
+# LADMM init (dp_init), at the JAX package's tolerances
+# (tests/test_distributed.py): losses rtol 1e-5, params rtol 5e-5 / atol
+# 1e-6; with int8 moments atol 1e-3 * lr a step (a last-bit gradient
+# difference can move one code by one step). Each step is held from a
+# common state (dp_per_step): over several steps Adam, which divides each
+# gradient by its own RMS, carries the halves' last-bit differences into
+# elements whose moments cancel, and runs drift apart (2.4% of W1 beyond
+# the tolerance after 3 steps on the CPU at this shape). As in the CPU
+# tests (tests/test_torch_distributed.py), elements in Adam's eps region
+# are held within 1e-2 * lr and must be fewer than 5% of a leaf; here the
+# region is a step's gradient below 10 eps (not zero), not the CPU tests'
+# 100 eps: synthetic_small's gradients are smaller (5.1% of W1 and 17% of
+# W2 lie below 100 eps, 0.5% and 1.8% below 10 eps), and the elements
+# beyond the tolerance lie below 0.5 eps. The 3-step runs' differences
+# are reported beside.
+DP_LOSS_RTOL = 1e-5
+DP_PARAM_RTOL, DP_PARAM_ATOL = 5e-5, 1e-6
+DP_INT8_ATOL_PER_STEP = 1e-3  # x lr
+DP_EPS_REGION = 10 * 1e-8  # a step's |gradient| below 10 Adam eps
+DP_PERTURB = 0.02  # dp_init: x each leaf's mean |value|, as the CPU tests
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def fused_slice(torch, device, card, tmp) -> dict:
+    """Phase 36: ``run --config=synthetic_small --optimizer=fused_adam
+    --clip-mode=delayed --moment-dtype=float32 --steps=1000`` (with
+    --ckpt-dir: phase 40 serves it) beside the same run on the optax chain
+    (the delayed clip, fp32 moments; the trajectory kernel), each with the
+    training counts from 0: final NMSE within FUSED_NMSE_DB of each other
+    and both below LADMM at K = 15. Then ``fit`` with the fused optimizer
+    in bf16 compute (300 steps), below LADMM; a fused run of 200 steps
+    resumed from its step-100 checkpoint ends bit for bit where the
+    uninterrupted one ends; and the
+    fused step's and the optax step's ms by CUDA events (in turns), device
+    µs and device launches a step."""
+    import dataclasses
+    import shutil
+
+    from dladmm_tpu_torch.run import main as run_main
+    from dladmm_tpu_torch.train.loop import fit
+    from dladmm_tpu_torch.utils.config import get_config
+
+    base = ["--config=synthetic_small", "--clip-mode=delayed", "--moment-dtype=float32", "--steps=1000"]
+    out = {}
+    for name, extra, route in (
+        ("fused", ["--optimizer=fused_adam", "--ckpt-dir", str(Path(tmp) / "fused")],
+         "manual reverse sweep + fused Adam-in-backward"),
+        ("optax_delayed", [], "cuda-trajectory-kernel"),
+    ):
+        reset_training_counts()
+        summary, _, wall = run_json(run_main, [*base, *extra])
+        counts = nonzero(training_counts())
+        if summary["route"] != route or not summary["final_nmse_db"] < summary["ladmm_nmse_db_at_K"]:
+            raise AssertionError(f"run {extra}: route {summary['route']!r}, NMSE {summary['final_nmse_db']} "
+                                 f"against LADMM {summary['ladmm_nmse_db_at_K']}")
+        out[name] = {"summary": summary, "launches": counts, "wall_s": wall}
+    # The fused step runs no kernel; its evals the trajectory kernel once.
+    if out["fused"]["launches"] != {"trajectory_forward": 1} or \
+            out["optax_delayed"]["launches"] != {"trajectory_forward": 1001}:
+        raise AssertionError(f"launches: fused {out['fused']['launches']}, optax {out['optax_delayed']['launches']}")
+    gap = out["fused"]["summary"]["final_nmse_db"] - out["optax_delayed"]["summary"]["final_nmse_db"]
+    out["gap_db"] = gap
+    if not abs(gap) <= FUSED_NMSE_DB:
+        raise AssertionError(f"fused_adam {out['fused']['summary']['final_nmse_db']} dB against the delayed-clip "
+                             f"chain {out['optax_delayed']['summary']['final_nmse_db']} dB: gap {gap}")
+    emit("slice_train_fused", **out)
+
+    cfg = get_config("synthetic_small")
+    fused_train = dict(optimizer="fused_adam", clip_mode="delayed", moment_dtype="float32")
+
+    def fit_run(ckpt=None, resume=False, **train):
+        c = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **fused_train, **train))
+        reset_training_counts()
+        t0 = time.monotonic()
+        params, hist = fit(c, ckpt_dir=ckpt, resume=resume, device=device)
+        return params, hist, nonzero(training_counts()), time.monotonic() - t0
+
+    _, hist, counts, wall = fit_run(steps=300, compute_dtype="bfloat16")
+    last = hist[-1]
+    if not (math.isfinite(last["nmse_db"]) and last["nmse_db"] < last["curves"]["ladmm_curve_db"][-1]):
+        raise AssertionError(f"fused bf16: NMSE {last['nmse_db']}")
+    out["bf16"] = {"final_nmse_db": last["nmse_db"], "final_residual": last["residual"], "launches": counts,
+                   "steps": 300, "wall_s": wall}
+    emit("slice_train_fused", run="fit compute_dtype=bfloat16, 300 steps", **out["bf16"])
+
+    cold, warm = Path(tmp) / "fused_cold", Path(tmp) / "fused_warm"
+    full, hist, _, _ = fit_run(ckpt=str(cold), steps=200, eval_every=100)
+    warm.mkdir()
+    shutil.copy(cold / "step_100.pt", warm / "step_100.pt")
+    resumed, rhist, rcounts, rwall = fit_run(ckpt=str(warm), resume=True, steps=200, eval_every=100)
+    if [h["step"] for h in rhist] != [200] or not all(torch.equal(a, b) for a, b in zip(resumed, full)):
+        raise AssertionError("the fused run resumed from step 100 does not end where the uninterrupted run ends")
+    out["resume"] = {"bit_for_bit": True, "final_nmse_db": rhist[-1]["nmse_db"], "launches": rcounts,
+                     "wall_s": rwall}
+    emit("slice_train_fused", run="resumed from step 100 of 200", **out["resume"])
+    out["timing"] = time_fused(torch, device, card)
+    return out
+
+
+def time_fused(torch, device, card) -> dict:
+    """Phase 36's timing: one fused step (plain PyTorch: the forward loop,
+    the reverse sweep with Adam in it) and one step of the optax chain
+    with the delayed clip (the trajectory kernel and the manual sweep),
+    synthetic_small batch 64 deep supervision, in turns: median CUDA-event
+    ms, the profiler's device µs and device launches a step."""
+    import dataclasses
+
+    from dladmm_tpu_torch.data.synthetic import problem_matrices
+    from dladmm_tpu_torch.models.unroll import init_dladmm_params
+    from dladmm_tpu_torch.ops.cuda_traj import make_unrolled_trajectory
+    from dladmm_tpu_torch.train.fused_adam import make_fused_adam_state, make_fused_adam_step
+    from dladmm_tpu_torch.train.loop import _build_optimizer, _layer_weights, _lr_of, make_train_state, make_train_step
+    from dladmm_tpu_torch.utils.config import get_config
+
+    cfg = get_config("synthetic_small")
+    p = cfg.problem
+    t = dataclasses.replace(cfg.train, clip_mode="delayed", moment_dtype="float32")
+    A, _ = problem_matrices(cfg, device=device)
+    w = _layer_weights("uniform", p.K, device=device)
+    init = init_dladmm_params(A, K=p.K)
+    fused = make_fused_adam_step(A, t.batch, p.sparsity_x, p.sparsity_e, w, _lr_of(t), clip_norm=t.clip_norm)
+    opt = _build_optimizer(t)
+    optax_step = make_train_step(opt, A, t.batch, p.sparsity_x, p.sparsity_e, layer_weights=w,
+                                 forward_fn=make_unrolled_trajectory())
+    states = {"fused": make_fused_adam_state(init, t.clip_norm), "optax": make_train_state(init, opt)}
+    steps = {"fused": fused, "optax": optax_step}
+    i = {"fused": 0, "optax": 0}
+
+    def one(name):
+        def run():  # profile_fn runs it under no_grad; the optax step takes a gradient
+            with torch.enable_grad():
+                states[name], _ = steps[name](states[name], i[name])
+            i[name] += 1
+        return run
+
+    fns = [one("fused"), one("optax")]
+    for _ in range(3):
+        for fn in fns:
+            fn()
+    ms = median_ms(torch, fns, 24)
+    out = {}
+    for name, fn, m_ in zip(("fused", "optax"), fns, ms):
+        prof = profile_fn(torch, fn, f"{name} step", reps=3, events_fallback=True)
+        out[name] = {"ms": m_, "device_us_per_step": prof["device_us_per_call"],
+                     "device_launches_per_step": sum(v["calls"] for v in prof["per_call"].values()),
+                     "device_busy_share": prof.get("device_busy_share")}
+    emit("timing_train_fused", config="synthetic_small batch 64 deep supervision, clip 1.0 delayed, fp32 moments",
+         **out, card=card)
+    return out
+
+
+def check_greedy_depths(torch, device, card) -> dict:
+    """Phase 37 (kernels): rows 2 and 4 at the prefix depths greedy's
+    first stages run, K = 1, 2, 3 (the persistent plans were sized at
+    K >= 4), at synthetic_small S = 64 (the stage batch) and S = 1024
+    (the backward's chunked route, bs = 128): the trajectory kernel within
+    TOL of its plain version, the backward within BWD_TOL of each leaf, a
+    second call bit for bit; then each at S = 64 timed beside its plain
+    version and its bound. Returns the errors and timings."""
+    from dladmm_tpu_torch.ops.cuda_bwd import unroll_bwd, unroll_bwd_plain
+    from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward, trajectory_forward_plain
+
+    errs = {"traj": 0.0, "bwd": 0.0}
+    timings = {}
+    for K in GREEDY_DEPTHS:
+        for S, bs in ((64, None), (1024, 128)):
+            A, b, p, traj, cts = bwd_case(torch, m=SMALL["m"], n=SMALL["n"], K=K, S=S, seed=K * 7 + S,
+                                          device=device, ties=K > 1)
+            with torch.no_grad():
+                want = trajectory_forward_plain(b, A, *p, with_tax=True)
+                errs["traj"] = max(errs["traj"], compare(torch, traj, want, f"greedy depth K={K} S={S}",
+                                                         names=("tx", "tz", "tlam", "tax"), phase="kernel_greedy"))
+                again = trajectory_forward(b, A, *p, with_tax=True)
+                got = unroll_bwd(b, A, *p, *traj, *cts, bs=bs, data_grads=False)
+                want = unroll_bwd_plain(b, A, *p, *traj, *cts, data_grads=False)
+                twice = unroll_bwd(b, A, *p, *traj, *cts, bs=bs, data_grads=False)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w_) for g, w_ in zip(traj, again)) or \
+                    not all(torch.equal(g, w_) for g, w_ in zip(got[0], twice[0])):
+                raise AssertionError(f"greedy depth K={K} S={S}: a second call differs")
+            detail = compare_grads(torch, got, want, f"bwd greedy depth K={K} S={S} bs={bs}")
+            errs["bwd"] = max(errs["bwd"], *(v["max_abs_err"] for v in detail.values()))
+            emit("kernel_greedy", K=K, S=S, bs=bs, grads=detail, traj_plan=launched_plan(trajectory_forward),
+                 bwd_plan=launched_plan(unroll_bwd))
+            if S == 64:
+                fns = [lambda: trajectory_forward(b, A, *p, with_tax=True),
+                       lambda: trajectory_forward_plain(b, A, *p, with_tax=True),
+                       lambda: unroll_bwd(b, A, *p, *traj, *cts), lambda: unroll_bwd_plain(b, A, *p, *traj, *cts)]
+                with torch.no_grad():
+                    ms = median_ms(torch, fns, 21)
+                timings[("trajectory_forward", K)] = (ms[0], ms[1], *traj_bound(S, SMALL["m"], SMALL["n"], K,
+                                                                                 with_tax=True))
+                timings[("unroll_bwd", K)] = (ms[2], ms[3], *bwd_bound(S, m=SMALL["m"], n=SMALL["n"], K=K))
+                emit("timing_greedy", K=K, S=S, trajectory_ms=ms[0], trajectory_plain_ms=ms[1],
+                     trajectory_bound=timings[("trajectory_forward", K)][2:], bwd_ms=ms[2], bwd_plain_ms=ms[3],
+                     bwd_bound=timings[("unroll_bwd", K)][2:], card=card)
+            del A, b, p, traj, cts, got, want, twice, again
+    return {"errs": errs, "timings": timings}
+
+
+class StageCounts:
+    """run.py's JsonlLogger, which also reads the training counts at each
+    record and sets them to 0 again: each greedy stage's launches, and
+    then the fine-tune's."""
+
+    records: list = []
+
+    def __init__(self, path=None, mirror_stdout=True):
+        self.records = StageCounts.records
+        reset_training_counts()
+
+    def __call__(self, record):
+        self.records.append({**record, "launches": nonzero(training_counts())})
+        reset_training_counts()
+
+
+def greedy_slice(torch, device) -> dict:
+    """Phase 37 (path): ``run --config=synthetic_small --greedy
+    --steps=1000``, the kernels counted from 0 in every stage (run.py's
+    logger, swapped for one that reads the counts at each record): each of
+    the 15 stages (33 steps on its prefix, the final-state route) launches
+    the trajectory and backward kernels and the int8 optimizer step once a
+    step; the fine-tune (505 steps, deep supervision) the trajectory
+    kernel and the step; the final NMSE below LADMM at K = 15."""
+    from dladmm_tpu_torch.run import main as run_main
+    from dladmm_tpu_torch.utils import logging as ulog
+
+    StageCounts.records = []
+    real = ulog.JsonlLogger
+    ulog.JsonlLogger = StageCounts
+    try:
+        summary, _, wall = run_json(run_main, ["--config=synthetic_small", "--greedy", "--steps=1000"])
+    finally:
+        ulog.JsonlLogger = real
+    stages = [r for r in StageCounts.records if "stage" in r]
+    if len(stages) != 15:
+        raise AssertionError(f"greedy: {len(stages)} stage records")
+    for r in stages:
+        want = {"trajectory_forward": 33, "unroll_bwd_whole": 33, "adam_step": 66}
+        if r["launches"] != want:
+            raise AssertionError(f"greedy stage {r['stage']}: launches {r['launches']}, expected {want}")
+    if not (summary["route"].startswith("greedy") and summary["final_nmse_db"] < summary["ladmm_nmse_db_at_K"]):
+        raise AssertionError(f"greedy: {summary}")
+    ft = [r["launches"] for r in StageCounts.records if "stage" not in r]
+    out = {"summary": summary, "wall_s": wall, "stage_launches": {r["stage"]: r["launches"] for r in stages},
+           "finetune_launches": ft}
+    emit("slice_train_greedy", **out)
+    return out
+
+
+def dp_config(data_axis: int = 2, **train):
+    """synthetic_small over ``data_axis`` ranks for a 3-step comparison:
+    the shipped recipe (deep supervision, clip 1.0, int8_pallas) at a
+    constant lr (the cosine schedule's warmup starts at lr 0), an eval
+    after every step (its loss is the history's)."""
+    import dataclasses
+
+    from dladmm_tpu_torch.utils.config import ShardingConfig, get_config
+
+    cfg = get_config("synthetic_small")
+    zero1 = train.pop("zero1", False)
+    base = dict(steps=3, eval_every=1, lr_schedule=None)
+    base.update(train)
+    return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **base),
+                               sharding=ShardingConfig(data_axis=data_axis, zero1=zero1))
+
+
+def dp_init(cfg):
+    """The DP comparison's start: the LADMM init of cfg's A, each leaf
+    plus DP_PERTURB x its mean |value| x N(0, 1) from numpy's seed 0 (the
+    CPU tests' perturbation), built on the CPU so that every rank and the
+    single-process fit start from the same numbers. At the exact LADMM
+    init many gradients cancel (W1 = A^T / L), and Adam divides each by
+    its own RMS."""
+    from dladmm_tpu_torch.data.synthetic import problem_matrices
+    from dladmm_tpu_torch.models.unroll import init_dladmm_params
+    from dladmm_tpu_torch.utils.torch_compat import params_from_numpy
+
+    rng = np.random.default_rng(0)
+    leaves = [v.numpy() for v in init_dladmm_params(problem_matrices(cfg)[0], K=cfg.problem.K)]
+    return params_from_numpy(*(
+        v + DP_PERTURB * np.abs(v).mean() * rng.normal(size=v.shape).astype(np.float32) for v in leaves))
+
+
+def dp_eps_region(cfg, job, params, step: int, device) -> list:
+    """Per leaf (on the CPU), the elements in Adam's eps region of the
+    job's update at ``step`` (0-based) from ``params``: the single-process
+    gradient on that step's global batch, scaled by the exact clip where
+    the job clips so (the delayed clip's scale is 1 while the norm stays
+    under the clip, as here), not zero and below DP_EPS_REGION."""
+    from dladmm_tpu_torch.data.synthetic import make_batch, problem_matrices, step_generator
+    from dladmm_tpu_torch.models.api import select_forward
+    from dladmm_tpu_torch.train.loop import _layer_weights, _value_and_grad, global_norm
+
+    p, t = cfg.problem, cfg.train
+    A = problem_matrices(cfg, device=device)[0]
+    data = make_batch(step_generator(t.seed, step), A, t.batch, p.sparsity_x, p.sparsity_e)
+    fwd = select_forward(p.m, p.n, p.m, t.batch, need_trajectory=True, device=device)[0]
+    _, g = _value_and_grad(type(params)(*(v.to(device) for v in params)),
+                           (A, data.b, data.x_star, data.e_star, None,
+                            _layer_weights(t.layer_loss, p.K, device=device)), dict(forward_fn=fwd))
+    scale = 1.0
+    if t.clip_norm and job != "fused":
+        scale = min(1.0, t.clip_norm / float(global_norm(g)))
+    return [((v.abs() * scale > 0) & (v.abs() * scale < DP_EPS_REGION)).cpu() for v in g]
+
+
+def dp_close(got, want, init, eps_region, lr, atol, what, check: bool = True) -> dict:
+    """got against want, leaf by leaf (CPU tensors): where ``eps_region``
+    (a mask a leaf) is given, its elements within 1e-2 * lr and under 5%
+    of the leaf; the rest within DP_PARAM_RTOL and ``atol``. Returns the
+    largest difference and the largest difference over the norm of the
+    leaf's update from ``init``; check=False only reports them."""
+    import torch
+
+    diff, rel = 0.0, 0.0
+    for i, (name, g, w, i0) in enumerate(zip(("W1", "W2", "theta1", "theta2", "beta"), got, want, init)):
+        g, w, i0 = g.double(), w.double(), i0.double()
+        d = (g - w).abs()
+        diff, rel = max(diff, float(d.max())), max(rel, float((g - w).norm() / (w - i0).norm()))
+        if not check:
+            continue
+        mask = torch.zeros_like(d, dtype=torch.bool) if eps_region is None else eps_region[i]
+        if not float(mask.double().mean()) < 5e-2:
+            raise AssertionError(f"{what} {name}: {int(mask.sum())} elements in the eps region")
+        if mask.any() and float(d[mask].max()) > 1e-2 * lr:
+            raise AssertionError(f"{what} {name}: eps region {float(d[mask].max())} apart")
+        keep = ~mask
+        bad = d[keep] > atol + DP_PARAM_RTOL * w[keep].abs()
+        if bad.any():
+            raise AssertionError(f"{what} {name}: {int(bad.sum())} of {int(keep.sum())} elements beyond rtol "
+                                 f"{DP_PARAM_RTOL} / atol {atol}, largest {float(d[keep].max())}")
+    return {"max_param_diff": diff, "param_diff_of_update": rel}
+
+
+def zero1_one_rank(opt_state, total: int, rows: int):
+    """A ZeRO-1 checkpoint's whole-vector fused-sweep state ((R, 256)
+    moment leaves, zero past ``total``) laid out for one rank's ``rows``
+    rows: the same flat vector, padded or cut. Per-row leaves (int8
+    scales) have no such layout, and raise."""
+    import torch
+
+    if isinstance(opt_state, dict):
+        return {k: zero1_one_rank(v, total, rows) for k, v in opt_state.items()}
+    if isinstance(opt_state, list):
+        return [zero1_one_rank(v, total, rows) for v in opt_state]
+    if not isinstance(opt_state, torch.Tensor) or opt_state.ndim == 0:
+        return opt_state
+    if opt_state.ndim != 2 or opt_state.shape[1] != 256:
+        raise ValueError(f"a ZeRO-1 state leaf of shape {tuple(opt_state.shape)} has no one-rank layout")
+    flat = opt_state.reshape(-1)
+    if flat[total:].any():
+        raise AssertionError("the ZeRO-1 state's padding is not zero")
+    out = torch.zeros(rows * 256, dtype=flat.dtype)
+    out[:total] = flat[:total]
+    return out.reshape(rows, 256)
+
+
+def dp_per_step(torch, job: str, ck_dir, tmp, device) -> list:
+    """Each step of a 2-rank run (its checkpoints in ``ck_dir``, one a
+    step) against the single-process global-batch step from the same
+    state: fit_sharded at data_axis = 1 in this process (equal to fit bit
+    for bit: the one-NCCL-rank check), from dp_init for step 1 and
+    resumed from the 2-rank run's checkpoint of the step before for the
+    others (a ZeRO-1 state laid out again by zero1_one_rank). The params
+    held by dp_close with the JAX package's one-step tolerances (int8:
+    1e-3 * lr). Returns dp_close's figures a step."""
+    import dataclasses
+
+    from dladmm_tpu_torch.parallel.collectives import BLOCK, _zero1_padded
+    from dladmm_tpu_torch.train.loop import fit_sharded
+
+    cfg = dp_config(data_axis=1, **dict(DP_JOBS[job]))
+    t = cfg.train
+    init = dp_init(cfg)
+    total = sum(v.numel() for v in init)
+    atol = DP_INT8_ATOL_PER_STEP * t.lr if t.moment_dtype == "int8_pallas" else DP_PARAM_ATOL
+    out = []
+    prev = list(init)
+    for i in range(1, t.steps + 1):
+        ref_dir = Path(tmp) / f"ref_{job}_{i}"
+        ref_dir.mkdir()
+        if i > 1:
+            data = torch.load(Path(ck_dir) / f"step_{i - 1}.pt", weights_only=True)
+            if job == "zero1":
+                data["opt_state"] = zero1_one_rank(data["opt_state"], total,
+                                                   _zero1_padded(total, 1, True) // BLOCK)
+            torch.save(data, ref_dir / f"step_{i - 1}.pt")
+        with contextlib.redirect_stdout(io.StringIO()):  # its memory audit
+            ref, _ = fit_sharded(dataclasses.replace(cfg, train=dataclasses.replace(t, steps=i)), init_params=init,
+                                 ckpt_dir=str(ref_dir), resume=i > 1, device=device)
+        got = list(torch.load(Path(ck_dir) / f"step_{i}.pt", weights_only=True)["params"].values())
+        eps = dp_eps_region(cfg, job, type(init)(*prev), i - 1, device)
+        out.append({**dp_close(got, [v.cpu() for v in ref], prev, eps, t.lr, atol, f"2 ranks {job} step {i}"),
+                    "eps_region_elements": [int(m.sum()) for m in eps]})
+        prev = got
+    return out
+
+
+DP_JOBS = {
+    "dp": {},
+    "zero1": dict(zero1=True, moment_dtype="float32_pallas"),
+    "fused": dict(optimizer="fused_adam", clip_mode="delayed", moment_dtype="float32"),
+}
+
+
+def dp_worker(out_dir: str, jobs: str) -> int:
+    """One rank of a spawned run (``chip_smoke.py --dp-worker DIR JOBS``,
+    the env:// variables set by spawn_ranks): each job in turn with this
+    rank's training counts from 0, the results in DIR/rank<r>.pt."""
+    import torch
+
+    from dladmm_tpu_torch.parallel.multihost import initialize_distributed, process_index, world_size
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = initialize_distributed()
+    res = {"device": str(dev), "world": world_size()}
+    import torch.distributed as dist
+
+    res["backend"] = dist.get_backend()
+    for job in jobs.split(","):
+        reset_training_counts()
+        t0 = time.monotonic()
+        if job in DP_JOBS:
+            from dladmm_tpu_torch.train.loop import fit_sharded
+
+            cfg = dp_config(data_axis=world_size(), **dict(DP_JOBS[job]))
+            ck = str(Path(out_dir) / f"ck_{job}")
+            params, hist = fit_sharded(cfg, init_params=dp_init(cfg), ckpt_dir=ck)
+            res[job] = {"params": [p.cpu() for p in params], "losses": [h["loss"] for h in hist],
+                        "nmse_db": hist[-1]["nmse_db"], "ckpt_dir": ck}
+        elif job == "time":
+            res[job] = time_dp_step(torch, dev)
+        else:  # a CLI run: run.main with these arguments
+            from dladmm_tpu_torch.run import main as run_main
+
+            argv = {"general_b_dp": ["--config=general_b_dp"],
+                    "multihost": ["--config=multihost", "--steps=2"]}[job]
+            if process_index() == 0:
+                summary, lines, _ = run_json(run_main, argv)
+                res[job] = {"summary": summary, "audit": [ln for ln in lines if "GB" in ln]}
+            elif run_main(argv) != 0:  # rank 0 alone prints the summary
+                raise AssertionError(f"run.main {argv} failed on rank {process_index()}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            res.setdefault("peak_gb", {})[job] = torch.cuda.max_memory_allocated(dev) / 1e9
+        res.setdefault("launches", {})[job] = nonzero(training_counts())
+        res.setdefault("wall_s", {})[job] = time.monotonic() - t0
+    torch.save(res, Path(out_dir) / f"rank{process_index()}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def time_dp_step(torch, dev) -> dict:
+    """The data-parallel step of fit_sharded on this rank (synthetic_small
+    recipe, batch 64 over the ranks, the trajectory kernel at the per-rank
+    batch, one all-reduce, the int8 sweep): median CUDA-event ms a step
+    over 20 after 3, each rank its own; with one rank and no group, the
+    single-process step on the global batch (make_train_step)."""
+    import torch.distributed as dist
+
+    from dladmm_tpu_torch.data.synthetic import SyntheticBatch, make_batch, problem_matrices, step_generator
+    from dladmm_tpu_torch.models.api import select_forward
+    from dladmm_tpu_torch.models.unroll import init_dladmm_params
+    from dladmm_tpu_torch.parallel import collectives as coll
+    from dladmm_tpu_torch.parallel.mesh import make_mesh
+    from dladmm_tpu_torch.train.loop import _build_optimizer, _layer_weights, make_train_state, make_train_step
+
+    cfg = dp_config(data_axis=dist.get_world_size() if dist.is_initialized() else 1)
+    p, t = cfg.problem, cfg.train
+    D = cfg.sharding.data_axis
+    A, _ = problem_matrices(cfg, device=dev)
+    w = _layer_weights(t.layer_loss, p.K, device=dev)
+    opt = _build_optimizer(t)
+    fwd = select_forward(p.m, p.n, p.m, t.batch // D, need_trajectory=True, device=dev)[0]
+    state = make_train_state(init_dladmm_params(A, K=p.K), opt)
+    if dist.is_initialized():
+        mesh = make_mesh(data=D)
+        step = coll.make_dp_train_step(opt, mesh, layer_weights=w, forward_fn=fwd)
+        r = mesh.rank
+
+        def one(i):
+            data = make_batch(step_generator(t.seed, i), A, t.batch)
+            n = t.batch // D
+            return step(state, A, SyntheticBatch(*(v[r * n: (r + 1) * n] for v in data)))
+    else:
+        inner = make_train_step(opt, A, t.batch, layer_weights=w, forward_fn=fwd)
+
+        def one(i):
+            return inner(state, i)
+    times = []
+    for i in range(23):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = one(i)
+        stop.record()
+        stop.synchronize()
+        if i >= 3:
+            times.append(start.elapsed_time(stop))
+    return {"ms": float(np.median(times)), "ranks": D}
+
+
+def spawn_ranks(D: int, jobs: str, tmp: str, timeout: int = 600) -> list:
+    """Start D ranks of this script (``--dp-worker``), one process each
+    with the env:// variables python -m torch.distributed.run sets (the
+    one card shared: gloo by parallel/mesh.pick_backend; one rank: NCCL);
+    wait for all; return their results in rank order. A rank that fails
+    fails the phase, with its output."""
+    import socket
+
+    out_dir = Path(tmp) / f"dp_{D}_{jobs.replace(',', '_')}"
+    out_dir.mkdir()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(D):
+        env = dict(__import__("os").environ, MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE=str(D),
+                   RANK=str(r), LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(D), OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-worker", str(out_dir),
+                                       jobs], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"{D} ranks {jobs}: exit codes {[p.returncode for p in procs]}\n" + logs[0][-4000:]
+                             + "\n".join(lg[-2000:] for lg in logs[1:]))
+    import torch
+
+    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(D)], logs[0]
+
+
+def dp_slice(torch, device, card, tmp) -> dict:
+    """Phase 38: data parallelism on the card. fit_sharded on
+    synthetic_small over two gloo ranks sharing the one card (dp: the
+    recipe's int8 sweep; zero1: ZeRO-1 with the exact clip, the dense
+    sweep on each rank's (rows, 256) slice; fused: the DP fused step),
+    each's 3 steps from dp_init against the single-process global-batch
+    fit (losses within DP_LOSS_RTOL, params by dp_close); then
+    data_axis = 1 on NCCL (one rank, its own card): bit for bit; the kernels
+    counted on every rank; the DP step's ms beside the single-process
+    step's (two ranks on one card measure correctness and overhead, not
+    scaling)."""
+    import dataclasses
+
+    from dladmm_tpu_torch.models.api import select_forward
+    from dladmm_tpu_torch.train.loop import fit
+
+    out = {}
+    jobs = ",".join([*DP_JOBS, "time"])
+    for D in (2, 1):
+        t0 = time.monotonic()
+        ranks, log = spawn_ranks(D, jobs, tmp)
+        backend = ranks[0]["backend"]
+        if backend != ("gloo" if D > 1 else "nccl"):
+            raise AssertionError(f"{D} rank(s) on one card: backend {backend}")
+        out[D] = {"backend": backend, "spawn_wall_s": time.monotonic() - t0,
+                  "launches_per_rank": [r["launches"] for r in ranks], "peak_gb_per_rank": [r["peak_gb"] for r in ranks],
+                  "step_ms_per_rank": [r["time"]["ms"] for r in ranks]}
+        for job, train in DP_JOBS.items():
+            cfg = dp_config(data_axis=1, **dict(train))
+            cfg = dataclasses.replace(cfg, sharding=dataclasses.replace(cfg.sharding, zero1=False))
+            p = cfg.problem
+            fwd = None if job == "fused" else select_forward(p.m, p.n, p.m, cfg.train.batch, need_trajectory=True,
+                                                             device=device)[0]
+            reset_training_counts()
+            init = dp_init(cfg)
+            params, hist = fit(cfg, forward_fn=fwd, init_params=init, device=device)
+            single_counts = nonzero(training_counts())
+            got = ranks[0][job]
+            np.testing.assert_allclose(got["losses"], [h["loss"] for h in hist], rtol=DP_LOSS_RTOL,
+                                       err_msg=f"{D} ranks {job} losses")
+            params = [v.cpu() for v in params]
+            if D == 1 and not all(torch.equal(g, w_) for g, w_ in zip(got["params"], params)):
+                raise AssertionError(f"1 NCCL rank {job}: params differ from the single-process fit")
+            # The 3 steps run on: reported (each step is held from a common state below).
+            close = dp_close(got["params"], params, init, None, cfg.train.lr, 0.0, "", check=False)
+            per_step = dp_per_step(torch, job, got["ckpt_dir"], tmp, device) if D > 1 else None
+            for r, rk in enumerate(ranks):
+                lc = rk["launches"][job]  # the step's forward (not fused), the evals, the sweep (not fused)
+                if lc.get("trajectory_forward", 0) < 4 or lc.get("adam_step", 0) != (0 if job == "fused" else 6):
+                    raise AssertionError(f"{D} ranks {job} rank {r}: launches {lc}")
+            out[D][job] = {"losses": got["losses"], "after_3_steps": close, "per_step": per_step,
+                           "single_launches": single_counts, "nmse_db": got["nmse_db"]}
+            emit("slice_dp", ranks=D, backend=backend, job=job, **out[D][job],
+                 launches_per_rank=[rk["launches"][job] for rk in ranks])
+    single = time_dp_step(torch, device)
+    out["single_step_ms"] = single["ms"]
+    emit("timing_dp", single_process_step_ms=single["ms"], two_gloo_ranks_one_card_step_ms=out[2]["step_ms_per_rank"],
+         one_nccl_rank_step_ms=out[1]["step_ms_per_rank"],
+         note="D ranks share one card: correctness and overhead, not scaling", card=card)
+    return out
+
+
+def general_b_dp_slice(torch, tmp) -> dict:
+    """Phase 39: ``run --config=general_b_dp`` (200 steps, the general-B
+    plain loop and manual sweep on every rank) over its 4 gloo ranks on
+    the one card: the final NMSE below general LADMM at K = 10."""
+    t0 = time.monotonic()
+    ranks, _ = spawn_ranks(4, "general_b_dp", tmp)
+    summary = ranks[0]["general_b_dp"]["summary"]
+    if summary["mesh"] != "4x1" or not summary["final_nmse_db"] < summary["ladmm_nmse_db_at_K"]:
+        raise AssertionError(f"general_b_dp: {summary}")
+    out = {"summary": summary, "wall_s": time.monotonic() - t0, "launches_per_rank": [r["launches"] for r in ranks]}
+    emit("slice_general_b_dp", **out)
+    return out
+
+
+def multihost_slice(torch, device, card, tmp) -> dict:
+    """Phase 40 (training): the multihost preset at its shape (m = 1000,
+    n = 2000, K = 20, batch 65536 in bf16 over 8 ranks, each drawing its
+    own 8192 rows), 2 steps, where fit_sharded's own audit passes: each
+    rank against the card's memory (parallel/memory.detect_hbm_bytes)
+    shared by the 8 ranks on it (parallel/multihost.ranks_per_card);
+    else printed and skipped. Each rank's kernels counted (the bf16
+    trajectory and backward kernels)."""
+    from dladmm_tpu_torch.parallel.memory import detect_hbm_bytes
+    from dladmm_tpu_torch.parallel.multihost import ranks_per_card
+    from dladmm_tpu_torch.train.loop import sharded_audit
+    from dladmm_tpu_torch.utils.config import get_config
+
+    hbm = detect_hbm_bytes(device)
+    cfg = get_config("multihost")
+    s = cfg.sharding
+    sharing = ranks_per_card(device, s.data_axis)
+    out = {"hbm_bytes": hbm, "total_memory": torch.cuda.get_device_properties(device).total_memory,
+           "ranks": s.data_axis, "ranks_per_card": sharing}
+    try:
+        bd = sharded_audit(cfg, hbm / sharing)
+    except MemoryError as e:
+        emit("slice_multihost", skipped=str(e), **out)
+        return out
+    out["audit_per_rank_bytes"] = bd.total
+    t0 = time.monotonic()
+    ranks, _ = spawn_ranks(s.data_axis, "multihost", tmp, timeout=900)
+    summary = ranks[0]["multihost"]["summary"]
+    if summary["mesh"] != "8x1" or not math.isfinite(summary["final_nmse_db"]):
+        raise AssertionError(f"multihost: {summary}")
+    for r, rk in enumerate(ranks):
+        lc = rk["launches"]["multihost"]
+        if not (lc.get("trajectory_forward_bf16", 0) >= 2 and sum(v for k, v in lc.items() if "bwd" in k) >= 2):
+            raise AssertionError(f"multihost rank {r}: launches {lc}")
+    out.update(summary=summary, wall_s=time.monotonic() - t0, launches_per_rank=[r["launches"] for r in ranks],
+               peak_gb_per_rank=[r["peak_gb"]["multihost"] for r in ranks], audit=ranks[0]["multihost"]["audit"])
+    emit("slice_multihost", **out, card=card)
+    return out
+
+
+def sharded_serve_slice(torch, device, ckpt: str) -> dict:
+    """Phase 40 (serving): ``serve --sharded --ckpt-dir`` on phase 36's
+    fused checkpoint in float32, bfloat16 and int8 (every visible card: one
+    part here), each beside the unsharded serve: NMSE within NMSE_TOL_DB;
+    then a ShardedInferenceServer of two parts on the one card against
+    InferenceServer on the same 200 rows (fp32 and int8 within TOL, bf16
+    within BF16_TOL_ULPS bf16 ulps), each path's kernel counted from 0."""
+    from dladmm_tpu_torch.ops import cuda_int8, cuda_unroll
+    from dladmm_tpu_torch.parallel.mesh import make_mesh
+    from dladmm_tpu_torch.serve import InferenceServer, ShardedInferenceServer
+    from dladmm_tpu_torch.serve import main as serve_main
+    from dladmm_tpu_torch.utils.checkpoint import latest_step_dir, load_params
+
+    def counts():
+        return {"unroll_forward": cuda_unroll.unroll_forward.launches,
+                "int8_unroll_forward": cuda_int8.int8_unroll_forward.launches}
+
+    def reset():
+        cuda_unroll.unroll_forward.launches = cuda_int8.int8_unroll_forward.launches = 0
+
+    out = {}
+    for dtype in ("float32", "bfloat16", "int8"):
+        res = {}
+        for sharded in (False, True):
+            reset()
+            argv = ["--config=synthetic_small", "--ckpt-dir", ckpt, "--demo", "256", f"--dtype={dtype}"]
+            summary, _, _ = run_json(serve_main, [*argv, "--sharded"] if sharded else argv)
+            res[sharded] = (summary, nonzero(counts()))
+        if not res[True][0]["sharded"] or not res[True][1] or \
+                not abs(res[True][0]["nmse_db"] - res[False][0]["nmse_db"]) <= NMSE_TOL_DB:
+            raise AssertionError(f"serve --sharded --dtype={dtype}: {res[True]} against {res[False]}")
+        out[f"cli_{dtype}"] = {"sharded": res[True][0], "launches": res[True][1],
+                               "unsharded_nmse_db": res[False][0]["nmse_db"]}
+        emit("slice_serve_sharded", dtype=dtype, **out[f"cli_{dtype}"])
+    params, A, _ = load_params(latest_step_dir(ckpt), device)
+    mesh = make_mesh(data=2, devices=[device, device])
+    b = torch.from_numpy(np.random.default_rng(3).normal(size=(200, A.shape[0])).astype(np.float32)).to(device)
+    for dtype in (None, "bfloat16", "int8"):
+        reset()
+        server = ShardedInferenceServer(params, A, mesh, max_batch=256, dtype=dtype)
+        x, z = server.solve(b)
+        torch.cuda.synchronize()
+        launches = nonzero(counts())
+        xw, zw = InferenceServer(params, A, max_batch=256, dtype=dtype, device=device).solve(b)
+        errs = {}
+        for name, g_, w_ in (("x", x, xw), ("z", z, zw)):
+            g_, w_ = g_.float(), w_.float()
+            err = float((g_ - w_).abs().max())
+            tol = BF16_TOL_ULPS * bf16_ulp(w_) if dtype == "bfloat16" else TOL * max(1.0, float(w_.abs().max()))
+            if not err <= tol:
+                raise AssertionError(f"ShardedInferenceServer {dtype} {name}: {err} > {tol}")
+            errs[name] = err
+        if not launches:
+            raise AssertionError(f"ShardedInferenceServer {dtype}: no kernel launched")
+        out[f"server_{dtype or 'float32'}"] = {"max_abs_err": errs, "launches": launches, "parts": 2,
+                                               "route": server.routes[server.buckets[-1]]}
+        emit("slice_serve_sharded", server="ShardedInferenceServer, 2 parts on one card", dtype=dtype or "float32",
+             **out[f"server_{dtype or 'float32'}"])
+    return out
+
+
+def sharded_phases(torch, dev, card) -> tuple:
+    """Phases 36-40 in order; returns (their results, their kernels-line
+    entries: rows 2 and 4 at greedy's depths, every new path's launches)."""
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        res["fused"] = fused_slice(torch, dev, card, tmp)
+        res["greedy_kernels"] = check_greedy_depths(torch, dev, card)
+        res["greedy"] = greedy_slice(torch, dev)
+        res["dp"] = dp_slice(torch, dev, card, tmp)
+        res["general_b_dp"] = general_b_dp_slice(torch, tmp)
+        emit("detect_hbm_bytes", bytes=__import__("dladmm_tpu_torch.parallel.memory", fromlist=["x"])
+             .detect_hbm_bytes(dev), card=card)
+        res["multihost"] = multihost_slice(torch, dev, card, tmp)
+        res["serve"] = sharded_serve_slice(torch, dev, str(Path(tmp) / "fused"))
+    return res, sharded_entries(res)
+
+
+def sharded_entries(res: dict) -> list:
+    """The kernels line's entries of phases 36-40: rows 2 and 4 at the
+    greedy depths (launches from ``run --greedy``'s stages, times at
+    K = 1 beside the other depths), each with every new path's launches."""
+    gk, greedy, dp = res["greedy_kernels"], res["greedy"], res["dp"]
+    stage = greedy["stage_launches"]
+
+    def per_rank(D, job, key):
+        return [lc[job].get(key, 0) for lc in dp[D]["launches_per_rank"]]
+
+    def entry(name, key, source, replaces, err, tkey):
+        ms, plain_ms, bms, by = gk["timings"][(tkey, 1)]
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(s[key] for s in stage.values()),
+            "main_path": "run --config=synthetic_small --greedy --steps=1000: its 15 stages",
+            "launches_by_path": {
+                "greedy stages": {k: s.get(key, 0) for k, s in stage.items()},
+                "greedy fine-tune": [f.get(key, 0) for f in greedy["finetune_launches"]],
+                **{f"fit_sharded {job}, 2 gloo ranks (per rank)": per_rank(2, job, key) for job in DP_JOBS},
+                **{f"fit_sharded {job}, 1 NCCL rank": per_rank(1, job, key) for job in DP_JOBS},
+                "general_b_dp (per rank)": [lc["general_b_dp"].get(key, 0)
+                                            for lc in res["general_b_dp"]["launches_per_rank"]],
+                "multihost (per rank)": [lc["multihost"].get(key + "_bf16", 0) if key != "unroll_bwd_whole" else
+                                         sum(v for k, v in lc["multihost"].items() if "bwd" in k)
+                                         for lc in res["multihost"].get("launches_per_rank", [])],
+            },
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "shape": "synthetic_small K=1 S=64",
+            "other_depths": {f"K={K}": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), gk["timings"][(tkey, K)]))
+                             for K in GREEDY_DEPTHS[1:]},
+        }
+
+    return [
+        entry("trajectory_forward_greedy", "trajectory_forward", "dladmm_tpu_torch/ops/csrc/unroll.cu",
+              "dladmm_tpu/ops/pallas_unroll.py:266", gk["errs"]["traj"], "trajectory_forward"),
+        entry("unroll_bwd_greedy", "unroll_bwd_whole", "dladmm_tpu_torch/ops/csrc/unroll_bwd.cu",
+              "dladmm_tpu/ops/pallas_bwd.py:56", gk["errs"]["bwd"], "unroll_bwd"),
+    ]
+
+
+def new_path_launches(res: dict) -> dict:
+    """Launches of phases 36-40's paths for the rows whose main-path entry
+    is an earlier phase's: the optimizer sweeps (DP per rank, the ZeRO-1
+    shard, greedy) and serving (sharded)."""
+    dp = res["dp"]
+    srv = res["serve"]
+    return {
+        "adam_step": {"greedy stages": sum(s.get("adam_step", 0) for s in res["greedy"]["stage_launches"].values()),
+                      **{f"fit_sharded {job}, 2 gloo ranks (per rank)": [lc[job].get("adam_step", 0)
+                                                                          for lc in dp[2]["launches_per_rank"]]
+                         for job in DP_JOBS}},
+        "unroll_forward": {k: v["launches"].get("unroll_forward", 0) for k, v in srv.items()},
+        "int8_unroll_forward": {k: v["launches"].get("int8_unroll_forward", 0) for k, v in srv.items()},
+    }
+
+
 def build_phase() -> None:
     """Phase 2: nvcc builds every source of ops/csrc/ from this checkout,
     one nvcc per source, all started together; each source's ptxas report
@@ -3606,6 +4445,17 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this test needs the card",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--dp-worker"]:
+        return dp_worker(*sys.argv[2:4])
+    if sys.argv[1:] == ["--sharded"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        card = card_line()
+        print(card, flush=True)
+        build_phase()
+        _, entries = sharded_phases(torch, torch.device("cuda", 0), card)
+        print(json.dumps({"kernels": entries}), flush=True)
+        return 0
     if sys.argv[1:] == ["--int8-turns"]:
         card = card_line()
         print(card, flush=True)
@@ -3897,6 +4747,9 @@ def main() -> int:
     # 31-35. the image benchmark's shape, run_denoise, DLADMMSolver and the
     # XLA-side moment formats, each path counted from 0; their times.
     entries_patch = denoise_phases(torch, dev, card)
+    # 36-40. fused_adam, greedy, data parallelism and sharded serving, each
+    # path counted from 0.
+    sharded_res, entries_sharded = sharded_phases(torch, dev, card)
 
     ms, plain_ms, bms, by = timings[("synthetic_small", 256)]
     entries = [{
@@ -4033,6 +4886,13 @@ def main() -> int:
                    max_abs_err_by_dense_format={f: e for f, e in step16_errs.items() if f != "int8"}),
     ]
     entries += entries_patch
+    new_paths = new_path_launches(sharded_res)
+    for e in entries:
+        key = {"unroll_forward": "unroll_forward", "int8_unroll_forward": "int8_unroll_forward",
+               "adam_int8_rows": "adam_step", "adam_dense_rows": "adam_step"}.get(e["name"])
+        if key:
+            e["launches_new_paths"] = new_paths[key]  # phases 36-40
+    entries += entries_sharded
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -3,13 +3,18 @@
 The port of ``dladmm_tpu/run.py`` for single-device training: trains the
 configured D-LADMM net and prints the NMSE-vs-layer table against the
 classical LADMM baseline, then one summary JSON line. Runs on CUDA
-unless ``DLADMM_PLATFORM=cpu``. The JAX CLI's flags are all accepted;
-the ones whose path is not ported yet (greedy, sharded configs, ZeRO-1,
-fused_adam, the HBM audit) end in an argparse error naming ROADMAP.md.
-``--plot`` writes the NMSE-vs-layer figure (utils/plots.py; needs
-matplotlib). A config with ``compute_dtype="bfloat16"`` trains in
-bf16 (train/loop.fit); the two presets that ship it are sharded, which
-the sharding check stops.
+unless ``DLADMM_PLATFORM=cpu``. The JAX CLI's flags are all accepted
+and routed as it routes them: ``--greedy`` (train/loop.fit_greedy),
+``--optimizer=fused_adam`` (train/fused_adam.py), and the data-parallel
+presets (general_b_dp, multihost; ``--zero1``, ``--hbm-gb``) through
+train/loop.fit_sharded, one process a rank:
+
+    python -m torch.distributed.run --standalone --nproc_per_node=D \
+        -m dladmm_tpu_torch.run --config=general_b_dp
+
+Tensor-parallel presets (model_axis > 1: tp_small, tp_large,
+tp_large_bf16) end in an argparse error naming ROADMAP.md. ``--plot``
+writes the NMSE-vs-layer figure (utils/plots.py; needs matplotlib).
 """
 
 from __future__ import annotations
@@ -71,17 +76,10 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _reject_unported(ap, args, cfg) -> None:
-    t, s = cfg.train, cfg.sharding
-    if args.greedy:
-        ap.error(f"--greedy (fit_greedy) {_LATER}")
-    if args.zero1:
-        ap.error(f"--zero1 {_LATER}")
-    if args.hbm_gb is not None:
-        ap.error(f"--hbm-gb (the sharded memory audit) {_LATER}")
-    if s.data_axis * s.model_axis > 1:
-        ap.error(f"config {cfg.name!r} is sharded; fit_sharded {_LATER}")
-    if t.optimizer == "fused_adam":
-        ap.error(f"--optimizer=fused_adam {_LATER}")
+    s = cfg.sharding
+    if s.model_axis > 1:
+        ap.error(f"config {cfg.name!r} is sharded over model_axis={s.model_axis}: "
+                 f"tensor parallelism {_LATER}")
 
 
 def main(argv=None) -> int:
@@ -119,12 +117,66 @@ def main(argv=None) -> int:
 
     from dladmm_tpu_torch.models.api import select_forward
     from dladmm_tpu_torch.ops.prox import resolve_prox
-    from dladmm_tpu_torch.train.loop import fit
     from dladmm_tpu_torch.utils.logging import JsonlLogger
+
+    p, s = cfg.problem, cfg.sharding
+    sharded = s.data_axis * s.model_axis > 1
+    if args.import_torch and (sharded or args.greedy):
+        ap.error("--import-torch warm-starts the single-device fit only; use "
+                 "utils.torch_compat.from_torch + fit_sharded's checkpoint path for sharded configs")
+    if args.zero1:
+        if s.data_axis <= 1 or s.model_axis > 1:
+            ap.error("--zero1 applies to DP-only sharded configs (data_axis > 1, model_axis == 1); "
+                     f"config {cfg.name!r} is {s.data_axis}x{s.model_axis}")
+        cfg = dataclasses.replace(cfg, sharding=dataclasses.replace(s, zero1=True))
+        s = cfg.sharding
+    logger = JsonlLogger(args.log_jsonl)
+
+    if sharded:
+        if args.greedy:
+            ap.error("--greedy is single-device only (layer-wise stages have no sharded "
+                     f"implementation); unset it for config {cfg.name!r}")
+        if args.export_torch:
+            ap.error("--export-torch is single-device only; checkpoint the sharded run "
+                     "(--ckpt-dir) and export from the restored params instead")
+        from dladmm_tpu_torch.parallel.multihost import initialize_distributed, process_index, world_size
+        from dladmm_tpu_torch.train.loop import LAUNCH, fit_sharded
+
+        initialize_distributed()
+        if world_size() != s.data_axis:
+            ap.error(f"config {cfg.name!r} is sharded over data_axis={s.data_axis} ranks and this "
+                     f"run has {world_size()}; launch one process a rank: "
+                     + LAUNCH.format(D=s.data_axis, name=cfg.name))
+        t0 = time.monotonic()
+        _, history = fit_sharded(cfg, log_fn=logger, ckpt_dir=args.ckpt_dir, resume=args.resume,
+                                 hbm_bytes=args.hbm_gb and args.hbm_gb * 1e9)
+        if process_index() == 0:
+            _report(args, cfg, history[-1], "data-parallel fit_sharded", time.monotonic() - t0,
+                    history[-1]["mesh"])
+        return 0
+
     from dladmm_tpu_torch.utils.platform import resolve_device
 
     device = resolve_device()
-    p, t = cfg.problem, cfg.train
+    t = cfg.train
+    if args.greedy:
+        if args.ckpt_dir or args.resume:
+            ap.error("--greedy does not support --ckpt-dir/--resume")
+        if not p.identity_B:
+            ap.error(f"--greedy supports the identity-B benchmarks only; train config {cfg.name!r} without it")
+        if t.optimizer == "fused_adam":
+            ap.error("--greedy has no fused-optimizer implementation (stage losses run the "
+                     "optimizer chain); drop --optimizer=fused_adam")
+        from dladmm_tpu_torch.train.loop import fit_greedy
+
+        desc = "greedy (per-stage auto-selection)"
+        print(f"kernel path: {desc}", flush=True)
+        t0 = time.monotonic()
+        params, history = fit_greedy(cfg, log_fn=logger, device=device)
+        _report(args, cfg, history[-1], desc, time.monotonic() - t0, device=device)
+        _export(args, params)
+        return 0
+
     init_params = None
     if args.import_torch:
         from dladmm_tpu_torch.utils.torch_compat import from_torch
@@ -132,12 +184,23 @@ def main(argv=None) -> int:
         init_params = from_torch(args.import_torch, allow_pickle=args.allow_pickle, device=device)
         print(f"imported torch checkpoint {args.import_torch} (K={init_params.K})", flush=True)
 
+    fused = t.optimizer == "fused_adam"
+    if fused and resolve_prox(p) is None:
+        from dladmm_tpu_torch.train.loop import check_fused_adam
+
+        try:  # identity B: the plain forward loop owns the step, so --kernel must stay auto
+            check_fused_adam(t, nonneg_x=p.nonneg_x, check_kernel=p.identity_B)
+        except ValueError as e:
+            ap.error(str(e))
     if resolve_prox(p) is not None:
         # General proxes: fit() builds the prox layer step and trains
         # through autograd; the kernels and the manual backward are l1.
         if t.kernel not in ("auto", "reference"):
             ap.error(f"--kernel={t.kernel} covers the l1/l1 instantiation only; "
                      "general-prox configs run the plain loop")
+        if fused:
+            ap.error("--optimizer=fused_adam hand-writes the l1 backward; "
+                     "general-prox configs use the optimizer chain")
         if t.vjp != "auto":
             ap.error("general-prox configs route through autograd automatically; drop --vjp")
         forward_fn = None
@@ -148,6 +211,12 @@ def main(argv=None) -> int:
             ap.error(f"--kernel={t.kernel} requires identity B; the general-B "
                      f"config {cfg.name!r} runs the plain loop + manual backward")
         forward_fn, desc = None, "plain-loop + manual general-B reverse sweep"
+        if fused:
+            desc += " + fused Adam-in-backward"
+    elif fused:
+        # The fused optimizer owns the whole step: the plain forward loop
+        # and the reverse sweep with Adam in it.
+        forward_fn, desc = None, "manual reverse sweep + fused Adam-in-backward"
     elif t.vjp == "manual":
         forward_fn, desc = None, "manual-vjp-reverse-sweep"
     elif t.vjp == "xla":
@@ -159,39 +228,53 @@ def main(argv=None) -> int:
         )
     print(f"kernel path: {desc}", flush=True)
 
+    from dladmm_tpu_torch.train.loop import fit
+
     t0 = time.monotonic()
     params, history = fit(
-        cfg, log_fn=JsonlLogger(args.log_jsonl), forward_fn=forward_fn,
+        cfg, log_fn=logger, forward_fn=forward_fn,
         ckpt_dir=args.ckpt_dir, resume=args.resume, init_params=init_params, device=device,
     )
-    wall = time.monotonic() - t0
-    last = history[-1]
+    _report(args, cfg, history[-1], desc, time.monotonic() - t0, device=device)
+    _export(args, params)
+    return 0
+
+
+def _report(args, cfg, last, desc, wall, mesh=None, device=None) -> None:
+    """The CLI's tail: the optional plot, the NMSE-vs-layer table against
+    classical LADMM, and one summary JSON line."""
     curves = last["curves"]
     if args.plot:
         from dladmm_tpu_torch.utils.plots import save_nmse_curve_plot
 
+        title = f"{cfg.name}: NMSE vs layer (K={cfg.problem.K}" + (f", mesh {mesh})" if mesh else ")")
         save_nmse_curve_plot(args.plot, [float(v) for v in curves["nmse_curve_db"]],
-                             [float(v) for v in curves["ladmm_curve_db"]],
-                             title=f"{cfg.name}: NMSE vs layer (K={p.K})")
+                             [float(v) for v in curves["ladmm_curve_db"]], title=title)
         print(f"plot saved: {args.plot}")
-    print(f"\nconfig={cfg.name}  steps={t.steps}")
+    print(f"\nconfig={cfg.name}  steps={cfg.train.steps}" + (f"  mesh={mesh}" if mesh else ""))
     print(f"{'layer':>5} {'D-LADMM NMSE(dB)':>18} {'LADMM NMSE(dB)':>16}")
     for k, (a, b) in enumerate(zip(curves["nmse_curve_db"], curves["ladmm_curve_db"]), 1):
         print(f"{k:>5} {a:>18.2f} {b:>16.2f}")
-    print(json.dumps({
+    payload = {
         "final_nmse_db": last["nmse_db"],
         "final_residual": last["residual"],
         "ladmm_nmse_db_at_K": curves["ladmm_curve_db"][-1],
         "route": desc,
-        "device": str(device),
-        "fit_wall_s": wall,  # host clock around fit: training, evals, checkpoints
-    }), flush=True)
+        "device": str(device) if device is not None else None,
+        "fit_wall_s": wall,  # host clock around the fit: training, evals, checkpoints
+    }
+    if mesh:
+        payload["mesh"] = mesh
+        payload.pop("device")
+    print(json.dumps(payload), flush=True)
+
+
+def _export(args, params) -> None:
     if args.export_torch:
         from dladmm_tpu_torch.utils.torch_compat import save_torch
 
         save_torch(params, args.export_torch)
         print(f"torch export saved: {args.export_torch}")
-    return 0
 
 
 if __name__ == "__main__":

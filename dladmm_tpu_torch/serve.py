@@ -33,8 +33,10 @@ Runs on CUDA unless the caller asks for the CPU (``device="cpu"`` or
 The CLI serves a training checkpoint (``--ckpt-dir``: the newest
 step_N's params and the dictionary they were trained on) or a
 reference-style PyTorch file (``--import-torch``, on the config's
-dictionary). Later slices (ROADMAP.md): the sharded server
-(``--sharded``) and one CUDA Graph per bucket.
+dictionary). ``ShardedInferenceServer`` (``--sharded``) splits request
+rows over the data parts of a mesh (parallel/mesh.py), each part served
+by the single-device stack above, with no collective. A later slice
+(ROADMAP.md): one CUDA Graph per bucket.
 """
 
 from __future__ import annotations
@@ -60,7 +62,6 @@ from dladmm_tpu_torch.utils.platform import resolve_device
 # kernel= choices of int8 serving, as in the JAX package.
 INT8_KERNELS = ("auto", "megakernel", "reference")
 
-_LATER = "is not ported yet; it is a later slice of the port (ROADMAP.md §1)"
 # The serving CLI's --kernel choices, the JAX package's (its per-layer
 # "pallas" kernel is no serving choice).
 CLI_KERNELS = ("auto", "megakernel", "reference")
@@ -73,6 +74,14 @@ def _buckets(max_batch: int) -> Tuple[int, ...]:
         b *= 2
     out.append(max_batch)
     return tuple(out)
+
+
+def _bucket_of(buckets, S: int) -> int:
+    """The smallest bucket that holds S rows."""
+    for b in buckets:
+        if S <= b:
+            return b
+    raise ValueError(f"batch {S} exceeds max bucket {buckets[-1]}")
 
 
 def _prep_serving(params, A, B, dtype, layers, device):
@@ -247,12 +256,7 @@ class InferenceServer:
             torch.cuda.synchronize(self.device)
 
     def _bucket_for(self, S: int) -> int:
-        for b in self.buckets:
-            if S <= b:
-                return b
-        raise ValueError(
-            f"batch {S} exceeds max bucket {self.buckets[-1]}"
-        )
+        return _bucket_of(self.buckets, S)
 
     def _run(self, bucket: int, b: Tensor):
         with torch.no_grad():
@@ -275,6 +279,102 @@ class InferenceServer:
         if bucket != S:
             b = torch.cat([b, b.new_zeros((bucket - S, self.m))])
         x, z = self._run(bucket, b.contiguous())
+        return x[:S], z[:S]
+
+
+class ShardedInferenceServer:
+    """Data-parallel serving over the data parts of a one-process mesh.
+
+    The parameters and the dictionary go to every part's device; request
+    rows are split over the parts (``mesh.shape["data"]`` of them, each
+    on ``mesh.devices[j]``), each part runs the single-device serving
+    stack (an InferenceServer: the whole-unroll kernel in fp32 or bf16,
+    the int8 kernel, the plain loop for general B and group_l2) on its
+    rows, and the parts' results are gathered on the first part's
+    device. Rows are independent, so there is no collective and the
+    result equals the single-device server's row for row. Parts on one
+    device share its server.
+
+    Buckets are multiples of the part count T (each part serves
+    bucket / T rows); the defaults are the single-device power-of-two
+    ladder times T.
+
+    >>> server = ShardedInferenceServer(params, A, make_mesh(), max_batch=4096)
+    >>> x, z = server.solve(b)                 # b: (S, m), S <= 4096
+    """
+
+    def __init__(
+        self,
+        params: DLADMMParams,
+        A: Tensor,
+        mesh=None,
+        max_batch: int = 4096,
+        kernel: str = "auto",
+        buckets: Optional[Sequence[int]] = None,
+        dtype=None,
+        layers: Optional[int] = None,
+        B: Optional[Tensor] = None,
+        step_fn=None,
+        prox_pair=None,
+        device=None,
+    ):
+        """mesh: a one-process mesh (parallel/mesh.make_mesh; default:
+        every visible card, or the CPU where ``device`` or DLADMM_PLATFORM
+        asks for it). The other arguments are InferenceServer's."""
+        from dladmm_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
+
+        if mesh is None:
+            mesh = make_mesh(device=device)
+        if mesh.shape[MODEL_AXIS] != 1:
+            raise ValueError(
+                "serving is data-parallel only: rows are independent, so use a "
+                f"model=1 mesh (got {mesh.shape})"
+            )
+        T = mesh.shape[DATA_AXIS]
+        if len(mesh.devices) != T:
+            raise ValueError(
+                f"serving splits rows over this process's {T} data parts; the mesh holds "
+                f"{len(mesh.devices)} device(s) here (a distributed run's mesh holds one a rank)"
+            )
+        self.mesh = mesh
+        self.T = T
+        if buckets is None:
+            # Round max_batch up to a multiple of T: solve pads rows exactly.
+            max_batch = -(-max_batch // T) * T
+            buckets = tuple(b * T for b in _buckets(max_batch // T))
+        self.buckets = tuple(sorted(buckets))
+        for S in self.buckets:
+            if S % T:
+                raise ValueError(f"bucket {S} not divisible by data axis size {T}")
+        self._servers = {}
+        for dev in dict.fromkeys(mesh.devices):
+            self._servers[dev] = InferenceServer(
+                params, A, kernel=kernel, buckets=tuple(S // T for S in self.buckets), dtype=dtype,
+                layers=layers, B=B, step_fn=step_fn, prox_pair=prox_pair, device=dev,
+            )
+        first = self._servers[mesh.devices[0]]
+        self.device = first.device
+        self.m = first.m
+        self.request_dtype = first.request_dtype
+        self.routes = {S: first.routes[S // T] for S in self.buckets}
+
+    def solve(self, b) -> Tuple[Tensor, Tensor]:
+        """b (S, m) -> (x (S, n), z (S, d)) on the first part's device:
+        the rows padded to the bucket, split into T parts of bucket / T
+        rows, each solved on its part's device, gathered and sliced back."""
+        b = torch.as_tensor(b)
+        if b.ndim != 2 or b.shape[1] != self.m:
+            raise ValueError(f"expected (S, {self.m}), got {tuple(b.shape)}")
+        S = b.shape[0]
+        bucket = _bucket_of(self.buckets, S)
+        if b.dtype != self.request_dtype:
+            b = b.to(torch.float32)
+        b = b.to(self.request_dtype)
+        if bucket != S:
+            b = torch.cat([b, b.new_zeros((bucket - S, self.m))])
+        parts = [self._servers[dev].solve(chunk) for dev, chunk in zip(self.mesh.devices, b.chunk(self.T))]
+        x = torch.cat([xp.to(self.device) for xp, _ in parts])
+        z = torch.cat([zp.to(self.device) for _, zp in parts])
         return x[:S], z[:S]
 
 
@@ -496,7 +596,10 @@ def main(argv=None) -> int:
     )
     ap.add_argument("--max-batch", type=int, default=None)
     ap.add_argument(
-        "--sharded", action="store_true", help="sharded serving (not ported yet)"
+        "--sharded",
+        action="store_true",
+        help="data-parallel serving over every visible card "
+        "(ShardedInferenceServer)",
     )
     args = ap.parse_args(argv)
     latest = None
@@ -509,9 +612,6 @@ def main(argv=None) -> int:
                 f"no step_N checkpoint under {args.ckpt_dir!r}; train one with "
                 f"python -m dladmm_tpu_torch.run --config=... --ckpt-dir={args.ckpt_dir}"
             )
-    if args.sharded:
-        ap.error(f"--sharded {_LATER}")
-
     device = resolve_device()
     cfg = get_config(args.config)
     # General-prox configs: the served forward must run the SAME prox
@@ -554,9 +654,17 @@ def main(argv=None) -> int:
         requests = torch.from_numpy(_read_requests(args.input))
 
     max_batch = args.max_batch or max(1, requests.shape[0])
-    # One-shot CLI: a single bucket covering the whole request set.
+    # One-shot CLI: a single bucket covering the whole request set; a
+    # sharded bucket is a multiple of the data parts.
+    kw = {"device": device}
+    if args.sharded:
+        from dladmm_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(device=device)
+        max_batch = -(-max_batch // mesh.shape["data"]) * mesh.shape["data"]
+        kw = {"mesh": mesh}
     t_build = time.monotonic()
-    server = InferenceServer(
+    server = (ShardedInferenceServer if args.sharded else InferenceServer)(
         params,
         A,
         max_batch=max_batch,
@@ -567,7 +675,7 @@ def main(argv=None) -> int:
         B=B,
         step_fn=step_fn,
         prox_pair=prox if (prox is not None and B is None) else None,
-        device=device,
+        **kw,
     )
     build_s = time.monotonic() - t_build
 
@@ -587,6 +695,8 @@ def main(argv=None) -> int:
         "route": server.routes[max_batch],
         "device": str(device),
         "layers": args.layers,
+        "sharded": bool(args.sharded),
+        "data_parts": server.T if args.sharded else 1,
         "buckets": list(server.buckets),
         "warm_build_s": build_s,
         # Host wall time of one solve, including the copy back.

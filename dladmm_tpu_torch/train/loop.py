@@ -32,8 +32,13 @@ whose fused sweep updates the fp32 masters and rewrites the copy in the
 same pass (a plain optimizer re-casts it). Checkpoints hold the masters
 only; a resume casts the copy again. Evals run on the fp32 masters.
 
-Not ported yet (ROADMAP.md §1): ``optimizer="fused_adam"``,
-``fit_greedy`` and ``fit_sharded``; each raises NotImplementedError.
+``optimizer="fused_adam"`` applies Adam per layer inside the reverse
+sweep (train/fused_adam.py), with the delayed clip. ``fit_greedy``
+trains the k-layer prefixes in stages, then fine-tunes end to end.
+``fit_sharded`` trains data-parallel over the ranks of a
+``torch.distributed`` run (parallel/), one process a rank; tensor
+parallelism (model_axis > 1) is not ported yet (ROADMAP.md §1) and
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -554,8 +559,7 @@ def fit(
     p, t = config.problem, config.train
     device = resolve_device(device)
     compute_dtype = torch.bfloat16 if t.compute_dtype == "bfloat16" else None
-    if getattr(t, "optimizer", "adam") == "fused_adam":
-        raise NotImplementedError(f"optimizer='fused_adam' (train/fused_adam.py) {_LATER}")
+    fused = getattr(t, "optimizer", "adam") == "fused_adam"
     _, g_eval, _ = seed_keys(config)
     dtype = getattr(torch, t.dtype)
     if A is not None:
@@ -576,6 +580,11 @@ def fit(
                 "general-prox configs own the layer step (ops/reference."
                 "make_cached_step); pass step_fn=forward_fn=None"
             )
+        if fused:
+            raise ValueError(
+                "optimizer='fused_adam' hand-writes the l1 backward; "
+                "general-prox configs use optimizer='adam'"
+            )
         if getattr(t, "vjp", "auto") != "auto":
             raise ValueError("general-prox configs route through autograd automatically; leave vjp='auto'")
         from dladmm_tpu_torch.ops.reference import make_cached_step
@@ -583,14 +592,26 @@ def fit(
         prox_x_fn, prox_z_fn = prox
         step_fn = make_cached_step(prox_x_fn, prox_z_fn)
 
-    optimizer = _build_optimizer(t)
-    train_step = make_train_step(
-        optimizer, A, t.batch, p.sparsity_x, p.sparsity_e, B, layer_weights, step_fn,
-        forward_fn, freeze=tuple(t.freeze), vjp=getattr(t, "vjp", "auto"),
-        accum_steps=getattr(t, "accum_steps", 1), nonneg_x=nonneg_x, seed=t.seed,
-        compute_dtype=compute_dtype,
-    )
-    state = make_train_state(params, optimizer, compute_dtype)
+    if fused:
+        # Adam per layer inside the reverse sweep (train/fused_adam.py),
+        # with the chain's lr schedule and the delayed clip.
+        from dladmm_tpu_torch.train.fused_adam import make_fused_adam_state, make_fused_adam_step
+
+        check_fused_adam(t, step_fn, forward_fn, nonneg_x)
+        train_step = make_fused_adam_step(
+            A, t.batch, p.sparsity_x, p.sparsity_e, layer_weights, _lr_of(t), clip_norm=t.clip_norm,
+            compute_dtype=compute_dtype, freeze=tuple(t.freeze), B=B, seed=t.seed,
+        )
+        state = make_fused_adam_state(params, t.clip_norm, compute_dtype)
+    else:
+        optimizer = _build_optimizer(t)
+        train_step = make_train_step(
+            optimizer, A, t.batch, p.sparsity_x, p.sparsity_e, B, layer_weights, step_fn,
+            forward_fn, freeze=tuple(t.freeze), vjp=getattr(t, "vjp", "auto"),
+            accum_steps=getattr(t, "accum_steps", 1), nonneg_x=nonneg_x, seed=t.seed,
+            compute_dtype=compute_dtype,
+        )
+        state = make_train_state(params, optimizer, compute_dtype)
     eval_data = make_batch(g_eval, A, t.eval_batch, p.sparsity_x, p.sparsity_e, dtype, B, nonneg_x)
 
     def run_eval(st):
@@ -631,12 +652,423 @@ def fit(
     return state.params, history
 
 
-def fit_greedy(*args, **kwargs):
-    raise NotImplementedError(f"fit_greedy (greedy layer-wise training) {_LATER}")
+def check_fused_adam(t, step_fn=None, forward_fn=None, nonneg_x: bool = False, *, sharded: bool = False,
+                     check_kernel: Optional[bool] = None) -> None:
+    """The one home of the JAX package's conditions on
+    optimizer='fused_adam', raising ValueError. fit's (sharded=False): it
+    owns the forward and the manual backward, the delayed clip, one batch
+    a step and fp32 moments, l1/l1 only. fit_sharded's (sharded=True):
+    the delayed clip, kernel='auto', a manual backward.
+    ``check_kernel`` (default: sharded) adds the kernel rule, as run.py
+    does for identity B."""
+    if step_fn is not None or forward_fn is not None:
+        raise ValueError(
+            "optimizer='fused_adam' owns the forward (the plain loop) - "
+            "pass step_fn=forward_fn=None"
+        )
+    if t.clip_norm and getattr(t, "clip_mode", "global") != "delayed":
+        raise ValueError(
+            "optimizer='fused_adam' needs clip_mode='delayed' (or "
+            "clip_norm=None): exact global clipping is two-pass and "
+            "cannot run inside the backward sweep"
+        )
+    if (sharded if check_kernel is None else check_kernel) and t.kernel != "auto":
+        raise ValueError(
+            "optimizer='fused_adam' uses the plain-loop forward; "
+            f"kernel={t.kernel!r} does not apply (leave it 'auto')"
+        )
+    if getattr(t, "vjp", "auto") == "xla":
+        raise ValueError(
+            "optimizer='fused_adam' IS a manual-backward step; "
+            "vjp='xla' contradicts it (use optimizer='adam')"
+        )
+    if sharded:
+        return
+    if getattr(t, "accum_steps", 1) != 1:
+        raise ValueError(
+            "optimizer='fused_adam' applies the update INSIDE the "
+            "backward of one batch - gradient accumulation does not "
+            "compose; use optimizer='adam' with accum_steps"
+        )
+    if getattr(t, "moment_dtype", "float32") != "float32":
+        raise ValueError(
+            "optimizer='fused_adam' owns its (fp32) moment buffers; "
+            "moment_dtype applies to optimizer='adam'"
+        )
+    if nonneg_x:
+        raise ValueError(
+            "nonneg_x pairs with prox_x='nonneg_l1', which "
+            "optimizer='fused_adam' does not cover (l1-only manual "
+            "backward); use optimizer='adam'"
+        )
 
 
-def fit_sharded(*args, **kwargs):
-    raise NotImplementedError(f"fit_sharded (DP/TP training on torch.distributed) {_LATER}")
+GREEDY_STAGE_STRIDE = 1_000_000  # step index of stage k's step i: k * stride + i
+
+
+def fit_greedy(
+    config,
+    A: Optional[Tensor] = None,
+    log_fn=None,
+    steps_per_stage: Optional[int] = None,
+    finetune_steps: Optional[int] = None,
+    device=None,
+):
+    """Greedy layer-wise training; returns (params, history).
+
+    Stage k = 1..K trains the k-layer PREFIX with the loss at layer k,
+    from stage k-1's trained prefix; layers after k keep their LADMM init
+    (the layers' params are untied, so a prefix is the first k rows of
+    each stack). Stages use a constant lr and the config's clip, and the
+    final-state forward the policy selects (the trajectory and backward
+    kernels on the card). Stage k's step i draws its batch from
+    ``step_generator(seed, k * GREEDY_STAGE_STRIDE + i)`` (the JAX
+    package's ``fold_in(k_train, k * 1_000_000 + i)``). Then ``fit``
+    fine-tunes end to end from the stacked result (init_params). By
+    default half the step budget goes to the K stages and half to the
+    fine-tune. Runs on ``device`` (cuda unless asked otherwise)."""
+    import dataclasses
+
+    from dladmm_tpu_torch.data.synthetic import problem_matrices, seed_keys
+    from dladmm_tpu_torch.models.api import select_forward
+    from dladmm_tpu_torch.models.unroll import init_dladmm_params
+    from dladmm_tpu_torch.utils.platform import resolve_device
+
+    p, t = config.problem, config.train
+    if not getattr(p, "identity_B", True):
+        raise ValueError(
+            "fit_greedy supports the identity-B benchmarks only; train "
+            "general-B configs end-to-end via fit() (run.py without "
+            "--greedy)"
+        )
+    if getattr(t, "accum_steps", 1) != 1:
+        raise ValueError(
+            "fit_greedy does not support gradient accumulation; use the "
+            "end-to-end fit()"
+        )
+    if resolve_prox(p) is not None or getattr(p, "nonneg_x", False):
+        raise ValueError(
+            "fit_greedy supports the l1/l1 reference instantiation only "
+            "(its stage losses use the l1 fast paths); train general-prox "
+            "configs end-to-end via fit()"
+        )
+    device = resolve_device(device)
+    _, g_eval, _ = seed_keys(config)
+    dtype = getattr(torch, t.dtype)
+    if A is not None:
+        A = torch.as_tensor(A).to(device, dtype)
+    A, _ = problem_matrices(config, A, device=device)
+    params = init_dladmm_params(A, K=p.K, beta=p.beta, dtype=dtype)
+    per_stage = steps_per_stage or max(1, t.steps // (2 * p.K))
+    ft_steps = finetune_steps if finetune_steps is not None else max(0, t.steps - per_stage * p.K)
+    # A constant lr for the short stages (a cosine horizon means nothing
+    # per stage); the clip stays.
+    optimizer = _build_optimizer(dataclasses.replace(t, lr_schedule=None))
+    vjp = getattr(t, "vjp", "auto")
+    compute_dtype = torch.bfloat16 if t.compute_dtype == "bfloat16" else None
+    stage_fwd = None
+    if vjp not in ("manual", "xla"):
+        stage_fwd = select_forward(p.m, p.n, p.m, t.batch, kernel=t.kernel, device=device,
+                                   dtype=t.compute_dtype)[0]
+
+    history = []
+    for k in range(1, p.K + 1):
+        step = make_train_step(
+            optimizer, A, t.batch, p.sparsity_x, p.sparsity_e, forward_fn=stage_fwd,
+            freeze=tuple(t.freeze), vjp=vjp, seed=t.seed, compute_dtype=compute_dtype,
+        )
+        # make_train_state copies the prefix: at k = K the prefix is the
+        # whole stack, which the CUDA sweep would otherwise update in place.
+        state = make_train_state(DLADMMParams(*(v[:k] for v in params)), optimizer, compute_dtype)
+        for i in range(per_stage):
+            state, loss = step(state, k * GREEDY_STAGE_STRIDE + i)
+        params = DLADMMParams(*(torch.cat([pre, full[k:]]) for full, pre in zip(params, state.params)))
+        rec = {"stage": k, "loss": float(loss), "steps": per_stage}
+        history.append(rec)
+        if log_fn:
+            log_fn(rec)
+
+    if ft_steps:
+        ft_fwd = None
+        if vjp not in ("manual", "xla"):
+            ft_fwd = select_forward(p.m, p.n, p.m, t.batch, kernel=t.kernel,
+                                    need_trajectory=t.layer_loss is not None, device=device,
+                                    dtype=t.compute_dtype)[0]
+        ft_cfg = dataclasses.replace(config, train=dataclasses.replace(t, steps=ft_steps))
+        params, ft_hist = fit(ft_cfg, A=A, log_fn=log_fn, forward_fn=ft_fwd, init_params=params, device=device)
+        history.extend(ft_hist)
+    else:
+        eval_data = make_batch(g_eval, A, t.eval_batch, p.sparsity_x, p.sparsity_e, dtype)
+        ev = evaluate(params, A, eval_data, use_kernel=t.kernel != "reference")
+        rec = {"step": per_stage * p.K, "loss": float("nan"), "nmse_db": ev["nmse_db"],
+               "residual": ev["residual"], "curves": ev}
+        history.append(rec)
+        if log_fn:
+            log_fn({k_: v for k_, v in rec.items() if k_ != "curves"})
+    return params, history
+
+
+_MOMENT_BYTES = {"float32": 4.0, "bfloat16": 2.0, "bfloat16_sr": 2.0, "bfloat16_sr_mu": 3.0, "int8": 1.02}
+LAUNCH = "python -m torch.distributed.run --standalone --nproc_per_node={D} -m dladmm_tpu_torch.run --config={name}"
+
+
+def check_sharded(config) -> None:
+    """fit_sharded's conditions on a config, before anything starts (the
+    JAX package's, in its order); model_axis > 1 raises
+    NotImplementedError."""
+    p, t, s = config.problem, config.train, config.sharding
+    if s.model_axis > 1:
+        raise NotImplementedError(
+            f"config {config.name!r} is {s.data_axis}x{s.model_axis}: tensor parallelism "
+            f"(model_axis > 1) {_LATER}; its next item"
+        )
+    if resolve_prox(p) is not None or getattr(p, "nonneg_x", False):
+        raise ValueError(
+            "fit_sharded covers the l1/l1 instantiation only (the per-shard "
+            "fast paths are l1-specialized); train general-prox configs "
+            "single-device via fit()"
+        )
+    general_b = not getattr(p, "identity_B", True)
+    if general_b and t.kernel != "auto":
+        raise ValueError(
+            "general-B training runs the plain loop + manual general-B "
+            f"reverse sweep; kernel={t.kernel!r} does not apply (the kernels "
+            "specialize to B = I). Leave kernel='auto'."
+        )
+    fused = getattr(t, "optimizer", "adam") == "fused_adam"
+    if fused:
+        check_fused_adam(t, sharded=True)
+    if getattr(t, "accum_steps", 1) != 1:
+        raise ValueError(
+            "accum_steps > 1 is the single-device fit()'s memory lever; on "
+            "a mesh, raise data_axis (more batch shards) instead"
+        )
+    if getattr(s, "zero1", False):
+        if fused:
+            raise ValueError(
+                "zero1 and optimizer='fused_adam' both restructure the "
+                "update and do not compose: fused applies Adam inside "
+                "the reverse sweep (replicated moments), zero1 shards the "
+                "post-backward update. Pick one."
+            )
+        if t.clip_norm and getattr(t, "clip_mode", "global") == "delayed":
+            raise ValueError(
+                "zero1's reduce-scatter makes the EXACT global-norm clip "
+                "single-pass - clip_mode='delayed' would be a strictly "
+                "worse approximation here; use clip_mode='global'"
+            )
+    for what, rows in (("batch", t.batch), ("eval_batch", t.eval_batch)):
+        if rows % s.data_axis:
+            raise ValueError(f"{what}={rows} does not split over data_axis={s.data_axis} ranks")
+
+
+def sharded_audit(config, hbm_bytes: float, print_fn=None):
+    """fit_sharded's per-device memory audit of a config
+    (parallel/memory.audit_or_raise against ``hbm_bytes``): the breakdown,
+    or MemoryError."""
+    from dladmm_tpu_torch.parallel.memory import audit_or_raise
+
+    p, t, s = config.problem, config.train, config.sharding
+    md = getattr(t, "moment_dtype", "float32")
+    return audit_or_raise(
+        p.m, p.n, p.K, t.batch, s.data_axis, 1, getattr(s, "layout", "sharded_w2"),
+        dtype_bytes=torch.empty((), dtype=getattr(torch, t.dtype)).element_size(),
+        compute_dtype_bytes=2 if t.compute_dtype == "bfloat16" else None,
+        hbm_bytes=hbm_bytes,
+        print_fn=print_fn,
+        d=(p.d or p.m) if not getattr(p, "identity_B", True) else None,
+        opt_shard_degree=s.data_axis if getattr(s, "zero1", False) else 1,
+        moment_bytes=_MOMENT_BYTES[md.removesuffix("_pallas")],
+    )
+
+
+def fit_sharded(
+    config,
+    A: Optional[Tensor] = None,
+    log_fn=None,
+    ckpt_dir: Optional[str] = None,
+    resume: bool = False,
+    hbm_bytes: Optional[float] = None,
+    init_params: Optional[DLADMMParams] = None,
+    device=None,
+):
+    """Data-parallel training per config.sharding (model_axis == 1) over
+    the ranks of a torch.distributed run; returns (params, history) on
+    every rank.
+
+    One process a rank, launched as
+    ``python -m torch.distributed.run --standalone --nproc_per_node=D -m
+    dladmm_tpu_torch.run --config=...`` (parallel/multihost.
+    initialize_distributed reads the launcher's env:// variables); the
+    run's world size must equal data_axis. The per-device memory audit
+    (parallel/memory.audit_or_raise) runs before anything is allocated,
+    against ``hbm_bytes`` or the card's memory shared by the ranks on it
+    (parallel/multihost.ranks_per_card).
+
+    Each rank runs the single-device stack on its global_batch / D rows:
+    the forward the policy selects at that batch (the trajectory kernel
+    and, for the final-layer loss, the backward kernel on the card; the
+    plain loop and the manual general-B sweep for a general B), then
+
+      * optimizer='fused_adam': parallel/collectives.
+        make_dp_fused_adam_step (per-layer all-reduces in the sweep);
+      * sharding.zero1: make_dp_zero1_train_step (reduce-scatter, the
+        exact clip, the rank's slice of the update, all-gather);
+      * else make_dp_train_step (one all-reduce, the same update on
+        every rank; the fused CUDA sweep for ``*_pallas`` moments).
+
+    The step's global batch is drawn as the single-device fit draws it
+    (``step_generator(seed, i)``) and each rank keeps its rows, so a D-rank
+    run sees the single-device run's data; with sharding.multihost each
+    rank draws only its own rows (multihost.host_local_batch). The eval
+    batch is fit's, split over the ranks; evaluation adds the ranks' sums
+    (make_dp_eval). Training starts from ``init_params`` where given (as
+    fit's does), else the LADMM init; the LADMM curve is the LADMM-init
+    net's.
+
+    With ckpt_dir, rank 0 writes the params, the optimizer state (ZeRO-1
+    slices all-gathered into the whole-vector state), the step and A (and
+    B) at every eval; resume=True restores the latest on every rank, each
+    ZeRO-1 rank taking its slice. Tensor parallelism raises
+    NotImplementedError (ROADMAP.md §1)."""
+    import dataclasses
+
+    from dladmm_tpu_torch.data.synthetic import problem_matrices, seed_keys
+    from dladmm_tpu_torch.models.api import select_forward
+    from dladmm_tpu_torch.models.unroll import init_dladmm_params
+    from dladmm_tpu_torch.parallel import collectives as coll
+    from dladmm_tpu_torch.parallel.memory import detect_hbm_bytes
+    from dladmm_tpu_torch.parallel.mesh import make_mesh
+    from dladmm_tpu_torch.parallel.multihost import (
+        host_local_batch,
+        initialize_distributed,
+        rank_device,
+        ranks_per_card,
+        world_size,
+    )
+    from dladmm_tpu_torch.train.fused_adam import make_fused_adam_state
+
+    check_sharded(config)
+    p, t, s = config.problem, config.train, config.sharding
+    D = s.data_axis
+    rank_dev = initialize_distributed(device) or rank_device(device)  # one rank, no launcher: its device
+    if world_size() != D:
+        raise RuntimeError(
+            f"config {config.name!r} is sharded over data_axis={D} ranks, and this run has "
+            f"{world_size()}: launch one process a rank, "
+            + LAUNCH.format(D=D, name=config.name)
+        )
+    mesh = make_mesh(data=D, devices=[rank_dev])
+    is_primary = mesh.rank == 0
+    general_b = not getattr(p, "identity_B", True)
+    zero1 = getattr(s, "zero1", False)
+    fused = getattr(t, "optimizer", "adam") == "fused_adam"
+    vjp = getattr(t, "vjp", "auto")
+    compute_dtype = torch.bfloat16 if t.compute_dtype == "bfloat16" else None
+    sharded_audit(config, hbm_bytes or detect_hbm_bytes(rank_dev) / ranks_per_card(rank_dev),
+                  print if is_primary else None)
+
+    _, g_eval, _ = seed_keys(config)
+    dtype = getattr(torch, t.dtype)
+    if A is not None:
+        A = torch.as_tensor(A).to(rank_dev, dtype)
+    A, B = problem_matrices(config, A, device=rank_dev)
+    ladmm = init_dladmm_params(A, B, K=p.K, beta=p.beta, dtype=dtype)
+    params = ladmm
+    if init_params is not None:
+        params = DLADMMParams(*(torch.as_tensor(v).to(rank_dev, dtype) for v in init_params))
+    layer_weights = _layer_weights(t.layer_loss, p.K, torch.float32, rank_dev)
+    A_c = A if compute_dtype is None else A.to(compute_dtype)
+    B_c = B if B is None or compute_dtype is None else B.to(compute_dtype)
+
+    if fused:
+        state = make_fused_adam_state(params, t.clip_norm, compute_dtype)
+        train_step = coll.make_dp_fused_adam_step(
+            mesh, layer_weights, _lr_of(t), clip_norm=t.clip_norm, compute_dtype=compute_dtype,
+            freeze=tuple(t.freeze), B=B_c)
+    else:
+        forward_fn = None
+        if not general_b and vjp not in ("manual", "xla"):
+            forward_fn = select_forward(p.m, p.n, p.m, max(1, t.batch // D), kernel=t.kernel,
+                                        need_trajectory=t.layer_loss is not None, device=rank_dev,
+                                        dtype=t.compute_dtype)[0]
+        if zero1:
+            # The step owns the exact clip: the optimizer has none.
+            optimizer = _build_optimizer(dataclasses.replace(t, clip_norm=None))
+            state = coll.make_dp_zero1_state(params, optimizer, mesh, compute_dtype)
+            train_step = coll.make_dp_zero1_train_step(
+                optimizer, mesh, clip_norm=t.clip_norm, compute_dtype=compute_dtype, freeze=tuple(t.freeze),
+                layer_weights=layer_weights, forward_fn=forward_fn, vjp=vjp, B=B_c)
+        else:
+            optimizer = _build_optimizer(t)
+            state = make_train_state(params, optimizer, compute_dtype)
+            train_step = coll.make_dp_train_step(
+                optimizer, mesh, compute_dtype, tuple(t.freeze), layer_weights, None, forward_fn, vjp, B=B_c)
+
+    from dladmm_tpu_torch.data.synthetic import SyntheticBatch
+
+    def rows(data):
+        """This rank's rows of a global batch."""
+        n = data.b.shape[0] // D
+        return SyntheticBatch(*(v[mesh.rank * n: (mesh.rank + 1) * n] for v in data))
+
+    def batch_of(i):
+        if s.multihost and D > 1:
+            return host_local_batch(t.seed, i, A, t.batch, mesh, p.sparsity_x, p.sparsity_e, dtype, B)
+        return rows(make_batch(step_generator(t.seed, i), A, t.batch, p.sparsity_x, p.sparsity_e, dtype, B))
+
+    eval_data = rows(make_batch(g_eval, A, t.eval_batch, p.sparsity_x, p.sparsity_e, dtype, B))
+    eval_fn = coll.make_dp_eval(mesh, B, use_kernel=t.kernel != "reference")
+    ladmm_curve = eval_fn(ladmm, A, eval_data)["nmse_curve_db"]
+
+    layout = coll.zero1_layout(state.params, optimizer, D) if zero1 else None
+    if ckpt_dir:
+        from dladmm_tpu_torch.utils.checkpoint import latest_step_dir, restore_checkpoint, save_checkpoint
+
+        if resume:
+            latest = latest_step_dir(ckpt_dir)
+            if latest is not None:
+                template = state._replace(compute_params=None)
+                if zero1:
+                    template = template._replace(opt_state=coll.zero1_global_state(optimizer, layout, rank_dev))
+                state = restore_checkpoint(latest, template)[0]
+                if zero1:
+                    state = state._replace(opt_state=coll.zero1_slice(state.opt_state, layout, mesh.rank))
+                if compute_dtype is not None:
+                    state = state._replace(compute_params=_cast(state.params, compute_dtype))
+
+    mesh_desc = f"{D}x1"
+    history = []
+
+    def record(step, loss):
+        ev = eval_fn(state.params, A, eval_data)
+        rec = {"step": step, "loss": loss, "nmse_db": ev["nmse_db"], "residual": ev["residual"],
+               "mesh": mesh_desc}
+        history.append({**rec, "curves": {"nmse_curve_db": ev["nmse_curve_db"], "ladmm_curve_db": ladmm_curve}})
+        if log_fn and is_primary:
+            log_fn(rec)
+
+    def save(step):
+        st = state._replace(compute_params=None)
+        if zero1:
+            st = st._replace(opt_state=coll.zero1_gather(st.opt_state, layout, mesh))
+        if is_primary:
+            save_checkpoint(ckpt_dir, st, step=step, A=A, B=B)
+        if mesh.distributed:
+            import torch.distributed as dist
+
+            dist.barrier(group=mesh.group)
+
+    for i in range(state.step, t.steps):
+        state, loss = train_step(state, A_c, batch_of(i))
+        if (i + 1) % t.eval_every == 0 or i + 1 == t.steps:
+            record(i + 1, float(loss))
+            if ckpt_dir:
+                save(i + 1)
+    if not history:
+        # Resumed at (or past) the final step: report the restored model.
+        record(state.step, float("nan"))
+    return state.params, history
 
 
 __all__ = [
@@ -648,6 +1080,8 @@ __all__ = [
     "delayed_clip_by_global_norm",
     "evaluate",
     "fit",
+    "fit_greedy",
+    "fit_sharded",
     "loss_fn",
     "make_train_state",
     "make_train_step",

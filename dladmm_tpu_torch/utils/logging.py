@@ -1,8 +1,8 @@
 """Structured scalar logging: the port of ``dladmm_tpu/utils/logging.py``.
 
 One JSON object per record, appended to a jsonl file and mirrored to
-stderr. The port trains on one process, so the JAX package's host-0
-filter has nothing to filter yet.
+stderr. In a data-parallel run train/loop.fit_sharded calls it on rank 0
+only (the JAX package's host-0 filter).
 """
 
 from __future__ import annotations

@@ -460,8 +460,9 @@ def test_fit_bf16_checkpoints_and_resumes(tmp_path):
 
 def test_run_cli_takes_bf16_configs_but_not_sharded_ones(capsys):
     """run.py no longer refuses compute_dtype="bfloat16"; the two shipped
-    bf16 presets are sharded, and the sharding check stops them, naming
-    the slice that is not ported."""
+    bf16 presets are sharded: tp_large_bf16 is tensor-parallel (not
+    ported, ROADMAP.md §1), and multihost needs its 8 ranks (one process
+    is refused with the launch line)."""
     from dladmm_tpu_torch import run as trun
 
     for name in ("tp_large_bf16", "multihost"):

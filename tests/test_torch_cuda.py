@@ -1600,3 +1600,107 @@ def test_xla_side_step_on_the_card_equals_cpu(cuda_device, fmt):
                 assert torch.equal(mc.codes, mg.codes.cpu()) and torch.equal(mc.scale, mg.scale.cpu())
             else:
                 assert torch.equal(mc, mg.cpu())
+
+
+# -- greedy depths, the fused step, data-parallel pieces ------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 2, 3])
+@pytest.mark.parametrize("m,n,S,bs", [(32, 64, 16, None), (250, 500, 64, None), (250, 500, 1024, 128)])
+def test_greedy_depths_match_plain(cuda_device, K, m, n, S, bs):
+    """Rows 2 and 4 at the prefix depths greedy's first stages run
+    (K = 1, 2, 3; the plans were sized at K >= 4): the trajectory kernel
+    at TOL, the backward kernel on its stacks (both routes) at
+    tests/test_pallas_bwd.py's tolerance, one launch each."""
+    from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj
+
+    A, b, p = _problem(m, n, K, S, seed=K + S, device=cuda_device)
+    before = cuda_traj.trajectory_forward.launches
+    got = cuda_traj.trajectory_forward(b, A, *p, with_tax=True)
+    want = cuda_traj.trajectory_forward_plain(b, A, *p, with_tax=True)
+    torch.cuda.synchronize()
+    assert cuda_traj.trajectory_forward.launches == before + 1
+    _assert_close(got, want)
+    A, b, p, traj, cts = _bwd_case(m, n, K, S, seed=K + S, device=cuda_device, ties=K > 1)
+    route = "chunked" if bs is not None and bs < S else "whole"
+    before = dict(cuda_bwd.unroll_bwd.launches)
+    g = cuda_bwd.unroll_bwd(b, A, *p, *traj, *cts, bs=bs, data_grads=False)
+    w = cuda_bwd.unroll_bwd_plain(b, A, *p, *traj, *cts, data_grads=False)
+    torch.cuda.synchronize()
+    assert cuda_bwd.unroll_bwd.launches[route] == before[route] + 1
+    _assert_grads_close(g[0], w[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype,lw,clip", [(None, False, 1e-3), (None, True, 1.0),
+                                                   (torch.bfloat16, True, 1.0)])
+def test_fused_adam_step_on_the_card_equals_cpu(cuda_device, compute_dtype, lw, clip):
+    """train/fused_adam's step (plain PyTorch: the forward loop, the
+    reverse sweep with Adam in it) on CUDA tensors against the same step
+    on CPU tensors, 3 steps on the same batches: the losses within rtol
+    1e-5 (bf16 2e-2), the count equal and the compute copy the masters
+    rounded. The params: every element within Adam's reach of a sign flip
+    (2 * lr a step, tests/test_distributed.py's bf16 bound), and in fp32
+    all but 0.1% of each leaf within rtol 5e-5 and atol 1e-2 * lr. Where a
+    gradient cancels (a sum of terms much larger than itself) the card's
+    and the CPU's summation orders move it, and Adam's second and third
+    updates divide it by its own RMS (one W1 element of 8192 sits
+    2.3e-5 apart; tests/test_torch_fused_adam.py). In bf16, each
+    element's update (new master - old) after 1 and after 3 steps: the
+    signs agree on at least 99% of each nonzero update, and after 3 steps
+    each leaf's update differs by at most 10% of its norm (the bounds of
+    the bf16 comparison with the JAX package,
+    tests/test_torch_fused_adam.py)."""
+    from dladmm_tpu_torch.data.synthetic import SyntheticBatch
+    from dladmm_tpu_torch.train import fused_adam
+
+    m, n, K, S, lr = 32, 64, 4, 16, 1e-3
+    A, b, p = _problem(m, n, K, S, seed=5, device="cpu")
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(3):
+        x = torch.as_tensor(((rng.random((S, n)) < 0.1) * rng.normal(size=(S, n))).astype(np.float32))
+        e = torch.as_tensor(((rng.random((S, m)) < 0.1) * rng.normal(size=(S, m))).astype(np.float32))
+        batches.append(SyntheticBatch(x @ A.T + e, x, e))
+    weights = torch.full((K,), 1.0 / K) if lw else None
+    out = {}
+    for dev in ("cpu", cuda_device):
+        step = fused_adam.make_fused_adam_step(A.to(dev), lr=lr, clip_norm=clip, from_batch=True,
+                                               compute_dtype=compute_dtype,
+                                               layer_weights=None if weights is None else weights.to(dev))
+        st = fused_adam.make_fused_adam_state(p.to(dev), clip, compute_dtype)
+        losses, first = [], None
+        for bt in batches:
+            st, loss = step(st, SyntheticBatch(*(v.to(dev) for v in bt)))
+            losses.append(float(loss))
+            first = first or [v.cpu().clone() for v in st.params]
+        out[str(torch.device(dev).type)] = (st, losses, first)
+    (cs, cl, c1), (gs, gl, g1) = out["cpu"], out["cuda"]
+    bf16 = compute_dtype is not None
+    np.testing.assert_allclose(gl, cl, rtol=2e-2 if bf16 else 1e-5)
+    assert int(gs.opt_state.count) == int(cs.opt_state.count) == 3
+    for a, w in zip(gs.params, cs.params):
+        d = (a.cpu() - w).abs()
+        assert float(d.max()) <= 2 * lr * 3
+        if not bf16:
+            assert float((d > 1e-2 * lr + 5e-5 * w.abs()).float().mean()) <= 1e-3
+    if bf16:
+        for cp, mp in zip(gs.compute_params, gs.params):
+            assert torch.equal(cp, mp.to(torch.bfloat16))
+        for steps, card, cpu in ((1, g1, c1), (3, [v.cpu() for v in gs.params], list(cs.params))):
+            for name, a, w, v in zip(p._fields, card, cpu, p):
+                da, dw = (a - v).flatten(), (w - v).flatten()
+                moved = dw != 0
+                agree = float((torch.sign(da[moved]) == torch.sign(dw[moved])).float().mean())
+                assert agree >= 0.99, (steps, name, agree)
+                if steps == 3:
+                    assert float((da - dw).norm()) <= 0.1 * float(dw.norm()), (name, float((da - dw).norm() / dw.norm()))
+
+
+@pytest.mark.gpu
+def test_detect_hbm_bytes_on_the_card(cuda_device):
+    from dladmm_tpu_torch.parallel import memory
+
+    got = memory.detect_hbm_bytes()
+    assert got == float(torch.cuda.get_device_properties(0).total_memory) and got > 1e10

@@ -31,7 +31,8 @@ def test_every_module_imports_without_jax():
     for m in ("ops.cuda_unroll", "ops.cuda_traj", "ops.cuda_bwd", "ops.cuda_int8", "ops.cuda_layer",
               "ops.quantized", "serve", "run", "train.loop", "train.qadam_cuda", "train.qmoments",
               "models.solver", "run_denoise", "data.images", "data.dictionary", "data.fixtures",
-              "utils.plots"):
+              "utils.plots", "train.fused_adam", "parallel", "parallel.mesh", "parallel.multihost",
+              "parallel.memory", "parallel.collectives"):
         assert f"dladmm_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

@@ -260,14 +260,13 @@ def test_cli_demo_nmse_equals_ladmm(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize(
     "extra",
-    [["--dtype=bfloat16", "--sharded"], ["--config=synthetic_nonneg", "--dtype=int8"], ["--sharded"],
-     ["--kernel=pallas"]],
+    [["--dtype=bfloat16", "--sharded", "--kernel=pallas"], ["--config=synthetic_nonneg", "--dtype=int8"],
+     ["--sharded", "--config=synthetic_nonneg", "--dtype=int8"], ["--kernel=pallas"]],
 )
 def test_cli_rejects_unported_options(tmp_path, extra, monkeypatch):
-    """--sharded is not ported, in bf16 (which serves unsharded) or
-    float32; int8 serves l1/l1 configs only (a trained prox is refused,
-    as in the JAX package); the per-layer "pallas" kernel is no serving
-    choice."""
+    """int8 serves l1/l1 configs only (a trained prox is refused, as in
+    the JAX package), sharded or not; the per-layer "pallas" kernel is no
+    serving choice, sharded or not."""
     from dladmm_tpu_torch.models.unroll import init_dladmm_params
     from dladmm_tpu_torch.utils.torch_compat import save_torch
 

@@ -181,10 +181,15 @@ def test_run_cli_then_serve_ckpt_dir(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--greedy"], ["--zero1"], ["--optimizer=fused_adam"],
-    ["--hbm-gb=80"], ["--config=tp_small"], ["--eval-only"],
+    ["--greedy", "--optimizer=fused_adam", "--clip-mode=delayed"], ["--zero1"],
+    ["--optimizer=fused_adam", "--vjp=xla"], ["--hbm-gb=80", "--config=tp_small"],
+    ["--config=tp_small"], ["--eval-only"],
 ])
 def test_run_cli_rejects_unported_options(extra, monkeypatch):
+    """What run.py refuses: tensor-parallel presets (not ported,
+    ROADMAP.md §1), and the JAX CLI's conflicts (--greedy with the fused
+    optimizer, --zero1 on an unsharded config, the fused optimizer with
+    --vjp=xla, --eval-only without a checkpoint)."""
     monkeypatch.setenv("DLADMM_PLATFORM", "cpu")
     argv = ["--config=smoke", "--steps=2"] + extra
     if extra[0].startswith("--config"):
@@ -209,5 +214,6 @@ def test_fit_routes_general_configs():
     # bf16 training runs now (values: tests/test_torch_bf16_train.py).
     _, hist = tloop.fit(_smoke(compute_dtype="bfloat16"), device="cpu")
     assert hist and all(np.isfinite(h["nmse_db"]) and np.isfinite(h["loss"]) for h in hist)
+    # Tensor parallelism is the next slice (ROADMAP.md §1).
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloop.fit_greedy(_smoke())
+        tloop.fit_sharded(get_config("tp_small"), device="cpu")
