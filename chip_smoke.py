@@ -286,6 +286,25 @@ the first fault. Each phase prints one JSON line:
      checkpoint) in float32, bfloat16 and int8 at the unsharded serve's
      NMSE within 0.01 dB, and a ShardedInferenceServer of two parts on the
      card against InferenceServer (TOL; bf16 BF16_TOL_ULPS), counted from 0;
+ 41. slice_tp_parity: tensor parallelism at tp_small's shape (m = 256,
+     n = 512, K = 8, batch 128) from a perturbed LADMM init on 4 gloo
+     ranks sharing the card (``--dp-worker``), as 2x2 and 1x4, in both
+     layouts: the gathered forward at TOL, the eval within 1e-4, every
+     leaf's gradient within TP_GRAD_TOL of its scale and the losses at
+     TP_LOSS_RTOL (bf16 with beta frozen: the JAX package's bf16 bound),
+     each against the single-process plain path on the card;
+ 42. slice_tp_small: ``run --config=tp_small`` on its 8 ranks (200 steps):
+     the last eval below the first and within TP_NMSE_DB of the
+     single-process fit; resumed from its step-100 checkpoint within
+     TP_RESUME_DB; the TP step's ms on each rank and its share in
+     collectives;
+ 43. slice_tp_large: tp_large at full width on its 4 ranks: the audit with
+     the card shared, the gathered sharded_forward of the LADMM init
+     against the plain loop (TOL), ``run --config=tp_large --steps=2``
+     (finite loss; each rank's peak memory beside the audit) and the
+     step's ms; then tp_large_bf16 on 8 ranks for one step where its
+     audit passes (else printed, reported as not run). The TP path
+     launches no kernel (its products are torch.matmul);
 
 then the kernels line and, last, the ok line. Exits non-zero, with no
 ok line, on any failure, when CUDA is not available, or when run
@@ -296,6 +315,10 @@ without the rest of the repository.
 builds every source and runs only phases 36-40, then their kernels
 entries (rows 2 and 4 at greedy's depths, with every new path's
 launches).
+
+    python3 chip_smoke.py --tp
+
+builds every source and runs only phases 41-43, then the ok line.
 
     python3 chip_smoke.py --int8-turns
 
@@ -4040,7 +4063,8 @@ DP_JOBS = {
 def dp_worker(out_dir: str, jobs: str) -> int:
     """One rank of a spawned run (``chip_smoke.py --dp-worker DIR JOBS``,
     the env:// variables set by spawn_ranks): each job in turn with this
-    rank's training counts from 0, the results in DIR/rank<r>.pt."""
+    rank's training counts and peak memory from 0, the results in
+    DIR/rank<r>.pt."""
     import torch
 
     from dladmm_tpu_torch.parallel.multihost import initialize_distributed, process_index, world_size
@@ -4053,8 +4077,18 @@ def dp_worker(out_dir: str, jobs: str) -> int:
     res["backend"] = dist.get_backend()
     for job in jobs.split(","):
         reset_training_counts()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.monotonic()
-        if job in DP_JOBS:
+        if job == "tp_parity":
+            res[job] = tp_parity_job(torch, dev)
+        elif job == "tp_small":
+            res[job] = tp_small_job(torch, dev, out_dir)
+        elif job == "tp_small_time":
+            res[job] = time_tp_step(torch, dev, "tp_small", warm=3, steps=20)
+        elif job in ("tp_large", "tp_large_bf16"):
+            res[job] = tp_large_job(torch, dev, out_dir, job)
+        elif job in DP_JOBS:
             from dladmm_tpu_torch.train.loop import fit_sharded
 
             cfg = dp_config(data_axis=world_size(), **dict(DP_JOBS[job]))
@@ -4420,6 +4454,418 @@ def new_path_launches(res: dict) -> dict:
     }
 
 
+# -- tensor parallelism (phases 41-43) --------------------------------------------
+
+TP_MESHES = ((2, 2), (1, 4))  # phase 41: both on 4 gloo ranks sharing the card
+TP_LAYOUTS = ("sharded_w2", "replicated_w2")
+TP_GRAD_TOL = 2e-5  # x a leaf's largest |gradient| (ROADMAP.md §3, orders of summation)
+TP_LOSS_RTOL = 1e-5
+TP_BF16_LOSS = (0.05, 1e-3)  # the JAX package's bf16 bound: |loss - ref| < 5% |ref| + 1e-3
+TP_NMSE_DB = 0.05  # tp_small on its 8 ranks against the single-process fit (FUSED_NMSE_DB's rule)
+TP_RESUME_DB = 1e-4  # the run resumed from step 100 against the uninterrupted one
+TP_STEP_CASES = {"fp32": (False, None, ()), "deep": (True, None, ()),
+                 "bf16_freeze": (False, "bfloat16", ("beta",))}  # (deep supervision, compute dtype, freeze)
+
+
+def tp_problem(torch, device):
+    """Phase 41's inputs at tp_small's shape (m = 256, n = 512, K = 8,
+    batch 128): the preset's A, its LADMM init perturbed as dp_init does
+    (numpy seed 0), and step 0's batch, all built on the CPU so that
+    every rank and the single-process references start from the same
+    numbers; on ``device``."""
+    from dladmm_tpu_torch.data.synthetic import make_batch, problem_matrices, step_generator
+    from dladmm_tpu_torch.utils.config import get_config
+
+    cfg = get_config("tp_small")
+    A = problem_matrices(cfg)[0]
+    batch = make_batch(step_generator(cfg.train.seed, 0), A, cfg.train.batch)
+    return cfg, A.to(device), dp_init(cfg).to(device), type(batch)(*(v.to(device) for v in batch))
+
+
+def tp_parity_job(torch, dev) -> dict:
+    """Phase 41 on one rank of 4: on each mesh of TP_MESHES and each
+    layout, sharded_forward (gathered whole), make_sharded_eval, the raw
+    gradients of the final-layer and deep-supervision losses (gathered
+    whole) and one step of each TP_STEP_CASES (its loss, the params
+    after it gathered whole), all on CPU tensors."""
+    from dladmm_tpu_torch.models.unroll import DLADMMParams
+    from dladmm_tpu_torch.parallel import collectives as coll
+    from dladmm_tpu_torch.parallel.mesh import gather_params_tp, make_mesh, model_slice, shard_params_tp
+    from dladmm_tpu_torch.train import loop
+
+    cfg, A, whole, batch = tp_problem(torch, dev)
+    K, lr = cfg.problem.K, 1e-3
+    out = {}
+    for d, t in TP_MESHES:
+        for layout in TP_LAYOUTS:
+            mesh = make_mesh(data=d, model=t)
+            A_t = model_slice(A, mesh).contiguous()
+            n = batch.b.shape[0] // d
+            rows = slice(mesh.data_index * n, (mesh.data_index + 1) * n)
+            local = type(batch)(batch.b[rows], model_slice(batch.x_star[rows], mesh).contiguous(), batch.e_star[rows])
+            shards = shard_params_tp(whole, mesh, layout)
+            split = layout == "sharded_w2"
+            x, z, lam = coll.sharded_forward(mesh, shards, A_t, local.b, layout)
+            res = {"forward": [coll.gather_blocks(mesh, v, s).cpu() for v, s in ((x, True), (z, split), (lam, split))],
+                   "eval": coll.make_sharded_eval(mesh, layout)(shards, A_t, local)}
+            for deep in (False, True):
+                lw = torch.full((K,), 1.0 / K, device=dev) if deep else None
+                loss, grads = coll._tp_value_and_grad(coll._TP(mesh), shards, A_t, local.b, local.x_star,
+                                                      local.e_star, layout, lw)
+                stacked = DLADMMParams(*(torch.stack(gs) for gs in zip(*grads)))
+                res[f"grads_{'deep' if deep else 'final'}"] = (
+                    float(loss), [v.cpu() for v in gather_params_tp(stacked, mesh, layout)])
+            for case, (deep, cd, freeze) in TP_STEP_CASES.items():
+                dt = None if cd is None else getattr(torch, cd)
+                opt = loop.adam(lr)
+                state = loop.make_train_state(shards, opt, dt)
+                lw = torch.full((K,), 1.0 / K, device=dev) if deep else None
+                step = coll.make_sharded_train_step(opt, mesh, layout, dt, freeze, lw)
+                state, loss = step(state, A_t if dt is None else A_t.to(dt), local)
+                res[case] = {"loss": float(loss), "params": [v.cpu() for v in gather_params_tp(state.params, mesh,
+                                                                                               layout)]}
+            out[f"{d}x{t} {layout}"] = res
+    return out
+
+
+def tp_parity_slice(torch, device, card, tmp) -> dict:
+    """Phase 41: tensor parallelism at tp_small's shape on 4 gloo ranks
+    sharing the card (spawn_ranks, job tp_parity), as 2x2 and as 1x4, in
+    both layouts, against the single-process plain path on the card on
+    the same inputs (tp_problem): the gathered forward at TOL, the eval's
+    curve, nmse_db_z and residual within 1e-4, every leaf's gradient
+    within TP_GRAD_TOL of its largest value (autograd through the plain
+    loop, vjp="xla") and the losses at TP_LOSS_RTOL, for the final-layer
+    loss and deep supervision; one step of each: its loss at TP_LOSS_RTOL
+    (bf16 with beta frozen: within the JAX package's bf16 bound of the
+    plain bf16 loss, beta unchanged, W1 moved). The TP path launches no
+    kernel (its products are torch.matmul): the ranks' counts are
+    printed."""
+    from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
+    from dladmm_tpu_torch.train import loop
+
+    t0 = time.monotonic()
+    reset_training_counts()
+    ranks, _ = spawn_ranks(4, "tp_parity", tmp)
+    spawn_s = time.monotonic() - t0
+    cfg, A, whole, batch = tp_problem(torch, device)
+    K = cfg.problem.K
+    with torch.no_grad():
+        fwd = dladmm_forward(whole, A, batch.b)
+    ev = loop.evaluate(whole, A, batch, use_kernel=False)
+    refs = {}
+    for deep in (False, True):
+        lw = torch.full((K,), 1.0 / K, device=device) if deep else None
+        refs[deep] = loop._value_and_grad(whole, (A, batch.b, batch.x_star, batch.e_star, None, lw), {"vjp": "xla"})
+    bf16_loss, _ = loop._value_and_grad(loop._cast(whole, torch.bfloat16),
+                                        (A.bfloat16(), batch.b.bfloat16(), batch.x_star, batch.e_star, None, None),
+                                        {"vjp": "xla"})
+    out = {"spawn_wall_s": spawn_s, "launches_per_rank": [r["launches"]["tp_parity"] for r in ranks]}
+    for key, got in ranks[0]["tp_parity"].items():
+        rec = {"forward_err": compare(torch, [v.to(device) for v in got["forward"]], fwd, f"tp {key} forward",
+                                      phase="tp_forward")}
+        for name in ("nmse_db", "nmse_db_z", "residual"):
+            if not abs(got["eval"][name] - ev[name]) <= 1e-4:
+                raise AssertionError(f"tp {key} eval {name}: {got['eval'][name]} against {ev[name]}")
+        if not np.allclose(got["eval"]["nmse_curve_db"], ev["nmse_curve_db"], rtol=0, atol=1e-4):
+            raise AssertionError(f"tp {key} eval curve: {got['eval']['nmse_curve_db']} against {ev['nmse_curve_db']}")
+        for deep in (False, True):
+            loss, grads = got[f"grads_{'deep' if deep else 'final'}"]
+            want_loss, want = refs[deep]
+            rel = {}
+            for name, g, w in zip(DLADMMParams._fields, grads, want):
+                rel[name] = float((g.to(device) - w).abs().max()) / float(w.abs().max())
+                if not rel[name] <= TP_GRAD_TOL:
+                    raise AssertionError(f"tp {key} deep={deep} gradient {name}: {rel[name]} of its scale")
+            if not abs(loss - float(want_loss)) <= TP_LOSS_RTOL * abs(float(want_loss)):
+                raise AssertionError(f"tp {key} deep={deep} loss {loss} against {float(want_loss)}")
+            rec[f"grad_rel_err_{'deep' if deep else 'final'}"] = rel
+        for case, (deep, cd, _) in TP_STEP_CASES.items():
+            loss = got[case]["loss"]
+            if cd is None:
+                want_loss = float(refs[deep][0])
+                ok = abs(loss - want_loss) <= TP_LOSS_RTOL * abs(want_loss)
+            else:
+                want_loss = float(bf16_loss)
+                ok = abs(loss - want_loss) < TP_BF16_LOSS[0] * abs(want_loss) + TP_BF16_LOSS[1]
+                p = got[case]["params"]
+                ok = ok and torch.equal(p[4], whole.beta.cpu()) and not torch.equal(p[0], whole.W1.cpu())
+            if not ok:
+                raise AssertionError(f"tp {key} step {case}: loss {loss} against {want_loss}")
+            rec[f"step_{case}_loss"] = (loss, want_loss)
+        out[key] = rec
+        emit("slice_tp_parity", mesh=key, **rec)
+    if any(lc for lc in out["launches_per_rank"]):
+        raise AssertionError(f"the TP path launched a kernel: {out['launches_per_rank']}")
+    emit("slice_tp_parity_summary", ranks=4, backend=ranks[0]["backend"], spawn_wall_s=spawn_s, card=card)
+    return out
+
+
+def time_tp_step(torch, dev, config: str, warm: int, steps: int) -> dict:
+    """The TP step of fit_sharded for preset ``config`` on this rank: the
+    LADMM init's slices, batches drawn beforehand; host ms a step between
+    device synchronisations (median over ``steps`` after ``warm``), then
+    as many steps with every collective timed (CollectiveTimer): the
+    share of the step spent in collectives."""
+    import torch.distributed as dist
+
+    from dladmm_tpu_torch.data.synthetic import make_batch, problem_matrices, step_generator
+    from dladmm_tpu_torch.parallel import collectives as coll
+    from dladmm_tpu_torch.parallel.mesh import make_mesh, model_slice
+    from dladmm_tpu_torch.train.loop import TrainState, _build_optimizer, _cast, _layer_weights
+    from dladmm_tpu_torch.utils.config import get_config
+
+    cfg = get_config(config)
+    p, t, s = cfg.problem, cfg.train, cfg.sharding
+    mesh = make_mesh(data=s.data_axis, model=s.model_axis)
+    A = problem_matrices(cfg, device=dev)[0]
+    cd = torch.bfloat16 if t.compute_dtype == "bfloat16" else None
+    A_t = model_slice(A, mesh).contiguous()
+    params = coll.init_params_tp(A, p.K, mesh, s.layout, p.beta)
+    opt = _build_optimizer(t)
+    state = TrainState(params, opt.init(params), 0, None if cd is None else _cast(params, cd))
+    del params
+    lw = _layer_weights(t.layer_loss, p.K, device=dev)
+    n = t.batch // s.data_axis
+    rows = slice(mesh.data_index * n, (mesh.data_index + 1) * n)
+
+    def batch(i):
+        d = make_batch(step_generator(t.seed, i), A, t.batch)
+        return type(d)(d.b[rows], model_slice(d.x_star[rows], mesh).contiguous(), d.e_star[rows])
+
+    batches = [batch(i) for i in range(warm + steps)]
+    del A
+    A_c = A_t if cd is None else A_t.to(cd)
+    out = {}
+    for label, timer in (("plain", None), ("timed", coll.CollectiveTimer())):
+        step = coll.make_sharded_train_step(opt, mesh, s.layout, cd, tuple(t.freeze), lw, timer=timer)
+        times = []
+        for i, bt in enumerate(batches):
+            if i == warm and timer is not None:
+                timer.seconds, timer.calls = 0.0, 0
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, loss = step(state, A_c, bt)
+            torch.cuda.synchronize(dev)
+            if i >= warm:
+                times.append(time.perf_counter() - t0)
+        out[f"step_ms_{label}"] = 1e3 * float(np.median(times))
+        if timer is not None:
+            out["collective_share"] = timer.seconds / sum(times)
+            out["collectives_per_step"] = timer.calls / steps
+    out["loss"] = float(loss)
+    out["ranks"] = dist.get_world_size()
+    return out
+
+
+def tp_small_job(torch, dev, out_dir) -> dict:
+    """Phase 42 on one rank of 8: ``run --config=tp_small`` (its 200
+    steps, checkpoints at every eval, the evals logged by rank 0), then,
+    the step-150 and step-200 checkpoints removed, the same run resumed
+    from step 100."""
+    import os
+
+    import torch.distributed as dist
+
+    from dladmm_tpu_torch.run import main as run_main
+
+    ck, log = Path(out_dir) / "ck_tp_small", Path(out_dir) / "tp_small.jsonl"
+    res = {}
+    for label, extra in (("cold", ["--log-jsonl", str(log)]), ("resumed", ["--resume"])):
+        argv = ["--config=tp_small", "--ckpt-dir", str(ck), *extra]
+        if dist.get_rank() == 0:
+            res[label] = run_json(run_main, argv)[0]
+        elif run_main(argv) != 0:
+            raise AssertionError(f"run.main {argv} failed on rank {dist.get_rank()}")
+        dist.barrier()
+        if label == "cold" and dist.get_rank() == 0:
+            for step in (150, 200):
+                os.remove(ck / f"step_{step}.pt")
+        dist.barrier()
+    if dist.get_rank() == 0:
+        res["evals"] = [json.loads(ln) for ln in log.read_text().splitlines()]
+    return res
+
+
+def tp_large_job(torch, dev, out_dir, config: str) -> dict:
+    """Phase 43 on one rank: for tp_large, sharded_forward of the LADMM
+    init on phase 43's batch (tp_large_b.pt beside out_dir), gathered
+    whole on rank 0; then ``run --config=<config> --steps=N`` (2 for tp_large, 1
+    for tp_large_bf16) with this rank's peak memory from a reset; then,
+    for tp_large, the step's time (time_tp_step: 1 warm, 2 timed)."""
+    import torch.distributed as dist
+
+    from dladmm_tpu_torch.data.synthetic import problem_matrices
+    from dladmm_tpu_torch.parallel import collectives as coll
+    from dladmm_tpu_torch.parallel.mesh import make_mesh, model_slice
+    from dladmm_tpu_torch.run import main as run_main
+    from dladmm_tpu_torch.utils.config import get_config
+
+    res = {}
+    if config == "tp_large":
+        cfg = get_config(config)
+        s = cfg.sharding
+        mesh = make_mesh(data=s.data_axis, model=s.model_axis)
+        A = problem_matrices(cfg, device=dev)[0]
+        params = coll.init_params_tp(A, cfg.problem.K, mesh, s.layout, cfg.problem.beta)
+        b = torch.load(Path(out_dir).parent / "tp_large_b.pt", weights_only=True).to(dev)
+        x, z, lam = coll.sharded_forward(mesh, params, model_slice(A, mesh).contiguous(), b, s.layout)
+        split = s.layout == "sharded_w2"
+        whole = [coll.gather_blocks(mesh, v, sp) for v, sp in ((x, True), (z, split), (lam, split))]
+        if dist.get_rank() == 0:
+            res["forward"] = [v.cpu() for v in whole]
+        del A, params, b, x, z, lam, whole
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    log = Path(out_dir) / f"{config}.jsonl"
+    argv = [f"--config={config}", f"--steps={2 if config == 'tp_large' else 1}", "--log-jsonl", str(log)]
+    if dist.get_rank() == 0:
+        res["summary"], lines, res["wall_s"] = run_json(run_main, argv)
+        res["audit"] = [ln for ln in lines if "GB" in ln]
+        res["evals"] = [json.loads(ln) for ln in log.read_text().splitlines()]
+    elif run_main(argv) != 0:
+        raise AssertionError(f"run.main {argv} failed on rank {dist.get_rank()}")
+    torch.cuda.synchronize(dev)
+    res["run_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    if config == "tp_large":
+        torch.cuda.empty_cache()
+        res["time"] = time_tp_step(torch, dev, config, warm=1, steps=2)
+    return res
+
+
+def tp_small_slice(torch, device, card, tmp) -> dict:
+    """Phase 42: ``run --config=tp_small`` through the ranks of a
+    torch.distributed run (8 gloo ranks sharing the card, spawn_ranks),
+    200 steps: the last eval's NMSE below the first's and within
+    TP_NMSE_DB of the single-process ``fit`` of the preset (the kernels'
+    route the CLI picks at batch 128, counted from 0); the run resumed
+    from its step-100 checkpoint ends within TP_RESUME_DB of the
+    uninterrupted one; the TP step's ms on each rank and the share of it
+    in collectives (time_tp_step)."""
+    from dladmm_tpu_torch.models.api import select_forward
+    from dladmm_tpu_torch.train.loop import fit
+    from dladmm_tpu_torch.utils.config import get_config
+
+    cfg = get_config("tp_small")
+    p = cfg.problem
+    reset_training_counts()
+    t0 = time.monotonic()
+    fwd = select_forward(p.m, p.n, p.m, cfg.train.batch, device=device)[0]
+    _, hist = fit(cfg, forward_fn=fwd, device=device)
+    single = {"nmse_db": hist[-1]["nmse_db"], "wall_s": time.monotonic() - t0,
+              "launches": nonzero(training_counts())}
+    t0 = time.monotonic()
+    ranks, _ = spawn_ranks(8, "tp_small,tp_small_time", tmp, timeout=900)
+    got = ranks[0]["tp_small"]
+    evals = got["evals"]
+    cold, resumed = got["cold"], got["resumed"]
+    gap = cold["final_nmse_db"] - single["nmse_db"]
+    out = {"spawn_wall_s": time.monotonic() - t0, "mesh": cold["mesh"], "route": cold["route"],
+           "evals_nmse_db": [(e["step"], e["nmse_db"]) for e in evals], "final_nmse_db": cold["final_nmse_db"],
+           "single_process": single, "gap_db": gap, "resumed_final_nmse_db": resumed["final_nmse_db"],
+           "ladmm_nmse_db_at_K": cold["ladmm_nmse_db_at_K"], "fit_wall_s": cold["fit_wall_s"],
+           "step_ms_per_rank": [r["tp_small_time"]["step_ms_plain"] for r in ranks],
+           "step_ms_timed_per_rank": [r["tp_small_time"]["step_ms_timed"] for r in ranks],
+           "collective_share_per_rank": [r["tp_small_time"]["collective_share"] for r in ranks],
+           "collectives_per_step": ranks[0]["tp_small_time"]["collectives_per_step"],
+           "peak_gb_per_rank": [r.get("peak_gb", {}).get("tp_small") for r in ranks],
+           "launches_per_rank": [r["launches"]["tp_small"] for r in ranks], "card": card}
+    emit("slice_tp_small", **out)
+    if cold["mesh"] != "4x2" or not evals[-1]["nmse_db"] < evals[0]["nmse_db"]:
+        raise AssertionError(f"tp_small: the last eval is not below the first: {out['evals_nmse_db']}")
+    if not abs(gap) <= TP_NMSE_DB:
+        raise AssertionError(f"tp_small: {cold['final_nmse_db']} dB on 8 ranks, the single-process fit "
+                             f"{single['nmse_db']} dB: a gap of {gap} dB")
+    if not abs(resumed["final_nmse_db"] - cold["final_nmse_db"]) <= TP_RESUME_DB:
+        raise AssertionError(f"tp_small resumed from step 100: {resumed['final_nmse_db']} against "
+                             f"{cold['final_nmse_db']}")
+    return out
+
+
+def tp_large_slice(torch, device, card, tmp) -> dict:
+    """Phase 43: tp_large at full width (m = 8192, n = 16384, K = 20,
+    batch 256) on its 4 ranks sharing the card: fit_sharded's audit of one
+    rank against the card's memory shared by the 4, printed; the
+    single-process plain forward (kernel="reference": the plain loop) of
+    the LADMM init on step 0's batch, run here first, against
+    sharded_forward's x, z and lam gathered whole (TOL); ``run
+    --config=tp_large --steps=2`` (finite loss, each rank's peak memory
+    beside the audit) and the TP step's ms; then tp_large_bf16 on 8
+    ranks for one step where its audit passes with the card shared by 8,
+    else its audit printed and the run reported as not run."""
+    from dladmm_tpu_torch.data.synthetic import make_batch, problem_matrices, step_generator
+    from dladmm_tpu_torch.models.unroll import dladmm_forward, init_dladmm_params
+    from dladmm_tpu_torch.parallel.memory import detect_hbm_bytes
+    from dladmm_tpu_torch.train.loop import sharded_audit
+    from dladmm_tpu_torch.utils.config import get_config
+
+    hbm = detect_hbm_bytes(device)
+    out = {"hbm_bytes": hbm}
+    cfg = get_config("tp_large")
+    p, t = cfg.problem, cfg.train
+    audit = []
+    bd = sharded_audit(cfg, hbm / 4, audit.append)
+    out["audit_lines"], out["audit_per_rank_gb"] = audit, bd.total / 1e9
+    t0 = time.monotonic()
+    A = problem_matrices(cfg, device=device)[0]
+    params = init_dladmm_params(A, K=p.K, beta=p.beta)
+    b = make_batch(step_generator(t.seed, 0), A, t.batch).b
+    with torch.no_grad():
+        want = dladmm_forward(params, A, b)
+    torch.cuda.synchronize(device)
+    out["reference_forward_wall_s"] = time.monotonic() - t0
+    torch.save(b.cpu(), Path(tmp) / "tp_large_b.pt")
+    want = [v.cpu() for v in want]
+    del A, params, b
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    ranks, _ = spawn_ranks(4, "tp_large", tmp, timeout=1200)
+    got = ranks[0]["tp_large"]
+    out["forward_err"] = compare(torch, got["forward"], want, "tp_large sharded_forward, 1x4", phase="tp_forward")
+    summary, evals = got["summary"], got["evals"]
+    out.update(spawn_wall_s=time.monotonic() - t0, summary=summary, losses=[e["loss"] for e in evals],
+               run_wall_s=got["wall_s"], run_peak_gb_per_rank=[r["tp_large"]["run_peak_gb"] for r in ranks],
+               run_audit=got["audit"], time_per_rank=[r["tp_large"]["time"] for r in ranks],
+               launches_per_rank=[r["launches"]["tp_large"] for r in ranks], card=card)
+    emit("slice_tp_large", **out)
+    if summary["mesh"] != "1x4" or not all(math.isfinite(v) for v in out["losses"]):
+        raise AssertionError(f"tp_large: {summary}, losses {out['losses']}")
+    bf = get_config("tp_large_bf16")
+    audit16 = []
+    try:
+        bd16 = sharded_audit(bf, hbm / 8, audit16.append)
+    except MemoryError as e:
+        emit("slice_tp_large_bf16", not_run=str(e), audit_lines=audit16, card=card)
+        return out
+    t0 = time.monotonic()
+    ranks, _ = spawn_ranks(8, "tp_large_bf16", tmp, timeout=1200)
+    got = ranks[0]["tp_large_bf16"]
+    bf16 = {"audit_lines": audit16, "audit_per_rank_gb": bd16.total / 1e9, "summary": got["summary"],
+            "losses": [e["loss"] for e in got["evals"]], "run_wall_s": got["wall_s"],
+            "spawn_wall_s": time.monotonic() - t0,
+            "run_peak_gb_per_rank": [r["tp_large_bf16"]["run_peak_gb"] for r in ranks], "card": card}
+    emit("slice_tp_large_bf16", **bf16)
+    if got["summary"]["mesh"] != "1x8" or not all(math.isfinite(v) for v in bf16["losses"]):
+        raise AssertionError(f"tp_large_bf16: {got['summary']}")
+    out["bf16"] = bf16
+    return out
+
+
+def tp_phases(torch, dev, card) -> dict:
+    """Phases 41-43 in order. The ranks share the card with this process:
+    its cached blocks are released first, and what it still holds is
+    printed."""
+    res = {}
+    torch.cuda.empty_cache()
+    emit("tp_parent_memory", allocated_gb=torch.cuda.memory_allocated(dev) / 1e9,
+         reserved_gb=torch.cuda.memory_reserved(dev) / 1e9)
+    with tempfile.TemporaryDirectory() as tmp:
+        res["parity"] = tp_parity_slice(torch, dev, card, tmp)
+        res["small"] = tp_small_slice(torch, dev, card, tmp)
+        res["large"] = tp_large_slice(torch, dev, card, tmp)
+    return res
+
+
 def build_phase() -> None:
     """Phase 2: nvcc builds every source of ops/csrc/ from this checkout,
     one nvcc per source, all started together; each source's ptxas report
@@ -4455,6 +4901,17 @@ def main() -> int:
         build_phase()
         _, entries = sharded_phases(torch, torch.device("cuda", 0), card)
         print(json.dumps({"kernels": entries}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--tp"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        card = card_line()
+        print(card, flush=True)
+        build_phase()
+        tp_phases(torch, torch.device("cuda", 0), card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}), flush=True)
         return 0
     if sys.argv[1:] == ["--int8-turns"]:
         card = card_line()
@@ -4750,6 +5207,9 @@ def main() -> int:
     # 36-40. fused_adam, greedy, data parallelism and sharded serving, each
     # path counted from 0.
     sharded_res, entries_sharded = sharded_phases(torch, dev, card)
+    # 41-43. tensor parallelism: parity on 4 gloo ranks, run --config=tp_small
+    # on 8, tp_large (and tp_large_bf16) at full width.
+    tp_phases(torch, dev, card)
 
     ms, plain_ms, bms, by = timings[("synthetic_small", 256)]
     entries = [{

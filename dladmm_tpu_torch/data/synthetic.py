@@ -130,16 +130,28 @@ def make_batch(
     to |N(0,1)|.
     """
     m, n = A.shape
+    x_star, e_star = draw_batch(gen, m, n, batch, sparsity_x, sparsity_e, dtype,
+                                None if B is None else B.shape[1], nonneg_x)
+    x_star, e_star = _to_device(x_star, A.device), _to_device(e_star, A.device)
+    b = x_star @ A.T + (e_star if B is None else e_star @ B.T)
+    return SyntheticBatch(b=b, x_star=x_star, e_star=e_star)
+
+
+def draw_batch(
+    gen: torch.Generator,
+    m: int,
+    n: int,
+    batch: int,
+    sparsity_x: float = 0.1,
+    sparsity_e: float = 0.1,
+    dtype=torch.float32,
+    d: Optional[int] = None,
+    nonneg_x: bool = False,
+):
+    """make_batch's draw, on the CPU: (x* (batch, n), e* (batch, d or m)),
+    in that order from ``gen``. A tensor-parallel rank forms b from its own
+    columns of A (parallel/multihost.rank_batch)."""
     x_star = _bernoulli_gaussian(gen, (batch, n), sparsity_x, dtype)
     if nonneg_x:
         x_star = torch.abs(x_star)
-    x_star = _to_device(x_star, A.device)
-    if B is None:
-        e_star = _bernoulli_gaussian(gen, (batch, m), sparsity_e, dtype)
-        e_star = _to_device(e_star, A.device)
-        b = x_star @ A.T + e_star
-    else:
-        e_star = _bernoulli_gaussian(gen, (batch, B.shape[1]), sparsity_e, dtype)
-        e_star = _to_device(e_star, A.device)
-        b = x_star @ A.T + e_star @ B.T
-    return SyntheticBatch(b=b, x_star=x_star, e_star=e_star)
+    return x_star, _bernoulli_gaussian(gen, (batch, d or m), sparsity_e, dtype)

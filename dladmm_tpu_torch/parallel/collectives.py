@@ -1,9 +1,11 @@
-"""Data-parallel training steps and evaluation on ``torch.distributed``.
+"""Data- and tensor-parallel training steps and evaluation on
+``torch.distributed``.
 
-The port of the data-parallel half of
-``dladmm_tpu/parallel/collectives.py`` (model_axis = 1). Each rank holds
-the whole model and its optimizer (ZeRO-1 aside) and one batch shard of
-global_batch / D rows, and runs the port's single-device stack on it:
+The port of ``dladmm_tpu/parallel/collectives.py``.
+
+Data parallelism (model_axis = 1): each rank holds the whole model and
+its optimizer (ZeRO-1 aside) and one batch shard of global_batch / D
+rows, and runs the port's single-device stack on it:
 ``train/loop.loss_fn`` through the forward the policy selected at the
 per-rank batch (models/api.select_forward: the trajectory kernel, with
 the backward kernel for the final-layer loss, on the card) or the fused
@@ -23,20 +25,58 @@ step's body (train/fused_adam). The collectives are explicit:
     and an all-gather rebuilds the parameters;
   * ``make_dp_eval``: local sums, one all-reduce.
 
+Tensor parallelism (model_axis = T > 1, B = I, two layouts,
+``param_specs``): ``sharded_w2`` splits W1, theta1 and A's columns over
+n and W2, theta2 over m, so every weight and moment is 1/T a rank;
+``replicated_w2`` keeps W2 and theta2 whole (the z-side product runs on
+every rank; one collective a layer). Per layer (``_tp_layer_step``):
+
+    u    = Ax + (z - b + lam / beta)              whole on every rank
+    x1_t = shrink(x_t - u @ W1_t^T, theta1_t)     local
+    Ax1  = sum over the model ranks of x1_t @ A_t^T
+    v    = Ax1 + (z - b + lam / beta)
+    z1_t = shrink(z_t - v @ W2_t^T, theta2_t)     local; z1 = gather(z1_t)
+    lam1 = lam + beta (Ax1 + z1 - b)
+
+JAX's shard_map derives the backward's collectives from its replication
+types; here they are three autograd Functions (Megatron's operators):
+``_CopyToModel`` (a whole value entering rank-local work: identity,
+backward all-reduce), ``_ReduceFromModel`` (all-reduce, identity
+backward) and ``_GatherFromModel`` (all-gather, backward this rank's
+block). The loss is the same on every rank, so replicated leaves get
+their whole gradient on every model rank, and the data group sums the
+gradients. ``sharded_forward``, ``make_sharded_eval`` (gather-free) and
+``make_sharded_train_step`` (final-layer loss, deep supervision, bf16 on
+a sharded compute copy, freeze; the optimizer layer by layer in place,
+its clip on the whole gradient's norm) are the JAX package's; there is
+no kernel on this path (the JAX package's TP products are XLA dots).
+
 The mean of D half-batch means is the global mean up to the order of
-summation: tests/test_torch_distributed.py holds the steps to the
-single-process global-batch step at the JAX package's tolerances.
+summation: tests/test_torch_distributed.py and tests/test_torch_tp.py
+hold the steps to the single-process global-batch step and to the JAX
+package at its tolerances.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import NamedTuple, Optional
 
 import torch
 from torch import Tensor
 
 from dladmm_tpu_torch.models.unroll import DLADMMParams
-from dladmm_tpu_torch.parallel.mesh import DATA_AXIS
+from dladmm_tpu_torch.ops.reference import _BETA_MIN, shrink
+from dladmm_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    all_gather_model,
+    gather_params_tp,
+    model_slice,
+    shard_params_tp,
+)
 from dladmm_tpu_torch.train.qmoments import BLOCK, QTensor
 
 _EPS = 1e-12
@@ -122,22 +162,28 @@ def make_dp_eval(mesh, B: Optional[Tensor] = None, use_kernel: bool = True):
         ]).to(torch.float64)
         if mesh.distributed:
             _dist().all_reduce(sums, group=mesh.group)
-        K = tx.shape[0]
-        sum_ratio, (n_valid, sum_rz, n_valid_z, sum_rel, S_total) = sums[:K], sums[K:]
-
-        def db(total, count):
-            return (10.0 * torch.log10(total / torch.clamp(count, min=1) + _EPS)
-                    if count > 0 else torch.full_like(total, float("nan")))
-
-        curve = db(sum_ratio, n_valid).to(torch.float32)
-        return {
-            "nmse_db": float(curve[-1]),
-            "nmse_db_z": float(db(sum_rz, n_valid_z)),
-            "residual": float(sum_rel / S_total),
-            "nmse_curve_db": [float(v) for v in curve],
-        }
+        return _metrics(sums, tx.shape[0])
 
     return evaluate
+
+
+def _metrics(sums: Tensor, K: int) -> dict:
+    """The metrics dict from the mesh's summed (float64) per-layer NMSE
+    ratios (K), valid count, z ratios, valid z count, relative residuals
+    and sample count: metrics.core's batch means."""
+    sum_ratio, (n_valid, sum_rz, n_valid_z, sum_rel, S_total) = sums[:K], sums[K:]
+
+    def db(total, count):
+        return (10.0 * torch.log10(total / torch.clamp(count, min=1) + _EPS)
+                if count > 0 else torch.full_like(total, float("nan")))
+
+    curve = db(sum_ratio, n_valid).to(torch.float32)
+    return {
+        "nmse_db": float(curve[-1]),
+        "nmse_db_z": float(db(sum_rz, n_valid_z)),
+        "residual": float(sum_rel / S_total),
+        "nmse_curve_db": [float(v) for v in curve],
+    }
 
 
 # -- the replicated-optimizer step ----------------------------------------------
@@ -464,14 +510,486 @@ def make_dp_zero1_train_step(
     return step
 
 
+# -- tensor parallelism (model_axis > 1) -----------------------------------------
+
+LAYOUTS = ("sharded_w2", "replicated_w2")
+
+
+def param_specs(layout: str = "sharded_w2") -> DLADMMParams:
+    """The mesh axis each leaf's dim 1 is split over, or None where the
+    leaf is whole on every model rank (the JAX package's param_specs):
+    W1 (K, n, m) and theta1 (K, n) over n; W2 (K, d, m) and theta2 (K, d)
+    over d in ``sharded_w2``, whole in ``replicated_w2``; beta whole. The
+    dictionary A (m, n) is split over its columns (mesh.model_slice)."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    w2 = MODEL_AXIS if layout == "sharded_w2" else None
+    return DLADMMParams(W1=MODEL_AXIS, W2=w2, theta1=MODEL_AXIS, theta2=w2, beta=None)
+
+
+class CollectiveTimer:
+    """Host seconds spent in the tensor-parallel collectives, and their
+    count. Each collective is timed between two device synchronisations,
+    so its time holds the transfer and the wait for the other ranks, not
+    the compute queued before it."""
+
+    def __init__(self):
+        self.seconds, self.calls = 0.0, 0
+
+    def run(self, device: torch.device, fn):
+        sync = torch.cuda.synchronize if device.type == "cuda" else (lambda d: None)
+        sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class _TP:
+    """The model axis's collectives of one mesh (and an optional timer)."""
+
+    mesh: Mesh
+    timer: Optional[CollectiveTimer] = None
+
+    def _run(self, v: Tensor, fn):
+        return fn() if self.timer is None else self.timer.run(v.device, fn)
+
+    def reduce(self, v: Tensor, group) -> Tensor:
+        """SUM of ``v`` over ``group`` (None: one rank) into a new tensor.
+        bf16 is summed in fp32 and rounded once (the same on every
+        backend)."""
+        buf = v.to(torch.float32, copy=True)
+        if group is not None:
+            self._run(v, lambda: _dist().all_reduce(buf, group=group))
+        return buf.to(v.dtype)
+
+    def gather(self, v: Tensor) -> Tensor:
+        return self._run(v, lambda: all_gather_model(v, self.mesh))
+
+
+class _CopyToModel(torch.autograd.Function):
+    """A model-replicated value entering rank-local work: identity
+    forward; the backward sums the ranks' cotangents over the model
+    group."""
+
+    @staticmethod
+    def forward(ctx, v, tp):
+        ctx.tp = tp
+        return v.view_as(v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.reduce(g, ctx.tp.mesh.model_group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The model ranks' partial sums added (all-reduce SUM); identity
+    backward, since every rank holds the sum's whole cotangent."""
+
+    @staticmethod
+    def forward(ctx, v, tp):
+        return tp.reduce(v, tp.mesh.model_group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The ranks' column blocks gathered along dim 1; the backward keeps
+    this rank's block of the (whole, replicated) cotangent."""
+
+    @staticmethod
+    def forward(ctx, v, tp):
+        ctx.tp = tp
+        return tp.gather(v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return model_slice(g, ctx.tp.mesh).contiguous(), None
+
+
+def _tp_layer_step(tp: _TP, A_t, b, x_t, z, lam, Ax, p, layout: str):
+    """One l1/l1 D-LADMM layer (B = I) on this rank's shards. Names ending
+    in _t are this rank's model slice; the rest are whole on every model
+    rank (and this data index's rows)."""
+    W1, W2, theta1, theta2, beta = p
+    beta = torch.maximum(beta, beta.new_tensor(_BETA_MIN))
+    base = z - b + lam / beta
+    u = Ax + base
+    x1_t = shrink(x_t - _CopyToModel.apply(u, tp) @ W1.T, theta1)
+    Ax1 = _ReduceFromModel.apply(x1_t @ A_t.T, tp)
+    v = Ax1 + base
+    if layout == "sharded_w2":
+        z_t = model_slice(_CopyToModel.apply(z, tp), tp.mesh)
+        z1_t = shrink(z_t - _CopyToModel.apply(v, tp) @ W2.T, theta2)
+        z1 = _GatherFromModel.apply(z1_t, tp)
+    else:
+        z1 = shrink(z - v @ W2.T, theta2)
+    lam1 = lam + beta * (Ax1 + z1 - b)
+    return x1_t, z1, lam1, Ax1
+
+
+def _layers(params):
+    """The K per-layer (W1, W2, theta1, theta2, beta) of stacked params."""
+    return [tuple(v[k] for v in params) for k in range(params[0].shape[0])]
+
+
+def _tp_forward_local(tp: _TP, layers, A_t, b, layout: str = "sharded_w2", x_star_t=None, e_star=None,
+                      capture: bool = False):
+    """The unroll from zero state on this rank's shards: (x_t, z, lam, ys).
+    ys is empty unless ``capture``: then, per layer, this rank's (S,)
+    squared errors (num_x over its n-slice: sum over the model ranks to
+    globalize; num_z over the whole m). Nothing (K, S, n) is kept."""
+    S, m = b.shape
+    x = b.new_zeros((S, A_t.shape[1]))
+    z, lam, Ax = (b.new_zeros((S, m)) for _ in range(3))
+    ys = []
+    for p in layers:
+        x, z, lam, Ax = _tp_layer_step(tp, A_t, b, x, z, lam, Ax, p, layout)
+        if capture:
+            ys.append((torch.sum((x.float() - x_star_t) ** 2, dim=-1), torch.sum((z.float() - e_star) ** 2, dim=-1)))
+    return x, z, lam, ys
+
+
+def _check_tp(mesh) -> None:
+    if mesh.shape[MODEL_AXIS] > 1 and not mesh.distributed:
+        raise ValueError("a tensor-parallel mesh needs its ranks in a process group")
+
+
+def init_params_tp(A: Tensor, K: int, mesh, layout: str = "sharded_w2", beta: float = 1.0,
+                   dtype=torch.float32) -> DLADMMParams:
+    """This rank's slices of the LADMM-exact init (models/unroll.
+    init_dladmm_params, B = I), built from its own columns of A without
+    the whole W1 or W2: L_A is computed once, on rank 0, and broadcast."""
+    from dladmm_tpu_torch.models.unroll import spectral_norm_sq
+
+    if mesh.rank == 0:
+        L_A = spectral_norm_sq(A).to(dtype).reshape(1)
+    else:
+        L_A = torch.empty((1,), dtype=dtype, device=A.device)
+    if mesh.distributed:
+        _dist().broadcast(L_A, src=0, group=mesh.group)
+    L_A = L_A[0]
+    m = A.shape[0]
+    kw = dict(dtype=dtype, device=A.device)
+    A_t = model_slice(A, mesh)
+    eye = torch.eye(m, **kw)
+    W2_0 = model_slice(eye.T, mesh).T if layout == "sharded_w2" else eye  # rows of I / L_B, L_B = 1
+    W2_0 = W2_0 / torch.ones((), **kw)
+
+    def tile(a):
+        return a.expand((K,) + a.shape).contiguous()
+
+    return DLADMMParams(
+        W1=tile((A_t.T / L_A).to(dtype)),
+        W2=tile(W2_0),
+        theta1=tile(torch.ones((A_t.shape[1],), **kw) * (1.0 / (beta * L_A))),
+        theta2=tile(torch.ones((W2_0.shape[0],), **kw) * (1.0 / (beta * torch.ones((), **kw)))),
+        beta=torch.full((K,), beta, **kw),
+    )
+
+
+def sharded_forward(mesh, params: DLADMMParams, A_t: Tensor, b: Tensor, layout: str = "sharded_w2"):
+    """Tensor-parallel inference on this rank's shards: (x, z, lam) as
+    this rank's blocks of the global arrays: x (rows of its data index,
+    its n-slice); z and lam the same rows and, in ``sharded_w2``, its
+    m-slice (whole in ``replicated_w2``), as the JAX package's out specs.
+    gather_blocks assembles the global arrays."""
+    _check_tp(mesh)
+    tp = _TP(mesh)
+    with torch.no_grad():
+        x, z, lam, _ = _tp_forward_local(tp, _layers(params), A_t, b, layout)
+    if layout == "sharded_w2":
+        return x, model_slice(z, mesh).contiguous(), model_slice(lam, mesh).contiguous()
+    return x, z, lam
+
+
+def gather_blocks(mesh, v: Tensor, split_over_model: bool = True) -> Tensor:
+    """The global array from every rank's block (a collective over every
+    rank): rows by data index and, where ``split_over_model``, columns by
+    model index (else each model rank's block is whole and rank (d, 0)'s
+    is taken)."""
+    D, T = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+    if not mesh.distributed:
+        return v
+    v = v.contiguous()
+    parts = [torch.empty_like(v) for _ in range(D * T)]
+    _dist().all_gather(parts, v, group=mesh.group)
+    rows = [torch.cat(parts[d * T:(d + 1) * T], dim=1) if split_over_model else parts[d * T] for d in range(D)]
+    return torch.cat(rows, dim=0)
+
+
+def make_sharded_eval(mesh, layout: str = "sharded_w2"):
+    """(params, A_t, local batch) -> the metrics dict of make_dp_eval
+    (nmse_db, nmse_db_z, residual, nmse_curve_db) for a tensor-parallel
+    mesh, with nothing gathered: each layer's squared errors of this
+    rank's n-slice, its x* norms and its partial A x are summed over the
+    model group (one all-reduce); then model rank 0's per-sample sums
+    alone enter one all-reduce over every rank, so the z-side sums (each
+    model rank holds the same whole z) count once, exactly for any T.
+    The local batch is this data index's rows, x* its n-slice."""
+    _check_tp(mesh)
+    tp = _TP(mesh)
+
+    @torch.no_grad()
+    def evaluate(params: DLADMMParams, A_t: Tensor, batch):
+        b, x_star_t, e_star = batch
+        f32 = lambda v: v.to(torch.float32)  # noqa: E731
+        x_t, z, _, ys = _tp_forward_local(tp, _layers(params), A_t, b, layout, f32(x_star_t), f32(e_star),
+                                          capture=True)
+        num_x = torch.stack([y[0] for y in ys])  # (K, S)
+        K, S = num_x.shape
+        part = torch.cat([num_x.reshape(-1), torch.sum(f32(x_star_t) ** 2, dim=-1),
+                          f32(x_t @ A_t.T).reshape(-1)])
+        part = tp.reduce(part, mesh.model_group)
+        num_x, den_x, Ax = part[:K * S].reshape(K, S), part[K * S:(K + 1) * S], part[(K + 1) * S:].reshape(S, -1)
+        valid = den_x > _EPS
+        ratio = torch.where(valid, num_x / torch.clamp(den_x, min=_EPS), torch.zeros_like(num_x))
+        den_z = torch.sum(f32(e_star) ** 2, dim=-1)
+        valid_z = den_z > _EPS
+        ratio_z = torch.where(valid_z, ys[-1][1] / torch.clamp(den_z, min=_EPS), torch.zeros_like(den_z))
+        r = torch.linalg.vector_norm(Ax + f32(z) - f32(b), dim=-1)
+        rel = r / torch.clamp(torch.linalg.vector_norm(f32(b), dim=-1), min=_EPS)
+        sums = torch.cat([
+            torch.sum(ratio, dim=-1),
+            torch.stack([torch.sum(valid).to(torch.float32), torch.sum(ratio_z),
+                         torch.sum(valid_z).to(torch.float32), torch.sum(rel),
+                         torch.tensor(float(S), device=b.device)]),
+        ]).to(torch.float64)
+        if mesh.model_index != 0:
+            sums.zero_()
+        if mesh.distributed:
+            _dist().all_reduce(sums, group=mesh.group)
+        return _metrics(sums, K)
+
+    return evaluate
+
+
+def _zip_nodes(full, new, on_node, on_leaf):
+    """Walk two trees of one structure: on_node(a, b) at DLADMMParams
+    nodes, on_leaf(a, b) at the other leaves; returns the mapped tree."""
+    if isinstance(full, DLADMMParams):
+        return on_node(full, new)
+    if isinstance(full, tuple) and hasattr(full, "_fields"):
+        return type(full)(*(_zip_nodes(a, b, on_node, on_leaf) for a, b in zip(full, new)))
+    if isinstance(full, (tuple, list)):
+        return type(full)(_zip_nodes(a, b, on_node, on_leaf) for a, b in zip(full, new))
+    return on_leaf(full, new)
+
+
+def _map_params_nodes(fn, tree):
+    """``tree`` with every DLADMMParams node (the params, the moments)
+    replaced by fn(node); other leaves (counts, keys, norms) kept."""
+    return _zip_nodes(tree, tree, lambda a, _: fn(a), lambda a, _: a)
+
+
+def gather_state_tp(state, mesh, layout: str = "sharded_w2"):
+    """A TP TrainState with every parameter-shaped leaf (params, moments)
+    gathered whole (a collective over the model group; ranks of data
+    index 0 only need to call it: the other data indices hold the same
+    slices). What a checkpoint holds."""
+    gather = lambda node: gather_params_tp(node, mesh, layout)  # noqa: E731
+    return state._replace(params=gather(state.params), opt_state=_map_params_nodes(gather, state.opt_state),
+                          compute_params=None)
+
+
+def shard_state_tp(state, mesh, layout: str = "sharded_w2", device=None):
+    """This rank's slices of a whole TrainState (inverse of
+    gather_state_tp), on ``device``."""
+    def cut(node):
+        return DLADMMParams(*(v.to(device) for v in shard_params_tp(node, mesh, layout)))
+
+    opt = _map_params_nodes(cut, state.opt_state)
+    opt = _tree_map(lambda v: v.to(device), opt)
+    return state._replace(params=cut(state.params), opt_state=opt)
+
+
+def whole_state_template(state, mesh, layout: str = "sharded_w2"):
+    """CPU tensors of the whole shapes of a TP TrainState's leaves (a
+    checkpoint's template)."""
+    T = mesh.shape[MODEL_AXIS]
+
+    def whole(node):
+        return DLADMMParams(*(torch.empty((v.shape[0], v.shape[1] * T, *v.shape[2:]) if ax else v.shape,
+                                          dtype=v.dtype) for v, ax in zip(node, param_specs(layout))))
+
+    return state._replace(params=whole(state.params), opt_state=_tree_map(
+        lambda v: v.cpu(), _map_params_nodes(whole, state.opt_state)), compute_params=None)
+
+
+def _element_index(mesh, layout: str, k: int):
+    """For bfloat16_sr moments (train/qmoments.sr_element_index): the
+    index, in the whole stacked leaf, of each element of layer k's slice
+    of leaf i on this rank, so that the stochastic rounding of a sharded
+    moment draws the bits the single-device step draws for those
+    elements (and a replicated one, beta, the same bits on every model
+    rank)."""
+    specs = param_specs(layout)
+
+    def index(i: int, v: Tensor) -> Tensor:
+        if v.dim() == 0:
+            return torch.full((1,), k, dtype=torch.int64, device=v.device)
+        T, t = (mesh.shape[MODEL_AXIS], mesh.model_index) if specs[i] else (1, 0)
+        rows, inner = v.shape[0], v[0].numel()
+        local = torch.arange(v.numel(), dtype=torch.int64, device=v.device)
+        return local + (k * T * rows + t * rows) * inner
+
+    return index
+
+
+def _tp_grad_norm(tp: _TP, layer_grads, layout: str, freeze) -> Tensor:
+    """The global norm of the whole (fp32) gradient: the sharded leaves'
+    sums of squares added over the model group, the replicated leaves'
+    counted once; frozen fields are left out (the update zeroes them)."""
+    specs = param_specs(layout)
+    sq = [torch.zeros((), dtype=torch.float32, device=layer_grads[0][0].device) for _ in range(2)]
+    for grads in layer_grads:
+        for name, g, ax in zip(DLADMMParams._fields, grads, specs):
+            if name not in freeze:
+                g = g.to(torch.float32)
+                sq[ax is None] = sq[ax is None] + torch.sum(g * g)
+    return torch.sqrt(tp.reduce(sq[0], tp.mesh.model_group) + sq[1])
+
+
+def _copy_into(dst: DLADMMParams, src: DLADMMParams) -> DLADMMParams:
+    for a, b in zip(dst, src):
+        a.copy_(b)
+    return dst
+
+
+def _apply_update_by_layer(tp: _TP, state, loss, layer_grads, optimizer, compute_dtype, freeze, layout):
+    """The optimizer applied one layer at a time, in place: each layer's
+    slice of the params, moments and compute copy goes through
+    _apply_update (the optimizer's own elementwise arithmetic), with the
+    clip transforms reading the whole gradient's global norm
+    (train/loop.whole_gradient_norm) and bfloat16_sr moments their
+    elements' indices in the whole leaves (_element_index); the layer's
+    new values are copied back and its gradients dropped. The update
+    allocates one layer's temporaries, so a rank's peak stays near its
+    params, moments and gradients (tp_large)."""
+    from dladmm_tpu_torch.train.loop import TrainState, whole_gradient_norm
+    from dladmm_tpu_torch.train.qmoments import sr_element_index
+
+    norm = _tp_grad_norm(tp, layer_grads, layout, freeze)
+    new = None
+    for k in range(len(layer_grads)):
+        at_k = lambda node: DLADMMParams(*(v[k] for v in node))  # noqa: E731
+        cp = None if state.compute_params is None else at_k(state.compute_params)
+        sub = TrainState(at_k(state.params), _map_params_nodes(at_k, state.opt_state), state.step, cp)
+        with torch.no_grad(), whole_gradient_norm(norm), sr_element_index(_element_index(tp.mesh, layout, k)):
+            new, _ = _apply_update(sub, loss, layer_grads[k], optimizer, compute_dtype, freeze)
+            _copy_into(sub.params, new.params)
+            if cp is not None:
+                _copy_into(cp, new.compute_params)
+            _zip_nodes(sub.opt_state, new.opt_state, _copy_into, lambda a, b: None)
+        layer_grads[k] = None
+    # Counts, keys and clip norms: every layer's update computed the same.
+    opt = _zip_nodes(state.opt_state, new.opt_state, lambda a, b: a, lambda a, b: b)
+    return TrainState(state.params, opt, state.step + 1, state.compute_params), loss
+
+
+def _tp_value_and_grad(tp: _TP, params: DLADMMParams, A_t, b, x_star_t, e_star, layout: str, layer_weights=None):
+    """(loss, per-layer gradients) on this rank's shards. The loss is the
+    global batch's, the same on every rank: the x-side squared errors
+    summed over the model group (_ReduceFromModel), the z-side ones
+    computed once per model rank (each holds the whole z), each divided
+    by the global batch's element count, then summed over the data group.
+    Autograd runs on per-layer leaves (views of the stacks), so each
+    layer's gradient is its own tensor and no stacked gradient is
+    assembled; the data group's sum follows, one all-reduce a layer."""
+    mesh = tp.mesh
+    D, T = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+    S, m = b.shape[0] * D, b.shape[1]
+    n = A_t.shape[1] * T
+    layers = [[v.detach().requires_grad_() for v in layer] for layer in _layers(params)]
+    x_t, z, _, ys = _tp_forward_local(tp, layers, A_t, b, layout, x_star_t, e_star, layer_weights is not None)
+    if layer_weights is None:
+        sse_x = torch.sum((x_t.float() - x_star_t) ** 2).reshape(1)
+        sse_z = torch.sum((z.float() - e_star) ** 2)
+        loss = _ReduceFromModel.apply(sse_x, tp)[0] / (S * n) + sse_z / (S * m)
+    else:
+        num_x = torch.stack([torch.sum(y[0]) for y in ys])
+        num_z = torch.stack([torch.sum(y[1]) for y in ys])
+        loss = torch.sum(layer_weights * (_ReduceFromModel.apply(num_x, tp) / (S * n) + num_z / (S * m)))
+    flat = torch.autograd.grad(loss, [v for layer in layers for v in layer])
+    grads = [DLADMMParams(*flat[5 * k: 5 * k + 5]) for k in range(len(layers))]
+    loss = loss.detach()
+    if D > 1:
+        for k, g in enumerate(grads):
+            head = [loss.reshape(1)] if k == 0 else []
+            buf = tp.reduce(_flat([*head, *(v.to(torch.float32) for v in g)]), mesh.data_group)
+            if k == 0:
+                loss, buf = buf[0], buf[1:]
+            grads[k] = DLADMMParams(*(u.to(v.dtype) for u, v in zip(_unflat(buf, g), g)))
+    return loss, grads
+
+
+def make_sharded_train_step(
+    optimizer,
+    mesh,
+    layout: str = "sharded_w2",
+    compute_dtype=None,
+    freeze: tuple = (),
+    layer_weights=None,
+    timer: Optional[CollectiveTimer] = None,
+):
+    """Tensor-parallel step over the D x T mesh: (state, A_t, local batch)
+    -> (state, loss); the state holds this rank's slices
+    (shard_params_tp / init_params_tp; the moments shaped like them), A_t
+    its columns of A in the compute type, the batch its data index's rows
+    and x* its n-slice.
+
+    Per layer three products, each on 1/T of the weights (sharded_w2),
+    and the collectives of the JAX package's _tp_layer_step: the partial
+    A x all-reduced over the model group, z gathered, and in the
+    backward the sums that copying u, v and z into rank-local work needs
+    (_CopyToModel). Replicated leaves (beta; W2 and theta2 in
+    replicated_w2) so get the whole gradient on every model rank, sharded
+    ones their slice's; the data group sums them (_tp_value_and_grad).
+    The update is the optimizer's, layer by layer and in place
+    (_apply_update_by_layer), its clip on the whole gradient's norm. The
+    products are fp32 torch.matmul (no kernel: the JAX package's TP step
+    is XLA dots too), bf16 under ``compute_dtype`` on the state's
+    persistent bf16 copy, with fp32 masters and an fp32 loss.
+    ``layer_weights``: deep supervision; ``freeze``: fields held fixed;
+    ``timer``: a CollectiveTimer that times every collective. The update
+    is in place: the state passed in is the state returned."""
+    _check_tp(mesh)
+    tp = _TP(mesh, timer)
+    freeze = tuple(freeze)
+
+    def step(state, A_t, batch):
+        loss_params, b = _mixed_precision_inputs(state, batch, compute_dtype)
+        loss, grads = _tp_value_and_grad(tp, loss_params, A_t, b, batch.x_star, batch.e_star, layout,
+                                         layer_weights)
+        return _apply_update_by_layer(tp, state, loss, grads, optimizer, compute_dtype, freeze, layout)
+
+    return step
+
+
 __all__ = [
+    "CollectiveTimer",
     "Flat",
+    "LAYOUTS",
     "Zero1Layout",
+    "gather_blocks",
+    "gather_state_tp",
+    "init_params_tp",
     "make_dp_eval",
     "make_dp_fused_adam_step",
     "make_dp_train_step",
     "make_dp_zero1_state",
     "make_dp_zero1_train_step",
+    "make_sharded_eval",
+    "make_sharded_train_step",
+    "param_specs",
+    "shard_state_tp",
+    "sharded_forward",
+    "whole_state_template",
     "zero1_gather",
     "zero1_global_state",
     "zero1_layout",

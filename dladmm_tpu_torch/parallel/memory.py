@@ -8,7 +8,7 @@ does not fit fails with the memory math instead of an out-of-memory
 error inside a step. ``step_traffic_bytes`` models the bytes a step's
 collectives move per device (ring all-reduce 2(P-1)/P of the size,
 all-gather and reduce-scatter (P-1)/P), the tensor-parallel rows
-included (they are arithmetic; the TP step itself is a later slice).
+included.
 """
 
 from __future__ import annotations

@@ -1,17 +1,18 @@
-"""Starting the ranks of a data-parallel run, and each rank's batch.
+"""Starting the ranks of a sharded run, its mesh, and each rank's batch.
 
-The port of ``dladmm_tpu/parallel/multihost.py``. A data-parallel run is
-one process a rank, launched by
+The port of ``dladmm_tpu/parallel/multihost.py``. A sharded run is one
+process a rank, launched by
 
-    python -m torch.distributed.run --standalone --nproc_per_node=D \\
+    python -m torch.distributed.run --standalone --nproc_per_node=D*T \\
         -m dladmm_tpu_torch.run --config=general_b_dp
 
 (or across hosts with --nnodes and a rendezvous address), which sets
 the ``env://`` variables. ``initialize_distributed`` reads them, picks
 each rank's device and the backend (parallel/mesh.pick_backend) and
 joins the process group; in a process that no launcher started it does
-nothing. ``host_local_batch`` draws this rank's rows of a step's global
-batch, with no data moving between ranks.
+nothing. ``make_multihost_mesh`` keeps each model group on one host.
+``host_local_batch`` draws this rank's rows of a step's global batch,
+with no data moving between ranks.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from dladmm_tpu_torch.data.synthetic import SyntheticBatch, make_batch, step_generator
+from dladmm_tpu_torch.data.synthetic import SyntheticBatch, draw_batch, step_generator
 
 _RANK_DEVICE: Optional[torch.device] = None
 
@@ -100,25 +101,75 @@ def process_index() -> int:
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
-def host_local_batch(seed: int, step: int, A, global_batch: int, mesh, sparsity_x: float = 0.1,
+def make_multihost_mesh(model: int = 1, device=None):
+    """The ('data', 'model') mesh over every rank of the run, data
+    outermost: model groups are T contiguous ranks, which the launcher
+    places on one host (ranks are numbered host by host), so only the
+    data group's gradient sum crosses hosts. T must divide the ranks of a
+    host (LOCAL_WORLD_SIZE)."""
+    from dladmm_tpu_torch.parallel.mesh import make_mesh
+
+    n = world_size()
+    if n % model:
+        raise ValueError(f"{n} global ranks not divisible by model={model}")
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", n))
+    if local % model:
+        raise ValueError(f"model={model} does not divide the {local} ranks of a host: a model group would "
+                         "span two hosts")
+    return make_mesh(data=n // model, model=model, device=device)
+
+
+def rank_batch(mesh, x_star, e_star, A_cols, B=None) -> SyntheticBatch:
+    """This rank's batch from its rows of a draw (data/synthetic.
+    draw_batch, on the CPU), on A_cols' device: x* cut to the rank's
+    n-slice, and b = A x* + e* (+ B z* for a general B) from A_cols, the
+    rank's columns of A. With model = 1 that is make_batch's product;
+    under tensor parallelism b is the partial products x*_t A_t^T summed
+    over the model group (one all-reduce), as the JAX package's GSPMD
+    forms it with A split over its columns, and no rank holds the whole
+    A."""
+    from dladmm_tpu_torch.data.synthetic import _to_device
+    from dladmm_tpu_torch.parallel.mesh import MODEL_AXIS, model_slice
+
+    dev = A_cols.device
+    x_star = _to_device(model_slice(x_star, mesh).contiguous(), dev)
+    e_star = _to_device(e_star.contiguous(), dev)
+    Ax = x_star @ A_cols.T
+    if mesh.shape[MODEL_AXIS] > 1:
+        import torch.distributed as dist
+
+        dist.all_reduce(Ax, group=mesh.model_group)
+    return SyntheticBatch(Ax + (e_star if B is None else e_star @ B.T), x_star, e_star)
+
+
+def host_local_batch(seed: int, step: int, A_cols, global_batch: int, mesh, sparsity_x: float = 0.1,
                      sparsity_e: float = 0.1, dtype=torch.float32, B=None) -> SyntheticBatch:
-    """This rank's global_batch / D rows of step ``step``'s batch, on A's
-    device: every rank draws only its own rows, and together they are a
-    deterministic global batch. Rank r of D draws from
-    ``step_generator(seed, step, D, r)`` (the JAX package's
-    ``fold_in(key, pid)``), a spawn key no single-device step or
-    microbatch shares. B: the general z-dictionary, as make_batch takes
-    it."""
-    D, r = mesh.shape["data"], mesh.rank
+    """This rank's part of step ``step``'s batch, on A_cols' device: its
+    data index's global_batch / D rows, x* its n-slice (rank_batch; A_cols
+    the rank's columns of A, the whole A where model = 1). Every data index
+    draws only its own rows, and together they are a deterministic global
+    batch: data index d of D draws from ``step_generator(seed, step, D,
+    d)`` (the JAX package's ``fold_in(key, pid)``), a spawn key no
+    single-device step or microbatch shares; the model ranks of one data
+    index draw the same rows. B: the general z-dictionary, as make_batch
+    takes it."""
+    from dladmm_tpu_torch.parallel.mesh import MODEL_AXIS
+
+    D, d = mesh.shape["data"], mesh.data_index
     if global_batch % D:
         raise ValueError(f"global_batch {global_batch} % {D} != 0")
-    return make_batch(step_generator(seed, step, D, r), A, global_batch // D, sparsity_x, sparsity_e, dtype, B)
+    m, n = A_cols.shape[0], A_cols.shape[1] * mesh.shape[MODEL_AXIS]
+    x_star, e_star = draw_batch(step_generator(seed, step, D, d), m, n, global_batch // D, sparsity_x, sparsity_e,
+                                dtype, None if B is None else B.shape[1])
+    return rank_batch(mesh, x_star, e_star, A_cols, B)
 
 
 __all__ = [
     "host_local_batch",
     "initialize_distributed",
+    "make_multihost_mesh",
     "process_index",
+    "rank_batch",
     "rank_device",
     "ranks_per_card",
     "world_size",

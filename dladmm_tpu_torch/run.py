@@ -5,16 +5,18 @@ configured D-LADMM net and prints the NMSE-vs-layer table against the
 classical LADMM baseline, then one summary JSON line. Runs on CUDA
 unless ``DLADMM_PLATFORM=cpu``. The JAX CLI's flags are all accepted
 and routed as it routes them: ``--greedy`` (train/loop.fit_greedy),
-``--optimizer=fused_adam`` (train/fused_adam.py), and the data-parallel
-presets (general_b_dp, multihost; ``--zero1``, ``--hbm-gb``) through
-train/loop.fit_sharded, one process a rank:
+``--optimizer=fused_adam`` (train/fused_adam.py), and the sharded
+presets, data-parallel (general_b_dp, multihost; ``--zero1``,
+``--hbm-gb``) and tensor-parallel (tp_small, tp_large, tp_large_bf16),
+through train/loop.fit_sharded, one process a rank (D * T of them; a
+sharded preset started in one process is refused with this line):
 
-    python -m torch.distributed.run --standalone --nproc_per_node=D \
-        -m dladmm_tpu_torch.run --config=general_b_dp
+    python -m torch.distributed.run --standalone --nproc_per_node=8 \
+        -m dladmm_tpu_torch.run --config=tp_small
 
-Tensor-parallel presets (model_axis > 1: tp_small, tp_large,
-tp_large_bf16) end in an argparse error naming ROADMAP.md. ``--plot``
-writes the NMSE-vs-layer figure (utils/plots.py; needs matplotlib).
+Ranks that share one card talk over gloo (parallel/mesh.pick_backend).
+``--plot`` writes the NMSE-vs-layer figure (utils/plots.py; needs
+matplotlib).
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ import json
 import sys
 import time
 
-_LATER = "is not ported yet (a later slice of the port, ROADMAP.md §1)"
 _MOMENT_DTYPES = [
     "float32", "bfloat16", "bfloat16_sr", "int8", "float32_pallas",
     "bfloat16_pallas", "bfloat16_sr_pallas", "bfloat16_sr_mu_pallas", "int8_pallas",
@@ -75,13 +76,6 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _reject_unported(ap, args, cfg) -> None:
-    s = cfg.sharding
-    if s.model_axis > 1:
-        ap.error(f"config {cfg.name!r} is sharded over model_axis={s.model_axis}: "
-                 f"tensor parallelism {_LATER}")
-
-
 def main(argv=None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
@@ -113,7 +107,6 @@ def main(argv=None) -> int:
     if "elastic_net" in (cfg.problem.prox_x, cfg.problem.prox_z) and cfg.problem.prox_rho == 0.0:
         ap.error("prox=elastic_net needs --prox-rho > 0 (rho=0 reduces to l1; "
                  "pass --prox-x=l1 if that is what you want)")
-    _reject_unported(ap, args, cfg)
 
     from dladmm_tpu_torch.models.api import select_forward
     from dladmm_tpu_torch.ops.prox import resolve_prox
@@ -140,19 +133,25 @@ def main(argv=None) -> int:
             ap.error("--export-torch is single-device only; checkpoint the sharded run "
                      "(--ckpt-dir) and export from the restored params instead")
         from dladmm_tpu_torch.parallel.multihost import initialize_distributed, process_index, world_size
-        from dladmm_tpu_torch.train.loop import LAUNCH, fit_sharded
+        from dladmm_tpu_torch.train.loop import LAUNCH, check_sharded, fit_sharded
 
+        try:  # the config's refusals come before the launch line
+            check_sharded(cfg)
+        except ValueError as e:
+            ap.error(str(e))
+        ranks = s.data_axis * s.model_axis
         initialize_distributed()
-        if world_size() != s.data_axis:
-            ap.error(f"config {cfg.name!r} is sharded over data_axis={s.data_axis} ranks and this "
-                     f"run has {world_size()}; launch one process a rank: "
-                     + LAUNCH.format(D=s.data_axis, name=cfg.name))
+        if world_size() != ranks:
+            ap.error(f"config {cfg.name!r} is sharded over a {s.data_axis}x{s.model_axis} mesh, {ranks} "
+                     f"ranks, and this run has {world_size()}; launch one process a rank: "
+                     + LAUNCH.format(D=ranks, name=cfg.name))
+        desc = ("data-parallel fit_sharded" if s.model_axis == 1
+                else f"tensor-parallel fit_sharded ({s.layout})")
         t0 = time.monotonic()
         _, history = fit_sharded(cfg, log_fn=logger, ckpt_dir=args.ckpt_dir, resume=args.resume,
                                  hbm_bytes=args.hbm_gb and args.hbm_gb * 1e9)
         if process_index() == 0:
-            _report(args, cfg, history[-1], "data-parallel fit_sharded", time.monotonic() - t0,
-                    history[-1]["mesh"])
+            _report(args, cfg, history[-1], desc, time.monotonic() - t0, history[-1]["mesh"])
         return 0
 
     from dladmm_tpu_torch.utils.platform import resolve_device

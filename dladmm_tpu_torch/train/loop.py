@@ -36,13 +36,14 @@ only; a resume casts the copy again. Evals run on the fp32 masters.
 sweep (train/fused_adam.py), with the delayed clip. ``fit_greedy``
 trains the k-layer prefixes in stages, then fine-tunes end to end.
 ``fit_sharded`` trains data-parallel over the ranks of a
-``torch.distributed`` run (parallel/), one process a rank; tensor
-parallelism (model_axis > 1) is not ported yet (ROADMAP.md §1) and
-raises NotImplementedError.
+``torch.distributed`` run (parallel/), one process a rank, data-parallel
+and tensor-parallel (model_axis > 1).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -54,8 +55,6 @@ from dladmm_tpu_torch.metrics.core import constraint_residual, nmse_db, per_laye
 from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
 from dladmm_tpu_torch.ops.prox import resolve_prox
 from dladmm_tpu_torch.train.qadam_cuda import QAdamFused, WarmupCosine, global_norm
-
-_LATER = "is not ported yet; it is a later slice of the port (ROADMAP.md §1)"
 
 
 class TrainState(NamedTuple):
@@ -218,13 +217,35 @@ def scale_by_learning_rate(learning_rate) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
+_WHOLE_NORM = contextvars.ContextVar("whole_gradient_norm", default=None)
+
+
+@contextlib.contextmanager
+def whole_gradient_norm(norm: Tensor):
+    """Within the block, the clip transforms take ``norm`` as the global
+    norm of the gradients they see: the tensor-parallel step applies the
+    optimizer to one layer's slice of a rank's shard at a time, and the
+    clip is the whole gradient's (parallel/collectives.
+    _apply_update_by_layer)."""
+    token = _WHOLE_NORM.set(norm)
+    try:
+        yield
+    finally:
+        _WHOLE_NORM.reset(token)
+
+
+def _norm_of(grads) -> Tensor:
+    norm = _WHOLE_NORM.get()
+    return global_norm(grads) if norm is None else norm
+
+
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """optax.clip_by_global_norm: t, or t / norm * max_norm above the
     limit (the norm cast to t's dtype first, as optax does: bf16 gradients
     stay bf16)."""
 
     def update(grads, state, params=None):
-        norm = global_norm(grads)
+        norm = _norm_of(grads)
         trigger = norm < max_norm
         return type(grads)(*(torch.where(trigger, g, (g / norm.to(g.dtype)) * max_norm) for g in grads)), state
 
@@ -241,7 +262,7 @@ def delayed_clip_by_global_norm(max_norm: float) -> GradientTransformation:
         return DelayedClipState(torch.full((), max_norm, dtype=torch.float32, device=params[0].device))
 
     def update(grads, state, params=None):
-        cur = global_norm(grads).to(torch.float32)
+        cur = _norm_of(grads).to(torch.float32)
         scale = torch.clamp(max_norm / torch.clamp(state.prev_norm, min=1e-16), max=1.0)
         return type(grads)(*(g * scale.to(g.dtype) for g in grads)), DelayedClipState(cur)
 
@@ -814,21 +835,22 @@ LAUNCH = "python -m torch.distributed.run --standalone --nproc_per_node={D} -m d
 
 def check_sharded(config) -> None:
     """fit_sharded's conditions on a config, before anything starts (the
-    JAX package's, in its order); model_axis > 1 raises
-    NotImplementedError."""
+    JAX package's, in its order), raising ValueError."""
     p, t, s = config.problem, config.train, config.sharding
-    if s.model_axis > 1:
-        raise NotImplementedError(
-            f"config {config.name!r} is {s.data_axis}x{s.model_axis}: tensor parallelism "
-            f"(model_axis > 1) {_LATER}; its next item"
-        )
     if resolve_prox(p) is not None or getattr(p, "nonneg_x", False):
         raise ValueError(
             "fit_sharded covers the l1/l1 instantiation only (the per-shard "
-            "fast paths are l1-specialized); train general-prox configs "
-            "single-device via fit()"
+            "fast paths and TP collective algebra are l1-specialized); train "
+            "general-prox configs single-device via fit()"
         )
     general_b = not getattr(p, "identity_B", True)
+    if general_b and s.model_axis > 1:
+        raise ValueError(
+            "general-B configs shard over 'data' only (the TP collective "
+            "layouts assume the z stream lives in R^m - "
+            "parallel/collectives.py); use model_axis=1, or identity_B "
+            "for tensor parallelism"
+        )
     if general_b and t.kernel != "auto":
         raise ValueError(
             "general-B training runs the plain loop + manual general-B "
@@ -837,6 +859,13 @@ def check_sharded(config) -> None:
         )
     fused = getattr(t, "optimizer", "adam") == "fused_adam"
     if fused:
+        if s.model_axis > 1:
+            raise ValueError(
+                "optimizer='fused_adam' shards over 'data' only: the TP "
+                "step's weights live sharded over 'model', but the fused "
+                "reverse sweep applies Adam to the full layer slice. Use "
+                "optimizer='adam' with model_axis > 1."
+            )
         check_fused_adam(t, sharded=True)
     if getattr(t, "accum_steps", 1) != 1:
         raise ValueError(
@@ -844,6 +873,13 @@ def check_sharded(config) -> None:
             "a mesh, raise data_axis (more batch shards) instead"
         )
     if getattr(s, "zero1", False):
+        if s.model_axis > 1:
+            raise ValueError(
+                "zero1 (cross-replica weight-update sharding) shards the "
+                "optimizer over 'data'; with model_axis > 1 the TP layout "
+                "already shards weights AND moments over 'model' "
+                "(layout='sharded_w2') - use that instead"
+            )
         if fused:
             raise ValueError(
                 "zero1 and optimizer='fused_adam' both restructure the "
@@ -857,6 +893,28 @@ def check_sharded(config) -> None:
                 "single-pass - clip_mode='delayed' would be a strictly "
                 "worse approximation here; use clip_mode='global'"
             )
+    if s.model_axis > 1:
+        bad = {k: v for k, v in {"kernel": t.kernel, "vjp": getattr(t, "vjp", "auto")}.items() if v != "auto"}
+        if bad:
+            raise ValueError(
+                f"TrainConfig fields {sorted(bad)} have no effect with "
+                f"model_axis={s.model_axis}: the TP forward is the "
+                "explicit-collective loop (parallel/collectives.py), not "
+                "a kernel/vjp-selectable single-device path. Leave them "
+                '"auto" (they apply on DP-only meshes).'
+            )
+        md = getattr(t, "moment_dtype", "float32")
+        if md.endswith("_pallas") or md == "int8":
+            raise ValueError(
+                f"moment_dtype={md!r} does not compose with "
+                f"model_axis={s.model_axis}: int8 moment state is not "
+                "param-shaped (it cannot be split along the model axis) and "
+                "the fused sweep cannot partition across model shards. Use "
+                "moment_dtype in {'float32', 'bfloat16', 'bfloat16_sr'} with TP."
+            )
+        for what, width in (("n", p.n), ("m", p.m if getattr(s, "layout", "sharded_w2") == "sharded_w2" else 0)):
+            if width % s.model_axis:
+                raise ValueError(f"{what}={width} does not split over model_axis={s.model_axis} ranks")
     for what, rows in (("batch", t.batch), ("eval_batch", t.eval_batch)):
         if rows % s.data_axis:
             raise ValueError(f"{what}={rows} does not split over data_axis={s.data_axis} ranks")
@@ -871,7 +929,7 @@ def sharded_audit(config, hbm_bytes: float, print_fn=None):
     p, t, s = config.problem, config.train, config.sharding
     md = getattr(t, "moment_dtype", "float32")
     return audit_or_raise(
-        p.m, p.n, p.K, t.batch, s.data_axis, 1, getattr(s, "layout", "sharded_w2"),
+        p.m, p.n, p.K, t.batch, s.data_axis, s.model_axis, getattr(s, "layout", "sharded_w2"),
         dtype_bytes=torch.empty((), dtype=getattr(torch, t.dtype)).element_size(),
         compute_dtype_bytes=2 if t.compute_dtype == "bfloat16" else None,
         hbm_bytes=hbm_bytes,
@@ -892,23 +950,25 @@ def fit_sharded(
     init_params: Optional[DLADMMParams] = None,
     device=None,
 ):
-    """Data-parallel training per config.sharding (model_axis == 1) over
-    the ranks of a torch.distributed run; returns (params, history) on
-    every rank.
+    """Sharded training per config.sharding over the ranks of a
+    torch.distributed run, on a data_axis x model_axis mesh; returns
+    (params, history) on every rank (a rank's slices under tensor
+    parallelism).
 
     One process a rank, launched as
-    ``python -m torch.distributed.run --standalone --nproc_per_node=D -m
+    ``python -m torch.distributed.run --standalone --nproc_per_node=D*T -m
     dladmm_tpu_torch.run --config=...`` (parallel/multihost.
     initialize_distributed reads the launcher's env:// variables); the
-    run's world size must equal data_axis. The per-device memory audit
-    (parallel/memory.audit_or_raise) runs before anything is allocated,
-    against ``hbm_bytes`` or the card's memory shared by the ranks on it
-    (parallel/multihost.ranks_per_card).
+    run's world size must equal data_axis * model_axis. The per-device
+    memory audit (parallel/memory.audit_or_raise) runs before anything is
+    allocated, against ``hbm_bytes`` or the card's memory shared by the
+    ranks on it (parallel/multihost.ranks_per_card).
 
-    Each rank runs the single-device stack on its global_batch / D rows:
-    the forward the policy selects at that batch (the trajectory kernel
-    and, for the final-layer loss, the backward kernel on the card; the
-    plain loop and the manual general-B sweep for a general B), then
+    model_axis == 1: each rank runs the single-device stack on its
+    global_batch / D rows: the forward the policy selects at that batch
+    (the trajectory kernel and, for the final-layer loss, the backward
+    kernel on the card; the plain loop and the manual general-B sweep for
+    a general B), then
 
       * optimizer='fused_adam': parallel/collectives.
         make_dp_fused_adam_step (per-layer all-reduces in the sweep);
@@ -917,31 +977,38 @@ def fit_sharded(
       * else make_dp_train_step (one all-reduce, the same update on
         every rank; the fused CUDA sweep for ``*_pallas`` moments).
 
-    The step's global batch is drawn as the single-device fit draws it
-    (``step_generator(seed, i)``) and each rank keeps its rows, so a D-rank
-    run sees the single-device run's data; with sharding.multihost each
-    rank draws only its own rows (multihost.host_local_batch). The eval
-    batch is fit's, split over the ranks; evaluation adds the ranks' sums
-    (make_dp_eval). Training starts from ``init_params`` where given (as
-    fit's does), else the LADMM init; the LADMM curve is the LADMM-init
-    net's.
+    model_axis > 1: the tensor-parallel step (parallel/collectives.
+    make_sharded_train_step, layout config.sharding.layout) on the rank's
+    slices, built from its own columns of A (init_params_tp), and the
+    gather-free make_sharded_eval.
 
-    With ckpt_dir, rank 0 writes the params, the optimizer state (ZeRO-1
-    slices all-gathered into the whole-vector state), the step and A (and
-    B) at every eval; resume=True restores the latest on every rank, each
-    ZeRO-1 rank taking its slice. Tensor parallelism raises
-    NotImplementedError (ROADMAP.md §1)."""
+    The step's global batch is drawn as the single-device fit draws it
+    (``step_generator(seed, i)``) and each rank keeps its data index's
+    rows (and its n-slice of x*), so the run sees the single-device run's
+    data; with sharding.multihost each data index draws only its own rows
+    (multihost.host_local_batch). The eval batch is fit's, split the same
+    way; evaluation adds the ranks' sums. Training starts from
+    ``init_params`` where given (as fit's does), else the LADMM init; the
+    LADMM curve is the LADMM-init net's.
+
+    With ckpt_dir, rank 0 writes the whole params, the optimizer state
+    (ZeRO-1 slices and TP slices gathered: the single-device layout, so
+    ``serve --ckpt-dir`` serves it), the step and A (and B) at every eval;
+    resume=True restores the latest on every rank, each taking its
+    slice."""
     import dataclasses
 
-    from dladmm_tpu_torch.data.synthetic import problem_matrices, seed_keys
+    from dladmm_tpu_torch.data.synthetic import SyntheticBatch, draw_batch, problem_matrices, seed_keys
     from dladmm_tpu_torch.models.api import select_forward
     from dladmm_tpu_torch.models.unroll import init_dladmm_params
     from dladmm_tpu_torch.parallel import collectives as coll
     from dladmm_tpu_torch.parallel.memory import detect_hbm_bytes
-    from dladmm_tpu_torch.parallel.mesh import make_mesh
+    from dladmm_tpu_torch.parallel.mesh import make_mesh, model_slice, shard_params_tp
     from dladmm_tpu_torch.parallel.multihost import (
         host_local_batch,
         initialize_distributed,
+        make_multihost_mesh,
+        rank_batch,
         rank_device,
         ranks_per_card,
         world_size,
@@ -950,20 +1017,21 @@ def fit_sharded(
 
     check_sharded(config)
     p, t, s = config.problem, config.train, config.sharding
-    D = s.data_axis
+    D, T = s.data_axis, s.model_axis
     rank_dev = initialize_distributed(device) or rank_device(device)  # one rank, no launcher: its device
-    if world_size() != D:
+    if world_size() != D * T:
         raise RuntimeError(
-            f"config {config.name!r} is sharded over data_axis={D} ranks, and this run has "
+            f"config {config.name!r} is sharded over a {D}x{T} mesh, {D * T} ranks, and this run has "
             f"{world_size()}: launch one process a rank, "
-            + LAUNCH.format(D=D, name=config.name)
+            + LAUNCH.format(D=D * T, name=config.name)
         )
-    mesh = make_mesh(data=D, devices=[rank_dev])
+    mesh = make_multihost_mesh(T, rank_dev) if s.multihost else make_mesh(data=D, model=T, devices=[rank_dev])
     is_primary = mesh.rank == 0
     general_b = not getattr(p, "identity_B", True)
     zero1 = getattr(s, "zero1", False)
     fused = getattr(t, "optimizer", "adam") == "fused_adam"
     vjp = getattr(t, "vjp", "auto")
+    layout = getattr(s, "layout", "sharded_w2")
     compute_dtype = torch.bfloat16 if t.compute_dtype == "bfloat16" else None
     sharded_audit(config, hbm_bytes or detect_hbm_bytes(rank_dev) / ranks_per_card(rank_dev),
                   print if is_primary else None)
@@ -973,55 +1041,85 @@ def fit_sharded(
     if A is not None:
         A = torch.as_tensor(A).to(rank_dev, dtype)
     A, B = problem_matrices(config, A, device=rank_dev)
-    ladmm = init_dladmm_params(A, B, K=p.K, beta=p.beta, dtype=dtype)
-    params = ladmm
-    if init_params is not None:
-        params = DLADMMParams(*(torch.as_tensor(v).to(rank_dev, dtype) for v in init_params))
     layer_weights = _layer_weights(t.layer_loss, p.K, torch.float32, rank_dev)
-    A_c = A if compute_dtype is None else A.to(compute_dtype)
-    B_c = B if B is None or compute_dtype is None else B.to(compute_dtype)
 
-    if fused:
-        state = make_fused_adam_state(params, t.clip_norm, compute_dtype)
-        train_step = coll.make_dp_fused_adam_step(
-            mesh, layer_weights, _lr_of(t), clip_norm=t.clip_norm, compute_dtype=compute_dtype,
-            freeze=tuple(t.freeze), B=B_c)
-    else:
-        forward_fn = None
-        if not general_b and vjp not in ("manual", "xla"):
-            forward_fn = select_forward(p.m, p.n, p.m, max(1, t.batch // D), kernel=t.kernel,
-                                        need_trajectory=t.layer_loss is not None, device=rank_dev,
-                                        dtype=t.compute_dtype)[0]
-        if zero1:
-            # The step owns the exact clip: the optimizer has none.
-            optimizer = _build_optimizer(dataclasses.replace(t, clip_norm=None))
-            state = coll.make_dp_zero1_state(params, optimizer, mesh, compute_dtype)
-            train_step = coll.make_dp_zero1_train_step(
-                optimizer, mesh, clip_norm=t.clip_norm, compute_dtype=compute_dtype, freeze=tuple(t.freeze),
-                layer_weights=layer_weights, forward_fn=forward_fn, vjp=vjp, B=B_c)
-        else:
-            optimizer = _build_optimizer(t)
-            state = make_train_state(params, optimizer, compute_dtype)
-            train_step = coll.make_dp_train_step(
-                optimizer, mesh, compute_dtype, tuple(t.freeze), layer_weights, None, forward_fn, vjp, B=B_c)
+    A_cols = model_slice(A, mesh).contiguous() if T > 1 else A  # the rank's columns of A
 
-    from dladmm_tpu_torch.data.synthetic import SyntheticBatch
-
-    def rows(data):
-        """This rank's rows of a global batch."""
-        n = data.b.shape[0] // D
-        return SyntheticBatch(*(v[mesh.rank * n: (mesh.rank + 1) * n] for v in data))
+    def part(gen, rows):
+        """This rank's part of a global batch of ``rows`` drawn from
+        ``gen``: its data index's rows, x* its n-slice. Data-parallel
+        ranks slice make_batch's batch; a TP rank forms b from its columns
+        of A (multihost.rank_batch)."""
+        k = rows // D
+        r = slice(mesh.data_index * k, (mesh.data_index + 1) * k)
+        if T == 1:
+            data = make_batch(gen, A, rows, p.sparsity_x, p.sparsity_e, dtype, B)
+            return SyntheticBatch(*(v[r] for v in data))
+        x_star, e_star = draw_batch(gen, p.m, p.n, rows, p.sparsity_x, p.sparsity_e, dtype)
+        return rank_batch(mesh, x_star[r], e_star[r], A_cols)
 
     def batch_of(i):
         if s.multihost and D > 1:
-            return host_local_batch(t.seed, i, A, t.batch, mesh, p.sparsity_x, p.sparsity_e, dtype, B)
-        return rows(make_batch(step_generator(t.seed, i), A, t.batch, p.sparsity_x, p.sparsity_e, dtype, B))
+            return host_local_batch(t.seed, i, A_cols, t.batch, mesh, p.sparsity_x, p.sparsity_e, dtype, B)
+        return part(step_generator(t.seed, i), t.batch)
 
-    eval_data = rows(make_batch(g_eval, A, t.eval_batch, p.sparsity_x, p.sparsity_e, dtype, B))
-    eval_fn = coll.make_dp_eval(mesh, B, use_kernel=t.kernel != "reference")
-    ladmm_curve = eval_fn(ladmm, A, eval_data)["nmse_curve_db"]
+    eval_data = part(g_eval, t.eval_batch)
+    optimizer = None
+    if T > 1:
+        # Each rank's slices, built from its own columns of A; the LADMM
+        # curve is read off the init before the state takes its memory,
+        # and only rank 0 keeps the whole A (on the host, for checkpoints).
+        A_eval = A_cols
+        A_c = A_eval if compute_dtype is None else A_eval.to(compute_dtype)
+        ladmm = coll.init_params_tp(A, p.K, mesh, layout, p.beta, dtype)
+        A = A.cpu() if is_primary else None
+        eval_fn = coll.make_sharded_eval(mesh, layout)
+        ladmm_curve = eval_fn(ladmm, A_eval, eval_data)["nmse_curve_db"]
+        params = ladmm if init_params is None else shard_params_tp(
+            DLADMMParams(*(torch.as_tensor(v).to(rank_dev, dtype) for v in init_params)), mesh, layout)
+        del ladmm
+        optimizer = _build_optimizer(t)
+        state = TrainState(params, optimizer.init(params), 0,
+                           None if compute_dtype is None else _cast(params, compute_dtype))
+        del params
+        train_step = coll.make_sharded_train_step(optimizer, mesh, layout, compute_dtype, tuple(t.freeze),
+                                                  layer_weights)
+    else:
+        A_eval = A
+        A_c = A if compute_dtype is None else A.to(compute_dtype)
+        B_c = B if B is None or compute_dtype is None else B.to(compute_dtype)
+        ladmm = init_dladmm_params(A, B, K=p.K, beta=p.beta, dtype=dtype)
+        params = ladmm
+        if init_params is not None:
+            params = DLADMMParams(*(torch.as_tensor(v).to(rank_dev, dtype) for v in init_params))
+        eval_fn = coll.make_dp_eval(mesh, B, use_kernel=t.kernel != "reference")
+        ladmm_curve = eval_fn(ladmm, A, eval_data)["nmse_curve_db"]
+        if fused:
+            state = make_fused_adam_state(params, t.clip_norm, compute_dtype)
+            train_step = coll.make_dp_fused_adam_step(
+                mesh, layer_weights, _lr_of(t), clip_norm=t.clip_norm, compute_dtype=compute_dtype,
+                freeze=tuple(t.freeze), B=B_c)
+        else:
+            forward_fn = None
+            if not general_b and vjp not in ("manual", "xla"):
+                forward_fn = select_forward(p.m, p.n, p.m, max(1, t.batch // D), kernel=t.kernel,
+                                            need_trajectory=t.layer_loss is not None, device=rank_dev,
+                                            dtype=t.compute_dtype)[0]
+            if zero1:
+                # The step owns the exact clip: the optimizer has none.
+                optimizer = _build_optimizer(dataclasses.replace(t, clip_norm=None))
+                state = coll.make_dp_zero1_state(params, optimizer, mesh, compute_dtype)
+                train_step = coll.make_dp_zero1_train_step(
+                    optimizer, mesh, clip_norm=t.clip_norm, compute_dtype=compute_dtype,
+                    freeze=tuple(t.freeze), layer_weights=layer_weights, forward_fn=forward_fn, vjp=vjp, B=B_c)
+            else:
+                optimizer = _build_optimizer(t)
+                state = make_train_state(params, optimizer, compute_dtype)
+                train_step = coll.make_dp_train_step(
+                    optimizer, mesh, compute_dtype, tuple(t.freeze), layer_weights, None, forward_fn, vjp,
+                    B=B_c)
 
-    layout = coll.zero1_layout(state.params, optimizer, D) if zero1 else None
+    z1_layout = coll.zero1_layout(state.params, optimizer, D) if zero1 else None
     if ckpt_dir:
         from dladmm_tpu_torch.utils.checkpoint import latest_step_dir, restore_checkpoint, save_checkpoint
 
@@ -1030,18 +1128,22 @@ def fit_sharded(
             if latest is not None:
                 template = state._replace(compute_params=None)
                 if zero1:
-                    template = template._replace(opt_state=coll.zero1_global_state(optimizer, layout, rank_dev))
+                    template = template._replace(opt_state=coll.zero1_global_state(optimizer, z1_layout, rank_dev))
+                elif T > 1:
+                    template = coll.whole_state_template(template, mesh, layout)
                 state = restore_checkpoint(latest, template)[0]
                 if zero1:
-                    state = state._replace(opt_state=coll.zero1_slice(state.opt_state, layout, mesh.rank))
+                    state = state._replace(opt_state=coll.zero1_slice(state.opt_state, z1_layout, mesh.rank))
+                elif T > 1:
+                    state = coll.shard_state_tp(state, mesh, layout, rank_dev)
                 if compute_dtype is not None:
                     state = state._replace(compute_params=_cast(state.params, compute_dtype))
 
-    mesh_desc = f"{D}x1"
+    mesh_desc = f"{D}x{T}"
     history = []
 
     def record(step, loss):
-        ev = eval_fn(state.params, A, eval_data)
+        ev = eval_fn(state.params, A_eval, eval_data)
         rec = {"step": step, "loss": loss, "nmse_db": ev["nmse_db"], "residual": ev["residual"],
                "mesh": mesh_desc}
         history.append({**rec, "curves": {"nmse_curve_db": ev["nmse_curve_db"], "ladmm_curve_db": ladmm_curve}})
@@ -1051,7 +1153,9 @@ def fit_sharded(
     def save(step):
         st = state._replace(compute_params=None)
         if zero1:
-            st = st._replace(opt_state=coll.zero1_gather(st.opt_state, layout, mesh))
+            st = st._replace(opt_state=coll.zero1_gather(st.opt_state, z1_layout, mesh))
+        elif T > 1 and mesh.data_index == 0:
+            st = coll.gather_state_tp(st, mesh, layout)
         if is_primary:
             save_checkpoint(ckpt_dir, st, step=step, A=A, B=B)
         if mesh.distributed:

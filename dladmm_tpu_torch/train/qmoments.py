@@ -36,6 +36,8 @@ leaf's mu and nu take their own stream of it.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -116,23 +118,26 @@ def fmix32(s: Tensor) -> Tensor:
     return s ^ (s >> 16)
 
 
-def random_bits16(seed: Tensor, numel: int, stream: int = 0) -> Tensor:
+def random_bits16(seed: Tensor, numel: int, stream: int = 0, index: Optional[Tensor] = None) -> Tensor:
     """(numel,) int64 tensor of 16 random bits each on ``seed``'s device:
     fmix32 of the element index xor a key mixed from (seed, stream).
-    ``seed`` is an integer tensor of one element, read as uint32."""
+    ``seed`` is an integer tensor of one element, read as uint32.
+    ``index``: the elements' indices (default 0 .. numel - 1)."""
     key = fmix32((seed.reshape(()).to(torch.int64) + (stream + 1) * GOLDEN) & U32)
-    idx = torch.arange(numel, dtype=torch.int64, device=seed.device)
+    idx = torch.arange(numel, dtype=torch.int64, device=seed.device) if index is None else index
     return fmix32(idx ^ key) & 0xFFFF
 
 
-def sr_bfloat16(x: Tensor, seed: Tensor, stream: int = 0) -> Tensor:
+def sr_bfloat16(x: Tensor, seed: Tensor, stream: int = 0, index: Optional[Tensor] = None) -> Tensor:
     """fp32 -> bf16 with stochastic rounding, as the JAX package's
     ``qmoments.sr_bfloat16``: add 16 random bits below the bf16 mantissa
     boundary (uint32 wrap-around), then truncate. Unbiased in
-    expectation. The bits are ``random_bits16(seed, x.numel(), stream)``:
-    ``stream`` keeps two moments rounded under one seed independent."""
+    expectation. The bits are ``random_bits16(seed, x.numel(), stream,
+    index)``: ``stream`` keeps two moments rounded under one seed
+    independent; ``index`` places x's elements in a larger tensor whose
+    draw they take (a tensor-parallel rank's slice)."""
     u = x.to(torch.float32).contiguous().view(torch.int32).to(torch.int64) & U32
-    v = (u + random_bits16(seed, x.numel(), stream).view(x.shape)) & 0xFFFF0000
+    v = (u + random_bits16(seed, x.numel(), stream, index).view(x.shape)) & 0xFFFF0000
     v = torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
     return v.view(torch.float32).to(torch.bfloat16)  # exact: the low 16 bits are 0
 
@@ -150,16 +155,36 @@ def _next_key(key: Tensor) -> Tensor:
     return torch.where(s >= 1 << 31, s - (1 << 32), s).to(torch.int32)
 
 
+_SR_INDEX = contextvars.ContextVar("sr_element_index", default=None)
+
+
+@contextlib.contextmanager
+def sr_element_index(index_fn):
+    """Within the block, bfloat16_sr moments round leaf i's elements with
+    the bits of ``index_fn(i, leaf)`` (their indices in the whole leaf)
+    instead of 0 .. numel - 1: the tensor-parallel step updates one
+    layer's slice of a rank's shard at a time and draws what the
+    single-device step draws for those elements
+    (parallel/collectives._apply_update_by_layer)."""
+    token = _SR_INDEX.set(index_fn)
+    try:
+        yield
+    finally:
+        _SR_INDEX.reset(token)
+
+
 def _encode(tree, moment_dtype: str, key: Optional[Tensor] = None, stream0: int = 0):
     """fp32 leaves -> the stored format: QTensors (int8), or bf16 leaves,
     rounded stochastically under ``key`` (bfloat16_sr; leaf i on stream
-    stream0 + 2 i) or to nearest (bfloat16, and bfloat16_sr without a
-    key: zeros at init)."""
+    stream0 + 2 i, at the indices sr_element_index gives) or to nearest
+    (bfloat16, and bfloat16_sr without a key: zeros at init)."""
     kind = type(tree)
     if moment_dtype == "int8":
         return kind(*(quantize_q8(v) for v in tree))
     if moment_dtype == "bfloat16_sr" and key is not None:
-        return kind(*(sr_bfloat16(v, key, stream0 + 2 * i) for i, v in enumerate(tree)))
+        index_fn = _SR_INDEX.get()
+        return kind(*(sr_bfloat16(v, key, stream0 + 2 * i, None if index_fn is None else index_fn(i, v))
+                      for i, v in enumerate(tree)))
     return kind(*(v.to(torch.bfloat16) for v in tree))
 
 
@@ -233,5 +258,5 @@ def adam_qmoments(
 
 __all__ = [
     "BLOCK", "FORMATS", "GOLDEN", "QTensor", "QMomentsState", "SR_KEY0", "U32", "adam_qmoments", "dequantize_q8",
-    "fmix32", "mul32", "quantize_q8", "random_bits16", "scale_by_adam_qmoments", "sr_bfloat16",
+    "fmix32", "mul32", "quantize_q8", "random_bits16", "scale_by_adam_qmoments", "sr_bfloat16", "sr_element_index",
 ]

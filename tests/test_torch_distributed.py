@@ -34,9 +34,9 @@ InferenceServer in one process, its parts on the CPU.
 
 import json
 import os
-import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -264,30 +264,44 @@ def _worker(tmp: str) -> None:
         torch.save(res, os.path.join(tmp, "result.pt"))
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+def spawn_ranks(script: Path, world: int, tmp: Path, timeout: float = 300.0) -> list:
+    """Run ``script --worker tmp`` as ``world`` gloo ranks on the CPU, with
+    the env:// variables torch.distributed.run sets; returns each rank's
+    output. The rendezvous store is a TCPStore this process holds, on a
+    port the OS picked and that stays bound until the ranks end
+    (TORCHELASTIC_USE_AGENT_STORE: every rank joins it as a client, as
+    under torch.distributed.run's agent), so no concurrent spawn can take
+    the port. A spawn that has not ended after ``timeout`` seconds is
+    killed and fails its test."""
+    import torch.distributed as dist
+
+    store = dist.TCPStore("localhost", 0, is_master=True, wait_for_workers=False)
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(store.port),
+                   TORCHELASTIC_USE_AGENT_STORE="True", WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(world), DLADMM_PLATFORM="cpu", OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
+        procs.append(subprocess.Popen([sys.executable, str(script), "--worker", str(tmp)], env=env, cwd=str(REPO),
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + timeout
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        pytest.fail(f"{world} ranks of {script.name} did not end within {timeout} s")
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+        del store
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-6000:]
+    return logs
 
 
 def _spawn(D: int, tmp: Path) -> dict:
     torch.save(_problem(), tmp / "problem.pt")
-    port = _free_port()
-    procs = []
-    for r in range(D):
-        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE=str(D), RANK=str(r),
-                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(D), DLADMM_PLATFORM="cpu", OMP_NUM_THREADS="1",
-                   PYTHONPATH=str(REPO))
-        procs.append(subprocess.Popen([sys.executable, str(HERE), "--worker", str(tmp)], env=env, cwd=str(REPO),
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=600)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-6000:]
+    logs = spawn_ranks(HERE, D, tmp)
     res = torch.load(tmp / "result.pt", weights_only=False)
     res["log"] = logs[0]
     return res
@@ -463,8 +477,9 @@ def test_run_cli_general_b_dp_on_four_ranks(tmp_path):
 
 
 def test_run_cli_sharded_needs_its_ranks(monkeypatch, capsys):
-    """A data-parallel preset in one process is refused with the launch
-    line; a tensor-parallel one names ROADMAP.md."""
+    """A sharded preset in one process is refused with the launch line
+    for its data_axis * model_axis ranks: general_b_dp's 4, tp_small's
+    4x2 = 8."""
     from dladmm_tpu_torch import run as trun
 
     monkeypatch.setenv("DLADMM_PLATFORM", "cpu")
@@ -474,7 +489,8 @@ def test_run_cli_sharded_needs_its_ranks(monkeypatch, capsys):
     assert "torch.distributed.run --standalone --nproc_per_node=4" in err
     with pytest.raises(SystemExit):
         trun.main(["--config=tp_small", "--steps=1"])
-    assert "ROADMAP.md" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "4x2 mesh" in err and "--nproc_per_node=8 -m dladmm_tpu_torch.run --config=tp_small" in err
 
 
 def test_fit_sharded_validations():
@@ -483,7 +499,7 @@ def test_fit_sharded_validations():
     from dladmm_tpu_torch.train.loop import check_sharded, fit_sharded
     from dladmm_tpu_torch.utils.config import ShardingConfig, get_config
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="nproc_per_node=8"):
         fit_sharded(get_config("tp_small"), device="cpu")
     cfg = _fit_cfg(2)
     bad = {
@@ -663,7 +679,7 @@ def test_sharded_server_mesh_rules():
 
     with pytest.raises(ValueError, match="exceeds"):
         make_mesh(data=3, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs 2 ranks in a process group"):
         make_mesh(data=1, model=2, devices=["cpu"] * 2)
     with pytest.raises(ValueError, match="divisible"):
         ShardedInferenceServer(*_tiny(), make_mesh(data=2, devices=["cpu"] * 2), buckets=(3,))

@@ -180,22 +180,27 @@ def test_run_cli_then_serve_ckpt_dir(tmp_path, capsys, monkeypatch):
     assert _last_json(capsys)["final_nmse_db"] == pytest.approx(summary["final_nmse_db"], abs=1e-6)
 
 
-@pytest.mark.parametrize("extra", [
-    ["--greedy", "--optimizer=fused_adam", "--clip-mode=delayed"], ["--zero1"],
-    ["--optimizer=fused_adam", "--vjp=xla"], ["--hbm-gb=80", "--config=tp_small"],
-    ["--config=tp_small"], ["--eval-only"],
+@pytest.mark.parametrize("extra,says", [
+    (["--greedy", "--optimizer=fused_adam", "--clip-mode=delayed"], None), (["--zero1"], None),
+    (["--optimizer=fused_adam", "--vjp=xla"], None),
+    (["--hbm-gb=80", "--config=tp_small", "--kernel=megakernel"], "have no effect with model_axis=2"),
+    (["--config=tp_small"], "--nproc_per_node=8 -m dladmm_tpu_torch.run --config=tp_small"), (["--eval-only"], None),
 ])
-def test_run_cli_rejects_unported_options(extra, monkeypatch):
-    """What run.py refuses: tensor-parallel presets (not ported,
-    ROADMAP.md §1), and the JAX CLI's conflicts (--greedy with the fused
-    optimizer, --zero1 on an unsharded config, the fused optimizer with
-    --vjp=xla, --eval-only without a checkpoint)."""
+def test_run_cli_rejects_unported_options(extra, says, monkeypatch, capsys):
+    """What run.py refuses: the JAX CLI's conflicts (--greedy with the
+    fused optimizer, --zero1 on an unsharded config, the fused optimizer
+    with --vjp=xla, --eval-only without a checkpoint), the JAX package's
+    tensor-parallel refusals (a kernel with model_axis > 1), and a
+    tensor-parallel preset in one process (the launch line for its 8
+    ranks)."""
     monkeypatch.setenv("DLADMM_PLATFORM", "cpu")
     argv = ["--config=smoke", "--steps=2"] + extra
-    if extra[0].startswith("--config"):
+    if extra[0].startswith("--config") or "--config=tp_small" in extra:
         argv = ["--steps=2"] + extra
     with pytest.raises(SystemExit):
         trun.main(argv)
+    if says:
+        assert says in capsys.readouterr().err
 
 
 def test_fit_routes_general_configs():
@@ -214,6 +219,6 @@ def test_fit_routes_general_configs():
     # bf16 training runs now (values: tests/test_torch_bf16_train.py).
     _, hist = tloop.fit(_smoke(compute_dtype="bfloat16"), device="cpu")
     assert hist and all(np.isfinite(h["nmse_db"]) and np.isfinite(h["loss"]) for h in hist)
-    # Tensor parallelism is the next slice (ROADMAP.md §1).
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # A tensor-parallel preset in one process: the launch line for its ranks.
+    with pytest.raises(RuntimeError, match="nproc_per_node=8"):
         tloop.fit_sharded(get_config("tp_small"), device="cpu")
