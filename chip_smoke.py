@@ -305,8 +305,36 @@ the first fault. Each phase prints one JSON line:
      step's ms; then tp_large_bf16 on 8 ranks for one step where its
      audit passes (else printed, reported as not run). The TP path
      launches no kernel (its products are torch.matmul);
+ 44. bench_timing: bench/timing.time_chained on row 1 at synthetic_small
+     S = 256 (strict: the UNCALIBRATED fallback fails), beside the
+     CUDA-event median and the profiler's device time;
+ 45. bench_roofline: ``bench.roofline.main`` at its three shapes, the plain
+     loop and row 1 at each: every fraction at most 1.05, row 1's launches
+     from 0 > 0;
+ 46. bench_serving: ``bench.serving.main --dtype=all --prox=nonneg_l1``
+     (paper shape) and ``--shape=flagship --dtype=float32``: finite
+     latencies, throughput = bucket / latency, rows 1, 1 bf16, 7 and 1
+     with a prox each launched from 0 > 0 times;
+ 47. bench_profile_step: ``capture`` and ``summarize`` of the shipped,
+     fused and qadam_int8 steps (12 each, synthetic_large batch 1024, bf16
+     compute), in a process of their own (``--profile-worker``): each
+     summary names its step's kernels, and each kernel's launches in the
+     trace equal its wrapper's count;
+ 48. bench_comm / bench_scaling: ``bench.comm_model.main`` for every sharded
+     preset; ``measure_dp_scaling`` at synthetic_small on 1 NCCL rank and
+     on 2 gloo ranks sharing the card (under harness_validation_only), the
+     kernels counted on rank 0;
+ 49. examples / profiling: ``python -m dladmm_tpu_torch.examples.quickstart``
+     and ``.distributed`` on the card, each printing its line;
+     ``utils/profiling.trace`` around one row-1 solve (in a process of
+     its own) holds the kernel once; ``enable_nan_debug`` raises on ``torch.log(-x)`` and on a NaN row
+     fed to row 1 (the wrapper's check), and is silent once off;
 
-then the kernels line and, last, the ok line. Exits non-zero, with no
+each with its wall time (bench_wall); then the kernels line, each entry
+with ``launches_bench`` (its launches by phases 44-49; empty on the
+``_patch`` and ``_greedy`` entries, whose shapes and depths no bench path
+ran), and, last, the
+ok line. Exits non-zero, with no
 ok line, on any failure, when CUDA is not available, or when run
 without the rest of the repository.
 
@@ -319,6 +347,11 @@ launches).
     python3 chip_smoke.py --tp
 
 builds every source and runs only phases 41-43, then the ok line.
+
+    python3 chip_smoke.py --bench
+
+builds every source and runs only phases 44-49, then their launches and
+the ok line.
 
     python3 chip_smoke.py --int8-turns
 
@@ -357,14 +390,37 @@ from pathlib import Path
 
 import numpy as np
 
+try:
+    from dladmm_tpu_torch.bench.roofline import (
+        STEP_SHAPES,
+        _bound,
+        bf16_bound,
+        bf16_layer_bound,
+        bound,
+        bwd_bound,
+        dense_bound,
+        int8_bound,
+        int8_serve_bound,
+        layer_bound,
+        step_bounds,
+        traj_bound,
+    )
+    from dladmm_tpu_torch.bench.timing import median_ms
+    from dladmm_tpu_torch.utils.profiling import (
+        IncompleteProfile,
+        back_to_back_ms,
+        device_kernels,
+        kernel_name,
+        profile_fn,
+        profile_marker,
+        retry_incomplete,
+    )
+except ImportError as exc:  # this file alone, without the repository beside it
+    print(f"chip_smoke: {exc}; run it from a checkout of the repository", file=sys.stderr)
+    sys.exit(2)
+
 TOL = 1e-4  # kernel vs plain: max|diff| <= TOL * max(1, max|ref|)
 NMSE_TOL_DB = 0.01
-# Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3. The bound of a call is the larger of the two times.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-# Published H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet).
-PEAK_BF16_FLOPS = 989e12
 SMALL = dict(m=250, n=500, K=15)  # synthetic_small (utils/config.py)
 LARGE = dict(m=1000, n=2000, K=20)  # synthetic_large
 SMOKE = dict(m=32, n=64, K=4)  # smoke: the chunked backward's main path at batch 1024
@@ -374,40 +430,12 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def profile_marker(torch) -> None:
-    """A short kernel (``spin_kernel``) enqueued first in a profiler session
-    and not waited for: the profiler on the card has been seen to leave
-    the first kernel of a session out of its records, late in a process
-    (the optimizer step's prologue, when the session opened on it), so the
-    kernel it leaves out is this marker. Kernels of that name are left
-    out of every count."""
-    torch.cuda._sleep(1000)
-
-
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def bound(S: int, m: int, n: int, K: int):
-    """(bound_ms, bound_by) of one K-layer solve at batch S (d = m):
-    2*S*m*(2n+d)*K flops against the fp32 peak, and K layers of W1, W2,
-    thresholds and beta, A, b read once and x, z, lam written once
-    against the memory rate."""
-    d = m
-    flops = 2 * S * m * (2 * n + d) * K
-    nbytes = 4 * (K * (n * m + d * m + n + d + 1) + m * n + S * m + S * (n + d + m))
-    return _bound(flops, nbytes)
-
-
-def _bound(flops: float, nbytes: float):
-    """(bound_ms, bound_by): the larger of flops over the fp32 peak and
-    bytes over the memory rate, and which of the two it is."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def problem(torch, m: int, n: int, K: int, S: int, seed: int, device):
@@ -448,83 +476,26 @@ def compare(torch, got, want, label: str, names=("x", "z", "lam"), phase="kernel
     return max(errs.values())
 
 
-def median_ms(torch, fns, reps: int):
-    """Median CUDA-event ms of each fn, called in turns (a, b, b, a, ...)
-    so that both see the same clocks and the same warm L2."""
-    times = [[] for _ in fns]
-    order = list(range(len(fns)))
-    for rep in range(reps):
-        for i in (order if rep % 2 == 0 else order[::-1]):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fns[i]()
-            stop.record()
-            stop.synchronize()
-            times[i].append(start.elapsed_time(stop))
-    return [float(np.median(t)) for t in times]
-
-
-def profile_fn(torch, fn, config: str, reps: int = 5, attempts: int = 3, events_fallback: bool = False):
-    """torch.profiler over ``reps`` calls of fn: device time per call of
-    each kernel (and memset) by name, and the device's busy share of the
-    CUDA-event window around them. A window in which the profiler
-    recorded no device activity at all (seen in a few profiles on the
-    card, with the kernels running and checked; three windows in a row
-    late in a process, PERF.md §7) is profiled again, up to ``attempts``
-    windows; then it fails, or with ``events_fallback`` (where the
-    device time is a figure to report, not a check of what ran) the
-    device time a call is taken from back-to-back CUDA events instead,
-    and the result says so."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for attempt in range(attempts):
-        with torch.no_grad():
-            fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                profile_marker(torch)
-                start = torch.cuda.Event(enable_timing=True)
-                stop = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(reps):
-                    fn()
-                stop.record()
-                torch.cuda.synchronize()
-        window_us = start.elapsed_time(stop) * 1e3
-        try:
-            kernels = device_kernels(prof, reps)
-            break
-        except AssertionError:
-            if attempt + 1 == attempts:
-                if not events_fallback:
-                    raise
-                ms = back_to_back_ms(torch, fn, calls=reps)
-                emit("profile_fallback", config=config, windows=attempts, back_to_back_ms=ms)
-                return {"config": config, "calls": reps, "device_us_per_call": ms * 1e3, "per_call": {},
-                        "device_time_from": "back-to-back CUDA events: the profiler recorded no device time"}
-            emit("profile_retry", config=config, attempt=attempt + 1)
-    busy_us = sum(v["us"] for v in kernels.values()) * reps
-    return {"config": config, "calls": reps, "window_ms_per_call": window_us / reps / 1e3,
-            "device_us_per_call": busy_us / reps, "device_busy_share": busy_us / window_us,
-            "per_call": kernels}
-
-
 def profile_unroll(torch, unroll_forward, S: int, m: int, n: int, K: int, reps: int = 5):
     """profile_fn over ``reps`` whole-unroll solves (the rest of the
     window is launch gaps)."""
     A, b, p = problem(torch, m=m, n=n, K=K, S=S, seed=11, device=torch.device("cuda", 0))
-    return profile_fn(torch, lambda: unroll_forward(b, A, *p), f"m={m} n={n} K={K} S={S}", reps)
+    return profile_fn(lambda: unroll_forward(b, A, *p), f"m={m} n={n} K={K} S={S}", reps)
 
 
-def traj_bound(S: int, m: int, n: int, K: int, with_tax: bool, itemsize: int = 4):
-    """(bound_ms, bound_by) of one trajectory forward: the solve's flops,
-    and K layers of weights, A and b read once and the K-deep stacks
-    written once, each ``itemsize`` bytes (2: bf16 storage)."""
-    flops = 2 * S * m * (2 * n + m) * K
-    out = K * S * (n + 2 * m + (m if with_tax else 0))
-    nbytes = itemsize * (K * (n * m + m * m + n + m + 1) + m * n + S * m + out)
-    return _bound(flops, nbytes)
+def time_from(prof: dict) -> dict:
+    """{"device_time_from": why} where profile_fn fell back to CUDA
+    events, else {}."""
+    return {k: prof[k] for k in ("device_time_from",) if k in prof}
+
+
+def device_us(fn, config: str, prefix: str = "", **kw) -> dict:
+    """{prefix + "device_us_per_call": µs} from profile_fn with its events
+    fallback, and, where the profiler recorded nothing and back-to-back
+    CUDA events gave the time, {prefix + "device_time_from": why}: the
+    fields a report line carries."""
+    prof = profile_fn(fn, config, events_fallback=True, **kw)
+    return {prefix + k: v for k, v in ({"device_us_per_call": prof["device_us_per_call"]} | time_from(prof)).items()}
 
 
 def launched_plan(wrapper, barriers=None) -> dict:
@@ -600,27 +571,10 @@ def barrier_cost(torch, card: str) -> dict:
     us, launch_ms = {}, {}
     for grid in (132, 264, 528):
         run(grid, 1001)
-        launch_ms[grid], many = median_ms(torch, [lambda: run(grid, 1), lambda: run(grid, 1001)], 11)
+        launch_ms[grid], many = median_ms([lambda: run(grid, 1), lambda: run(grid, 1001)], 11)
         us[grid] = (many - launch_ms[grid]) / 1000 * 1e3
     emit("barrier_cost", us_per_barrier_by_grid=us, one_launch_ms_by_grid=launch_ms, card=card)
     return us
-
-
-# fp32 operations per element of the int8 sweep: two decodes (4 each),
-# clip scale 1, two EMAs (3 + 4), the update 4, the master 2, two
-# absmax 2 each, two encodes 6 each.
-INT8_OPS_PER_ELEM = 38
-
-
-def int8_bound(leaves):
-    """(bound_ms, bound_by) of one int8 sweep over (R, L) leaves: per
-    element g (4 B) and master (4 B) read, master written, two int8 codes
-    read and written (16 B); per row two scales read and written (16 B);
-    the 4 scalars."""
-    elems = sum(R * L for R, L in leaves)
-    rows = sum(R for R, _ in leaves)
-    nbytes = 16 * elems + 16 * rows + 16
-    return _bound(INT8_OPS_PER_ELEM * elems, nbytes)
 
 
 # The int8 sweep's leaves, (R, L) views: W1 (K, n, m) and W2 (K, m, m).
@@ -676,44 +630,6 @@ def check_int8(torch, tqa, device) -> float:
 
 
 # -- the optimizer step: prologue + one sweep over every leaf (adam_step) -----
-
-# The five leaves of a preset: W1 (K, n, m), W2 (K, m, m), theta1 (K, n),
-# theta2 (K, m), beta (K,).
-STEP_SHAPES = {
-    label: [(s["K"], s["n"], s["m"]), (s["K"], s["m"], s["m"]), (s["K"], s["n"]), (s["K"], s["m"]), (s["K"],)]
-    for label, s in (("synthetic_small", SMALL), ("synthetic_large", LARGE))
-}
-# Bytes an element of the sweep moves: g read, master read and written,
-# mu and nu read and written in their stored width.
-SWEEP_BYTES = {"int8": 16, "float32": 28, "bfloat16": 20, "bfloat16_sr": 20, "bfloat16_sr_mu": 24}
-
-
-def step_bounds(torch, shapes, fmt: str) -> dict:
-    """(bound_ms, bound_by) of the step as a function and of each of its
-    launches. The step ("step") reads each input once and writes each
-    output once: SWEEP_BYTES an element (g once: its sum of squares needs
-    no second pass over it), int8 also 16 B a row of scales (per-row or
-    flat-256), the count in and out and the 4 scalars; the sweep's fp32
-    operations and the norm's 2 an element. The sweep ("sweep") moves the
-    same bytes and reads the 4 scalars; the prologue ("prologue") reads
-    g (4 B an element) for 2 operations an element (fp64). Its second
-    read of g is the two launches' own cost: "two_launches" is both
-    launches' bytes and operations together."""
-    from dladmm_tpu_torch.train.qadam_cuda import leaf_eligible
-
-    elems = sum(int(np.prod(s)) for s in shapes)
-    rows = 0
-    if fmt == "int8":
-        for s in shapes:
-            n = int(np.prod(s))
-            rows += n // s[-1] if leaf_eligible(torch.empty(s, device="meta")) else -(-n // 256)
-    ops = (INT8_OPS_PER_ELEM if fmt == "int8" else DENSE_OPS_PER_ELEM) * elems
-    sweep_bytes = SWEEP_BYTES[fmt] * elems + 16 * rows + 16
-    return {"elements": elems, "rows": rows,
-            "step": _bound(ops + 2 * elems, sweep_bytes + 8),
-            "sweep": _bound(ops, sweep_bytes),
-            "prologue": _bound(2 * elems, 4 * elems + 16),
-            "two_launches": _bound(ops + 2 * elems, sweep_bytes + 4 * elems + 32)}
 
 
 def check_step(torch, tqa, device, fmts) -> float:
@@ -973,9 +889,9 @@ def time_train(torch, device, card):
             for _ in range(2):
                 for fn in fns:
                     fn()
-            ms, plain_ms = median_ms(torch, fns, reps)
+            ms, plain_ms = median_ms(fns, reps)
             bms, by = traj_bound(S, with_tax=True, **shape)
-            prof = profile_fn(torch, fns[0], f"{label} S={S} with_tax")
+            prof = profile_fn(fns[0], f"{label} S={S} with_tax")
             enqueue_us = host_enqueue_us(torch, fns[0])
             plan = launched_plan(trajectory_forward)
             if S == 64:
@@ -998,20 +914,20 @@ def time_train(torch, device, card):
             fn = tqa.adam_int8_rows_plain if plain else tqa.adam_int8_rows
             fn(grads[0], master, mu, nu, scal)
 
-    ms, plain_ms = median_ms(torch, [lambda: sweep(False), lambda: sweep(True)], 31)
+    ms, plain_ms = median_ms([lambda: sweep(False), lambda: sweep(True)], 31)
     bms, by = int8_bound(leaves)
     emit("timing_train_kernel", kernel="adam_int8_rows", config="synthetic_small W1+W2 (2 one-leaf launches)",
          kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-         device_us_per_call=profile_fn(torch, lambda: sweep(False), "int8 W1+W2", events_fallback=True)["device_us_per_call"], card=card)
+         **device_us(lambda: sweep(False), "int8 W1+W2"), card=card)
     for R, L in INT8_LEAVES["synthetic_large"]:
         master, mu, nu, grads = int8_state(torch, tqa, R, L, seed=R, device=device)
         fn = lambda: tqa.adam_int8_rows(grads[0], master, mu, nu, scal)  # noqa: E731
-        ms_l = median_ms(torch, [fn], 11)[0]
+        ms_l = median_ms([fn], 11)[0]
         bms_l = int8_bound([(R, L)])[0]
-        dev_us = profile_fn(torch, fn, f"synthetic_large R={R} L={L}", events_fallback=True)["device_us_per_call"]
+        dev = device_us(fn, f"synthetic_large R={R} L={L}")
         emit("timing_train_kernel", kernel="adam_int8_rows", config=f"synthetic_large R={R} L={L} (one launch)",
-             kernel_ms=ms_l, device_us_per_call=dev_us, bound_ms=bms_l, bound_by="bytes",
-             device_share_of_bound=bms_l * 1e3 / dev_us, card=card)
+             kernel_ms=ms_l, **dev, bound_ms=bms_l, bound_by="bytes",
+             device_share_of_bound=bms_l * 1e3 / dev["device_us_per_call"], card=card)
         del master, mu, nu, grads
     timings["adam_step@int8"] = time_step(torch, tqa, device, card, "int8")
     return step, timings, plans
@@ -1042,13 +958,13 @@ def time_step(torch, tqa, device, card, fmt: str, library: bool = False) -> dict
         fns.append(opt.step)
     for fn in fns:
         fn()
-    times = median_ms(torch, fns, 31)
-    bounds = step_bounds(torch, shapes, fmt)
-    warm = profile_fn(torch, fns[0], f"adam_step {fmt} synthetic_small five leaves")
+    times = median_ms(fns, 31)
+    bounds = step_bounds(shapes, fmt)
+    warm = profile_fn(fns[0], f"adam_step {fmt} synthetic_small five leaves")
     # Cold: each step after writing 128 MB, so that its leaves come from
     # device memory, as in a training step, and not from the 50 MB L2.
     flush = torch.empty(32 << 20, device=device)
-    cold = profile_fn(torch, lambda: (flush.zero_(), fns[0]()), f"adam_step {fmt} after an L2 flush")
+    cold = profile_fn(lambda: (flush.zero_(), fns[0]()), f"adam_step {fmt} after an L2 flush")
     out = {"ms": times[0], "plain_ms": times[1], "library_ms": times[2] if library else None,
            "bound_ms": bounds["step"][0], "bound_by": bounds["step"][1],
            "two_launches_bound_ms": bounds["two_launches"][0],
@@ -1069,10 +985,6 @@ def time_step(torch, tqa, device, card, fmt: str, library: bool = False) -> dict
     emit("timing_step", kernel="adam_step", config=f"{fmt} synthetic_small five leaves (2 launches)",
          library="torch.optim.Adam(fused=True)" if library else None, **out, card=card)
     return out
-
-
-def kernel_name(key: str) -> str:
-    return key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0].strip()
 
 
 def device_us_by_phase(torch, prof, steps: int):
@@ -1099,7 +1011,7 @@ def device_us_by_phase(torch, prof, steps: int):
     return per, ops
 
 
-def optimizer_phase(torch, run, sweep: str, attempts: int = 3):
+def optimizer_phase(torch, run, sweep: str):
     """Device time a step by phase of 3 ProfiledPhases-marked steps
     (``run(mark)``) in one profiler session, and the optimizer phase's
     device operations, held to the step's two port kernels: the prologue
@@ -1107,21 +1019,22 @@ def optimizer_phase(torch, run, sweep: str, attempts: int = 3):
     device operation; adam_step's count two a step. The profiler on the
     card has been seen to leave a launch out of its records (PERF.md §7):
     a session whose optimizer phase misses a launch of the two kernels is
-    profiled again, up to ``attempts`` sessions, and each retry is
-    reported; a session that holds any other device operation fails at
-    once. Returns the by-phase µs and the optimizer's operations (µs and
-    launches a step) of the first complete session. Steps on fp32 or on
-    bf16 gradients alike (adam_step.launches and launches_bf16)."""
+    profiled again (retry_incomplete); a session that holds any other
+    device operation fails at once. Returns the by-phase µs and the
+    optimizer's operations (µs and launches a step) of the first complete
+    session. Steps on fp32 or on bf16 gradients alike (adam_step.launches
+    and launches_bf16)."""
     from torch.profiler import ProfilerActivity, profile
 
     from dladmm_tpu_torch.train import qadam_cuda
 
     steps = 3
     count = lambda: qadam_cuda.adam_step.launches + qadam_cuda.adam_step.launches_bf16  # noqa: E731
-    for attempt in range(attempts):
+
+    def session():
         before = count()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            profile_marker(torch)
+            profile_marker()
             run(ProfiledPhases(torch))
         launches = count() - before
         by_phase, ops = device_us_by_phase(torch, prof, steps)
@@ -1131,12 +1044,13 @@ def optimizer_phase(torch, run, sweep: str, attempts: int = 3):
         if others or len(swept) > 1 or launches != 2 * steps or any(v["calls"] > 1 + 1e-9 for v in ops.values()):
             raise AssertionError(f"the optimizer phase ran {ops} ({launches} adam_step launches in {steps} steps), "
                                  f"not the prologue and {sweep}, once each a step")
-        if "adam_prologue" in ops and swept and all(abs(v["calls"] - 1) < 1e-9 for v in ops.values()):
-            return by_phase, {"ops_per_step": ops, "adam_step_launches_per_step": launches / steps,
-                              "device_us_per_step": sum(v["us"] for v in ops.values()), "sessions": attempt + 1}
-        emit("profile_retry", config="optimizer phase", attempt=attempt + 1, recorded=ops)
-    raise AssertionError(f"in {attempts} profiler sessions the optimizer phase never recorded the prologue "
-                         f"and {sweep} once a step: {ops}")
+        if not ("adam_prologue" in ops and swept and all(abs(v["calls"] - 1) < 1e-9 for v in ops.values())):
+            raise IncompleteProfile(f"the optimizer phase recorded {ops}, not the prologue and {sweep} once a step")
+        return by_phase, {"ops_per_step": ops, "adam_step_launches_per_step": launches / steps,
+                          "device_us_per_step": sum(v["us"] for v in ops.values())}
+
+    (by_phase, opt), sessions = retry_incomplete(session, "optimizer phase")
+    return by_phase, opt | {"sessions": sessions}
 
 
 def profile_train(torch, device, steps: int = 5):
@@ -1151,7 +1065,7 @@ def profile_train(torch, device, steps: int = 5):
         state, _ = phased_step(torch, A, w, fwd, opt, state, i)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profile_marker(torch)
+        profile_marker()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1184,42 +1098,6 @@ def profile_train(torch, device, steps: int = 5):
 
 
 # -- the final-layer training slice (phases 13-17) ---------------------------
-
-
-def bwd_bound(S: int, m: int, n: int, K: int, data_grads: bool = False, itemsize: int = 4):
-    """(bound_ms, bound_by) of one reverse sweep: 2*S*K*(2m^2 + 3nm)
-    flops (per layer gv, gAx1 A, gu, gW1, gW2), and b, A, the params,
-    the trajectory stacks and the cotangents read once, the parameter
-    gradients (and the gAx1 stack and gb) written once, each ``itemsize``
-    bytes (2: bf16 storage). In bf16 three of the five products have
-    bf16 operands only (gv = round(gp2) W2, round(gAx1) A, gu =
-    round(gp1) W1: 2*S*K*(m^2 + 2nm)), which the bf16 tensor cores take
-    exactly with fp32 sums; gW1 and gW2 (2*S*K*(m^2 + nm)) multiply fp32
-    cotangents and stay at the fp32 peak. The two units can run at once,
-    so the operations' time is the larger of the two."""
-    params = K * (n * m + m * m + n + m + 1)
-    ins = S * m + m * n + params + K * S * (n + 3 * m) + S * (n + 2 * m)
-    outs = params + ((K + 1) * S * m if data_grads else 0)
-    t_bytes = itemsize * (ins + outs) / PEAK_BYTES_PER_S
-    if itemsize == 4:
-        t_ops = 2 * S * K * (2 * m * m + 3 * n * m) / PEAK_FP32_FLOPS
-    else:
-        t_ops = max(2 * S * K * (m * m + 2 * n * m) / PEAK_BF16_FLOPS, 2 * S * K * (m * m + n * m) / PEAK_FP32_FLOPS)
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-# fp32 operations per element of the dense sweep: clip scale 1, two EMAs
-# (3 + 4), the update 4 (two divisions, a square root, an addition), the
-# master 2.
-DENSE_OPS_PER_ELEM = 14
-
-
-def dense_bound(elems: int, fmt: str):
-    """(bound_ms, bound_by) of one dense sweep over ``elems`` elements:
-    g read, master read and written (12 B), mu and nu each read and
-    written in their stored width."""
-    mu_b, nu_b = {"float32": (4, 4), "bfloat16": (2, 2), "bfloat16_sr": (2, 2), "bfloat16_sr_mu": (2, 4)}[fmt]
-    return _bound(DENSE_OPS_PER_ELEM * elems, elems * (12 + 2 * mu_b + 2 * nu_b))
 
 
 def bwd_case(torch, m: int, n: int, K: int, S: int, seed: int, device, scalar_theta=False, ties=False):
@@ -1585,8 +1463,8 @@ def time_train_final(torch, device, card):
             for _ in range(2):  # warm-up
                 for fn in fns:
                     fn()
-            ms, plain_ms = median_ms(torch, fns, 21)
-            prof = profile_fn(torch, fns[0], f"{label} S={S} bs={bs}")
+            ms, plain_ms = median_ms(fns, 21)
+            prof = profile_fn(fns[0], f"{label} S={S} bs={bs}")
         bms, by = bwd_bound(S, **shape)
         enqueue_us = host_enqueue_us(torch, fns[0])
         timings[name] = (ms, plain_ms, bms, by, None)
@@ -1621,14 +1499,14 @@ def time_train_final(torch, device, card):
             fns.append(library.step)
         for fn in fns:
             fn()
-        times = median_ms(torch, fns, 31)
+        times = median_ms(fns, 31)
         bms, by = dense_bound(elems, fmt)
         library_ms = times[2] if library is not None else None
         emit("timing_train_final_kernel", kernel="adam_dense_rows",
              config=f"{fmt} synthetic_small W1+W2 (2 one-leaf launches)",
              kernel_ms=times[0], plain_ms=times[1], library_ms=library_ms, library="torch.optim.Adam(fused=True)",
              bound_ms=bms, bound_by=by,
-             device_us_per_call=profile_fn(torch, fns[0], f"dense {fmt} W1+W2", events_fallback=True)["device_us_per_call"], card=card)
+             **device_us(fns[0], f"dense {fmt} W1+W2"), card=card)
         del kern, plain, fns, library
     for fmt in ("float32", "bfloat16"):
         timings[f"adam_step@{fmt}"] = time_step(torch, tqa, device, card, fmt, library=fmt == "float32")
@@ -1647,7 +1525,7 @@ def profile_train_final(torch, device, steps: int = 5):
         state, _ = phased_step_final(torch, A, opt, state, i)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profile_marker(torch)
+        profile_marker()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1683,52 +1561,10 @@ def profile_train_final(torch, device, steps: int = 5):
          optimizer_phase=opt_ops, top_kernels=top, distinct_kernels=len(kernels))
 
 
-def device_kernels(prof, steps: int):
-    """Device time per step and launches per step of each kernel (memset
-    and copy) by name, from a profile over ``steps`` steps."""
-    kernels = {}
-    for e in prof.key_averages():
-        dev_us = getattr(e, "device_time_total", None)
-        if dev_us is None:
-            dev_us = e.cuda_time_total
-        if e.device_type.name != "CUDA" or dev_us <= 0 or e.key.startswith("cuda") or "spin_kernel" in e.key:
-            continue  # host ops, runtime calls and the window's marker; kernels are device events
-        name = e.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0].strip()
-        k = kernels.setdefault(name, {"us": 0.0, "calls": 0.0})
-        k["us"] += dev_us / steps
-        k["calls"] += e.count / steps
-    if not kernels:
-        raise AssertionError("the profiler recorded no device time")
-    return kernels
-
-
 # -- int8 serving and the per-layer fused step (phases 18-22) ---------------
 
 INT8_TOL = 1e-5  # int8 kernel vs plain: expected bit for bit; fail above INT8_TOL * max(1, max|ref|)
 INT8_NMSE_DB = 0.3  # int8 against fp32 serving of the same requests (tests/test_serve.py:283-285)
-# Published H100 SXM dense int8 tensor-core peak (NVIDIA data sheet).
-PEAK_INT8_OPS = 1979e12
-
-
-def int8_serve_bound(S: int, m: int, n: int, K: int):
-    """(bound_ms, bound_by) of one int8 solve at batch S (d = m):
-    2*S*m*(2n+d)*K integer operations against the int8 tensor-core peak;
-    bytes: K layers of int8 W1 and W2 and their scales, thresholds and
-    beta, int8 A and its scales, b read once, x, z, lam written once."""
-    d = m
-    ops = 2 * S * m * (2 * n + d) * K
-    nbytes = K * (n * m + d * m) + m * n + 4 * (K * (2 * (n + d) + 1) + m + S * m + S * (n + d + m))
-    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def layer_bound(S: int, m: int, n: int):
-    """(bound_ms, bound_by) of one layer-step call (d = m): 2*S*m*(2n+m)
-    fp32 flops; x, z, lam, b, Ax, A, W1, W2, thresholds and beta read
-    once, x1, z1, lam1, Ax1 written once."""
-    flops = 2 * S * m * (2 * n + m)
-    nbytes = 4 * (S * (n + 4 * m) + m * n + n * m + m * m + n + m + 1 + S * (n + 3 * m))
-    return _bound(flops, nbytes)
 
 
 def int8_case(torch, shape, S: int, seed: int, device):
@@ -1788,7 +1624,7 @@ def check_int8_unroll(torch, device) -> float:
                 raise AssertionError(f"int8 {label} S={S}: {name} max|diff| {errs[name]} > {INT8_TOL} * {scale}")
         if not all(torch.equal(g, a) for g, a in zip(got, again)):
             raise AssertionError(f"int8 {label} S={S}: a second call differs")
-        prof = profile_fn(torch, lambda: int8_unroll_forward(b, qp, qd), f"int8 {label} S={S}", reps=3)
+        prof = profile_fn(lambda: int8_unroll_forward(b, qp, qd), f"int8 {label} S={S}", reps=3)
         one_kernel_a_solve(prof["per_call"], f"{label} S={S}")
         emit("kernel_int8_unroll", case=f"{label} S={S}", max_abs_err=errs, elements_differing=differ,
              elements=sum(g.numel() for g in got), repeats_bit_for_bit=True,
@@ -1997,25 +1833,6 @@ def train_layer(torch, device):
     return launches
 
 
-def back_to_back_ms(torch, fn, calls: int = 20, rounds: int = 3) -> float:
-    """Median over ``rounds`` of the CUDA-event ms a call of ``calls``
-    back-to-back calls take: the card's time a call wherever the host
-    enqueues a call faster than the card runs it (host_enqueue_us
-    says), whatever the profiler records."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop) / calls)
-    return float(np.median(times))
-
-
 INT8_SHAPES = [("synthetic_small", SMALL, 64), ("synthetic_small", SMALL, 256), ("synthetic_small", SMALL, 1024),
                ("synthetic_large", LARGE, 1024)]
 
@@ -2040,11 +1857,11 @@ def time_int8(torch, device, card, plain: bool = True):
                 fns.append(lambda: int8_unroll_forward_plain(b, qp, qd))
             for fn in fns:  # warm-up
                 fn()
-            ms, *plain_ms = median_ms(torch, fns, 9 if large else 21)
+            ms, *plain_ms = median_ms(fns, 9 if large else 21)
             bms, by = int8_serve_bound(S, **shape)
-            prof = profile_fn(torch, fns[0], f"{label} S={S}")
+            prof = profile_fn(fns[0], f"{label} S={S}")
             ops = prof["per_call"]
-            detail = {"back_to_back_ms": back_to_back_ms(torch, fns[0], calls=5 if large else 20),
+            detail = {"back_to_back_ms": back_to_back_ms(fns[0], calls=5 if large else 20),
                       "host_enqueue_us": host_enqueue_us(torch, fns[0], calls=10 if large else 50),
                       "device_us_per_launch": {k: v["us"] / v["calls"] for k, v in ops.items()},
                       "launches_recorded_per_solve": {k: v["calls"] for k, v in ops.items()}}
@@ -2084,13 +1901,12 @@ def time_int8_and_layer(torch, device, card):
         fns = [lambda: layer_step(*one), lambda: layer_step_plain(*one)]
         for fn in fns:
             fn()
-        ms, plain_ms = median_ms(torch, fns, 31)
+        ms, plain_ms = median_ms(fns, 31)
         bms, by = layer_bound(S, m, n)
         timings[("layer", S)] = (ms, plain_ms, bms, by)
         timings["layer_detail"] = {
             "host_enqueue_us": host_enqueue_us(torch, fns[0]),
-            "device_us_per_call": profile_fn(torch, fns[0], f"synthetic_small S={S} one layer",
-                                             events_fallback=True)["device_us_per_call"],
+            **device_us(fns[0], f"synthetic_small S={S} one layer"),
             **launched_plan(layer_step)}
         emit("timing_layer", kernel="layer_step", config=f"synthetic_small S={S}, one call (one layer)",
              kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, **timings["layer_detail"], card=card)
@@ -2098,12 +1914,12 @@ def time_int8_and_layer(torch, device, card):
                  lambda: unroll_forward(b, A, *p)]
         for fn in loops:
             fn()
-        loop_ms, plain_loop_ms, whole_ms = median_ms(torch, loops, 21)
+        loop_ms, plain_loop_ms, whole_ms = median_ms(loops, 21)
         bms, by = bound(S, **SMALL)
         emit("timing_layer", kernel="fused-step loop", config=f"synthetic_small S={S}, K=15 calls",
              kernel_ms=loop_ms, plain_ms=plain_loop_ms, whole_unroll_kernel_ms=whole_ms, bound_ms=bms, bound_by=by,
              host_enqueue_us=host_enqueue_us(torch, loops[0], calls=10), card=card)
-        layer_profile = profile_fn(torch, lambda: dladmm_forward(p, A, b, step_fn=fused_layer_step),
+        layer_profile = profile_fn(lambda: dladmm_forward(p, A, b, step_fn=fused_layer_step),
                                    "synthetic_small S=256 fused-step loop", events_fallback=True)
     for prof in int8_profiles:
         emit("profile_serve_int8", **prof)
@@ -2370,25 +2186,6 @@ def serve_bf16_slice(torch, device, sources, params, A):
     return launches
 
 
-def bf16_bound(S: int, m: int, n: int, K: int):
-    """(bound_ms, bound_by) of one bf16-storage solve (d = m): the fp32
-    solve's flops (its arithmetic is fp32 FMA), and 2 bytes an element for
-    K layers of W1, W2, thresholds and beta, A, b read once and x, z, lam
-    written once."""
-    d = m
-    flops = 2 * S * m * (2 * n + d) * K
-    nbytes = 2 * (K * (n * m + d * m + n + d + 1) + m * n + S * m + S * (n + d + m))
-    return _bound(flops, nbytes)
-
-
-def bf16_layer_bound(S: int, m: int, n: int):
-    """(bound_ms, bound_by) of one layer step on bf16 state: layer_bound's
-    flops, 2 bytes an element but beta's 4."""
-    flops = 2 * S * m * (2 * n + m)
-    nbytes = 2 * (S * (n + 4 * m) + m * n + n * m + m * m + n + m + S * (n + 3 * m)) + 4
-    return _bound(flops, nbytes)
-
-
 def time_bf16(torch, device, card):
     """Phase 25: at synthetic_small S = 64, 256, 1024 and synthetic_large
     S = 1024, the CUDA-event median ms of one bf16 solve, one fp32 solve
@@ -2411,7 +2208,7 @@ def time_bf16(torch, device, card):
             for _ in range(2):  # warm-up
                 for fn in fns:
                     fn()
-            ms16, ms32, plain_ms = median_ms(torch, fns, 9 if large else 21)
+            ms16, ms32, plain_ms = median_ms(fns, 9 if large else 21)
             # The card's time a call, in turns (bf16, fp32, fp32, bf16, ...):
             # back-to-back launches, which the host enqueues faster than the
             # card runs them, so neither the enqueue nor the profiler counts.
@@ -2419,14 +2216,13 @@ def time_bf16(torch, device, card):
             for turn in range(4):
                 for name in (("bf16", "fp32") if turn % 2 == 0 else ("fp32", "bf16")):
                     fn = fns[0] if name == "bf16" else fns[1]
-                    b2b[name].append(back_to_back_ms(torch, fn, calls=5 if large else 20, rounds=1))
+                    b2b[name].append(back_to_back_ms(fn, calls=5 if large else 20, rounds=1))
             rows = {}
             for name, fn, (bms, by) in (("bf16", fns[0], bf16_bound(S, **shape)), ("fp32", fns[1], bound(S, **shape))):
                 fn()
                 rows[name] = {"ms": ms16 if name == "bf16" else ms32, "bound_ms": bms, "bound_by": by,
                               "back_to_back_ms": float(np.median(b2b[name])), "back_to_back_ms_turns": b2b[name],
-                              "device_us_per_call": profile_fn(torch, fn, f"{name} {label} S={S}",
-                                                               events_fallback=True)["device_us_per_call"],
+                              **device_us(fn, f"{name} {label} S={S}"),
                               "host_enqueue_us": host_enqueue_us(torch, fn, calls=10 if large else 50),
                               **launched_plan(unroll_forward)}
             rows["bf16"]["plain_ms"] = plain_ms
@@ -2446,20 +2242,18 @@ def time_bf16(torch, device, card):
         fns = [lambda: layer_step(*one16), lambda: layer_step(*one32), lambda: layer_step_plain(*one16)]
         for fn in fns:
             fn()
-        ms16, ms32, plain_ms = median_ms(torch, fns, 31)
+        ms16, ms32, plain_ms = median_ms(fns, 31)
         b2b = {0: [], 1: []}
         for turn in range(4):
             for i in ((0, 1) if turn % 2 == 0 else (1, 0)):
-                b2b[i].append(back_to_back_ms(torch, fns[i], rounds=1))
+                b2b[i].append(back_to_back_ms(fns[i], rounds=1))
         bms, by = bf16_layer_bound(S, m, n)
         fns[0]()
         out["layer"] = {"ms": ms16, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "fp32_ms": ms32,
                         "back_to_back_ms": float(np.median(b2b[0])), "fp32_back_to_back_ms": float(np.median(b2b[1])),
                         "fp32_bound_ms": layer_bound(S, m, n)[0],
-                        "device_us_per_call": profile_fn(torch, fns[0], f"bf16 layer step S={S}",
-                                                         events_fallback=True)["device_us_per_call"],
-                        "fp32_device_us_per_call": profile_fn(torch, fns[1], f"fp32 layer step S={S}",
-                                                              events_fallback=True)["device_us_per_call"],
+                        **device_us(fns[0], f"bf16 layer step S={S}"),
+                        **device_us(fns[1], f"fp32 layer step S={S}", prefix="fp32_"),
                         "host_enqueue_us": host_enqueue_us(torch, fns[0])}
         fns[0]()
         out["layer"].update(launched_plan(layer_step))
@@ -2932,22 +2726,23 @@ def time_train_bf16(torch, device, card) -> dict:
     def turns(name, config, fn16, fn32, plain16, bound16, bound32, reps):
         for fn in (fn16, fn32, plain16):
             fn()
-        ms16, ms32, plain_ms = median_ms(torch, [fn16, fn32, plain16], reps)
+        ms16, ms32, plain_ms = median_ms([fn16, fn32, plain16], reps)
         b2b = {"bf16": [], "fp32": []}
         for turn in range(4):
             for kind in (("bf16", "fp32") if turn % 2 == 0 else ("fp32", "bf16")):
-                b2b[kind].append(back_to_back_ms(torch, fn16 if kind == "bf16" else fn32, calls=5, rounds=1))
-        dev16 = profile_fn(torch, fn16, f"bf16 {name} {config}", events_fallback=True)
-        dev32 = profile_fn(torch, fn32, f"fp32 {name} {config}", events_fallback=True)
+                b2b[kind].append(back_to_back_ms(fn16 if kind == "bf16" else fn32, calls=5, rounds=1))
+        dev16 = profile_fn(fn16, f"bf16 {name} {config}", events_fallback=True)
+        dev32 = profile_fn(fn32, f"fp32 {name} {config}", events_fallback=True)
         # µs a launch of each kernel: the profiler may drop some of a window's launches
         per_launch = lambda prof: {k: v["us"] / v["calls"] for k, v in prof["per_call"].items() if v["calls"]}  # noqa: E731
         row = {"ms": ms16, "plain_ms": plain_ms, "bound_ms": bound16[0], "bound_by": bound16[1],
                "device_us_per_call": dev16["device_us_per_call"], "device_kernels": dev16["per_call"],
                "device_us_per_launch": per_launch(dev16),
                "back_to_back_ms": float(np.median(b2b["bf16"])), "host_enqueue_us": host_enqueue_us(torch, fn16),
+               **time_from(dev16),
                "fp32": {"ms": ms32, "device_us_per_call": dev32["device_us_per_call"], "bound_ms": bound32[0],
                         "device_us_per_launch": per_launch(dev32),
-                        "back_to_back_ms": float(np.median(b2b["fp32"]))}}
+                        "back_to_back_ms": float(np.median(b2b["fp32"])), **time_from(dev32)}}
         emit("timing_train_bf16_kernel", kernel=name, config=config, **row,
              bf16_over_fp32_device=row["device_us_per_call"] / row["fp32"]["device_us_per_call"], card=card)
         return row
@@ -2996,7 +2791,7 @@ def time_train_bf16(torch, device, card) -> dict:
         fn16 = lambda: tqa.adam_step(g16, params, mu, nu, count, fmt, sched, 1.0, copy=copy)  # noqa: E731
         fn32 = lambda: tqa.adam_step(grads[0], *twin, count, fmt, sched, 1.0)  # noqa: E731
         plain16 = lambda: tqa.adam_step_plain(g16, *plain, count, fmt, sched, 1.0, copy=pcopy)  # noqa: E731
-        bounds = step_bounds(torch, shapes, fmt)  # bf16 g (2 B less) and the copy (2 B more): the same bytes
+        bounds = step_bounds(shapes, fmt)  # bf16 g (2 B less) and the copy (2 B more): the same bytes
         row = turns("adam_step", f"{fmt} synthetic_small five leaves, bf16 gradients + copy", fn16, fn32, plain16,
                     bounds["step"], bounds["step"], 31)
         # the prologue reads g once: 2 bytes an element in bf16
@@ -3501,7 +3296,7 @@ def time_denoise(torch, device, card) -> dict:
         step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profile_marker(torch)
+        profile_marker()
         for _ in range(3):
             step(ProfiledPhases(torch))
     by_phase, ops = device_us_by_phase(torch, prof, 3)
@@ -3541,8 +3336,8 @@ def time_denoise(torch, device, card) -> dict:
             for _ in range(2):
                 for fn in fns:
                     fn()
-            ms, plain_ms = median_ms(torch, fns, 15)
-            prof = profile_fn(torch, fns[0], f"{name} K={K} S={S}", events_fallback=True)
+            ms, plain_ms = median_ms(fns, 15)
+            prof = profile_fn(fns[0], f"{name} K={K} S={S}", events_fallback=True)
             plan = launched_plan({"unroll_forward": unroll_forward, "trajectory_forward": trajectory_forward}.get(
                 name, unroll_bwd))
             key = f"{name} K={K} S={S}" + (f" bs={bs}" if name.startswith("unroll_bwd") else "")
@@ -3550,7 +3345,8 @@ def time_denoise(torch, device, card) -> dict:
                                      "device_us_per_call": prof["device_us_per_call"], "bs": bs,
                                      "host_enqueue_us": host_enqueue_us(torch, fns[0], calls=20), **plan}
             emit("timing_denoise_kernel", kernel=key, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                 device_us_per_call=prof["device_us_per_call"], device_kernels=prof["per_call"], **plan, card=card)
+                 device_us_per_call=prof["device_us_per_call"], **time_from(prof), device_kernels=prof["per_call"],
+                 **plan, card=card)
         del A_, b, p, fns
 
     import dataclasses
@@ -3581,7 +3377,7 @@ def time_denoise(torch, device, card) -> dict:
         else:
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                profile_marker(torch)
+                profile_marker()
                 run(ProfiledPhases(torch))
             by_phase, ops = device_us_by_phase(torch, prof, 3)
             opt_ops = {"device_us_per_step": by_phase["optimizer"],
@@ -3793,13 +3589,13 @@ def time_fused(torch, device, card) -> dict:
     for _ in range(3):
         for fn in fns:
             fn()
-    ms = median_ms(torch, fns, 24)
+    ms = median_ms(fns, 24)
     out = {}
     for name, fn, m_ in zip(("fused", "optax"), fns, ms):
-        prof = profile_fn(torch, fn, f"{name} step", reps=3, events_fallback=True)
+        prof = profile_fn(fn, f"{name} step", reps=3, events_fallback=True)
         out[name] = {"ms": m_, "device_us_per_step": prof["device_us_per_call"],
                      "device_launches_per_step": sum(v["calls"] for v in prof["per_call"].values()),
-                     "device_busy_share": prof.get("device_busy_share")}
+                     "device_busy_share": prof.get("device_busy_share"), **time_from(prof)}
     emit("timing_train_fused", config="synthetic_small batch 64 deep supervision, clip 1.0 delayed, fp32 moments",
          **out, card=card)
     return out
@@ -3843,7 +3639,7 @@ def check_greedy_depths(torch, device, card) -> dict:
                        lambda: trajectory_forward_plain(b, A, *p, with_tax=True),
                        lambda: unroll_bwd(b, A, *p, *traj, *cts), lambda: unroll_bwd_plain(b, A, *p, *traj, *cts)]
                 with torch.no_grad():
-                    ms = median_ms(torch, fns, 21)
+                    ms = median_ms(fns, 21)
                 timings[("trajectory_forward", K)] = (ms[0], ms[1], *traj_bound(S, SMALL["m"], SMALL["n"], K,
                                                                                  with_tax=True))
                 timings[("unroll_bwd", K)] = (ms[2], ms[3], *bwd_bound(S, m=SMALL["m"], n=SMALL["n"], K=K))
@@ -4169,35 +3965,18 @@ def time_dp_step(torch, dev) -> dict:
 
 
 def spawn_ranks(D: int, jobs: str, tmp: str, timeout: int = 600) -> list:
-    """Start D ranks of this script (``--dp-worker``), one process each
-    with the env:// variables python -m torch.distributed.run sets (the
-    one card shared: gloo by parallel/mesh.pick_backend; one rank: NCCL);
-    wait for all; return their results in rank order. A rank that fails
-    fails the phase, with its output."""
-    import socket
+    """Start D ranks of this script (``--dp-worker``) through
+    parallel/multihost.spawn_ranks (env://, the rendezvous store held by
+    this process, a deadline; the one card shared: gloo by
+    parallel/mesh.pick_backend; one rank: NCCL); return their results in
+    rank order and rank 0's output. A rank that fails, or a spawn past its
+    deadline, fails the phase with the ranks' output."""
+    from dladmm_tpu_torch.parallel.multihost import spawn_ranks as spawn
 
     out_dir = Path(tmp) / f"dp_{D}_{jobs.replace(',', '_')}"
     out_dir.mkdir()
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    procs = []
-    for r in range(D):
-        env = dict(__import__("os").environ, MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE=str(D),
-                   RANK=str(r), LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(D), OMP_NUM_THREADS="1")
-        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-worker", str(out_dir),
-                                       jobs], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    if any(p.returncode != 0 for p in procs):
-        raise AssertionError(f"{D} ranks {jobs}: exit codes {[p.returncode for p in procs]}\n" + logs[0][-4000:]
-                             + "\n".join(lg[-2000:] for lg in logs[1:]))
+    logs = spawn([sys.executable, str(Path(__file__).resolve()), "--dp-worker", str(out_dir), jobs], D,
+                 timeout=timeout)
     import torch
 
     return [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(D)], logs[0]
@@ -4866,6 +4645,360 @@ def tp_phases(torch, dev, card) -> dict:
     return res
 
 
+# -- the benchmarking tools, the examples and profiling (phases 44-49) --------
+
+BENCH_FRAC_MAX = 1.05  # a roofline fraction above this means a wrong count or clock
+# The serving kernel variants of phase 46, by the route the rows name.
+SERVE_VARIANTS = {"cuda-whole-unroll-kernel": "row 1", "cuda-whole-unroll-bf16-kernel": "row 1 bf16",
+                  "cuda-int8-unroll-kernel": "row 7", "cuda-whole-unroll-kernel-prox": "row 1 prox"}
+# The kernels phase 47's steps must launch (trace and wrappers).
+PROFILE_KERNELS = {"shipped": {"trajectory_forward", "unroll_bwd"}, "fused": set(),
+                   "qadam_int8": {"trajectory_forward", "unroll_bwd", "adam_step"}}
+EXAMPLES = {"quickstart": "served 10 solves", "distributed": "sharded serving: 200 solves"}
+
+
+def quiet_json(main, argv):
+    """(parsed stdout, seconds) of a bench CLI's main(argv), its stderr
+    progress swallowed; a non-zero return fails."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"{main.__module__}.main {argv} returned {rc}: {err.getvalue()[-2000:]}")
+    return json.loads(out.getvalue()), time.monotonic() - t0
+
+
+def bench_timing(torch, dev, card) -> dict:
+    """Phase 44: bench/timing.time_chained on row 1 at synthetic_small
+    S = 256 (strict: the UNCALIBRATED fallback fails), beside the CUDA-event
+    median of one solve and the profiler's device time; the kernel's
+    launches over the chains counted from 0."""
+    import warnings
+
+    from dladmm_tpu_torch.bench.timing import time_chained
+    from dladmm_tpu_torch.ops.cuda_unroll import unroll_forward
+
+    A, b, p = problem(torch, S=256, seed=7, device=dev, **SMALL)
+    with torch.no_grad():
+        unroll_forward.launches = 0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            slope_s = time_chained(lambda c: b + 1e-12 * unroll_forward(c, A, *p)[2], b, iters=64, strict=True)
+        launches = unroll_forward.launches
+        if caught or not (math.isfinite(slope_s) and slope_s > 0):
+            raise AssertionError(f"time_chained on row 1: {slope_s} s, warnings {[str(w.message) for w in caught]}")
+        fn = lambda: unroll_forward(b, A, *p)  # noqa: E731
+        fn()
+        (events_ms,) = median_ms([fn], 31)
+        dev = device_us(fn, "synthetic_small S=256")
+    bms, by = bound(256, **SMALL)
+    emit("bench_timing", config="synthetic_small S=256", chained_ms=slope_s * 1e3, events_median_ms=events_ms,
+         **dev, bound_ms=bms, bound_by=by, launches=launches, card=card)
+    return {"unroll_forward": launches}
+
+
+def bench_roofline(torch, card) -> dict:
+    """Phase 45: roofline.main at its three shapes, the plain loop and row 1
+    at each; every fraction at most BENCH_FRAC_MAX, every time finite and
+    positive, row 1's launches from 0 > 0 at each shape."""
+    from dladmm_tpu_torch.bench import roofline
+
+    results, wall = quiet_json(roofline.main, [])
+    launches = 0
+    for res in results:
+        for row in res["paths"]:
+            fracs = {k: row[k] for k in ("frac_of_fp32_peak", "frac_of_memory_bound", "frac_of_roofline")}
+            if not (math.isfinite(row["time_us"]) and row["time_us"] > 0) or any(
+                    not (0 < f <= BENCH_FRAC_MAX) for f in fracs.values()):
+                raise AssertionError(f"roofline {res['shape']} {row['path']}: time {row['time_us']} us, {fracs}")
+            if row["path"] == "megakernel":
+                if row["launches"] < 1:
+                    raise AssertionError(f"roofline {res['shape']}: row 1 launched no time")
+                launches += row["launches"]
+        emit("bench_roofline", shape=res["shape"], flops_g=res["flops_g"], ideal_min_hbm_mb=res["ideal_min_hbm_mb"],
+             time_from=res["time_from"], paths=res["paths"], card=card)
+    return {"unroll_forward": launches, "wall_s": wall}
+
+
+def bench_serving(torch, card) -> dict:
+    """Phase 46: serving.main --dtype=all --prox=nonneg_l1 at the paper
+    shape, and --shape=flagship --dtype=float32: every row a finite,
+    positive latency and throughput = bucket / latency; each kernel variant
+    (rows 1, 1 bf16, 7 and 1 with a prox) present, and each row on a
+    kernel launched from 0 > 0 times."""
+    from dladmm_tpu_torch.bench import serving
+
+    paper, wall_paper = quiet_json(serving.main, ["--dtype=all", "--prox=nonneg_l1", "--iters=16"])
+    flagship, wall_flag = quiet_json(serving.main, ["--shape=flagship", "--dtype=float32", "--iters=8"])
+    launches = {v: 0 for v in SERVE_VARIANTS.values()}
+    for table in [*paper, flagship]:
+        for row in table["buckets"]:
+            t = row["latency_us"] * 1e-6
+            if not (math.isfinite(t) and t > 0) or not math.isclose(row["throughput_solves_per_s"],
+                                                                     row["bucket"] / t, rel_tol=1e-9):
+                raise AssertionError(f"serving {table['shape']} {row}")
+            variant = SERVE_VARIANTS.get(row["route"])
+            if row["route"].startswith("cuda-") and (variant is None or not row["launches"]):
+                raise AssertionError(f"serving {table['shape']} {row['route']}: {row['launches']} launches")
+            if variant:
+                launches[variant] += row["launches"]
+        emit("bench_serving", shape=table["shape"], dtype=table["dtype"], prox_x=table.get("prox_x"),
+             dispatch_overhead_ms=table["dispatch_overhead_ms"], latency_from=table["latency_from"],
+             buckets=table["buckets"], card=card)
+    missing = [v for v, n in launches.items() if n < 1]
+    if missing:
+        raise AssertionError(f"serving: no row ran {missing}")
+    return {"launches": launches, "wall_s": wall_paper + wall_flag}
+
+
+def profile_worker(out_path: str, jobs: str) -> int:
+    """Phase 47's captures and phase 49's trace in a process of their own
+    (``chip_smoke.py --profile-worker OUT JOBS``): late in this script's
+    long process the profiler has been seen to leave one step's kernels
+    out of every session, and then to record no device activity at all
+    (PERF.md §6); a young process records them. Each job is a
+    profile_step step (profile_job) or ``trace`` (traced_solve), each
+    session of it run again where it missed a launch
+    (retry_incomplete); the results go to OUT as JSON."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    res = {}
+    for job in jobs.split(","):
+        session = (lambda: traced_solve(torch, dev)) if job == "trace" else (lambda: profile_job(dev, job))
+        result, sessions = retry_incomplete(session, f"profile worker {job}")
+        res[job] = result | {"sessions": sessions}
+    Path(out_path).write_text(json.dumps(res))
+    return 0
+
+
+def profile_job(dev, which: str) -> dict:
+    """One session of phase 47's step ``which``: profile_step.capture (12
+    steps at synthetic_large batch 1024, bf16 compute), then summarize.
+    The summary must name the port's kernels the step launched
+    (PROFILE_KERNELS); a kernel whose launches in the trace differ from
+    its wrapper's count over the traced steps raises IncompleteProfile."""
+    import shutil
+
+    from dladmm_tpu_torch.bench.profile_step import capture, summarize
+
+    trace_dir, steps = capture(12, which, device=dev)
+    try:
+        summary = summarize(trace_dir, steps)
+    finally:
+        shutil.rmtree(trace_dir)
+    kernels = summary["kernels"]
+    if set(kernels) != PROFILE_KERNELS[which]:
+        raise AssertionError(f"profile_step {which}: kernels {kernels}, expected {PROFILE_KERNELS[which]}")
+    if not all(k["trace_launches"] == k["wrapper_launches"] for k in kernels.values()):
+        raise IncompleteProfile(f"profile_step {which}: trace and wrapper launches {kernels}")
+    return summary
+
+
+def run_profile_worker(jobs: str, timeout: int = 900) -> dict:
+    """profile_worker's results for ``jobs``; its report lines are printed
+    here, and a failure fails the phase with its output."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "profile.json"
+        run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--profile-worker", str(path), jobs],
+                             capture_output=True, text=True, timeout=timeout)
+        for ln in run.stdout.splitlines():
+            if ln.startswith('{"phase"'):
+                print(ln, flush=True)
+        if run.returncode != 0:
+            raise AssertionError(f"profile worker {jobs}: exit {run.returncode}\n{run.stderr[-4000:]}")
+        return json.loads(path.read_text())
+
+
+def bench_profile_step(card) -> dict:
+    """Phase 47: the three steps' captures and summaries, in a process of
+    their own (profile_worker, profile_job): each summary names the port's
+    kernels its step launched, and each kernel's launches in the trace
+    equal its wrapper's count over the traced steps. The wrappers' counts
+    (all bf16) are returned for the kernels line."""
+    from dladmm_tpu_torch.bench.profile_step import STEPS
+
+    bf16_key = {"trajectory_forward": "trajectory_forward_bf16", "unroll_bwd": "unroll_bwd_bf16",
+                "adam_step": "adam_step_bf16"}
+    summaries = run_profile_worker(",".join(STEPS))
+    out = {}
+    for which in STEPS:
+        summary = summaries[which]
+        kernels = summary["kernels"]
+        emit("bench_profile_step", step=which, steps=summary["steps_profiled"], lane=summary["lane"],
+             marker_recorded=summary["marker_recorded"], step_total_us=summary["step_total_us"],
+             leaf_op_us_per_step=summary["leaf_op_us_per_step"], top_ops=summary["top_ops"][:10],
+             kernels=kernels, sessions=summary["sessions"], card=card)
+        out[which] = {bf16_key[name]: k["wrapper_launches"] for name, k in kernels.items()}
+    return out
+
+
+def bench_comm_scaling(torch, card) -> dict:
+    """Phase 48: comm_model for every sharded preset (both layouts, every
+    field finite), then scaling at synthetic_small (batch 64 a rank) on 1
+    rank (NCCL, its measured fields a result) and on 2 ranks sharing the
+    card (gloo, its fields under harness_validation_only); each rank 0
+    launched the trajectory and backward kernels."""
+    from dladmm_tpu_torch.bench import comm_model
+    from dladmm_tpu_torch.bench.scaling import measure_dp_scaling
+    from dladmm_tpu_torch.utils.config import PRESETS
+
+    rows, _ = quiet_json(comm_model.main, [])
+    sharded = [n for n, c in PRESETS.items() if c.sharding.data_axis * c.sharding.model_axis > 1 or c.sharding.multihost]
+    if sorted({r["config"] for r in rows}) != sorted(sharded) or len(rows) != 2 * len(sharded):
+        raise AssertionError(f"comm_model: rows {[(r['config'], r['layout']) for r in rows]}")
+    for r in rows:
+        vals = [r["per_chip_gb"], r["per_chip_tflops_per_step"], *r["model_step_ms"].values(),
+                r["scaling_efficiency_no_overlap"]]
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"comm_model {r['config']} {r['layout']}: {r}")
+    emit("bench_comm", rows=rows)
+    t0 = time.monotonic()
+    scaling = measure_dp_scaling([(1, 1), (2, 1)], timeout=600)
+    wall = time.monotonic() - t0
+    one, two = scaling
+    if one["backend"] != "nccl" or "step_ms" not in one or two["backend"] != "gloo" or \
+            "harness_validation_only" not in two or "step_ms" in two:
+        raise AssertionError(f"scaling: {scaling}")
+    for row in scaling:
+        fields = row.get("harness_validation_only", row)
+        if not (math.isfinite(fields["step_ms"]) and fields["step_ms"] > 0) or not all(
+                row["launches_rank0"].get(k, 0) > 0 for k in ("trajectory_forward", "unroll_bwd")):
+            raise AssertionError(f"scaling {row['mesh']}: {row}")
+    emit("bench_scaling", rows=scaling, wall_s=wall, card=card)
+    return {f"{row['mesh']} {row['backend']} (rank 0)": row["launches_rank0"] for row in scaling}
+
+
+def traced_solve(torch, dev) -> dict:
+    """utils/profiling.trace around one row-1 solve at synthetic_small
+    S = 256, read back by profile_step.summarize: the kernel must be in
+    the trace once. A trace that recorded no device kernel at all (the
+    profiler's empty windows, PERF.md §7) raises IncompleteProfile."""
+    from dladmm_tpu_torch.bench.profile_step import summarize
+    from dladmm_tpu_torch.ops.cuda_unroll import unroll_forward
+    from dladmm_tpu_torch.utils import profiling
+
+    A, b, p = problem(torch, S=256, seed=5, device=dev, **SMALL)
+    with torch.no_grad():
+        unroll_forward(b, A, *p)
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            unroll_forward.launches = 0
+            with profiling.trace(tmp):
+                unroll_forward(b, A, *p)
+            with open(Path(tmp) / profiling.TRACE_FILE) as f:
+                cats = {}
+                for e in json.load(f)["traceEvents"]:
+                    cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+            traced = summarize(tmp, 1)
+    if traced["lane"] != "device":
+        raise IncompleteProfile(f"profiling.trace around one row-1 solve: no device event, events by category {cats}")
+    kernels = traced["kernels"]
+    if kernels.get("unroll_forward", {}).get("trace_launches") != 1 or unroll_forward.launches != 1:
+        raise AssertionError(f"profiling.trace around one row-1 solve: {kernels}, {unroll_forward.launches} "
+                             f"launches, events by category {cats}")
+    return {"kernels": kernels, "top_ops": traced["top_ops"]}
+
+
+def examples_profiling(torch, dev, card) -> dict:
+    """Phase 49: both examples run on the card as subprocesses, at once,
+    and each prints its line; meanwhile utils/profiling.trace around one
+    row-1 solve, in a process of its own (profile_worker, traced_solve),
+    gives a trace that holds the kernel once; and here, with
+    enable_nan_debug(True), torch.log(-x) on the card and a NaN row of b
+    fed to row 1 raise FloatingPointError (the second from the kernel
+    wrapper's check); off again, nothing is checked and no mode stays
+    pushed."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+    from dladmm_tpu_torch.ops.cuda_unroll import unroll_forward
+    from dladmm_tpu_torch.utils import profiling
+
+    root = Path(__file__).resolve().parent
+    t0 = time.monotonic()
+    procs = {name: subprocess.Popen([sys.executable, "-m", f"dladmm_tpu_torch.examples.{name}"], cwd=str(root),
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name in EXAMPLES}
+    try:
+        traced = run_profile_worker("trace")["trace"]
+        A, b, p = problem(torch, S=256, seed=5, device=dev, **SMALL)
+        lap = profiling.StepTimer().lap(sync_on=b)
+        nan_b = b.clone()
+        nan_b[3] = float("nan")
+        x = torch.ones(8, device=dev)
+        raised = {}
+        profiling.enable_nan_debug(True)
+        try:
+            for case, fn, says in (("aten", lambda: torch.log(-x), "aten.log"),
+                                   ("row 1", lambda: unroll_forward(nan_b, A, *p), "the kernel of unroll_forward")):
+                try:
+                    with torch.no_grad():
+                        fn()
+                    torch.cuda.synchronize()
+                except FloatingPointError as e:
+                    raised[case] = str(e)
+                    if says not in str(e):
+                        raise AssertionError(f"enable_nan_debug {case}: raised {e}") from None
+                else:
+                    raise AssertionError(f"enable_nan_debug: {case} made a NaN and nothing raised")
+        finally:
+            profiling.enable_nan_debug(False)
+        if _get_current_dispatch_mode() is not None or not bool(torch.isnan(torch.log(-x)).all()):
+            raise AssertionError("enable_nan_debug(False) left a mode pushed")
+        emit("profiling", trace=traced, step_timer_lap_s=lap, nan_debug_raised=raised, card=card)
+        for name, proc in procs.items():
+            log = proc.communicate(timeout=900)[0]
+            if proc.returncode != 0 or EXAMPLES[name] not in log:
+                raise AssertionError(f"example {name}: exit {proc.returncode}\n{log[-4000:]}")
+            emit("examples", example=name, expected=EXAMPLES[name],
+                 lines=[ln for ln in log.splitlines() if not ln.startswith(" ")][-6:],
+                 wall_s=time.monotonic() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    return {"profiling.trace": 1}
+
+
+def bench_phases(torch, dev, card) -> dict:
+    """Phases 44-49 in order, each one's wall time printed; returns the
+    launches of each port kernel by bench path, keyed as the kernels
+    line's entries."""
+    walls, res = {}, {}
+    for name, run in (("bench_timing", lambda: bench_timing(torch, dev, card)),
+                      ("bench_roofline", lambda: bench_roofline(torch, card)),
+                      ("bench_serving", lambda: bench_serving(torch, card)),
+                      ("bench_profile_step", lambda: bench_profile_step(card)),
+                      ("bench_comm_scaling", lambda: bench_comm_scaling(torch, card)),
+                      ("examples_profiling", lambda: examples_profiling(torch, dev, card))):
+        t0 = time.monotonic()
+        res[name] = run()
+        walls[name] = time.monotonic() - t0
+        emit("bench_wall", bench_phase=name, seconds=walls[name])
+    prof, serve = res["bench_profile_step"], res["bench_serving"]["launches"]
+    by_step = lambda key: {f"profile_step {w}": c.get(key, 0) for w, c in prof.items() if c.get(key)}  # noqa: E731
+    scaling = lambda key: {f"scaling {mesh}": c.get(key, 0)  # noqa: E731
+                           for mesh, c in res["bench_comm_scaling"].items() if c.get(key)}
+    launches = {
+        "unroll_forward": {"bench_timing": res["bench_timing"]["unroll_forward"],
+                           "bench_roofline": res["bench_roofline"]["unroll_forward"],
+                           "bench_serving fp32": serve["row 1"], "bench_serving prox": serve["row 1 prox"],
+                           "profiling.trace": res["examples_profiling"]["profiling.trace"]},
+        "unroll_forward_bf16": {"bench_serving bf16": serve["row 1 bf16"]},
+        "int8_unroll_forward": {"bench_serving int8": serve["row 7"]},
+        "trajectory_forward": scaling("trajectory_forward"),
+        "trajectory_forward_bf16": by_step("trajectory_forward_bf16"),
+        "unroll_bwd": scaling("unroll_bwd"),
+        "unroll_bwd_bf16": by_step("unroll_bwd_bf16"),
+        "adam_int8_rows_bf16": by_step("adam_step_bf16"),
+    }
+    emit("bench_phases", wall_s=walls, launches_bench=launches, card=card)
+    return launches
+
+
 def build_phase() -> None:
     """Phase 2: nvcc builds every source of ops/csrc/ from this checkout,
     one nvcc per source, all started together; each source's ptxas report
@@ -4893,6 +5026,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--profile-worker"]:
+        return profile_worker(*sys.argv[2:4])
     if sys.argv[1:] == ["--sharded"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -4909,6 +5044,17 @@ def main() -> int:
         print(card, flush=True)
         build_phase()
         tp_phases(torch, torch.device("cuda", 0), card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--bench"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        card = card_line()
+        print(card, flush=True)
+        build_phase()
+        print(json.dumps({"launches_bench": bench_phases(torch, torch.device("cuda", 0), card)}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         }}), flush=True)
@@ -5102,17 +5248,16 @@ def main() -> int:
             for _ in range(2):  # warm-up
                 for fn in fns:
                     fn()
-            ms, plain_ms, *other_ms = median_ms(torch, fns, reps)
+            ms, plain_ms, *other_ms = median_ms(fns, reps)
             bms, by = bound(S, **shape)
             timings[(label, S)] = (ms, plain_ms, bms, by)
             detail = {"host_enqueue_us": host_enqueue_us(torch, fns[0]),
-                      "device_us_per_call": profile_fn(torch, fns[0], f"{label} S={S}",
-                                                        events_fallback=True)["device_us_per_call"],
+                      **device_us(fns[0], f"{label} S={S}"),
                       **plan}
             if other_ms:
                 detail.update(other_tile=other, other_tile_ms=other_ms[0],
                               other_tile_device_us_per_call=profile_fn(
-                                  torch, on_other_tile, f"{label} S={S} tile {other}")["device_us_per_call"])
+                                  on_other_tile, f"{label} S={S} tile {other}")["device_us_per_call"])
             serve_detail[(label, S)] = detail
             emit("timing", config=label, S=S, kernel_ms=ms, plain_ms=plain_ms,
                  bound_ms=bms, bound_by=by, reps=reps, **detail, card=card)
@@ -5210,6 +5355,9 @@ def main() -> int:
     # 41-43. tensor parallelism: parity on 4 gloo ranks, run --config=tp_small
     # on 8, tp_large (and tp_large_bf16) at full width.
     tp_phases(torch, dev, card)
+    # 44-49. the benchmarking tools, the examples and profiling, each bench
+    # path's kernels counted from 0.
+    launches_bench = bench_phases(torch, dev, card)
 
     ms, plain_ms, bms, by = timings[("synthetic_small", 256)]
     entries = [{
@@ -5353,6 +5501,9 @@ def main() -> int:
         if key:
             e["launches_new_paths"] = new_paths[key]  # phases 36-40
     entries += entries_sharded
+    for e in entries:  # phases 44-49, on the base entries: they ran no patch shape and no greedy depth
+        e["launches_bench"] = launches_bench.get(e["name"], {})
+    entries[0]["bf16"]["launches_bench"] = launches_bench["unroll_forward_bf16"]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -15,7 +15,10 @@ int8, fp32, bf16 and SR-bf16 moments, the training loop, checkpoints
 and ``python -m dladmm_tpu_torch.run``). Its kernels are hand-written
 CUDA C++ under ops/csrc/: the whole-unroll and trajectory forwards
 (unroll.cu), the reverse sweep (unroll_bwd.cu), and the int8 and dense
-Adam sweeps (qadam_int8.cu, qadam_dense.cu).
+Adam sweeps (qadam_int8.cu, qadam_dense.cu). The benchmarking tools
+(bench/: chained timing, the roofline and every kernel's bound, serving,
+a train step's profile, the communication model, the scaling sweep),
+utils/profiling and the two examples (examples/) are ported too.
 """
 
 __version__ = "0.1.0"

@@ -16,7 +16,7 @@ numpy arrays across instead.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -155,3 +155,18 @@ def draw_batch(
     if nonneg_x:
         x_star = torch.abs(x_star)
     return x_star, _bernoulli_gaussian(gen, (batch, d or m), sparsity_e, dtype)
+
+
+def batch_stream(
+    gen: torch.Generator,
+    A: Tensor,
+    batch: int,
+    sparsity_x: float = 0.1,
+    sparsity_e: float = 0.1,
+    dtype=torch.float32,
+    B: Optional[Tensor] = None,
+) -> Iterator[SyntheticBatch]:
+    """Endless deterministic stream of training batches (make_batch),
+    drawn in turn from ``gen``: the same seed gives the same stream."""
+    while True:
+        yield make_batch(gen, A, batch, sparsity_x, sparsity_e, dtype, B)

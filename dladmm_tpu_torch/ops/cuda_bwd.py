@@ -52,6 +52,7 @@ from dladmm_tpu_torch.ops import cuda_build, schedule
 from dladmm_tpu_torch.ops.cuda_unroll import _rounded, kernel_args, storage_dtype
 from dladmm_tpu_torch.ops.reference import _BETA_MIN
 from dladmm_tpu_torch.ops.unroll_vjp import _param_grads, bwd_from_carries, shifted_residuals
+from dladmm_tpu_torch.utils.profiling import check_kernel_outputs
 
 SRC = cuda_build.CSRC / "unroll_bwd.cu"
 ROUTES = ("whole", "chunked")
@@ -301,6 +302,7 @@ def unroll_bwd(b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax, gx, gz, glam,
     with _count_lock:
         (unroll_bwd.launches_bf16 if bf16 else unroll_bwd.launches)[route] += 1
         unroll_bwd.last_plan = (occ, grid, sp, wsplit)
+    check_kernel_outputs("unroll_bwd", gW1, gW2, gth1, gth2, gbeta, gax1, gb)
     gparams = DLADMMParams(gW1, gW2, _reduce_theta(gth1, th1_p), _reduce_theta(gth2, th2_p),
                            gbeta.reshape(beta_p.shape))
     gA = None

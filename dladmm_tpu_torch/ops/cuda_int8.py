@@ -39,6 +39,7 @@ from torch import Tensor
 
 from dladmm_tpu_torch.ops import cuda_build, schedule
 from dladmm_tpu_torch.ops.quantized import QuantizedDict, QuantizedParams, int8_unroll
+from dladmm_tpu_torch.utils.profiling import check_kernel_outputs
 
 SRC = cuda_build.CSRC / "int8_unroll.cu"
 
@@ -143,6 +144,7 @@ def int8_unroll_forward(b: Tensor, qp: QuantizedParams, qd: QuantizedDict):
     with _count_lock:
         int8_unroll_forward.launches += 1
         int8_unroll_forward.last_plan = (plan.occ, plan.grid, sp, K)
+    check_kernel_outputs("int8_unroll_forward", x, z, lam)
     return x, z, lam
 
 

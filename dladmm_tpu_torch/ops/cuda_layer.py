@@ -51,6 +51,7 @@ from dladmm_tpu_torch.ops.reference import (
     dladmm_layer_step_cached,
     shrink,
 )
+from dladmm_tpu_torch.utils.profiling import check_kernel_outputs
 
 SRC = cuda_build.CSRC / "unroll.cu"
 
@@ -161,6 +162,7 @@ def layer_step(b, A, x, z, lam, Ax, W1, W2, th1, th2, beta, matmul_dtype=None):
     with _count_lock:
         layer_step.launches += 1
         layer_step.last_plan = (plan.occ, plan.grid, sp, 1)
+    check_kernel_outputs("layer_step", x1, z1, lam1, Ax1)
     return x1, z1, lam1, Ax1
 
 

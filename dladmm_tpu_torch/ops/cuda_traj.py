@@ -52,6 +52,7 @@ from dladmm_tpu_torch.ops import cuda_build, schedule
 from dladmm_tpu_torch.ops.cuda_bwd import bwd_chunk_batch, unroll_bwd, weight_wave
 from dladmm_tpu_torch.ops.cuda_unroll import SRC, kernel_args, needs_grad, storage_dtype
 from dladmm_tpu_torch.ops.unroll_vjp import _param_grads, bwd_from_carries, shifted_residuals
+from dladmm_tpu_torch.utils.profiling import check_kernel_outputs
 
 _count_lock = threading.Lock()
 
@@ -143,6 +144,7 @@ def trajectory_forward(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
         else:
             trajectory_forward.launches += 1
         trajectory_forward.last_plan = (occ, grid, sp, K)
+    check_kernel_outputs("trajectory_forward", tx, tz, tlam, tax)
     return (tx, tz, tlam, tax) if with_tax else (tx, tz, tlam)
 
 

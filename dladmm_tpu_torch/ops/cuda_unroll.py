@@ -48,6 +48,7 @@ from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
 from dladmm_tpu_torch.ops import cuda_build, schedule
 from dladmm_tpu_torch.ops.prox import get_prox, kernel_exact
 from dladmm_tpu_torch.ops.reference import LayerParams, make_cached_step
+from dladmm_tpu_torch.utils.profiling import check_kernel_outputs
 
 SRC = cuda_build.CSRC / "unroll.cu"
 # The kernel's prox variants (csrc/unroll.cu, enum Prox).
@@ -247,6 +248,7 @@ def unroll_forward(
     with _count_lock:
         unroll_forward.launches += 1
         unroll_forward.last_plan = (plan.occ, plan.grid, sp, K)
+    check_kernel_outputs("unroll_forward", x, z, lam)
     return x, z, lam
 
 

@@ -164,6 +164,57 @@ def host_local_batch(seed: int, step: int, A_cols, global_batch: int, mesh, spar
     return rank_batch(mesh, x_star, e_star, A_cols, B)
 
 
+def spawn_ranks(argv, world: int, timeout: float = 600.0, env=None, cwd=None) -> list:
+    """Run ``argv`` (a command, e.g. [sys.executable, "-m", module, ...])
+    as ``world`` ranks on this host, one process each, with the env://
+    variables python -m torch.distributed.run sets, and wait for all;
+    returns each rank's output (stdout and stderr together), in rank
+    order.
+
+    The rendezvous store is a TCPStore this process holds, on a port the
+    OS picked and that stays bound until the ranks end; every rank joins
+    it as a client (TORCHELASTIC_USE_AGENT_STORE, as under
+    torch.distributed.run's agent), so no other process can take the port
+    between its choice and the ranks' start. A spawn that has not ended
+    within ``timeout`` seconds is killed and raises TimeoutError; a rank
+    that exits non-zero raises RuntimeError with the ranks' output. Every
+    rank is killed and waited for before this returns or raises.
+    ``env``: variables added to this process's for every rank (e.g.
+    DLADMM_PLATFORM=cpu)."""
+    import subprocess
+    import time
+
+    import torch.distributed as dist
+
+    store = dist.TCPStore("localhost", 0, is_master=True, wait_for_workers=False)
+    procs = []
+    try:
+        for r in range(world):
+            rank_env = dict(os.environ, **(env or {}), MASTER_ADDR="localhost", MASTER_PORT=str(store.port),
+                            TORCHELASTIC_USE_AGENT_STORE="True", WORLD_SIZE=str(world), RANK=str(r),
+                            LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world))
+            rank_env.setdefault("OMP_NUM_THREADS", "1")
+            procs.append(subprocess.Popen(list(argv), env=rank_env, cwd=cwd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + timeout
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+            except subprocess.TimeoutExpired:
+                raise TimeoutError(f"{world} ranks of {argv} did not end within {timeout} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        del store
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError(f"{world} ranks of {argv}: exit codes {[p.returncode for p in procs]}\n"
+                           + "\n".join(f"-- rank {r} --\n{log[-4000:]}" for r, log in enumerate(logs)))
+    return logs
+
+
 __all__ = [
     "host_local_batch",
     "initialize_distributed",
@@ -172,5 +223,6 @@ __all__ = [
     "rank_batch",
     "rank_device",
     "ranks_per_card",
+    "spawn_ranks",
     "world_size",
 ]

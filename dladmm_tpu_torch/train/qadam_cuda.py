@@ -81,6 +81,7 @@ from dladmm_tpu_torch.train.qmoments import (
     quantize_q8,
     sr_bfloat16,
 )
+from dladmm_tpu_torch.utils.profiling import check_kernel_outputs
 
 SRC = cuda_build.CSRC / "qadam_int8.cu"
 DENSE_SRC = cuda_build.CSRC / "qadam_dense.cu"
@@ -193,6 +194,7 @@ def adam_int8_rows(g, master, mu: QTensor, nu: QTensor, scal, b1=0.9, b2=0.999, 
         cuda_build.check(SRC, err, "CUDA int8 Adam kernel")
     with _count_lock:
         adam_int8_rows.launches += 1
+    check_kernel_outputs("adam_int8_rows", master, mu.scale, nu.scale)
 
 
 adam_int8_rows.launches = 0
@@ -273,6 +275,7 @@ def adam_dense_rows(g, master, mu, nu, scal, fmt, seed=None, b1=0.9, b2=0.999, e
         cuda_build.check(DENSE_SRC, err, "CUDA dense Adam kernel")
     with _count_lock:
         adam_dense_rows.launches += 1
+    check_kernel_outputs("adam_dense_rows", master, mu, nu)
 
 
 adam_dense_rows.launches = 0
@@ -660,6 +663,7 @@ def adam_step(grads, params, mu, nu, count: Tensor, fmt: str, learning_rate, cli
             adam_step.launches_bf16 += 2
         else:
             adam_step.launches += 2
+    check_kernel_outputs("adam_step", scal, *params, *(getattr(v, "scale", v) for v in (*mu, *nu)))
     return new_count, scal, seeds
 
 

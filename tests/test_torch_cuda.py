@@ -1704,3 +1704,48 @@ def test_detect_hbm_bytes_on_the_card(cuda_device):
 
     got = memory.detect_hbm_bytes()
     assert got == float(torch.cuda.get_device_properties(0).total_memory) and got > 1e10
+
+
+@pytest.mark.gpu
+def test_time_chained_on_the_whole_unroll_kernel(cuda_device):
+    """bench/timing.time_chained on row 1 at synthetic_small S = 256: a
+    positive calibrated slope (strict: no UNCALIBRATED fallback) within a
+    factor of two of the CUDA-event median of one solve, the kernel
+    launched on every step of the chains."""
+    from dladmm_tpu_torch.bench.timing import median_ms, time_chained
+
+    A, b, p = _problem(250, 500, 15, 256, 3, cuda_device)
+    cuda_unroll.unroll_forward.launches = 0
+    with torch.no_grad():
+        slope = time_chained(lambda c: b + 1e-12 * cuda_unroll.unroll_forward(c, A, *p)[2], b, iters=32,
+                             strict=True)
+        launches = cuda_unroll.unroll_forward.launches
+        (ms,) = median_ms([lambda: cuda_unroll.unroll_forward(b, A, *p)], 11)
+    assert slope > 0 and 0.5 * ms <= slope * 1e3 <= 2 * ms
+    assert launches >= 3 * (32 + 8) + 2  # best of 3 chains of 8 and of 32 steps, a warm-up step each
+
+
+@pytest.mark.gpu
+def test_nan_debug_in_the_kernel_wrappers(cuda_device):
+    """enable_nan_debug: a NaN row of b through the whole-unroll and
+    trajectory kernels raises from each wrapper's own check (no dispatch
+    mode sees a ctypes launch), and the same calls are silent once it is
+    off."""
+    from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward
+    from dladmm_tpu_torch.utils import profiling
+
+    A, b, p = _problem(64, 128, 4, 16, 5, cuda_device)
+    b[3] = float("nan")
+    calls = {"unroll_forward": lambda: cuda_unroll.unroll_forward(b, A, *p),
+             "trajectory_forward": lambda: trajectory_forward(b, A, *p)}
+    profiling.enable_nan_debug(True)
+    try:
+        for name, call in calls.items():
+            with pytest.raises(FloatingPointError, match=f"the kernel of {name}"):
+                with torch.no_grad():
+                    call()
+    finally:
+        profiling.enable_nan_debug(False)
+    with torch.no_grad():
+        _, _, lam = calls["unroll_forward"]()
+    assert torch.isnan(lam[3]).any() and torch.isfinite(lam[:3]).all()

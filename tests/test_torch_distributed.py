@@ -36,7 +36,6 @@ import json
 import os
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -265,38 +264,20 @@ def _worker(tmp: str) -> None:
 
 
 def spawn_ranks(script: Path, world: int, tmp: Path, timeout: float = 300.0) -> list:
-    """Run ``script --worker tmp`` as ``world`` gloo ranks on the CPU, with
-    the env:// variables torch.distributed.run sets; returns each rank's
-    output. The rendezvous store is a TCPStore this process holds, on a
-    port the OS picked and that stays bound until the ranks end
-    (TORCHELASTIC_USE_AGENT_STORE: every rank joins it as a client, as
-    under torch.distributed.run's agent), so no concurrent spawn can take
-    the port. A spawn that has not ended after ``timeout`` seconds is
-    killed and fails its test."""
-    import torch.distributed as dist
+    """Run ``script --worker tmp`` as ``world`` gloo ranks on the CPU
+    through the package's spawner (parallel/multihost.spawn_ranks: the
+    rendezvous TCPStore held by this process on a port the OS picked, a
+    deadline, every rank killed at the end); returns each rank's output.
+    A spawn that has not ended after ``timeout`` seconds fails its test."""
+    from dladmm_tpu_torch.parallel.multihost import spawn_ranks as spawn
 
-    store = dist.TCPStore("localhost", 0, is_master=True, wait_for_workers=False)
-    procs = []
-    for r in range(world):
-        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(store.port),
-                   TORCHELASTIC_USE_AGENT_STORE="True", WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
-                   LOCAL_WORLD_SIZE=str(world), DLADMM_PLATFORM="cpu", OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
-        procs.append(subprocess.Popen([sys.executable, str(script), "--worker", str(tmp)], env=env, cwd=str(REPO),
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    deadline = time.monotonic() + timeout
-    logs = []
     try:
-        for p in procs:
-            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
-    except subprocess.TimeoutExpired:
-        pytest.fail(f"{world} ranks of {script.name} did not end within {timeout} s")
-    finally:
-        for p in procs:
-            p.kill()
-            p.wait()
-        del store
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-6000:]
-    return logs
+        return spawn([sys.executable, str(script), "--worker", str(tmp)], world, timeout=timeout,
+                     env=dict(DLADMM_PLATFORM="cpu", OMP_NUM_THREADS="1", PYTHONPATH=str(REPO)), cwd=str(REPO))
+    except TimeoutError as e:
+        pytest.fail(str(e))
+    except RuntimeError as e:
+        raise AssertionError(str(e)[-6000:]) from None
 
 
 def _spawn(D: int, tmp: Path) -> dict:

@@ -32,7 +32,9 @@ def test_every_module_imports_without_jax():
               "ops.quantized", "serve", "run", "train.loop", "train.qadam_cuda", "train.qmoments",
               "models.solver", "run_denoise", "data.images", "data.dictionary", "data.fixtures",
               "utils.plots", "train.fused_adam", "parallel", "parallel.mesh", "parallel.multihost",
-              "parallel.memory", "parallel.collectives"):
+              "parallel.memory", "parallel.collectives", "bench", "bench.timing", "bench.roofline",
+              "bench.serving", "bench.profile_step", "bench.comm_model", "bench.scaling", "utils.profiling",
+              "examples", "examples.quickstart", "examples.distributed"):
         assert f"dladmm_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -40,6 +42,8 @@ def test_every_module_imports_without_jax():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'dladmm_tpu.')))\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'an import started a process group'\n"
         "print(repr(bad))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
