@@ -410,6 +410,7 @@ try:
         IncompleteProfile,
         back_to_back_ms,
         device_kernels,
+        is_annotation,
         kernel_name,
         profile_fn,
         profile_marker,
@@ -991,16 +992,18 @@ def device_us_by_phase(torch, prof, steps: int):
     """Device time per step of each phase of ProfiledPhases-marked steps,
     and each phase's device operations by name (µs and calls a step):
     each kernel, memset or copy goes to the phase whose host range holds
-    its start. The profiler also mirrors each range onto the device
-    timeline as an annotation spanning its kernels; those spans are not
-    device work and are left out, as are runtime API calls."""
+    its start. The profiler also mirrors each range (the phases and the
+    program's spans) onto the device timeline as an annotation spanning
+    its kernels; those are not device work and are left out, as are
+    runtime API calls."""
     ranges = [(e.time_range.start, e.time_range.end, e.name[len("phase."):])
               for e in prof.events()
               if e.name.startswith("phase.") and e.device_type.name == "CPU"]
     per = {name: 0.0 for name in PHASES}
     ops = {name: {} for name in PHASES}
     for e in prof.events():
-        if e.device_type.name != "CUDA" or e.name.startswith(("phase.", "cuda")) or "spin_kernel" in e.name:
+        if (e.device_type.name != "CUDA" or is_annotation(e) or e.name.startswith("cuda")
+                or "spin_kernel" in e.name):
             continue
         hit = [name for t0, t1, name in ranges if t0 <= e.time_range.start <= t1]
         phase = hit[0] if hit else "data"
@@ -4924,7 +4927,9 @@ def examples_profiling(torch, dev, card) -> dict:
     try:
         traced = run_profile_worker("trace")["trace"]
         A, b, p = problem(torch, S=256, seed=5, device=dev, **SMALL)
-        lap = profiling.StepTimer().lap(sync_on=b)
+        t = time.perf_counter()
+        torch.cuda.synchronize()
+        sync_s = time.perf_counter() - t
         nan_b = b.clone()
         nan_b[3] = float("nan")
         x = torch.ones(8, device=dev)
@@ -4947,7 +4952,7 @@ def examples_profiling(torch, dev, card) -> dict:
             profiling.enable_nan_debug(False)
         if _get_current_dispatch_mode() is not None or not bool(torch.isnan(torch.log(-x)).all()):
             raise AssertionError("enable_nan_debug(False) left a mode pushed")
-        emit("profiling", trace=traced, step_timer_lap_s=lap, nan_debug_raised=raised, card=card)
+        emit("profiling", trace=traced, sync_s=sync_s, nan_debug_raised=raised, card=card)
         for name, proc in procs.items():
             log = proc.communicate(timeout=900)[0]
             if proc.returncode != 0 or EXAMPLES[name] not in log:

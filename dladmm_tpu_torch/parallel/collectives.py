@@ -199,26 +199,13 @@ def _mixed_precision_inputs(state, batch, compute_dtype):
 
 def _apply_update(state, loss, grads, optimizer, compute_dtype, freeze):
     """The steps' optimizer tail: the (possibly bf16) gradients cast to
-    the fp32 masters' type, frozen fields zeroed, the update (the fused
-    sweep where the optimizer has ``fused_apply``, which rewrites the
-    compute copy in its pass; else the chain, after which the copy is
-    cast again)."""
-    from dladmm_tpu_torch.train.loop import TrainState, _cast, apply_updates
+    the fp32 masters' type, then the loop's update (train/loop._apply:
+    frozen fields zeroed, the fused sweep or the chain, the compute copy
+    rewritten)."""
+    from dladmm_tpu_torch.train.loop import _apply
 
     grads = DLADMMParams(*(g.to(p.dtype) for g, p in zip(grads, state.params)))
-    if freeze:
-        grads = DLADMMParams(*(
-            torch.zeros_like(g) if name in freeze else g for name, g in zip(grads._fields, grads)
-        ))
-    cp = state.compute_params
-    if hasattr(optimizer, "fused_apply"):
-        params, opt_state, cp = optimizer.fused_apply(grads, state.opt_state, state.params, compute_dtype, cp)
-    else:
-        with torch.no_grad():
-            updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
-            params = apply_updates(state.params, updates)
-        cp = None if compute_dtype is None else _cast(params, compute_dtype)
-    return TrainState(params, opt_state, state.step + 1, cp), loss
+    return _apply(optimizer, state, grads, freeze, compute_dtype), loss
 
 
 def _local_value_and_grad(params, A, b, x_star, e_star, B, layer_weights, step_fn, forward_fn, vjp):

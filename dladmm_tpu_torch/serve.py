@@ -57,6 +57,7 @@ from dladmm_tpu_torch.ops.cuda_unroll import (
 )
 from dladmm_tpu_torch.ops.quantized import dladmm_forward_int8, quantize_params
 from dladmm_tpu_torch.ops.reference import make_cached_step
+from dladmm_tpu_torch.utils import profiling
 from dladmm_tpu_torch.utils.platform import resolve_device
 
 # kernel= choices of int8 serving, as in the JAX package.
@@ -267,19 +268,26 @@ class InferenceServer:
         server's device, in the served type (bf16 for a bf16 server);
         the request is cast to ``request_dtype`` (through float32, as the
         JAX package's requests are), padded to the bucket size and sliced
-        back. Rows are independent, so results are exact."""
-        b = torch.as_tensor(b)
-        if b.ndim != 2 or b.shape[1] != self.m:
-            raise ValueError(f"expected (S, {self.m}), got {tuple(b.shape)}")
-        S = b.shape[0]
-        bucket = self._bucket_for(S)
-        if b.dtype != self.request_dtype:
-            b = b.to(torch.float32)
-        b = b.to(self.device, self.request_dtype)
-        if bucket != S:
-            b = torch.cat([b, b.new_zeros((bucket - S, self.m))])
-        x, z = self._run(bucket, b.contiguous())
-        return x[:S], z[:S]
+        back. Rows are independent, so results are exact. Traced as
+        ``serve.solve``, holding ``serve.prep`` (the request on the
+        device, padded) and then ``serve.forward`` (the forward's
+        enqueue)."""
+        with profiling.span("serve.solve"):
+            with profiling.span("serve.prep"):
+                b = torch.as_tensor(b)
+                if b.ndim != 2 or b.shape[1] != self.m:
+                    raise ValueError(f"expected (S, {self.m}), got {tuple(b.shape)}")
+                S = b.shape[0]
+                bucket = self._bucket_for(S)
+                if b.dtype != self.request_dtype:
+                    b = b.to(torch.float32)
+                b = b.to(self.device, self.request_dtype)
+                if bucket != S:
+                    b = torch.cat([b, b.new_zeros((bucket - S, self.m))])
+                b = b.contiguous()
+            with profiling.span("serve.forward"):
+                x, z = self._run(bucket, b)
+            return x[:S], z[:S]
 
 
 class ShardedInferenceServer:

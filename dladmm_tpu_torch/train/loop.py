@@ -55,6 +55,7 @@ from dladmm_tpu_torch.metrics.core import constraint_residual, nmse_db, per_laye
 from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
 from dladmm_tpu_torch.ops.prox import resolve_prox
 from dladmm_tpu_torch.train.qadam_cuda import QAdamFused, WarmupCosine, global_norm
+from dladmm_tpu_torch.utils import profiling
 
 
 class TrainState(NamedTuple):
@@ -354,21 +355,22 @@ def _value_and_grad(params: DLADMMParams, loss_args: tuple, loss_kw: dict):
 def _apply(optimizer, state: TrainState, grads: DLADMMParams, freeze=(), compute_dtype=None) -> TrainState:
     """The optimizer step on the masters; with a compute copy in the state
     the copy too: the fused sweep writes it in its pass, a plain
-    optimizer's new masters are cast again."""
-    if freeze:
-        grads = DLADMMParams(*(
-            torch.zeros_like(g) if name in freeze else g for name, g in zip(grads._fields, grads)
-        ))
-    cp = state.compute_params
-    if hasattr(optimizer, "fused_apply"):
-        params, opt_state, cp = optimizer.fused_apply(
-            grads, state.opt_state, state.params, compute_dtype if cp is not None else None, cp)
-    else:
-        with torch.no_grad():
-            updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
-            params = apply_updates(state.params, updates)
-            cp = None if cp is None else _cast(params, compute_dtype)
-    return TrainState(params, opt_state, state.step + 1, cp)
+    optimizer's new masters are cast again. Traced as ``train.optimizer``."""
+    with profiling.span("train.optimizer"):
+        if freeze:
+            grads = DLADMMParams(*(
+                torch.zeros_like(g) if name in freeze else g for name, g in zip(grads._fields, grads)
+            ))
+        cp = state.compute_params
+        if hasattr(optimizer, "fused_apply"):
+            params, opt_state, cp = optimizer.fused_apply(
+                grads, state.opt_state, state.params, compute_dtype if cp is not None else None, cp)
+        else:
+            with torch.no_grad():
+                updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+                params = apply_updates(state.params, updates)
+                cp = None if cp is None else _cast(params, compute_dtype)
+        return TrainState(params, opt_state, state.step + 1, cp)
 
 
 def _mean_of(parts):
@@ -441,7 +443,10 @@ def make_train_step(
     gradients are zeroed). accum_steps > 1: ``batch`` stays the
     effective batch; the step sums the gradients of accum_steps
     microbatches of batch / accum_steps rows (generator
-    ``step_generator(seed, i, j)`` each) and applies their mean."""
+    ``step_generator(seed, i, j)`` each) and applies their mean.
+
+    Traced as ``train.step``, holding ``train.data`` (make_batch, once a
+    microbatch) and then ``train.optimizer`` (utils/profiling.span)."""
     if accum_steps < 1 or batch % accum_steps:
         raise ValueError(f"accum_steps={accum_steps} must divide batch={batch}")
     micro = batch // accum_steps
@@ -449,18 +454,20 @@ def make_train_step(
     grad = _grad_fn(A, B, layer_weights, dict(step_fn=step_fn, forward_fn=forward_fn, vjp=vjp), compute_dtype)
 
     def grad_of(state, gen):
-        data = make_batch(gen, A, micro, sparsity_x, sparsity_e, A.dtype, B, nonneg_x)
+        with profiling.span("train.data"):
+            data = make_batch(gen, A, micro, sparsity_x, sparsity_e, A.dtype, B, nonneg_x)
         return grad(state, data.b, data.x_star, data.e_star)
 
     def train_step(state: TrainState, i: int):
-        _check_state(state, compute_dtype)
-        if accum_steps == 1:
-            loss, grads = grad_of(state, step_generator(seed, i))
-        else:
-            loss, grads = _mean_of([
-                grad_of(state, step_generator(seed, i, j)) for j in range(accum_steps)
-            ])
-        return _apply(optimizer, state, grads, freeze, compute_dtype), loss
+        with profiling.span("train.step"):
+            _check_state(state, compute_dtype)
+            if accum_steps == 1:
+                loss, grads = grad_of(state, step_generator(seed, i))
+            else:
+                loss, grads = _mean_of([
+                    grad_of(state, step_generator(seed, i, j)) for j in range(accum_steps)
+                ])
+            return _apply(optimizer, state, grads, freeze, compute_dtype), loss
 
     return train_step
 

@@ -2,9 +2,19 @@
 
 The port of ``dladmm_tpu/utils/profiling.py``: a torch.profiler trace
 around a block (a Chrome trace that bench/profile_step.summarize reads),
-a NaN-debug mode that raises at the first NaN an operation makes (as
-``jax_debug_nans`` does), and a step timer that synchronises the device
-it times.
+the program's named spans, and a NaN-debug mode that raises at the first
+NaN an operation makes (as ``jax_debug_nans`` does).
+
+``span(name)`` is the program's one kind of span: a ``record_function``
+range while a profiler session is on, so that it lands in that session's
+Chrome trace on the thread that opened it and on the clock of the
+device's kernels; with no session on it is a shared no-op, one flag read.
+The port opens six, each at the boundary where its work happens: a
+served request (``serve.solve``; inside it ``serve.prep``, the request's
+copy to the device and its padding, then ``serve.forward``, the enqueue
+of the forward) and a training step (``train.step``; inside it
+``train.data``, the batch's draw, copy and product, once a microbatch,
+and ``train.optimizer``, the optimizer step).
 
 The profiler on the card has been seen to leave a session's leading
 device records out, late in a process, and to record no device activity
@@ -21,10 +31,10 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import time
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 
 TRACE_FILE = "trace.json"
@@ -73,17 +83,27 @@ def kernel_name(key: str) -> str:
     return key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0].strip()
 
 
+def is_annotation(event) -> bool:
+    """Whether a profiler event (or an average of events) is a
+    ``record_function`` range rather than an operation."""
+    return bool(getattr(event, "is_user_annotation", False))
+
+
 def device_kernels(prof, steps: int):
     """Device time per step and launches per step of each kernel (memset
     and copy) by name, from a profile over ``steps`` steps; raises
-    IncompleteProfile where the session recorded no device time."""
+    IncompleteProfile where the session recorded no device time. The
+    profiler mirrors each ``record_function`` range (the program's spans
+    among them) onto the device's timeline as a user annotation; those
+    are no device work and are left out."""
     kernels = {}
     for e in prof.key_averages():
         dev_us = getattr(e, "device_time_total", None)
         if dev_us is None:
             dev_us = e.cuda_time_total
-        if e.device_type.name != "CUDA" or dev_us <= 0 or e.key.startswith("cuda") or MARKER in e.key:
-            continue  # host ops, runtime calls and the session's marker; kernels are device events
+        if (e.device_type.name != "CUDA" or dev_us <= 0 or e.key.startswith("cuda") or MARKER in e.key
+                or is_annotation(e)):
+            continue  # host ops, runtime calls, ranges and the session's marker; kernels are device events
         k = kernels.setdefault(kernel_name(e.key), {"us": 0.0, "calls": 0.0})
         k["us"] += dev_us / steps
         k["calls"] += e.count / steps
@@ -151,6 +171,24 @@ def profile_fn(fn, config: str, reps: int = 5, events_fallback: bool = False):
     return {"config": config, "calls": reps, "window_ms_per_call": window_us / reps / 1e3,
             "device_us_per_call": busy_us / reps, "device_busy_share": busy_us / window_us,
             "per_call": kernels}
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the program in the trace of the profiler session
+    that is on (``torch.profiler.record_function``), on the calling
+    thread; the shared no-op when no session is on (torch's own flag,
+    set for every thread while a session runs)::
+
+        with profiling.span("serve.prep"):
+            b = b.to(device)
+
+    Names start with the layer: ``serve.`` or ``train.``."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -236,36 +274,6 @@ def check_kernel_outputs(name: str, *outputs) -> None:
         _raise_on_nan(f"the kernel of {name}", tuple(outputs))
 
 
-class StepTimer:
-    """Step timer for training-loop logging: seconds since the last lap,
-    after synchronising the device of ``sync_on``."""
-
-    def __init__(self):
-        self.t0 = time.perf_counter()
-
-    def lap(self, sync_on=None) -> float:
-        if sync_on is not None:
-            _synchronize(sync_on)
-        t = time.perf_counter()
-        dt = t - self.t0
-        self.t0 = t
-        return dt
-
-
-def _synchronize(value) -> None:
-    """Wait for the devices of every tensor in ``value`` (a tensor, or
-    tuples, lists and dicts of them)."""
-    if isinstance(value, torch.Tensor):
-        if value.device.type == "cuda":
-            torch.cuda.synchronize(value.device)
-    elif isinstance(value, dict):
-        for v in value.values():
-            _synchronize(v)
-    elif isinstance(value, (tuple, list)):
-        for v in value:
-            _synchronize(v)
-
-
-__all__ = ["IncompleteProfile", "MARKER", "StepTimer", "TRACE_FILE", "back_to_back_ms", "check_kernel_outputs",
-           "device_kernels", "enable_nan_debug", "kernel_name", "nan_debug_enabled", "profile_fn", "profile_marker",
-           "retry_incomplete", "trace"]
+__all__ = ["IncompleteProfile", "MARKER", "TRACE_FILE", "back_to_back_ms", "check_kernel_outputs", "device_kernels",
+           "enable_nan_debug", "is_annotation", "kernel_name", "nan_debug_enabled", "profile_fn", "profile_marker",
+           "retry_incomplete", "span", "trace"]

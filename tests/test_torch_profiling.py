@@ -1,5 +1,8 @@
 """utils/profiling and bench/profile_step on the CPU: the trace writes a
-Chrome trace, StepTimer laps, enable_nan_debug raises FloatingPointError
+Chrome trace; the program's spans are a shared no-op without a profiler
+session and land in its trace with one, nested as a served request and a
+training step open them, under the names the benchmark's readers use;
+enable_nan_debug raises FloatingPointError
 at the first NaN an aten operation or a kernel wrapper makes and is off
 again with nothing left pushed; summarize's per-step figures on a
 hand-written trace, capture in its smoke mode; and the two examples as
@@ -7,10 +10,13 @@ subprocesses (``slow``, as tests/test_examples.py runs the JAX ones).
 The card's side is chip_smoke.py phases 47 and 49 and the ``gpu`` cases
 of tests/test_torch_cuda.py."""
 
+import ast
+import collections
 import json
 import os
 import subprocess
 import sys
+import threading
 
 import pytest
 import torch
@@ -33,15 +39,275 @@ def nan_debug():
         profiling.enable_nan_debug(False)
 
 
-def test_trace_writes_a_chrome_trace_and_step_timer_laps(tmp_path):
-    timer = profiling.StepTimer()
+def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path / "tr")) as d:
-        y = torch.randn(32, 32) @ torch.randn(32, 32)
+        torch.randn(32, 32) @ torch.randn(32, 32)
     assert os.listdir(d) == [profiling.TRACE_FILE]
     with open(os.path.join(d, profiling.TRACE_FILE)) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert "aten::mm" in names
-    assert timer.lap(sync_on=y) >= 0 and timer.lap(sync_on={"a": [y, (y,)]}) >= 0 and timer.lap() >= 0
+
+
+# The program's spans (utils/profiling.span) and the benchmark's readers
+# of them (benchmark/metrics/).
+SPANS = {"serve.solve", "serve.prep", "serve.forward", "train.step", "train.data", "train.optimizer"}
+SPAN_READERS = ("data_idle_pct.train", "optimizer_ms.train", "prep_idle_pct.batch", "enqueue_idle_pct.batch")
+
+
+def _spans(trace_dir) -> list:
+    with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
+        return sorted((e for e in json.load(f)["traceEvents"]
+                       if e.get("ph") == "X" and e.get("name") in SPANS), key=lambda e: (e["ts"], -e["dur"]))
+
+
+def _inside(inner, outer) -> bool:
+    return outer["ts"] <= inner["ts"] and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+
+
+def test_span_without_a_session_is_the_shared_no_op(tmp_path):
+    """No session: every span is one shared no-op and records nothing,
+    not even in a session opened while it is still open."""
+    first = profiling.span("serve.solve")
+    assert first is profiling.span("train.step") and not isinstance(first, torch.profiler.record_function)
+    with first:
+        with profiling.trace(str(tmp_path / "tr")) as d:
+            torch.ones(4).sum()
+    assert _spans(d) == []
+
+
+def _harness_session():
+    """A session as the benchmark's harness opens one: every thread."""
+    from torch.profiler import ProfilerActivity, profile
+
+    config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    return profile(activities=[ProfilerActivity.CPU], experimental_config=config)
+
+
+@pytest.mark.parametrize("session", ["trace", "all_threads"])
+def test_spans_are_on_in_every_thread_inside_a_session(tmp_path, session):
+    """Inside profiling.trace, and inside a session over every thread as
+    the harness opens it, a span is a record_function range in the main
+    thread and in a worker thread; after the session it is the no-op
+    again. The every-thread session records the worker's span on the
+    worker's thread."""
+    seen = {}
+
+    def worker():
+        seen["worker"] = profiling.span("train.data")
+        with seen["worker"]:
+            torch.ones(4).sum()
+
+    ctx = profiling.trace(str(tmp_path / "tr")) if session == "trace" else _harness_session()
+    with ctx as handle:
+        main = profiling.span("train.step")
+        t = threading.Thread(target=worker)
+        t.start()
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert isinstance(main, torch.profiler.record_function)
+    assert isinstance(seen["worker"], torch.profiler.record_function)
+    assert not isinstance(profiling.span("train.step"), torch.profiler.record_function)
+    if session == "all_threads":
+        events = [e for e in handle.events() if e.name == "train.data"]
+        assert len(events) == 1 and events[0].thread != threading.main_thread().native_id
+
+
+def test_a_served_request_writes_its_spans(tmp_path):
+    """InferenceServer.solve on the CPU: one serve.solve holding
+    serve.prep and then serve.forward, on one thread; the bucket's warm-up
+    at construction is no request."""
+    from dladmm_tpu_torch.models.unroll import init_dladmm_params
+    from dladmm_tpu_torch.serve import InferenceServer
+
+    g = torch.Generator().manual_seed(0)
+    A = torch.randn(8, 16, generator=g)
+    with profiling.trace(str(tmp_path / "tr")) as d:
+        server = InferenceServer(init_dladmm_params(A, K=3), A, max_batch=8, device="cpu")
+        x, _ = server.solve(torch.randn(5, 8, generator=g).numpy())
+    assert x.shape == (5, 16)
+    spans = _spans(d)
+    assert [e["name"] for e in spans] == ["serve.solve", "serve.prep", "serve.forward"]
+    solve, prep, fwd = spans
+    assert _inside(prep, solve) and _inside(fwd, solve) and prep["ts"] + prep["dur"] <= fwd["ts"]
+    assert len({e["tid"] for e in spans}) == 1
+
+
+@pytest.mark.parametrize("accum_steps", [1, 2])
+def test_a_training_step_writes_its_spans(tmp_path, accum_steps):
+    """make_train_step on the CPU: one train.step holding a train.data a
+    microbatch and then one train.optimizer, on one thread."""
+    from dladmm_tpu_torch.models.unroll import init_dladmm_params
+    from dladmm_tpu_torch.train import loop
+
+    A = torch.randn(8, 16, generator=torch.Generator().manual_seed(1))
+    opt = loop.adam(1e-3)
+    step = loop.make_train_step(opt, A, batch=4, accum_steps=accum_steps)
+    state = loop.make_train_state(init_dladmm_params(A, K=3), opt)
+    with profiling.trace(str(tmp_path / "tr")) as d:
+        state, loss = step(state, 0)
+    assert state.step == 1 and torch.isfinite(loss)
+    spans = _spans(d)
+    assert [e["name"] for e in spans] == ["train.step"] + ["train.data"] * accum_steps + ["train.optimizer"]
+    assert all(_inside(e, spans[0]) for e in spans[1:])
+    assert spans[accum_steps]["ts"] + spans[accum_steps]["dur"] <= spans[-1]["ts"]
+    assert len({e["tid"] for e in spans}) == 1
+
+
+def _ops_by_span(trace_dir) -> dict:
+    """{program span name: Counter of the host operations whose innermost
+    program span it is}, on the spans' threads."""
+    with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X" and e.get("name") in SPANS]
+    out = collections.defaultdict(collections.Counter)
+    for op in events:
+        if op.get("cat") != "cpu_op":
+            continue
+        holders = [sp for sp in spans if sp["tid"] == op["tid"] and _inside(op, sp)]
+        if holders:
+            out[min(holders, key=lambda sp: sp["dur"])["name"]][op["name"]] += 1
+    return out
+
+
+def test_a_served_requests_spans_hold_its_copy_pad_and_forward(tmp_path):
+    """The boundaries the serving metrics read: the request's cast and
+    copy (``aten::_to_copy``) and its pad (``aten::cat``) lie in
+    serve.prep, the forward's products in serve.forward, and neither
+    span holds the other's work."""
+    from dladmm_tpu_torch.models.unroll import init_dladmm_params
+    from dladmm_tpu_torch.serve import InferenceServer
+
+    g = torch.Generator().manual_seed(0)
+    A = torch.randn(8, 16, generator=g)
+    server = InferenceServer(init_dladmm_params(A, K=3), A, max_batch=8, device="cpu")
+    b = torch.randn(5, 8, generator=g, dtype=torch.float64).numpy()  # cast, and padded to the bucket of 8
+    with profiling.trace(str(tmp_path / "tr")) as d:
+        server.solve(b)
+    ops = _ops_by_span(d)
+    assert ops["serve.prep"]["aten::_to_copy"] >= 1 and ops["serve.prep"]["aten::cat"] == 1
+    assert ops["serve.forward"]["aten::mm"] >= 1 and ops["serve.prep"]["aten::mm"] == 0
+    assert ops["serve.forward"]["aten::cat"] == 0
+    assert not {"aten::_to_copy", "aten::cat", "aten::mm"} & set(ops["serve.solve"])
+
+
+def test_a_training_steps_spans_hold_its_draw_and_update(tmp_path):
+    """The boundaries the training metrics read: the batch's draw
+    (``rand``, ``randn``, ``where``) and its product b = x*·Aᵀ lie in
+    train.data, Adam's ``sqrt`` in train.optimizer; the loss's forward and
+    backward in neither."""
+    from dladmm_tpu_torch.models.unroll import init_dladmm_params
+    from dladmm_tpu_torch.train import loop
+
+    A = torch.randn(8, 16, generator=torch.Generator().manual_seed(1))
+    opt = loop.adam(1e-3)
+    step = loop.make_train_step(opt, A, batch=4)
+    state = loop.make_train_state(init_dladmm_params(A, K=3), opt)
+    with profiling.trace(str(tmp_path / "tr")) as d:
+        step(state, 0)
+    ops = _ops_by_span(d)
+    for name in ("aten::rand", "aten::randn", "aten::where"):
+        assert ops["train.data"][name] >= 1 and sum(c[name] for c in ops.values()) == ops["train.data"][name], name
+    assert ops["train.data"]["aten::mm"] == 1
+    assert ops["train.optimizer"]["aten::sqrt"] >= 1
+    assert sum(c["aten::sqrt"] for c in ops.values()) == ops["train.optimizer"]["aten::sqrt"]
+    assert ops["train.optimizer"]["aten::mm"] == 0 and ops["train.step"]["aten::mm"] >= 1
+
+
+class _Avg:
+    """A stand-in for one of torch.profiler's averaged events."""
+
+    def __init__(self, key, device, us, annotation=False):
+        self.key, self.device_time_total, self.count, self.is_user_annotation = key, us, 2, annotation
+        self.device_type = type("DeviceType", (), {"name": device})
+
+
+def test_device_kernels_leave_out_the_ranges_mirrored_on_the_device():
+    """The profiler mirrors each record_function range onto the device's
+    timeline as a user annotation: device_kernels counts the kernels and
+    copies, not those ranges, nor host ops, runtime calls and the
+    marker."""
+    events = [_Avg("void unroll_persistent<32, false, float>(ServeArgs<float>)", "CUDA", 100.0),
+              _Avg("Memcpy HtoD (Pageable -> Device)", "CUDA", 10.0),
+              _Avg("serve.forward", "CUDA", 120.0, annotation=True),
+              _Avg("train.optimizer", "CUDA", 40.0, annotation=True),
+              _Avg("aten::copy_", "CPU", 30.0),
+              _Avg("cudaLaunchKernel", "CUDA", 5.0),
+              _Avg(f"void at::cuda::{profiling.MARKER}(long)", "CUDA", 50.0)]
+    prof = type("Prof", (), {"key_averages": lambda self: events})()
+    got = profiling.device_kernels(prof, steps=2)
+    assert got == {"unroll_persistent<32, false, float>": {"us": 50.0, "calls": 1.0},
+                   "Memcpy HtoD": {"us": 5.0, "calls": 1.0}}
+    assert profiling.is_annotation(events[2]) and not profiling.is_annotation(events[0])
+    assert not profiling.is_annotation(object())
+
+
+@pytest.mark.gpu
+def test_profile_fn_counts_no_program_span_as_a_kernel():
+    """On the card: profile_fn over a served request and over a training
+    step (both open the program's spans) reports device operations only,
+    no serve.* or train.* range."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the profiler's device records exist only there")
+    from dladmm_tpu_torch.models.unroll import init_dladmm_params
+    from dladmm_tpu_torch.serve import InferenceServer
+    from dladmm_tpu_torch.train import loop
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    A = torch.randn(250, 500, generator=g)
+    server = InferenceServer(init_dladmm_params(A, K=15), A, max_batch=64, device=dev)
+    b = torch.randn(64, 250, generator=g).numpy()
+    served = profiling.profile_fn(lambda: server.solve(b), "serve.solve", reps=3)
+    opt = loop.adam(1e-3)
+    step = loop.make_train_step(opt, A.to(dev), batch=64)
+    state = [loop.make_train_state(init_dladmm_params(A.to(dev), K=15), opt), 0]
+
+    def train():  # profile_fn runs it under no_grad; the step takes a gradient
+        with torch.enable_grad():
+            state[0], _ = step(state[0], state[1])
+        state[1] += 1
+
+    trained = profiling.profile_fn(train, "train.step", reps=3)
+    for prof in (served, trained):
+        names = set(prof["per_call"])
+        assert names and not any(n.startswith(("serve.", "train.")) for n in names), names
+        assert prof["device_busy_share"] <= 1.0, prof["device_busy_share"]
+
+
+def _string_constants(path) -> set:
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return {n.value for n in ast.walk(tree) if isinstance(n, ast.Constant) and isinstance(n.value, str)}
+
+
+def _program_span_names() -> set:
+    """The names of every ``profiling.span("...")`` call in the port."""
+    names = set()
+    for root, _, files in os.walk(os.path.join(REPO, "dladmm_tpu_torch")):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            with open(os.path.join(root, name)) as f:
+                tree = ast.parse(f.read())
+            for n in ast.walk(tree):
+                if (isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute) and n.func.attr == "span"
+                        and isinstance(n.func.value, ast.Name) and n.func.value.id == "profiling"):
+                    names.add(n.args[0].value)
+    return names
+
+
+def test_the_benchmark_reads_the_programs_span_names():
+    """The port opens exactly the six spans, and each reader of a span in
+    benchmark/metrics/ names one of them (and the harness's own spans are
+    never the program's)."""
+    assert _program_span_names() == SPANS
+    read = set()
+    for metric in SPAN_READERS:
+        names = {v for v in _string_constants(os.path.join(REPO, "benchmark", "metrics", f"{metric}.py"))
+                 if v.startswith(("serve.", "train.", "bench."))}
+        assert len(names) == 1 and names <= SPANS, (metric, names)
+        read |= names
+    assert read == {"train.data", "train.optimizer", "serve.prep", "serve.forward"}
 
 
 def test_nan_debug_raises_on_an_aten_nan(nan_debug):
