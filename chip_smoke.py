@@ -155,7 +155,7 @@ the first fault. Each phase prints one JSON line:
      on the CPU for BF16_TOL_ULPS); the bf16-storage serving kernel
      against its plain version (``unroll_forward_plain_bf16``: fp32
      arithmetic, each layer's stored state rounded to bf16) at
-     synthetic_small S = 1, 13, 64, 256, 1024 on both tiles, S = 64 with
+     synthetic_small S = 1, 13, 64, 256, 1024 on the 32 tile, S = 64 with
      nonneg_l1, box and elastic_net(0.3) as prox_x and as prox_z and with
      (K, 1) thresholds, synthetic_large S = 1024 (K = 20) on the plan's
      tile: each output within BF16_TOL_ULPS bf16 ulps of its largest
@@ -220,7 +220,7 @@ the first fault. Each phase prints one JSON line:
  31. kernel_patch: rows 1, 2, 4 and 5 at the image benchmark's shape
      (m = 64, n = 256, the DCT dictionary; b the median-DC residuals of
      impulse-corrupted patches) at K = 15 and 8, S = 225, 961 and 3844
-     (no multiple of the 32 or 64 tile): the whole-unroll and trajectory
+     (no multiple of the 32 or 128 tile): the whole-unroll and trajectory
      kernels within TOL of their plain versions, the backward within
      BWD_TOL on the route bwd_chunk_batch picks, on the whole batch and on
      forced slices of 128 rows; a second call bit for bit; each plan;
@@ -508,8 +508,9 @@ def launched_plan(wrapper, barriers=None) -> dict:
     of each phase, its grid barriers; for the backward also the items of
     its weight-gradient launch (all K layers' gW1 and gW2 tiles x S
     slices). ``barriers``: the kernel's rule for its barriers from K
-    (``schedule.barriers`` by default; the int8 kernel's is
-    ``schedule.int8_barriers``)."""
+    (``schedule.serve_barriers`` at the launched tile by default, which is
+    ``schedule.barriers`` but on the serving kernel's wide tile; the int8
+    kernel's is ``schedule.int8_barriers``)."""
     from dladmm_tpu_torch.ops import schedule
 
     occ, grid, splits, last = wrapper.last_plan
@@ -519,12 +520,13 @@ def launched_plan(wrapper, barriers=None) -> dict:
         K = last.K
         extra = {"weight_launch_items": last.items, "weight_launch_s_slices": last.slices,
                  "launches_per_call": 3}
+    tile = next(iter(splits.values())).tile
     return {"grid": grid, "resident_blocks_per_sm": occ[0], "sms": occ[1],
-            "tile": next(iter(splits.values())).tile,
+            "tile": tile,
             "items_per_phase": {k: sp.items for k, sp in splits.items()},
             "tiles_per_phase": {k: sp.tiles for k, sp in splits.items()},
             "depth_slices_per_phase": {k: sp.slices for k, sp in splits.items()},
-            "barriers_per_call": (barriers or schedule.barriers)(K), **extra}
+            "barriers_per_call": barriers(K) if barriers else schedule.serve_barriers(K, tile), **extra}
 
 
 @contextlib.contextmanager
@@ -2032,7 +2034,8 @@ def compare_bf16(torch, got, want, label: str, phase: str = "kernel_bf16") -> fl
 def check_bf16_kernel(torch, device):
     """Phase 23: the bf16-storage serving kernel against its plain version
     (unroll_forward_plain_bf16) at synthetic_small S = 1, 13, 64, 256, 1024
-    (l1/l1 on both tiles), S = 64 with each other prox as prox_x and as
+    (l1/l1 on the 32 tile: the wide tile's staging takes no m = 250),
+    S = 64 with each other prox as prox_x and as
     prox_z and with (K, 1) thresholds, and synthetic_large S = 1024 on the
     plan's tile; a second call must repeat bit for bit; then the layer
     step on bf16 state at S = 256 (one call, with and without bf16
@@ -2063,10 +2066,9 @@ def check_bf16_kernel(torch, device):
 
     serve_err = 0.0
     with torch.no_grad():
-        for S in (1, 13, 64, 256, 1024):
+        for S in (1, 13, 64, 256, 1024):  # the wide tile's staging takes no m = 250: the 32 tile only
             A, b, p = bf16_case(torch, SMALL, S, seed=S + 200, device=device)
-            for tile in (32, 64):
-                serve_err = max(serve_err, case(f"synthetic_small S={S} l1/l1 tile {tile}", A, b, p, tile))
+            serve_err = max(serve_err, case(f"synthetic_small S={S} l1/l1 tile 32", A, b, p, 32))
         A, b, p = bf16_case(torch, SMALL, 64, seed=264, device=device)
         for prox in ("nonneg_l1", "box", "elastic_net"):
             rho = 0.3 if prox == "elastic_net" else 0.0
@@ -2831,7 +2833,7 @@ def time_train_bf16(torch, device, card) -> dict:
 PATCH = dict(m=64, n=256)  # run_denoise: 8 x 8 patches, the 16 x 16 DCT atoms
 # (K, S): the full run (K = 15) and --quick (K = 8) at S = 225 (one 64 x 64
 # image), 961 (one 128 x 128: the served test image) and 3844 (the four
-# training images); no S is a multiple of the 32 or 64 tile.
+# training images); no S is a multiple of the 32 or 128 tile.
 PATCH_CASES = ((15, 225), (15, 961), (15, 3844), (8, 225), (8, 961), (8, 3844))
 # The quality gates of phase 32 (mean PSNR gain, dB), held on the mean
 # over the CLI's own test stream: its three images and the next ones, to
@@ -5154,7 +5156,7 @@ def main() -> int:
         max_err = max(max_err, check_unroll("synthetic_small S=64 l1/l1 (K, 1) thresholds", A, b, scalar))
         A, b, p = problem(torch, S=1024, seed=1024, device=dev, **LARGE)
         max_err = max(max_err, check_unroll("synthetic_large S=1024 l1/l1", A, b, p))
-        other = 64 if launched_plan(unroll_forward)["tile"] == 32 else 32  # the tile the plan did not pick
+        other = 128 if launched_plan(unroll_forward)["tile"] == 32 else 32  # the tile the plan did not pick
         with serve_tile(other):
             max_err = max(max_err, check_unroll(f"synthetic_large S=1024 l1/l1 tile {other}", A, b, p))
         del A, b, p, scalar
@@ -5242,7 +5244,7 @@ def main() -> int:
             fns = [lambda: unroll_forward(b, A, *p), lambda: unroll_forward_plain(b, A, *p)]
             fns[0]()
             plan = launched_plan(unroll_forward)
-            other = 64 if plan["tile"] == 32 else 32
+            other = 128 if plan["tile"] == 32 else 32
 
             def on_other_tile():
                 with serve_tile(other):

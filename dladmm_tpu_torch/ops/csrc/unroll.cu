@@ -55,9 +55,12 @@
 // costs registers, and so resident blocks where the grid is the
 // occupancy (PERF.md). The 32 x 32 tile's kernels are held at 64
 // registers, 4 blocks a SM (__launch_bounds__(kPT, 4)). The serving
-// kernel also has a 64 x 64 tile (4 x 4 outputs a thread, 2 blocks a SM
-// at least), which the serving plan takes where its tiles alone fill the
-// card (synthetic_large at S = 1024: 512 tiles in the x phase). At
+// kernel also has a wide 128 x 128 tile (wide_tile.cuh: 8 x 8 outputs a
+// thread from 16-byte shared-memory reads, operands staged 16 bytes at a
+// time with cp.async in a 3-stage ring, one block a SM), which the
+// serving plan takes where m and n suit its 16-byte staging and its
+// tiles are whole (synthetic_large). Its x and z phases read u and v as
+// plain matrices that the epilogues write once a layer (below). At
 // synthetic_small all layers' W1 + W2 plus A (11.75 MB) stay in the 50 MB
 // L2.
 //
@@ -130,6 +133,7 @@
 #include <stddef.h>
 
 #include "persistent.cuh"
+#include "wide_tile.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -361,6 +365,7 @@ struct ServeArgs {
   int S, m, n, K, prox_x, prox_z;
   float scale_x, scale_z;           // elastic net 1 / (1 + rho); 1 otherwise
   Split sx, sax, sz;                // the x, Ax and z phases' depth splits
+  float *u, *v;                     // wide tile: the x and z phases' operands (S, m), fp32; else null
 };
 
 // One phase of layer k over all its items on T x T tiles. With bf16
@@ -425,10 +430,8 @@ __device__ void serve_phase(const ServeArgs<TS>& a, TileSmemT<T>& sm, int k) {
           [&](int c, int q) { return ldg(w + (size_t)c * m + q); }, acc);
     }
     // The epilogue: its inputs e (x_in; or z_in, lam_in, Ax, b) and the
-    // column's threshold do not depend on the sum. The 32 tile loads them
-    // before the reduction, so that their latency overlaps it; the 64 tile
-    // (4 x 4 outputs a thread) one output at a time after it, to stay in
-    // its registers.
+    // column's threshold do not depend on the sum, so they are loaded
+    // before the reduction, so that their latency overlaps it.
     auto inputs = [&](int i, int j, float (&e)[4]) {
       const int r = row0 + tr + i * kPR, c = col0 + tc + j * kPC;
       e[0] = e[1] = e[2] = e[3] = 0.0f;
@@ -475,29 +478,211 @@ __device__ void serve_phase(const ServeArgs<TS>& a, TileSmemT<T>& sm, int k) {
         put(lo + o, lam1);
       }
     };
-    if constexpr (T == kT) {
-      float e[TM][TN][4], thv[TN];
+    float e[TM][TN][4], thv[TN];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) thv[j] = theta(j);
+    for (int j = 0; j < TN; ++j) thv[j] = theta(j);
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) inputs(i, j, e[i][j]);
-      if (!reduce_slices<T>(sm, acc, a.part, a.cnt, tile, s, sp.slices)) continue;
+      for (int j = 0; j < TN; ++j) inputs(i, j, e[i][j]);
+    if (!reduce_slices<T>(sm, acc, a.part, a.cnt, tile, s, sp.slices)) continue;
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) output(i, j, e[i][j], acc[i][j], thv[j]);
-    } else {
-      if (!reduce_slices<T>(sm, acc, a.part, a.cnt, tile, s, sp.slices)) continue;
+      for (int j = 0; j < TN; ++j) output(i, j, e[i][j], acc[i][j], thv[j]);
+  }
+}
+
+// -- the wide tile (wide_tile.cuh) -------------------------------------------
+//
+// The x and z phases' operands u and v are plain (S, m) fp32 matrices in
+// the workspace, written once a layer by the epilogue that has their
+// inputs, and not rebuilt by every column tile's staging: layer 0's u by
+// a first elementwise phase (one grid barrier more than the 32 tile's,
+// as the int8 kernel's), v = Ax1 + base by the Ax epilogue, the next
+// layer's u = Ax1 + (z1 - b + lam1 / beta_{k+1}) by the z epilogue. Each
+// element is the 32 tile's operand expression in its order, on the values
+// the next reader would load (rounded as stored, with bf16 storage), so
+// it has the same bits. u and v are two buffers: the z phase reads all of
+// v in every block while its epilogue writes the next u.
+
+// Four neighbouring values of a row, 16 bytes of fp32 or 8 of bf16,
+// widened to fp32 as loaded and rounded to nearest as stored (put's
+// rounding).
+struct F4 {
+  float v[4];
+};
+__device__ __forceinline__ F4 widen4(uint2 h) {
+  return F4{{__uint_as_float(h.x << 16), __uint_as_float(h.x & 0xffff0000u), __uint_as_float(h.y << 16),
+             __uint_as_float(h.y & 0xffff0000u)}};
+}
+__device__ __forceinline__ F4 ld4cg(const float* p) {
+  const float4 q = __ldcg(reinterpret_cast<const float4*>(p));
+  return F4{{q.x, q.y, q.z, q.w}};
+}
+__device__ __forceinline__ F4 ld4cg(const __nv_bfloat16* p) { return widen4(__ldcg(reinterpret_cast<const uint2*>(p))); }
+__device__ __forceinline__ F4 ld4g(const float* p) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  return F4{{q.x, q.y, q.z, q.w}};
+}
+__device__ __forceinline__ F4 ld4g(const __nv_bfloat16* p) { return widen4(__ldg(reinterpret_cast<const uint2*>(p))); }
+__device__ __forceinline__ void st4(float* p, const F4& f) {
+  *reinterpret_cast<float4*>(p) = make_float4(f.v[0], f.v[1], f.v[2], f.v[3]);
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, const F4& f) {
+  unsigned short h[4];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float t = theta(j);
+  for (int q = 0; q < 4; ++q) h[q] = __bfloat16_as_ushort(__float2bfloat16_rn(f.v[q]));
+  *reinterpret_cast<uint2*>(p) = make_uint2(h[0] | (unsigned)h[1] << 16, h[2] | (unsigned)h[3] << 16);
+}
+__device__ __forceinline__ F4 rounded4(F4 f) {
 #pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          float e[4];
-          inputs(i, j, e);
-          output(i, j, e, acc[i][j], t);
+  for (int q = 0; q < 4; ++q) f.v[q] = rounded(f.v[q]);
+  return f;
+}
+
+// u for layer 0: Ax0 + ((z0 - b) + lam0 / beta_0), the zero state for
+// the serving forward.
+template <class TS>
+__device__ void wide_u0(const ServeArgs<TS>& a) {
+  const float inv_beta = 1.0f / fmaxf(a.beta16 ? __bfloat162float(a.beta16[0]) : __ldg(a.beta), 1e-6f);
+  const bool zero = a.x0 == nullptr;
+  const size_t total = (size_t)a.S * a.m;  // a multiple of 4 (wide_layout)
+  for (size_t o = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4; o < total;
+       o += (size_t)gridDim.x * blockDim.x * 4) {
+    float zi[4] = {}, li[4] = {}, ai[4] = {}, bi[4];  // four elements' loads, then their stores
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (!zero) {
+        zi[q] = ldcg(a.z0 + o + q);
+        li[q] = ldcg(a.lam0 + o + q);
+        ai[q] = ldcg(a.ax0 + o + q);
+      }
+      bi[q] = ldg(a.b + o + q);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) a.u[o + q] = ai[q] + ((zi[q] - bi[q]) + li[q] * inv_beta);
+  }
+}
+
+// One phase of layer k over all its items on 128 x 128 tiles: the
+// mainloop of wide_tile.cuh on the phase's operand (u, x1 or v) and
+// weight, then serve_phase's epilogue, four outputs of a row at a time,
+// plus the operand the next phase reads (v after Ax, the next layer's u
+// after z).
+template <int PHASE, bool BF16, class TS>
+__device__ void wide_phase(const ServeArgs<TS>& a, unsigned char* smem, int& last, int k) {
+  constexpr bool S16 = sizeof(TS) == 2;
+  const int S = a.S, m = a.m, n = a.n;
+  const int N = PHASE == PHASE_X ? n : m, depth = PHASE == PHASE_AX ? n : m;
+  const Split sp = PHASE == PHASE_X ? a.sx : (PHASE == PHASE_AX ? a.sax : a.sz);
+  auto beta_of = [&](int j) { return fmaxf(a.beta16 ? __bfloat162float(a.beta16[j]) : __ldg(a.beta + j), 1e-6f); };
+  const float beta = beta_of(k), inv_beta = 1.0f / beta;
+  const float inv_beta_next = PHASE == PHASE_Z && k + 1 < a.K ? 1.0f / beta_of(k + 1) : 0.0f;
+  const TS* z_in = k ? ((a.K - k) & 1 ? a.z[1] : a.z[0]) : a.z0;
+  const TS* lam_in = k ? ((a.K - k) & 1 ? a.lam[1] : a.lam[0]) : a.lam0;
+  const bool zero = k == 0 && a.x0 == nullptr;  // the zero state (serving, layer 0)
+  const TS* w = PHASE == PHASE_X ? a.W1 + (size_t)k * n * m : (PHASE == PHASE_AX ? a.A : a.W2 + (size_t)k * m * m);
+  const float* op = PHASE == PHASE_X ? a.u : (PHASE == PHASE_AX ? a.x : a.v);
+  const TS* th = PHASE == PHASE_X ? a.th1 + (size_t)k * a.th1_k : a.th2 + (size_t)k * a.th2_k;
+  const int th_c = PHASE == PHASE_X ? a.th1_c : a.th2_c;
+  const int prox = PHASE == PHASE_X ? a.prox_x : a.prox_z;
+  const float scale = PHASE == PHASE_X ? a.scale_x : a.scale_z;
+  const int ct = dcdiv(N, kWT), items = dcdiv(S, kWT) * ct * sp.slices;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ty = (warp >> 1) * 4 + (lane >> 3), tx = (warp & 1) * 8 + (lane & 7);
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int tile = it / sp.slices, s = it % sp.slices;
+    const int row0 = tile / ct * kWT, col0 = tile % ct * kWT;
+    const int k_lo = s * sp.len, k_hi = min(depth, k_lo + sp.len);
+    float acc[8][8];
+    wide_gemm<BF16>(smem, S, N, row0, col0, k_lo, k_hi, op, depth, w, depth, acc);
+    if (!wide_reduce(acc, a.part, a.cnt, tile, s, sp.slices, last)) continue;
+    // The epilogue. The tile goes through shared memory (the ring is
+    // free now), so that each warp then handles whole rows of it: a lane
+    // takes 4 neighbouring columns, with 16-byte loads and stores, and
+    // loads the inputs of 4 rows before it stores any (a store may alias
+    // a later load, so the compiler would otherwise wait out one load
+    // after another).
+    float* ts = reinterpret_cast<float*>(smem);
+    __syncthreads();  // every warp is done with the ring
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) ts[(ty + 16 * i) * kWTP + tx + 16 * j] = acc[i][j];
+    __syncthreads();
+    const int c = col0 + 4 * lane;  // N is a multiple of 4 (wide_layout)
+    if (c < N) {
+      float t[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) t[q] = PHASE != PHASE_AX ? ldg(th + (size_t)(c + q) * th_c) : 0.0f;
+      constexpr int B = 4, NIN = PHASE == PHASE_X ? 1 : 4;  // rows a batch, inputs a row
+#pragma unroll
+      for (int r0 = 0; r0 < kWT / 8; r0 += B) {
+        F4 e[B][NIN];  // [row][input]: x_in; or z_in, lam_in, Ax, b
+#pragma unroll
+        for (int h = 0; h < B; ++h) {
+          const int r = row0 + warp + 8 * (r0 + h);
+#pragma unroll
+          for (int q = 0; q < NIN; ++q) e[h][q] = F4{};
+          if (r >= S) continue;
+          if constexpr (PHASE == PHASE_X) {
+            const size_t o = (size_t)r * n + c;
+            if (!zero) e[h][0] = k == 0 ? ld4cg(a.x0 + o) : (S16 ? rounded4(ld4cg(a.x + o)) : ld4cg(a.x + o));
+          } else {
+            const size_t o = (size_t)r * m + c;
+            if (!zero) {
+              e[h][0] = ld4cg(z_in + o);
+              e[h][1] = ld4cg(lam_in + o);
+            }
+            e[h][NIN - 1] = ld4g(a.b + o);
+            if constexpr (PHASE == PHASE_Z) e[h][2] = ld4cg(a.ax + o);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < B; ++h) {
+          const int rr = warp + 8 * (r0 + h), r = row0 + rr;
+          if (r >= S) continue;
+          const float4 sum4 = *reinterpret_cast<const float4*>(ts + rr * kWTP + 4 * lane);
+          const float sum[4] = {sum4.x, sum4.y, sum4.z, sum4.w};
+          if constexpr (PHASE == PHASE_X) {
+            const size_t o = (size_t)r * n + c;
+            F4 x1;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) x1.v[q] = prox_of(prox, e[h][0].v[q] - sum[q], t[q], scale);
+            st4(a.x + o, x1);
+            if constexpr (S16) {
+              if (k + 1 == a.K) st4(a.xo + o, x1);
+            }
+          } else if constexpr (PHASE == PHASE_AX) {
+            const size_t o = (size_t)r * m + c;
+            F4 ax1, v;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              ax1.v[q] = sum[q];
+              v.v[q] = sum[q] + ((e[h][0].v[q] - e[h][NIN - 1].v[q]) + e[h][1].v[q] * inv_beta);
+            }
+            st4(a.ax + o, ax1);
+            if constexpr (S16) {
+              if (a.axo != nullptr) st4(a.axo + o, ax1);
+            }
+            st4(a.v + o, v);
+          } else {
+            const size_t o = (size_t)r * m + c;
+            F4 z1, lam1, u;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              z1.v[q] = prox_of(prox, e[h][0].v[q] - sum[q], t[q], scale);
+              lam1.v[q] = e[h][1].v[q] + beta * ((e[h][2].v[q] + z1.v[q]) - e[h][NIN - 1].v[q]);
+              // the next layer's u, from its inputs as stored
+              const float ai = S16 ? rounded(e[h][2].v[q]) : e[h][2].v[q];
+              const float zn = S16 ? rounded(z1.v[q]) : z1.v[q], ln = S16 ? rounded(lam1.v[q]) : lam1.v[q];
+              u.v[q] = ai + ((zn - e[h][NIN - 1].v[q]) + ln * inv_beta_next);
+            }
+            st4(((a.K - 1 - k) & 1 ? a.z[1] : a.z[0]) + o, z1);
+            st4(((a.K - 1 - k) & 1 ? a.lam[1] : a.lam[0]) + o, lam1);
+            if (k + 1 < a.K) st4(a.u + o, u);
+          }
         }
       }
     }
@@ -506,33 +691,80 @@ __device__ void serve_phase(const ServeArgs<TS>& a, TileSmemT<T>& sm, int k) {
 
 // All K layers in one cooperative launch: x, Ax, z phases a layer with a
 // grid barrier after each but the last. The 32 tile keeps the
-// trajectory's 4 blocks a SM; the 64 tile asks for 2.
+// trajectory's 4 blocks a SM. The wide tile runs one block a SM: its
+// 8 x 8 outputs a thread take up to 255 registers (held to 128 for two
+// blocks a SM, it spilled and ran 7-8% slower, PERF.md); its ring is
+// dynamic shared memory (wide_smem_bytes), and it writes layer 0's u
+// first, behind one barrier more.
 template <int T, bool BF16, class TS>
-__global__ void __launch_bounds__(kPT, T == kT ? 4 : 2) unroll_persistent(const ServeArgs<TS> a) {
-  __shared__ TileSmemT<T> sm;
+__global__ void __launch_bounds__(kPT, T == kT ? 4 : 1) unroll_persistent(const ServeArgs<TS> a) {
   cg::grid_group grid = cg::this_grid();
-  for (int k = 0; k < a.K; ++k) {
-    serve_phase<PHASE_X, T, BF16, TS>(a, sm, k);
+  if constexpr (T == kT) {
+    __shared__ TileSmemT<T> sm;
+    for (int k = 0; k < a.K; ++k) {
+      serve_phase<PHASE_X, T, BF16, TS>(a, sm, k);
+      grid.sync();
+      serve_phase<PHASE_AX, T, BF16, TS>(a, sm, k);
+      grid.sync();
+      serve_phase<PHASE_Z, T, BF16, TS>(a, sm, k);
+      if (k + 1 < a.K) grid.sync();
+    }
+  } else {
+    extern __shared__ __align__(16) unsigned char wide_smem[];
+    __shared__ int last;
+    wide_u0(a);
     grid.sync();
-    serve_phase<PHASE_AX, T, BF16, TS>(a, sm, k);
-    grid.sync();
-    serve_phase<PHASE_Z, T, BF16, TS>(a, sm, k);
-    if (k + 1 < a.K) grid.sync();
+    for (int k = 0; k < a.K; ++k) {
+      wide_phase<PHASE_X, BF16, TS>(a, wide_smem, last, k);
+      grid.sync();
+      wide_phase<PHASE_AX, BF16, TS>(a, wide_smem, last, k);
+      grid.sync();
+      wide_phase<PHASE_Z, BF16, TS>(a, wide_smem, last, k);
+      if (k + 1 < a.K) grid.sync();
+    }
   }
 }
 
-// The instantiation of a tile edge, staging and storage, or null.
+// The instantiation of a tile edge (32 or kWT), staging and storage, or
+// null; its dynamic shared memory in `smem`, with the kernel's ceiling
+// raised to it.
 template <class TS>
-const void* serve_kernel(int tile, int bf16) {
-  if (tile == 32) return bf16 ? (const void*)unroll_persistent<32, true, TS> : (const void*)unroll_persistent<32, false, TS>;
-  if (tile == 64) return bf16 ? (const void*)unroll_persistent<64, true, TS> : (const void*)unroll_persistent<64, false, TS>;
+const void* serve_kernel(int tile, int bf16, int* smem) {
+  const void* fn = nullptr;
+  *smem = 0;
+  if (tile == kT) fn = bf16 ? (const void*)unroll_persistent<kT, true, TS> : (const void*)unroll_persistent<kT, false, TS>;
+  if (tile == kWT) {
+    fn = bf16 ? (const void*)unroll_persistent<kWT, true, TS> : (const void*)unroll_persistent<kWT, false, TS>;
+    *smem = wide_smem_bytes<TS>();
+    if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem) != cudaSuccess) {
+      cudaGetLastError();
+      return nullptr;
+    }
+  }
+  return fn;
+}
+
+const void* serve_kernel(int tile, int bf16, int storage, int* smem) {
+  if (storage == 0) return serve_kernel<float>(tile, bf16, smem);
+  if (storage == 1) return serve_kernel<__nv_bfloat16>(tile, bf16, smem);
   return nullptr;
 }
 
-const void* serve_kernel(int tile, int bf16, int storage) {
-  if (storage == 0) return serve_kernel<float>(tile, bf16);
-  if (storage == 1) return serve_kernel<__nv_bfloat16>(tile, bf16);
-  return nullptr;
+bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
+
+// The wide tile's layout rules (ops/schedule.serve_tile): every row it
+// stages, and every row its epilogue reads or writes 4 values at a time,
+// starts on 16 bytes and is whole 16-byte chunks (m and n multiples of 4
+// floats, of 8 bf16 for bf16 storage), and the u and v buffers are given.
+template <class TS>
+bool wide_layout(const ServeArgs<TS>& a) {
+  constexpr int vec = 16 / sizeof(TS);
+  const void* ptrs[] = {a.A, a.W1, a.W2, a.b, a.x0, a.z0, a.lam0, a.ax0, a.x, a.ax, a.xo, a.axo,
+                        a.z[0], a.z[1], a.lam[0], a.lam[1], a.u, a.v};
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return false;
+  return a.u != nullptr && a.v != nullptr && a.m % vec == 0 && a.n % vec == 0 && a.sx.len % vec == 0 &&
+         a.sax.len % vec == 0 && a.sz.len % vec == 0;
 }
 
 // Clear the counters (the only state a call needs zeroed) and launch
@@ -542,17 +774,19 @@ const void* serve_kernel(int tile, int bf16, int storage) {
 template <class TS>
 cudaError_t launch_serve(ServeArgs<TS>& a, int n_counters, int tile, int bf16, int grid,
                          int device, cudaStream_t stream) {
-  const void* fn = serve_kernel<TS>(tile, bf16);
-  if (fn == nullptr || a.S < 1 || a.m < 1 || a.n < 1 || a.K < 1 || grid < 1 ||
+  if (a.S < 1 || a.m < 1 || a.n < 1 || a.K < 1 || grid < 1 ||
       a.sx.len < 1 || a.sax.len < 1 || a.sz.len < 1 || (a.beta == nullptr) == (a.beta16 == nullptr) ||
-      a.x == nullptr || a.ax == nullptr)
+      a.x == nullptr || a.ax == nullptr || (tile == kWT && !wide_layout(a)))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess && n_counters > 0)
-    err = cudaMemsetAsync(a.cnt, 0, (size_t)n_counters * sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  int smem = 0;
+  const void* fn = serve_kernel<TS>(tile, bf16, &smem);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  if (n_counters > 0) err = cudaMemsetAsync(a.cnt, 0, (size_t)n_counters * sizeof(int), stream);
   if (err != cudaSuccess) return err;
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kPT), args, 0, stream);
+  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kPT), args, smem, stream);
   if (err != cudaSuccess) cudaGetLastError();
   return err;
 }
@@ -567,8 +801,8 @@ __global__ void __launch_bounds__(kPT) barrier_probe(int iters) {
 template <class TS>
 int unroll_forward(const TS* b, const TS* A, const TS* W1, const TS* W2, const TS* th1, const TS* th2,
                    const float* beta, const __nv_bfloat16* beta16, float* x, TS* xo, TS* z, TS* lam,
-                   TS* z_tmp, TS* lam_tmp, float* ax, float* partials, int* counters, int th1_k,
-                   int th1_c, int th2_k, int th2_c, int n_counters, int S, int m, int n, int K,
+                   TS* z_tmp, TS* lam_tmp, float* ax, float* u, float* v, float* partials, int* counters,
+                   int th1_k, int th1_c, int th2_k, int th2_c, int n_counters, int S, int m, int n, int K,
                    int prox_x, int prox_z, float scale_x, float scale_z, int tile, int grid,
                    const Split (&sp)[3], int device, void* stream_handle) {
   if (prox_x < PROX_L1 || prox_x > PROX_ELASTIC_NET || prox_z < PROX_L1 || prox_z > PROX_ELASTIC_NET)
@@ -577,7 +811,7 @@ int unroll_forward(const TS* b, const TS* A, const TS* W1, const TS* W2, const T
                   nullptr, nullptr, nullptr, nullptr,  // layer 0 reads the zero state
                   x, ax, xo, nullptr,                  // x, Ax in place: see Races
                   {z, z_tmp}, {lam, lam_tmp}, partials, counters,
-                  S, m, n, K, prox_x, prox_z, scale_x, scale_z, sp[0], sp[1], sp[2]};
+                  S, m, n, K, prox_x, prox_z, scale_x, scale_z, sp[0], sp[1], sp[2], u, v};
   return (int)launch_serve(a, n_counters, tile, 0, grid, device, static_cast<cudaStream_t>(stream_handle));
 }
 
@@ -585,13 +819,13 @@ int unroll_forward(const TS* b, const TS* A, const TS* W1, const TS* W2, const T
 template <class TS>
 int layer_step(const TS* b, const TS* A, const TS* W1, const TS* W2, const TS* th1, const TS* th2,
                const float* beta, const TS* x, const TS* z, const TS* lam, const TS* ax, float* xw,
-               TS* xo, TS* z1, TS* lam1, float* axw, TS* axo, float* partials, int* counters,
-               int n_counters, int S, int m, int n, int bf16, int tile, int grid, const Split (&sp)[3],
+               TS* xo, TS* z1, TS* lam1, float* axw, TS* axo, float* u, float* v, float* partials,
+               int* counters, int n_counters, int S, int m, int n, int bf16, int tile, int grid, const Split (&sp)[3],
                int device, void* stream_handle) {
   if (x == nullptr || z == nullptr || lam == nullptr || ax == nullptr) return (int)cudaErrorInvalidValue;
   ServeArgs<TS> a{b, A, W1, W2, th1, th2, beta, nullptr, 0, 1, 0, 1, x, z, lam, ax,
                   xw, axw, xo, axo, {z1, nullptr}, {lam1, nullptr}, partials, counters,
-                  S, m, n, 1, PROX_L1, PROX_L1, 1.0f, 1.0f, sp[0], sp[1], sp[2]};
+                  S, m, n, 1, PROX_L1, PROX_L1, 1.0f, 1.0f, sp[0], sp[1], sp[2], u, v};
   return (int)launch_serve(a, n_counters, tile, bf16 != 0, grid, device,
                            static_cast<cudaStream_t>(stream_handle));
 }
@@ -599,27 +833,28 @@ int layer_step(const TS* b, const TS* A, const TS* W1, const TS* W2, const TS* t
 }  // namespace
 
 // All K layers of the inference unroll from zero state, as one
-// cooperative launch of `grid` blocks of the `tile` (32 or 64) kernel on
+// cooperative launch of `grid` blocks of the `tile` (32 or 128) kernel on
 // `stream`; no sync. Inputs: b (S,m), A (m,n), W1 (K,n,m), W2 (K,m,m),
 // beta (K,), contiguous; thresholds th1 (K,n), th2 (K,m) read at
 // th[k * th_k + c * th_c] (th_c = 0: a (K,1) scalar); all fp32 on
 // `device`. Outputs x (S,n), z (S,m), lam (S,m); scratch z_tmp, lam_tmp,
-// ax (S,m). Workspace (ops/schedule.serve_plan): `partials` and
-// `counters` (n_counters ints, cleared here). sched: the depth slices
+// ax (S,m). Workspace (ops/schedule.serve_plan): the wide tile's operands
+// u and v (S,m) each (null for the 32 tile), `partials` and `counters`
+// (n_counters ints, cleared here). sched: the depth slices
 // and their length for the x, Ax and z phases. A grid the card cannot
 // hold resident is refused (cudaErrorCooperativeLaunchTooLarge) and
 // nothing runs. Returns a cudaError_t.
 extern "C" int dladmm_unroll_forward(
     const float* b, const float* A, const float* W1, const float* W2,
     const float* th1, const float* th2, const float* beta, float* x, float* z,
-    float* lam, float* z_tmp, float* lam_tmp, float* ax, float* partials, int* counters,
+    float* lam, float* z_tmp, float* lam_tmp, float* ax, float* u, float* v, float* partials, int* counters,
     int th1_k, int th1_c, int th2_k, int th2_c, int n_counters, int S, int m, int n,
     int K, int prox_x, int prox_z, float scale_x, float scale_z, int tile, int grid,
     int x_slices, int x_len, int ax_slices, int ax_len, int z_slices, int z_len,
     int device, void* stream_handle) {
   const Split sp[3] = {{x_slices, x_len}, {ax_slices, ax_len}, {z_slices, z_len}};
   return unroll_forward<float>(b, A, W1, W2, th1, th2, beta, nullptr, x, nullptr, z, lam, z_tmp, lam_tmp, ax,
-                               partials, counters, th1_k, th1_c, th2_k, th2_c, n_counters, S, m, n, K,
+                               u, v, partials, counters, th1_k, th1_c, th2_k, th2_c, n_counters, S, m, n, K,
                                prox_x, prox_z, scale_x, scale_z, tile, grid, sp, device, stream_handle);
 }
 
@@ -633,14 +868,14 @@ extern "C" int dladmm_unroll_forward_bf16(
     const __nv_bfloat16* b, const __nv_bfloat16* A, const __nv_bfloat16* W1, const __nv_bfloat16* W2,
     const __nv_bfloat16* th1, const __nv_bfloat16* th2, const float* beta, const __nv_bfloat16* beta16,
     __nv_bfloat16* x, __nv_bfloat16* z, __nv_bfloat16* lam, __nv_bfloat16* z_tmp, __nv_bfloat16* lam_tmp,
-    float* ax_work, float* x_work, float* partials, int* counters,
+    float* ax_work, float* x_work, float* u, float* v, float* partials, int* counters,
     int th1_k, int th1_c, int th2_k, int th2_c, int n_counters, int S, int m, int n,
     int K, int prox_x, int prox_z, float scale_x, float scale_z, int tile, int grid,
     int x_slices, int x_len, int ax_slices, int ax_len, int z_slices, int z_len,
     int device, void* stream_handle) {
   const Split sp[3] = {{x_slices, x_len}, {ax_slices, ax_len}, {z_slices, z_len}};
   return unroll_forward<__nv_bfloat16>(b, A, W1, W2, th1, th2, beta, beta16, x_work, x, z, lam, z_tmp,
-                                       lam_tmp, ax_work, partials, counters, th1_k, th1_c, th2_k, th2_c,
+                                       lam_tmp, ax_work, u, v, partials, counters, th1_k, th1_c, th2_k, th2_c,
                                        n_counters, S, m, n, K, prox_x, prox_z, scale_x, scale_z, tile,
                                        grid, sp, device, stream_handle);
 }
@@ -650,10 +885,12 @@ extern "C" int dladmm_unroll_forward_bf16(
 // cooperative launch (ops/schedule.serve_plan).
 extern "C" int dladmm_unroll_occupancy(int tile, int bf16, int storage, int device, int* blocks_per_sm,
                                        int* sms) {
-  const void* fn = serve_kernel(tile, bf16, storage);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kPT, 0);
+  if (err != cudaSuccess) return (int)err;
+  int smem = 0;
+  const void* fn = serve_kernel(tile, bf16, storage, &smem);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kPT, smem);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   return (int)err;
 }
@@ -768,12 +1005,12 @@ extern "C" int dladmm_layer_step(
     const float* b, const float* A, const float* W1, const float* W2,
     const float* th1, const float* th2, const float* beta, const float* x,
     const float* z, const float* lam, const float* ax, float* x1, float* z1,
-    float* lam1, float* ax1, float* partials, int* counters, int n_counters, int S, int m,
+    float* lam1, float* ax1, float* u, float* v, float* partials, int* counters, int n_counters, int S, int m,
     int n, int bf16, int tile, int grid, int x_slices, int x_len, int ax_slices, int ax_len,
     int z_slices, int z_len, int device, void* stream_handle) {
   const Split sp[3] = {{x_slices, x_len}, {ax_slices, ax_len}, {z_slices, z_len}};
   return layer_step<float>(b, A, W1, W2, th1, th2, beta, x, z, lam, ax, x1, nullptr, z1, lam1, ax1,
-                           nullptr, partials, counters, n_counters, S, m, n, bf16, tile, grid, sp,
+                           nullptr, u, v, partials, counters, n_counters, S, m, n, bf16, tile, grid, sp,
                            device, stream_handle);
 }
 
@@ -788,12 +1025,12 @@ extern "C" int dladmm_layer_step_bf16(
     const __nv_bfloat16* th1, const __nv_bfloat16* th2, const float* beta, const __nv_bfloat16* x,
     const __nv_bfloat16* z, const __nv_bfloat16* lam, const __nv_bfloat16* ax, __nv_bfloat16* x1,
     __nv_bfloat16* z1, __nv_bfloat16* lam1, __nv_bfloat16* ax1, float* ax_work, float* x_work,
-    float* partials, int* counters, int n_counters, int S, int m, int n, int bf16, int tile, int grid,
+    float* u, float* v, float* partials, int* counters, int n_counters, int S, int m, int n, int bf16, int tile, int grid,
     int x_slices, int x_len, int ax_slices, int ax_len, int z_slices, int z_len, int device,
     void* stream_handle) {
   const Split sp[3] = {{x_slices, x_len}, {ax_slices, ax_len}, {z_slices, z_len}};
   return layer_step<__nv_bfloat16>(b, A, W1, W2, th1, th2, beta, x, z, lam, ax, x_work, x1, z1, lam1,
-                                   ax_work, ax1, partials, counters, n_counters, S, m, n, bf16, tile,
+                                   ax_work, ax1, u, v, partials, counters, n_counters, S, m, n, bf16, tile,
                                    grid, sp, device, stream_handle);
 }
 

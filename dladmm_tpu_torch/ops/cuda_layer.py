@@ -44,7 +44,7 @@ import torch
 from torch import Tensor
 
 from dladmm_tpu_torch.ops import cuda_build
-from dladmm_tpu_torch.ops.cuda_unroll import plan_for
+from dladmm_tpu_torch.ops.cuda_unroll import plan_for, staging_vec
 from dladmm_tpu_torch.ops.reference import (
     _BETA_MIN,
     LayerParams,
@@ -56,7 +56,7 @@ from dladmm_tpu_torch.utils.profiling import check_kernel_outputs
 SRC = cuda_build.CSRC / "unroll.cu"
 
 _count_lock = threading.Lock()
-_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 # dladmm_layer_step_bf16: the fp32 homes of x1 and Ax1 more.
 _ARGTYPES_BF16 = [ctypes.c_void_p] * 2 + _ARGTYPES
 
@@ -144,17 +144,17 @@ def layer_step(b, A, x, z, lam, Ax, W1, W2, th1, th2, beta, matmul_dtype=None):
         homes = ()
     bf16 = matmul_dtype is not None
     dev = b.device.index
-    plan = plan_for(S, m, n, dev, bf16, False, bf16_state)
+    plan = plan_for(S, m, n, dev, bf16, False, bf16_state, staging_vec((b, A, x, z, lam, Ax, W1, W2), bf16_state))
     ws, sp = plan.workspace, plan.splits
     with torch.cuda.device(b.device):
         x1 = torch.empty_like(x)
         z1, lam1, Ax1 = torch.empty((3, S, m), dtype=storage, device=b.device).unbind()
         work = torch.empty((ws["_total"][0],), dtype=torch.float32, device=b.device)
-        at = lambda name: work.data_ptr() + 4 * ws[name][0]  # noqa: E731
+        at = lambda name: work.data_ptr() + 4 * ws[name][0] if ws[name][1] else None  # noqa: E731
         stream = torch.cuda.current_stream(b.device).cuda_stream
         err = launch(
             *(t.data_ptr() for t in (b, A, W1, W2, th1, th2, beta, x, z, lam, Ax, x1, z1, lam1, Ax1)),
-            *(at(name) for name in (*homes, "partials", "counters")),
+            *(at(name) for name in (*homes, "u", "v", "partials", "counters")),
             ws["counters"][1], S, m, n, int(bf16), plan.tile, plan.grid,
             *(v for ph in ("x", "ax", "z") for v in (sp[ph].slices, sp[ph].length)), dev, stream,
         )

@@ -57,7 +57,7 @@ KERNEL_PROX = {"l1": 0, "nonneg_l1": 1, "box": 2, "elastic_net": 3}
 _count_lock = threading.Lock()
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 11 + [ctypes.c_float] * 2 + [ctypes.c_int] * 9
+_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 11 + [ctypes.c_float] * 2 + [ctypes.c_int] * 9
              + [ctypes.c_void_p])
 # dladmm_unroll_forward_bf16: two beta pointers and the fp32 x work buffer more.
 _ARGTYPES_BF16 = [ctypes.c_void_p] * 2 + _ARGTYPES
@@ -65,15 +65,26 @@ _ARGTYPES_BF16 = [ctypes.c_void_p] * 2 + _ARGTYPES
 STORAGE = (torch.float32, torch.bfloat16)
 
 
+def staging_vec(inputs, bf16_state: bool) -> int:
+    """Elements of one 16-byte chunk of the wide tile's staging (4 fp32,
+    8 bf16), or 0 where an input it reads 16 bytes at a time does not
+    start on 16 bytes (a view at an odd offset): schedule.serve_tile then
+    keeps the 32 tile."""
+    if any(t.data_ptr() % 16 for t in inputs):
+        return 0
+    return 8 if bf16_state else 4
+
+
 def plan_for(S: int, m: int, n: int, device_index: int, bf16: bool, scratch: bool,
-             bf16_state: bool = False) -> schedule.ServePlan:
+             bf16_state: bool = False, vec: int = 4) -> schedule.ServePlan:
     """The serving kernel's plan on this card: its tile, grid and split
     from the occupancy of the two tile kernels (with bf16 staging: the
     layer step's option; with bf16 storage: ``bf16_state``); ``scratch``:
-    the serving forward's second z / lam pair and Ax in the workspace."""
+    the serving forward's second z / lam pair and Ax in the workspace;
+    ``vec``: ``staging_vec`` of the call's inputs."""
     occ = [cuda_build.occupancy(SRC, "dladmm_unroll_occupancy", device_index, t, int(bf16), int(bf16_state))
            for t in schedule.TILES]
-    return schedule.serve_plan(S, m, n, *occ, scratch, bf16_state)
+    return schedule.serve_plan(S, m, n, *occ, scratch, bf16_state, vec)
 
 
 def _check_prox(prox_x: str, prox_z: str, rho: float) -> None:
@@ -218,12 +229,12 @@ def unroll_forward(
     if bf16:
         launch = cuda_build.entry(SRC, "dladmm_unroll_forward_bf16", _ARGTYPES_BF16)
         betas = (beta, None) if beta.dtype == torch.float32 else (None, beta)
-        buffers = ("z_tmp", "lam_tmp", "ax", "x", "partials", "counters")
+        buffers = ("z_tmp", "lam_tmp", "ax", "x", "u", "v", "partials", "counters")
     else:
         launch = cuda_build.entry(SRC, "dladmm_unroll_forward", _ARGTYPES)
-        betas, buffers = (beta,), ("z_tmp", "lam_tmp", "ax", "partials", "counters")
+        betas, buffers = (beta,), ("z_tmp", "lam_tmp", "ax", "u", "v", "partials", "counters")
     dev = b.device.index
-    plan = plan_for(S, m, n, dev, False, True, bf16)
+    plan = plan_for(S, m, n, dev, False, True, bf16, staging_vec((b, A, W1, W2), bf16))
     ws, sp = plan.workspace, plan.splits
     scale = {
         p: (1.0 / (1.0 + rho) if p == "elastic_net" else 1.0)
@@ -234,7 +245,7 @@ def unroll_forward(
         x = torch.empty((S, n), **kw)
         z, lam = torch.empty((2, S, m), **kw).unbind()
         work = torch.empty((ws["_total"][0],), dtype=torch.float32, device=b.device)
-        at = lambda name: work.data_ptr() + 4 * ws[name][0]  # noqa: E731
+        at = lambda name: work.data_ptr() + 4 * ws[name][0] if ws[name][1] else None  # noqa: E731
         stream = torch.cuda.current_stream(b.device).cuda_stream
         err = launch(
             *(t.data_ptr() for t in (b, A, W1, W2, th1, th2)),

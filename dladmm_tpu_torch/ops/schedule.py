@@ -6,8 +6,9 @@ serving forward (``csrc/int8_unroll.cu`` ``int8_persistent``: int32
 partials, depth in bytes, ``int8_plan``).
 
 Every phase of those kernels is one GEMM (fp32, or int8 codes into
-int32) whose output is cut into 32 x 32 tiles (the serving kernels: 32
-x 32 or 64 x 64, chosen by the grid). A phase with few tiles (synthetic_small at S = 64 has 16-32) also
+int32) whose output is cut into 32 x 32 tiles (the fp32 serving kernel:
+32 x 32 or the wide 128 x 128, chosen by the shape and the grid; the int8
+kernel: 32 x 32 or 64 x 64). A phase with few tiles (synthetic_small at S = 64 has 16-32) also
 cuts its depth into slices, so that tiles x slices work items fill the
 launch's grid; each slice writes a partial tile to a workspace, and the
 last block to finish a tile (counted by an integer atomic per tile) sums
@@ -29,9 +30,13 @@ import functools
 from typing import Dict, NamedTuple, Tuple
 
 TILE = 32  # output tile edge of every phase but the serving kernel's (csrc: kT)
-TILES = (32, 64)  # the serving kernel's tile edges (csrc: unroll_persistent<T>)
+WIDE = 128  # the serving kernel's wide tile edge (csrc/wide_tile.cuh: kWT)
+TILES = (TILE, WIDE)  # the serving kernel's tile edges (csrc: unroll_persistent<T>)
 BK = 16  # depth of one shared-memory step (csrc: kBK)
 MIN_STEPS = 2  # BK-deep steps a depth slice holds at least
+WIDE_MIN_ROWS = 32  # batch rows from which the wide tile pays for its fill (PERF.md §6, row 1)
+WIDE_MIN_EDGE = 256  # m and n from which the wide tile pays for its fill (PERF.md §6, row 1)
+WIDE_FILL_STEPS = 4  # BK steps an item of the wide tile costs beyond its depth
 PER_SM = 2  # blocks per SM of the persistent grid when the tiles are few
 ALIGN = 64  # workspace buffers start on 64-float (256-byte) boundaries
 
@@ -135,13 +140,52 @@ def layout(sizes: Dict[str, int]) -> Dict[str, Tuple[int, int]]:
 # -- the serving forward and the layer step -------------------------------------
 
 
-def serve_tile(S: int, m: int, n: int, occ64: Tuple[int, int]) -> int:
-    """64 where the widest phase's 64 x 64 tiles alone reach every
-    resident block of the 64-tile kernel (occ64: its blocks a SM, SMs),
-    so that the larger tile's fewer loads a flop cost no idle SMs; else 32,
-    whose depth slices fill the card at every serving bucket."""
-    widest = max(cdiv(r, 64) * cdiv(c, 64) for r, c, _ in traj_shapes(S, m, n).values())
-    return 64 if widest >= occ64[0] * occ64[1] else 32
+def widest_tiles(S: int, m: int, n: int, tile: int) -> int:
+    """Output tiles of the widest phase of one layer at this tile edge."""
+    return max(cdiv(r, tile) * cdiv(c, tile) for r, c, _ in traj_shapes(S, m, n).values())
+
+
+def wide_fits(m: int, n: int, vec: int) -> bool:
+    """Whether the wide tile's 16-byte staging can read these rows:
+    m and n whole chunks of ``vec`` elements (4 fp32, 8 bf16; 0: the
+    caller's tensors do not start on 16 bytes). csrc/unroll.cu
+    wide_layout holds the same rule and refuses others."""
+    return vec > 0 and m % vec == 0 and n % vec == 0
+
+
+def serve_tile(S: int, m: int, n: int, vec: int = 4) -> int:
+    """WIDE where its 16-byte staging fits (``wide_fits``) and the call is
+    large enough for its faster mainloop to pay for its longer fill (a
+    ring of 128 x 16 stages, one block a SM, the epilogue through shared
+    memory): at least WIDE_MIN_ROWS rows and m and n of WIDE_MIN_EDGE or
+    more. Measured on the H100 (PERF.md): synthetic_large from S = 32 up
+    (S = 64: 2.28 against 2.93 ms; S = 1024: 7.51 against 22.35), not
+    below (S = 1: 1.92 against 1.64 ms), nor the image benchmark's 64 x 256
+    or a 128 x 256 problem. Else 32, whose depth slices fill the card at
+    every serving bucket; the grid fills the card either way."""
+    big = S >= WIDE_MIN_ROWS and min(m, n) >= WIDE_MIN_EDGE
+    return WIDE if big and wide_fits(m, n, vec) else TILE
+
+
+def int8_tile(S: int, m: int, n: int, occ64: Tuple[int, int]) -> int:
+    """The int8 kernel's tile: 64 where the widest phase's 64 x 64 tiles
+    alone reach every resident block of its 64-tile kernel (occ64: its
+    blocks a SM, SMs), so that the larger tile's fewer loads a flop cost
+    no idle SMs; else 32."""
+    return 64 if widest_tiles(S, m, n, 64) >= occ64[0] * occ64[1] else 32
+
+
+def wide_split(rows: int, cols: int, depth: int, grid: int, tile: int = WIDE, bk: int = BK) -> Split:
+    """The wide tile's depth split: the slice count whose items take the
+    least time on ``grid`` blocks, counting each item as its BK steps plus
+    WIDE_FILL_STEPS (the ring's fill, the reduction and the epilogue) and
+    each wave of items in full; the fewer slices on a tie."""
+    steps = cdiv(depth, bk)
+    tiles = cdiv(rows, tile) * cdiv(cols, tile)
+    best = min(range(1, steps + 1),
+               key=lambda s: (cdiv(tiles * s, grid) * (cdiv(steps, s) + WIDE_FILL_STEPS), s))
+    length = cdiv(steps, best) * bk
+    return Split(rows, cols, depth, cdiv(depth, length), length, tile)
 
 
 class ServePlan(NamedTuple):
@@ -168,37 +212,55 @@ def serve_workspace(S: int, m: int, n: int, splits: Dict[str, Split], scratch: b
     With ``bf16_state`` (bf16 storage, csrc/unroll.cu) the z / lam pair is
     bf16 (half the words), and the workspace also holds the fp32 Ax (S, m)
     and x (S, n) that the layers' phases pass on unrounded, for the
-    serving forward and the layer step alike."""
+    serving forward and the layer step alike. On the wide tile, also the
+    fp32 operands u and v of the x and z phases, (S, m) each (empty on the
+    32 tile)."""
     sm = S * m if scratch else 0
     sizes = {"z_tmp": sm, "lam_tmp": sm, "ax": sm}
     if bf16_state:
         sizes = {"z_tmp": cdiv(sm, 2), "lam_tmp": cdiv(sm, 2), "ax": S * m, "x": S * n}
+    uv = S * m if splits["x"].tile == WIDE else 0
     return layout({
         **sizes,
+        "u": uv,
+        "v": uv,
         "partials": partial_floats(splits.values()),
         "counters": max([sp.tiles for sp in splits.values() if sp.slices > 1] or [0]),
     })
 
 
-def make_serve_plan(S: int, m: int, n: int, occ32: Tuple[int, int], occ64: Tuple[int, int], scratch: bool,
-                    bf16_state: bool = False, tile: int = 0) -> ServePlan:
+def make_serve_plan(S: int, m: int, n: int, occ32: Tuple[int, int], occ_wide: Tuple[int, int], scratch: bool,
+                    bf16_state: bool = False, vec: int = 4, tile: int = 0) -> ServePlan:
     """The plan of one serving-kernel call (``tile`` 0: serve_tile's
-    choice); occ32 / occ64 are the two tile kernels' occupancy (of the
-    instantiation of the call's storage and staging)."""
-    tile = tile or serve_tile(S, m, n, occ64)
-    occ = occ64 if tile == 64 else occ32
+    choice at ``vec``, the elements of a 16-byte chunk of the call's
+    storage, 0 where its tensors do not start on 16 bytes); occ32 /
+    occ_wide are the two tile kernels' occupancy (of the instantiation of
+    the call's storage and staging). A forced WIDE tile where its staging
+    does not fit raises ValueError."""
+    tile = tile or serve_tile(S, m, n, vec)
+    if tile == WIDE and not wide_fits(m, n, vec):
+        raise ValueError(f"the wide tile stages 16-byte chunks of {vec or '(misaligned)'} elements; "
+                         f"m={m}, n={n} do not fit")
+    occ = occ_wide if tile == WIDE else occ32
     shapes = traj_shapes(S, m, n)
-    grid = launch_grid(*occ, max(cdiv(r, tile) * cdiv(c, tile) for r, c, _ in shapes.values()))
-    splits = {k: split(*v, grid, tile) for k, v in shapes.items()}
+    grid = launch_grid(*occ, widest_tiles(S, m, n, tile))
+    cut = wide_split if tile == WIDE else split
+    splits = {k: cut(*v, grid, tile) for k, v in shapes.items()}
     return ServePlan(occ, grid, splits, serve_workspace(S, m, n, splits, scratch, bf16_state))
 
 
 @functools.lru_cache(maxsize=64)
-def serve_plan(S: int, m: int, n: int, occ32: Tuple[int, int], occ64: Tuple[int, int], scratch: bool,
-               bf16_state: bool = False) -> ServePlan:
+def serve_plan(S: int, m: int, n: int, occ32: Tuple[int, int], occ_wide: Tuple[int, int], scratch: bool,
+               bf16_state: bool = False, vec: int = 4) -> ServePlan:
     """make_serve_plan, computed once per shape and occupancy, so a call
     pays no Python for it."""
-    return make_serve_plan(S, m, n, occ32, occ64, scratch, bf16_state)
+    return make_serve_plan(S, m, n, occ32, occ_wide, scratch, bf16_state, vec)
+
+
+def serve_barriers(K: int, tile: int) -> int:
+    """Grid barriers of one serving-kernel call: barriers(K), and on the
+    wide tile one more, after the phase that writes layer 0's u."""
+    return barriers(K) + (tile == WIDE)
 
 
 # -- int8 serving ----------------------------------------------------------------
@@ -241,11 +303,11 @@ def make_int8_plan(S: int, m: int, n: int, occ: Tuple[Tuple[int, int], ...], til
     """The plan of one int8 call (its splits' depth in bytes, slices of
     whole INT8_BK steps; its workspace in INT8_BUFFERS order, in 4-byte
     words). ``occ``: (blocks a SM, SMs) of each INT8_TILES kernel.
-    ``tile`` 0 takes serve_tile's rule (64 where its tiles alone fill the
+    ``tile`` 0 takes int8_tile's rule (64 where its tiles alone fill the
     64 kernel's resident blocks); ``slices`` 0 cuts each phase's depth as
     ``split`` does for the grid, else into about that many slices (a
     forced choice, for the card tests)."""
-    tile = tile or serve_tile(S, m, n, occ[INT8_TILES.index(64)])
+    tile = tile or int8_tile(S, m, n, occ[INT8_TILES.index(64)])
     o = occ[INT8_TILES.index(tile)]
     shapes = traj_shapes(S, m, n)
     grid = launch_grid(*o, max(cdiv(r, tile) * cdiv(c, tile) for r, c, _ in shapes.values()))
@@ -365,8 +427,8 @@ def barriers(K: int) -> int:
 
 
 __all__ = [
-    "ALIGN", "BK", "BWD_BUFFERS", "INT8_BK", "INT8_BUFFERS", "INT8_TILES", "MIN_STEPS", "PER_SM", "ServePlan", "Split", "TILE", "TILES", "WeightSplit",
-    "barriers", "bwd_plan", "int8_barriers", "int8_plan", "int8_split", "int8_workspace", "make_int8_plan", "bwd_schedule", "bwd_shapes", "bwd_workspace", "cdiv", "launch_grid",
-    "layout", "make_serve_plan", "partial_floats", "serve_plan", "serve_tile", "serve_workspace", "split",
-    "traj_plan", "traj_schedule", "traj_shapes", "traj_workspace", "weight_tiles",
+    "ALIGN", "BK", "BWD_BUFFERS", "INT8_BK", "INT8_BUFFERS", "INT8_TILES", "MIN_STEPS", "PER_SM", "ServePlan", "Split", "TILE", "TILES", "WIDE", "WIDE_FILL_STEPS", "WIDE_MIN_EDGE", "WIDE_MIN_ROWS", "WeightSplit",
+    "barriers", "bwd_plan", "int8_barriers", "int8_plan", "int8_split", "int8_tile", "int8_workspace", "make_int8_plan", "bwd_schedule", "bwd_shapes", "bwd_workspace", "cdiv", "launch_grid",
+    "layout", "make_serve_plan", "partial_floats", "serve_barriers", "serve_plan", "serve_tile", "serve_workspace", "split",
+    "traj_plan", "traj_schedule", "traj_shapes", "traj_workspace", "weight_tiles", "wide_fits", "wide_split", "widest_tiles",
 ]

@@ -130,16 +130,32 @@ def _force_tile(monkeypatch, tile):
                         lambda *a: schedule.make_serve_plan(*a, tile=tile))
 
 
+def _wide_refused(tile, m, n, vec=4):
+    """Whether a forced ``tile`` is the wide tile at a shape its 16-byte
+    staging does not take (the plan then raises ValueError)."""
+    from dladmm_tpu_torch.ops import schedule
+
+    return tile == schedule.WIDE and not schedule.wide_fits(m, n, vec)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("tile", [32, 128])
 @pytest.mark.parametrize("prox_x", ["l1", "elastic_net"])
 @pytest.mark.parametrize("m,n,K,S", SHAPES)
 def test_kernel_matches_plain_at_both_tiles(cuda_device, monkeypatch, m, n, K, S, prox_x, tile):
     """Each tile edge of the serving kernel at every shape, whatever the
     plan would choose there: ragged tiles, S = 1, split and unsplit
-    phases; the plan it launched with is kept in last_plan."""
+    phases; the plan it launched with is kept in last_plan. The wide
+    tile forced where m or n is no multiple of 4 is refused, nothing
+    launched."""
     _force_tile(monkeypatch, tile)
     A, b, p = _problem(m, n, K, S, seed=m + S + 5, device=cuda_device)
+    if _wide_refused(tile, m, n):
+        before = cuda_unroll.unroll_forward.launches
+        with pytest.raises(ValueError, match="16-byte"):
+            cuda_unroll.unroll_forward(b, A, *p, prox_x=prox_x, prox_z=prox_x, rho=0.3)
+        assert cuda_unroll.unroll_forward.launches == before
+        return
     got = cuda_unroll.unroll_forward(b, A, *p, prox_x=prox_x, prox_z=prox_x, rho=0.3)
     want = cuda_unroll.unroll_forward_plain(b, A, *p, prox_x=prox_x, prox_z=prox_x, rho=0.3)
     torch.cuda.synchronize()
@@ -153,14 +169,14 @@ def test_kernel_matches_plain_at_both_tiles(cuda_device, monkeypatch, m, n, K, S
 def test_serving_kernels_repeat_bit_for_bit(cuda_device, m, n, K, S):
     """No float atomics in the serving kernel's split-K sums: two calls of
     either entry give the same bits (synthetic_small's largest serving
-    bucket on the 32 tile, synthetic_large S = 1024 on the 64 tile; the
+    bucket on the 32 tile, synthetic_large S = 1024 on the wide tile; the
     layer step in fp32 and with bf16 operands)."""
     from dladmm_tpu_torch.ops import cuda_layer
 
     A, b, p = _problem(m, n, K, S, seed=S + 17, device=cuda_device)
     one, two = (cuda_unroll.unroll_forward(b, A, *p) for _ in range(2))
     assert all(torch.equal(g, w) for g, w in zip(one, two))
-    assert cuda_unroll.unroll_forward.last_plan[2]["x"].tile == (64 if m == 1000 else 32)
+    assert cuda_unroll.unroll_forward.last_plan[2]["x"].tile == (128 if m == 1000 else 32)
     state = (torch.zeros((S, n), device=cuda_device), *one[1:], torch.zeros_like(b))
     layer = (p.W1[1], p.W2[1], p.theta1[1].contiguous(), p.theta2[1].contiguous(), p.beta[1:2].contiguous())
     for md in (None, torch.bfloat16):
@@ -911,7 +927,7 @@ def test_layer_step_matches_plain_in_fresh_buffers(cuda_device, m, n, K, S, bf16
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("tile", [32, 128])
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("m,n,K,S", SHAPES)
 def test_layer_step_matches_plain_at_both_tiles(cuda_device, monkeypatch, m, n, K, S, bf16, tile):
@@ -925,6 +941,10 @@ def test_layer_step_matches_plain_at_both_tiles(cuda_device, monkeypatch, m, n, 
     _force_tile(monkeypatch, tile)
     b, A, state, layer = _layer_state(m, n, S, seed=m + S + 9, device=cuda_device)
     md = torch.bfloat16 if bf16 else None
+    if _wide_refused(tile, m, n):
+        with pytest.raises(ValueError, match="16-byte"):
+            cuda_layer.layer_step(b, A, *state, *layer, matmul_dtype=md)
+        return
     got = cuda_layer.layer_step(b, A, *state, *layer, matmul_dtype=md)
     want = cuda_layer.layer_step_plain(b, A, *state, *layer, matmul_dtype=md)
     torch.cuda.synchronize()
@@ -1146,7 +1166,7 @@ def _assert_bf16_close(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("tile", [32, 128])
 @pytest.mark.parametrize("prox", ["l1", "nonneg_l1", "box", "elastic_net"])
 @pytest.mark.parametrize("m,n,K,S", SHAPES)
 def test_bf16_kernel_matches_plain(cuda_device, monkeypatch, m, n, K, S, prox, tile):
@@ -1157,6 +1177,10 @@ def test_bf16_kernel_matches_plain(cuda_device, monkeypatch, m, n, K, S, prox, t
     _force_tile(monkeypatch, tile)
     A, b, p = _problem16(m, n, K, S, seed=m + S + 25, device=cuda_device)
     kw = dict(prox_x=prox, prox_z=prox, rho=0.3)
+    if _wide_refused(tile, m, n, 8):
+        with pytest.raises(ValueError, match="16-byte"):
+            cuda_unroll.unroll_forward(b, A, *p, **kw)
+        return
     got = cuda_unroll.unroll_forward(b, A, *p, **kw)
     again = cuda_unroll.unroll_forward(b, A, *p, **kw)
     torch.cuda.synchronize()
@@ -1170,13 +1194,13 @@ def test_bf16_kernel_matches_plain(cuda_device, monkeypatch, m, n, K, S, prox, t
 def test_bf16_kernel_with_fp32_beta_and_scalar_thresholds(cuda_device, m, n, K, S):
     """fp32 beta beside bf16 storage (the other beta pointer) and (K, 1)
     thresholds, at synthetic_small's largest serving bucket and at
-    synthetic_large S = 1024 (the 64 tile)."""
+    synthetic_large S = 1024 (the wide tile)."""
     A, b, p = _problem16(m, n, K, S, seed=S + 27, device=cuda_device, scalar_theta=True)
     p = p._replace(beta=p.beta.float())
     got = cuda_unroll.unroll_forward(b, A, *p)
     torch.cuda.synchronize()
     _assert_bf16_close(got, cuda_unroll.unroll_forward_plain_bf16(b, A, *p))
-    assert cuda_unroll.unroll_forward.last_plan[2]["x"].tile == (64 if m == 1000 else 32)
+    assert cuda_unroll.unroll_forward.last_plan[2]["x"].tile == (128 if m == 1000 else 32)
 
 
 @pytest.mark.gpu
@@ -1749,3 +1773,109 @@ def test_nan_debug_in_the_kernel_wrappers(cuda_device):
     with torch.no_grad():
         _, _, lam = calls["unroll_forward"]()
     assert torch.isnan(lam[3]).any() and torch.isfinite(lam[:3]).all()
+
+
+# -- the wide tile (csrc/wide_tile.cuh) at synthetic_large -------------------
+
+LARGE = (1000, 2000, 20)  # m, n, K of synthetic_large
+WIDE_S = [1024, 1000, 129, 1]  # the plan's S, and ragged row tiles down to one row
+
+
+@pytest.fixture(scope="module")
+def large_problems():
+    """synthetic_large's problems of this module's wide-tile tests, one
+    held at a time (340 MB of weights each)."""
+    return {}
+
+
+def _large(cache, S, device, bf16=False):
+    """synthetic_large's A, b and params at batch S, drawn once a module."""
+    key = (S, bf16)
+    if key not in cache:
+        cache.clear()
+        cache[key] = (_problem16 if bf16 else _problem)(*LARGE, S, seed=S + 41, device=device)
+    return cache[key]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prox", ["l1", "nonneg_l1", "box", "elastic_net"])
+@pytest.mark.parametrize("S", WIDE_S)
+def test_wide_tile_matches_plain_at_synthetic_large(cuda_device, monkeypatch, large_problems, S, prox):
+    """The wide tile against the plain fp32 loop at synthetic_large, every
+    prox (as prox_x and prox_z; elastic net at rho 0.3), at the plan's
+    S = 1024 and at ragged S down to one row; one launch a call, every
+    phase on the wide tile."""
+    _force_tile(monkeypatch, 128)
+    A, b, p = _large(large_problems, S, cuda_device)
+    kw = dict(prox_x=prox, prox_z=prox, rho=0.3)
+    before = cuda_unroll.unroll_forward.launches
+    got = cuda_unroll.unroll_forward(b, A, *p, **kw)
+    want = cuda_unroll.unroll_forward_plain(b, A, *p, **kw)
+    torch.cuda.synchronize()
+    assert cuda_unroll.unroll_forward.launches == before + 1
+    _assert_close(got, want)
+    assert all(sp.tile == 128 for sp in cuda_unroll.unroll_forward.last_plan[2].values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", WIDE_S)
+def test_wide_tile_in_bf16_storage(cuda_device, monkeypatch, large_problems, S):
+    """bf16 storage on the wide tile (bf16 weights staged 16 bytes at a
+    time, widened as read) against unroll_forward_plain_bf16, and a
+    second call bit for bit."""
+    _force_tile(monkeypatch, 128)
+    A, b, p = _large(large_problems, S, cuda_device, bf16=True)
+    got = cuda_unroll.unroll_forward(b, A, *p)
+    again = cuda_unroll.unroll_forward(b, A, *p)
+    torch.cuda.synchronize()
+    _assert_bf16_close(got, cuda_unroll.unroll_forward_plain_bf16(b, A, *p))
+    assert all(torch.equal(g, w) for g, w in zip(got, again))
+    assert cuda_unroll.unroll_forward.last_plan[2]["x"].tile == 128
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state", ["fp32", "bf16_operands", "bf16_state"])
+def test_wide_tile_layer_step(cuda_device, state):
+    """The layer step at synthetic_large S = 1024 on the tile the plan
+    picks there (the wide one): fp32 within TOL of the plain step; bf16
+    operands within 1e-3 relative Frobenius error of the plain step's bf16
+    mode; bf16 state within BF16_TOL_ULPS of its plain version. Each a
+    second time bit for bit."""
+    from dladmm_tpu_torch.ops import cuda_layer
+
+    m, n, _ = LARGE
+    if state == "bf16_state":
+        A, b, p = _problem16(m, n, 2, 1024, seed=43, device=cuda_device)
+        g = torch.Generator(device=cuda_device).manual_seed(43)
+        st = [torch.randn(s, generator=g, device=cuda_device).bfloat16() for s in ((1024, n), (1024, m), (1024, m), (1024, m))]
+        one = (b, A, *st, p.W1[1], p.W2[1], p.theta1[1].contiguous(), p.theta2[1].contiguous(), p.beta[1:2].float())
+        md = None
+    else:
+        b, A, st, layer = _layer_state(m, n, 1024, seed=44, device=cuda_device)
+        one = (b, A, *st, *layer)
+        md = torch.bfloat16 if state == "bf16_operands" else None
+    got = cuda_layer.layer_step(*one, matmul_dtype=md)
+    again = cuda_layer.layer_step(*one, matmul_dtype=md)
+    want = cuda_layer.layer_step_plain(*one, matmul_dtype=md)
+    torch.cuda.synchronize()
+    assert all(sp.tile == 128 for sp in cuda_layer.layer_step.last_plan[2].values())
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    if state == "bf16_state":
+        _assert_bf16_close(got, want)
+    elif md is not None:
+        for g_, w in zip(got, want):
+            assert torch.isfinite(g_).all() and float((g_ - w).norm()) <= 1e-3 * float(w.norm())
+    else:
+        _assert_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+def test_wide_tile_repeats_bit_for_bit(cuda_device, large_problems, bf16):
+    """Two calls of the plan's own choice at synthetic_large S = 1024 (the
+    wide tile, split-K summed in slice order) give the same bits."""
+    A, b, p = _large(large_problems, 1024, cuda_device, bf16=bf16)
+    one, two = (cuda_unroll.unroll_forward(b, A, *p) for _ in range(2))
+    torch.cuda.synchronize()
+    assert cuda_unroll.unroll_forward.last_plan[2]["x"].tile == 128
+    assert all(torch.equal(g, w) for g, w in zip(one, two))

@@ -1,6 +1,6 @@
 """The work split of the persistent CUDA kernels (ops/schedule.py), on
 the CPU: the serving forward's and the layer step's x, Ax and z phases
-(32 or 64 tiles, chosen by the grid), the trajectory forward's and the
+(32 or wide 128 tiles, chosen by the shape and the grid), the trajectory forward's and the
 final-layer backward's V, X, U chain and its weight-gradient launch. ``items`` and
 ``weight_items`` below decode a work item as the kernels do, and
 ``test_kernels_decode_items_as_these_tests_do`` holds that decode to the
@@ -28,6 +28,10 @@ SERVE_DECODE = ("const int ct = dcdiv(N, T), items = dcdiv(S, T) * ct * sp.slice
                 "const int tile = it / sp.slices, s = it % sp.slices;",
                 "const int row0 = tile / ct * T, col0 = tile % ct * T;",
                 "const int k_lo = s * sp.len, k_hi = min(depth, k_lo + sp.len);")
+WIDE_DECODE = ("const int ct = dcdiv(N, kWT), items = dcdiv(S, kWT) * ct * sp.slices;",
+               "const int tile = it / sp.slices, s = it % sp.slices;",
+               "const int row0 = tile / ct * kWT, col0 = tile % ct * kWT;",
+               "const int k_lo = s * sp.len, k_hi = min(depth, k_lo + sp.len);")
 WEIGHT_DECODE = ("const int tile = it / slices, s = it % slices;",
                  "const int k = tile / per, t = tile % per, rt = t / ct, cb = t % ct;",
                  "const int rows = w1 ? n : m, row0 = (w1 ? rt : rt - t1) * kT, col0 = cb * kT;",
@@ -61,7 +65,8 @@ def weight_items(ws: sch.WeightSplit):
 
 
 @pytest.mark.parametrize("source,lines", [("unroll.cu", CHAIN_DECODE), ("unroll_bwd.cu", CHAIN_DECODE),
-                                          ("unroll_bwd.cu", WEIGHT_DECODE), ("unroll.cu", SERVE_DECODE)])
+                                          ("unroll_bwd.cu", WEIGHT_DECODE), ("unroll.cu", SERVE_DECODE),
+                                          ("unroll.cu", WIDE_DECODE)])
 def test_kernels_decode_items_as_these_tests_do(source, lines):
     """The decode ``items`` and ``weight_items`` mirror stands in the
     kernel's source, so a change to the kernels' map fails here."""
@@ -231,77 +236,169 @@ def test_barriers_per_call():
 
 # (m, n, S): SHAPES, and S = 1 at the ragged and the synthetic_large widths.
 SERVE_SHAPES = SHAPES + [(33, 77, 1), (1000, 2000, 1)]
+# Shapes the wide tile's 16-byte staging takes (m and n multiples of 4):
+# synthetic_large at ragged batches, the patch shape, small multiples.
+WIDE_SHAPES = [(1000, 2000, 1), (1000, 2000, 129), (1000, 2000, 1000), (1000, 2000, 1024),
+               (64, 256, 961), (16, 32, 8), (128, 256, 256)]
 # The workspace of the serving forward (scratch) and of the layer step.
 KINDS = {"unroll_forward": True, "layer_step": False}
+# The InferenceServer's buckets.
+BUCKETS = [1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024]
 
 
 def serve_cards(card):
-    """(occ32, occ64) of a card of CARDS: the 32 tile's blocks a SM, and
-    half of them (at least one) for the 64 tile (4 x 4 outputs a thread)."""
+    """(occ32, occ_wide) of a card of CARDS: the 32 tile's blocks a SM,
+    and a quarter of them (at least one) for the wide tile (8 x 8 outputs
+    a thread: one block a SM on the H100)."""
     bps, sms = card
-    return (bps, sms), (max(1, bps // 2), sms)
+    return (bps, sms), (max(1, bps // 4), sms)
+
+
+def _check_serve_plan(plan, S, m, n, tile, occ32, occ_wide):
+    assert plan.tile == tile and plan.occ == (occ_wide if tile == sch.WIDE else occ32)
+    assert 1 <= plan.grid <= plan.occ[0] * plan.occ[1]
+    assert set(plan.splits) == {"x", "ax", "z"}
+    for name, sp in plan.splits.items():
+        assert (sp.rows, sp.cols, sp.depth) == sch.traj_shapes(S, m, n)[name]
+        assert sp.tile == tile
+        _check_split(sp)
 
 
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("card", CARDS)
-@pytest.mark.parametrize("m,n,S", SERVE_SHAPES)
+@pytest.mark.parametrize("m,n,S", SERVE_SHAPES + WIDE_SHAPES)
 def test_serving_items_cover_every_tile_once(m, n, S, card, kind):
     """At both tile edges: every output tile of each phase once, the
     slices partitioning the depth, the grid within the launched
-    kernel's resident blocks."""
-    occ32, occ64 = serve_cards(card)
+    kernel's resident blocks. The wide tile where its staging fits;
+    forced elsewhere it is refused."""
+    occ32, occ_wide = serve_cards(card)
     for tile in sch.TILES:
-        plan = sch.make_serve_plan(S, m, n, occ32, occ64, KINDS[kind], tile=tile)
-        assert plan.tile == tile and plan.occ == (occ64 if tile == 64 else occ32)
-        assert 1 <= plan.grid <= plan.occ[0] * plan.occ[1]
-        assert set(plan.splits) == {"x", "ax", "z"}
-        for name, sp in plan.splits.items():
-            assert (sp.rows, sp.cols, sp.depth) == sch.traj_shapes(S, m, n)[name]
-            assert sp.tile == tile
-            _check_split(sp)
+        if tile == sch.WIDE and not sch.wide_fits(m, n, 4):
+            with pytest.raises(ValueError, match="16-byte"):
+                sch.make_serve_plan(S, m, n, occ32, occ_wide, KINDS[kind], tile=tile)
+            continue
+        plan = sch.make_serve_plan(S, m, n, occ32, occ_wide, KINDS[kind], tile=tile)
+        _check_serve_plan(plan, S, m, n, tile, occ32, occ_wide)
 
 
 @pytest.mark.parametrize("card", CARDS)
-@pytest.mark.parametrize("m,n,S", SERVE_SHAPES)
+@pytest.mark.parametrize("m,n,S", SERVE_SHAPES + WIDE_SHAPES)
 def test_serving_tile_is_64_exactly_where_its_tiles_fill_the_card(m, n, S, card):
-    occ32, occ64 = serve_cards(card)
-    widest64 = max(-(-r // 64) * -(-c // 64) for r, c, _ in sch.traj_shapes(S, m, n).values())
-    want = 64 if widest64 >= occ64[0] * occ64[1] else 32
-    assert sch.serve_tile(S, m, n, occ64) == want
-    plan = sch.make_serve_plan(S, m, n, occ32, occ64, True)
+    """The large tile (now the wide 128 tile) exactly where its staging
+    fits, S >= 32 and m, n >= 256 (where it measured faster than the 32
+    tile, PERF.md); the grid then every resident block of the wide kernel
+    (its tiles and depth slices fill them)."""
+    occ32, occ_wide = serve_cards(card)
+    want = 128 if m % 4 == 0 and n % 4 == 0 and S >= 32 and min(m, n) >= 256 else 32
+    assert sch.serve_tile(S, m, n) == want
+    plan = sch.make_serve_plan(S, m, n, occ32, occ_wide, True)
     assert plan.tile == want
-    if want == 64:  # the tiles alone fill the grid: every resident block
-        assert plan.grid == occ64[0] * occ64[1]
+    if want == 128:
+        assert plan.grid == occ_wide[0] * occ_wide[1]
 
 
 def test_serving_tile_on_the_h100_shapes():
-    """With 4 blocks a SM at the 32 tile and 2 at the 64 on 132 SMs:
-    synthetic_small takes the 32 tile at every serving bucket (1 to 256,
-    the InferenceServer's powers of two) and still at S = 1024;
-    synthetic_large at S = 1024 takes the 64 tile (512 tiles of 64 in the
-    x phase, 264 resident blocks)."""
-    occ32, occ64 = (4, 132), (2, 132)
-    for S in (1, 2, 4, 8, 16, 32, 64, 128, 256, 1024):
-        assert sch.serve_plan(S, 250, 500, occ32, occ64, True).tile == 32
-    plan = sch.serve_plan(1024, 1000, 2000, occ32, occ64, True)
-    assert plan.tile == 64 and plan.grid == 264 and plan.splits["x"].tiles == 512
-    small = sch.serve_plan(256, 250, 500, occ32, occ64, True)
+    """With 4 blocks a SM at the 32 tile and 1 at the wide one on 132
+    SMs (the H100's occupancy): synthetic_small takes the 32 tile at every
+    serving bucket (1 to 1024; m = 250 is no multiple of 4);
+    synthetic_large at S = 1024 takes the wide tile (128 tiles in the x
+    phase, one item each on 132 blocks; Ax and z two depth slices of 64
+    tiles)."""
+    occ32, occ_wide = (4, 132), (1, 132)
+    for S in BUCKETS:
+        assert sch.serve_plan(S, 250, 500, occ32, occ_wide, True).tile == 32
+    plan = sch.serve_plan(1024, 1000, 2000, occ32, occ_wide, True)
+    assert plan.tile == 128 and plan.grid == 132 and plan.splits["x"].tiles == 128
+    assert {k: (sp.slices, sp.items) for k, sp in plan.splits.items()} == {
+        "x": (1, 128), "ax": (2, 128), "z": (2, 128)}
+    small = sch.serve_plan(256, 250, 500, occ32, occ_wide, True)
     assert small.grid == 264 and all(sp.items >= 256 for sp in small.splits.values())
 
 
+@pytest.mark.parametrize("bf16_state", [False, True])
+@pytest.mark.parametrize("S", BUCKETS)
+def test_wide_tile_at_synthetic_large_buckets(S, bf16_state):
+    """synthetic_large (m = 1000, n = 2000: whole 16-byte chunks of fp32
+    and of bf16) takes the wide tile at S = 1024 and at every bucket from
+    32 up, where it measured faster than the 32 tile; the 32 tile below,
+    where the wide tile's fill costs more than its mainloop saves."""
+    plan = sch.serve_plan(S, 1000, 2000, (4, 132), (1, 132), True, bf16_state, 8 if bf16_state else 4)
+    assert plan.tile == (128 if S >= 32 else 32)
+    if S == 1024:
+        assert plan.tile == 128
+
+
+@pytest.mark.parametrize("vec", [4, 8])
+@pytest.mark.parametrize("S", BUCKETS)
+def test_synthetic_small_keeps_tile_32(S, vec):
+    """The paper's 250 x 500 stays on the 32 tile at every bucket, in
+    either storage."""
+    assert sch.serve_tile(S, 250, 500, vec) == 32
+    assert sch.serve_plan(S, 250, 500, (4, 132), (1, 132), True, vec == 8, vec).tile == 32
+
+
+@pytest.mark.parametrize("m,n,vec,fits", [(1000, 2000, 4, True), (1000, 2000, 8, True), (1002, 2000, 4, False),
+                                          (1000, 2002, 4, False), (1004, 2000, 8, False), (1000, 2004, 8, False),
+                                          (1004, 2004, 4, True), (1000, 2000, 0, False)])
+def test_wide_tile_falls_back_where_rows_do_not_fit(m, n, vec, fits):
+    """m or n not whole 16-byte chunks (4 fp32, 8 bf16), or weights that
+    do not start on 16 bytes (vec 0): the 32 tile, even at S = 1024."""
+    assert sch.wide_fits(m, n, vec) == fits
+    assert sch.serve_tile(1024, m, n, vec) == (128 if fits else 32)
+    plan = sch.make_serve_plan(1024, m, n, (4, 132), (1, 132), True, vec == 8, vec=vec)
+    assert plan.tile == (128 if fits else 32)
+
+
+@pytest.mark.parametrize("m,n,S", SERVE_SHAPES + WIDE_SHAPES + [(1000, 2000, S) for S in BUCKETS])
+def test_int8_tile_is_unchanged(m, n, S):
+    """make_int8_plan keeps its own rule: 64 where the widest phase's 64 x
+    64 tiles alone reach every resident block of its 64 kernel, else 32,
+    whatever the fp32 kernel's wide tile does."""
+    occ = ((4, 132), (2, 132))
+    widest64 = max(-(-r // 64) * -(-c // 64) for r, c, _ in sch.traj_shapes(S, m, n).values())
+    want = 64 if widest64 >= 2 * 132 else 32
+    assert sch.int8_tile(S, m, n, occ[1]) == want
+    assert sch.make_int8_plan(S, m, n, occ).tile == want
+
+
+@pytest.mark.parametrize("grid", [264, 132, 8])
+@pytest.mark.parametrize("m,n,S", WIDE_SHAPES)
+def test_wide_split_takes_the_fewest_waves(m, n, S, grid):
+    """The wide tile's split: whole BK steps a slice, at most one wave
+    more than the least any split needs, and no split with the same
+    number of waves of shorter items under it."""
+    for rows, cols, depth in sch.traj_shapes(S, m, n).values():
+        sp = sch.wide_split(rows, cols, depth, grid)
+        _check_split(sp)
+        steps = -(-depth // sch.BK)
+        cost = lambda s: -(-sp.tiles * s // grid) * (-(-steps // s) + sch.WIDE_FILL_STEPS)  # noqa: E731
+        assert all(cost(sp.slices) <= cost(s) for s in range(1, steps + 1))
+
+
+def test_serving_barriers():
+    """3K - 1 barriers on the 32 tile; one more on the wide tile (after
+    the phase that writes layer 0's u)."""
+    assert sch.serve_barriers(20, 32) == 59 and sch.serve_barriers(20, 128) == 60
+
+
 @pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("m,n,S", SERVE_SHAPES)
+@pytest.mark.parametrize("m,n,S", SERVE_SHAPES + WIDE_SHAPES)
 def test_serving_workspace(m, n, S, kind):
     """The serving forward's scratch (z_tmp, lam_tmp, Ax: (S, m) each;
-    none for the layer step, which writes fresh outputs), partials for
-    the largest split phase at its tile edge, a counter per tile of the
-    widest split phase (none when no phase splits)."""
+    none for the layer step, which writes fresh outputs), the wide tile's
+    operands u and v ((S, m) each, both kinds; none on the 32 tile),
+    partials for the largest split phase at its tile edge, a counter per
+    tile of the widest split phase (none when no phase splits)."""
     for tile in sch.TILES:
+        if tile == sch.WIDE and not sch.wide_fits(m, n, 4):
+            continue
         plan = sch.make_serve_plan(S, m, n, (4, 132), (2, 132), KINDS[kind], tile=tile)
         lay = plan.workspace
         split = [sp for sp in plan.splits.values() if sp.slices > 1]
         scratch = S * m if KINDS[kind] else 0
-        want = {"z_tmp": scratch, "lam_tmp": scratch, "ax": scratch,
+        uv = S * m if tile == sch.WIDE else 0
+        want = {"z_tmp": scratch, "lam_tmp": scratch, "ax": scratch, "u": uv, "v": uv,
                 "partials": max([sp.items * tile**2 for sp in split] or [0]),
                 "counters": max([sp.tiles for sp in split] or [0])}
         assert {k: v[1] for k, v in lay.items() if k != "_total"} == want
@@ -316,21 +413,25 @@ def test_serving_plan_is_computed_once_per_shape():
 
 
 @pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("m,n,S", SERVE_SHAPES)
+@pytest.mark.parametrize("m,n,S", SERVE_SHAPES + WIDE_SHAPES)
 def test_serving_workspace_on_bf16_state(m, n, S, kind):
     """bf16 storage (csrc/unroll.cu, unroll_persistent<T, BF16,
     __nv_bfloat16>): the serving forward's second z / lam pair in bf16
     (half the words), and for the serving forward and the layer step alike
-    the fp32 Ax (S, m) and x (S, n) that the phases pass on unrounded; the
-    tiles, grid and splits are the fp32 plan's at the same occupancy."""
+    the fp32 Ax (S, m) and x (S, n) that the phases pass on unrounded, and
+    on the wide tile the fp32 u and v; the tiles, grid and splits are the
+    fp32 plan's at the same occupancy."""
     for tile in sch.TILES:
-        plan = sch.make_serve_plan(S, m, n, (4, 132), (2, 132), KINDS[kind], True, tile=tile)
+        if tile == sch.WIDE and not sch.wide_fits(m, n, 8):
+            continue
+        plan = sch.make_serve_plan(S, m, n, (4, 132), (2, 132), KINDS[kind], True, tile=tile, vec=8)
         fp32 = sch.make_serve_plan(S, m, n, (4, 132), (2, 132), KINDS[kind], tile=tile)
         assert (plan.occ, plan.grid, plan.splits) == (fp32.occ, fp32.grid, fp32.splits)
         lay = plan.workspace
         split = [sp for sp in plan.splits.values() if sp.slices > 1]
         pair = -(-S * m // 2) if KINDS[kind] else 0
-        want = {"z_tmp": pair, "lam_tmp": pair, "ax": S * m, "x": S * n,
+        uv = S * m if tile == sch.WIDE else 0
+        want = {"z_tmp": pair, "lam_tmp": pair, "ax": S * m, "x": S * n, "u": uv, "v": uv,
                 "partials": max([sp.items * tile**2 for sp in split] or [0]),
                 "counters": max([sp.tiles for sp in split] or [0])}
         assert {k: v[1] for k, v in lay.items() if k != "_total"} == want
@@ -342,3 +443,12 @@ def test_bf16_serving_plan_is_its_own_cache_entry():
     assert sch.serve_plan(256, 250, 500, (4, 132), (2, 132), True, True) is one
     assert one.workspace != sch.serve_plan(256, 250, 500, (4, 132), (2, 132), True).workspace
     assert one == sch.make_serve_plan(256, 250, 500, (4, 132), (2, 132), True, True)
+
+
+def test_wide_tile_constants_match_the_kernel():
+    """The wide tile's edge and step depth in csrc/wide_tile.cuh are the
+    plan's, and the kernel's launch checks the plan's layout rule."""
+    text = " ".join((cuda_build.CSRC / "wide_tile.cuh").read_text().split())
+    assert f"constexpr int kWT = {sch.WIDE};" in text and f"constexpr int kWBK = {sch.BK};" in text
+    unroll = " ".join((cuda_build.CSRC / "unroll.cu").read_text().split())
+    assert "constexpr int vec = 16 / sizeof(TS);" in unroll and "a.m % vec == 0 && a.n % vec == 0" in unroll
