@@ -77,7 +77,9 @@ from dladmm_tpu_torch.parallel.mesh import (
     model_slice,
     shard_params_tp,
 )
+from dladmm_tpu_torch.train.loop import map_params_nodes, update_by_layer
 from dladmm_tpu_torch.train.qmoments import BLOCK, QTensor
+from dladmm_tpu_torch.utils import profiling
 
 _EPS = 1e-12
 
@@ -756,31 +758,13 @@ def make_sharded_eval(mesh, layout: str = "sharded_w2"):
     return evaluate
 
 
-def _zip_nodes(full, new, on_node, on_leaf):
-    """Walk two trees of one structure: on_node(a, b) at DLADMMParams
-    nodes, on_leaf(a, b) at the other leaves; returns the mapped tree."""
-    if isinstance(full, DLADMMParams):
-        return on_node(full, new)
-    if isinstance(full, tuple) and hasattr(full, "_fields"):
-        return type(full)(*(_zip_nodes(a, b, on_node, on_leaf) for a, b in zip(full, new)))
-    if isinstance(full, (tuple, list)):
-        return type(full)(_zip_nodes(a, b, on_node, on_leaf) for a, b in zip(full, new))
-    return on_leaf(full, new)
-
-
-def _map_params_nodes(fn, tree):
-    """``tree`` with every DLADMMParams node (the params, the moments)
-    replaced by fn(node); other leaves (counts, keys, norms) kept."""
-    return _zip_nodes(tree, tree, lambda a, _: fn(a), lambda a, _: a)
-
-
 def gather_state_tp(state, mesh, layout: str = "sharded_w2"):
     """A TP TrainState with every parameter-shaped leaf (params, moments)
     gathered whole (a collective over the model group; ranks of data
     index 0 only need to call it: the other data indices hold the same
     slices). What a checkpoint holds."""
     gather = lambda node: gather_params_tp(node, mesh, layout)  # noqa: E731
-    return state._replace(params=gather(state.params), opt_state=_map_params_nodes(gather, state.opt_state),
+    return state._replace(params=gather(state.params), opt_state=map_params_nodes(gather, state.opt_state),
                           compute_params=None)
 
 
@@ -790,7 +774,7 @@ def shard_state_tp(state, mesh, layout: str = "sharded_w2", device=None):
     def cut(node):
         return DLADMMParams(*(v.to(device) for v in shard_params_tp(node, mesh, layout)))
 
-    opt = _map_params_nodes(cut, state.opt_state)
+    opt = map_params_nodes(cut, state.opt_state)
     opt = _tree_map(lambda v: v.to(device), opt)
     return state._replace(params=cut(state.params), opt_state=opt)
 
@@ -805,7 +789,7 @@ def whole_state_template(state, mesh, layout: str = "sharded_w2"):
                                           dtype=v.dtype) for v, ax in zip(node, param_specs(layout))))
 
     return state._replace(params=whole(state.params), opt_state=_tree_map(
-        lambda v: v.cpu(), _map_params_nodes(whole, state.opt_state)), compute_params=None)
+        lambda v: v.cpu(), map_params_nodes(whole, state.opt_state)), compute_params=None)
 
 
 def _element_index(mesh, layout: str, k: int):
@@ -840,43 +824,6 @@ def _tp_grad_norm(tp: _TP, layer_grads, layout: str, freeze) -> Tensor:
                 g = g.to(torch.float32)
                 sq[ax is None] = sq[ax is None] + torch.sum(g * g)
     return torch.sqrt(tp.reduce(sq[0], tp.mesh.model_group) + sq[1])
-
-
-def _copy_into(dst: DLADMMParams, src: DLADMMParams) -> DLADMMParams:
-    for a, b in zip(dst, src):
-        a.copy_(b)
-    return dst
-
-
-def _apply_update_by_layer(tp: _TP, state, loss, layer_grads, optimizer, compute_dtype, freeze, layout):
-    """The optimizer applied one layer at a time, in place: each layer's
-    slice of the params, moments and compute copy goes through
-    _apply_update (the optimizer's own elementwise arithmetic), with the
-    clip transforms reading the whole gradient's global norm
-    (train/loop.whole_gradient_norm) and bfloat16_sr moments their
-    elements' indices in the whole leaves (_element_index); the layer's
-    new values are copied back and its gradients dropped. The update
-    allocates one layer's temporaries, so a rank's peak stays near its
-    params, moments and gradients (tp_large)."""
-    from dladmm_tpu_torch.train.loop import TrainState, whole_gradient_norm
-    from dladmm_tpu_torch.train.qmoments import sr_element_index
-
-    norm = _tp_grad_norm(tp, layer_grads, layout, freeze)
-    new = None
-    for k in range(len(layer_grads)):
-        at_k = lambda node: DLADMMParams(*(v[k] for v in node))  # noqa: E731
-        cp = None if state.compute_params is None else at_k(state.compute_params)
-        sub = TrainState(at_k(state.params), _map_params_nodes(at_k, state.opt_state), state.step, cp)
-        with torch.no_grad(), whole_gradient_norm(norm), sr_element_index(_element_index(tp.mesh, layout, k)):
-            new, _ = _apply_update(sub, loss, layer_grads[k], optimizer, compute_dtype, freeze)
-            _copy_into(sub.params, new.params)
-            if cp is not None:
-                _copy_into(cp, new.compute_params)
-            _zip_nodes(sub.opt_state, new.opt_state, _copy_into, lambda a, b: None)
-        layer_grads[k] = None
-    # Counts, keys and clip norms: every layer's update computed the same.
-    opt = _zip_nodes(state.opt_state, new.opt_state, lambda a, b: a, lambda a, b: b)
-    return TrainState(state.params, opt, state.step + 1, state.compute_params), loss
 
 
 def _tp_value_and_grad(tp: _TP, params: DLADMMParams, A_t, b, x_star_t, e_star, layout: str, layer_weights=None):
@@ -938,7 +885,7 @@ def make_sharded_train_step(
     replicated_w2) so get the whole gradient on every model rank, sharded
     ones their slice's; the data group sums them (_tp_value_and_grad).
     The update is the optimizer's, layer by layer and in place
-    (_apply_update_by_layer), its clip on the whole gradient's norm. The
+    (train/loop.update_by_layer), its clip on the whole gradient's norm. The
     products are fp32 torch.matmul (no kernel: the JAX package's TP step
     is XLA dots too), bf16 under ``compute_dtype`` on the state's
     persistent bf16 copy, with fp32 masters and an fp32 loss.
@@ -953,7 +900,11 @@ def make_sharded_train_step(
         loss_params, b = _mixed_precision_inputs(state, batch, compute_dtype)
         loss, grads = _tp_value_and_grad(tp, loss_params, A_t, b, batch.x_star, batch.e_star, layout,
                                          layer_weights)
-        return _apply_update_by_layer(tp, state, loss, grads, optimizer, compute_dtype, freeze, layout)
+        norm = _tp_grad_norm(tp, grads, layout, freeze)
+        with profiling.span("train.optimizer"):
+            state = update_by_layer(optimizer, state, grads, lambda: norm, freeze, compute_dtype,
+                                    lambda k: _element_index(mesh, layout, k))
+        return state, loss
 
     return step
 

@@ -18,7 +18,11 @@ pinned memory without a sync, the optimizer's step count, learning rate,
 bias corrections and clip scale are device tensors, and ``float(loss)``
 is read only at an eval. PyTorch runs eagerly, so the JAX step's ``jit``
 and buffer donation have no counterpart: the fused optimizer updates the
-masters in place instead.
+masters in place instead, and so does fp32 Adam where the whole-leaf
+update's new tensors would not fit beside the state: one layer at a time
+(``update_by_layer``, shared with the tensor-parallel step), so that a
+step's peak stays near the params, moments and gradients (tp_large's
+4.0B parameters on one card).
 
 Loss: MSE to the ground truth, final layer only, or deep supervision
 sum_k gamma_k (||x_k - x*||^2 + ||z_k - e*||^2) (``layer_loss``).
@@ -44,6 +48,8 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
+import os
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -222,12 +228,11 @@ _WHOLE_NORM = contextvars.ContextVar("whole_gradient_norm", default=None)
 
 
 @contextlib.contextmanager
-def whole_gradient_norm(norm: Tensor):
-    """Within the block, the clip transforms take ``norm`` as the global
-    norm of the gradients they see: the tensor-parallel step applies the
-    optimizer to one layer's slice of a rank's shard at a time, and the
-    clip is the whole gradient's (parallel/collectives.
-    _apply_update_by_layer)."""
+def whole_gradient_norm(norm: Callable[[], Tensor]):
+    """Within the block, the clip transforms take ``norm()`` as the global
+    norm of the gradients they see: the optimizer is applied to one
+    layer's slice at a time (update_by_layer), and the clip is the whole
+    gradient's."""
     token = _WHOLE_NORM.set(norm)
     try:
         yield
@@ -237,7 +242,7 @@ def whole_gradient_norm(norm: Tensor):
 
 def _norm_of(grads) -> Tensor:
     norm = _WHOLE_NORM.get()
-    return global_norm(grads) if norm is None else norm
+    return global_norm(grads) if norm is None else norm()
 
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
@@ -352,25 +357,170 @@ def _value_and_grad(params: DLADMMParams, loss_args: tuple, loss_kw: dict):
     return loss.detach(), DLADMMParams(*grads)
 
 
+def _frozen(grads: DLADMMParams, freeze) -> DLADMMParams:
+    """``grads`` with the fields named in ``freeze`` zeroed."""
+    if not freeze:
+        return grads
+    return DLADMMParams(*(torch.zeros_like(g) if name in freeze else g for name, g in zip(grads._fields, grads)))
+
+
 def _apply(optimizer, state: TrainState, grads: DLADMMParams, freeze=(), compute_dtype=None) -> TrainState:
     """The optimizer step on the masters; with a compute copy in the state
     the copy too: the fused sweep writes it in its pass, a plain
-    optimizer's new masters are cast again. Traced as ``train.optimizer``."""
+    optimizer's new masters are cast again. fp32 Adam (with or without a
+    clip) whose whole-leaf update would not fit in the memory left
+    (_whole_update_fits: tp_large on one card) updates the state in place,
+    one layer at a time (update_by_layer), with the values of the
+    whole-leaf update; otherwise a plain optimizer returns a new state.
+    Traced as ``train.optimizer``."""
     with profiling.span("train.optimizer"):
-        if freeze:
-            grads = DLADMMParams(*(
-                torch.zeros_like(g) if name in freeze else g for name, g in zip(grads._fields, grads)
-            ))
-        cp = state.compute_params
         if hasattr(optimizer, "fused_apply"):
+            cp = state.compute_params
             params, opt_state, cp = optimizer.fused_apply(
-                grads, state.opt_state, state.params, compute_dtype if cp is not None else None, cp)
-        else:
-            with torch.no_grad():
-                updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
-                params = apply_updates(state.params, updates)
-                cp = None if cp is None else _cast(params, compute_dtype)
-        return TrainState(params, opt_state, state.step + 1, cp)
+                _frozen(grads, freeze), state.opt_state, state.params, compute_dtype if cp is not None else None, cp)
+            return TrainState(params, opt_state, state.step + 1, cp)
+        with torch.no_grad():
+            if not _whole_update_fits(state) and _elementwise_state(state, grads):
+                layers = [DLADMMParams(*(g[k] for g in grads)) for k in range(grads[0].shape[0])]
+                return update_by_layer(optimizer, state, layers, lambda: global_norm(_frozen(grads, freeze)),
+                                       freeze, compute_dtype)
+            return _update(optimizer, state, grads, freeze, compute_dtype)
+
+
+def _update(optimizer, state: TrainState, grads: DLADMMParams, freeze=(), compute_dtype=None) -> TrainState:
+    """A plain optimizer's step as a function of ``state``: the frozen
+    fields zeroed, the chain's update added, the compute copy cast again."""
+    updates, opt_state = optimizer.update(_frozen(grads, freeze), state.opt_state, state.params)
+    params = apply_updates(state.params, updates)
+    cp = None if state.compute_params is None else _cast(params, compute_dtype)
+    return TrainState(params, opt_state, state.step + 1, cp)
+
+
+def _total_bytes(device: torch.device) -> int:
+    """The memory of ``device``: the card's, or the host's."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def _free_bytes(device: torch.device) -> int:
+    """Bytes a new allocation on ``device`` can take: the card's free
+    memory and what the caching allocator holds unused; the host's free
+    pages."""
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def _whole_update_fits(state: TrainState) -> bool:
+    """Whether fp32 Adam's whole-leaf update fits in the memory left: its
+    new moments, the updates before and after the rate and the new params
+    are held at once beside the state (four times the params' bytes),
+    with one more for the elementwise temporaries and the compute copy's
+    cast on top. An update that needs a tenth of the device's memory or
+    less fits without asking: the query (the card's free memory and the
+    allocator's statistics) costs a host-bound small step about half a
+    millisecond. Every configuration but tp_large on one card fits."""
+    size = lambda node: sum(v.nbytes for v in node)  # noqa: E731
+    need = 5 * size(state.params) + (0 if state.compute_params is None else size(state.compute_params))
+    device = state.params[0].device
+    return need <= _total_bytes(device) // 10 or need <= _free_bytes(device)
+
+
+def zip_nodes(full, new, on_node, on_leaf):
+    """Walk two trees of one structure: on_node(a, b) at DLADMMParams
+    nodes, on_leaf(a, b) at the other leaves; returns the mapped tree."""
+    if isinstance(full, DLADMMParams):
+        return on_node(full, new)
+    if isinstance(full, tuple) and hasattr(full, "_fields"):
+        return type(full)(*(zip_nodes(a, b, on_node, on_leaf) for a, b in zip(full, new)))
+    if isinstance(full, (tuple, list)):
+        return type(full)(zip_nodes(a, b, on_node, on_leaf) for a, b in zip(full, new))
+    return on_leaf(full, new)
+
+
+def map_params_nodes(fn, tree):
+    """``tree`` with every DLADMMParams node (the params, the moments)
+    replaced by fn(node); other leaves (counts, keys, norms) kept."""
+    return zip_nodes(tree, tree, lambda a, _: fn(a), lambda a, _: a)
+
+
+def _copy_into(dst: DLADMMParams, src: DLADMMParams) -> DLADMMParams:
+    for a, b in zip(dst, src):
+        a.copy_(b)
+    return dst
+
+
+def _like(node, params: DLADMMParams) -> bool:
+    return all(isinstance(v, Tensor) and v.shape == p.shape and v.dtype == p.dtype for v, p in zip(node, params))
+
+
+def _elementwise(tree, params: DLADMMParams) -> bool:
+    """Every DLADMMParams node of ``tree`` shaped and typed as ``params``,
+    every other leaf a scalar."""
+    if isinstance(tree, DLADMMParams):
+        return _like(tree, params)
+    if isinstance(tree, tuple):
+        return all(_elementwise(v, params) for v in tree)
+    return not isinstance(tree, Tensor) or tree.dim() == 0
+
+
+def _has_adam(tree) -> bool:
+    return isinstance(tree, AdamState) or (
+        isinstance(tree, tuple) and not isinstance(tree, DLADMMParams) and any(_has_adam(v) for v in tree))
+
+
+def _elementwise_state(state: TrainState, grads: DLADMMParams) -> bool:
+    """Whether the step is fp32 Adam's (with or without a clip): gradients
+    of the masters' types, an AdamState in the chain, every moment node
+    shaped and typed as the params and every other leaf a scalar (counts,
+    clip norms). The reduced-precision moments (int8 codes and scales,
+    bf16 leaves, the SR key) and other optimizers keep the whole-leaf
+    update."""
+    return (_like(grads, state.params) and _has_adam(state.opt_state)
+            and _elementwise(state.opt_state, state.params))
+
+
+def update_by_layer(optimizer, state: TrainState, layer_grads: list, whole_norm: Callable[[], Tensor], freeze=(),
+                    compute_dtype=None, element_index=None) -> TrainState:
+    """A plain optimizer applied one layer at a time, in place: layer k's
+    slice of the params, of every moment node and of the compute copy
+    goes through _update (the optimizer's own elementwise arithmetic) with
+    the layer's gradients cast to the masters' types (the tensor-parallel
+    step's bf16 ones), its new values are copied back into the state's
+    storage, and ``layer_grads[k]`` (that layer's gradients) is dropped
+    before layer k + 1. The clip transforms read ``whole_norm()``, the whole
+    gradient's global norm, called once at the first clip that asks;
+    bfloat16_sr moments draw at ``element_index(k)``'s indices
+    (train/qmoments.sr_element_index). Counts, keys and clip norms come
+    out of every layer alike; the last layer's are kept. The update
+    allocates one layer's temporaries, so the peak stays near the params,
+    moments and gradients (tp_large: 4.0B parameters on one card). The
+    single-card step (_apply) and the tensor-parallel one
+    (parallel/collectives.make_sharded_train_step) run through it; the
+    state passed in is the state returned."""
+    from dladmm_tpu_torch.train.qmoments import sr_element_index
+
+    norm = functools.cache(whole_norm)
+    scalars = None
+    for k in range(len(layer_grads)):
+        at_k = lambda node: DLADMMParams(*(v[k] for v in node))  # noqa: E731
+        cp = None if state.compute_params is None else at_k(state.compute_params)
+        sub = TrainState(at_k(state.params), map_params_nodes(at_k, state.opt_state), state.step, cp)
+        index = contextlib.nullcontext() if element_index is None else sr_element_index(element_index(k))
+        with torch.no_grad(), whole_gradient_norm(norm), index:
+            grads = DLADMMParams(*(g.to(p.dtype) for g, p in zip(layer_grads[k], sub.params)))
+            new = _update(optimizer, sub, grads, freeze, compute_dtype)
+            _copy_into(sub.params, new.params)
+            if cp is not None:
+                _copy_into(cp, new.compute_params)
+            zip_nodes(sub.opt_state, new.opt_state, _copy_into, lambda a, b: None)
+            scalars = map_params_nodes(lambda node: None, new.opt_state)
+        del new, grads
+        layer_grads[k] = None
+    opt = zip_nodes(state.opt_state, scalars, lambda a, b: a, lambda a, b: b)
+    return TrainState(state.params, opt, state.step + 1, state.compute_params)
 
 
 def _mean_of(parts):

@@ -165,7 +165,7 @@ def sr_element_index(index_fn):
     instead of 0 .. numel - 1: the tensor-parallel step updates one
     layer's slice of a rank's shard at a time and draws what the
     single-device step draws for those elements
-    (parallel/collectives._apply_update_by_layer)."""
+    (train/loop.update_by_layer)."""
     token = _SR_INDEX.set(index_fn)
     try:
         yield

@@ -492,6 +492,37 @@ def test_bwd_kernel_whole_batch_1024(cuda_device, data_grads):
 
 
 @pytest.mark.gpu
+def test_trajectory_and_bwd_kernels_at_tp_large_widths(cuda_device):
+    """Rows 2 and 4 at tp_large's widths and batch (m = 8192, n = 16384,
+    S = 256), K = 2: a layer's W1 (537 MB) is streamed from HBM, far over
+    the 50 MB L2, in every phase. The trajectory kernel against its plain
+    version at the forwards' tolerance, the backward kernel on its
+    stacks (the whole-batch route, the training policy's there) at the
+    backward's."""
+    from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj
+
+    m, n, K, S = 8192, 16384, 2, 256
+    g = torch.Generator(device=cuda_device).manual_seed(8192)
+    A = torch.randn((m, n), generator=g, device=cuda_device)
+    A = A / torch.linalg.vector_norm(A, dim=0, keepdim=True)
+    noise = lambda leaf: torch.randn(leaf.shape, generator=g, device=cuda_device) * leaf.pow(2).mean().sqrt()  # noqa: E731
+    p = DLADMMParams(*(leaf + 0.05 * noise(leaf) for leaf in init_dladmm_params(A, K=K)))
+    b = torch.randn((S, m), generator=g, device=cuda_device)
+    traj = cuda_traj.trajectory_forward(b, A, *p, with_tax=True)
+    _assert_close(traj, cuda_traj.trajectory_forward_plain(b, A, *p, with_tax=True))
+    cts = [torch.randn((S, n), generator=g, device=cuda_device), torch.randn((S, m), generator=g, device=cuda_device),
+           0.1 * torch.randn((S, m), generator=g, device=cuda_device)]
+    assert cuda_bwd.bwd_chunk_batch(m, n, m, S, K, cuda_bwd.weight_wave(cuda_device)) is None
+    before = dict(cuda_bwd.unroll_bwd.launches)
+    got = cuda_bwd.unroll_bwd(b, A, *p, *traj, *cts)
+    want = cuda_bwd.unroll_bwd_plain(b, A, *p, *traj, *cts)
+    torch.cuda.synchronize()
+    assert cuda_bwd.unroll_bwd.launches["whole"] == before["whole"] + 1
+    _assert_grads_close(got[0], want[0])
+    _assert_grads_close(got[1:], want[1:])
+
+
+@pytest.mark.gpu
 def test_persistent_kernels_raise_when_the_grid_is_refused(cuda_device, monkeypatch):
     """A grid larger than the card holds resident is refused by the
     cooperative launch: both wrappers raise, count no launch and run
