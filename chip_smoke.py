@@ -62,9 +62,12 @@ the first fault. Each phase prints one JSON line:
      sweep's device time each beside its bound, the host's enqueue), the
      one-leaf sweep on W1 + W2 and at synthetic_large (device time beside
      the bound), the trajectory kernel at
-     synthetic_small S = 64, 256 and synthetic_large S = 1024 with its
-     profiler device time, grid, work items per phase and barriers; the
-     cost of one grid barrier at 132, 264 and 528 blocks;
+     synthetic_small S = 64, 256, synthetic_large S = 1024 and tp_large
+     S = 256 with its profiler device time, tile, grid, work items per
+     phase and barriers, at the last two also on the tile its plan did not
+     pick, in the same turns, with that tile's device time, and both
+     tiles' stacks against the plain version (TOL); the cost of one grid
+     barrier at 132, 264 and 528 blocks;
  12. profile_train: torch.profiler over training steps at synthetic_small:
      device time per kernel, per phase (forward, backward loop,
      optimizer) and the busy share; the optimizer phase must hold the
@@ -360,6 +363,20 @@ the ``dladmm_tpu_torch`` beside this file: a copy of this file in a
 checkout of another commit times that commit's kernel, so that two
 commits can be timed in turns on one card.
 
+    python3 chip_smoke.py --traj-turns
+    python3 chip_smoke.py --serve-turns
+
+build every source and run only row 2 (``--traj-turns``) or row 1
+(``--serve-turns``) on both tiles, where the plan's one rule for both
+(schedule.tile_edge) is measured. Row 2 first checks each forced tile
+against the plain version (synthetic_large S = 64 and 1024, tp_large's
+widths at K = 2, S = 256, with and without the Ax stack; the two tiles
+bit for bit where neither splits a phase). Then both tiles in turns at
+synthetic_large S = 16 to 2048, 512 x 1024, 256 x 512, 128 x 256 and
+tp_large S = 1 to 256 (CUDA events and the profiler's device time, one
+``timing_traj_tiles`` or ``timing_serve_tiles`` line each), then the ok
+line.
+
     python3 chip_smoke.py --bf16-turns
 
 runs only phase 25: bf16 and fp32 serving (and the layer step) in
@@ -407,6 +424,7 @@ try:
     )
     from dladmm_tpu_torch.bench.timing import median_ms
     from dladmm_tpu_torch.utils.profiling import (
+        MARKER,
         IncompleteProfile,
         back_to_back_ms,
         device_kernels,
@@ -424,6 +442,7 @@ TOL = 1e-4  # kernel vs plain: max|diff| <= TOL * max(1, max|ref|)
 NMSE_TOL_DB = 0.01
 SMALL = dict(m=250, n=500, K=15)  # synthetic_small (utils/config.py)
 LARGE = dict(m=1000, n=2000, K=20)  # synthetic_large
+TP_LARGE = dict(m=8192, n=16384, K=20)  # tp_large (one card, batch 256)
 SMOKE = dict(m=32, n=64, K=4)  # smoke: the chunked backward's main path at batch 1024
 
 
@@ -457,6 +476,22 @@ def problem(torch, m: int, n: int, K: int, S: int, seed: int, device):
         for leaf in p0
     ]
     return A.to(device), b.to(device), DLADMMParams(*leaves).to(device)
+
+
+def card_problem(torch, m: int, n: int, K: int, S: int, seed: int, device):
+    """problem() drawn on the card, for tp_large's widths (16 GB of weights
+    at K = 20, which the host would draw for minutes): A with unit
+    columns, b Gaussian, the LADMM-exact params plus 0.05 N(0,1) scaled by
+    each leaf's RMS, in place."""
+    from dladmm_tpu_torch.models.unroll import init_dladmm_params
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    A = torch.randn((m, n), generator=g, device=device)
+    A /= torch.linalg.vector_norm(A, dim=0, keepdim=True)
+    p = init_dladmm_params(A, K=K)
+    for leaf in p:
+        leaf.add_(torch.randn(leaf.shape, generator=g, device=device).mul_(0.05 * leaf.pow(2).mean().sqrt()))
+    return A, torch.randn((S, m), generator=g, device=device), p
 
 
 def compare(torch, got, want, label: str, names=("x", "z", "lam"), phase="kernel") -> float:
@@ -532,7 +567,7 @@ def launched_plan(wrapper, barriers=None) -> dict:
 @contextlib.contextmanager
 def serve_tile(tile: int):
     """The serving kernel's wrappers launch the ``tile`` kernel inside,
-    whatever ops/schedule.serve_tile would choose (the tile comparison)."""
+    whatever ops/schedule.tile_edge would choose (the tile comparison)."""
     from dladmm_tpu_torch.ops import schedule
 
     plan = schedule.serve_plan
@@ -541,6 +576,20 @@ def serve_tile(tile: int):
         yield
     finally:
         schedule.serve_plan = plan
+
+
+@contextlib.contextmanager
+def traj_tile(tile: int):
+    """The trajectory wrapper launches the ``tile`` kernel inside,
+    whatever ops/schedule.tile_edge would choose (the tile comparison)."""
+    from dladmm_tpu_torch.ops import schedule
+
+    choose = schedule.tile_edge
+    schedule.tile_edge = lambda *a: tile
+    try:
+        yield
+    finally:
+        schedule.tile_edge = choose
 
 
 def host_enqueue_us(torch, fn, calls: int = 50) -> float:
@@ -791,11 +840,21 @@ def train_setup(torch, device):
 PHASES = ("data", "forward", "backward", "optimizer")
 
 
+PHASE_MARK_CYCLES = 20_000  # the first phase's marker spin; phase k's spins PHASE_MARK_STEP ** k times as long
+PHASE_MARK_US = 10.1  # its device µs at the H100's 1.98 GHz (the session's marker: ~1-2 µs)
+PHASE_MARK_STEP = 3
+
+
 class ProfiledPhases:
     """phased_step's ``mark`` for a profile: each phase runs inside a
     ``phase.<name>`` record_function range that ends after a device sync,
-    so every kernel of a phase, launched from any thread (the backward
-    runs on autograd's device thread), starts inside its phase's range."""
+    and every call k (the start of phase k, and at k = 4 the step's end)
+    enqueues phase k's marker after that sync: a spin_kernel of
+    PHASE_MARK_CYCLES * PHASE_MARK_STEP ** k cycles, told apart by its
+    length, which the counts leave out as they do the session's marker.
+    Every device operation of a phase, launched from any thread (the
+    backward runs on autograd's device thread), then runs between its
+    phase's marker and the next one on the device's own timeline."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -811,6 +870,7 @@ class ProfiledPhases:
         if k < len(PHASES):
             self.open = record_function(f"phase.{PHASES[k]}")
             self.open.__enter__()
+        self.torch.cuda._sleep(PHASE_MARK_CYCLES * PHASE_MARK_STEP ** k)
 
 
 def phased_step(torch, A, w, fwd, opt, state, i, plain=False, mark=None):
@@ -882,29 +942,53 @@ def time_train(torch, device, card):
         }
     emit("timing_train", config="synthetic_small batch 64 deep supervision int8", step=step, steps=20, card=card)
 
-    timings, plans = {}, {}
+    timings, plans, tiles = {}, {}, {}
     with torch.no_grad():
         for label, shape, S, reps in (("synthetic_small", SMALL, 64, 31), ("synthetic_small", SMALL, 256, 21),
-                                      ("synthetic_large", LARGE, 1024, 5)):
-            A_, b, p = problem(torch, S=S, seed=21, device=device, **shape)
+                                      ("synthetic_large", LARGE, 1024, 5), ("tp_large", TP_LARGE, 256, 3)):
+            draw = card_problem if label == "tp_large" else problem
+            A_, b, p = draw(torch, S=S, seed=21, device=device, **shape)
             fns = [lambda: trajectory_forward(b, A_, *p, with_tax=True),
                    lambda: trajectory_forward_plain(b, A_, *p, with_tax=True)]
+            fns[0]()
+            plan = launched_plan(trajectory_forward)
+            other = 128 if plan["tile"] == 32 else 32
+
+            def on_other_tile():
+                with traj_tile(other):
+                    return trajectory_forward(b, A_, *p, with_tax=True)
+
+            if label != "synthetic_small":  # both tiles against the plain version, then timed in turns
+                fns.append(on_other_tile)
+                want = fns[1]()
+                for tile, fn in ((plan["tile"], fns[0]), (other, on_other_tile)):
+                    compare(torch, fn(), want, f"{label} S={S} with_tax tile {tile}", names=("tx", "tz", "tlam", "tax"),
+                            phase="kernel_traj_tiles")
+                del want
             for _ in range(2):
                 for fn in fns:
                     fn()
-            ms, plain_ms = median_ms(fns, reps)
+            ms, plain_ms, *other_ms = median_ms(fns, reps)
             bms, by = traj_bound(S, with_tax=True, **shape)
             prof = profile_fn(fns[0], f"{label} S={S} with_tax")
-            enqueue_us = host_enqueue_us(torch, fns[0])
-            plan = launched_plan(trajectory_forward)
+            enqueue_us = host_enqueue_us(torch, fns[0], calls=5 if label == "tp_large" else 50)
+            detail = {}
+            if other_ms:
+                detail = {"other_tile": other, "other_tile_ms": other_ms[0],
+                          "other_tile_device_us_per_call": profile_fn(
+                              on_other_tile, f"{label} S={S} tile {other}")["device_us_per_call"]}
+                tiles[f"{label} S={S}"] = {"tile": plan["tile"], "ms": ms,
+                                           "device_us_per_call": prof["device_us_per_call"], **detail}
             if S == 64:
                 timings["trajectory_forward"] = (ms, plain_ms, bms, by)
                 plans["trajectory_forward"] = plan
             emit("timing_train_kernel", kernel="trajectory_forward", config=f"{label} S={S} with_tax",
                  kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                  device_us_per_call=prof["device_us_per_call"], device_kernels=prof["per_call"],
-                 host_enqueue_us=enqueue_us, **plan, card=card)
+                 host_enqueue_us=enqueue_us, **plan, **detail, card=card)
             del A_, b, p, fns
+            torch.cuda.empty_cache()  # tp_large's 16 GB of weights: not held for the phases after
+    plans["trajectory_forward"]["tiles"] = tiles
 
     leaves = INT8_LEAVES["synthetic_small"]
     st = [int8_state(torch, tqa, R, L, seed=R, device=device) for R, L in leaves]
@@ -934,6 +1018,95 @@ def time_train(torch, device, card):
         del master, mu, nu, grads
     timings["adam_step@int8"] = time_step(torch, tqa, device, card, "int8")
     return step, timings, plans
+
+
+def traj_turns(torch, device, card) -> None:
+    """--traj-turns: row 2 on both tiles. First each tile, forced, against
+    the plain version (TOL) at synthetic_large S = 64 and 1024 and at
+    tp_large's widths (K = 2, S = 256), with and without the Ax stack; at
+    the last, where neither tile splits a phase, the two tiles' stacks bit
+    for bit. Then both tiles in turns (tile_turns)."""
+    from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward, trajectory_forward_plain
+
+    tp2 = dict(TP_LARGE, K=2)
+    with torch.no_grad():
+        for label, shape, S in (("synthetic_large", LARGE, 64), ("synthetic_large", LARGE, 1024),
+                                ("tp_large K=2", tp2, 256)):
+            draw = card_problem if label.startswith("tp_large") else problem
+            A, b, p = draw(torch, S=S, seed=S + 61, device=device, **shape)
+            for with_tax in (True, False):
+                want = trajectory_forward_plain(b, A, *p, with_tax=with_tax)
+                names = ("tx", "tz", "tlam", "tax")[: len(want)]
+                got = {}
+                for tile in (128, 32):
+                    with traj_tile(tile):
+                        got[tile] = trajectory_forward(b, A, *p, with_tax=with_tax)
+                    plan = launched_plan(trajectory_forward)
+                    torch.cuda.synchronize()
+                    compare(torch, got[tile], want, f"{label} S={S} tile {tile} with_tax={with_tax}", names=names,
+                            phase="kernel_traj_tiles")
+                    emit("kernel_traj_tiles_plan", case=f"{label} S={S} tile {tile}", **plan)
+                same = all(torch.equal(x, y) for x, y in zip(got[128], got[32]))
+                unsplit = label.startswith("tp_large")
+                if unsplit and not same:
+                    raise AssertionError(f"{label} S={S} with_tax={with_tax}: the tiles' stacks differ")
+                emit("kernel_traj_tiles_bits", case=f"{label} S={S} with_tax={with_tax}", bit_for_bit=same)
+                del want, got
+            del A, b, p
+    tile_turns(torch, device, card, row=2)
+
+
+# Where the plan's rule (schedule.tile_edge) is measured, both rows:
+# (label, shape, batch sizes, repetitions).
+TURN_SHAPES = (("synthetic_large", LARGE, (16, 32, 40, 48, 64, 128, 256, 1024, 2048), 9),
+               ("512 x 1024", dict(m=512, n=1024, K=15), (48, 64, 128, 256, 1024), 9),
+               ("256 x 512", dict(m=256, n=512, K=15), (64, 128, 256, 512, 1024, 2048), 9),
+               ("128 x 256", dict(m=128, n=256, K=15), (1024,), 9),
+               ("tp_large", TP_LARGE, (1, 16, 32, 64, 256), 5))
+
+
+def tile_turns(torch, device, card, row: int) -> None:
+    """Row ``row`` (1: the serving forward, 2: the trajectory with its Ax
+    stack) on both tiles, forced, in turns (CUDA events around each call,
+    the profiler's device time beside) at TURN_SHAPES: one
+    ``timing_serve_tiles`` or ``timing_traj_tiles`` line each."""
+    from dladmm_tpu_torch.ops import schedule
+    from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward
+    from dladmm_tpu_torch.ops.cuda_unroll import unroll_forward
+
+    if row == 1:
+        kernel, force, kw, line = unroll_forward, serve_tile, {}, "timing_serve_tiles"
+        bound_of = lambda S, shape: bound(S, **shape)  # noqa: E731
+    else:
+        kernel, force, kw, line = trajectory_forward, traj_tile, {"with_tax": True}, "timing_traj_tiles"
+        bound_of = lambda S, shape: traj_bound(S, with_tax=True, **shape)  # noqa: E731
+    with torch.no_grad():
+        for label, shape, sizes, reps in TURN_SHAPES:
+            draw = card_problem if label == "tp_large" else problem
+            A, rows, p = draw(torch, S=max(sizes), seed=67, device=device, **shape)
+            for S in sizes:
+                b = rows[:S]  # the first S rows: contiguous
+                fns = []
+                for tile in (128, 32):
+                    def run(tile=tile, b=b):
+                        with force(tile):
+                            kernel(b, A, *p, **kw)
+                    fns.append(run)
+                for _ in range(2):
+                    for fn in fns:
+                        fn()
+                wide_ms, narrow_ms = median_ms(fns, reps)
+                bms, by = bound_of(S, shape)
+                out = {"config": f"{label} S={S}", "plan_tile": schedule.tile_edge(S, shape["m"], shape["n"]),
+                       "wide_ms": wide_ms, "tile32_ms": narrow_ms, "bound_ms": bms, "bound_by": by}
+                for tile, fn in zip((128, 32), fns):
+                    out[f"device_us_per_call_{tile}"] = device_us(fn, f"{label} S={S} tile {tile}")["device_us_per_call"]
+                    fn()
+                    out[f"plan_{tile}"] = launched_plan(kernel)
+                emit(line, **out, card=card)
+                del b, fns
+            del A, rows, p
+            torch.cuda.empty_cache()
 
 
 def time_step(torch, tqa, device, card, fmt: str, library: bool = False) -> dict:
@@ -990,29 +1163,53 @@ def time_step(torch, tqa, device, card, fmt: str, library: bool = False) -> dict
     return out
 
 
+def phase_mark(event):
+    """The phase marker ProfiledPhases enqueued at call k, read from the
+    spin's device length (PHASE_MARK_STEP ** k times PHASE_MARK_US, to
+    within a factor PHASE_MARK_STEP ** 0.5 either way of the clock), or
+    None: another operation, or the session's marker."""
+    if MARKER not in event.name:
+        return None
+    k = round(math.log(max(event.time_range.elapsed_us(), 1e-3) / PHASE_MARK_US, PHASE_MARK_STEP))
+    return k if 0 <= k <= len(PHASES) else None
+
+
 def device_us_by_phase(torch, prof, steps: int):
-    """Device time per step of each phase of ProfiledPhases-marked steps,
-    and each phase's device operations by name (µs and calls a step):
-    each kernel, memset or copy goes to the phase whose host range holds
-    its start. The profiler also mirrors each range (the phases and the
-    program's spans) onto the device timeline as an annotation spanning
-    its kernels; those are not device work and are left out, as are
-    runtime API calls."""
-    ranges = [(e.time_range.start, e.time_range.end, e.name[len("phase."):])
-              for e in prof.events()
-              if e.name.startswith("phase.") and e.device_type.name == "CPU"]
+    """Device time per step of each phase of ``steps`` ProfiledPhases-
+    marked steps, and each phase's device operations by name (µs and
+    calls a step). Each kernel, memset or copy goes to the phase of the
+    last phase marker before it on the device's timeline (after a step's
+    end marker: "data"), so that the split holds whatever offset the
+    profiler puts between the device's timeline and the host's: late in a
+    long process the card's records have been seen ~0.1-0.2 ms late
+    against the host's ranges (PERF.md §7). Each marker names its phase
+    (phase_mark), so that markers the profiler left out (it leaves a
+    session's leading records out at times, late in a process) move no
+    operation into another phase but the one before them: what runs
+    before the first marker recorded goes to the phase before it. A phase
+    whose records were left out then counts less than a step's worth; the
+    caller's check of what a phase holds sees it. The profiler also
+    mirrors each range (the phases and the program's spans) onto the
+    device timeline as an annotation spanning its kernels; those are not
+    device work and are left out, as are runtime API calls and the
+    session's own marker."""
+    order = PHASES + ("data",)  # the phase each marker starts: the step's end marker starts "data"
+    ops_ = sorted((e for e in prof.events()
+                   if e.device_type.name == "CUDA" and not is_annotation(e) and not e.name.startswith("cuda")),
+                  key=lambda e: e.time_range.start)
+    marks = [phase_mark(e) for e in ops_]
+    first = next((k for k in marks if k is not None), 0)
+    phase = order[first - 1]  # what runs before the first marker recorded
     per = {name: 0.0 for name in PHASES}
     ops = {name: {} for name in PHASES}
-    for e in prof.events():
-        if (e.device_type.name != "CUDA" or is_annotation(e) or e.name.startswith("cuda")
-                or "spin_kernel" in e.name):
-            continue
-        hit = [name for t0, t1, name in ranges if t0 <= e.time_range.start <= t1]
-        phase = hit[0] if hit else "data"
-        per[phase] += e.time_range.elapsed_us() / steps
-        op = ops[phase].setdefault(kernel_name(e.name), {"us": 0.0, "calls": 0.0})
-        op["us"] += e.time_range.elapsed_us() / steps
-        op["calls"] += 1 / steps
+    for e, k in zip(ops_, marks):
+        if k is not None:
+            phase = order[k]
+        elif MARKER not in e.name:
+            per[phase] += e.time_range.elapsed_us() / steps
+            op = ops[phase].setdefault(kernel_name(e.name), {"us": 0.0, "calls": 0.0})
+            op["us"] += e.time_range.elapsed_us() / steps
+            op["calls"] += 1 / steps
     return per, ops
 
 
@@ -5093,6 +5290,17 @@ def main() -> int:
         print(card, flush=True)
         build_phase()
         print(json.dumps({"kernels": denoise_phases(torch, torch.device("cuda", 0), card)}), flush=True)
+        return 0
+    if sys.argv[1:] in (["--traj-turns"], ["--serve-turns"]):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = card_line()
+        print(card, flush=True)
+        build_phase()
+        if sys.argv[1] == "--traj-turns":
+            traj_turns(torch, torch.device("cuda", 0), card)
+        else:
+            tile_turns(torch, torch.device("cuda", 0), card, row=1)
+        print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}), flush=True)
         return 0
     if sys.argv[1:] == ["--bf16-turns"]:
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -60,7 +60,12 @@
 // time with cp.async in a 3-stage ring, one block a SM), which the
 // serving plan takes where m and n suit its 16-byte staging and its
 // tiles are whole (synthetic_large). Its x and z phases read u and v as
-// plain matrices that the epilogues write once a layer (below). At
+// plain matrices that the epilogues write once a layer (below). The fp32
+// trajectory has the same wide tile (traj_persistent<kWT, float>), which
+// runs the serving kernel's wide phases on a view of each layer's stack
+// slices (traj_layer), where the serving kernel's rule takes it
+// (ops/schedule tile_edge); bf16 storage keeps the trajectory on the 32
+// tile. At
 // synthetic_small all layers' W1 + W2 plus A (11.75 MB) stay in the 50 MB
 // L2.
 //
@@ -200,6 +205,7 @@ struct TrajArgs {
   int* cnt;                     // one counter a tile
   int with_tax, S, m, n, K;
   Split sx, sax, sz;            // the x, Ax and z phases' depth splits
+  float *u, *v;                 // wide tile: the x and z phases' operands (S, m), fp32; else null
 };
 
 // One phase of layer k over all its items (l1 prox, as the TPU kernel).
@@ -327,22 +333,6 @@ __device__ void traj_phase(const TrajArgs<TS>& a, TileSmem& sm, int k) {
         }
       }
     }
-  }
-}
-
-// All K layers in one cooperative launch: x, Ax, z phases a layer with a
-// grid barrier after each but the last.
-template <class TS>
-__global__ void __launch_bounds__(kPT, 4) traj_persistent(const TrajArgs<TS> a) {
-  __shared__ TileSmem sm;
-  cg::grid_group grid = cg::this_grid();
-  for (int k = 0; k < a.K; ++k) {
-    traj_phase<PHASE_X, TS>(a, sm, k);
-    grid.sync();
-    traj_phase<PHASE_AX, TS>(a, sm, k);
-    grid.sync();
-    traj_phase<PHASE_Z, TS>(a, sm, k);
-    if (k + 1 < a.K) grid.sync();
   }
 }
 
@@ -725,23 +715,97 @@ __global__ void __launch_bounds__(kPT, T == kT ? 4 : 1) unroll_persistent(const 
   }
 }
 
+// -- the trajectory forward ---------------------------------------------------
+//
+// Layer k of the fp32 trajectory as the serving kernel's wide phases see
+// the first layer of a call: a layer step from slice k - 1 of the stacks
+// (layer 0: the zero state) into slice k, with K - k layers left, so that
+// its z epilogue also writes the next layer's u. The trajectory's wide
+// tile runs wide_u0 and wide_phase on this view, unchanged: its x1, Ax1,
+// v, z1, lam1 and u are the serving kernel's expressions, which are the
+// 32 tile's (traj_phase's) in their order.
+__host__ __device__ inline ServeArgs<float> traj_layer(const TrajArgs<float>& a, int k) {
+  const size_t sn = (size_t)a.S * a.n, smm = (size_t)a.S * a.m;
+  float *x = a.tx + k * sn, *z = a.tz + k * smm, *lam = a.tlam + k * smm;
+  float* ax = a.with_tax ? a.tax + k * smm : a.tax;  // without tAx one buffer, in place (Races)
+  return ServeArgs<float>{a.b, a.A, a.W1 + (size_t)k * a.n * a.m, a.W2 + (size_t)k * a.m * a.m,
+                          a.th1 + (size_t)k * a.n, a.th2 + (size_t)k * a.m, a.beta + k, nullptr, 0, 1, 0, 1,
+                          k ? x - sn : nullptr, k ? z - smm : nullptr, k ? lam - smm : nullptr,
+                          k ? (a.with_tax ? ax - smm : ax) : nullptr,  // null: the zero state
+                          x, ax, nullptr, nullptr, {z, z}, {lam, lam}, a.part, a.cnt,
+                          a.S, a.m, a.n, a.K - k, PROX_L1, PROX_L1, 1.0f, 1.0f, a.sx, a.sax, a.sz, a.u, a.v};
+}
+
+// All K layers in one cooperative launch: x, Ax, z phases a layer with a
+// grid barrier after each but the last. The 32 tile (either storage) at 4
+// blocks a SM; the wide tile (fp32 storage) at one block a SM, its ring in
+// dynamic shared memory, layer 0's u first, behind one barrier more, as
+// unroll_persistent's.
+template <int T, class TS>
+__global__ void __launch_bounds__(kPT, T == kT ? 4 : 1) traj_persistent(const TrajArgs<TS> a) {
+  cg::grid_group grid = cg::this_grid();
+  if constexpr (T == kT) {
+    __shared__ TileSmem sm;
+    for (int k = 0; k < a.K; ++k) {
+      traj_phase<PHASE_X, TS>(a, sm, k);
+      grid.sync();
+      traj_phase<PHASE_AX, TS>(a, sm, k);
+      grid.sync();
+      traj_phase<PHASE_Z, TS>(a, sm, k);
+      if (k + 1 < a.K) grid.sync();
+    }
+  } else {
+    extern __shared__ __align__(16) unsigned char wide_smem[];
+    __shared__ int last;
+    wide_u0(traj_layer(a, 0));
+    grid.sync();
+    for (int k = 0; k < a.K; ++k) {
+      const ServeArgs<float> l = traj_layer(a, k);
+      wide_phase<PHASE_X, false, float>(l, wide_smem, last, 0);
+      grid.sync();
+      wide_phase<PHASE_AX, false, float>(l, wide_smem, last, 0);
+      grid.sync();
+      wide_phase<PHASE_Z, false, float>(l, wide_smem, last, 0);
+      if (k + 1 < a.K) grid.sync();
+    }
+  }
+}
+
+// A wide-tile instantiation `fn` with its ceiling of dynamic shared
+// memory raised to its ring (`smem`), or null where that is refused.
+template <class TS>
+const void* wide_kernel(const void* fn, int* smem) {
+  *smem = wide_smem_bytes<TS>();
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem) != cudaSuccess) {
+    cudaGetLastError();
+    return nullptr;
+  }
+  return fn;
+}
+
 // The instantiation of a tile edge (32 or kWT), staging and storage, or
 // null; its dynamic shared memory in `smem`, with the kernel's ceiling
 // raised to it.
 template <class TS>
 const void* serve_kernel(int tile, int bf16, int* smem) {
-  const void* fn = nullptr;
   *smem = 0;
-  if (tile == kT) fn = bf16 ? (const void*)unroll_persistent<kT, true, TS> : (const void*)unroll_persistent<kT, false, TS>;
-  if (tile == kWT) {
-    fn = bf16 ? (const void*)unroll_persistent<kWT, true, TS> : (const void*)unroll_persistent<kWT, false, TS>;
-    *smem = wide_smem_bytes<TS>();
-    if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem) != cudaSuccess) {
-      cudaGetLastError();
-      return nullptr;
-    }
+  if (tile == kT) return bf16 ? (const void*)unroll_persistent<kT, true, TS> : (const void*)unroll_persistent<kT, false, TS>;
+  if (tile == kWT)
+    return wide_kernel<TS>(bf16 ? (const void*)unroll_persistent<kWT, true, TS> : (const void*)unroll_persistent<kWT, false, TS>,
+                           smem);
+  return nullptr;
+}
+
+// The trajectory's instantiation of a tile edge: 32 for either storage,
+// kWT for fp32 storage only (bf16 keeps the 32 tile); else null.
+template <class TS>
+const void* traj_kernel(int tile, int* smem) {
+  *smem = 0;
+  if (tile == kT) return (const void*)traj_persistent<kT, TS>;
+  if constexpr (sizeof(TS) == 4) {
+    if (tile == kWT) return wide_kernel<TS>((const void*)traj_persistent<kWT, TS>, smem);
   }
-  return fn;
+  return nullptr;
 }
 
 const void* serve_kernel(int tile, int bf16, int storage, int* smem) {
@@ -752,7 +816,7 @@ const void* serve_kernel(int tile, int bf16, int storage, int* smem) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
 
-// The wide tile's layout rules (ops/schedule.serve_tile): every row it
+// The wide tile's layout rules (ops/schedule.tile_edge): every row it
 // stages, and every row its epilogue reads or writes 4 values at a time,
 // starts on 16 bytes and is whole 16-byte chunks (m and n multiples of 4
 // floats, of 8 bf16 for bf16 storage), and the u and v buffers are given.
@@ -895,36 +959,42 @@ extern "C" int dladmm_unroll_occupancy(int tile, int bf16, int storage, int devi
   return (int)err;
 }
 
-// Blocks of traj_persistent<storage> (0: fp32, 1: bf16) resident on one
-// SM, and the card's SMs: the grid ceiling of its cooperative launch
-// (ops/schedule.launch_grid).
-extern "C" int dladmm_traj_occupancy(int storage, int device, int* blocks_per_sm, int* sms) {
-  const void* fn = storage ? (const void*)traj_persistent<__nv_bfloat16> : (const void*)traj_persistent<float>;
+// Blocks of traj_persistent<tile, storage> (storage 0: fp32, 1: bf16,
+// which has the 32 tile only) resident on one SM, and the card's SMs: the
+// grid ceiling of its cooperative launch (ops/schedule.traj_plan).
+extern "C" int dladmm_traj_occupancy(int tile, int storage, int device, int* blocks_per_sm, int* sms) {
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kPT, 0);
+  if (err != cudaSuccess) return (int)err;
+  int smem = 0;
+  const void* fn = storage ? traj_kernel<__nv_bfloat16>(tile, &smem) : traj_kernel<float>(tile, &smem);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kPT, smem);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   return (int)err;
 }
 
 namespace {
 
-// Clear `zeros` and the counters and launch `grid` blocks of
-// traj_persistent<TS> on `stream`. A refused launch runs nothing; its
-// error is cleared for later launches' checks and returned.
+// Clear the counters (and, for the 32 tile, `zeros`) and launch `grid`
+// blocks of traj_persistent<tile, TS> on `stream`. A refused launch runs
+// nothing; its error is cleared for later launches' checks and returned.
 template <class TS>
-int launch_traj(TrajArgs<TS>& a, float* zeros, int n_counters, int grid, int device, void* stream_handle) {
+int launch_traj(TrajArgs<TS>& a, int n_counters, int tile, int grid, int device, void* stream_handle) {
   if (a.S < 1 || a.m < 1 || a.n < 1 || a.K < 1 || grid < 1 || a.sx.len < 1 || a.sax.len < 1 ||
-      a.sz.len < 1)
+      a.sz.len < 1 || (tile == kT && a.zeros == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  int smem = 0;
+  const void* fn = traj_kernel<TS>(tile, &smem);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   const size_t sn = (size_t)a.S * a.n, sm = (size_t)a.S * a.m;
-  err = cudaMemsetAsync(zeros, 0, (sn > sm ? sn : sm) * sizeof(float), stream);
+  if (tile == kT) err = cudaMemsetAsync(const_cast<float*>(a.zeros), 0, (sn > sm ? sn : sm) * sizeof(float), stream);
   if (err == cudaSuccess) err = cudaMemsetAsync(a.cnt, 0, (size_t)n_counters * sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)traj_persistent<TS>, dim3(grid), dim3(kPT), args, 0, stream);
+  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kPT), args, smem, stream);
   if (err != cudaSuccess) cudaGetLastError();
   return (int)err;
 }
@@ -932,27 +1002,32 @@ int launch_traj(TrajArgs<TS>& a, float* zeros, int n_counters, int grid, int dev
 }  // namespace
 
 // All K layers of the trajectory forward (l1 prox) as one cooperative
-// launch of `grid` blocks on `stream`; no sync. Inputs as
-// dladmm_unroll_forward. Outputs the stacks tx (K,S,n), tz (K,S,m),
-// tlam (K,S,m) and, with with_tax, tax (K,S,m); without it `tax` is one
-// (S,m) scratch buffer. Workspace (ops/schedule.traj_workspace): `zeros`
-// of S*max(n,m) floats and `counters` of n_counters ints, both zeroed
-// here, and `partials`. sched: the depth slices and their length for the
-// x, Ax and z phases. A grid the card cannot hold resident is refused
+// launch of `grid` blocks of the `tile` (32 or 128) kernel on `stream`; no
+// sync. Inputs as dladmm_unroll_forward. Outputs the stacks tx (K,S,n),
+// tz (K,S,m), tlam (K,S,m) and, with with_tax, tax (K,S,m); without it
+// `tax` is one (S,m) scratch buffer. Workspace (ops/schedule.traj_workspace):
+// for the 32 tile `zeros` of S*max(n,m) floats (null on the wide tile,
+// whose layer 0 reads the zero state through a block-uniform branch), for
+// the wide tile its operands u and v (S,m) each (null on the 32 tile),
+// `counters` of n_counters ints, zeroed here with `zeros`, and `partials`.
+// sched: the depth slices and their length for the x, Ax and z phases.
+// The wide tile takes the serving kernel's layout rules (wide_layout). A
+// grid the card cannot hold resident is refused
 // (cudaErrorCooperativeLaunchTooLarge) and nothing runs. Returns a
 // cudaError_t.
 extern "C" int dladmm_unroll_trajectory(
     const float* b, const float* A, const float* W1, const float* W2,
     const float* th1, const float* th2, const float* beta, float* tx,
-    float* tz, float* tlam, float* tax, float* zeros, float* partials, int* counters,
-    int n_counters, int with_tax, int S, int m, int n, int K, int grid, int x_slices,
+    float* tz, float* tlam, float* tax, float* zeros, float* u, float* v, float* partials, int* counters,
+    int n_counters, int with_tax, int S, int m, int n, int K, int tile, int grid, int x_slices,
     int x_len, int ax_slices, int ax_len, int z_slices, int z_len, int device,
     void* stream_handle) {
   TrajArgs<float> a{b, A, W1, W2, th1, th2, beta, nullptr, tx, tz, tlam, tax, zeros,
                     nullptr, nullptr, {nullptr, nullptr}, {nullptr, nullptr}, partials, counters,
                     with_tax, S, m, n, K,
-                    Split{x_slices, x_len}, Split{ax_slices, ax_len}, Split{z_slices, z_len}};
-  return launch_traj(a, zeros, n_counters, grid, device, stream_handle);
+                    Split{x_slices, x_len}, Split{ax_slices, ax_len}, Split{z_slices, z_len}, u, v};
+  if (tile == kWT && !wide_layout(traj_layer(a, 0))) return (int)cudaErrorInvalidValue;
+  return launch_traj(a, n_counters, tile, grid, device, stream_handle);
 }
 
 // dladmm_unroll_trajectory with bf16 storage: b, A, W1, W2, th1, th2 and
@@ -978,8 +1053,9 @@ extern "C" int dladmm_unroll_trajectory_bf16(
   TrajArgs<__nv_bfloat16> a{b, A, W1, W2, th1, th2, beta, beta16, tx, tz, tlam, tax, zeros,
                             x_work, ax_work, {z_work, z_work + sm}, {lam_work, lam_work + sm},
                             partials, counters, with_tax, S, m, n, K,
-                            Split{x_slices, x_len}, Split{ax_slices, ax_len}, Split{z_slices, z_len}};
-  return launch_traj(a, zeros, n_counters, grid, device, stream_handle);
+                            Split{x_slices, x_len}, Split{ax_slices, ax_len}, Split{z_slices, z_len},
+                            nullptr, nullptr};
+  return launch_traj(a, n_counters, kT, grid, device, stream_handle);
 }
 
 // `iters` grid barriers in one cooperative launch of `grid` blocks.

@@ -14,7 +14,7 @@
 // 16-byte chunk: the chunks past the tile's edge or the slice's depth
 // are filled with zeros. That needs every row to start on 16 bytes and
 // the depth to be a multiple of a chunk (m and n multiples of 4, or of 8
-// for bf16 storage; ops/schedule.serve_tile).
+// for bf16 storage; ops/schedule.tile_edge).
 //
 // Register blocking. 256 threads own 8 x 8 outputs each: thread (ty, tx)
 // the rows ty + 16 i and the columns tx + 16 j. Shared memory holds both

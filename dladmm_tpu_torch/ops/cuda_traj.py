@@ -8,9 +8,11 @@ VJP, whose forward is this kernel). The kernel is the
 ``dladmm_unroll_trajectory`` entry of ``csrc/unroll.cu``: one persistent
 cooperative launch that runs the K layers' three fused GEMM phases with a
 grid barrier between them, each layer reading its input state from slice
-k-1 of the stacks and writing slice k. Its grid and the depth split of
-each phase come from ``ops/schedule.traj_schedule``; a grid the card
-cannot hold resident is refused by the launch and raises here.
+k-1 of the stacks and writing slice k. Its tile (``schedule.tile_edge``:
+the 32 tile, or for fp32 storage where the shape suits its 16-byte
+staging the serving kernel's wide 128 tile), grid and the depth split of
+each phase come from ``ops/schedule.traj_plan``; a grid the card cannot
+hold resident is refused by the launch and raises here.
 
 ``trajectory_forward`` is the one entry: on a CUDA tensor it launches
 the kernel or raises; on a CPU tensor it runs ``trajectory_forward_plain``.
@@ -50,15 +52,15 @@ from torch import Tensor
 from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
 from dladmm_tpu_torch.ops import cuda_build, schedule
 from dladmm_tpu_torch.ops.cuda_bwd import bwd_chunk_batch, unroll_bwd, weight_wave
-from dladmm_tpu_torch.ops.cuda_unroll import SRC, kernel_args, needs_grad, storage_dtype
+from dladmm_tpu_torch.ops.cuda_unroll import SRC, kernel_args, needs_grad, staging_vec, storage_dtype
 from dladmm_tpu_torch.ops.unroll_vjp import _param_grads, bwd_from_carries, shifted_residuals
 from dladmm_tpu_torch.utils.profiling import check_kernel_outputs
 
 _count_lock = threading.Lock()
 
 
-_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
-# dladmm_unroll_trajectory_bf16: a bf16 beta pointer and the fp32 state's four buffers more.
+_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+# dladmm_unroll_trajectory_bf16: a bf16 beta pointer and the fp32 state's four buffers, no u, v or tile.
 _ARGTYPES_BF16 = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 
 def trajectory_forward_plain(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
@@ -92,9 +94,10 @@ def trajectory_forward(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
     in it. CUDA tensors launch the kernel; CPU tensors run the plain
     version (``trajectory_forward_plain_bf16`` for bf16). Each kernel
     launch adds one to ``trajectory_forward.launches`` (bf16 storage:
-    ``launches_bf16``) and leaves the plan it launched with in
+    ``launches_bf16``; of the fp32 launches, those on the wide tile also
+    to ``launches_wide``) and leaves the plan it launched with in
     ``trajectory_forward.last_plan`` ((blocks a SM, SMs), grid, {phase:
-    Split}, K)."""
+    Split}, K; the tile is each Split's)."""
     if b.device.type == "cpu":
         if storage_dtype(b, A, W1, W2, th1, th2, beta) == torch.bfloat16:
             return trajectory_forward_plain_bf16(b, A, W1, W2, th1, th2, beta, with_tax)
@@ -109,8 +112,9 @@ def trajectory_forward(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
     dev = b.device.index
     launch = (cuda_build.entry(SRC, "dladmm_unroll_trajectory_bf16", _ARGTYPES_BF16) if bf16
               else cuda_build.entry(SRC, "dladmm_unroll_trajectory", _ARGTYPES))
-    occ = cuda_build.occupancy(SRC, "dladmm_traj_occupancy", dev, int(bf16))
-    grid, sp, ws = schedule.traj_plan(S, m, n, *occ, **({"bf16_state": True} if bf16 else {}))
+    tile = schedule.TILE if bf16 else schedule.tile_edge(S, m, n, staging_vec((b, A, W1, W2), False))
+    occ = cuda_build.occupancy(SRC, "dladmm_traj_occupancy", dev, tile, int(bf16))
+    grid, sp, ws = schedule.traj_plan(S, m, n, *occ, bf16_state=bf16, tile=tile)
     with torch.cuda.device(b.device):
         kw = dict(dtype=b.dtype, device=b.device)
         tx = torch.empty((K, S, n), **kw)
@@ -120,22 +124,22 @@ def trajectory_forward(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
         else:  # fp32: the kernel's Ax scratch; bf16 keeps Ax in the workspace
             tax = None if bf16 else torch.empty((S, m), **kw)
         work = torch.empty((ws["_total"][0],), dtype=torch.float32, device=b.device)
-        at = lambda name: work.data_ptr() + 4 * ws[name][0]  # noqa: E731
+        at = lambda name: work.data_ptr() + 4 * ws[name][0] if name in ws else None  # noqa: E731
         stream = torch.cuda.current_stream(b.device).cuda_stream
         sched = (*(v for ph in ("x", "ax", "z") for v in (sp[ph].slices, sp[ph].length)), dev, stream)
-        head = (ws["counters"][1], int(with_tax), S, m, n, K, grid)
+        head = (ws["counters"][1], int(with_tax), S, m, n, K)
         if bf16:
             betas = (beta, None) if beta.dtype == torch.float32 else (None, beta)
             err = launch(
                 *(t.data_ptr() for t in (b, A, W1, W2, th1, th2)),
                 *(None if t is None else t.data_ptr() for t in (*betas, tx, tz, tlam, tax)),
                 *(at(name) for name in ("x", "ax", "z", "lam", "zeros", "partials", "counters")),
-                *head, *sched,
+                *head, grid, *sched,
             )
         else:
             err = launch(
                 *(t.data_ptr() for t in (b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax)),
-                at("zeros"), at("partials"), at("counters"), *head, *sched,
+                *(at(name) for name in ("zeros", "u", "v", "partials", "counters")), *head, tile, grid, *sched,
             )
         cuda_build.check(SRC, err, "CUDA trajectory kernel")
     with _count_lock:
@@ -143,6 +147,7 @@ def trajectory_forward(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
             trajectory_forward.launches_bf16 += 1
         else:
             trajectory_forward.launches += 1
+            trajectory_forward.launches_wide += tile == schedule.WIDE
         trajectory_forward.last_plan = (occ, grid, sp, K)
     check_kernel_outputs("trajectory_forward", tx, tz, tlam, tax)
     return (tx, tz, tlam, tax) if with_tax else (tx, tz, tlam)
@@ -150,6 +155,7 @@ def trajectory_forward(b, A, W1, W2, th1, th2, beta, with_tax: bool = False):
 
 trajectory_forward.launches = 0
 trajectory_forward.launches_bf16 = 0
+trajectory_forward.launches_wide = 0
 trajectory_forward.last_plan = None
 
 

@@ -68,7 +68,7 @@ STORAGE = (torch.float32, torch.bfloat16)
 def staging_vec(inputs, bf16_state: bool) -> int:
     """Elements of one 16-byte chunk of the wide tile's staging (4 fp32,
     8 bf16), or 0 where an input it reads 16 bytes at a time does not
-    start on 16 bytes (a view at an odd offset): schedule.serve_tile then
+    start on 16 bytes (a view at an odd offset): schedule.tile_edge then
     keeps the 32 tile."""
     if any(t.data_ptr() % 16 for t in inputs):
         return 0

@@ -6,9 +6,9 @@ serving forward (``csrc/int8_unroll.cu`` ``int8_persistent``: int32
 partials, depth in bytes, ``int8_plan``).
 
 Every phase of those kernels is one GEMM (fp32, or int8 codes into
-int32) whose output is cut into 32 x 32 tiles (the fp32 serving kernel:
-32 x 32 or the wide 128 x 128, chosen by the shape and the grid; the int8
-kernel: 32 x 32 or 64 x 64). A phase with few tiles (synthetic_small at S = 64 has 16-32) also
+int32) whose output is cut into 32 x 32 tiles (the fp32 serving kernel
+and the fp32 trajectory: 32 x 32 or the wide 128 x 128, chosen by the
+shape; the int8 kernel: 32 x 32 or 64 x 64). A phase with few tiles (synthetic_small at S = 64 has 16-32) also
 cuts its depth into slices, so that tiles x slices work items fill the
 launch's grid; each slice writes a partial tile to a workspace, and the
 last block to finish a tile (counted by an integer atomic per tile) sums
@@ -29,13 +29,13 @@ from __future__ import annotations
 import functools
 from typing import Dict, NamedTuple, Tuple
 
-TILE = 32  # output tile edge of every phase but the serving kernel's (csrc: kT)
-WIDE = 128  # the serving kernel's wide tile edge (csrc/wide_tile.cuh: kWT)
-TILES = (TILE, WIDE)  # the serving kernel's tile edges (csrc: unroll_persistent<T>)
+TILE = 32  # output tile edge of every phase but the wide tile's (csrc: kT)
+WIDE = 128  # the serving kernel's and the fp32 trajectory's wide tile edge (csrc/wide_tile.cuh: kWT)
+TILES = (TILE, WIDE)  # the serving kernel's and the trajectory's tile edges (csrc: unroll_persistent<T>, traj_persistent<T>)
 BK = 16  # depth of one shared-memory step (csrc: kBK)
 MIN_STEPS = 2  # BK-deep steps a depth slice holds at least
-WIDE_MIN_ROWS = 32  # batch rows from which the wide tile pays for its fill (PERF.md §6, row 1)
-WIDE_MIN_EDGE = 256  # m and n from which the wide tile pays for its fill (PERF.md §6, row 1)
+WIDE_MIN_EDGE = 256  # m and n from which the wide tile pays for its fill (PERF.md §6, rows 1 and 2)
+WIDE_MIN_FLOPS = 3.5e8  # one layer's operations from which the wide tile pays for its fill (PERF.md §6, rows 1 and 2)
 WIDE_FILL_STEPS = 4  # BK steps an item of the wide tile costs beyond its depth
 PER_SM = 2  # blocks per SM of the persistent grid when the tiles are few
 ALIGN = 64  # workspace buffers start on 64-float (256-byte) boundaries
@@ -96,12 +96,14 @@ def traj_shapes(S: int, m: int, n: int) -> Dict[str, Tuple[int, int, int]]:
     return {"x": (S, n, m), "ax": (S, m, n), "z": (S, m, m)}
 
 
-def traj_schedule(S: int, m: int, n: int, blocks_per_sm: int, sms: int):
-    """(grid, {phase: Split}) of one trajectory call."""
-    shapes = traj_shapes(S, m, n)
-    widest = max(cdiv(r, TILE) * cdiv(c, TILE) for r, c, _ in shapes.values())
-    grid = launch_grid(blocks_per_sm, sms, widest)
-    return grid, {k: split(*v, grid) for k, v in shapes.items()}
+def traj_schedule(S: int, m: int, n: int, blocks_per_sm: int, sms: int, tile: int = TILE):
+    """(grid, {phase: Split}) of one call on ``tile`` (TILE or WIDE;
+    blocks_per_sm, sms: that tile's kernel's occupancy) of the trajectory
+    or of the serving kernel (``make_serve_plan``), whose phases are the
+    same."""
+    grid = launch_grid(blocks_per_sm, sms, widest_tiles(S, m, n, tile))
+    cut = wide_split if tile == WIDE else split
+    return grid, {k: cut(*v, grid, tile) for k, v in traj_shapes(S, m, n).items()}
 
 
 def partial_floats(splits) -> int:
@@ -111,14 +113,17 @@ def partial_floats(splits) -> int:
 
 def traj_workspace(S: int, m: int, n: int, splits: Dict[str, Split],
                    bf16_state: bool = False) -> Dict[str, Tuple[int, int]]:
-    """{buffer: (offset, floats)} of the trajectory's workspace: the zero
-    state of layer 0, the partials and one int32 counter per tile. With
-    ``bf16_state`` (bf16 storage, csrc/unroll.cu) also the fp32 state the
-    layers pass on unrounded: x (S, n), Ax (S, m), and z and lam, two
-    (S, m) buffers each."""
+    """{buffer: (offset, floats)} of the trajectory's workspace: on the 32
+    tile the zero state of layer 0, on the wide tile instead its operands u
+    and v, (S, m) each (its layer 0 reads no zero state); the partials and
+    one int32 counter per tile. With ``bf16_state`` (bf16 storage, 32 tile
+    only, csrc/unroll.cu) also the fp32 state the layers pass on
+    unrounded: x (S, n), Ax (S, m), and z and lam, two (S, m) buffers
+    each."""
+    first = {"u": S * m, "v": S * m} if splits["x"].tile == WIDE else {"zeros": S * max(n, m)}
     state = {"x": S * n, "ax": S * m, "z": 2 * S * m, "lam": 2 * S * m} if bf16_state else {}
     return layout({
-        "zeros": S * max(n, m),
+        **first,
         "partials": partial_floats(splits.values()),
         "counters": max(sp.tiles for sp in splits.values()),
         **state,
@@ -153,17 +158,26 @@ def wide_fits(m: int, n: int, vec: int) -> bool:
     return vec > 0 and m % vec == 0 and n % vec == 0
 
 
-def serve_tile(S: int, m: int, n: int, vec: int = 4) -> int:
-    """WIDE where its 16-byte staging fits (``wide_fits``) and the call is
-    large enough for its faster mainloop to pay for its longer fill (a
-    ring of 128 x 16 stages, one block a SM, the epilogue through shared
-    memory): at least WIDE_MIN_ROWS rows and m and n of WIDE_MIN_EDGE or
-    more. Measured on the H100 (PERF.md): synthetic_large from S = 32 up
-    (S = 64: 2.28 against 2.93 ms; S = 1024: 7.51 against 22.35), not
-    below (S = 1: 1.92 against 1.64 ms), nor the image benchmark's 64 x 256
-    or a 128 x 256 problem. Else 32, whose depth slices fill the card at
-    every serving bucket; the grid fills the card either way."""
-    big = S >= WIDE_MIN_ROWS and min(m, n) >= WIDE_MIN_EDGE
+def tile_edge(S: int, m: int, n: int, vec: int = 4) -> int:
+    """The tile of the serving kernel and of the fp32 trajectory
+    (csrc/unroll.cu unroll_persistent<T>, traj_persistent<T>), one rule
+    for both, whose phases share the wide mainloop and epilogue: WIDE
+    where its 16-byte staging fits (``wide_fits``), m and n are
+    WIDE_MIN_EDGE or more, S is TILE or more (below, the wide tile
+    computes 4x the rows or more for the same answer) and one layer's
+    three products hold WIDE_MIN_FLOPS or more (the wide tile's fill,
+    split-K reduction and epilogue cost about 80-115 us a layer, which a
+    smaller layer's faster mainloop does not pay back). Else 32, whose
+    depth slices fill the card at every serving bucket. Measured on the
+    H100 (PERF.md §6, rows 1 and 2), wide / 32 tile in ms, trajectory |
+    serving forward: synthetic_large S = 32 2.37 / 2.23 | 2.19 / 2.11,
+    S = 40 2.28 / 2.83 | 2.43 / 2.76, S = 1024 7.37 / 22.42 | 7.79 / 22.47;
+    512 x 1024 S = 128 1.55 / 1.38 | 1.72 / 1.50, S = 256 1.34 / 1.91 |
+    1.49 / 2.06; 256 x 512 S = 512 1.22 / 1.24 | 1.42 / 1.32; tp_large
+    S = 16 45.4 / 44.0 | 45.1 / 43.9, S = 32 (serving) 46.0 / 48.0, S = 64
+    46.9 / 94.3 | 45.8 / 95.7, S = 256 94.8 / 384.7 | 94.3 / 388.5."""
+    flops = 2 * S * m * (2 * n + m)  # one layer: x (S,m)x(m,n), Ax (S,n)x(n,m), z (S,m)x(m,m)
+    big = S >= TILE and flops >= WIDE_MIN_FLOPS and min(m, n) >= WIDE_MIN_EDGE
     return WIDE if big and wide_fits(m, n, vec) else TILE
 
 
@@ -231,21 +245,18 @@ def serve_workspace(S: int, m: int, n: int, splits: Dict[str, Split], scratch: b
 
 def make_serve_plan(S: int, m: int, n: int, occ32: Tuple[int, int], occ_wide: Tuple[int, int], scratch: bool,
                     bf16_state: bool = False, vec: int = 4, tile: int = 0) -> ServePlan:
-    """The plan of one serving-kernel call (``tile`` 0: serve_tile's
+    """The plan of one serving-kernel call (``tile`` 0: tile_edge's
     choice at ``vec``, the elements of a 16-byte chunk of the call's
     storage, 0 where its tensors do not start on 16 bytes); occ32 /
     occ_wide are the two tile kernels' occupancy (of the instantiation of
     the call's storage and staging). A forced WIDE tile where its staging
     does not fit raises ValueError."""
-    tile = tile or serve_tile(S, m, n, vec)
+    tile = tile or tile_edge(S, m, n, vec)
     if tile == WIDE and not wide_fits(m, n, vec):
         raise ValueError(f"the wide tile stages 16-byte chunks of {vec or '(misaligned)'} elements; "
                          f"m={m}, n={n} do not fit")
     occ = occ_wide if tile == WIDE else occ32
-    shapes = traj_shapes(S, m, n)
-    grid = launch_grid(*occ, widest_tiles(S, m, n, tile))
-    cut = wide_split if tile == WIDE else split
-    splits = {k: cut(*v, grid, tile) for k, v in shapes.items()}
+    grid, splits = traj_schedule(S, m, n, *occ, tile)
     return ServePlan(occ, grid, splits, serve_workspace(S, m, n, splits, scratch, bf16_state))
 
 
@@ -258,8 +269,9 @@ def serve_plan(S: int, m: int, n: int, occ32: Tuple[int, int], occ_wide: Tuple[i
 
 
 def serve_barriers(K: int, tile: int) -> int:
-    """Grid barriers of one serving-kernel call: barriers(K), and on the
-    wide tile one more, after the phase that writes layer 0's u."""
+    """Grid barriers of one call of the serving kernel or the trajectory:
+    barriers(K), and on the wide tile one more, after the phase that
+    writes layer 0's u."""
     return barriers(K) + (tile == WIDE)
 
 
@@ -403,10 +415,12 @@ def bwd_workspace(S: int, m: int, n: int, K: int, splits: Dict[str, Split], wspl
 
 
 @functools.lru_cache(maxsize=64)
-def traj_plan(S: int, m: int, n: int, blocks_per_sm: int, sms: int, bf16_state: bool = False):
-    """(grid, splits, workspace) of one trajectory call, computed once per
-    shape, so a training step pays no Python for it."""
-    grid, sp = traj_schedule(S, m, n, blocks_per_sm, sms)
+def traj_plan(S: int, m: int, n: int, blocks_per_sm: int, sms: int, bf16_state: bool = False,
+              tile: int = TILE):
+    """(grid, splits, workspace) of one trajectory call on ``tile``
+    (``tile_edge``'s choice), computed once per shape, so a training step
+    pays no Python for it."""
+    grid, sp = traj_schedule(S, m, n, blocks_per_sm, sms, tile)
     return grid, sp, traj_workspace(S, m, n, sp, bf16_state)
 
 
@@ -427,8 +441,8 @@ def barriers(K: int) -> int:
 
 
 __all__ = [
-    "ALIGN", "BK", "BWD_BUFFERS", "INT8_BK", "INT8_BUFFERS", "INT8_TILES", "MIN_STEPS", "PER_SM", "ServePlan", "Split", "TILE", "TILES", "WIDE", "WIDE_FILL_STEPS", "WIDE_MIN_EDGE", "WIDE_MIN_ROWS", "WeightSplit",
+    "ALIGN", "BK", "BWD_BUFFERS", "INT8_BK", "INT8_BUFFERS", "INT8_TILES", "MIN_STEPS", "PER_SM", "ServePlan", "Split", "TILE", "TILES", "WIDE", "WIDE_FILL_STEPS", "WIDE_MIN_EDGE", "WIDE_MIN_FLOPS", "WeightSplit",
     "barriers", "bwd_plan", "int8_barriers", "int8_plan", "int8_split", "int8_tile", "int8_workspace", "make_int8_plan", "bwd_schedule", "bwd_shapes", "bwd_workspace", "cdiv", "launch_grid",
-    "layout", "make_serve_plan", "partial_floats", "serve_barriers", "serve_plan", "serve_tile", "serve_workspace", "split",
-    "traj_plan", "traj_schedule", "traj_shapes", "traj_workspace", "weight_tiles", "wide_fits", "wide_split", "widest_tiles",
+    "layout", "make_serve_plan", "partial_floats", "serve_barriers", "serve_plan", "serve_workspace", "split",
+    "tile_edge", "traj_plan", "traj_schedule", "traj_shapes", "traj_workspace", "weight_tiles", "wide_fits", "wide_split", "widest_tiles",
 ]

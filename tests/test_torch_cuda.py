@@ -123,7 +123,7 @@ def test_side_stream_and_worker_thread(cuda_device):
 
 def _force_tile(monkeypatch, tile):
     """Make the serving wrappers launch the ``tile`` kernel, whatever
-    ops/schedule.serve_tile would choose."""
+    ops/schedule.tile_edge would choose."""
     from dladmm_tpu_torch.ops import schedule
 
     monkeypatch.setattr(schedule, "serve_plan",
@@ -457,12 +457,16 @@ def test_trajectory_kernel_repeats_bit_for_bit(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,n,K,S", [(250, 500, 15, 3000), (1000, 2000, 20, 1024)])
-def test_trajectory_kernel_with_more_items_than_blocks(cuda_device, m, n, K, S):
+def test_trajectory_kernel_with_more_items_than_blocks(cuda_device, monkeypatch, m, n, K, S):
     """Shapes whose phases have more tiles than the persistent grid has
-    blocks (synthetic_small S = 3000, synthetic_large S = 1024), so every
-    block loops over several items."""
-    from dladmm_tpu_torch.ops import cuda_traj
+    blocks on the 32 tile (synthetic_small S = 3000, synthetic_large
+    S = 1024, which the plan itself puts on the wide tile: forced here),
+    so every block loops over several items. The wide tile's loop over
+    several items: test_wide_trajectory_matches_plain at tp_large's widths
+    (256 x-phase tiles on 132 blocks)."""
+    from dladmm_tpu_torch.ops import cuda_traj, schedule
 
+    monkeypatch.setattr(schedule, "tile_edge", lambda *a: schedule.TILE)
     A, b, p = _problem(m, n, K, S, seed=S + 7, device=cuda_device)
     got = cuda_traj.trajectory_forward(b, A, *p, with_tax=True)
     want = cuda_traj.trajectory_forward_plain(b, A, *p, with_tax=True)
@@ -491,6 +495,19 @@ def test_bwd_kernel_whole_batch_1024(cuda_device, data_grads):
     _assert_grads_close(got[1:], want[1:])
 
 
+def _tp_large_problem(K, S, device):
+    """tp_large's widths (m = 8192, n = 16384) at K layers and batch S,
+    drawn on the card (numpy would take minutes): the generator, A with
+    unit columns, b and LADMM-exact params plus 0.05 N(0,1) * RMS."""
+    g = torch.Generator(device=device).manual_seed(8192)
+    A = torch.randn((8192, 16384), generator=g, device=device)
+    A = A / torch.linalg.vector_norm(A, dim=0, keepdim=True)
+    noise = lambda leaf: torch.randn(leaf.shape, generator=g, device=device) * leaf.pow(2).mean().sqrt()  # noqa: E731
+    p = DLADMMParams(*(leaf + 0.05 * noise(leaf) for leaf in init_dladmm_params(A, K=K)))
+    b = torch.randn((S, 8192), generator=g, device=device)
+    return g, A, b, p
+
+
 @pytest.mark.gpu
 def test_trajectory_and_bwd_kernels_at_tp_large_widths(cuda_device):
     """Rows 2 and 4 at tp_large's widths and batch (m = 8192, n = 16384,
@@ -502,12 +519,7 @@ def test_trajectory_and_bwd_kernels_at_tp_large_widths(cuda_device):
     from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj
 
     m, n, K, S = 8192, 16384, 2, 256
-    g = torch.Generator(device=cuda_device).manual_seed(8192)
-    A = torch.randn((m, n), generator=g, device=cuda_device)
-    A = A / torch.linalg.vector_norm(A, dim=0, keepdim=True)
-    noise = lambda leaf: torch.randn(leaf.shape, generator=g, device=cuda_device) * leaf.pow(2).mean().sqrt()  # noqa: E731
-    p = DLADMMParams(*(leaf + 0.05 * noise(leaf) for leaf in init_dladmm_params(A, K=K)))
-    b = torch.randn((S, m), generator=g, device=cuda_device)
+    g, A, b, p = _tp_large_problem(K, S, cuda_device)
     traj = cuda_traj.trajectory_forward(b, A, *p, with_tax=True)
     _assert_close(traj, cuda_traj.trajectory_forward_plain(b, A, *p, with_tax=True))
     cts = [torch.randn((S, n), generator=g, device=cuda_device), torch.randn((S, m), generator=g, device=cuda_device),
@@ -534,7 +546,7 @@ def test_persistent_kernels_raise_when_the_grid_is_refused(cuda_device, monkeypa
     A, b, p, traj, cts = _bwd_case(250, 500, 3, 64, seed=2, device=cuda_device)
     traj_plan, bwd_plan = schedule.traj_plan, schedule.bwd_plan
     monkeypatch.setattr(schedule, "traj_plan",
-                        lambda *a: (a[-2] * a[-1] + 1, *traj_plan(*a)[1:]))
+                        lambda *a, **kw: (a[3] * a[4] + 1, *traj_plan(*a, **kw)[1:]))
     monkeypatch.setattr(schedule, "bwd_plan",
                         lambda *a: (a[-2] * a[-1] + 1, *bwd_plan(*a)[1:]))
     t0, b0 = cuda_traj.trajectory_forward.launches, dict(cuda_bwd.unroll_bwd.launches)
@@ -1910,3 +1922,67 @@ def test_wide_tile_repeats_bit_for_bit(cuda_device, large_problems, bf16):
     torch.cuda.synchronize()
     assert cuda_unroll.unroll_forward.last_plan[2]["x"].tile == 128
     assert all(torch.equal(g, w) for g, w in zip(one, two))
+
+
+# -- the trajectory on the wide tile ------------------------------------------
+
+TP_LARGE_K = 2  # tp_large's widths at two layers: 1.6 GB of weights
+
+
+def _traj_problem(cache, config, S, device):
+    """(A, b, params) of synthetic_large (K = 20, cached a module) or of
+    tp_large's widths at TP_LARGE_K layers, at batch S."""
+    if config == "tp_large":
+        cache.clear()
+        return _tp_large_problem(TP_LARGE_K, S, device)[1:]
+    return _large(cache, S, device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_tax", [True, False])
+@pytest.mark.parametrize("config,S", [("synthetic_large", 64), ("synthetic_large", 1024), ("tp_large", 256)])
+def test_wide_trajectory_matches_plain(cuda_device, large_problems, config, S, with_tax):
+    """The fp32 trajectory where its plan takes the wide tile (synthetic_large
+    at S = 64 and 1024, tp_large's widths at S = 256, their weights streamed
+    from HBM) against the plain loop, with the Ax stack and with the one Ax
+    scratch buffer; one launch, counted in launches and launches_wide."""
+    from dladmm_tpu_torch.ops import cuda_traj
+
+    A, b, p = _traj_problem(large_problems, config, S, cuda_device)
+    before = (cuda_traj.trajectory_forward.launches, cuda_traj.trajectory_forward.launches_wide)
+    got = cuda_traj.trajectory_forward(b, A, *p, with_tax=with_tax)
+    after = (cuda_traj.trajectory_forward.launches, cuda_traj.trajectory_forward.launches_wide)
+    want = cuda_traj.trajectory_forward_plain(b, A, *p, with_tax=with_tax)
+    torch.cuda.synchronize()
+    assert after == (before[0] + 1, before[1] + 1)
+    assert all(sp.tile == 128 for sp in cuda_traj.trajectory_forward.last_plan[2].values())
+    assert len(got) == (4 if with_tax else 3)
+    _assert_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config,S", [("synthetic_large", 2048), ("tp_large", 256)])
+def test_wide_trajectory_equals_the_32_tile_where_neither_splits(cuda_device, monkeypatch, large_problems, config, S):
+    """Where neither tile's plan cuts a phase's depth (synthetic_large at
+    S = 2048, tp_large's widths at S = 256), each output sums over the
+    whole depth in order with fmaf on both tiles and u and v are formed by
+    the 32 tile's expressions: the wide tile's stacks equal the 32 tile's
+    bit for bit, with and without the Ax stack. A call forced onto the
+    32 tile counts no wide launch."""
+    from dladmm_tpu_torch.ops import cuda_traj, schedule
+
+    A, b, p = _traj_problem(large_problems, config, S, cuda_device)
+    for with_tax in (True, False):
+        wide = cuda_traj.trajectory_forward(b, A, *p, with_tax=with_tax)
+        wide_plan = cuda_traj.trajectory_forward.last_plan[2]
+        with monkeypatch.context() as mp:
+            mp.setattr(schedule, "tile_edge", lambda *a: schedule.TILE)
+            n_wide = cuda_traj.trajectory_forward.launches_wide
+            narrow = cuda_traj.trajectory_forward(b, A, *p, with_tax=with_tax)
+            assert cuda_traj.trajectory_forward.launches_wide == n_wide
+        narrow_plan = cuda_traj.trajectory_forward.last_plan[2]
+        torch.cuda.synchronize()
+        assert {sp.tile for sp in wide_plan.values()} == {128} and {sp.tile for sp in narrow_plan.values()} == {32}
+        assert all(sp.slices == 1 for sp in (*wide_plan.values(), *narrow_plan.values()))
+        assert all(torch.equal(w, n_) for w, n_ in zip(wide, narrow))
+        del wide, narrow

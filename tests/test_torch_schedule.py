@@ -286,12 +286,14 @@ def test_serving_items_cover_every_tile_once(m, n, S, card, kind):
 @pytest.mark.parametrize("m,n,S", SERVE_SHAPES + WIDE_SHAPES)
 def test_serving_tile_is_64_exactly_where_its_tiles_fill_the_card(m, n, S, card):
     """The large tile (now the wide 128 tile) exactly where its staging
-    fits, S >= 32 and m, n >= 256 (where it measured faster than the 32
-    tile, PERF.md); the grid then every resident block of the wide kernel
-    (its tiles and depth slices fill them)."""
+    fits, S >= 32, m, n >= 256 and a layer holds WIDE_MIN_FLOPS operations
+    (where it measured faster than the 32 tile, PERF.md); the grid then
+    every resident block of the wide kernel (its tiles and depth slices
+    fill them)."""
     occ32, occ_wide = serve_cards(card)
-    want = 128 if m % 4 == 0 and n % 4 == 0 and S >= 32 and min(m, n) >= 256 else 32
-    assert sch.serve_tile(S, m, n) == want
+    big = S >= 32 and 2 * S * m * (2 * n + m) >= sch.WIDE_MIN_FLOPS and min(m, n) >= 256
+    want = 128 if m % 4 == 0 and n % 4 == 0 and big else 32
+    assert sch.tile_edge(S, m, n) == want
     plan = sch.make_serve_plan(S, m, n, occ32, occ_wide, True)
     assert plan.tile == want
     if want == 128:
@@ -320,11 +322,11 @@ def test_serving_tile_on_the_h100_shapes():
 @pytest.mark.parametrize("S", BUCKETS)
 def test_wide_tile_at_synthetic_large_buckets(S, bf16_state):
     """synthetic_large (m = 1000, n = 2000: whole 16-byte chunks of fp32
-    and of bf16) takes the wide tile at S = 1024 and at every bucket from
-    32 up, where it measured faster than the 32 tile; the 32 tile below,
-    where the wide tile's fill costs more than its mainloop saves."""
+    and of bf16) takes the wide tile at S = 1024 and at every bucket above
+    32, where it measured faster than the 32 tile; the 32 tile from 32
+    down, where the wide tile's fill costs more than its mainloop saves."""
     plan = sch.serve_plan(S, 1000, 2000, (4, 132), (1, 132), True, bf16_state, 8 if bf16_state else 4)
-    assert plan.tile == (128 if S >= 32 else 32)
+    assert plan.tile == (128 if S > 32 else 32)
     if S == 1024:
         assert plan.tile == 128
 
@@ -334,7 +336,7 @@ def test_wide_tile_at_synthetic_large_buckets(S, bf16_state):
 def test_synthetic_small_keeps_tile_32(S, vec):
     """The paper's 250 x 500 stays on the 32 tile at every bucket, in
     either storage."""
-    assert sch.serve_tile(S, 250, 500, vec) == 32
+    assert sch.tile_edge(S, 250, 500, vec) == 32
     assert sch.serve_plan(S, 250, 500, (4, 132), (1, 132), True, vec == 8, vec).tile == 32
 
 
@@ -345,7 +347,7 @@ def test_wide_tile_falls_back_where_rows_do_not_fit(m, n, vec, fits):
     """m or n not whole 16-byte chunks (4 fp32, 8 bf16), or weights that
     do not start on 16 bytes (vec 0): the 32 tile, even at S = 1024."""
     assert sch.wide_fits(m, n, vec) == fits
-    assert sch.serve_tile(1024, m, n, vec) == (128 if fits else 32)
+    assert sch.tile_edge(1024, m, n, vec) == (128 if fits else 32)
     plan = sch.make_serve_plan(1024, m, n, (4, 132), (1, 132), True, vec == 8, vec=vec)
     assert plan.tile == (128 if fits else 32)
 
@@ -452,3 +454,103 @@ def test_wide_tile_constants_match_the_kernel():
     assert f"constexpr int kWT = {sch.WIDE};" in text and f"constexpr int kWBK = {sch.BK};" in text
     unroll = " ".join((cuda_build.CSRC / "unroll.cu").read_text().split())
     assert "constexpr int vec = 16 / sizeof(TS);" in unroll and "a.m % vec == 0 && a.n % vec == 0" in unroll
+    # the trajectory's wide instantiation: the same tile, and the same
+    # layout rule checked before its launch
+    assert "traj_persistent<kWT, TS>" in unroll and "if (tile == kWT && !wide_layout(traj_layer(a, 0)))" in unroll
+
+
+# -- the trajectory on the wide tile --------------------------------------------
+
+# (S, m, n, vec, tile): synthetic_large at the training cells' S = 1024
+# and at S = 64, tp_large at its batch 256, at 64 and at 32, 512 x 1024 at
+# 256, 256 x 512 at 1024, where the wide tile measured faster;
+# synthetic_large at S = 32, tp_large at S = 16 (under one 32-row tile),
+# 512 x 1024 at 128 and
+# tp_small's 256 x 512 at its batch 128 (too few operations a layer),
+# where the 32 tile measured faster or would; synthetic_small (m = 250, no
+# whole 16-byte chunk of fp32 or bf16), the image benchmark's 64 x 256
+# (under WIDE_MIN_EDGE), tensors that do not start on 16 bytes (vec 0).
+TRAJ_TILES = [(1024, 1000, 2000, 4, 128), (256, 8192, 16384, 4, 128), (64, 1000, 2000, 4, 128), (32, 8192, 16384, 4, 128),
+              (64, 8192, 16384, 4, 128), (256, 512, 1024, 4, 128), (1024, 256, 512, 4, 128),
+              (32, 1000, 2000, 4, 32), (16, 8192, 16384, 4, 32), (128, 512, 1024, 4, 32), (128, 256, 512, 4, 32),
+              (64, 250, 500, 4, 32), (3844, 64, 256, 4, 32), (1024, 250, 500, 8, 32), (1024, 1000, 2000, 0, 32)]
+
+
+@pytest.mark.parametrize("S,m,n,vec,tile", TRAJ_TILES)
+def test_trajectory_tile(S, m, n, vec, tile):
+    """tile_edge takes the wide tile where its 16-byte staging fits, m
+    and n are 256 or more, S is 32 or more and a layer
+    holds WIDE_MIN_FLOPS operations, else 32; its plan on the H100's
+    occupancy of that tile's kernel (4 blocks a SM at 32, 1 wide) is on
+    that tile in every phase."""
+    assert sch.tile_edge(S, m, n, vec) == tile
+    occ = (1, 132) if tile == sch.WIDE else (4, 132)
+    grid, splits, _ = sch.traj_plan(S, m, n, *occ, tile=tile)
+    assert grid <= occ[0] * occ[1] and all(sp.tile == tile for sp in splits.values())
+
+
+@pytest.mark.parametrize("card", CARDS)
+@pytest.mark.parametrize("m,n,S", WIDE_SHAPES + [(8192, 16384, 256)])
+def test_wide_trajectory_items_cover_every_tile_once(m, n, S, card):
+    """On the wide tile (the wide kernel's occupancy, serve_cards): every
+    output tile of each phase once, the slices partitioning the depth in
+    whole BK steps, the serving plan's grid and splits at that tile."""
+    occ32, occ_wide = serve_cards(card)
+    grid, splits = sch.traj_schedule(S, m, n, *occ_wide, sch.WIDE)
+    serve = sch.make_serve_plan(S, m, n, occ32, occ_wide, False, tile=sch.WIDE)
+    assert (grid, splits) == (serve.grid, serve.splits)
+    for name, sp in splits.items():
+        assert sp.tile == sch.WIDE and (sp.rows, sp.cols, sp.depth) == sch.traj_shapes(S, m, n)[name]
+        _check_split(sp)
+
+
+@pytest.mark.parametrize("S,m,n,slices", [(1024, 1000, 2000, {"x": 1, "ax": 2, "z": 2}),
+                                          (256, 8192, 16384, {"x": 1, "ax": 1, "z": 1})])
+def test_wide_trajectory_splits_on_the_h100(S, m, n, slices):
+    """One wide block a SM on 132 SMs: synthetic_large at S = 1024 splits
+    Ax and z in two (64 tiles each), as row 1 there; tp_large at S = 256
+    (256, 128 and 128 tiles of depth 8192-16384) splits no phase, nor does
+    the 32 tile there (2048-4096 tiles on 528 blocks), so both sum each
+    output over the whole depth in order."""
+    grid, splits = sch.traj_schedule(S, m, n, 1, 132, sch.WIDE)
+    assert grid == 132 and {k: sp.slices for k, sp in splits.items()} == slices
+    if S == 256:
+        assert {k: sp.tiles for k, sp in splits.items()} == {"x": 256, "ax": 128, "z": 128}
+        assert all(sp.slices == 1 for sp in sch.traj_schedule(S, m, n, 4, 132)[1].values())
+
+
+@pytest.mark.parametrize("bf16_state", [False, True])
+@pytest.mark.parametrize("m,n,S", WIDE_SHAPES + [(8192, 16384, 256)])
+def test_trajectory_workspace_by_tile(m, n, S, bf16_state):
+    """The wide tile's workspace holds its operands u and v, (S, m) each,
+    and no zero state; the 32 tile's the zero state and no u or v. Partials
+    at the phases' own tile edge, the bf16 state on the 32 tile only (bf16
+    storage keeps it), no overlap; traj_plan returns the same."""
+    for tile in sch.TILES:
+        if tile == sch.WIDE and bf16_state:
+            continue
+        grid, splits = sch.traj_schedule(S, m, n, 4 if tile == sch.TILE else 1, 132, tile)
+        lay = sch.traj_workspace(S, m, n, splits, bf16_state)
+        first = {"u": S * m, "v": S * m} if tile == sch.WIDE else {"zeros": S * max(n, m)}
+        state = {"x": S * n, "ax": S * m, "z": 2 * S * m, "lam": 2 * S * m} if bf16_state else {}
+        want = {**first, **state,
+                "partials": max([sp.items * tile**2 for sp in splits.values() if sp.slices > 1] or [0]),
+                "counters": max(sp.tiles for sp in splits.values())}
+        assert {k: v[1] for k, v in lay.items() if k != "_total"} == want
+        _no_overlap(lay, sum(-(-v // sch.ALIGN) * sch.ALIGN for v in want.values()))
+        occ = (4, 132) if tile == sch.TILE else (1, 132)
+        assert sch.traj_plan(S, m, n, *occ, bf16_state, tile) == (grid, splits, lay)
+
+
+@pytest.mark.parametrize("tile,per_layer,first", [(32, 3, 0), (128, 3, 1)])
+def test_trajectory_barriers(tile, per_layer, first):
+    """3K - 1 grid barriers a trajectory call on the 32 tile, 3K on the
+    wide tile (one after the phase that writes layer 0's u): the kernel's
+    loops as ``serve_barriers`` counts them."""
+    K = 20
+    assert sch.serve_barriers(K, tile) == first + per_layer * K - 1
+    text = " ".join((cuda_build.CSRC / "unroll.cu").read_text().split())
+    body = text[text.index("traj_persistent(const TrajArgs<TS> a) {"):text.index("// A wide-tile instantiation")]
+    branch = body.split("} else {")[tile == sch.WIDE]
+    assert branch.count("grid.sync();") == per_layer + first
+    assert branch.count("if (k + 1 < a.K) grid.sync();") == 1
