@@ -5,16 +5,16 @@
 
 The port of ``dladmm_tpu/bench/serving.py``: the latency of one solve
 of each batch bucket, chained on the card (bench/timing.time_chained),
-and the throughput it gives, for the serving forwards of
-serve.py: fp32 and bf16 through models/api.resolve_forward (the
-whole-unroll kernel, row 1, or its bf16-storage variant); int8 through
-both the plain quantized scan (ops/quantized.dladmm_forward_int8,
-"int8-scan") and the int8 whole-unroll kernel (row 7,
-ops/cuda_int8.int8_unroll_forward, "int8-megakernel") at every bucket;
-a general prox (``--prox``: prox_x that prox, prox_z l1, the
-synthetic_nonneg pairing) through the plain loop with the prox step and
-row 1's prox variant. Each row names the port's route and the launches
-its kernel made over its measurement, counted from 0. ``latency_us``
+and the throughput it gives, for the serving forwards of serve.py, as
+its route table (models/api.inference_forward) picks them: fp32 and
+bf16 l1/l1 the route of ``kernel`` (the whole-unroll kernel, row 1, or
+its bf16-storage variant); int8 both the plain quantized scan
+(ops/quantized.dladmm_forward_int8) and the int8 whole-unroll kernel
+(row 7, ops/cuda_int8.int8_unroll_forward) at every bucket; a general
+prox (``--prox``: prox_x that prox, prox_z l1, the synthetic_nonneg
+pairing) the plain loop with the prox step and row 1's prox variant
+where it has one. Each row names the port's route and the launches its
+kernel made over its measurement, counted from 0. ``latency_us``
 is the card's time a solve where the card is slower than the host's
 enqueue, and the host's enqueue time where it is not (the eager plain
 paths at small buckets): ``latency_from`` says so in each table.
@@ -42,16 +42,6 @@ def _cal_latency(fn, b0, iters):
     return time_chained(lambda b: b0 + 1e-12 * fn(b)[1].to(b0.dtype), b0, iters=iters)
 
 
-def _counter(route: str):
-    """The launch count of the kernel a route runs, or None for a plain
-    route."""
-    from dladmm_tpu_torch.ops import cuda_int8, cuda_unroll
-
-    if not route.startswith("cuda-"):
-        return None
-    return cuda_int8.int8_unroll_forward if "int8" in route else cuda_unroll.unroll_forward
-
-
 def measure(m=250, n=500, K=15, buckets=BUCKETS, kernel="auto", dtype=None, prox=None, prox_rho=0.0, iters=64,
             device=None):
     """The latency table of one serving configuration: A (m, n), K layers
@@ -61,8 +51,9 @@ def measure(m=250, n=500, K=15, buckets=BUCKETS, kernel="auto", dtype=None, prox
     resolve_device: the card unless asked otherwise)."""
     from dladmm_tpu_torch.bench.timing import CHAIN_TIME_FROM
     from dladmm_tpu_torch.data.synthetic import make_batch, make_dictionary
-    from dladmm_tpu_torch.models.api import kernel_route, plain_route, resolve_forward
-    from dladmm_tpu_torch.models.unroll import dladmm_forward, init_dladmm_params
+    from dladmm_tpu_torch.models.api import inference_forward
+    from dladmm_tpu_torch.models.unroll import init_dladmm_params
+    from dladmm_tpu_torch.ops.quantized import quantize_params
     from dladmm_tpu_torch.utils.platform import resolve_device
 
     device = resolve_device(device)
@@ -71,14 +62,13 @@ def measure(m=250, n=500, K=15, buckets=BUCKETS, kernel="auto", dtype=None, prox
     params = init_dladmm_params(A, K=K)
     A, params = A.to(device), params.to(device)
     quantized = dtype == "int8"
-    prox_x_fn = prox_step_fn = None
+    prox_pair = None
     if prox is not None:
         # What a trained synthetic_nonneg / elastic_net user pays: the
         # forward with the trained prox in the layer step.
         if quantized:
             raise ValueError("general prox rejects int8 (serve.py guard)")
         from dladmm_tpu_torch.ops.prox import get_prox, is_l1, prox_l1
-        from dladmm_tpu_torch.ops.reference import make_cached_step
 
         if is_l1(prox, "l1", prox_rho):
             # run.py's guard: elastic_net with rho = 0 is l1, and a row
@@ -86,21 +76,18 @@ def measure(m=250, n=500, K=15, buckets=BUCKETS, kernel="auto", dtype=None, prox
             raise ValueError(
                 f"prox {prox!r} with rho={prox_rho} reduces to l1 — pass --prox-rho > 0 (or pick a non-l1 prox)"
             )
-        prox_x_fn = get_prox(prox, prox_rho)
-        prox_step_fn = make_cached_step(prox_x_fn, prox_l1)
-    if quantized:  # serve.py's int8 serving mode
-        from dladmm_tpu_torch.ops.cuda_int8 import int8_unroll_forward
-        from dladmm_tpu_torch.ops.quantized import dladmm_forward_int8, quantize_params
-
-        qp, qd = quantize_params(params, A)
-        int8_variants = [
-            (lambda b: dladmm_forward_int8(qp, qd, b)[:2], "int8-scan", "plain-loop-int8-reference"),
-            (lambda b: int8_unroll_forward(b, qp, qd)[:2], "int8-megakernel", kernel_route(device, "int8-unroll")),
-        ]
-        dtype = None
-    elif dtype is not None:  # serve.py's bf16 serving mode
+        prox_pair = (get_prox(prox, prox_rho), prox_l1)
+    if dtype is not None and not quantized:  # serve.py's bf16 serving mode
         params = params.to(dtype)
         A = A.to(dtype)
+    # serve.py's operands: the int8 mode's quantized once.
+    operands = quantize_params(params, A) if quantized else (params, A)
+    # int8 and a prox: the plain route and, where it differs, the kernel
+    # beside it; l1 in fp32 or bf16: the route ``kernel`` picks.
+    variants = {}
+    for k in ("reference", "auto") if quantized or prox_pair is not None else (kernel,):
+        chosen = inference_forward(m, m, k, dtype, prox_pair=prox_pair, device=device)
+        variants.setdefault(chosen.route, chosen)
 
     # The host's cost of one call: a tiny launch and its synchronisation.
     tiny = torch.zeros((), device=device)
@@ -113,31 +100,15 @@ def measure(m=250, n=500, K=15, buckets=BUCKETS, kernel="auto", dtype=None, prox
     rows = []
     for S in buckets:
         b = make_batch(gen_b, A.to(torch.float32).cpu(), S).b.to(device, A.dtype)
-        if quantized:
-            variants = int8_variants
-        elif prox_step_fn is not None:
-            from dladmm_tpu_torch.ops.cuda_unroll import make_unrolled_inference_prox, prox_megakernel_available
-            from dladmm_tpu_torch.ops.prox import prox_l1
-
-            variants = [(lambda b, f=prox_step_fn: dladmm_forward(params, A, b, step_fn=f)[:2],
-                         f"plain-loop prox_x={prox}", plain_route("prox"))]
-            if prox_megakernel_available((prox_x_fn, prox_l1), m, m)[0]:
-                pm = make_unrolled_inference_prox(prox_x_fn, prox_l1)
-                variants.append((lambda b, f=pm: f(params, A, b)[:2], f"megakernel prox_x={prox}",
-                                 kernel_route(device) + "-prox"))
-        else:
-            forward_fn, desc = resolve_forward(m, n, m, S, kernel=kernel, device=device, dtype=A.dtype)
-            variants = [(lambda b, f=forward_fn: f(params, A, b)[:2], desc, desc)]
-        for fn, path, route in variants:
-            print(f"bucket {S} ({path})...", file=sys.stderr, flush=True)
-            counter = _counter(route)
+        for route, (forward_fn, _, counter) in variants.items():
+            print(f"bucket {S} ({route})...", file=sys.stderr, flush=True)
             if counter is not None:
                 counter.launches = 0
             with torch.no_grad():
-                t = _cal_latency(fn, b, iters)
+                t = _cal_latency(lambda b, f=forward_fn: f(*operands, b)[:2], b, iters)
             rows.append({
                 "bucket": S,
-                "path": path,
+                "path": route,
                 "route": route,
                 "latency_us": t * 1e6,
                 "throughput_solves_per_s": S / t,

@@ -6,7 +6,8 @@
     curve = solver.nmse_curve(b, x_star)    # NMSE(dB) per layer
 
 A frozen dataclass over the parameters; ``fit`` returns a new solver.
-It runs on A's device through the port's policy (models/api.select_forward):
+It runs on A's device through the port's policy (models/api: serving's
+route table ``inference_forward`` for solve, ``select_forward`` else):
 on the card the l1/l1, B = I solver serves through the whole-unroll kernel,
 takes its trajectories through the trajectory kernel, and trains through
 the trajectory and backward kernels; a general elementwise prox serves
@@ -23,7 +24,7 @@ import torch
 from torch import Tensor
 
 from dladmm_tpu_torch.metrics.core import constraint_residual, per_layer_nmse_db
-from dladmm_tpu_torch.models.api import kernel_route, plain_route, select_forward
+from dladmm_tpu_torch.models.api import inference_forward, select_forward
 from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward, init_dladmm_params
 
 
@@ -61,26 +62,29 @@ class DLADMMSolver:
     def K(self) -> int:
         return self.params.K
 
-    def _prox_step(self):
-        """The general-prox cached layer step, or None for l1/l1; built
-        once per instance."""
-        cached = getattr(self, "_prox_step_cache", False)
-        if cached is not False:
+    def _prox(self):
+        """(prox_pair, cached layer step) of a general prox, or (None,
+        None) for l1/l1; built once per instance."""
+        cached = getattr(self, "_prox_cache", None)
+        if cached is not None:
             return cached
         from dladmm_tpu_torch.ops.prox import get_prox, is_l1
         from dladmm_tpu_torch.ops.reference import make_cached_step
 
-        step = None
+        pair = step = None
         if not is_l1(self.prox_x, self.prox_z, self.prox_rho):
-            step = make_cached_step(get_prox(self.prox_x, self.prox_rho), get_prox(self.prox_z, self.prox_rho))
-        object.__setattr__(self, "_prox_step_cache", step)
-        return step
+            pair = (get_prox(self.prox_x, self.prox_rho), get_prox(self.prox_z, self.prox_rho))
+            step = make_cached_step(*pair)
+        object.__setattr__(self, "_prox_cache", (pair, step))
+        return pair, step
 
     def _paths(self, S: int, need_trajectory: bool = False, training: bool = False):
         """(forward_fn, step_fn, description) for a batch of S rows, with
-        the JAX package's raise rules for an explicit kernel."""
-        step = self._prox_step()
-        device = self.A.device
+        the JAX package's raise rules for an explicit kernel. solve() at
+        B = I takes serving's route (models/api.inference_forward);
+        trajectories, training and a general B take select_forward's, a
+        general prox there the plain loop."""
+        pair, step = self._prox()
         if step is not None:
             if self.kernel == "pallas":
                 raise ValueError(
@@ -96,28 +100,18 @@ class DLADMMSolver:
                     "trajectory variant); use kernel='auto' for "
                     "training and trajectories"
                 )
-            if self.B is None and not need_trajectory and not training and self.kernel in ("auto", "megakernel"):
-                from dladmm_tpu_torch.ops.cuda_unroll import (
-                    make_unrolled_inference_prox,
-                    prox_megakernel_available,
-                )
-                from dladmm_tpu_torch.ops.prox import get_prox
-
-                px = get_prox(self.prox_x, self.prox_rho)
-                pz = get_prox(self.prox_z, self.prox_rho)
-                m = self.A.shape[0]
-                avail, why = prox_megakernel_available((px, pz), m, m)
-                if avail:
-                    return make_unrolled_inference_prox(px, pz), step, kernel_route(device, "whole-unroll-prox")
-                if self.kernel == "megakernel":
-                    raise ValueError(f"prox megakernel unavailable: {why}; use kernel='auto'")
-            return None, step, plain_route("prox")
         m, n = self.A.shape
-        d = m if self.B is None else self.B.shape[1]
-        return select_forward(
-            m, n, d, S, kernel=self.kernel, need_trajectory=need_trajectory,
-            identity_B=self.B is None, device=device,
+        if self.B is None and not (need_trajectory or training):
+            forward_fn, route, _ = inference_forward(
+                m, m, self.kernel, self.A.dtype, prox_pair=pair, step_fn=step, device=self.A.device
+            )
+            return forward_fn, step, route
+        forward_fn, _, route = select_forward(
+            m, n, m if self.B is None else self.B.shape[1], S,
+            kernel=self.kernel if step is None else "reference", need_trajectory=need_trajectory,
+            identity_B=self.B is None, device=self.A.device,
         )
+        return forward_fn, step, route
 
     @torch.no_grad()
     def solve(self, b: Tensor) -> Tuple[Tensor, Tensor]:
@@ -134,11 +128,9 @@ class DLADMMSolver:
         """Per-layer (x_k, z_k, lam_k) stacks, (K, S, .): the trajectory
         kernel for l1/l1 and B = I (no fit gate: it runs at every S),
         else the plain loop."""
-        if self.B is None and self._prox_step() is None and self.kernel in ("auto", "megakernel", "pallas"):
-            from dladmm_tpu_torch.ops.cuda_traj import make_unrolled_trajectory
-
-            return make_unrolled_trajectory()(self.params, self.A, b)
-        _, step_fn, _ = self._paths(b.shape[0], need_trajectory=True)
+        forward_fn, step_fn, _ = self._paths(b.shape[0], need_trajectory=True)
+        if forward_fn is not None:
+            return forward_fn(self.params, self.A, b)
         _, traj = dladmm_forward(self.params, self.A, b, B=self.B, capture_trajectory=True, step_fn=step_fn)
         return traj
 

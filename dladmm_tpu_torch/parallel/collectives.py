@@ -77,7 +77,7 @@ from dladmm_tpu_torch.parallel.mesh import (
     model_slice,
     shard_params_tp,
 )
-from dladmm_tpu_torch.train.loop import map_params_nodes, update_by_layer
+from dladmm_tpu_torch.train.loop import _eval_trajectory, map_params_nodes, update_by_layer
 from dladmm_tpu_torch.train.qmoments import BLOCK, QTensor
 from dladmm_tpu_torch.utils import profiling
 
@@ -129,18 +129,18 @@ def make_dp_eval(mesh, B: Optional[Tensor] = None, use_kernel: bool = True):
     residual, nmse_curve_db), the exact metrics.core values of the global
     batch: each rank sums its samples' NMSE ratios (degenerate supports
     left out), valid counts and relative residuals, and one all-reduce
-    adds the ranks' sums. The net runs through the trajectory kernel for
-    B = I (its plain version on CPU tensors; use_kernel=False: the plain
-    loop), through the plain loop for a general B."""
+    adds the ranks' sums. The net runs through the trajectory the policy
+    selects for B = I (train/loop._eval_trajectory: the trajectory kernel,
+    its plain version on CPU tensors; use_kernel=False: the plain loop),
+    through the plain loop for a general B."""
     from dladmm_tpu_torch.models.unroll import dladmm_forward
 
     @torch.no_grad()
     def evaluate(params: DLADMMParams, A: Tensor, batch):
         b, x_star, z_star = batch
-        if B is None and use_kernel:
-            from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward
-
-            tx, tz, _ = trajectory_forward(b, A, *params)
+        traj = _eval_trajectory(A, b, B, use_kernel)
+        if traj is not None:
+            tx, tz, _ = traj(params, A, b)
         else:
             _, (tx, tz, _) = dladmm_forward(params, A, b, B=B, capture_trajectory=True)
         f32 = lambda v: v.to(torch.float32)  # noqa: E731

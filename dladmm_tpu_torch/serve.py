@@ -8,9 +8,10 @@ The port of ``dladmm_tpu/serve.py`` (single-device servers and CLI):
   * Warm buckets: the JAX server compiles every bucket ahead of time.
     Here construction runs each bucket once on the device instead, so
     the kernel's build and first launch never land on a request.
-  * Route: the whole-unroll CUDA kernel (models/api policy) for l1/l1
-    and for trained elementwise proxes; the plain loop for general B,
-    group_l2 and ``kernel="reference"``.
+  * Route: models/api.inference_forward, asked once for every bucket:
+    the whole-unroll CUDA kernel for l1/l1 and for trained elementwise
+    proxes; the plain loop for general B, group_l2 and
+    ``kernel="reference"``.
   * ``dtype="int8"`` (l1/l1, identity B): the net and its dictionary are
     quantized once at construction (ops/quantized.quantize_params) and
     every bucket runs the int8 whole-unroll CUDA kernel
@@ -41,27 +42,17 @@ by the single-device stack above, with no collective. A later slice
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import Tensor
 
-from dladmm_tpu_torch.models.api import KERNELS, kernel_route, plain_route, resolve_forward
-from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
-from dladmm_tpu_torch.ops.cuda_int8 import dladmm_forward_int8_pallas
-from dladmm_tpu_torch.ops.cuda_unroll import (
-    make_unrolled_inference_prox,
-    prox_megakernel_available,
-)
-from dladmm_tpu_torch.ops.quantized import dladmm_forward_int8, quantize_params
-from dladmm_tpu_torch.ops.reference import make_cached_step
+from dladmm_tpu_torch.models.api import inference_forward
+from dladmm_tpu_torch.models.unroll import DLADMMParams
+from dladmm_tpu_torch.ops.quantized import quantize_params
 from dladmm_tpu_torch.utils import profiling
 from dladmm_tpu_torch.utils.platform import resolve_device
-
-# kernel= choices of int8 serving, as in the JAX package.
-INT8_KERNELS = ("auto", "megakernel", "reference")
 
 # The serving CLI's --kernel choices, the JAX package's (its per-layer
 # "pallas" kernel is no serving choice).
@@ -85,6 +76,24 @@ def _bucket_of(buckets, S: int) -> int:
     raise ValueError(f"batch {S} exceeds max bucket {buckets[-1]}")
 
 
+def _pad_request(server, b, device=None) -> Tuple[Tensor, int]:
+    """A request b (S, m), a tensor or an array, for ``server``'s buckets:
+    (b cast to its ``request_dtype`` (through float32, as the JAX
+    package's requests are) on ``device`` (None: where b is), padded with
+    zero rows to the bucket, S)."""
+    b = torch.as_tensor(b)
+    if b.ndim != 2 or b.shape[1] != server.m:
+        raise ValueError(f"expected (S, {server.m}), got {tuple(b.shape)}")
+    S = b.shape[0]
+    bucket = _bucket_of(server.buckets, S)
+    if b.dtype != server.request_dtype:
+        b = b.to(torch.float32)
+    b = b.to(device, server.request_dtype)
+    if bucket != S:
+        b = torch.cat([b, b.new_zeros((bucket - S, server.m))])
+    return b.contiguous(), S
+
+
 def _prep_serving(params, A, B, dtype, layers, device):
     """Shared serving preamble: early-exit layer slice, then every
     tensor as a contiguous tensor of the serving type on ``device``:
@@ -93,11 +102,6 @@ def _prep_serving(params, A, B, dtype, layers, device):
     B, quantized): with dtype="int8" quantization is left to the server
     (ops/quantized.quantize_params) and ``quantized`` is True."""
     quantized = dtype == "int8"
-    if quantized and B is not None:
-        raise ValueError(
-            "dtype='int8' requires identity B (the quantized forward "
-            "specializes to B = I like the kernels)"
-        )
     if dtype in (torch.bfloat16, "bfloat16"):
         storage = torch.bfloat16
     elif quantized or dtype in (None, "float32", torch.float32):
@@ -164,44 +168,12 @@ class InferenceServer:
         device: ``cuda`` unless asked otherwise (utils/platform.py)."""
         self.device = resolve_device(device)
         params, A, B, quantized = _prep_serving(params, A, B, dtype, layers, self.device)
-        if kernel not in KERNELS:
-            raise ValueError(f"kernel={kernel!r}; the port offers {KERNELS}")
-        if quantized and (step_fn is not None or prox_pair is not None):
-            raise ValueError(
-                "dtype='int8' serving is l1/l1-only (ops/quantized.py "
-                "hard-codes the shrink); serve general-prox solvers in float32 "
-                "or bfloat16"
-            )
-        if quantized and kernel not in INT8_KERNELS:
-            raise ValueError(
-                f"dtype='int8' serves via ops/quantized.py; kernel={kernel!r} "
-                f"does not apply (use one of {INT8_KERNELS})"
-            )
-        if prox_pair is not None:
-            if B is not None:
-                raise ValueError(
-                    "prox_pair requires identity B (the kernel "
-                    "specializes B = I); pass step_fn for general B"
-                )
-            if step_fn is None:
-                step_fn = make_cached_step(*prox_pair)
-        if step_fn is not None:
-            allowed = (
-                KERNELS if prox_pair is not None else ("auto", "reference")
-            )
-            if kernel not in allowed:
-                raise ValueError(
-                    f"kernel={kernel!r} does not apply to general-prox "
-                    f"serving (allowed here: {allowed}); the kernel "
-                    "path needs the prox CALLABLES (prox_pair)"
-                )
-        if B is not None and kernel not in ("auto", "reference"):
-            raise ValueError(
-                f"kernel={kernel!r} requires identity B; general-B "
-                "serving runs the plain loop"
-            )
-        m, n = A.shape
-        d = params.W2.shape[1]
+        m = A.shape[0]
+        # One route for every bucket: no rung reads the batch size.
+        self._forward, route, _ = inference_forward(
+            m, params.W2.shape[1], kernel, "int8" if quantized else A.dtype, B=B, prox_pair=prox_pair,
+            step_fn=step_fn, device=self.device,
+        )
         self.params = params
         self.A = A
         self.B = B
@@ -210,58 +182,24 @@ class InferenceServer:
         # int8 (the kernel quantizes the activations itself).
         self.request_dtype = A.dtype
         self.buckets = tuple(sorted(buckets or _buckets(max_batch)))
-        self._forward = {}
-        self.routes = {}
-        # What each bucket's forward takes before the requests: the
-        # quantized net and dictionary, or the fp32 params and A.
-        self._operands = (params, A)
-        if quantized:
-            # Quantized ONCE here; requests pay only the activations'.
-            self._operands = quantize_params(params, A)
-            int8 = (
-                (dladmm_forward_int8, "plain-loop-int8-reference")
-                if kernel == "reference"
-                else (dladmm_forward_int8_pallas, kernel_route(self.device, "int8-unroll"))
-            )
-        for S in self.buckets:
-            if quantized:
-                fn, desc = int8
-            elif B is None and step_fn is None:
-                fn, desc = resolve_forward(
-                    m, n, d, S, kernel=kernel, device=self.device, dtype=A.dtype
-                )
-            elif B is None:
-                avail, why = prox_megakernel_available(prox_pair, m, d)
-                use_kernel = avail and kernel in ("auto", "megakernel")
-                if kernel == "megakernel" and not use_kernel:
-                    raise ValueError(
-                        f"prox kernel unavailable at bucket {S} (m={m}, "
-                        f"n={n}): {why}; use kernel='auto'"
-                    )
-                if use_kernel:
-                    fn = make_unrolled_inference_prox(*prox_pair)
-                    desc = kernel_route(self.device, dtype=A.dtype) + "-prox"
-                else:
-                    fn = functools.partial(dladmm_forward, step_fn=step_fn)
-                    desc = plain_route("prox", A.dtype)
-            else:
-                fn = functools.partial(dladmm_forward, B=B, step_fn=step_fn)
-                desc = plain_route("general-B", A.dtype)
-            self._forward[S] = fn
-            self.routes[S] = desc
+        self.routes = dict.fromkeys(self.buckets, route)
+        # What the forward takes before the requests: the net and
+        # dictionary quantized ONCE here (requests pay only the
+        # activations'), or the params and A.
+        self._operands = quantize_params(params, A) if quantized else (params, A)
         # Run every bucket once now: the kernel's build and first launch
         # happen here, never on a request.
         for S in self.buckets:
-            self._run(S, torch.zeros((S, m), dtype=self.request_dtype, device=self.device))
+            self._run(torch.zeros((S, m), dtype=self.request_dtype, device=self.device))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def _bucket_for(self, S: int) -> int:
         return _bucket_of(self.buckets, S)
 
-    def _run(self, bucket: int, b: Tensor):
+    def _run(self, b: Tensor):
         with torch.no_grad():
-            return self._forward[bucket](*self._operands, b)[:2]
+            return self._forward(*self._operands, b)[:2]
 
     def solve(self, b) -> Tuple[Tensor, Tensor]:
         """b (S, m), a tensor or an array -> (x (S, n), z (S, d)) on the
@@ -274,19 +212,9 @@ class InferenceServer:
         enqueue)."""
         with profiling.span("serve.solve"):
             with profiling.span("serve.prep"):
-                b = torch.as_tensor(b)
-                if b.ndim != 2 or b.shape[1] != self.m:
-                    raise ValueError(f"expected (S, {self.m}), got {tuple(b.shape)}")
-                S = b.shape[0]
-                bucket = self._bucket_for(S)
-                if b.dtype != self.request_dtype:
-                    b = b.to(torch.float32)
-                b = b.to(self.device, self.request_dtype)
-                if bucket != S:
-                    b = torch.cat([b, b.new_zeros((bucket - S, self.m))])
-                b = b.contiguous()
+                b, S = _pad_request(self, b, self.device)
             with profiling.span("serve.forward"):
-                x, z = self._run(bucket, b)
+                x, z = self._run(b)
             return x[:S], z[:S]
 
 
@@ -370,16 +298,7 @@ class ShardedInferenceServer:
         """b (S, m) -> (x (S, n), z (S, d)) on the first part's device:
         the rows padded to the bucket, split into T parts of bucket / T
         rows, each solved on its part's device, gathered and sliced back."""
-        b = torch.as_tensor(b)
-        if b.ndim != 2 or b.shape[1] != self.m:
-            raise ValueError(f"expected (S, {self.m}), got {tuple(b.shape)}")
-        S = b.shape[0]
-        bucket = _bucket_of(self.buckets, S)
-        if b.dtype != self.request_dtype:
-            b = b.to(torch.float32)
-        b = b.to(self.request_dtype)
-        if bucket != S:
-            b = torch.cat([b, b.new_zeros((bucket - S, self.m))])
+        b, S = _pad_request(self, b)
         parts = [self._servers[dev].solve(chunk) for dev, chunk in zip(self.mesh.devices, b.chunk(self.T))]
         x = torch.cat([xp.to(self.device) for xp, _ in parts])
         z = torch.cat([zp.to(self.device) for _, zp in parts])

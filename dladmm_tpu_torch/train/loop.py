@@ -656,6 +656,18 @@ def make_train_step_from_batch(
 # -- evaluation -----------------------------------------------------------
 
 
+def _eval_trajectory(A: Tensor, b: Tensor, B: Optional[Tensor], use_kernel: bool):
+    """The trajectory forward (params, A, b) -> (tx, tz, tlam) that the
+    policy selects for an eval, or None for the plain loop."""
+    from dladmm_tpu_torch.models.api import select_forward
+
+    m, n = A.shape
+    return select_forward(
+        m, n, m if B is None else B.shape[1], b.shape[0], kernel="auto" if use_kernel else "reference",
+        need_trajectory=True, identity_B=B is None, device=A.device, dtype=A.dtype,
+    )[0]
+
+
 @torch.no_grad()
 def evaluate(
     params: DLADMMParams,
@@ -671,16 +683,16 @@ def evaluate(
     """NMSE(dB) and residual at the final layer, and the NMSE-vs-layer
     curves of the net and of classical LADMM with the same prox pair.
 
-    The l1/l1, B = I net runs through the trajectory kernel without its
-    Ax stack (ops/cuda_traj.trajectory_forward; its plain version on the
-    CPU) unless use_kernel=False; other configs run the plain loop. The
-    JAX package's eval uses its scan: the two compute the same function.
-    Returns plain Python floats and lists."""
+    The l1/l1, B = I net runs through the trajectory the policy selects
+    (models/api.select_forward: the trajectory kernel without its Ax
+    stack; its plain version on the CPU) unless use_kernel=False; other
+    configs run the plain loop. The JAX package's eval uses its scan: the
+    two compute the same function. Returns plain Python floats and
+    lists."""
     K = params.W1.shape[0]
-    if use_kernel and B is None and step_fn is None:
-        from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward
-
-        tx, tz, _ = trajectory_forward(data.b, A, *params)
+    traj = _eval_trajectory(A, data.b, B, use_kernel and step_fn is None)
+    if traj is not None:
+        tx, tz, _ = traj(params, A, data.b)
     else:
         _, (tx, tz, _) = dladmm_forward(params, A, data.b, B=B, capture_trajectory=True, step_fn=step_fn)
     x, z = tx[-1], tz[-1]

@@ -104,7 +104,7 @@ def test_general_proxes_match_jax(prox_x, prox_z, rho):
     ta = DLADMMSolver(A=ts.A, params=ts.params, **kw)  # kernel="auto"
     tb, jb = torch.from_numpy(b), jnp.asarray(b)
     route = ta._paths(S)[2]
-    assert route == ("plain-loop-prox" if prox_x == "group_l2" else "whole-unroll-prox-plain-cpu")
+    assert route == ("plain-loop-prox" if prox_x == "group_l2" else "whole-unroll-plain-cpu-prox")
     for solver in (ts, ta):
         for got, want in zip(solver.solve(tb), js.solve(jb)):
             _close(got, want)
@@ -141,7 +141,7 @@ def test_raise_rules():
         mega.trajectory(tb)
     with pytest.raises(ValueError, match="solve\\(\\) only"):
         mega.fit(0, steps=1, batch=4)
-    with pytest.raises(ValueError, match="prox megakernel unavailable"):
+    with pytest.raises(ValueError, match="prox kernel unavailable"):
         DLADMMSolver.create(tA, K=4, kernel="megakernel", prox_x="group_l2").solve(tb)
     with pytest.raises(ValueError, match="kernel"):
         DLADMMSolver.create(tA, K=4, kernel="cuda").solve(tb)
