@@ -377,6 +377,16 @@ tp_large S = 1 to 256 (CUDA events and the profiler's device time, one
 ``timing_traj_tiles`` or ``timing_serve_tiles`` line each), then the ok
 line.
 
+    python3 chip_smoke.py --bwd-turns
+
+builds every source and runs only row 4's chain on both tiles, where
+the rule of rows 1 and 2 (schedule.tile_edge) is measured for it: each
+forced tile against the plain version (synthetic_large S = 64 and 1024,
+tp_large's widths at K = 2, S = 256, with and without data grads, with
+ties; at the last the two tiles' gW1, gW2, gA and gb bit for bit), then
+both tiles in turns at the shapes of ``--traj-turns`` (one
+``timing_bwd_tiles`` line each), then the ok line.
+
     python3 chip_smoke.py --bf16-turns
 
 runs only phase 25: bf16 and fp32 serving (and the layer step) in
@@ -580,8 +590,9 @@ def serve_tile(tile: int):
 
 @contextlib.contextmanager
 def traj_tile(tile: int):
-    """The trajectory wrapper launches the ``tile`` kernel inside,
-    whatever ops/schedule.tile_edge would choose (the tile comparison)."""
+    """The trajectory wrapper and the backward wrapper's chain launch the
+    ``tile`` kernel inside, whatever ops/schedule.tile_edge would choose
+    (the tile comparison)."""
     from dladmm_tpu_torch.ops import schedule
 
     choose = schedule.tile_edge
@@ -1065,6 +1076,107 @@ TURN_SHAPES = (("synthetic_large", LARGE, (16, 32, 40, 48, 64, 128, 256, 1024, 2
                ("tp_large", TP_LARGE, (1, 16, 32, 64, 256), 5))
 
 
+def bwd_inputs(torch, A, b, p, seed: int, device):
+    """The trajectory kernel's stacks (with Ax) of (A, b, p) and random
+    final-state cotangents."""
+    from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward
+
+    traj = trajectory_forward(b, A, *p, with_tax=True)
+    g = torch.Generator(device=device).manual_seed(seed)
+    (S, m), n = b.shape, A.shape[1]
+    cts = [torch.randn((S, n), generator=g, device=device), torch.randn((S, m), generator=g, device=device),
+           0.1 * torch.randn((S, m), generator=g, device=device)]
+    return traj, cts
+
+
+def bwd_turns(torch, device, card) -> None:
+    """--bwd-turns: row 4's chain on both tiles (the 32 tile and the wide
+    128 tile, schedule.tile_edge). First each tile, forced, against the
+    plain version (BWD_TOL) at synthetic_large S = 64 and 1024 and at
+    tp_large's widths (K = 2, S = 256), with and without data_grads, with
+    ties; at the last, where neither tile splits a phase, the two tiles'
+    gW1, gW2, gA and gb bit for bit (the gp1, gp2 and gAx1 stacks and the
+    carries they are sums of), and the wide tile's repeat bit for bit, with
+    one count in unroll_bwd.launches_wide a wide call. Then both tiles in
+    turns at TURN_SHAPES (CUDA-event medians of the whole call, the
+    profiler's device time of the chain beside): one ``timing_bwd_tiles``
+    line each."""
+    from dladmm_tpu_torch.ops import schedule
+    from dladmm_tpu_torch.ops.cuda_bwd import unroll_bwd, unroll_bwd_plain
+
+    tp2 = dict(TP_LARGE, K=2)
+    with torch.no_grad():
+        for label, shape, S in (("synthetic_large", LARGE, 64), ("synthetic_large", LARGE, 1024),
+                                ("tp_large K=2", tp2, 256)):
+            draw = card_problem if label.startswith("tp_large") else problem
+            A, b, p = draw(torch, S=S, seed=S + 71, device=device, **shape)
+            p.theta1[1, ::2] = 0.0  # ties: theta = 0 and beta at its floor 1e-6
+            p.beta[-1] = 1e-6
+            traj, cts = bwd_inputs(torch, A, b, p, S + 71, device)
+            for data_grads in (True, False):
+                want = unroll_bwd_plain(b, A, *p, *traj, *cts, data_grads=data_grads)
+                got = {}
+                for tile in (128, 32):
+                    wide0 = unroll_bwd.launches_wide
+                    with traj_tile(tile):
+                        got[tile] = unroll_bwd(b, A, *p, *traj, *cts, data_grads=data_grads)
+                    plan = launched_plan(unroll_bwd)
+                    torch.cuda.synchronize()
+                    if plan["tile"] != tile or unroll_bwd.launches_wide - wide0 != (tile == 128):
+                        raise AssertionError(f"{label} S={S} tile {tile}: launched {plan['tile']}, "
+                                             f"launches_wide +{unroll_bwd.launches_wide - wide0}")
+                    case = f"{label} S={S} tile {tile} data_grads={data_grads}"
+                    emit("kernel_bwd_tiles", case=case, **compare_grads(torch, got[tile], want, case))
+                    emit("kernel_bwd_tiles_plan", case=case, **plan)
+                flat = lambda r: [*r[0], *r[1:]]  # noqa: E731
+                same = {name: (x is None and y is None) or torch.equal(x, y)
+                        for name, x, y in zip((*p._fields, "gA", "gb"), flat(got[128]), flat(got[32]))}
+                if label.startswith("tp_large"):
+                    if not all(same[k] for k in ("W1", "W2", "gA", "gb")):
+                        raise AssertionError(f"{label} S={S} data_grads={data_grads}: the tiles differ: {same}")
+                    with traj_tile(128):
+                        again = unroll_bwd(b, A, *p, *traj, *cts, data_grads=data_grads)
+                    if not all((x is None and y is None) or torch.equal(x, y)
+                               for x, y in zip(flat(again), flat(got[128]))):
+                        raise AssertionError(f"{label} S={S}: the wide chain does not repeat bit for bit")
+                emit("kernel_bwd_tiles_bits", case=f"{label} S={S} data_grads={data_grads}", bit_for_bit=same)
+                del want, got
+            del A, b, p, traj, cts
+            torch.cuda.empty_cache()
+
+        for label, shape, sizes, reps in TURN_SHAPES:
+            m, n, K = shape["m"], shape["n"], shape["K"]
+            draw = card_problem if label == "tp_large" else problem
+            A, rows, p = draw(torch, S=max(sizes), seed=67, device=device, **shape)
+            for S in sizes:
+                b = rows[:S]  # the first S rows: contiguous
+                traj, cts = bwd_inputs(torch, A, b, p, 67 + S, device)
+                fns = []
+                for tile in (128, 32):
+                    def run(tile=tile):
+                        with traj_tile(tile):
+                            unroll_bwd(b, A, *p, *traj, *cts)
+                    fns.append(run)
+                for _ in range(2):
+                    for fn in fns:
+                        fn()
+                wide_ms, narrow_ms = median_ms(fns, reps)
+                bms, by = bwd_bound(S, **shape)
+                out = {"config": f"{label} S={S}", "plan_tile": schedule.tile_edge(S, m, n),
+                       "wide_ms": wide_ms, "tile32_ms": narrow_ms, "bound_ms": bms, "bound_by": by,
+                       "chain_bound_ms": 2 * S * K * m * (m + 2 * n) / 67e12 * 1e3}
+                for tile, fn in zip((128, 32), fns):
+                    prof = profile_fn(fn, f"{label} S={S} tile {tile}", events_fallback=True)
+                    out[f"device_us_per_call_{tile}"] = prof["device_us_per_call"]
+                    out[f"chain_us_{tile}"] = sum(v["us"] for k, v in prof["per_call"].items() if "bwd_chain" in k)
+                    fn()
+                    out[f"plan_{tile}"] = launched_plan(unroll_bwd)
+                emit("timing_bwd_tiles", **out, card=card)
+                del b, traj, cts, fns
+            del A, rows, p
+            torch.cuda.empty_cache()
+
+
 def tile_turns(torch, device, card, row: int) -> None:
     """Row ``row`` (1: the serving forward, 2: the trajectory with its Ax
     stack) on both tiles, forced, in turns (CUDA events around each call,
@@ -1308,8 +1420,6 @@ def bwd_case(torch, m: int, n: int, K: int, S: int, seed: int, device, scalar_th
     theta1 of layer 1 zero on every other coordinate, beta of layer 0 at
     its floor 1e-6 (layer 0 reads lam = 0, so the tie leaves the scales
     as they are)."""
-    from dladmm_tpu_torch.ops.cuda_traj import trajectory_forward
-
     A, b, p = problem(torch, m=m, n=n, K=K, S=S, seed=seed, device=device)
     if scalar_theta:
         p = p._replace(theta1=p.theta1.mean(dim=1, keepdim=True), theta2=p.theta2.mean(dim=1, keepdim=True))
@@ -1317,10 +1427,7 @@ def bwd_case(torch, m: int, n: int, K: int, S: int, seed: int, device, scalar_th
         p.theta1[1, ::2] = 0.0
         p.beta[0] = 1e-6
     with torch.no_grad():
-        traj = trajectory_forward(b, A, *p, with_tax=True)
-    g = torch.Generator(device=device).manual_seed(seed)
-    cts = (torch.randn((S, n), generator=g, device=device), torch.randn((S, m), generator=g, device=device),
-           0.1 * torch.randn((S, m), generator=g, device=device))
+        traj, cts = bwd_inputs(torch, A, b, p, seed, device)
     return A, b, p, traj, cts
 
 
@@ -5291,13 +5398,15 @@ def main() -> int:
         build_phase()
         print(json.dumps({"kernels": denoise_phases(torch, torch.device("cuda", 0), card)}), flush=True)
         return 0
-    if sys.argv[1:] in (["--traj-turns"], ["--serve-turns"]):
+    if sys.argv[1:] in (["--traj-turns"], ["--serve-turns"], ["--bwd-turns"]):
         torch.backends.cuda.matmul.allow_tf32 = False
         card = card_line()
         print(card, flush=True)
         build_phase()
         if sys.argv[1] == "--traj-turns":
             traj_turns(torch, torch.device("cuda", 0), card)
+        elif sys.argv[1] == "--bwd-turns":
+            bwd_turns(torch, torch.device("cuda", 0), card)
         else:
             tile_turns(torch, torch.device("cuda", 0), card, row=1)
         print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}), flush=True)

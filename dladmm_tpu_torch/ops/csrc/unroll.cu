@@ -496,35 +496,6 @@ __device__ void serve_phase(const ServeArgs<TS>& a, TileSmemT<T>& sm, int k) {
 // it has the same bits. u and v are two buffers: the z phase reads all of
 // v in every block while its epilogue writes the next u.
 
-// Four neighbouring values of a row, 16 bytes of fp32 or 8 of bf16,
-// widened to fp32 as loaded and rounded to nearest as stored (put's
-// rounding).
-struct F4 {
-  float v[4];
-};
-__device__ __forceinline__ F4 widen4(uint2 h) {
-  return F4{{__uint_as_float(h.x << 16), __uint_as_float(h.x & 0xffff0000u), __uint_as_float(h.y << 16),
-             __uint_as_float(h.y & 0xffff0000u)}};
-}
-__device__ __forceinline__ F4 ld4cg(const float* p) {
-  const float4 q = __ldcg(reinterpret_cast<const float4*>(p));
-  return F4{{q.x, q.y, q.z, q.w}};
-}
-__device__ __forceinline__ F4 ld4cg(const __nv_bfloat16* p) { return widen4(__ldcg(reinterpret_cast<const uint2*>(p))); }
-__device__ __forceinline__ F4 ld4g(const float* p) {
-  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-  return F4{{q.x, q.y, q.z, q.w}};
-}
-__device__ __forceinline__ F4 ld4g(const __nv_bfloat16* p) { return widen4(__ldg(reinterpret_cast<const uint2*>(p))); }
-__device__ __forceinline__ void st4(float* p, const F4& f) {
-  *reinterpret_cast<float4*>(p) = make_float4(f.v[0], f.v[1], f.v[2], f.v[3]);
-}
-__device__ __forceinline__ void st4(__nv_bfloat16* p, const F4& f) {
-  unsigned short h[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) h[q] = __bfloat16_as_ushort(__float2bfloat16_rn(f.v[q]));
-  *reinterpret_cast<uint2*>(p) = make_uint2(h[0] | (unsigned)h[1] << 16, h[2] | (unsigned)h[3] << 16);
-}
 __device__ __forceinline__ F4 rounded4(F4 f) {
 #pragma unroll
   for (int q = 0; q < 4; ++q) f.v[q] = rounded(f.v[q]);
@@ -776,11 +747,7 @@ __global__ void __launch_bounds__(kPT, T == kT ? 4 : 1) traj_persistent(const Tr
 template <class TS>
 const void* wide_kernel(const void* fn, int* smem) {
   *smem = wide_smem_bytes<TS>();
-  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem) != cudaSuccess) {
-    cudaGetLastError();
-    return nullptr;
-  }
-  return fn;
+  return with_smem(fn, *smem);
 }
 
 // The instantiation of a tile edge (32 or kWT), staging and storage, or

@@ -41,7 +41,12 @@
 // step's loads stay in flight (registers) while the current one is
 // computed from the other half of a double-buffered shared-memory tile;
 // __launch_bounds__(kPT, 4) holds the chain at 64 registers, 4 blocks a
-// SM (at 76 it held 3, and S = 1024 took 25% longer).
+// SM (at 76 it held 3, and S = 1024 took 25% longer). Where the shape
+// suits it (ops/schedule.tile_edge: fp32 storage, m and n whole 16-byte
+// chunks and 256 or more, enough operations a layer) the chain runs on
+// the wide 128 x 128 tile instead (bwd_chain<kWT, float>, below): the
+// register-blocked mainloop of wide_tile.cuh with the weight staged by
+// depth, as the chain reads it, at one block a SM.
 // X's epilogue writes gp1 into a (K, S, n) stack (the next layer's gx
 // carry is that slice), U's writes gp2 into a (K, S, m) stack, so the
 // weight gradients leave the chain: (2) bwd_weights, one launch for all
@@ -82,8 +87,8 @@
 // (its U phase writes the first carries), layer 0 a zero buffer.
 //
 // Alignment. Rows of m = 250 floats are only 8-byte aligned, so every
-// load is 4-byte: no 16-byte copy or TMA descriptor. A cp.async pipeline
-// for the weights was measured slower (unroll.cu, PERF.md).
+// load of the 32 tile is 4-byte: no 16-byte copy or TMA descriptor. The
+// wide tile takes only rows of whole 16-byte chunks (wide_chain_layout).
 //
 // Bound. 2 S K (2 m^2 + 3 n m) flops, and the bytes of the weights, the
 // trajectory and the outputs once; at S >= 64 the flops dominate, so the
@@ -98,6 +103,7 @@
 #include <stddef.h>
 
 #include "persistent.cuh"
+#include "wide_tile.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -134,16 +140,16 @@ __device__ __forceinline__ void column_sums(TileSmem& sm, const float (&colp)[2]
 }
 
 // Sum of v over the block, in a fixed order; thread 0 gets the result.
-__device__ __forceinline__ double block_sum(double v, TileSmem& sm) {
+__device__ __forceinline__ double block_sum(double v, double (&red)[kWarps]) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   __syncthreads();  // red may still be read from an earlier call
-  if (lane == 0) sm.red[warp] = v;
+  if (lane == 0) red[warp] = v;
   __syncthreads();
   double s = 0.0;
   if (threadIdx.x == 0)
-    for (int w = 0; w < kWarps; ++w) s += sm.red[w];
+    for (int w = 0; w < kWarps; ++w) s += red[w];
   return s;
 }
 
@@ -302,8 +308,217 @@ __device__ void chain_phase(const ChainArgs<TS>& a, TileSmem& sm, int k) {
       column_sums(sm, colp, col0, n, a.th1p + ((size_t)k * rt + rb) * n);
     if constexpr (PHASE == PHASE_U) {
       column_sums(sm, colp, col0, m, a.th2p + ((size_t)k * rt + rb) * m);
-      const double s_res = block_sum(p_res, sm);
-      const double s_lam = block_sum(p_lam, sm);
+      const double s_res = block_sum(p_res, sm.red);
+      const double s_lam = block_sum(p_lam, sm.red);
+      if (tid == 0) {
+        double* out = a.betap + 2 * ((size_t)k * rt * ct + tile);
+        out[0] = s_res;
+        out[1] = s_lam;
+      }
+    }
+  }
+}
+
+// -- the wide tile (wide_tile.cuh) -------------------------------------------
+//
+// bwd_chain<kWT, float>: the V, X and U phases on 128 x 128 tiles of the
+// depth-major mainloop (wide_gemm_dm: the weight W2, A or W1 is read by
+// depth, as stored), fp32 storage only. Its operands are plain (S, .)
+// matrices staged 16 bytes at a time: X reads the gAx1 buffer, U the gp1
+// stack slice, V the gp2 stack slice, which is not built while staging
+// as on the 32 tile: layer k+1's U epilogue, which has the new gz and
+// glam in registers, writes layer k's gp2 = (gz + beta_k glam)[z1_k != 0]
+// into the stack slice k, and a first elementwise pass writes the top
+// layer's from the final-state cotangents (one grid barrier more); U_k
+// then overwrites the slice with its own gp2, which gW2 reads. The 32
+// tile rounds that expression two ways: its V operand with one fma, its
+// U epilogue's gp2 (and so the gz carry) with a separate multiply beta
+// glam, which gb shares. The wide epilogues take each rounding where the
+// 32 tile takes it, written out (__fmaf_rn, __fmul_rn, __fadd_rn: never
+// contracted), so that where neither tile splits a phase they give the
+// same bits. Each epilogue takes the tile through shared memory (the
+// ring is free then), and a warp then handles whole rows of it, a lane 4
+// neighbouring columns, with 16-byte loads and stores, keeping each
+// element's arithmetic of chain_phase in its order. gth1, gth2: one
+// column partial per 128-row block (each lane sums its 16 rows in order,
+// then the 8 warps in order); gbeta one fp64 pair per U tile (block_sum).
+// One block a SM (8 x 8 outputs a thread, up to 255 registers); the ring,
+// the epilogue's tile and the warps' column partials are dynamic shared
+// memory (kWChainSmem).
+
+constexpr int kWChainSmem = wide_smem_bytes<float>() + kWarps * kWT * 4;
+
+struct WideChainSmem {
+  double red[kWarps];  // block sums (gbeta)
+  int last;            // this block finishes the tile (split-K)
+};
+
+// V's operand (gz + beta glam)[z1 != 0] as the 32 tile stages it (one fma).
+__device__ __forceinline__ float v_operand(float gz, float beta, float glam, float z1) {
+  return __fmul_rn(__fmaf_rn(beta, glam, gz), nonzero(z1));
+}
+
+// V's operand of the top layer, from the final-state cotangents, into
+// the gp2 stack's top slice.
+__device__ void wide_gp2_top(const ChainArgs<float>& a) {
+  const int k = a.K - 1;
+  const float beta = fmaxf(beta_at<float>(a.beta, a.beta16, k), kBetaMin);
+  const size_t smm = (size_t)a.S * a.m;  // a multiple of 4 (wide_chain_layout)
+  const float* z1s = a.tz + k * smm;
+  float* gp2 = a.gp2 + k * smm;
+  for (size_t o = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4; o < smm;
+       o += (size_t)gridDim.x * blockDim.x * 4) {
+    const F4 gz = ld4g(a.gz0 + o), glam = ld4g(a.glam0 + o), z1 = ld4g(z1s + o);
+    F4 g;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) g.v[q] = v_operand(gz.v[q], beta, glam.v[q], z1.v[q]);
+    st4(gp2 + o, g);
+  }
+}
+
+// One chain phase of layer k over all its items on 128 x 128 tiles.
+template <int PHASE>
+__device__ void wide_chain_phase(const ChainArgs<float>& a, unsigned char* smem, WideChainSmem& sh, int k) {
+  const int S = a.S, m = a.m, n = a.n;
+  const size_t sn = (size_t)S * n, smm = (size_t)S * m;
+  const int N = PHASE == PHASE_X ? n : m, depth = PHASE == PHASE_U ? n : m;
+  const Split sp = PHASE == PHASE_V ? a.sv : (PHASE == PHASE_X ? a.sx : a.su);
+  const float beta = fmaxf(beta_at<float>(a.beta, a.beta16, k), kBetaMin), ib = 1.0f / beta;
+  // U: beta of layer k - 1, whose gp2 this epilogue writes
+  const float beta_dn = PHASE == PHASE_U && k > 0 ? fmaxf(beta_at<float>(a.beta, a.beta16, k - 1), kBetaMin) : 0.0f;
+  const float* x1 = a.tx + k * sn;
+  const float* z1s = a.tz + k * smm;
+  const float* ax1 = a.tax + k * smm;
+  const float* lam_in = k ? a.tlam + (k - 1) * smm : a.zeros;
+  const float* z_dn = k ? a.tz + (k - 1) * smm : nullptr;  // z1 of layer k - 1
+  const bool top = k + 1 == a.K;
+  float* gp1 = a.gp1 + k * sn;
+  float* gp2 = a.gp2 + k * smm;
+  float* gax1 = a.gax1_stack ? a.gax1 + k * smm : a.gax1;
+  const float* P = PHASE == PHASE_V ? gp2 : (PHASE == PHASE_X ? gax1 : gp1);  // (S, depth)
+  const float* W = PHASE == PHASE_V ? a.W2 + (size_t)k * m * m : (PHASE == PHASE_X ? a.A : a.W1 + (size_t)k * n * m);
+  const int rt = dcdiv(S, kWT), ct = dcdiv(N, kWT), items = rt * ct * sp.slices;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ty = (warp >> 1) * 4 + (lane >> 3), tx = (warp & 1) * 8 + (lane & 7);
+  float* ts = reinterpret_cast<float*>(smem);
+  float* cols = reinterpret_cast<float*>(smem + wide_smem_bytes<float>());  // [warp][kWT]
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int tile = it / sp.slices, s = it % sp.slices;
+    const int rb = tile / ct, row0 = rb * kWT, col0 = tile % ct * kWT;
+    const int k_lo = s * sp.len, k_hi = min(depth, k_lo + sp.len);
+    float acc[8][8];
+    wide_gemm_dm(smem, S, N, row0, col0, k_lo, k_hi, P, depth, W, N, acc);
+    if (!wide_reduce(acc, a.part, a.cnt, tile, s, sp.slices, sh.last)) continue;
+    __syncthreads();  // every warp is done with the ring
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float4*>(ts + (ty + 16 * i) * kWTP + 64 * h + 4 * tx) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+    __syncthreads();
+    const int c = col0 + 4 * lane;  // N is a multiple of 4 (wide_chain_layout)
+    float colp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    double p_res = 0.0, p_lam = 0.0;  // U: the two gbeta sums
+    if (c < N) {
+      // B rows a batch: their inputs are loaded before any is stored (a
+      // store may alias a later load). U's inputs: glam, gz, z1, gv, Ax1,
+      // b, lam_in, gb, z1 of layer k - 1.
+      constexpr int B = PHASE == PHASE_U ? 2 : 4, NIN = PHASE == PHASE_U ? 9 : 2;
+#pragma unroll
+      for (int r0 = 0; r0 < kWT / 8; r0 += B) {
+        F4 e[B][NIN];
+#pragma unroll
+        for (int h = 0; h < B; ++h) {
+          const int r = row0 + warp + 8 * (r0 + h);
+#pragma unroll
+          for (int q = 0; q < NIN; ++q) e[h][q] = F4{};
+          if (r >= S) continue;
+          const size_t o = (size_t)r * N + c;
+          if constexpr (PHASE == PHASE_V) {
+            e[h][0] = ld4cg(a.gax + o);
+            e[h][1] = top ? ld4g(a.glam0 + o) : ld4cg(a.glam + o);
+          } else if constexpr (PHASE == PHASE_X) {
+            e[h][0] = ld4g(x1 + o);
+            e[h][1] = top ? ld4g(a.gx0 + o) : ld4cg(a.gp1 + (k + 1) * sn + o);
+          } else {
+            e[h][0] = top ? ld4g(a.glam0 + o) : ld4cg(a.glam + o);
+            e[h][1] = top ? ld4g(a.gz0 + o) : ld4cg(a.gz + o);
+            e[h][2] = ld4g(z1s + o);
+            e[h][3] = ld4cg(a.gv + o);
+            e[h][4] = ld4g(ax1 + o);
+            e[h][5] = ld4g(a.b + o);
+            e[h][6] = ld4g(lam_in + o);
+            if (a.gb) e[h][7] = ld4cg(a.gb + o);
+            if (k > 0) e[h][8] = ld4g(z_dn + o);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < B; ++h) {
+          const int rr = warp + 8 * (r0 + h), r = row0 + rr;
+          if (r >= S) continue;
+          const size_t o = (size_t)r * N + c;
+          const float4 sum4 = *reinterpret_cast<const float4*>(ts + rr * kWTP + 4 * lane);
+          const float sum[4] = {sum4.x, sum4.y, sum4.z, sum4.w};
+          if constexpr (PHASE == PHASE_V) {
+            F4 gv, g;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              gv.v[q] = -sum[q];
+              g.v[q] = __fadd_rn(__fmaf_rn(beta, e[h][1].v[q], e[h][0].v[q]), gv.v[q]);
+            }
+            st4(a.gv + o, gv);
+            st4(gax1 + o, g);
+          } else if constexpr (PHASE == PHASE_X) {
+            F4 g;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float x = e[h][0].v[q];
+              g.v[q] = (e[h][1].v[q] + sum[q]) * nonzero(x);
+              colp[q] += g.v[q] * sign_of(x);
+            }
+            st4(gp1 + o, g);
+          } else {
+            F4 g2, gz, glam, gax, gb, op;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float glam1 = e[h][0].v[q], z1 = e[h][2].v[q];
+              const float bg = __fmul_rn(beta, glam1);
+              g2.v[q] = __fmul_rn(__fadd_rn(e[h][1].v[q], bg), nonzero(z1));
+              const float gu = -sum[q];
+              const float gbase = __fadd_rn(e[h][3].v[q], gu);
+              gz.v[q] = __fadd_rn(g2.v[q], gbase);
+              glam.v[q] = __fmaf_rn(gbase, ib, glam1);
+              gax.v[q] = gu;
+              gb.v[q] = __fsub_rn(__fsub_rn(e[h][7].v[q], gbase), bg);
+              op.v[q] = v_operand(gz.v[q], beta_dn, glam.v[q], e[h][8].v[q]);  // layer k - 1's V operand
+              colp[q] += g2.v[q] * sign_of(z1);
+              p_res += (double)(glam1 * ((e[h][4].v[q] + z1) - e[h][5].v[q]));
+              p_lam += (double)(gbase * e[h][6].v[q]);
+            }
+            st4(gp2 + o, g2);
+            st4(a.gz + o, gz);
+            st4(a.glam + o, glam);
+            st4(a.gax + o, gax);
+            if (a.gb) st4(a.gb + o, gb);
+            if (k > 0) st4(a.gp2 + (k - 1) * smm + o, op);
+          }
+        }
+      }
+    }
+    if constexpr (PHASE != PHASE_V) {
+      *reinterpret_cast<float4*>(cols + warp * kWT + 4 * lane) = make_float4(colp[0], colp[1], colp[2], colp[3]);
+      __syncthreads();
+      if (tid < kWT && col0 + tid < N) {
+        float sum = 0.0f;
+        for (int w = 0; w < kWarps; ++w) sum += cols[w * kWT + tid];
+        float* out = PHASE == PHASE_X ? a.th1p : a.th2p;
+        out[((size_t)k * rt + rb) * N + col0 + tid] = sum;
+      }
+    }
+    if constexpr (PHASE == PHASE_U) {
+      const double s_res = block_sum(p_res, sh.red);
+      const double s_lam = block_sum(p_lam, sh.red);
       if (tid == 0) {
         double* out = a.betap + 2 * ((size_t)k * rt * ct + tile);
         out[0] = s_res;
@@ -314,19 +529,63 @@ __device__ void chain_phase(const ChainArgs<TS>& a, TileSmem& sm, int k) {
 }
 
 // Layers K-1 ... 0 in one cooperative launch: V, X, U a layer with a
-// grid barrier after each but the last.
-template <class TS>
-__global__ void __launch_bounds__(kPT, 4) bwd_chain(const ChainArgs<TS> a) {
-  __shared__ TileSmem sm;
+// grid barrier after each but the last. The 32 tile (either storage) at
+// 4 blocks a SM; the wide tile (fp32 storage) at one block a SM, its
+// ring in dynamic shared memory, the top layer's gp2 first, behind one
+// barrier more.
+template <int T, class TS>
+__global__ void __launch_bounds__(kPT, T == kT ? 4 : 1) bwd_chain(const ChainArgs<TS> a) {
   cg::grid_group grid = cg::this_grid();
-  for (int k = a.K - 1; k >= 0; --k) {
-    chain_phase<PHASE_V, TS>(a, sm, k);
+  if constexpr (T == kT) {
+    __shared__ TileSmem sm;
+    for (int k = a.K - 1; k >= 0; --k) {
+      chain_phase<PHASE_V, TS>(a, sm, k);
+      grid.sync();
+      chain_phase<PHASE_X, TS>(a, sm, k);
+      grid.sync();
+      chain_phase<PHASE_U, TS>(a, sm, k);
+      if (k > 0) grid.sync();
+    }
+  } else {
+    extern __shared__ __align__(16) unsigned char wide_smem[];
+    __shared__ WideChainSmem sh;
+    wide_gp2_top(a);
     grid.sync();
-    chain_phase<PHASE_X, TS>(a, sm, k);
-    grid.sync();
-    chain_phase<PHASE_U, TS>(a, sm, k);
-    if (k > 0) grid.sync();
+    for (int k = a.K - 1; k >= 0; --k) {
+      wide_chain_phase<PHASE_V>(a, wide_smem, sh, k);
+      grid.sync();
+      wide_chain_phase<PHASE_X>(a, wide_smem, sh, k);
+      grid.sync();
+      wide_chain_phase<PHASE_U>(a, wide_smem, sh, k);
+      if (k > 0) grid.sync();
+    }
   }
+}
+
+// The chain's instantiation of a tile edge: 32 for either storage, kWT
+// for fp32 storage only; else null. Its dynamic shared memory in `smem`,
+// with the kernel's ceiling raised to it.
+template <class TS>
+const void* chain_kernel(int tile, int* smem) {
+  *smem = 0;
+  if (tile == kT) return (const void*)bwd_chain<kT, TS>;
+  if constexpr (sizeof(TS) == 4) {
+    if (tile == kWT) return with_smem((const void*)bwd_chain<kWT, TS>, *smem = kWChainSmem);
+  }
+  return nullptr;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
+
+// The wide chain's layout rules (ops/schedule.tile_edge): every matrix it
+// reads or writes 16 bytes at a time starts on 16 bytes, m and n are
+// whole chunks of 4 floats, and so is every depth slice of the operand.
+bool wide_chain_layout(const ChainArgs<float>& c) {
+  const void* ptrs[] = {c.b, c.A, c.W1, c.W2, c.tx, c.tz, c.tlam, c.tax, c.gx0, c.gz0, c.glam0, c.zeros,
+                        c.gz, c.glam, c.gax, c.gv, c.gax1, c.gb, c.gp1, c.gp2, c.part};
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return false;
+  return c.m % 4 == 0 && c.n % 4 == 0 && c.sv.len % 4 == 0 && c.sx.len % 4 == 0 && c.su.len % 4 == 0;
 }
 
 template <class TS>
@@ -454,7 +713,7 @@ int run_bwd(const TS* b, const TS* A, const TS* W1, const TS* W2, const TS* th1,
     return (int)cudaErrorInvalidValue;
   if (S16 ? (gax1_out == nullptr) != (gb_out == nullptr) : (gax1_stack == nullptr) != (gb_out == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int grid = sched[0];
+  const int grid = sched[0], tile = sched[7];
   if (grid < 1 || sched[2] < 1 || sched[4] < 1 || sched[6] < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -466,12 +725,6 @@ int run_bwd(const TS* b, const TS* A, const TS* W1, const TS* W2, const TS* th1,
   const size_t smb = (size_t)S * m * sizeof(float);
   // fp32 accumulates gb in the caller's output; bf16 in the workspace.
   float* gb = S16 ? (gb_out ? ws[B_GB] : nullptr) : reinterpret_cast<float*>(gb_out);
-
-  err = cudaMemsetAsync(ws[B_GAX], 0, smb, stream);
-  if (err == cudaSuccess) err = cudaMemsetAsync(ws[B_ZEROS], 0, smb, stream);
-  if (err == cudaSuccess) err = cudaMemsetAsync(cnt, 0, (size_t)n_counters * sizeof(int), stream);
-  if (err == cudaSuccess && gb) err = cudaMemsetAsync(gb, 0, smb, stream);
-  if (err != cudaSuccess) return (int)err;
 
   ChainArgs<TS> c;
   c.b = b;
@@ -512,8 +765,20 @@ int run_bwd(const TS* b, const TS* A, const TS* W1, const TS* W2, const TS* th1,
   c.sv = Split{sched[1], sched[2]};
   c.sx = Split{sched[3], sched[4]};
   c.su = Split{sched[5], sched[6]};
+  int smem = 0;
+  const void* fn = chain_kernel<TS>(tile, &smem);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  if constexpr (!S16) {
+    if (tile == kWT && !wide_chain_layout(c)) return (int)cudaErrorInvalidValue;
+  }
+
+  err = cudaMemsetAsync(ws[B_GAX], 0, smb, stream);
+  if (err == cudaSuccess) err = cudaMemsetAsync(ws[B_ZEROS], 0, smb, stream);
+  if (err == cudaSuccess) err = cudaMemsetAsync(cnt, 0, (size_t)n_counters * sizeof(int), stream);
+  if (err == cudaSuccess && gb) err = cudaMemsetAsync(gb, 0, smb, stream);
+  if (err != cudaSuccess) return (int)err;
   void* args[] = {&c};
-  err = cudaLaunchCooperativeKernel((const void*)bwd_chain<TS>, dim3(grid), dim3(kPT), args, 0, stream);
+  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kPT), args, smem, stream);
   if (err != cudaSuccess) {
     cudaGetLastError();  // a refused launch: clear it for later launches' checks
     return (int)err;
@@ -543,22 +808,25 @@ int run_bwd(const TS* b, const TS* A, const TS* W1, const TS* W2, const TS* th1,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int nrb = cdiv(S, kT), total = K * (n + m + 1);
+  const int nrb = cdiv(S, tile), total = K * (n + m + 1);  // the chain's row blocks
   finish<TS><<<cdiv(total, 256), 256, 0, stream>>>(
       th1, th2, beta, beta16, ws[B_TH1P], ws[B_TH2P], reinterpret_cast<const double*>(ws[B_BETAP]),
-      gth1, gth2, gbeta, gbeta16, K, m, n, nrb, nrb * cdiv(m, kT));
+      gth1, gth2, gbeta, gbeta16, K, m, n, nrb, nrb * cdiv(m, tile));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Blocks of bwd_chain<storage> (0: fp32, 1: bf16) resident on one SM, and
-// the card's SMs: the grid ceiling of its cooperative launch
-// (ops/schedule.launch_grid).
-extern "C" int dladmm_bwd_occupancy(int storage, int device, int* blocks_per_sm, int* sms) {
-  const void* fn = storage ? (const void*)bwd_chain<__nv_bfloat16> : (const void*)bwd_chain<float>;
+// Blocks of bwd_chain<tile, storage> (storage 0: fp32, 1: bf16, which has
+// the 32 tile only) resident on one SM, and the card's SMs: the grid
+// ceiling of its cooperative launch (ops/schedule.launch_grid).
+extern "C" int dladmm_bwd_occupancy(int tile, int storage, int device, int* blocks_per_sm, int* sms) {
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kPT, 0);
+  if (err != cudaSuccess) return (int)err;
+  int smem = 0;
+  const void* fn = storage ? chain_kernel<__nv_bfloat16>(tile, &smem) : chain_kernel<float>(tile, &smem);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kPT, smem);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   return (int)err;
 }
@@ -583,8 +851,9 @@ extern "C" int dladmm_bwd_weights_occupancy(int storage, int device, int* blocks
 // is the whole batch). bufs: the workspace's buffers in
 // ops/schedule.BWD_BUFFERS order (ops/schedule.bwd_workspace sizes
 // them); n_counters ints of counters. sched: the chain's grid, then the
-// slices and length of its V, X and U phases. The chain's grid, if the
-// card cannot hold it resident, is refused (cudaErrorCooperativeLaunchTooLarge)
+// slices and length of its V, X and U phases, then its tile edge (32, or
+// 128 where wide_chain_layout holds). The chain's grid, if the card
+// cannot hold it resident, is refused (cudaErrorCooperativeLaunchTooLarge)
 // and nothing runs. Returns a cudaError_t.
 extern "C" int dladmm_unroll_bwd(
     const float* b, const float* A, const float* W1, const float* W2, const float* th1,

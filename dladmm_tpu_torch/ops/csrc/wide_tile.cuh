@@ -1,12 +1,16 @@
-// The serving kernel's wide tile (unroll.cu unroll_persistent<kWT, ...>):
-// one 128 x 128 output tile of a phase's fp32 GEMM over a depth slice,
-// designed for the H100's fp32 pipes, and its split-K reduction.
+// The wide tile of the serving kernel, the trajectory (unroll.cu
+// unroll_persistent<kWT, ...>, traj_persistent<kWT, float>) and the
+// backward chain (unroll_bwd.cu bwd_chain<kWT, float>): one 128 x 128
+// output tile of a phase's fp32 GEMM over a depth slice, designed for the
+// H100's fp32 pipes, its ring of stages and its split-K reduction.
 //
-// Both operands are K-contiguous matrices read as they are: OUT[r][c] =
-// sum_q P[r][q] * W[c][q] (the serving kernel's u, x1 or v against W1,
-// A or W2, each row `depth` long). The tile_gemm of persistent.cuh builds
-// its operand element by element and stages 4 bytes at a time; here the
-// operand is a plain matrix that an earlier epilogue wrote, so both are
+// wide_gemm: both operands are K-contiguous matrices read as they are:
+// OUT[r][c] = sum_q P[r][q] * W[c][q] (the serving kernel's u, x1 or v
+// against W1, A or W2, each row `depth` long). wide_gemm_dm: the weight
+// is stored by depth, OUT[r][c] = sum_q P[r][q] * W[q][c] (the chain's
+// gp2 W2, gAx1 A, gp1 W1); its staging is below. The tile_gemm of
+// persistent.cuh builds its operand element by element and stages 4
+// bytes at a time; here the operand is a plain matrix that an earlier epilogue wrote, so both are
 // copied from global to shared memory 16 bytes at a time with cp.async
 // (L2 only: state written in the call is never read through a stale L1
 // line) into a ring of kWStages stages, and the copies of the next
@@ -85,6 +89,83 @@ __device__ __forceinline__ float4 staged4(const __nv_bfloat16* row, int k) {
                      __uint_as_float(h.y << 16), __uint_as_float(h.y & 0xffff0000u));
 }
 
+// Four neighbouring values of a row, 16 bytes of fp32 or 8 of bf16,
+// widened to fp32 as loaded and rounded to nearest as stored (the
+// epilogues' 16-byte loads and stores).
+struct F4 {
+  float v[4];
+};
+__device__ __forceinline__ F4 widen4(uint2 h) {
+  return F4{{__uint_as_float(h.x << 16), __uint_as_float(h.x & 0xffff0000u), __uint_as_float(h.y << 16),
+             __uint_as_float(h.y & 0xffff0000u)}};
+}
+__device__ __forceinline__ F4 ld4cg(const float* p) {
+  const float4 q = __ldcg(reinterpret_cast<const float4*>(p));
+  return F4{{q.x, q.y, q.z, q.w}};
+}
+__device__ __forceinline__ F4 ld4cg(const __nv_bfloat16* p) { return widen4(__ldcg(reinterpret_cast<const uint2*>(p))); }
+__device__ __forceinline__ F4 ld4g(const float* p) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  return F4{{q.x, q.y, q.z, q.w}};
+}
+__device__ __forceinline__ F4 ld4g(const __nv_bfloat16* p) { return widen4(__ldg(reinterpret_cast<const uint2*>(p))); }
+__device__ __forceinline__ void st4(float* p, const F4& f) {
+  *reinterpret_cast<float4*>(p) = make_float4(f.v[0], f.v[1], f.v[2], f.v[3]);
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, const F4& f) {
+  unsigned short h[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) h[q] = __bfloat16_as_ushort(__float2bfloat16_rn(f.v[q]));
+  *reinterpret_cast<uint2*>(p) = make_uint2(h[0] | (unsigned)h[1] << 16, h[2] | (unsigned)h[3] << 16);
+}
+
+// `fn` with its ceiling of dynamic shared memory raised to `bytes`, or
+// null where that is refused (the error cleared for later launches).
+inline const void* with_smem(const void* fn, int bytes) {
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) != cudaSuccess) {
+    cudaGetLastError();
+    return nullptr;
+  }
+  return fn;
+}
+
+// One stage of the operand: P[row0:+128, k0:+kWBK] (rows x depth, fp32,
+// row stride ldp) as rows of kWRow floats ([row][k]), 16-byte chunks.
+__device__ __forceinline__ void wide_stage_op(float* so, const float* P, int ldp, int rows, int row0, int k0,
+                                              int k_hi) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int e = 0; e < kWBK / 8; ++e) {  // 128 rows x kWBK / 4 chunks of 4 floats
+    const int ch = tid + e * 256, r = ch / (kWBK / 4), kc = ch % (kWBK / 4) * 4;
+    const bool in = row0 + r < rows && k0 + kc < k_hi;
+    cp_async16(so + r * kWRow + kc, in ? P + (size_t)(row0 + r) * ldp + k0 + kc : P, in);
+  }
+}
+
+// The ring over the depth slice [k_lo, k_hi): load(slot, k0) issues the
+// copies of one stage of kWBK depths into ring slot `slot`, step(slot)
+// computes it once it has landed. The copies of the next kWStages - 1
+// stages stay in flight while one is computed.
+template <class Load, class Step>
+__device__ __forceinline__ void wide_ring(int k_lo, int k_hi, const Load& load, const Step& step) {
+  const int steps = (k_hi - k_lo + kWBK - 1) / kWBK;
+  __syncthreads();  // the previous item may still read the ring
+#pragma unroll
+  for (int s = 0; s < kWStages - 1; ++s) {
+    if (s < steps) load(s, k_lo + s * kWBK);
+    cp_async_commit();
+  }
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<kWStages - 2>();
+    __syncthreads();  // stage t has landed for every thread; stage t - 1 is read by none
+    const int nt = t + kWStages - 1;
+    if (nt < steps) load(nt % kWStages, k_lo + nt * kWBK);
+    cp_async_commit();
+    step(t % kWStages);
+  }
+  cp_async_wait<0>();
+}
+
 // acc = P[row0:+128, k_lo:k_hi] * W[col0:+128, k_lo:k_hi]^T for one tile;
 // P (rows x depth, fp32) and W (cols x depth, WT) are read with row
 // strides ldp and ldw. k_lo and k_hi are multiples of a 16-byte chunk.
@@ -102,14 +183,8 @@ __device__ __forceinline__ void wide_gemm(unsigned char* smem, int rows, int col
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
   auto load = [&](int slot, int k0) {
-    float* so = reinterpret_cast<float*>(smem + slot * SB);
+    wide_stage_op(reinterpret_cast<float*>(smem + slot * SB), P, ldp, rows, row0, k0, k_hi);
     WT* sw = reinterpret_cast<WT*>(smem + slot * SB + kWOpBytes);
-#pragma unroll
-    for (int e = 0; e < kWBK / 8; ++e) {  // 128 rows x kWBK / 4 chunks of 4 floats
-      const int ch = tid + e * 256, r = ch / (kWBK / 4), kc = ch % (kWBK / 4) * 4;
-      const bool in = row0 + r < rows && k0 + kc < k_hi;
-      cp_async16(so + r * kWRow + kc, in ? P + (size_t)(row0 + r) * ldp + k0 + kc : P, in);
-    }
 #pragma unroll
     for (int e = 0; e < WCH / 2; ++e) {  // 128 columns x WCH chunks
       const int ch = tid + e * 256, c = ch / WCH, kc = (ch % WCH) * (16 / (int)sizeof(WT));
@@ -117,20 +192,7 @@ __device__ __forceinline__ void wide_gemm(unsigned char* smem, int rows, int col
       cp_async16(sw + c * WR + kc, in ? W + (size_t)(col0 + c) * ldw + k0 + kc : W, in);
     }
   };
-  const int steps = (k_hi - k_lo + kWBK - 1) / kWBK;
-  __syncthreads();  // the previous item may still read the ring
-#pragma unroll
-  for (int s = 0; s < kWStages - 1; ++s) {
-    if (s < steps) load(s, k_lo + s * kWBK);
-    cp_async_commit();
-  }
-  for (int t = 0; t < steps; ++t) {
-    cp_async_wait<kWStages - 2>();
-    __syncthreads();  // stage t has landed for every thread; stage t - 1 is read by none
-    const int nt = t + kWStages - 1;
-    if (nt < steps) load(nt % kWStages, k_lo + nt * kWBK);
-    cp_async_commit();
-    const int slot = t % kWStages;
+  wide_ring(k_lo, k_hi, load, [&](int slot) {
     const float* so = reinterpret_cast<const float*>(smem + slot * SB);
     const WT* sw = reinterpret_cast<const WT*>(smem + slot * SB + kWOpBytes);
 #pragma unroll
@@ -155,8 +217,67 @@ __device__ __forceinline__ void wide_gemm(unsigned char* smem, int rows, int col
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(o.w, w[j].w, acc[i][j]);
       }
     }
-  }
-  cp_async_wait<0>();
+  });
+}
+
+// The depth-major variant (the backward chain's P * W, fp32): acc =
+// P[row0:+128, k_lo:k_hi] * W[k_lo:k_hi, col0:+128], W (depth x cols)
+// stored by depth with row stride ldw. P is staged as wide_gemm stages
+// it; W depth row by depth row ([k][col]: each depth's 128 columns are
+// 512 contiguous bytes, kWT floats a staged row). Thread (ty, tx) owns
+// the rows ty + 16 i and the columns 4 tx + e + 64 h (acc[i][4 h + e]),
+// so that one depth of its 8 columns is two LDS.128: 16 of them still
+// feed 256 FMAs, and the 8 threads of a quarter warp read 128 contiguous
+// bytes of a depth row (all 32 banks): no bank conflict. Each output's
+// sum runs over the depth in order with fmaf. W's depth rows are tested
+// one by one, so only P's staging needs the depth slice in whole chunks.
+__device__ __forceinline__ void wide_gemm_dm(unsigned char* smem, int rows, int cols, int row0, int col0,
+                                             int k_lo, int k_hi, const float* P, int ldp, const float* W,
+                                             int ldw, float (&acc)[8][8]) {
+  constexpr int SB = wide_stage_bytes<float>();
+  static_assert(kWBK * kWT * 4 <= SB - kWOpBytes, "a stage of depth-major weights fits the weight's slot");
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ty = (warp >> 1) * 4 + (lane >> 3), tx = (warp & 1) * 8 + (lane & 7);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  auto load = [&](int slot, int k0) {
+    wide_stage_op(reinterpret_cast<float*>(smem + slot * SB), P, ldp, rows, row0, k0, k_hi);
+    float* sw = reinterpret_cast<float*>(smem + slot * SB + kWOpBytes);
+#pragma unroll
+    for (int e = 0; e < kWBK * kWT / 4 / 256; ++e) {  // kWBK depths x 32 chunks of 4 columns
+      const int ch = tid + e * 256, q = ch / (kWT / 4), cc = ch % (kWT / 4) * 4;
+      const bool in = k0 + q < k_hi && col0 + cc < cols;
+      cp_async16(sw + q * kWT + cc, in ? W + (size_t)(k0 + q) * ldw + col0 + cc : W, in);
+    }
+  };
+  wide_ring(k_lo, k_hi, load, [&](int slot) {
+    const float* so = reinterpret_cast<const float*>(smem + slot * SB);
+    const float* sw = reinterpret_cast<const float*>(smem + slot * SB + kWOpBytes);
+#pragma unroll
+    for (int kq = 0; kq < kWBK; kq += 4) {
+      float4 w[4][2];  // [depth kq + d][half h]: columns 4 tx + 64 h ... + 3
+#pragma unroll
+      for (int d = 0; d < 4; ++d)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) w[d][h] = staged4(sw + (kq + d) * kWT + 64 * h, 4 * tx);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 o = staged4(so + (ty + 16 * i) * kWRow, kq);
+        const float od[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+        for (int d = 0; d < 4; ++d)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            acc[i][4 * h] = fmaf(od[d], w[d][h].x, acc[i][4 * h]);
+            acc[i][4 * h + 1] = fmaf(od[d], w[d][h].y, acc[i][4 * h + 1]);
+            acc[i][4 * h + 2] = fmaf(od[d], w[d][h].z, acc[i][4 * h + 2]);
+            acc[i][4 * h + 3] = fmaf(od[d], w[d][h].w, acc[i][4 * h + 3]);
+          }
+      }
+    }
+  });
 }
 
 // Split-K of the wide tile: each slice writes its partial tile (16-byte

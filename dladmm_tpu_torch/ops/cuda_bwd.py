@@ -19,9 +19,11 @@ B = I only, as the TPU kernels.
 Design. One persistent cooperative launch runs the V, X, U chain of
 all K layers with grid barriers; a second launch computes all K layers'
 weight gradients from the gp1 and gp2 stacks the chain stored; a third
-finishes gθ and gβ. The chain's grid and the depth split of each phase
-come from ``ops/schedule.bwd_schedule``; a grid the card cannot hold
-resident is refused by the launch and raises here.
+finishes gθ and gβ. The chain's tile (``schedule.tile_edge``, the rule
+of the forwards: the 32 tile, or for fp32 storage where the shape suits
+its 16-byte staging the wide 128 tile), grid and the depth split of
+each phase come from ``ops/schedule.bwd_plan``; a grid the card cannot
+hold resident is refused by the launch and raises here.
 
 Batch split. The TPU gates (``bwd_fits_vmem``, and ``bwd_chunk_batch``
 as a VMEM fit) are dropped: the CUDA kernel keeps the cotangent state in
@@ -49,7 +51,7 @@ from torch import Tensor
 
 from dladmm_tpu_torch.models.unroll import DLADMMParams
 from dladmm_tpu_torch.ops import cuda_build, schedule
-from dladmm_tpu_torch.ops.cuda_unroll import _rounded, kernel_args, storage_dtype
+from dladmm_tpu_torch.ops.cuda_unroll import _rounded, kernel_args, staging_vec, storage_dtype
 from dladmm_tpu_torch.ops.reference import _BETA_MIN
 from dladmm_tpu_torch.ops.unroll_vjp import _param_grads, bwd_from_carries, shifted_residuals
 from dladmm_tpu_torch.utils.profiling import check_kernel_outputs
@@ -227,9 +229,11 @@ def unroll_bwd(b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax, gx, gz, glam,
     ``bs`` (rows per batch slice of the weight gradients): None or
     bs >= S is the whole-batch route, bs < S the chunked route. CUDA
     tensors launch the kernel, counted in ``unroll_bwd.launches[route]``
-    (bf16 storage: ``launches_bf16[route]``), and leave the plan it
-    launched with in ``unroll_bwd.last_plan`` ((blocks a SM, SMs), chain
-    grid, {phase: Split}, WeightSplit); CPU tensors run the plain version.
+    (bf16 storage: ``launches_bf16[route]``; of the fp32 launches, those
+    whose chain ran on the wide tile also in ``launches_wide``), and leave
+    the plan it launched with in ``unroll_bwd.last_plan`` ((blocks a SM,
+    SMs), chain grid, {phase: Split}, WeightSplit; the chain's tile is
+    each Split's); CPU tensors run the plain version.
 
     The storage type is b's, float32 or bfloat16 (``storage_dtype``; beta
     float32 or b's), and the stacks and cotangents are in it too. bf16
@@ -270,10 +274,10 @@ def unroll_bwd(b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax, gx, gz, glam,
     dev = b.device.index
     launch = (cuda_build.entry(SRC, "dladmm_unroll_bwd_bf16", _ARGTYPES_BF16) if bf16
               else cuda_build.entry(SRC, "dladmm_unroll_bwd", _ARGTYPES))
-    occ = cuda_build.occupancy(SRC, "dladmm_bwd_occupancy", dev, int(bf16))
-    grid, sp, wsplit, lay = schedule.bwd_plan(S, m, n, K, bs, data_grads, *occ,
-                                              **({"bf16": True} if bf16 else {}))
-    sched = (ctypes.c_int * 7)(grid, *(v for ph in ("v", "x", "u") for v in (sp[ph].slices, sp[ph].length)))
+    tile = schedule.tile_edge(S, m, n, 0 if bf16 else staging_vec((b, A, W1, W2, *ins), False))
+    occ = cuda_build.occupancy(SRC, "dladmm_bwd_occupancy", dev, tile, int(bf16))
+    grid, sp, wsplit, lay = schedule.bwd_plan(S, m, n, K, bs, data_grads, *occ, bf16=bf16, tile=tile)
+    sched = (ctypes.c_int * 8)(grid, *(v for ph in ("v", "x", "u") for v in (sp[ph].slices, sp[ph].length)), tile)
     with torch.cuda.device(b.device):
         kw = dict(dtype=dt, device=b.device)
         gW1, gW2 = torch.empty((K, n, m), **kw), torch.empty((K, m, m), **kw)
@@ -301,6 +305,7 @@ def unroll_bwd(b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax, gx, gz, glam,
         cuda_build.check(SRC, err, "CUDA backward kernel")
     with _count_lock:
         (unroll_bwd.launches_bf16 if bf16 else unroll_bwd.launches)[route] += 1
+        unroll_bwd.launches_wide += tile == schedule.WIDE
         unroll_bwd.last_plan = (occ, grid, sp, wsplit)
     check_kernel_outputs("unroll_bwd", gW1, gW2, gth1, gth2, gbeta, gax1, gb)
     gparams = DLADMMParams(gW1, gW2, _reduce_theta(gth1, th1_p), _reduce_theta(gth2, th2_p),
@@ -313,13 +318,16 @@ def unroll_bwd(b, A, W1, W2, th1, th2, beta, tx, tz, tlam, tax, gx, gz, glam,
 
 unroll_bwd.launches = dict.fromkeys(ROUTES, 0)
 unroll_bwd.launches_bf16 = dict.fromkeys(ROUTES, 0)
+unroll_bwd.launches_wide = 0
 unroll_bwd.last_plan = None
 
 
 def reset_launches() -> None:
-    """Set both routes' launch counts to 0, in both storages."""
+    """Set both routes' launch counts to 0, in both storages, and the
+    wide chain's."""
     unroll_bwd.launches = dict.fromkeys(ROUTES, 0)
     unroll_bwd.launches_bf16 = dict.fromkeys(ROUTES, 0)
+    unroll_bwd.launches_wide = 0
 
 
 __all__ = [

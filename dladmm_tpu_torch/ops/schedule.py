@@ -6,11 +6,12 @@ serving forward (``csrc/int8_unroll.cu`` ``int8_persistent``: int32
 partials, depth in bytes, ``int8_plan``).
 
 Every phase of those kernels is one GEMM (fp32, or int8 codes into
-int32) whose output is cut into 32 x 32 tiles (the fp32 serving kernel
-and the fp32 trajectory: 32 x 32 or the wide 128 x 128, chosen by the
-shape; the int8 kernel: 32 x 32 or 64 x 64). A phase with few tiles (synthetic_small at S = 64 has 16-32) also
-cuts its depth into slices, so that tiles x slices work items fill the
-launch's grid; each slice writes a partial tile to a workspace, and the
+int32) whose output is cut into 32 x 32 tiles (the fp32 serving kernel,
+the fp32 trajectory and the fp32 backward chain: 32 x 32 or the wide
+128 x 128, chosen by the shape; the int8 kernel: 32 x 32 or 64 x 64). A
+phase with few tiles (synthetic_small at S = 64 has 16-32) also cuts its
+depth into slices, so that tiles x slices work items fill the launch's
+grid; each slice writes a partial tile to a workspace, and the
 last block to finish a tile (counted by an integer atomic per tile) sums
 the partials in slice order and runs the tile's epilogue. No float
 atomics: a call repeats bit for bit on one card.
@@ -30,12 +31,12 @@ import functools
 from typing import Dict, NamedTuple, Tuple
 
 TILE = 32  # output tile edge of every phase but the wide tile's (csrc: kT)
-WIDE = 128  # the serving kernel's and the fp32 trajectory's wide tile edge (csrc/wide_tile.cuh: kWT)
-TILES = (TILE, WIDE)  # the serving kernel's and the trajectory's tile edges (csrc: unroll_persistent<T>, traj_persistent<T>)
+WIDE = 128  # the wide tile edge of the serving kernel, the fp32 trajectory and chain (csrc/wide_tile.cuh: kWT)
+TILES = (TILE, WIDE)  # their tile edges (csrc: unroll_persistent<T>, traj_persistent<T>, bwd_chain<T>)
 BK = 16  # depth of one shared-memory step (csrc: kBK)
 MIN_STEPS = 2  # BK-deep steps a depth slice holds at least
-WIDE_MIN_EDGE = 256  # m and n from which the wide tile pays for its fill (PERF.md §6, rows 1 and 2)
-WIDE_MIN_FLOPS = 3.5e8  # one layer's operations from which the wide tile pays for its fill (PERF.md §6, rows 1 and 2)
+WIDE_MIN_EDGE = 256  # m and n from which the wide tile pays for its fill (PERF.md §6, rows 1, 2 and 4)
+WIDE_MIN_FLOPS = 3.5e8  # one layer's operations from which the wide tile pays for its fill (PERF.md §6, rows 1, 2 and 4)
 WIDE_FILL_STEPS = 4  # BK steps an item of the wide tile costs beyond its depth
 PER_SM = 2  # blocks per SM of the persistent grid when the tiles are few
 ALIGN = 64  # workspace buffers start on 64-float (256-byte) boundaries
@@ -159,9 +160,11 @@ def wide_fits(m: int, n: int, vec: int) -> bool:
 
 
 def tile_edge(S: int, m: int, n: int, vec: int = 4) -> int:
-    """The tile of the serving kernel and of the fp32 trajectory
-    (csrc/unroll.cu unroll_persistent<T>, traj_persistent<T>), one rule
-    for both, whose phases share the wide mainloop and epilogue: WIDE
+    """The tile of the serving kernel, of the fp32 trajectory and of the
+    fp32 backward chain (csrc/unroll.cu unroll_persistent<T>,
+    traj_persistent<T>, csrc/unroll_bwd.cu bwd_chain<T>), one rule for
+    the three, whose phases share the wide mainloop (the chain's with its
+    weight staged by depth) and its fixed cost a layer: WIDE
     where its 16-byte staging fits (``wide_fits``), m and n are
     WIDE_MIN_EDGE or more, S is TILE or more (below, the wide tile
     computes 4x the rows or more for the same answer) and one layer's
@@ -175,7 +178,16 @@ def tile_edge(S: int, m: int, n: int, vec: int = 4) -> int:
     512 x 1024 S = 128 1.55 / 1.38 | 1.72 / 1.50, S = 256 1.34 / 1.91 |
     1.49 / 2.06; 256 x 512 S = 512 1.22 / 1.24 | 1.42 / 1.32; tp_large
     S = 16 45.4 / 44.0 | 45.1 / 43.9, S = 32 (serving) 46.0 / 48.0, S = 64
-    46.9 / 94.3 | 45.8 / 95.7, S = 256 94.8 / 384.7 | 94.3 / 388.5."""
+    46.9 / 94.3 | 45.8 / 95.7, S = 256 94.8 / 384.7 | 94.3 / 388.5.
+    The chain's three products, gp2 W2, gAx1 A and gp1 W1, hold as many
+    operations a layer; the whole backward call, wide / 32 tile chain, in
+    ms (PERF.md §6, row 4): synthetic_large S = 16 2.46 / 2.29, S = 32
+    2.49 / 2.57, S = 40 2.91 / 3.37, S = 1024 18.49 / 32.38; 512 x 1024
+    S = 128 1.97 / 1.79, S = 256 2.07 / 2.60; 256 x 512 S = 512 1.66 /
+    1.65, S = 1024 2.15 / 2.16; 128 x 256 S = 1024 1.46 / 1.24; tp_large
+    S = 16 64.1 / 62.3, S = 32 72.6 / 73.8, S = 256 273.2 / 536.5. bf16
+    storage passes ``vec`` 0 for the chain, which has no wide bf16
+    instantiation."""
     flops = 2 * S * m * (2 * n + m)  # one layer: x (S,m)x(m,n), Ax (S,n)x(n,m), z (S,m)x(m,m)
     big = S >= TILE and flops >= WIDE_MIN_FLOPS and min(m, n) >= WIDE_MIN_EDGE
     return WIDE if big and wide_fits(m, n, vec) else TILE
@@ -375,13 +387,16 @@ class WeightSplit(NamedTuple):
         return self.tiles * self.slices
 
 
-def bwd_schedule(S: int, m: int, n: int, K: int, bs: int, blocks_per_sm: int, sms: int):
+def bwd_schedule(S: int, m: int, n: int, K: int, bs: int, blocks_per_sm: int, sms: int, tile: int = TILE):
     """(grid of the chain, {phase: Split}, WeightSplit) of one backward
-    call; bs >= S is the whole batch."""
+    call on the chain's ``tile`` (TILE or WIDE; blocks_per_sm, sms: that
+    tile's chain kernel's occupancy); bs >= S is the whole batch. The
+    weight launch keeps its 32 tiles."""
     shapes = bwd_shapes(S, m, n)
-    widest = max(cdiv(r, TILE) * cdiv(c, TILE) for r, c, _ in shapes.values())
+    widest = max(cdiv(r, tile) * cdiv(c, tile) for r, c, _ in shapes.values())
     grid = launch_grid(blocks_per_sm, sms, widest)
-    return grid, {k: split(*v, grid) for k, v in shapes.items()}, WeightSplit(S, m, n, K, min(bs, S))
+    cut = wide_split if tile == WIDE else split
+    return grid, {k: cut(*v, grid, tile) for k, v in shapes.items()}, WeightSplit(S, m, n, K, min(bs, S))
 
 
 BWD_BUFFERS = ("gz", "glam", "gax", "gv", "gax1", "zeros", "gp1", "gp2", "th1p", "th2p", "betap",
@@ -395,13 +410,14 @@ def bwd_workspace(S: int, m: int, n: int, K: int, splits: Dict[str, Split], wspl
     cotangent carries, this layer's gv and gAx1 (the caller's stack with
     data_grads), the zero state, the gp1 (K, S, n) and gp2 (K, S, m)
     stacks the weight gradients read, the gth1/gth2 column partials per
-    32-row block, two gbeta partials (fp64) per U tile, the split-K
-    partials of the chain or of the weight launch, and the counters.
+    row block of the chain's tile (32 or 128 rows), two gbeta partials
+    (fp64) per U tile, the split-K partials of the chain or of the weight
+    launch, and the counters.
     With ``bf16`` (bf16 storage) gAx1 is always the fp32 buffer here (the
     caller's stack is its rounded copy), and gb's fp32 accumulator is too
     (with data_grads)."""
     sm = S * m
-    nrb = cdiv(S, TILE)
+    nrb = cdiv(S, splits["x"].tile)
     wpart = wsplit.items * TILE * TILE if wsplit.slices > 1 else 0
     return layout({
         "gz": sm, "glam": sm, "gax": sm, "gv": sm, "gax1": 0 if data_grads and not bf16 else sm, "zeros": sm,
@@ -426,10 +442,10 @@ def traj_plan(S: int, m: int, n: int, blocks_per_sm: int, sms: int, bf16_state: 
 
 @functools.lru_cache(maxsize=64)
 def bwd_plan(S: int, m: int, n: int, K: int, bs: int, data_grads: bool, blocks_per_sm: int, sms: int,
-             bf16: bool = False):
-    """(grid, splits, weight split, workspace) of one backward call,
-    cached as traj_plan."""
-    grid, sp, wsplit = bwd_schedule(S, m, n, K, bs, blocks_per_sm, sms)
+             bf16: bool = False, tile: int = TILE):
+    """(grid, splits, weight split, workspace) of one backward call on
+    the chain's ``tile`` (``tile_edge``'s choice), cached as traj_plan."""
+    grid, sp, wsplit = bwd_schedule(S, m, n, K, bs, blocks_per_sm, sms, tile)
     return grid, sp, wsplit, bwd_workspace(S, m, n, K, sp, wsplit, data_grads, bf16)
 
 

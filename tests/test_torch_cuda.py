@@ -534,6 +534,75 @@ def test_trajectory_and_bwd_kernels_at_tp_large_widths(cuda_device):
     _assert_grads_close(got[1:], want[1:])
 
 
+def _flat_grads(res):
+    """The params' gradients, gA and gb of an unroll_bwd result, in order."""
+    return [*res[0], *res[1:]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data_grads", [True, False])
+@pytest.mark.parametrize("m,n,K,S", [(1000, 2000, 3, 64), (1000, 2000, 3, 1024)])
+def test_wide_chain_matches_plain(cuda_device, monkeypatch, m, n, K, S, data_grads):
+    """The wide chain (bwd_chain<128, float>), forced, against the plain
+    version at synthetic_large's widths with ties, at the backward's
+    tolerance: S = 64 (one row block of 128, half of it past S) and
+    S = 1024 (V and U split in two depth slices on the H100); one count
+    in launches_wide a call, its plan on the wide tile, and a second call
+    bit for bit."""
+    from dladmm_tpu_torch.ops import cuda_bwd, schedule
+
+    monkeypatch.setattr(schedule, "tile_edge", lambda *a: schedule.WIDE)  # the chain's (and trajectory's) tile
+    A, b, p, traj, cts = _bwd_case(m, n, K, S, seed=S + 3, device=cuda_device, ties=True)
+    before, wide0 = dict(cuda_bwd.unroll_bwd.launches), cuda_bwd.unroll_bwd.launches_wide
+    got = cuda_bwd.unroll_bwd(b, A, *p, *traj, *cts, data_grads=data_grads)
+    again = cuda_bwd.unroll_bwd(b, A, *p, *traj, *cts, data_grads=data_grads)
+    want = cuda_bwd.unroll_bwd_plain(b, A, *p, *traj, *cts, data_grads=data_grads)
+    torch.cuda.synchronize()
+    assert cuda_bwd.unroll_bwd.launches["whole"] == before["whole"] + 2
+    assert cuda_bwd.unroll_bwd.launches_wide == wide0 + 2
+    _, grid, splits, _ = cuda_bwd.unroll_bwd.last_plan
+    assert all(sp.tile == schedule.WIDE for sp in splits.values())
+    _assert_grads_close(got[0], want[0])
+    _assert_grads_close(got[1:], want[1:])
+    for g, w in zip(_flat_grads(got), _flat_grads(again)):
+        assert (g is None and w is None) or torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data_grads", [True, False])
+def test_wide_chain_at_tp_large_widths(cuda_device, monkeypatch, data_grads):
+    """tp_large's widths and batch (m = 8192, n = 16384, S = 256), K = 2,
+    with ties: the plan's own chain tile there is the wide one; it matches
+    the plain version at the backward's tolerance, and, since neither tile
+    splits a phase there, the forced 32 tile's gW1, gW2, gA and gb bit for
+    bit (sums of the gp1, gp2 and gAx1 stacks and of the carries, which are
+    then equal too); only gth1, gth2 and gbeta regroup their partial sums."""
+    from dladmm_tpu_torch.ops import cuda_bwd, cuda_traj, schedule
+
+    m, n, K, S = 8192, 16384, 2, 256
+    g, A, b, p = _tp_large_problem(K, S, cuda_device)
+    p.theta1[1, ::2] = 0.0
+    p.beta[K - 1] = 1e-6
+    traj = cuda_traj.trajectory_forward(b, A, *p, with_tax=True)
+    cts = [torch.randn((S, n), generator=g, device=cuda_device), torch.randn((S, m), generator=g, device=cuda_device),
+           0.1 * torch.randn((S, m), generator=g, device=cuda_device)]
+    assert schedule.tile_edge(S, m, n) == schedule.WIDE
+    wide0 = cuda_bwd.unroll_bwd.launches_wide
+    wide = cuda_bwd.unroll_bwd(b, A, *p, *traj, *cts, data_grads=data_grads)
+    assert cuda_bwd.unroll_bwd.launches_wide == wide0 + 1
+    monkeypatch.setattr(schedule, "tile_edge", lambda *a: schedule.TILE)
+    narrow = cuda_bwd.unroll_bwd(b, A, *p, *traj, *cts, data_grads=data_grads)
+    assert cuda_bwd.unroll_bwd.launches_wide == wide0 + 1
+    want = cuda_bwd.unroll_bwd_plain(b, A, *p, *traj, *cts, data_grads=data_grads)
+    torch.cuda.synchronize()
+    _assert_grads_close(wide[0], want[0])
+    _assert_grads_close(wide[1:], want[1:])
+    names = (*p._fields, "gA", "gb")
+    for name, x, y in zip(names, _flat_grads(wide), _flat_grads(narrow)):
+        if name in ("W1", "W2", "gA", "gb") and x is not None:
+            assert torch.equal(x, y), name
+
+
 @pytest.mark.gpu
 def test_persistent_kernels_raise_when_the_grid_is_refused(cuda_device, monkeypatch):
     """A grid larger than the card holds resident is refused by the
@@ -548,7 +617,7 @@ def test_persistent_kernels_raise_when_the_grid_is_refused(cuda_device, monkeypa
     monkeypatch.setattr(schedule, "traj_plan",
                         lambda *a, **kw: (a[3] * a[4] + 1, *traj_plan(*a, **kw)[1:]))
     monkeypatch.setattr(schedule, "bwd_plan",
-                        lambda *a: (a[-2] * a[-1] + 1, *bwd_plan(*a)[1:]))
+                        lambda *a, **kw: (a[-2] * a[-1] + 1, *bwd_plan(*a, **kw)[1:]))
     t0, b0 = cuda_traj.trajectory_forward.launches, dict(cuda_bwd.unroll_bwd.launches)
     with pytest.raises(RuntimeError, match="CUDA error"):
         cuda_traj.trajectory_forward(b, A, *p, with_tax=True)

@@ -32,6 +32,10 @@ WIDE_DECODE = ("const int ct = dcdiv(N, kWT), items = dcdiv(S, kWT) * ct * sp.sl
                "const int tile = it / sp.slices, s = it % sp.slices;",
                "const int row0 = tile / ct * kWT, col0 = tile % ct * kWT;",
                "const int k_lo = s * sp.len, k_hi = min(depth, k_lo + sp.len);")
+WIDE_CHAIN_DECODE = ("const int rt = dcdiv(S, kWT), ct = dcdiv(N, kWT), items = rt * ct * sp.slices;",
+                     "const int tile = it / sp.slices, s = it % sp.slices;",
+                     "const int rb = tile / ct, row0 = rb * kWT, col0 = tile % ct * kWT;",
+                     "const int k_lo = s * sp.len, k_hi = min(depth, k_lo + sp.len);")
 WEIGHT_DECODE = ("const int tile = it / slices, s = it % slices;",
                  "const int k = tile / per, t = tile % per, rt = t / ct, cb = t % ct;",
                  "const int rows = w1 ? n : m, row0 = (w1 ? rt : rt - t1) * kT, col0 = cb * kT;",
@@ -66,7 +70,7 @@ def weight_items(ws: sch.WeightSplit):
 
 @pytest.mark.parametrize("source,lines", [("unroll.cu", CHAIN_DECODE), ("unroll_bwd.cu", CHAIN_DECODE),
                                           ("unroll_bwd.cu", WEIGHT_DECODE), ("unroll.cu", SERVE_DECODE),
-                                          ("unroll.cu", WIDE_DECODE)])
+                                          ("unroll.cu", WIDE_DECODE), ("unroll_bwd.cu", WIDE_CHAIN_DECODE)])
 def test_kernels_decode_items_as_these_tests_do(source, lines):
     """The decode ``items`` and ``weight_items`` mirror stands in the
     kernel's source, so a change to the kernels' map fails here."""
@@ -554,3 +558,96 @@ def test_trajectory_barriers(tile, per_layer, first):
     branch = body.split("} else {")[tile == sch.WIDE]
     assert branch.count("grid.sync();") == per_layer + first
     assert branch.count("if (k + 1 < a.K) grid.sync();") == 1
+
+
+# -- the backward chain on the wide tile ----------------------------------------
+
+# (S, m, n, vec, tile): the chain's tile (schedule.tile_edge, the rule of
+# rows 1 and 2) at the benchmark's training shapes (tp_large at its batch
+# 256, synthetic_large at 1024: wide) and at the small ones:
+# synthetic_small (m = 250, no whole 16-byte chunk), the image
+# benchmark's 64 x 256 patches (under WIDE_MIN_EDGE), tp_small's 256 x
+# 512 at its batch 128 (too few operations a layer), tp_large at S = 16
+# (under one 32-row tile), bf16 storage (vec 0: no wide chain) and
+# tensors that do not start on 16 bytes.
+CHAIN_TILES = [(256, 8192, 16384, 4, 128), (1024, 1000, 2000, 4, 128), (64, 1000, 2000, 4, 128),
+               (64, 250, 500, 4, 32), (1024, 250, 500, 4, 32), (3844, 64, 256, 4, 32), (128, 256, 512, 4, 32),
+               (16, 8192, 16384, 4, 32), (256, 8192, 16384, 0, 32), (1024, 1000, 2000, 0, 32)]
+
+
+@pytest.mark.parametrize("S,m,n,vec,tile", CHAIN_TILES)
+def test_chain_tile(S, m, n, vec, tile):
+    """The chain takes the wide tile where its 16-byte staging fits, m
+    and n are 256 or more, S is 32 or more and a layer's three chain
+    products (as many operations as the forward's three) hold
+    WIDE_MIN_FLOPS, else 32; its plan on the H100's occupancy of that
+    tile's chain (4 blocks a SM at 32, 1 wide) is on that tile in every
+    phase, the weight launch on 32 tiles whatever the chain's."""
+    assert sch.tile_edge(S, m, n, vec) == tile
+    big = S >= 32 and 2 * S * m * (m + 2 * n) >= sch.WIDE_MIN_FLOPS and min(m, n) >= 256
+    assert tile == (128 if big and sch.wide_fits(m, n, vec) else 32)
+    occ = (1, 132) if tile == sch.WIDE else (4, 132)
+    grid, splits, wsplit, _ = sch.bwd_plan(S, m, n, 2, S, False, *occ, tile=tile)
+    assert grid <= occ[0] * occ[1] and all(sp.tile == tile for sp in splits.values())
+    assert wsplit.tiles == 2 * sch.weight_tiles(m, n)
+
+
+@pytest.mark.parametrize("card", CARDS)
+@pytest.mark.parametrize("m,n,S", WIDE_SHAPES + [(8192, 16384, 256)])
+def test_wide_chain_items_cover_every_tile_once(m, n, S, card):
+    """On the wide tile (the wide chain's occupancy, serve_cards): every
+    output tile of the V, X and U phases once, the slices partitioning the
+    depth in whole BK steps, each split the wide tile's (wide_split)."""
+    _, occ_wide = serve_cards(card)
+    grid, splits, wsplit = sch.bwd_schedule(S, m, n, 3, S, *occ_wide, sch.WIDE)
+    assert 1 <= grid <= occ_wide[0] * occ_wide[1]
+    for name, sp in splits.items():
+        assert sp.tile == sch.WIDE and (sp.rows, sp.cols, sp.depth) == sch.bwd_shapes(S, m, n)[name]
+        assert sp == sch.wide_split(*sch.bwd_shapes(S, m, n)[name], grid)
+        _check_split(sp)
+    assert wsplit == sch.WeightSplit(S, m, n, 3, S)
+
+
+@pytest.mark.parametrize("S,m,n,slices", [(256, 8192, 16384, {"v": 1, "x": 1, "u": 1}),
+                                          (1024, 1000, 2000, {"v": 2, "x": 1, "u": 2})])
+def test_wide_chain_splits_on_the_h100(S, m, n, slices):
+    """One wide block a SM on 132 SMs: tp_large at S = 256 splits no phase
+    (128, 256 and 128 tiles of depth 8192-16384), nor does the 32 tile
+    there, so both sum each output over the whole depth in order;
+    synthetic_large at S = 1024 splits V and U in two (64 tiles each)."""
+    grid, splits, _ = sch.bwd_schedule(S, m, n, 20, S, 1, 132, sch.WIDE)
+    assert grid == 132 and {k: sp.slices for k, sp in splits.items()} == slices
+    if S == 256:
+        assert {k: sp.tiles for k, sp in splits.items()} == {"v": 128, "x": 256, "u": 128}
+        assert all(sp.slices == 1 for sp in sch.bwd_schedule(S, m, n, 20, S, 4, 132)[1].values())
+
+
+@pytest.mark.parametrize("tile", sch.TILES)
+@pytest.mark.parametrize("m,n,S,K", [(8192, 16384, 256, 20), (1000, 2000, 1024, 20), (1000, 2000, 64, 3),
+                                     (128, 256, 200, 2)])
+def test_backward_workspace_by_tile(m, n, S, K, tile):
+    """The gth1 / gth2 column partials one per row block of the chain's
+    tile (cdiv(S, 128) on the wide tile, cdiv(S, 32) on the 32 tile, as
+    finish reads them), the gbeta pairs one per U tile, the split-K
+    partials at the chain's tile edge; no overlap; bwd_plan returns the
+    same."""
+    occ = (1, 132) if tile == sch.WIDE else (4, 132)
+    grid, splits, wsplit = sch.bwd_schedule(S, m, n, K, S, *occ, tile)
+    lay = sch.bwd_workspace(S, m, n, K, splits, wsplit, False)
+    nrb = -(-S // tile)
+    assert lay["th1p"][1] == K * nrb * n and lay["th2p"][1] == K * nrb * m
+    assert lay["betap"][1] == K * splits["u"].tiles * 4 == K * nrb * -(-m // tile) * 4
+    assert lay["partials"][1] == max([sp.items * tile**2 for sp in splits.values() if sp.slices > 1] or [0])
+    _no_overlap(lay, lay["_total"][0])
+    assert sch.bwd_plan(S, m, n, K, S, False, *occ, tile=tile)[3] == lay
+
+
+def test_wide_chain_launch_matches_the_plan():
+    """The kernel's tile comes from the plan's sched array (its eighth
+    int), its 16-byte layout rule is checked before anything is enqueued,
+    and finish reads the partials of the chain's own row blocks."""
+    text = " ".join((cuda_build.CSRC / "unroll_bwd.cu").read_text().split())
+    assert "const int grid = sched[0], tile = sched[7];" in text
+    assert "if (tile == kWT && !wide_chain_layout(c)) return (int)cudaErrorInvalidValue;" in text
+    assert "const int nrb = cdiv(S, tile)" in text and "nrb * cdiv(m, tile));" in text
+    assert "c.m % 4 == 0 && c.n % 4 == 0" in text
