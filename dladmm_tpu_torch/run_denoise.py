@@ -14,6 +14,7 @@ Pipeline (the JAX package's, flags and defaults alike):
   3. Train the D-LADMM net on the patches: b = corrupted patch residual,
      loss ||A x_K - clean residual||^2 + ||e_K - corruption||^2 (or, with
      --layer-loss, the reconstruction deep-supervised at every layer).
+     Steps 2 and 3 are one training step, ``make_denoise_step``.
   4. Reconstruct A x + DC, overlap-average (inpaint mode keeps the
      observed pixels), report PSNR against the corrupted input's.
 
@@ -37,6 +38,8 @@ import sys
 
 import numpy as np
 import torch
+
+from dladmm_tpu_torch.utils import profiling
 
 
 def child_seeds(seed: int):
@@ -105,6 +108,26 @@ def denoise_grad(params, A, b, tgt_res, tgt_noise, layer_weights=None):
     return loss.detach(), DLADMMParams(*torch.autograd.grad(loss, leaves))
 
 
+def make_denoise_step(optimizer, A, images, *, density=0.1, patch=8, stride=4, mode="denoise",
+                      layer_weights=None):
+    """The denoiser's training step: (state, gen) -> (state, loss). One
+    call corrupts every image in ``images`` anew from ``gen`` and builds
+    the patch batch (_make_patch_batch), takes denoise_grad and applies
+    the optimizer (train/loop._apply). Traced as ``train.step``, holding
+    ``train.data`` (the patch batch) and then ``train.optimizer``
+    (utils/profiling.span)."""
+    from dladmm_tpu_torch.train.loop import _apply
+
+    def step(state, gen):
+        with profiling.span("train.step"):
+            with profiling.span("train.data"):
+                b, tr, tn = _make_patch_batch(gen, images, density, patch, stride, mode)
+            loss, grads = denoise_grad(state.params, A, b, tr, tn, layer_weights)
+            return _apply(optimizer, state, grads), loss
+
+    return step
+
+
 def train_denoiser(
     A,
     images,
@@ -121,22 +144,21 @@ def train_denoiser(
     layer_loss=None,
 ):
     """Train D-LADMM on patch data on A's device; returns the trained
-    params. Each step corrupts every training image anew from one
-    generator seeded with ``seed``. layer_loss="uniform" (or "linear")
-    deep-supervises the reconstruction at every layer; None keeps the
-    final-layer reconstruction loss."""
+    params. Each step (make_denoise_step) corrupts every training image
+    anew from one generator seeded with ``seed``. layer_loss="uniform"
+    (or "linear") deep-supervises the reconstruction at every layer; None
+    keeps the final-layer reconstruction loss."""
     from dladmm_tpu_torch.models.unroll import init_dladmm_params
-    from dladmm_tpu_torch.train.loop import _apply, _layer_weights, adam, make_train_state
+    from dladmm_tpu_torch.train.loop import _layer_weights, adam, make_train_state
 
     params = init_dladmm_params(A, K=K, beta=1.0)
     optimizer = adam(lr)  # optax.adam(lr) in the JAX package
     state = make_train_state(params, optimizer)
-    lw = _layer_weights(layer_loss, K, A.dtype, A.device)
+    step = make_denoise_step(optimizer, A, images, density=density, patch=patch, stride=stride, mode=mode,
+                             layer_weights=_layer_weights(layer_loss, K, A.dtype, A.device))
     gen = torch.Generator(device=A.device).manual_seed(seed)
     for i in range(steps):
-        b, tr, tn = _make_patch_batch(gen, images, density, patch, stride, mode)
-        loss, grads = denoise_grad(state.params, A, b, tr, tn, lw)
-        state = _apply(optimizer, state, grads)
+        state, loss = step(state, gen)
         if log_every and (i + 1) % log_every == 0:
             print(f"step {i+1} loss {float(loss):.5f}", file=sys.stderr)
     return state.params

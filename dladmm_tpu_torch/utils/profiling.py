@@ -14,6 +14,7 @@ served request (``serve.solve``; inside it ``serve.prep``, the request's
 copy to the device and its padding, then ``serve.forward``, the enqueue
 of the forward) and a training step (``train.step``; inside it
 ``train.data``, the batch's draw, copy and product, once a microbatch,
+or in the denoiser's step the images' corruption and the patch batch,
 and ``train.optimizer``, the optimizer step).
 
 The profiler on the card has been seen to leave a session's leading

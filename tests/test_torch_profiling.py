@@ -51,7 +51,8 @@ def test_trace_writes_a_chrome_trace(tmp_path):
 # The program's spans (utils/profiling.span) and the benchmark's readers
 # of them (benchmark/metrics/).
 SPANS = {"serve.solve", "serve.prep", "serve.forward", "train.step", "train.data", "train.optimizer"}
-SPAN_READERS = ("data_idle_pct.train", "optimizer_ms.train", "prep_idle_pct.batch", "enqueue_idle_pct.batch")
+SPAN_READERS = ("data_idle_pct.train", "optimizer_ms.train", "prep_idle_pct.batch", "enqueue_idle_pct.batch",
+                "patches_ms.denoise")
 
 
 def _spans(trace_dir) -> list:
