@@ -333,10 +333,24 @@ the first fault. Each phase prints one JSON line:
      its own) holds the kernel once; ``enable_nan_debug`` raises on ``torch.log(-x)`` and on a NaN row
      fed to row 1 (the wrapper's check), and is silent once off;
 
-each with its wall time (bench_wall); then the kernels line, each entry
+each with its wall time (bench_wall);
+
+ 50. fp32 Adam's in-place sweep (row 9, ``adam_inplace``): tp_large's
+     recipe through ``make_train_step`` on the card (K = 20, the whole
+     state on one card, so the in-place branch by the memory left), its
+     launches counted from 0 over 3 steps, and at the third the last
+     layer of every leaf (W1's past element 2^31) bit for bit against the
+     plain version run on copies taken before the sweep; the sweep
+     against ``update_by_layer`` at tp_large's widths with K = 2, every
+     state tensor bit for bit over 3 steps; then the sweep, the optimizer
+     step through it, the eager per-layer path, the plain version and
+     torch.optim.Adam(fused=True) in turns at the largest K that fits,
+     each beside its bound;
+
+then the kernels line, each entry
 with ``launches_bench`` (its launches by phases 44-49; empty on the
 ``_patch`` and ``_greedy`` entries, whose shapes and depths no bench path
-ran), and, last, the
+ran, and on ``adam_inplace``), and, last, the
 ok line. Exits non-zero, with no
 ok line, on any failure, when CUDA is not available, or when run
 without the rest of the repository.
@@ -387,6 +401,12 @@ ties; at the last the two tiles' gW1, gW2, gA and gb bit for bit), then
 both tiles in turns at the shapes of ``--traj-turns`` (one
 ``timing_bwd_tiles`` line each), then the ok line.
 
+    python3 chip_smoke.py --adam-inplace
+
+builds the sources tp_large's step runs (unroll.cu, unroll_bwd.cu,
+adam_inplace.cu) and runs only phase 50, then row 9's kernels entry and
+the ok line.
+
     python3 chip_smoke.py --bf16-turns
 
 runs only phase 25: bf16 and fp32 serving (and the layer step) in
@@ -405,6 +425,7 @@ solver and the XLA-side moment formats), then their kernels entries.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -1273,6 +1294,220 @@ def time_step(torch, tqa, device, card, fmt: str, library: bool = False) -> dict
     emit("timing_step", kernel="adam_step", config=f"{fmt} synthetic_small five leaves (2 launches)",
          library="torch.optim.Adam(fused=True)" if library else None, **out, card=card)
     return out
+
+
+def adam_inplace_phase(torch, device, card) -> dict:
+    """Phase 50: fp32 Adam's in-place sweep (``train/qadam_cuda.adam_inplace``,
+    the single-card step's route for adam() where the whole-leaf update
+    does not fit). First, with the in-place branch forced (the memory
+    left read as 0), three steps of ``_apply`` against
+    ``update_by_layer``'s eager kernels at tp_large's widths with K = 2,
+    every state tensor bit for bit. Then, at the largest K whose state,
+    the eager path's temporaries and torch.optim.Adam(fused=True)'s two
+    moments fit, in turns by CUDA events (median of 9): the sweep alone,
+    ``_apply``'s whole step (the scalars and the sweep), the eager
+    per-layer path (``update_by_layer``, the route before the sweep), the
+    sweep's plain version and torch.optim.Adam(fused=True) on the same
+    leaves (the library yardstick, which the port never calls); each
+    beside ``dense_bound`` (28 bytes an element). Last its main path:
+    tp_large's recipe (K = 20, batch 256, final-layer loss, constant lr,
+    no clip) through ``make_train_step`` on the card, nothing patched,
+    three steps with the launches counted from 0 (one a step); at the
+    third the last layer of every leaf (W1's starts at element
+    19 n m = 2.55e9, past 2^31) is copied before the sweep, and after it
+    held bit for bit against the sweep's plain version run on the copies
+    with the same scalars. One ``kernel_adam_inplace``, one
+    ``timing_adam_inplace`` and one ``slice_adam_inplace`` line, and the
+    card's memory before and after; returns the main path's launches,
+    the largest difference from the plain versions (0.0: bit for bit)
+    and the times."""
+    from dladmm_tpu_torch.data.synthetic import problem_matrices
+    from dladmm_tpu_torch.models.api import select_forward
+    from dladmm_tpu_torch.models.unroll import DLADMMParams, init_dladmm_params
+    from dladmm_tpu_torch.train import loop
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+    from dladmm_tpu_torch.utils.config import get_config
+
+    m, n = TP_LARGE["m"], TP_LARGE["n"]
+    def memory(stage: str) -> None:
+        """What this process holds on the card at ``stage``, its cache released."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(device)
+        emit("adam_inplace_memory", stage=stage, allocated_bytes=torch.cuda.memory_allocated(device),
+             free_bytes=free, total_bytes=total)
+
+    memory("start")
+
+    def case(K: int, seed: int):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        shapes = [(K, n, m), (K, m, m), (K, n), (K, m), (K,)]
+        params = DLADMMParams(*(0.01 * torch.randn(s, generator=gen, device=device) for s in shapes))
+        grads = DLADMMParams(*(1e-3 * torch.randn(s, generator=gen, device=device) for s in shapes))
+        return params, grads
+
+    def by_layer(opt, state, grads):
+        layers = [DLADMMParams(*(g[k] for g in grads)) for k in range(grads[0].shape[0])]
+        return loop.update_by_layer(opt, state, layers, lambda: loop.global_norm(grads))
+
+    def tensors(state):
+        out = []
+        loop.zip_nodes((state.params, state.opt_state), (state.params, state.opt_state),
+                       lambda a, _: out.extend(a), lambda a, _: out.append(a) if torch.is_tensor(a) else None)
+        return out
+
+    def forced_branch() -> dict:
+        """The K = 2 comparison and the timings, in a frame of their own:
+        what they hold goes when it returns."""
+        opt = loop.adam(2e-4)
+        params, grads = case(2, 250)
+        a, b = loop.make_train_state(params, opt), loop.make_train_state(params, opt)
+        del params
+        before = tqa.adam_inplace.launches
+        for i in range(3):
+            a, b = loop._apply(opt, a, grads), by_layer(opt, b, grads)
+            torch.cuda.synchronize()
+            for x, y in zip(tensors(a), tensors(b)):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"in-place sweep step {i}: {tuple(x.shape)} differs from update_by_layer")
+        if tqa.adam_inplace.launches - before != 3:
+            raise AssertionError(f"in-place sweep: {tqa.adam_inplace.launches - before} launches in 3 steps")
+        emit("kernel_adam_inplace", config="tp_large widths K=2, no clip, constant lr, 3 steps",
+             bit_for_bit_with_update_by_layer=True)
+        del a, b, grads
+        torch.cuda.empty_cache()
+
+        layer_bytes = 4 * (n * m + m * m + n + m + 1)
+        free, _ = torch.cuda.mem_get_info(device)
+        # per layer: params, grads, mu, nu and the library's two moments; 10 GiB for the eager temporaries
+        K = max(1, min(TP_LARGE["K"], int((free - (10 << 30)) // (6 * layer_bytes))))
+        params, grads = case(K, 251)
+        state = loop.TrainState(params, opt.init(params), 0)
+        box = [state]
+        adam_state = state.opt_state[0]
+        _, c1, c2 = loop._bias_corrections(adam_state.count, 0.9, 0.999)
+        neg_lr = torch.full((), -2e-4, dtype=torch.float32, device=device)
+        lib_params = [torch.nn.Parameter(p) for p in params]  # the same storage
+        for prm, g in zip(lib_params, grads):
+            prm.grad = g
+        lib = torch.optim.Adam(lib_params, lr=2e-4, fused=True)
+
+        def route():
+            box[0] = loop._apply(opt, box[0], grads)
+
+        def eager():
+            box[0] = by_layer(opt, box[0], grads)
+
+        fns = [lambda: tqa.adam_inplace(list(grads), params, adam_state.mu, adam_state.nu, c1, c2, neg_lr),
+               route, eager,
+               lambda: tqa.adam_inplace_plain(list(grads), params, adam_state.mu, adam_state.nu, c1, c2, neg_lr),
+               lib.step]
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+        timing_peak = torch.cuda.max_memory_allocated(device)
+        times = median_ms(fns, 9)
+        elements = sum(p.numel() for p in params)
+        bound_ms, bound_by = dense_bound(elements, "float32")
+        out = {"K": K, "elements": elements, "bound_ms": bound_ms, "bound_by": bound_by}
+        for name, ms in zip(("sweep", "step", "eager_by_layer", "plain", "library"), times):
+            out[f"{name}_ms"] = ms
+            out[f"{name}_share_of_bound"] = bound_ms / ms
+            out[f"{name}_GB_per_s"] = 28 * elements / ms / 1e6
+        emit("timing_adam_inplace", kernel="adam_inplace_sweep", config=f"tp_large widths K={K}, no clip",
+             library="torch.optim.Adam(fused=True)", memory_peak_bytes=timing_peak, **out, card=card)
+        return out
+
+    saved_memory = loop._total_bytes, loop._free_bytes
+    loop._total_bytes = loop._free_bytes = lambda dev: 0
+    try:
+        out = forced_branch()
+    finally:
+        loop._total_bytes, loop._free_bytes = saved_memory
+    memory("main path")
+
+    # The main path: tp_large on the card, the in-place branch by the memory left.
+    torch.cuda.reset_peak_memory_stats(device)
+    cfg = get_config("tp_large")
+    p, t = cfg.problem, cfg.train
+    A = problem_matrices(cfg, device=device)[0]
+    opt = loop._build_optimizer(t)
+    params = init_dladmm_params(A, K=p.K, beta=p.beta)
+    state = loop.make_train_state(params, opt)
+    del params
+    if loop._whole_update_fits(state):
+        raise AssertionError("tp_large on one card: the whole-leaf update fits, so the in-place branch is not taken")
+    forward_fn = select_forward(p.m, p.n, p.m, t.batch, kernel=t.kernel, device=device)[0]
+    step = loop.make_train_step(opt, A, t.batch, p.sparsity_x, p.sparsity_e, None, None, None, forward_fn,
+                                seed=t.seed)
+    real, saved = loop.adam_inplace, {}
+
+    def last_layer_copied(grads, params, mu, nu, c1, c2, neg_lr, **kw):
+        saved["args"] = ([None if g is None else g[-1:].clone() for g in grads],
+                         *([x[-1:].clone() for x in tree] for tree in (params, mu, nu)), c1.clone(), c2.clone(),
+                         neg_lr.clone())
+        saved["kw"] = {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()}
+        return real(grads, params, mu, nu, c1, c2, neg_lr, **kw)
+
+    tqa.adam_inplace.launches = 0
+    t0 = time.monotonic()
+    losses = []
+    for i in range(3):
+        if i == 2:
+            loop.adam_inplace = last_layer_copied
+        try:
+            state, loss = step(state, i)
+        finally:
+            loop.adam_inplace = real
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = tqa.adam_inplace.launches
+    if launches != 3 or "args" not in saved:
+        raise AssertionError(f"tp_large's step: {launches} in-place sweeps in 3 steps")
+    peak = torch.cuda.max_memory_allocated(device)
+    grads_l, p_l, mu_l, nu_l, c1, c2, neg_lr = saved.pop("args")
+    tqa.adam_inplace_plain(grads_l, p_l, mu_l, nu_l, c1, c2, neg_lr, **saved.pop("kw"))
+
+    def last_layer_differs():
+        """The first leaf of the state whose last layer differs from the
+        plain version's, with its largest difference; None."""
+        adam_state = state.opt_state[0]
+        for name, got, want in (("p", state.params, p_l), ("mu", adam_state.mu, mu_l), ("nu", adam_state.nu, nu_l)):
+            for field, x, y in zip(DLADMMParams._fields, got, want):
+                if not torch.equal(x[-1:], y):
+                    return f"{name}.{field}, largest difference {float((x[-1:] - y).abs().max())}"
+        return None
+
+    differs = last_layer_differs()
+    if differs is not None:
+        raise AssertionError(f"tp_large's step: the last layer of {differs} differs from the plain version")
+    first = (p.K - 1) * p.n * p.m
+    if not first >= 1 << 31:
+        raise AssertionError(f"W1's last layer starts at element {first}, not past 2^31")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"tp_large's step: losses {losses}")
+    emit("slice_adam_inplace", config="tp_large (K=20, batch 256, constant lr, no clip), make_train_step, 3 steps",
+         launches=launches, last_layer_bit_for_bit_with_plain=True, w1_last_layer_first_element=first,
+         elements=sum(x.numel() for x in state.params), losses=losses, wall_s=wall, memory_peak_bytes=peak,
+         card=card)
+    del state, step, loss, forward_fn, A, grads_l, p_l, mu_l, nu_l, c1, c2, neg_lr
+    memory("end")
+
+    return {"launches": launches, "max_abs_err": 0.0, **out}
+
+
+def adam_inplace_entry(res: dict) -> dict:
+    """Row 9's entry of the kernels line from phase 50's result: launches
+    over tp_large's main path, counted from 0; times at the largest K
+    that fits beside the eager path and the library's moments."""
+    return {"name": "adam_inplace", "route": "cuda", "source": "dladmm_tpu_torch/ops/csrc/adam_inplace.cu",
+            "replaces": None,  # the JAX package leaves fp32 Adam to XLA
+            "launches": res["launches"],  # main path: 3 tp_large steps through make_train_step
+            "max_abs_err": res["max_abs_err"], "ms": res["sweep_ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+            "library": "torch.optim.Adam(fused=True)", "step_ms": res["step_ms"],
+            "eager_by_layer_ms": res["eager_by_layer_ms"], "shape": f"tp_large widths K={res['K']}"}
 
 
 def phase_mark(event):
@@ -5310,13 +5545,13 @@ def bench_phases(torch, dev, card) -> dict:
     return launches
 
 
-def build_phase() -> None:
-    """Phase 2: nvcc builds every source of ops/csrc/ from this checkout,
-    one nvcc per source, all started together; each source's ptxas report
-    (registers, spills) is printed."""
+def build_phase(names=None) -> None:
+    """Phase 2: nvcc builds every source of ops/csrc/ (or those named)
+    from this checkout, one nvcc per source, all started together; each
+    source's ptxas report (registers, spills) is printed."""
     from dladmm_tpu_torch.ops import cuda_build
 
-    sources = sorted(cuda_build.CSRC.glob("*.cu"))
+    sources = sorted(cuda_build.CSRC.glob("*.cu")) if names is None else [cuda_build.CSRC / s for s in names]
     t0 = time.monotonic()
     builds = cuda_build.build_all(sources)
     for name, (lib_path, built, secs) in builds.items():
@@ -5409,6 +5644,14 @@ def main() -> int:
             bwd_turns(torch, torch.device("cuda", 0), card)
         else:
             tile_turns(torch, torch.device("cuda", 0), card, row=1)
+        print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--adam-inplace"]:
+        card = card_line()
+        print(card, flush=True)
+        build_phase(["unroll.cu", "unroll_bwd.cu", "adam_inplace.cu"])
+        entry = adam_inplace_entry(adam_inplace_phase(torch, torch.device("cuda", 0), card))
+        print(json.dumps({"kernels": [entry]}), flush=True)
         print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}), flush=True)
         return 0
     if sys.argv[1:] == ["--bf16-turns"]:
@@ -5682,6 +5925,8 @@ def main() -> int:
     # 44-49. the benchmarking tools, the examples and profiling, each bench
     # path's kernels counted from 0.
     launches_bench = bench_phases(torch, dev, card)
+    # 50. fp32 Adam's in-place sweep: tp_large's step, counted from 0; its times.
+    adam_inplace_res = adam_inplace_phase(torch, dev, card)
 
     ms, plain_ms, bms, by = timings[("synthetic_small", 256)]
     entries = [{
@@ -5825,6 +6070,7 @@ def main() -> int:
         if key:
             e["launches_new_paths"] = new_paths[key]  # phases 36-40
     entries += entries_sharded
+    entries.append(adam_inplace_entry(adam_inplace_res))
     for e in entries:  # phases 44-49, on the base entries: they ran no patch shape and no greedy depth
         e["launches_bench"] = launches_bench.get(e["name"], {})
     entries[0]["bf16"]["launches_bench"] = launches_bench["unroll_forward_bf16"]

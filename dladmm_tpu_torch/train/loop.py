@@ -19,10 +19,12 @@ bias corrections and clip scale are device tensors, and ``float(loss)``
 is read only at an eval. PyTorch runs eagerly, so the JAX step's ``jit``
 and buffer donation have no counterpart: the fused optimizer updates the
 masters in place instead, and so does fp32 Adam where the whole-leaf
-update's new tensors would not fit beside the state: one layer at a time
-(``update_by_layer``, shared with the tensor-parallel step), so that a
-step's peak stays near the params, moments and gradients (tp_large's
-4.0B parameters on one card).
+update's new tensors would not fit beside the state: one sweep over every
+leaf in the chain's own roundings (``_adam_in_place``, the kernel
+``train/qadam_cuda.adam_inplace``), so that a step's peak stays near the
+params, moments and gradients (tp_large's 4.0B parameters on one card).
+The tensor-parallel step updates its shards in place one layer at a time
+(``update_by_layer``).
 
 Loss: MSE to the ground truth, final layer only, or deep supervision
 sum_k gamma_k (||x_k - x*||^2 + ||z_k - e*||^2) (``layer_loss``).
@@ -60,7 +62,7 @@ from dladmm_tpu_torch.data.synthetic import make_batch, step_generator
 from dladmm_tpu_torch.metrics.core import constraint_residual, nmse_db, per_layer_nmse_db
 from dladmm_tpu_torch.models.unroll import DLADMMParams, dladmm_forward
 from dladmm_tpu_torch.ops.prox import resolve_prox
-from dladmm_tpu_torch.train.qadam_cuda import QAdamFused, WarmupCosine, global_norm
+from dladmm_tpu_torch.train.qadam_cuda import QAdamFused, WarmupCosine, adam_inplace, global_norm
 from dladmm_tpu_torch.utils import profiling
 
 
@@ -169,6 +171,21 @@ def loss_fn(
 class GradientTransformation(NamedTuple):
     init: Callable
     update: Callable  # (updates, state, params) -> (updates, state)
+    # adam()'s AdamHyper, a clip's ClipHyper, a chain's tuple of its
+    # transforms' (None elsewhere): what _apply's in-place sweep reads.
+    hyper: Any = None
+
+
+class AdamHyper(NamedTuple):
+    learning_rate: Any  # a float, or a schedule: count tensor -> lr tensor
+    b1: float
+    b2: float
+    eps: float
+
+
+class ClipHyper(NamedTuple):
+    max_norm: float
+    mode: str  # "global" (clip_by_global_norm) or "delayed"
 
 
 class AdamState(NamedTuple):
@@ -196,18 +213,32 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Grad
         kind = type(grads)
         mu = kind(*((1 - b1) * g + b1 * m for g, m in zip(grads, state.mu)))
         nu = kind(*((1 - b2) * (g * g) + b2 * v for g, v in zip(grads, state.nu)))
-        count = state.count + 1
-        cf = count.to(torch.float32)
-        c1, c2 = 1 - torch.pow(b1, cf), 1 - torch.pow(b2, cf)
+        count, c1, c2 = _bias_corrections(state.count, b1, b2)
         out = kind(*((m / c1) / (torch.sqrt(v / c2) + eps) for m, v in zip(mu, nu)))
         return out, AdamState(count, mu, nu)
 
     return GradientTransformation(init, update)
 
 
+def _bias_corrections(count: Tensor, b1: float, b2: float):
+    """(count + 1, 1 - b1^(count + 1), 1 - b2^(count + 1)), on the device."""
+    count = count + 1
+    cf = count.to(torch.float32)
+    return count, 1 - torch.pow(b1, cf), 1 - torch.pow(b2, cf)
+
+
 def adam(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> GradientTransformation:
-    """optax.adam: scale_by_adam then scale_by_learning_rate, fp32 moments."""
-    return chain(scale_by_adam(b1, b2, eps), scale_by_learning_rate(learning_rate))
+    """optax.adam: scale_by_adam then scale_by_learning_rate, fp32 moments;
+    it carries its hyperparameters (``hyper``) for _apply's in-place
+    sweep."""
+    return chain(scale_by_adam(b1, b2, eps), scale_by_learning_rate(learning_rate))._replace(
+        hyper=AdamHyper(learning_rate, b1, b2, eps))
+
+
+def _rate(learning_rate, count: Tensor):
+    """The rate at the step's own (pre-increment) count: a float, or the
+    schedule's device tensor."""
+    return learning_rate(count) if callable(learning_rate) else learning_rate
 
 
 def scale_by_learning_rate(learning_rate) -> GradientTransformation:
@@ -218,7 +249,7 @@ def scale_by_learning_rate(learning_rate) -> GradientTransformation:
         return _count0(params)
 
     def update(grads, count, params=None):
-        lr = learning_rate(count) if callable(learning_rate) else learning_rate
+        lr = _rate(learning_rate, count)
         return type(grads)(*(g * -lr for g in grads)), count + 1
 
     return GradientTransformation(init, update)
@@ -255,7 +286,7 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
         trigger = norm < max_norm
         return type(grads)(*(torch.where(trigger, g, (g / norm.to(g.dtype)) * max_norm) for g in grads)), state
 
-    return GradientTransformation(lambda params: (), update)
+    return GradientTransformation(lambda params: (), update, ClipHyper(max_norm, "global"))
 
 
 def delayed_clip_by_global_norm(max_norm: float) -> GradientTransformation:
@@ -269,10 +300,15 @@ def delayed_clip_by_global_norm(max_norm: float) -> GradientTransformation:
 
     def update(grads, state, params=None):
         cur = _norm_of(grads).to(torch.float32)
-        scale = torch.clamp(max_norm / torch.clamp(state.prev_norm, min=1e-16), max=1.0)
+        scale = _delayed_scale(state.prev_norm, max_norm)
         return type(grads)(*(g * scale.to(g.dtype) for g in grads)), DelayedClipState(cur)
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, ClipHyper(max_norm, "delayed"))
+
+
+def _delayed_scale(prev_norm: Tensor, max_norm: float) -> Tensor:
+    """The delayed clip's factor: min(1, max_norm / max(prev_norm, 1e-16))."""
+    return torch.clamp(max_norm / torch.clamp(prev_norm, min=1e-16), max=1.0)
 
 
 def chain(*transforms: GradientTransformation) -> GradientTransformation:
@@ -286,7 +322,7 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
             new.append(s)
         return grads, tuple(new)
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, tuple(getattr(t, "hyper", None) for t in transforms))
 
 
 def apply_updates(params: DLADMMParams, updates: DLADMMParams) -> DLADMMParams:
@@ -367,12 +403,14 @@ def _frozen(grads: DLADMMParams, freeze) -> DLADMMParams:
 def _apply(optimizer, state: TrainState, grads: DLADMMParams, freeze=(), compute_dtype=None) -> TrainState:
     """The optimizer step on the masters; with a compute copy in the state
     the copy too: the fused sweep writes it in its pass, a plain
-    optimizer's new masters are cast again. fp32 Adam (with or without a
-    clip) whose whole-leaf update would not fit in the memory left
-    (_whole_update_fits: tp_large on one card) updates the state in place,
-    one layer at a time (update_by_layer), with the values of the
-    whole-leaf update; otherwise a plain optimizer returns a new state.
-    Traced as ``train.optimizer``."""
+    optimizer's new masters are cast again. fp32 Adam as adam() builds
+    it (_fp32_adam: alone or after a clip), with the gradients and
+    moments of the masters' types (_elementwise_state), whose whole-leaf
+    update would not fit in the memory left (_whole_update_fits:
+    tp_large on one card), updates the state in place in one sweep over
+    every leaf (_adam_in_place) with the values of the whole-leaf update;
+    otherwise a plain optimizer returns a new state. Traced as
+    ``train.optimizer``."""
     with profiling.span("train.optimizer"):
         if hasattr(optimizer, "fused_apply"):
             cp = state.compute_params
@@ -380,11 +418,54 @@ def _apply(optimizer, state: TrainState, grads: DLADMMParams, freeze=(), compute
                 _frozen(grads, freeze), state.opt_state, state.params, compute_dtype if cp is not None else None, cp)
             return TrainState(params, opt_state, state.step + 1, cp)
         with torch.no_grad():
-            if not _whole_update_fits(state) and _elementwise_state(state, grads):
-                layers = [DLADMMParams(*(g[k] for g in grads)) for k in range(grads[0].shape[0])]
-                return update_by_layer(optimizer, state, layers, lambda: global_norm(_frozen(grads, freeze)),
-                                       freeze, compute_dtype)
+            hyper = _fp32_adam(optimizer)
+            if hyper is not None and _elementwise_state(state, grads) and not _whole_update_fits(state):
+                return _adam_in_place(*hyper, state, grads, lambda: global_norm(_frozen(grads, freeze)), freeze)
             return _update(optimizer, state, grads, freeze, compute_dtype)
+
+
+def _fp32_adam(optimizer):
+    """(clip, adam): the hyperparameters of fp32 Adam as _build_optimizer
+    builds it, adam() alone (clip None) or chained after
+    clip_by_global_norm or delayed_clip_by_global_norm; None for any other
+    optimizer."""
+    hyper = getattr(optimizer, "hyper", None)
+    if isinstance(hyper, AdamHyper):
+        return None, hyper
+    if (isinstance(hyper, tuple) and len(hyper) == 2 and isinstance(hyper[0], ClipHyper)
+            and isinstance(hyper[1], AdamHyper)):
+        return hyper
+    return None
+
+
+def _adam_in_place(clip: Optional[ClipHyper], adam: AdamHyper, state: TrainState, grads: DLADMMParams,
+                   whole_norm: Callable[[], Tensor], freeze=()) -> TrainState:
+    """fp32 Adam's step as one sweep over every leaf, in place
+    (train/qadam_cuda.adam_inplace: one launch on the card), with the
+    values of the chain's whole-leaf update: the count, bias corrections,
+    rate and clip scalars by the chain's own operations, once, on the
+    device; a frozen leaf's gradient 0. The state keeps the chain's
+    structure, (AdamState, rate count) after the clip's state, and its
+    storage; the compute copy, if any, is cast again in place."""
+    clip_state, (adam_state, rate_count) = state.opt_state if clip else ((), state.opt_state)
+    count, c1, c2 = _bias_corrections(adam_state.count, adam.b1, adam.b2)
+    lr = _rate(adam.learning_rate, rate_count)
+    neg_lr = (-lr).to(torch.float32) if isinstance(lr, Tensor) else torch.full((), -lr, dtype=torch.float32,
+                                                                            device=count.device)
+    kw = {}
+    if clip is not None and clip.mode == "global":
+        norm = whole_norm()
+        kw = dict(clip="global", clip_value=norm, trigger=norm < clip.max_norm, max_norm=clip.max_norm)
+    elif clip is not None:
+        kw = dict(clip="delayed", clip_value=_delayed_scale(clip_state.prev_norm, clip.max_norm))
+        clip_state = DelayedClipState(whole_norm().to(torch.float32))
+    adam_inplace([None if f in freeze else g for f, g in zip(grads._fields, grads)], state.params, adam_state.mu,
+                 adam_state.nu, c1, c2, neg_lr, b1=adam.b1, b2=adam.b2, eps=adam.eps, **kw)
+    if state.compute_params is not None:
+        _copy_into(state.compute_params, state.params)
+    opt_state = (AdamState(count, adam_state.mu, adam_state.nu), rate_count + 1)
+    return TrainState(state.params, (clip_state, opt_state) if clip else opt_state, state.step + 1,
+                      state.compute_params)
 
 
 def _update(optimizer, state: TrainState, grads: DLADMMParams, freeze=(), compute_dtype=None) -> TrainState:
@@ -497,9 +578,8 @@ def update_by_layer(optimizer, state: TrainState, layer_grads: list, whole_norm:
     out of every layer alike; the last layer's are kept. The update
     allocates one layer's temporaries, so the peak stays near the params,
     moments and gradients (tp_large: 4.0B parameters on one card). The
-    single-card step (_apply) and the tensor-parallel one
-    (parallel/collectives.make_sharded_train_step) run through it; the
-    state passed in is the state returned."""
+    tensor-parallel step (parallel/collectives.make_sharded_train_step)
+    runs through it; the state passed in is the state returned."""
     from dladmm_tpu_torch.train.qmoments import sr_element_index
 
     norm = functools.cache(whole_norm)

@@ -43,6 +43,14 @@ Moment formats (``moment_fmt``):
 ``adam_int8_rows`` and ``adam_dense_rows`` sweep one leaf with given
 scalars (the same kernels on a one-leaf table).
 
+``adam_inplace`` is fp32 Adam as the optax chain of train/loop.py
+computes it (its clip, ``scale_by_adam``, ``scale_by_learning_rate``,
+``apply_updates``), rounding for rounding, in place: one sweep over every
+leaf (``ops/csrc/adam_inplace.cu``) with the step's scalars computed
+beforehand by the chain's own operations. ``train/loop._apply`` takes it
+for fp32 Adam where the whole-leaf update does not fit in the memory
+left (tp_large on one card).
+
 bf16 training (``compute_dtype="bfloat16"``): the gradients arrive in
 bf16 (all of a step's leaves; widened exactly where they are read), and
 the step also writes the bf16 compute copy of the new masters into the
@@ -671,6 +679,91 @@ adam_step.launches = 0
 adam_step.launches_bf16 = 0
 
 
+# -- fp32 Adam in place, in the optax chain's order (ops/csrc/adam_inplace.cu) --
+
+INPLACE_SRC = cuda_build.CSRC / "adam_inplace.cu"
+_CLIP_CODE = {None: 0, "global": 1, "delayed": 2}  # adam_inplace.cu, enum Clip
+_INPLACE_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [
+    ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p]
+
+
+def adam_inplace_plain(grads, params, mu, nu, c1, c2, neg_lr, clip=None, clip_value=None, trigger=None,
+                       max_norm=0.0, b1=0.9, b2=0.999, eps=1e-8):
+    """adam_inplace's function in plain PyTorch, with its signature and its
+    in-place writes: the optax chain's operations (train/loop.py
+    clip_by_global_norm or delayed_clip_by_global_norm, scale_by_adam,
+    scale_by_learning_rate, apply_updates) on one layer's slice of each
+    leaf at a time, the new p, mu and nu written into the state's
+    storage."""
+    for g, p, m, v in zip(grads, params, mu, nu):
+        for k in range(p.shape[0]):
+            gk = torch.zeros_like(p[k]) if g is None else g[k]
+            if clip == "global":
+                gk = torch.where(trigger, gk, (gk / clip_value) * max_norm)
+            elif clip == "delayed":
+                gk = gk * clip_value
+            mk = (1 - b1) * gk + b1 * m[k]
+            vk = (1 - b2) * (gk * gk) + b2 * v[k]
+            p[k].copy_(p[k] + ((mk / c1) / (torch.sqrt(vk / c2) + eps)) * neg_lr)
+            m[k].copy_(mk)
+            v[k].copy_(vk)
+
+
+def adam_inplace(grads, params, mu, nu, c1, c2, neg_lr, clip=None, clip_value=None, trigger=None,
+                 max_norm=0.0, b1=0.9, b2=0.999, eps=1e-8):
+    """One fp32 Adam step over every leaf, in place on ``params``, ``mu``
+    and ``nu`` (fp32, contiguous, each leaf's shape), as the optax chain
+    of train/loop.py computes it, rounding for rounding. ``grads[i]`` is
+    leaf i's fp32 gradient, or None for a frozen leaf (gradient 0). The
+    step's scalars are fp32 0-d tensors on the leaves' device: ``c1``,
+    ``c2`` (the bias corrections), ``neg_lr`` (-lr); ``clip`` None,
+    "global" (``clip_value`` the gradients' global norm, ``trigger`` the
+    bool ``norm < max_norm``) or "delayed" (``clip_value`` the scale).
+
+    On CUDA tensors one launch (counted in ``adam_inplace.launches``) of
+    ops/csrc/adam_inplace.cu over a table of the leaves; it allocates
+    nothing and reads nothing back. On CPU tensors, adam_inplace_plain."""
+    device = params[0].device
+    if device.type == "cpu":
+        return adam_inplace_plain(grads, params, mu, nu, c1, c2, neg_lr, clip, clip_value, trigger, max_norm,
+                                  b1, b2, eps)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if clip not in _CLIP_CODE:
+        raise ValueError(f"clip must be None, 'global' or 'delayed', got {clip!r}")
+    if not 1 <= len(params) <= MAX_LEAVES or not len(grads) == len(mu) == len(nu) == len(params):
+        raise ValueError(f"the sweep takes 1 to {MAX_LEAVES} leaves, each with its g, mu and nu")
+    checks = [("c1", c1, torch.float32, ()), ("c2", c2, torch.float32, ()), ("neg_lr", neg_lr, torch.float32, ())]
+    if clip is not None:
+        checks.append(("clip_value", clip_value, torch.float32, ()))
+    if clip == "global":
+        checks.append(("trigger", trigger, torch.bool, ()))
+    ptrs, ns = [], []
+    for idx, (g, p, m, v) in enumerate(zip(grads, params, mu, nu)):
+        leaf = [(f"leaf {idx} p", p, torch.float32, p.shape), (f"leaf {idx} mu", m, torch.float32, p.shape),
+                (f"leaf {idx} nu", v, torch.float32, p.shape)]
+        if g is not None:
+            leaf.append((f"leaf {idx} g", g, torch.float32, p.shape))
+        checks += leaf
+        ptrs += [0 if g is None else g.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr()]
+        ns.append(p.numel())
+    _check(device.index, checks)
+    launch = cuda_build.entry(INPLACE_SRC, "dladmm_adam_inplace", _INPLACE_ARGTYPES)
+    arrays = array.array("q", ptrs), array.array("q", ns)  # alive through the call
+    with torch.cuda.device(device):
+        err = launch(*(a.buffer_info()[0] for a in arrays), len(ns), c1.data_ptr(), c2.data_ptr(),
+                     neg_lr.data_ptr(), None if clip is None else clip_value.data_ptr(),
+                     trigger.data_ptr() if clip == "global" else None, _CLIP_CODE[clip], b1, 1.0 - b1, b2,
+                     1.0 - b2, eps, float(max_norm), device.index, torch.cuda.current_stream(device).cuda_stream)
+        cuda_build.check(INPLACE_SRC, err, "CUDA in-place Adam sweep")
+    with _count_lock:
+        adam_inplace.launches += 1
+    check_kernel_outputs("adam_inplace", *params, *mu, *nu)
+
+
+adam_inplace.launches = 0
+
+
 @dataclasses.dataclass(frozen=True)
 class QAdamFused:
     """Fused-sweep Adam with int8 or dense moments (the port of
@@ -784,6 +877,8 @@ __all__ = [
     "adam_dense_rows",
     "adam_dense_rows_plain",
     "adam_flat_plain",
+    "adam_inplace",
+    "adam_inplace_plain",
     "adam_int8_rows",
     "adam_int8_rows_plain",
     "adam_step",

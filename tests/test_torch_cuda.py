@@ -4,8 +4,9 @@ launch each: both tile edges, their repeat bit for bit, a refused grid,
 two servers on two streams at once), the trajectory kernel (also
 persistent: its repeat bit for bit, shapes with more work items than
 blocks, and a refused grid), the int8 Adam sweep, the backward kernel
-(both routes), the dense Adam sweep, the training
-gradients through them, fit on the card, the int8 whole-unroll kernel
+(both routes), the dense Adam sweep, fp32 Adam's in-place sweep (against
+the eager per-layer update, bit for bit), the training gradients through
+them, fit on the card, the int8 whole-unroll kernel
 and its servers, and the per-layer fused step.
 
 Every test here needs a CUDA card: each is marked ``gpu`` and skips at
@@ -22,6 +23,7 @@ the sweeps state theirs.
 """
 
 import dataclasses
+import math
 import threading
 
 import numpy as np
@@ -1252,6 +1254,185 @@ def test_adam_step_raises_when_the_launch_is_refused(cuda_device, monkeypatch):
         new, _, _ = tqa.adam_step(grads[0], params, mu, nu, count, "float32", 1e-3, 1.0)
         torch.cuda.synchronize()
         assert int(new) == 1 and tqa.adam_step.launches == before + 2
+
+
+# -- fp32 Adam in place: the optax chain in one sweep (qadam_cuda.adam_inplace) --
+
+INPLACE_SHAPES = {"cpu_test": (24, 48, 3), "tp_large_k2": (8192, 16384, 2)}  # (m, n, K)
+
+
+def _inplace_case(m, n, K, device):
+    """Perturbed weights of a stack (W1 (K, n, m), W2 (K, m, m), θ (K, n),
+    (K, m), β (K,)), a max_norm of 1e-3 sqrt(elements), and step i's
+    gradients, N(0, (1e-3 s_i)^2) with s = 0.5, 2, 1.5: the global clip
+    lets step 0 through and scales steps 1 and 2, the delayed one scales
+    step 2."""
+    shapes = [(K, n, m), (K, m, m), (K, n), (K, m), (K,)]
+    gen = torch.Generator(device=device).manual_seed(m + n + K)
+    params = DLADMMParams(*(0.01 * torch.randn(s, generator=gen, device=device) for s in shapes))
+    elems = sum(p.numel() for p in params)
+
+    def grads_at(i):
+        scale = 1e-3 * (0.5, 2.0, 1.5)[i]
+        return DLADMMParams(*(scale * torch.randn(s, generator=gen, device=device) for s in shapes))
+
+    return params, grads_at, 1e-3 * elems ** 0.5
+
+
+def _inplace_optimizer(loop, clip, max_norm):
+    """adam() as _build_optimizer builds it; the delayed clip's with the
+    warmup-cosine rate (a schedule evaluated on the card), the others' at a
+    constant rate."""
+    lr = loop.warmup_cosine_decay_schedule(0.0, 2e-4, 1, 10) if clip == "delayed" else 2e-4
+    opt = loop.adam(lr)
+    if clip == "global":
+        return loop.chain(loop.clip_by_global_norm(max_norm), opt)
+    if clip == "delayed":
+        return loop.chain(loop.delayed_clip_by_global_norm(max_norm), opt)
+    return opt
+
+
+def _state_tensors(loop, state):
+    out = []
+    loop.zip_nodes((state.params, state.opt_state), (state.params, state.opt_state), lambda a, _: out.extend(a),
+                   lambda a, _: out.append(a) if torch.is_tensor(a) else None)
+    return out
+
+
+@pytest.fixture
+def in_place_branch(monkeypatch):
+    """The memory left reads 0 bytes, so fp32 Adam's step takes the
+    in-place branch (as tests/test_torch_update_by_layer.py forces it)."""
+    from dladmm_tpu_torch.train import loop
+
+    monkeypatch.setattr(loop, "_total_bytes", lambda device: 0)
+    monkeypatch.setattr(loop, "_free_bytes", lambda device: 0)
+    return loop
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("freeze", [(), ("W2",)])
+@pytest.mark.parametrize("clip", [None, "global", "delayed"])
+@pytest.mark.parametrize("shape", list(INPLACE_SHAPES))
+def test_adam_inplace_equals_the_eager_update_by_layer(cuda_device, in_place_branch, shape, clip, freeze):
+    """Three steps of _apply through the sweep (one launch a step) against
+    update_by_layer's eager kernels from the same state and gradients:
+    every tensor of the state bit for bit after each step, at the CPU
+    test's shape and at tp_large's widths with K = 2."""
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    loop = in_place_branch
+    m, n, K = INPLACE_SHAPES[shape]
+    params, grads_at, max_norm = _inplace_case(m, n, K, cuda_device)
+    opt = _inplace_optimizer(loop, clip, max_norm)
+    a, b = loop.make_train_state(params, opt), loop.make_train_state(params, opt)
+    del params
+    before = tqa.adam_inplace.launches
+    for i in range(3):
+        grads = grads_at(i)
+        a = loop._apply(opt, a, grads, freeze)
+        layers = [DLADMMParams(*(g[k] for g in grads)) for k in range(K)]
+        b = loop.update_by_layer(opt, b, layers, lambda: loop.global_norm(loop._frozen(grads, freeze)), freeze)
+        torch.cuda.synchronize()
+        for x, y in zip(_state_tensors(loop, a), _state_tensors(loop, b)):
+            assert x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y), (i, tuple(x.shape))
+        del grads, layers
+    assert tqa.adam_inplace.launches == before + 3
+
+
+@pytest.mark.gpu
+def test_adam_inplace_allocates_nothing_the_size_of_a_leaf(cuda_device, in_place_branch):
+    """At tp_large's widths (K = 2), no clip and no freeze, _apply's step
+    through the sweep allocates its scalars only: under 1 MiB at its peak,
+    where one layer of W2 is 256 MiB."""
+    loop = in_place_branch
+    params, grads_at, _ = _inplace_case(*INPLACE_SHAPES["tp_large_k2"], cuda_device)
+    opt = loop.adam(2e-4)
+    state = loop.make_train_state(params, opt)
+    del params
+    grads = grads_at(0)
+    state = loop._apply(opt, state, grads)  # the first call builds and loads the kernel
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = loop._apply(opt, state, grads)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 1 << 20
+    assert int(state.opt_state[0].count) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clip", [None, "global", "delayed"])
+def test_adam_inplace_scalar_accesses_match_the_plain_version(cuda_device, clip):
+    """Leaves one float off 16-byte alignment (scalar accesses
+    throughout), aligned leaves with a ragged tail and a frozen leaf: the
+    kernel against its plain version, the same eager kernels, on the card,
+    bit for bit; one launch counted."""
+    from dladmm_tpu_torch.train import loop
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    shapes = [(3, 7, 5), (2, 1031), (3, 33), (5,), (2, 3 * 2048 + 4)]
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+
+    def leaf(shape, shift):
+        buf = torch.randn(math.prod(shape) + shift, generator=gen, device=cuda_device)
+        return buf[shift:].view(shape)
+
+    state = [[leaf(s, int(i < 3)) for i, s in enumerate(shapes)] for _ in range(3)]
+    state[2] = [v.abs() for v in state[2]]  # nu >= 0
+    grads = [1e-2 * leaf(s, int(i < 3)) for i, s in enumerate(shapes)]
+    grads[3] = None  # frozen
+    plain = [[v.clone() for v in tree] for tree in state]
+    _, c1, c2 = loop._bias_corrections(torch.tensor(4, dtype=torch.int32, device=cuda_device), 0.9, 0.999)
+    neg_lr = torch.tensor(-1e-3, device=cuda_device)
+    norm = loop.global_norm([g for g in grads if g is not None])
+    kw = {None: {}, "global": dict(clip="global", clip_value=norm, trigger=norm < 0.05, max_norm=0.05),
+          "delayed": dict(clip="delayed", clip_value=torch.tensor(0.7, device=cuda_device))}[clip]
+    before = tqa.adam_inplace.launches
+    tqa.adam_inplace(grads, *state, c1, c2, neg_lr, **kw)
+    tqa.adam_inplace_plain(grads, *plain, c1, c2, neg_lr, **kw)
+    torch.cuda.synchronize()
+    assert tqa.adam_inplace.launches == before + 1
+    for tree, want in zip(state, plain):
+        for x, y in zip(tree, want):
+            assert torch.equal(x, y), tuple(x.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clip", [None, "global", "delayed"])
+def test_adam_inplace_past_2_31_elements_matches_the_plain_version(cuda_device, clip):
+    """One W1 leaf at tp_large's widths with K = 17 (2.28e9 elements):
+    its last layer, which starts at element 2^31 and so needs the
+    kernel's 64-bit indices, after the sweep bit for bit against the
+    plain version run on copies of that layer taken before it."""
+    from dladmm_tpu_torch.train import loop
+    from dladmm_tpu_torch.train import qadam_cuda as tqa
+
+    m, n, K = INPLACE_SHAPES["tp_large_k2"][:2] + (17,)
+    assert (K - 1) * n * m == 1 << 31
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+
+    def draw(scale):
+        return torch.randn((K, n, m), generator=gen, device=cuda_device).mul_(scale)
+
+    p, mu, g = draw(0.01), draw(1e-4), draw(1e-3)
+    nu = draw(1e-3).square_()
+    last = [x[-1:].clone() for x in (g, p, mu, nu)]
+    _, c1, c2 = loop._bias_corrections(torch.tensor(6, dtype=torch.int32, device=cuda_device), 0.9, 0.999)
+    neg_lr = torch.tensor(-2e-4, device=cuda_device)
+    if clip == "global":
+        norm = loop.global_norm([g])
+        kw = dict(clip="global", clip_value=norm, trigger=norm < 0.5 * norm, max_norm=float(0.5 * norm))
+    else:
+        kw = {None: {}, "delayed": dict(clip="delayed", clip_value=torch.tensor(0.7, device=cuda_device))}[clip]
+    tqa.adam_inplace([g], [p], [mu], [nu], c1, c2, neg_lr, **kw)
+    tqa.adam_inplace_plain([last[0]], *([x] for x in last[1:]), c1, c2, neg_lr, **kw)
+    torch.cuda.synchronize()
+    for got, want in zip((p, mu, nu), last[1:]):
+        assert torch.equal(got[-1:], want)
+    del p, mu, nu, g, last
+    torch.cuda.empty_cache()
 
 
 # -- bf16 serving and the layer step on bf16 state ---------------------------
